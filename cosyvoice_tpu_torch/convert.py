@@ -1,0 +1,82 @@
+"""Carry the JAX package's parameters into the port's modules.
+
+`load_jax_params(module, tree)` takes a param tree of the JAX package
+(`Qwen2LM.init`, `CausalFlow.init`, `HiFTGenerator.init`, as nested dicts of
+numpy arrays) and copies every leaf into the matching parameter of the port's
+module (Qwen2LMModule, CausalFlow, HiFTGenerator):
+
+- names: "/"-joined Flax paths become "."-joined PyTorch names, with the
+  Flax list suffixes (`layers_3`, `mid_tf_2_1`) as ModuleList indices
+  (`layers.3`, `mid_tf.2.1`) and `kernel`/`embedding`/`scale` as `weight`;
+- layouts: Dense [in, out] -> Linear [out, in]; conv [k, in, out] ->
+  [out, in, k]; weight-normed ConvTranspose v [k, in, out] -> [in, out, k].
+
+It raises if a leaf has no parameter, a shape differs, or a parameter is left
+unset. Values are cast to each parameter's dtype (bf16 LM layers on the card).
+"""
+
+import re
+
+import numpy as np
+import torch
+
+from cosyvoice_tpu_torch.nn.conv import WNConvTranspose1d
+
+_LISTS = (
+    "layers|encoders|up_encoders|condnet|resblocks|source_resblocks|source_downs|ups|act1|act2|convs1|convs2"
+    "|down_resnet|mid_resnet|up_resnet|down_post|up_post|down_tf|mid_tf|up_tf"
+)
+_LIST_SEGMENT = re.compile(rf"^({_LISTS})((?:_\d+)+)$")
+_LEAF_NAMES = {"kernel": "weight", "embedding": "weight", "scale": "weight"}
+
+
+def _flatten(tree, prefix=()):
+    if isinstance(tree, dict) or hasattr(tree, "items"):
+        for key, sub in tree.items():
+            yield from _flatten(sub, prefix + (str(key),))
+    else:
+        yield prefix, np.asarray(tree)
+
+
+def port_name(path) -> str:
+    """Flax path (tuple of keys) -> the port's parameter name."""
+    parts = []
+    for seg in path[:-1]:
+        if seg == "params":
+            continue
+        m = _LIST_SEGMENT.match(seg)
+        parts.append(m.group(1) + m.group(2).replace("_", ".") if m else seg)
+    parts.append(_LEAF_NAMES.get(path[-1], path[-1]))
+    return ".".join(parts)
+
+
+def _port_layout(leaf: str, arr: np.ndarray, owner) -> np.ndarray:
+    if leaf == "kernel" and arr.ndim == 2:
+        return arr.T
+    if leaf == "kernel" and arr.ndim == 3:
+        return arr.transpose(2, 1, 0)
+    if leaf == "v":
+        return arr.transpose(1, 2, 0) if isinstance(owner, WNConvTranspose1d) else arr.transpose(2, 1, 0)
+    return arr
+
+
+def load_jax_params(module: torch.nn.Module, tree) -> torch.nn.Module:
+    """Copy a JAX param tree into `module` in place; returns the module."""
+    params = dict(module.named_parameters())
+    done = set()
+    for path, arr in _flatten(tree):
+        name = port_name(path)
+        if name not in params:
+            raise KeyError(f"JAX leaf {'/'.join(path)} has no port parameter (looked for {name})")
+        owner = module.get_submodule(name.rsplit(".", 1)[0]) if "." in name else module
+        value = np.ascontiguousarray(_port_layout(path[-1], arr, owner))
+        p = params[name]
+        if tuple(value.shape) != tuple(p.shape):
+            raise ValueError(f"{'/'.join(path)}: JAX shape {arr.shape} -> {value.shape}, port {name} has {tuple(p.shape)}")
+        with torch.no_grad():
+            p.copy_(torch.tensor(value))
+        done.add(name)
+    unset = sorted(set(params) - done)
+    if unset:
+        raise KeyError(f"port parameters left unset by the JAX tree: {unset}")
+    return module

@@ -1,0 +1,202 @@
+"""HiFT vocoder (NSF source + iSTFT HiFi-GAN), 24 kHz, non-causal.
+
+Counterpart of cosyvoice_tpu/models/hift.py:HiFTGenerator for CosyVoice2:
+
+  mel [B, T, 80] --f0 predictor--> f0 [B, T]
+      --x480 upsample + SineGen2 harmonic source--> s [B, T*480]
+      --STFT(16/4)--> 18-ch source spectrum, added into the
+      ConvTranspose/ResBlock(Snake) upsampling stack (8, 5, 3)
+      --conv_post--> magnitude/phase --iSTFT--> wav [B, T*480]
+
+Randomness (harmonic initial phases, source noise) comes from an explicit
+torch.Generator. The causal (v3) and SineGen1 (v1) variants are not ported.
+"""
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from cosyvoice_tpu_torch.nn.activation import Snake
+from cosyvoice_tpu_torch.nn.conv import Conv1d, WNConv1d, WNConvTranspose1d
+from cosyvoice_tpu_torch.ops.resample import interpolate_linear, repeat_interleave_time
+from cosyvoice_tpu_torch.ops.stft import hann_window, istft, stft
+from cosyvoice_tpu_torch.utils.devices import resolve_device
+
+
+@dataclass(frozen=True)
+class HiFTConfig:
+    in_channels: int = 80
+    base_channels: int = 512
+    nb_harmonics: int = 8
+    sampling_rate: int = 24000
+    nsf_alpha: float = 0.1
+    nsf_sigma: float = 0.003
+    nsf_voiced_threshold: float = 10.0
+    upsample_rates: Tuple[int, ...] = (8, 5, 3)
+    upsample_kernel_sizes: Tuple[int, ...] = (16, 11, 7)
+    istft_n_fft: int = 16
+    istft_hop: int = 4
+    resblock_kernel_sizes: Tuple[int, ...] = (3, 7, 11)
+    resblock_dilations: Tuple[Tuple[int, ...], ...] = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
+    source_resblock_kernel_sizes: Tuple[int, ...] = (7, 7, 11)
+    source_resblock_dilations: Tuple[Tuple[int, ...], ...] = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
+    lrelu_slope: float = 0.1
+    audio_limit: float = 0.99
+
+    @property
+    def hop_total(self) -> int:
+        return int(np.prod(self.upsample_rates)) * self.istft_hop  # 480 at 24 kHz
+
+
+class ConvRNNF0Predictor(nn.Module):
+    """5x (WN conv k=3 pad=1 + ELU) + linear head, |.|."""
+
+    def __init__(self, in_channels: int = 80, cond_channels: int = 512):
+        super().__init__()
+        self.condnet = nn.ModuleList(
+            WNConv1d(in_channels if i == 0 else cond_channels, cond_channels, 3, padding=1) for i in range(5)
+        )
+        self.classifier = nn.Linear(cond_channels, 1)
+
+    def forward(self, mel):
+        x = mel
+        for conv in self.condnet:
+            x = F.elu(conv(x))
+        return torch.abs(self.classifier(x)[..., 0])
+
+
+def sine_source(f0_up: torch.Tensor, cfg: HiFTConfig, generator: torch.Generator):
+    """SineGen2 harmonic source (non-causal). f0_up [B, L] at the sample rate
+    (L = T*480). Returns (sine_waves [B, L, H+1], uv [B, L, 1])."""
+    H = cfg.nb_harmonics + 1
+    B, L = f0_up.shape
+    dev = f0_up.device
+    fn = f0_up[..., None] * torch.arange(1, H + 1, dtype=f0_up.dtype, device=dev)
+    rad = torch.remainder(fn / cfg.sampling_rate, 1.0)
+    rand_ini = torch.rand((B, H), generator=generator, device=dev, dtype=f0_up.dtype)
+    rand_ini[:, 0] = 0.0
+    rad = torch.cat([rad[:, :1] + rand_ini[:, None], rad[:, 1:]], dim=1)
+    # downsample rad to the frame rate (linear), integrate, upsample the phase back
+    scale = cfg.hop_total
+    rad_lo = interpolate_linear(rad.transpose(1, 2), L // scale)  # [B, H, L/480]
+    phase_lo = torch.cumsum(rad_lo, dim=-1) * (2.0 * np.pi)
+    phase = interpolate_linear(phase_lo * scale, L)  # [B, H, L]
+    sines = torch.sin(phase.transpose(1, 2))
+    uv = (f0_up > cfg.nsf_voiced_threshold).to(f0_up.dtype)[..., None]
+    noise_amp = uv * cfg.nsf_sigma + (1.0 - uv) * cfg.nsf_alpha / 3.0
+    noise = noise_amp * torch.randn(sines.shape, generator=generator, device=dev, dtype=sines.dtype)
+    return cfg.nsf_alpha * sines * uv + noise, uv
+
+
+class SourceModuleHnNSF(nn.Module):
+    """Merge the harmonics into one excitation: tanh(linear(sines))."""
+
+    def __init__(self, cfg: HiFTConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.l_linear = nn.Linear(cfg.nb_harmonics + 1, 1)
+
+    def forward(self, f0_up, generator):
+        sine_waves, _ = sine_source(f0_up, self.cfg, generator)
+        return torch.tanh(self.l_linear(sine_waves))[..., 0]
+
+
+class ResBlock(nn.Module):
+    """HiFi-GAN residual block with Snake activations (non-causal)."""
+
+    def __init__(self, channels: int, kernel_size: int, dilations):
+        super().__init__()
+        self.act1 = nn.ModuleList(Snake(channels) for _ in dilations)
+        self.act2 = nn.ModuleList(Snake(channels) for _ in dilations)
+        self.convs1 = nn.ModuleList(
+            WNConv1d(channels, channels, kernel_size, padding=(kernel_size * d - d) // 2, dilation=d) for d in dilations
+        )
+        self.convs2 = nn.ModuleList(
+            WNConv1d(channels, channels, kernel_size, padding=(kernel_size - 1) // 2) for _ in dilations
+        )
+
+    def forward(self, x):
+        for a1, c1, a2, c2 in zip(self.act1, self.convs1, self.act2, self.convs2):
+            x = x + c2(a2(c1(a1(x))))
+        return x
+
+
+class HiFTGenerator(nn.Module):
+    def __init__(self, cfg: HiFTConfig = HiFTConfig(), device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        with torch.device(resolve_device(device)):
+            self._build(cfg)
+        self.eval()
+
+    def _build(self, cfg: HiFTConfig):
+        base = cfg.base_channels
+        n_src = cfg.istft_n_fft + 2
+        self.f0_predictor = ConvRNNF0Predictor(cfg.in_channels, base)
+        self.m_source = SourceModuleHnNSF(cfg)
+        self.conv_pre = WNConv1d(cfg.in_channels, base, 7, padding=3)
+        self.ups = nn.ModuleList(
+            WNConvTranspose1d(base // 2**i, base // 2 ** (i + 1), k, u, padding=(k - u) // 2)
+            for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes))
+        )
+        downsample_cum = np.cumprod([1] + list(cfg.upsample_rates[::-1][:-1]))[::-1]
+        self.source_downs = nn.ModuleList()
+        self.source_resblocks = nn.ModuleList()
+        for i, (u, k, d) in enumerate(
+            zip(downsample_cum, cfg.source_resblock_kernel_sizes, cfg.source_resblock_dilations)
+        ):
+            ch, u = base // 2 ** (i + 1), int(u)
+            self.source_downs.append(
+                Conv1d(n_src, ch, 1) if u == 1 else Conv1d(n_src, ch, u * 2, stride=u, padding=u // 2)
+            )
+            self.source_resblocks.append(ResBlock(ch, k, d))
+        self.resblocks = nn.ModuleList(
+            ResBlock(base // 2 ** (i + 1), k, d)
+            for i in range(len(cfg.upsample_rates))
+            for k, d in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilations)
+        )
+        self.conv_post = WNConv1d(base // 2 ** len(cfg.upsample_rates), n_src, 7, padding=3)
+
+    def decode(self, mel, s):
+        """mel [B, T, 80]; s [B, T*480] source. Returns wav [B, T*480]."""
+        cfg = self.cfg
+        window = hann_window(cfg.istft_n_fft, device=mel.device)
+        spec = stft(s, cfg.istft_n_fft, cfg.istft_hop, window)
+        s_stft = torch.cat([spec.real, spec.imag], dim=1).transpose(1, 2)  # [B, Ts, 18]
+        x = self.conv_pre(mel)
+        nk = len(cfg.resblock_kernel_sizes)
+        for i, up in enumerate(self.ups):
+            x = up(F.leaky_relu(x, cfg.lrelu_slope))
+            if i == len(self.ups) - 1:
+                x = torch.cat([x[:, 1:2], x], dim=1)  # reflection pad (1, 0) on time
+            x = x + self.source_resblocks[i](self.source_downs[i](s_stft))
+            xs = self.resblocks[i * nk](x)
+            for j in range(1, nk):
+                xs = xs + self.resblocks[i * nk + j](x)
+            x = xs / nk
+        x = self.conv_post(F.leaky_relu(x, 0.01)).transpose(1, 2)  # [B, 18, Tt]
+        n_half = cfg.istft_n_fft // 2 + 1
+        # clamp before exp: min(e^x, 100) == e^min(x, ln 100)
+        magnitude = torch.exp(x[:, :n_half].clamp_max(4.6052)).clamp_max(1e2)
+        phase = torch.sin(x[:, n_half:])
+        spec = torch.complex(magnitude * torch.cos(phase), magnitude * torch.sin(phase))
+        wav = istft(spec, cfg.istft_n_fft, cfg.istft_hop, window)
+        return wav.clamp(-cfg.audio_limit, cfg.audio_limit)
+
+    def predict_f0(self, mel):
+        return self.f0_predictor(mel)
+
+    def source_from_f0(self, f0, generator):
+        """f0 [B, T] at the mel rate -> source [B, T*480]."""
+        return self.m_source(repeat_interleave_time(f0, self.cfg.hop_total, axis=-1), generator)
+
+    @torch.inference_mode()
+    def inference(self, mel, generator: torch.Generator, source: Optional[torch.Tensor] = None):
+        """mel [B, T, 80] -> (wav [B, T*480], source [B, T*480]). `source`,
+        when given, replaces the generated excitation (for tests)."""
+        s = self.source_from_f0(self.predict_f0(mel), generator) if source is None else source
+        return self.decode(mel, s), s

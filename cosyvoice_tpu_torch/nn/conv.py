@@ -1,0 +1,111 @@
+"""1D convolutions with the JAX package's channel-last layout [B, T, C].
+
+Counterpart of cosyvoice_tpu/nn/conv.py. Weights use PyTorch's layout
+([out, in/groups, k]; ConvTranspose [in, out, k]); each call transposes to
+[B, C, T] for torch's conv and back. Weight-normalized convs keep v and g and
+fold them on every call, as the JAX modules do.
+"""
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+
+def _cl(fn, x):
+    """Run a [B, C, T] op on channel-last x [B, T, C]."""
+    return fn(x.transpose(1, 2)).transpose(1, 2)
+
+
+class Conv1d(nn.Module):
+    """torch-Conv1d semantics with symmetric zero pad `padding`."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0, groups=1):
+        super().__init__()
+        self.stride, self.padding, self.groups = stride, padding, groups
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels // groups, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+        nn.init.kaiming_uniform_(self.weight, a=5**0.5)
+
+    def forward(self, x):
+        return _cl(lambda t: F.conv1d(t, self.weight, self.bias, self.stride, self.padding, 1, self.groups), x)
+
+
+class WNConv1d(nn.Module):
+    """Weight-normalized conv (torch weight_norm dim=0): w = g * v / ||v||_(in,k)."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, padding=0, dilation=1):
+        super().__init__()
+        self.padding, self.dilation = padding, dilation
+        self.v = nn.Parameter(torch.randn(out_channels, in_channels, kernel_size) * 0.01)
+        self.g = nn.Parameter(torch.ones(out_channels))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def folded_weight(self):
+        norm = torch.sqrt(self.v.square().sum(dim=(1, 2), keepdim=True) + 1e-12)
+        return self.v * (self.g[:, None, None] / norm)
+
+    def forward(self, x):
+        w = self.folded_weight()
+        return _cl(lambda t: F.conv1d(t, w, self.bias, 1, self.padding, self.dilation), x)
+
+
+class WNConvTranspose1d(nn.Module):
+    """Weight-normalized ConvTranspose1d: weight [in, out, k], one g per
+    input channel, norm over (out, k). out_len = (T-1)*stride - 2*padding + k."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride, padding=0):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.v = nn.Parameter(torch.randn(in_channels, out_channels, kernel_size) * 0.01)
+        self.g = nn.Parameter(torch.ones(in_channels))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def forward(self, x):
+        norm = torch.sqrt(self.v.square().sum(dim=(1, 2), keepdim=True) + 1e-12)
+        w = self.v * (self.g[:, None, None] / norm)
+        return _cl(lambda t: F.conv_transpose1d(t, w, self.bias, self.stride, self.padding), x)
+
+
+class CausalConv1d(nn.Module):
+    """Left-causal conv: k-1 zero frames on the left (the streaming cache
+    and the right-causal/weight-normed variants of causal HiFT are not
+    ported yet)."""
+
+    def __init__(self, in_channels, out_channels, kernel_size):
+        super().__init__()
+        self.conv = Conv1d(in_channels, out_channels, kernel_size)
+        self.causal_padding = kernel_size - 1
+
+    def forward(self, x):
+        return self.conv(F.pad(x, (0, 0, self.causal_padding, 0)))
+
+
+class ConvolutionModule(nn.Module):
+    """Conformer convolution module: pointwise-GLU, depthwise, LayerNorm,
+    Swish, pointwise. x [B, T, C]; pad_mask [B, T] bool (True = valid).
+    Returns (y, new_cache); the causal mode's left context starts at zeros."""
+
+    def __init__(self, channels: int, kernel_size: int = 15, causal: bool = False):
+        super().__init__()
+        self.causal = causal
+        self.lorder = kernel_size - 1 if causal else 0
+        self.pointwise_conv1 = Conv1d(channels, 2 * channels, 1)
+        pad = 0 if causal else (kernel_size - 1) // 2
+        self.depthwise_conv = Conv1d(channels, channels, kernel_size, padding=pad, groups=channels)
+        self.norm = nn.LayerNorm(channels, eps=1e-5)
+        self.pointwise_conv2 = Conv1d(channels, channels, 1)
+
+    def forward(self, x, pad_mask=None):
+        if pad_mask is not None:
+            x = x * pad_mask[..., None]
+        a, b = self.pointwise_conv1(x).chunk(2, dim=-1)
+        x = a * torch.sigmoid(b)
+        new_cache = None
+        if self.causal:
+            x = F.pad(x, (0, 0, self.lorder, 0))
+            new_cache = x[:, -self.lorder :]
+        x = self.norm(self.depthwise_conv(x))
+        x = self.pointwise_conv2(x * torch.sigmoid(x))
+        if pad_mask is not None:
+            x = x * pad_mask[..., None]
+        return x, new_cache

@@ -1,0 +1,96 @@
+"""Matcha-style 1D U-Net blocks of the causal flow estimator.
+
+Counterpart of cosyvoice_tpu/nn/unet.py for the causal blocks the CosyVoice2
+estimator uses (CausalBlock1D, causal ResnetBlock1D, TimestepEmbedding,
+BasicTransformerBlock). x [B, T, C]; mask [B, T] float; t_emb [B, time_dim].
+The non-causal GroupNorm blocks and the down/up-sampling of multi-level
+configs are not ported yet.
+"""
+
+import math
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from cosyvoice_tpu_torch.nn.activation import mish
+from cosyvoice_tpu_torch.nn.conv import CausalConv1d, Conv1d
+
+
+class CausalBlock1D(nn.Module):
+    """CausalConv k=3 + LayerNorm + Mish, masked in and out."""
+
+    def __init__(self, dim_in: int, dim_out: int):
+        super().__init__()
+        self.conv = CausalConv1d(dim_in, dim_out, 3)
+        self.norm = nn.LayerNorm(dim_out, eps=1e-5)
+
+    def forward(self, x, mask):
+        m = mask[..., None]
+        return mish(self.norm(self.conv(x * m))) * m
+
+
+class ResnetBlock1D(nn.Module):
+    """Causal resnet block: block1, + mlp(mish(t_emb)), block2, + res_conv(x)."""
+
+    def __init__(self, dim_in: int, dim_out: int, time_emb_dim: int):
+        super().__init__()
+        self.block1 = CausalBlock1D(dim_in, dim_out)
+        self.mlp = nn.Linear(time_emb_dim, dim_out)
+        self.block2 = CausalBlock1D(dim_out, dim_out)
+        self.res_conv = Conv1d(dim_in, dim_out, 1)
+
+    def forward(self, x, mask, t_emb):
+        h = self.block1(x, mask) + self.mlp(mish(t_emb))[:, None, :]
+        h = self.block2(h, mask)
+        return h + self.res_conv(x * mask[..., None])
+
+
+class TimestepEmbedding(nn.Module):
+    def __init__(self, in_dim: int, time_embed_dim: int):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_dim, time_embed_dim)
+        self.linear_2 = nn.Linear(time_embed_dim, time_embed_dim)
+
+    def forward(self, t):
+        return self.linear_2(F.silu(self.linear_1(t)))
+
+
+class UNetAttention(nn.Module):
+    """diffusers-style attention: q/k/v without bias, out projection with bias."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int):
+        super().__init__()
+        self.heads, self.head_dim = heads, head_dim
+        inner = heads * head_dim
+        self.to_q = nn.Linear(dim, inner, bias=False)
+        self.to_k = nn.Linear(dim, inner, bias=False)
+        self.to_v = nn.Linear(dim, inner, bias=False)
+        self.to_out = nn.Linear(inner, dim)
+
+    def forward(self, x, attn_bias=None):
+        B, T, _ = x.shape
+        q = self.to_q(x).reshape(B, T, self.heads, self.head_dim)
+        k = self.to_k(x).reshape(B, T, self.heads, self.head_dim)
+        v = self.to_v(x).reshape(B, T, self.heads, self.head_dim)
+        scores = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(self.head_dim)
+        if attn_bias is not None:
+            scores = scores + attn_bias[:, None]
+        out = torch.einsum("bhts,bshd->bthd", torch.softmax(scores, dim=-1), v)
+        return self.to_out(out.reshape(B, T, -1))
+
+
+class BasicTransformerBlock(nn.Module):
+    """Self-attention + GELU FFN; attn_bias additive [B, T, T]."""
+
+    def __init__(self, dim: int, num_heads: int, head_dim: int, ff_mult: int = 4):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn1 = UNetAttention(dim, num_heads, head_dim)
+        self.norm3 = nn.LayerNorm(dim, eps=1e-5)
+        self.ff_in = nn.Linear(dim, dim * ff_mult)
+        self.ff_out = nn.Linear(dim * ff_mult, dim)
+
+    def forward(self, x, attn_bias=None):
+        x = x + self.attn1(self.norm1(x), attn_bias)
+        return x + self.ff_out(F.gelu(self.ff_in(self.norm3(x))))

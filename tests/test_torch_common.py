@@ -1,0 +1,133 @@
+"""Rules of the PyTorch port, plus the tiny configs its parity tests share.
+
+- no module of cosyvoice_tpu_torch (nor chip_smoke.py) imports jax, flax or
+  cosyvoice_tpu, checked by AST scan;
+- the entry points run on the card unless the caller asks for the CPU, and
+  raise when there is no card.
+"""
+
+import ast
+import dataclasses
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cosyvoice_tpu.models.flow import FlowConfig as JFlowConfig
+from cosyvoice_tpu.models.flow_decoder import EstimatorConfig as JEstimatorConfig
+from cosyvoice_tpu.models.flow_matching import CFMConfig as JCFMConfig
+from cosyvoice_tpu.models.hift import HiFTConfig as JHiFTConfig
+from cosyvoice_tpu.models.llm import LMConfig as JLMConfig
+from cosyvoice_tpu.models.qwen2 import Qwen2Config as JQwen2Config
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "cosyvoice_tpu")
+
+# ---------------------------------------------------------------- tiny configs
+
+
+def jax_lm_cfg(**kw):
+    qwen = JQwen2Config(
+        hidden_size=32, num_layers=2, num_heads=4, num_kv_heads=2, head_dim=8,
+        intermediate_size=64, vocab_size=100, max_cache_len=256, dtype=jnp.float32,
+    )
+    return JLMConfig(**{"speech_token_size": 20, "block_size": 8, "qwen": qwen, **kw})
+
+
+def jax_flow_cfg():
+    return JFlowConfig(
+        input_size=32, vocab_size=50, chunk_size=5, attention_heads=2, linear_units=64,
+        num_blocks=2, num_up_blocks=1,
+        estimator=JEstimatorConfig(
+            channels=(32,), attention_head_dim=8, n_blocks=1, num_mid_blocks=2, num_heads=2,
+            static_chunk_size=10, causal=True,
+        ),
+        cfm=JCFMConfig(n_timesteps=3),
+    )
+
+
+def jax_hift_cfg(**kw):
+    return JHiFTConfig(**{
+        "base_channels": 32, "resblock_kernel_sizes": (3, 7), "resblock_dilations": ((1, 3), (1, 3)),
+        "source_resblock_kernel_sizes": (7, 7, 11), "source_resblock_dilations": ((1,), (1,), (1,)), **kw,
+    })
+
+
+def to_port_cfg(jcfg, port_cls):
+    """The port's config dataclass with the JAX config's values (fields the
+    port has; nested configs converted; jnp dtypes -> torch dtypes)."""
+    kw = {}
+    for f in dataclasses.fields(port_cls):
+        val = getattr(jcfg, f.name)
+        if dataclasses.is_dataclass(val):
+            val = to_port_cfg(val, type(f.default_factory()) if f.default_factory is not dataclasses.MISSING else type(f.default))
+        elif f.name == "dtype":
+            val = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}[val]
+        kw[f.name] = val
+    return port_cls(**kw)
+
+
+def np_tree(params):
+    """JAX params -> nested dicts of numpy arrays (the converter's input)."""
+    return jax.tree.map(np.asarray, params)
+
+
+# ---------------------------------------------------------------- rules
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_no_jax_flax_or_jax_package():
+    files = sorted((REPO / "cosyvoice_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = [
+        f"{f.relative_to(REPO)}: {mod}"
+        for f in files
+        for mod in _imports(f)
+        if mod.split(".")[0] in FORBIDDEN
+    ]
+    assert not bad, bad
+
+
+def _entry_points():
+    from cosyvoice_tpu_torch.models.flow import CausalFlow, FlowConfig
+    from cosyvoice_tpu_torch.models.hift import HiFTConfig, HiFTGenerator
+    from cosyvoice_tpu_torch.models.llm import LMConfig, Qwen2LM
+    from cosyvoice_tpu_torch.runtime.engine import build_random_engine
+
+    lm = to_port_cfg(jax_lm_cfg(), LMConfig)
+    flow = to_port_cfg(jax_flow_cfg(), FlowConfig)
+    hift = to_port_cfg(jax_hift_cfg(), HiFTConfig)
+    return {
+        "Qwen2LM": lambda **kw: Qwen2LM(lm, **kw),
+        "CausalFlow": lambda **kw: CausalFlow(flow, **kw),
+        "HiFTGenerator": lambda **kw: HiFTGenerator(hift, **kw),
+        "build_random_engine": lambda **kw: build_random_engine(0, lm_cfg=lm, flow_cfg=flow, hift_cfg=hift, **kw),
+    }
+
+
+@pytest.mark.parametrize("name", ["Qwen2LM", "CausalFlow", "HiFTGenerator", "build_random_engine"])
+def test_entry_points_default_to_cuda_and_raise_without_it(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _entry_points()[name]()
+
+
+@pytest.mark.parametrize("name", ["Qwen2LM", "CausalFlow", "HiFTGenerator", "build_random_engine"])
+def test_entry_points_run_on_cpu_when_asked(name):
+    obj = _entry_points()[name](device="cpu")
+    mod = getattr(obj, "module", None) or getattr(obj, "lm", None) or obj
+    mod = getattr(mod, "module", mod)
+    assert next(mod.parameters()).device.type == "cpu"
