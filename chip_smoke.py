@@ -18,8 +18,10 @@ exceeded, a kernel disagrees with its plain version, or anything raises):
    seed 0, serves 3 `tts(stream=False)` requests; wavs must be finite and
    n_tokens * 2 * 480 long, and the launch counters must show that every
    decode step went through K1 (24 per step) and K2 (48 per step).
-5. check: the LM's kernel decode path against a full-prefix recompute of the
-   same tokens (plain attention), logits within a stated tolerance.
+5. check: the LM's kernel decode path against the same decode with the
+   plain versions and against a full-prefix recompute of the same tokens
+   (plain attention), logits within twice the floor that plain decode
+   against the recompute shows.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a card it exits 2 and prints no result.
@@ -31,9 +33,15 @@ import subprocess
 import sys
 import time
 
-K1_TOL = 2e-2  # bf16 output: two ulps at |x| < 2 (kernel and plain both round once from fp32)
-LOGIT_TOL = 0.02  # relative L2 of LM logits, kernel decode vs the same decode with the plain versions
-RECOMPUTE_TOL = 0.1  # relative L2 of LM logits, kernel decode vs one bf16 prefill over the sequence
+# K1 limit per case: two bf16 ulps at the case's largest |reference|. Kernel
+# and plain version each round one fp32 result to bf16, and one bf16 ulp at
+# |x| is at most 2**-7 * |x|.
+K1_TOL_REL = 2**-6
+# Relative L2 of LM logits, kernel decode against the same decode with the
+# plain versions and against one prefill over the sequence: twice the floor,
+# plain decode against that prefill, which is 9.6e-3 to 1.0e-2 on an H100 at
+# full width (bf16 matmuls of M=1 and M=T round differently).
+LOGIT_TOL = 0.02
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16
 
@@ -170,6 +178,7 @@ def phase_kernels(cfg):
         out = da.gqa_decode_attention(q, k, v, cur)
         ref = da.gqa_decode_attention_plain(q, k, v, cur)
         err = (out.float() - ref.float()).abs().max().item()
+        tol = K1_TOL_REL * ref.float().abs().max().item()
         # NaN in the dead arena must not reach the output: the kernel never reads it
         kn = torch.where(k == 100.0, torch.full_like(k, float("nan")), k)
         vn = torch.where(v == 100.0, torch.full_like(v, float("nan")), v)
@@ -178,8 +187,8 @@ def phase_kernels(cfg):
         if not torch.equal(out_nan, out):
             raise AssertionError(f"K1 read dead arena at cur_len={cl}")
         k1_err = max(k1_err, err)
-        print(f"K1 B={len(cl)} cur_len={cl}: max_abs_err {err:.3e} (tol {K1_TOL})")
-        if not err <= K1_TOL:
+        print(f"K1 B={len(cl)} cur_len={cl}: max_abs_err {err:.3e} (tol {tol:.3e} = 2 bf16 ulps at max |ref|)")
+        if not err <= tol:
             raise AssertionError(f"K1 disagrees with its plain version at cur_len={cl}: {err}")
 
     k2_err = 0.0
@@ -217,12 +226,8 @@ def phase_kernels(cfg):
             q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, enable_gqa=True
         )
 
-    k1_fns = {"kernel": rot(da.gqa_decode_attention), "plain": rot(da.gqa_decode_attention_plain)}
-    try:
-        sdpa(*arenas[0], cur)
-        k1_fns["library"] = rot(sdpa)
-    except TypeError:  # torch without enable_gqa: no single library call
-        pass
+    k1_fns = {"kernel": rot(da.gqa_decode_attention), "plain": rot(da.gqa_decode_attention_plain),
+              "library": rot(sdpa)}
     live = cur_t + 1
     k1_bytes = 2 * Hq * d * 2 + 2 * live * Hkv * d * 2 + 4
     k1_bound, k1_by = bound(k1_bytes, 4 * live * Hq * d)
@@ -242,7 +247,7 @@ def phase_kernels(cfg):
     for key, fns in (("K1", k1_fns), ("K2", k2_fns)):
         dev_ms[key] = {name: graph_ms(fn) for name, fn in fns.items()}
         host_ms[key] = {name: cuda_ms(fn) for name, fn in fns.items()}
-    k1_ms, k1_plain, k1_lib = (dev_ms["K1"].get(n) for n in ("kernel", "plain", "library"))
+    k1_ms, k1_plain, k1_lib = (dev_ms["K1"][n] for n in ("kernel", "plain", "library"))
     k2_ms, k2_plain, k2_lib = (dev_ms["K2"][n] for n in ("kernel", "plain", "library"))
 
     kernels = {
@@ -262,11 +267,10 @@ def phase_kernels(cfg):
         },
     }
     for key, k in kernels.items():
-        lib = "n/a" if k["library_ms"] is None else f"{k['library_ms'] * 1e3:.2f} us"
         eager = ", ".join(f"{n} {v * 1e3:.2f} us" for n, v in host_ms[key].items())
         print(
             f"{key} {k['name']} device time per call: {k['ms'] * 1e3:.2f} us, plain {k['plain_ms'] * 1e3:.2f} us, "
-            f"library {lib}, bound {k['bound_ms'] * 1e3:.4f} us ({k['bound_by']}); eager host rate: {eager}"
+            f"library {k['library_ms'] * 1e3:.2f} us, bound {k['bound_ms'] * 1e3:.4f} us ({k['bound_by']}); eager host rate: {eager}"
         )
     return kernels
 
@@ -339,7 +343,9 @@ def phase_slice(eng, text_lens=(16, 32, 48), n_prompt_speech=50, n_prompt_mel=10
 def phase_check(eng, prompt, reqs, n_tokens=96):
     """LM logits after decoding generated tokens through the kernels, against
     the same decode with the plain versions swapped in, and against one
-    prefill over the whole sequence (plain attention): relative L2 error."""
+    prefill over the whole sequence (plain attention): relative L2 error
+    after the first and after the last step. Plain decode against the
+    prefill is the floor: the bf16 drift of two paths with exact attention."""
     import numpy as np
     import torch
 
@@ -356,17 +362,25 @@ def phase_check(eng, prompt, reqs, n_tokens=96):
     ids = np.concatenate([[c.sos_id], prompt_text, text, [c.task_id], prompt_speech]).astype(np.int64)
     types = np.concatenate([[TYPE_SPECIAL], np.full(len(prompt_text) + len(text), TYPE_TEXT), [TYPE_SPECIAL],
                             np.full(len(prompt_speech), TYPE_SPEECH)]).astype(np.int64)
-    T = len(ids)
+    T, n = len(ids), len(toks)
 
     def prefill(i, t):
         return m.prefill(torch.as_tensor(i[None], device=dev), torch.as_tensor(t[None], device=dev),
                          torch.tensor([len(i)], device=dev), eng.lm.init_cache(1))
 
     def decode_logits():
+        """Logits after the first and after the last decode step."""
         logits, cache = prefill(ids, types)
+        seen = []
         for i, t in enumerate(toks):
             logits, cache = m.decode_step(torch.tensor([int(t)], device=dev),
                                           torch.tensor([T + i], dtype=torch.int32, device=dev), cache)
+            if i in (0, n - 1):
+                seen.append(logits)
+        return seen[0], seen[-1]
+
+    def full_logits(k):
+        logits, _ = prefill(np.concatenate([ids, toks[:k]]), np.concatenate([types, np.full(k, TYPE_SPEECH)]))
         return logits
 
     with torch.inference_mode():
@@ -377,16 +391,18 @@ def phase_check(eng, prompt, reqs, n_tokens=96):
             plain = decode_logits()
         finally:
             qwen2.gqa_decode_attention, qwen2.kv_arena_write = saved
-        full, _ = prefill(np.concatenate([ids, toks]), np.concatenate([types, np.full(len(toks), TYPE_SPEECH)]))
+        full = full_logits(1), full_logits(n)
 
     def rel(a, b):
         return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
-    e_plain, e_full = rel(kern, plain), rel(kern, full)
-    print(f"LM logits after {len(toks)} decode steps through K1/K2: rel L2 vs plain decode {e_plain:.2e} "
-          f"(tol {LOGIT_TOL}), vs one prefill over the sequence {e_full:.2e} (tol {RECOMPUTE_TOL}); "
-          f"argmax agrees: {int(kern.argmax()) == int(plain.argmax())}, {int(kern.argmax()) == int(full.argmax())}")
-    if not (e_plain <= LOGIT_TOL and e_full <= RECOMPUTE_TOL):
+    e_plain, e_floor, e_full = ([rel(a[j], b[j]) for j in (0, 1)] for a, b in ((kern, plain), (plain, full),
+                                                                              (kern, full)))
+    print(f"LM logits rel L2 after 1 / {n} decode steps: kernel vs plain decode {e_plain[0]:.2e} / {e_plain[1]:.2e} "
+          f"(tol {LOGIT_TOL}); floor, plain decode vs one prefill {e_floor[0]:.2e} / {e_floor[1]:.2e}; "
+          f"kernel vs one prefill {e_full[0]:.2e} / {e_full[1]:.2e} (tol {LOGIT_TOL}); argmax after {n} "
+          f"agrees: {int(kern[1].argmax()) == int(plain[1].argmax())}, {int(kern[1].argmax()) == int(full[1].argmax())}")
+    if not max(e_plain + e_full) <= LOGIT_TOL:
         raise AssertionError("LM decode through the kernels disagrees with the plain path")
 
 

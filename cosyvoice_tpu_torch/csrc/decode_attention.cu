@@ -39,8 +39,9 @@
 //   many (512 bytes at B=1 for Qwen2-0.5B): ~0.0003 us, far below the cost
 //   of a launch.
 // Design: one block per batch row copies its F = Hkv*D values with 16-byte
-//   vector stores where the row is aligned; the rest of the arena is never
-//   touched (the TPU kernel rewrites one 8-row tile group per row).
+//   vector loads and stores (F must be a multiple of 8 and both tensors
+//   16-byte aligned); the rest of the arena is never touched (the TPU kernel
+//   rewrites one 8-row tile group per row).
 // ---------------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -201,16 +202,11 @@ __global__ void kv_arena_write_kernel(
   const int b = blockIdx.x;
   const int p = pos[b];
   if (p < 0 || p >= T) return;  // out of the arena: nothing is written
-  __nv_bfloat16* dst = arena + ((size_t)b * T + p) * F;
-  const __nv_bfloat16* src = new_kv + (size_t)b * F;
-  if (F % 8 == 0 && (reinterpret_cast<uintptr_t>(dst) % 16) == 0 &&
-      (reinterpret_cast<uintptr_t>(src) % 16) == 0) {
-    const int n = F / 8;
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
-  } else {
-    for (int i = threadIdx.x; i < F; i += blockDim.x) dst[i] = src[i];
-  }
+  // F % 8 == 0 and 16-byte-aligned bases (checked by the entry point), so
+  // every row starts on a 16-byte boundary: one uint4 (8 bf16) per thread
+  uint4* dst = reinterpret_cast<uint4*>(arena + ((size_t)b * T + p) * F);
+  const uint4* src = reinterpret_cast<const uint4*>(new_kv + (size_t)b * F);
+  for (int i = threadIdx.x; i < F / 8; i += blockDim.x) dst[i] = src[i];
 }
 
 template <int D>
@@ -253,7 +249,9 @@ int cvt_gqa_decode_attention(const void* q, const void* k, const void* v, const 
 
 int cvt_kv_arena_write(void* arena, const void* new_kv, const int* pos, int B, int T, int F,
                        void* stream) {
-  if (F <= 0) return (int)cudaErrorInvalidValue;
+  if (F <= 0 || F % 8 != 0 || reinterpret_cast<uintptr_t>(arena) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(new_kv) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   kv_arena_write_kernel<<<B, 128, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<__nv_bfloat16*>(arena), static_cast<const __nv_bfloat16*>(new_kv), pos, T, F);
   return (int)cudaGetLastError();

@@ -117,13 +117,13 @@ class Qwen2LM:
             top_p=c.top_p, top_k=c.top_k, win_size=c.win_size, tau_r=c.tau_r,
         )
 
-    def _decode_block(self, generator, cache, cur, logits, recent, n_dec, min_len, fin, block_size):
-        """Decode block_size token slots on the device. Rows that stopped keep
+    def _decode_block(self, generator, cache, cur, logits, recent, n_dec, min_len, fin):
+        """Decode cfg.block_size token slots on the device. Rows that stopped keep
         emitting eos and stop advancing. Returns (tokens [B, block], logits,
         cur, recent, n_dec, fin)."""
         c = self.cfg
         tokens = []
-        for _ in range(block_size):
+        for _ in range(c.block_size):
             tok = self._sample(generator, logits, n_dec, recent, min_len)
             stop_now = tok >= c.speech_token_size
             tok_out = torch.where(fin, torch.full_like(tok, c.eos_token), tok)
@@ -138,18 +138,17 @@ class Qwen2LM:
         return torch.stack(tokens, dim=1), logits, cur, recent, n_dec, fin
 
     @torch.inference_mode()
-    def generate(self, prompt_ids, prompt_types, generator, min_len: int, max_len: int, block_size=None):
+    def generate(self, prompt_ids, prompt_types, generator, min_len: int, max_len: int):
         """Host generator: yields speech-token blocks (np.ndarray int32) until
         a stop token or max_len. prompt_ids/types: [T] mixed sequence."""
         c = self.cfg
         dev = self.device
-        block_size = block_size or c.block_size
         T = len(prompt_ids)
         # the JAX version pads the prompt to this bucket; the arena capacity
         # guard below uses the same padded length so max_len clamps alike
         bucket = min(128, max(c.qwen.max_cache_len // 4, 8))
         pad_T = ((T + bucket - 1) // bucket) * bucket
-        capacity = ((c.qwen.max_cache_len - pad_T - 1) // block_size) * block_size
+        capacity = ((c.qwen.max_cache_len - pad_T - 1) // c.block_size) * c.block_size
         if max_len > capacity:
             logging.warning(
                 "max_len %d exceeds KV arena capacity (max_cache_len=%d, prompt pad %d); clamping to %d",
@@ -172,7 +171,7 @@ class Qwen2LM:
         stop_seen = False
         while produced < max_len and not stop_seen:
             tokens, logits, cur, recent, n_dec, fin = self._decode_block(
-                generator, cache, cur, logits, recent, n_dec, min_l, fin, block_size
+                generator, cache, cur, logits, recent, n_dec, min_l, fin
             )
             toks = tokens[0].to(torch.int32).cpu().numpy()  # the one host sync per block
             stop_idx = np.nonzero(toks >= c.speech_token_size)[0]

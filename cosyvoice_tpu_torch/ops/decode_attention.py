@@ -131,6 +131,10 @@ def kv_arena_write(arena, new_kv, pos):
     _check_cuda("arena", arena, torch.bfloat16, arena.device)
     _check_cuda("new_kv", new_kv, torch.bfloat16, arena.device)
     _check_cuda("pos", pos, torch.int32, arena.device)
+    if (Hkv * d) % 8 or arena.data_ptr() % 16 or new_kv.data_ptr() % 16:
+        raise ValueError(
+            f"kernel copies 16-byte vectors: Hkv*d={Hkv * d} must be a multiple of 8 and arena/new_kv 16-byte aligned"
+        )
     from cosyvoice_tpu_torch.ops._build import load_library
 
     rc = load_library().cvt_kv_arena_write(

@@ -29,33 +29,25 @@ from cosyvoice_tpu_torch.utils.init import init_random_
 from cosyvoice_tpu_torch.utils.profiling import StageTimer
 
 LOG_SILENCE = -11.512925  # ln(1e-5): matcha mel floor, used for mel padding
+RELATIVE_BUCKET = 0.125  # the JAX engine's default geometric length bucket
+SEED = 1986  # the JAX engine's default sampling seed (LM and HiFT source)
 
 
 def _bucket(n: int, b: int) -> int:
     return ((n + b - 1) // b) * b
 
 
-def _bucket_geo(n: int, b: int, rel: float) -> int:
+def _bucket_geo(n: int, b: int) -> int:
     """The JAX engine's length bucket: multiples of `b`, with the step
-    doubling each octave beyond n = b/rel. The vocoder is non-causal, so the
-    LOG_SILENCE tail up to this length shapes the last frames; the port pads
-    alike to produce the same wav."""
-    if rel <= 0:
-        return _bucket(n, b)
-    step = 1 << max(int(rel * n).bit_length() - 1, 0)
+    doubling each octave beyond n = b/RELATIVE_BUCKET. The vocoder is
+    non-causal, so the LOG_SILENCE tail up to this length shapes the last
+    frames; the port pads alike to produce the same wav."""
+    step = 1 << max(int(RELATIVE_BUCKET * n).bit_length() - 1, 0)
     return _bucket(n, max(step, b))
 
 
 class CosyVoice2Engine:
-    def __init__(
-        self,
-        lm: Qwen2LM,
-        flow: CausalFlow,
-        hift: HiFTGenerator,
-        token_bucket: int = 64,
-        relative_bucket: float = 0.125,
-        seed: int = 1986,
-    ):
+    def __init__(self, lm: Qwen2LM, flow: CausalFlow, hift: HiFTGenerator, token_bucket: int = 64):
         self.lm, self.flow, self.hift = lm, flow, hift
         self.device = lm.device
         for name, m in (("flow", flow), ("hift", hift)):
@@ -65,12 +57,10 @@ class CosyVoice2Engine:
         self.token_mel_ratio = flow.cfg.token_mel_ratio
         self.wav_hop = hift.cfg.hop_total  # samples per mel frame (480 at 24 kHz)
         self.token_bucket = token_bucket
-        self.relative_bucket = relative_bucket
-        self.seed = seed
         self.timer = StageTimer()
 
-    def _generator(self, seed: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(seed)
+    def _generator(self) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(SEED)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -85,7 +75,7 @@ class CosyVoice2Engine:
         dev, r = self.device, self.token_mel_ratio
         all_tokens = np.concatenate([prompt_token, tokens]).astype(np.int64)
         L = len(all_tokens)
-        Lpad = _bucket_geo(L, self.token_bucket, self.relative_bucket)
+        Lpad = _bucket_geo(L, self.token_bucket)
         tok = torch.zeros((1, Lpad), dtype=torch.long, device=dev)
         tok[0, :L] = torch.as_tensor(all_tokens, device=dev)
         pm = prompt_feat.shape[1]
@@ -97,7 +87,7 @@ class CosyVoice2Engine:
         n_mel = L * r - pm
         mel_v = torch.full_like(mel, LOG_SILENCE)
         mel_v[:, :n_mel] = mel[:, pm : L * r]
-        wav, _ = self.hift.inference(mel_v, self._generator(self.seed))
+        wav, _ = self.hift.inference(mel_v, self._generator())
         n_valid = (L - len(prompt_token)) * r * self.wav_hop
         out = wav[:, :n_valid].float().cpu().numpy()
         self.timer.add("t2w", time.perf_counter() - t0)
@@ -135,7 +125,7 @@ class CosyVoice2Engine:
         min_len, max_len = int(len(text_tokens) * 2), int(len(text_tokens) * 20)
 
         t0 = time.perf_counter()
-        gen = self._generator(self.seed)
+        gen = self._generator()
         produced = []
         for block in self.lm.generate(ids, types, gen, min_len, max_len):
             produced.extend(block.tolist())
@@ -154,7 +144,6 @@ def build_random_engine(
     lm_cfg: LMConfig = LMConfig(),
     flow_cfg: FlowConfig = FlowConfig(),
     hift_cfg: HiFTConfig = HiFTConfig(),
-    **engine_kwargs,
 ) -> CosyVoice2Engine:
     """An engine with random weights made on `device` from `seed` (default
     configs: full-width CosyVoice2-0.5B)."""
@@ -165,4 +154,4 @@ def build_random_engine(
     init_random_(lm.module, seed)
     init_random_(flow, seed + 1)
     init_random_(hift, seed + 2)
-    return CosyVoice2Engine(lm, flow, hift, **engine_kwargs)
+    return CosyVoice2Engine(lm, flow, hift)

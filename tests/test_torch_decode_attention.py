@@ -81,7 +81,8 @@ def test_cuda_kernels_match_plain():
     q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
     out = tda.gqa_decode_attention(q, k, v, cur)
     ref = tda.gqa_decode_attention_plain(q, k, v, cur)
-    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    # two bf16 ulps at the largest |ref|: kernel and plain each round one fp32 result to bf16
+    assert (out.float() - ref.float()).abs().max().item() <= 2**-6 * ref.float().abs().max().item()
     arena, new = k.clone(), torch.randn(3, 1, 2, 64, device="cuda").bfloat16()
     assert torch.equal(
         tda.kv_arena_write(arena.clone(), new, cur), tda.kv_arena_write_plain(arena.clone(), new, cur)
