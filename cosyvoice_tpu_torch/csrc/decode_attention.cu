@@ -30,18 +30,36 @@
 //   (row, query head) by log-sum-exp. Splits past the live range exit before
 //   reading anything, and the reduction reads only the live splits.
 //
+// K3  gqa_decode_split_kernel<D, true> + gqa_decode_reduce_kernel  (int8 KV)
+//
+// Replaces: cosyvoice_tpu/ops/decode_attention.py:gqa_decode_attention_quant
+//   (pallas_call at :344, body _quant_decode_kernel at :125).
+// Computes: K1 over an int8 arena [B,T,Hkv,D] with per-token f32 scales
+//   k_scale/v_scale [B,T] (one scale per token row across the KV heads);
+//   q and the output are f32. The k scale multiplies each score
+//   (q.k_q * ks[t]) and the v scale multiplies the softmax weight before
+//   p.v (exact for per-token scales); the running sum l takes the unscaled
+//   weight, as the Pallas kernel's does.
+// Bound on the H100: bytes. At B=1, cur_len 1023: 1024 * 128 B of int8 K and
+//   V rows + 1024 * 8 B of scales ~ 0.27 MB: ~0.08 us at 3.35 TB/s.
+// Design: K1's kernels, instantiated for int8 rows, f32 q and output, and two
+//   scale loads per key (one 4-byte broadcast each); the split count is
+//   fixed from T, so no host sync reads cur_len.
+//
 // K2  kv_arena_write_kernel  (arena row write)
 //
 // Replaces: cosyvoice_tpu/ops/decode_attention.py:kv_arena_write /
 //   kv_arena_write_traced (pallas_call at :447, body _kv_write_kernel :413).
-// Computes: arena[b, pos[b]] = new_kv[b] in place, for every batch row.
+// Computes: arena[b, pos[b]] = new_kv[b] in place, for every batch row, for
+//   bf16 and int8 arenas alike (a row is Hkv*D elements, copied as bytes).
 // Bound on the H100: bytes. It reads B * Hkv * D new values and writes as
-//   many (512 bytes at B=1 for Qwen2-0.5B): ~0.0003 us, far below the cost
-//   of a launch.
-// Design: one block per batch row copies its F = Hkv*D values with 16-byte
-//   vector loads and stores (F must be a multiple of 8 and both tensors
-//   16-byte aligned); the rest of the arena is never touched (the TPU kernel
-//   rewrites one 8-row tile group per row).
+//   many (512 bytes at B=1 for Qwen2-0.5B in bf16, 256 in int8): ~0.0003 us,
+//   far below the cost of a launch.
+// Design: one block per batch row copies its row bytes (128 B in int8, 256 B
+//   in bf16) with 16-byte vector loads and stores (the row must be a
+//   multiple of 16 bytes and both tensors 16-byte aligned); the rest of the
+//   arena is never touched (the TPU kernel rewrites one 8-row tile group per
+//   row in bf16, 32 in int8).
 // ---------------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -55,6 +73,27 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kMaxRep = 8;
 constexpr float kNegInf = -1e30f;
 
+// Element types of the two instantiations: K1 (bf16 q, arena and output) and
+// K3 (f32 q and output, int8 arena with f32 per-token scales).
+template <bool kQuant>
+struct DecodeTypes {
+  using q_t = __nv_bfloat16;
+  using kv_t = __nv_bfloat16;
+  using out_t = __nv_bfloat16;
+};
+template <>
+struct DecodeTypes<true> {
+  using q_t = float;
+  using kv_t = int8_t;
+  using out_t = float;
+};
+
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
@@ -67,11 +106,13 @@ __device__ __forceinline__ int live_keys(const int* cur_len, int b, int T) {
   return n < 1 ? 1 : (n > T ? T : n);
 }
 
-template <int D>
+template <int D, bool kQuant>
 __global__ void __launch_bounds__(kThreads) gqa_decode_split_kernel(
-    const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
-    const __nv_bfloat16* __restrict__ k,   // [B, T, Hkv, D]
-    const __nv_bfloat16* __restrict__ v,   // [B, T, Hkv, D]
+    const typename DecodeTypes<kQuant>::q_t* __restrict__ q,   // [B, Hq, D]
+    const typename DecodeTypes<kQuant>::kv_t* __restrict__ k,  // [B, T, Hkv, D]
+    const typename DecodeTypes<kQuant>::kv_t* __restrict__ v,  // [B, T, Hkv, D]
+    const float* __restrict__ k_scale,     // [B, T] (K3 only)
+    const float* __restrict__ v_scale,     // [B, T] (K3 only)
     const int* __restrict__ cur_len,       // [B]
     float* __restrict__ part_m,            // [B, Hq, splits]
     float* __restrict__ part_l,            // [B, Hq, splits]
@@ -99,20 +140,25 @@ __global__ void __launch_bounds__(kThreads) gqa_decode_split_kernel(
     for (int i = 0; i < DPL; ++i) {
       acc[r][i] = 0.f;
       qr[r][i] = r < rep
-          ? __bfloat162float(q[((size_t)b * Hq + g * rep + r) * D + lane * DPL + i]) * scale
+          ? to_f32(q[((size_t)b * Hq + g * rep + r) * D + lane * DPL + i]) * scale
           : 0.f;
     }
   }
 
   const size_t row = (size_t)Hkv * D;
-  const __nv_bfloat16* kb = k + (size_t)b * T * row + (size_t)g * D + lane * DPL;
-  const __nv_bfloat16* vb = v + (size_t)b * T * row + (size_t)g * D + lane * DPL;
+  const auto* kb = k + (size_t)b * T * row + (size_t)g * D + lane * DPL;
+  const auto* vb = v + (size_t)b * T * row + (size_t)g * D + lane * DPL;
   for (int j = key0 + warp; j < key1; j += kWarps) {
     float kf[DPL], vf[DPL];
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
-      kf[i] = __bfloat162float(kb[(size_t)j * row + i]);
-      vf[i] = __bfloat162float(vb[(size_t)j * row + i]);
+      kf[i] = to_f32(kb[(size_t)j * row + i]);
+      vf[i] = to_f32(vb[(size_t)j * row + i]);
+    }
+    float ks = 1.f, vs = 1.f;
+    if constexpr (kQuant) {
+      ks = k_scale[(size_t)b * T + j];
+      vs = v_scale[(size_t)b * T + j];
     }
 #pragma unroll
     for (int r = 0; r < kMaxRep; ++r) {
@@ -121,12 +167,15 @@ __global__ void __launch_bounds__(kThreads) gqa_decode_split_kernel(
 #pragma unroll
         for (int i = 0; i < DPL; ++i) p += qr[r][i] * kf[i];
         p = warp_sum(p);
+        if constexpr (kQuant) p *= ks;  // column dequant of the score
         const float m_new = fmaxf(m[r], p);
         const float corr = __expf(m[r] - m_new);
         const float e = __expf(p - m_new);
         l[r] = l[r] * corr + e;
+        float ev = e;
+        if constexpr (kQuant) ev *= vs;  // v dequant folded into the weight
 #pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[r][i] = acc[r][i] * corr + e * vf[i];
+        for (int i = 0; i < DPL; ++i) acc[r][i] = acc[r][i] * corr + ev * vf[i];
         m[r] = m_new;
       }
     }
@@ -169,11 +218,11 @@ __global__ void __launch_bounds__(kThreads) gqa_decode_split_kernel(
   }
 }
 
-template <int D>
+template <int D, typename OutT>
 __global__ void gqa_decode_reduce_kernel(
     const float* __restrict__ part_m, const float* __restrict__ part_l,
     const float* __restrict__ part_acc, const int* __restrict__ cur_len,
-    __nv_bfloat16* __restrict__ out,  // [B, Hq, D]
+    OutT* __restrict__ out,  // [B, Hq, D]
     int Hq, int T, int splits, int blk) {
   const int bh = blockIdx.x, b = bh / Hq;
   const int n_live = live_keys(cur_len, b, T);
@@ -190,36 +239,58 @@ __global__ void gqa_decode_reduce_kernel(
       L += part_l[base + s] * f;
       A += part_acc[(base + s) * D + dd] * f;
     }
-    out[(size_t)bh * D + dd] = __float2bfloat16(A / L);
+    store(out + (size_t)bh * D + dd, A / L);
   }
 }
 
 __global__ void kv_arena_write_kernel(
-    __nv_bfloat16* __restrict__ arena,         // [B, T, F]
-    const __nv_bfloat16* __restrict__ new_kv,  // [B, F]
-    const int* __restrict__ pos,               // [B]
-    int T, int F) {
+    uint8_t* __restrict__ arena,         // [B, T, row_bytes]
+    const uint8_t* __restrict__ new_kv,  // [B, row_bytes]
+    const int* __restrict__ pos,         // [B]
+    int T, int row_bytes) {
   const int b = blockIdx.x;
   const int p = pos[b];
   if (p < 0 || p >= T) return;  // out of the arena: nothing is written
-  // F % 8 == 0 and 16-byte-aligned bases (checked by the entry point), so
-  // every row starts on a 16-byte boundary: one uint4 (8 bf16) per thread
-  uint4* dst = reinterpret_cast<uint4*>(arena + ((size_t)b * T + p) * F);
-  const uint4* src = reinterpret_cast<const uint4*>(new_kv + (size_t)b * F);
-  for (int i = threadIdx.x; i < F / 8; i += blockDim.x) dst[i] = src[i];
+  // row_bytes % 16 == 0 and 16-byte-aligned bases (checked by the entry
+  // point), so every row starts on a 16-byte boundary: one uint4 per thread
+  uint4* dst = reinterpret_cast<uint4*>(arena + ((size_t)b * T + p) * row_bytes);
+  const uint4* src = reinterpret_cast<const uint4*>(new_kv + (size_t)b * row_bytes);
+  for (int i = threadIdx.x; i < row_bytes / 16; i += blockDim.x) dst[i] = src[i];
 }
 
-template <int D>
-void launch_decode(const void* q, const void* k, const void* v, const int* cur_len, void* out,
-                   float* part_m, float* part_l, float* part_acc, int B, int Hq, int Hkv, int T,
-                   int splits, int blk, float scale, cudaStream_t stream) {
+template <int D, bool kQuant>
+void launch_decode(const void* q, const void* k, const void* v, const float* k_scale,
+                   const float* v_scale, const int* cur_len, void* out, float* part_m, float* part_l,
+                   float* part_acc, int B, int Hq, int Hkv, int T, int splits, int blk, float scale,
+                   cudaStream_t stream) {
+  using Ty = DecodeTypes<kQuant>;
   dim3 grid(splits, Hkv, B);
-  gqa_decode_split_kernel<D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), cur_len, part_m, part_l, part_acc, Hkv, T, Hq / Hkv,
-      splits, blk, scale);
-  gqa_decode_reduce_kernel<D><<<B * Hq, D, 0, stream>>>(
-      part_m, part_l, part_acc, cur_len, static_cast<__nv_bfloat16*>(out), Hq, T, splits, blk);
+  gqa_decode_split_kernel<D, kQuant><<<grid, kThreads, 0, stream>>>(
+      static_cast<const typename Ty::q_t*>(q), static_cast<const typename Ty::kv_t*>(k),
+      static_cast<const typename Ty::kv_t*>(v), k_scale, v_scale, cur_len, part_m, part_l, part_acc,
+      Hkv, T, Hq / Hkv, splits, blk, scale);
+  gqa_decode_reduce_kernel<D, typename Ty::out_t><<<B * Hq, D, 0, stream>>>(
+      part_m, part_l, part_acc, cur_len, static_cast<typename Ty::out_t*>(out), Hq, T, splits, blk);
+}
+
+template <bool kQuant>
+int decode_entry(const void* q, const void* k, const void* v, const float* k_scale,
+                 const float* v_scale, const int* cur_len, void* out, float* part_m, float* part_l,
+                 float* part_acc, int B, int Hq, int Hkv, int T, int D, int splits, int blk,
+                 float scale, void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxRep || splits <= 0 || blk <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64) {
+    launch_decode<64, kQuant>(q, k, v, k_scale, v_scale, cur_len, out, part_m, part_l, part_acc, B,
+                              Hq, Hkv, T, splits, blk, scale, s);
+  } else if (D == 128) {
+    launch_decode<128, kQuant>(q, k, v, k_scale, v_scale, cur_len, out, part_m, part_l, part_acc, B,
+                               Hq, Hkv, T, splits, blk, scale, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -232,28 +303,26 @@ int cvt_gqa_decode_attention(const void* q, const void* k, const void* v, const 
                              void* out, float* part_m, float* part_l, float* part_acc, int B,
                              int Hq, int Hkv, int T, int D, int splits, int blk, float scale,
                              void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxRep || splits <= 0 || blk <= 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) {
-    launch_decode<64>(q, k, v, cur_len, out, part_m, part_l, part_acc, B, Hq, Hkv, T, splits, blk,
-                      scale, s);
-  } else if (D == 128) {
-    launch_decode<128>(q, k, v, cur_len, out, part_m, part_l, part_acc, B, Hq, Hkv, T, splits, blk,
-                       scale, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return decode_entry<false>(q, k, v, nullptr, nullptr, cur_len, out, part_m, part_l, part_acc, B,
+                             Hq, Hkv, T, D, splits, blk, scale, stream);
 }
 
-int cvt_kv_arena_write(void* arena, const void* new_kv, const int* pos, int B, int T, int F,
+int cvt_gqa_decode_attention_quant(const void* q, const void* k, const void* v,
+                                   const float* k_scale, const float* v_scale, const int* cur_len,
+                                   void* out, float* part_m, float* part_l, float* part_acc, int B,
+                                   int Hq, int Hkv, int T, int D, int splits, int blk, float scale,
+                                   void* stream) {
+  return decode_entry<true>(q, k, v, k_scale, v_scale, cur_len, out, part_m, part_l, part_acc, B,
+                            Hq, Hkv, T, D, splits, blk, scale, stream);
+}
+
+int cvt_kv_arena_write(void* arena, const void* new_kv, const int* pos, int B, int T, int row_bytes,
                        void* stream) {
-  if (F <= 0 || F % 8 != 0 || reinterpret_cast<uintptr_t>(arena) % 16 != 0 ||
+  if (row_bytes <= 0 || row_bytes % 16 != 0 || reinterpret_cast<uintptr_t>(arena) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(new_kv) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   kv_arena_write_kernel<<<B, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<__nv_bfloat16*>(arena), static_cast<const __nv_bfloat16*>(new_kv), pos, T, F);
+      static_cast<uint8_t*>(arena), static_cast<const uint8_t*>(new_kv), pos, T, row_bytes);
   return (int)cudaGetLastError();
 }
 

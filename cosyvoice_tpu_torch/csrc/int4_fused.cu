@@ -1,0 +1,433 @@
+// Hand-written Hopper (sm_90a) kernels for the int4 weight-only LM decode step.
+//
+// Built with csrc/decode_attention.cu by cosyvoice_tpu_torch/ops/_build.py
+// (one nvcc call, plain C interface, loaded with ctypes). Every entry point
+// launches on the stream it is given and returns the launch's error code;
+// the Python wrappers raise if it is not 0.
+//
+// Weight layout (ops/int4_fused.py packers, the JAX package's "blocked
+// half-split"): packed [nb, half, O] int8 and scale [nb, O] f32. In scale
+// block b, the LOW nibble of packed[b, i, o] is input row b*2*half + i,
+// stored offset-binary (q + 8); the HIGH nibble is input row
+// b*2*half + half + i, signed; q is in [-7, 7]. The block's scale multiplies
+// the block's partial dot (here: each thread's share of it), not the weights.
+// Input rows past the activation's length are zero padding: the activation
+// slice in shared memory is zero-filled there, so they add nothing.
+//
+// Both kernels share one work item, gemv_tile: 64 output columns of
+// y = x @ dequant(W) over a range of scale blocks, for up to BT activation
+// rows. 256 threads = 4 column groups x 64 row slices; a thread owns 16
+// neighbouring columns and reads them with one 16-byte load per packed row,
+// so the 4 column-group lanes of a warp read 64 contiguous bytes of a row and
+// the warp's 8 row slices read 8 rows. Activations come from shared memory
+// as bf16 (every activation the kernels take is a bf16 value); sums are f32.
+// The 64 slices are reduced with warp shuffles, then across the 8 warps
+// through shared memory, in a fixed order: results repeat bit for bit.
+//
+// ---------------------------------------------------------------------------
+// K4  int4_gemv_kernel  (int4 GEMV, <= 16 rows)
+//
+// Replaces: cosyvoice_tpu/ops/int4_fused.py:int4_gemv (pallas_call at :339,
+//   body _gemv_kernel :307).
+// Computes: y[B, O] = x[B, n_in] @ dequant(packed, scale), B <= 16, rounded
+//   once to bf16. Exact dequant arithmetic of int4_matmul_blocked: the
+//   Pallas kernel's default "fold" scheme (_gemv_planes_fold) instead rounds
+//   x_lo - x_hi/16 to bf16 and dots the raw byte; this kernel decodes both
+//   nibbles and multiplies the unrounded activations.
+// Bound on the H100: bytes. The qkv projection of Qwen2-0.5B (n_in 896 ->
+//   1024, O 1152) reads 4*128*1152 B of packed weights + 4*1152*4 B of
+//   scales ~ 0.61 MB: ~0.18 us at 3.35 TB/s; ~2 flops per weight byte.
+// Design: one block per 64-column tile (18 blocks for qkv), the whole input
+//   dimension per block; the activation rows are staged once per block in
+//   shared memory (B * padded n_in <= 16384 bf16). Each thread issues its
+//   nb * half / 64 16-byte weight loads (8 for qkv) independent of each
+//   other. Rows beyond 4 are processed in tiles of 4 that re-read the
+//   weights from L2.
+//
+// K6  int4_o_mlp_kernel  (fused int4 layer tail, one cooperative launch)
+//
+// Replaces: cosyvoice_tpu/ops/int4_fused.py:int4_o_mlp (pallas_call at :519,
+//   body _o_mlp_kernel :451).
+// Computes: x2 = x + attn @ Wo (f32); h2 = bf16(rmsnorm(x2) * w);
+//   act = bf16(silu(h2 @ Wg) * (h2 @ Wu)); out = bf16(x2 + act @ Wd).
+//   attn is rounded to bf16 on entry, as the Pallas kernel does.
+// Bound on the H100: bytes. At B=1, Qwen2-0.5B: packed o 0.46 MB + gate|up
+//   5.24 MB + down 2.29 MB + ~0.21 MB of scales ~ 8.2 MB: ~2.45 us.
+// Design: the TPU runs the tail as one sequential grid that carries x2, h2
+//   and the down sum in VMEM. Its phases depend on each other globally (the
+//   norm needs all of x2, gate/up all of h2, down all of act), and blocks of
+//   a plain launch cannot wait for each other. So this is one cooperative
+//   launch, grid no larger than the co-resident blocks, with
+//   cooperative_groups grid syncs between four phases:
+//   1. o_proj: work items (64-column tile, scale block) write f32 partials;
+//   2. every block sums the partials in order (x2), computes the norm and
+//      stages h2 in shared memory; block 0 stores x2; gate|up work items
+//      (64-column tile, both planes, whole input) write act in bf16;
+//   3. down: work items (64-column tile, 512-row scale block) write f32
+//      partials;
+//   4. out = x2 + the down partials summed in order.
+//   No float atomics: every cross-block sum goes through f32 partials summed
+//   in a fixed order after a barrier, so runs repeat bit for bit.
+// ---------------------------------------------------------------------------
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kColsPerThread = 16;  // one 16-byte load of packed bytes
+constexpr int kColGroups = 4;       // column groups per block (lane % 4)
+constexpr int kTileCols = kColGroups * kColsPerThread;  // 64
+constexpr int kRowSlices = kThreads / kColGroups;       // 64
+constexpr int kMaxRows = 16;
+constexpr int kXElems = 16 * 1024;  // bf16 activations staged in shared memory
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// Sum of v over the block, the same fixed order in every block.
+__device__ float block_sum(float v, float* sm) {
+  v = warp_sum(v);
+  if (threadIdx.x % 32 == 0) sm[threadIdx.x / 32] = v;
+  __syncthreads();
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) s += sm[w];
+  __syncthreads();
+  return s;
+}
+
+// res[r * 64 + c] = sum over scale blocks [b0, b1) of x[r0 + r] . W[:, col0 + c]
+// for r < nr <= BT. xs holds the activation rows of that input range, row
+// stride xs_stride (row r0 + r starts at xs + (r0 + r) * xs_stride). O must be
+// a multiple of 16; column groups past O contribute nothing. Ends with a
+// __syncthreads(), after which res is complete.
+template <int BT>
+__device__ void gemv_tile(const int8_t* __restrict__ packed, const float* __restrict__ scale, int half,
+                          int O, int b0, int b1, const __nv_bfloat16* xs, int xs_stride, int r0, int nr,
+                          int col0, float* red, float* res) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int group = lane % kColGroups;
+  const int slice = warp * (32 / kColGroups) + lane / kColGroups;
+  const int col = col0 + group * kColsPerThread;
+  float acc[BT][kColsPerThread];
+#pragma unroll
+  for (int r = 0; r < BT; ++r)
+#pragma unroll
+    for (int j = 0; j < kColsPerThread; ++j) acc[r][j] = 0.f;
+
+  if (col < O) {
+    for (int b = b0; b < b1; ++b) {
+      float part[BT][kColsPerThread];
+#pragma unroll
+      for (int r = 0; r < BT; ++r)
+#pragma unroll
+        for (int j = 0; j < kColsPerThread; ++j) part[r][j] = 0.f;
+      const int8_t* pb = packed + (size_t)b * half * O + col;
+      const __nv_bfloat16* xb = xs + (size_t)(b - b0) * 2 * half;
+#pragma unroll 2
+      for (int i = slice; i < half; i += kRowSlices) {
+        const uint4 w = __ldg(reinterpret_cast<const uint4*>(pb + (size_t)i * O));
+        float xl[BT], xh[BT];
+#pragma unroll
+        for (int r = 0; r < BT; ++r) {
+          const bool live = r < nr;
+          xl[r] = live ? __bfloat162float(xb[(size_t)(r0 + r) * xs_stride + i]) : 0.f;
+          xh[r] = live ? __bfloat162float(xb[(size_t)(r0 + r) * xs_stride + half + i]) : 0.f;
+        }
+        const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int j = 0; j < kColsPerThread; ++j) {
+          // byte j, sign-extended: the high nibble is then the signed q_hi,
+          // the low nibble q_lo + 8
+          const int byte = static_cast<int>(words[j / 4] << (24 - 8 * (j % 4))) >> 24;
+          const float lo = static_cast<float>((byte & 15) - 8);
+          const float hi = static_cast<float>(byte >> 4);
+#pragma unroll
+          for (int r = 0; r < BT; ++r) part[r][j] += xl[r] * lo + xh[r] * hi;
+        }
+      }
+      const float4* sp = reinterpret_cast<const float4*>(scale + (size_t)b * O + col);
+#pragma unroll
+      for (int q = 0; q < kColsPerThread / 4; ++q) {
+        const float4 s = __ldg(sp + q);
+#pragma unroll
+        for (int r = 0; r < BT; ++r) {
+          acc[r][4 * q + 0] += part[r][4 * q + 0] * s.x;
+          acc[r][4 * q + 1] += part[r][4 * q + 1] * s.y;
+          acc[r][4 * q + 2] += part[r][4 * q + 2] * s.z;
+          acc[r][4 * q + 3] += part[r][4 * q + 3] * s.w;
+        }
+      }
+    }
+  }
+
+  // the 8 row slices of a warp sit in lane bits 2..4
+#pragma unroll
+  for (int r = 0; r < BT; ++r)
+#pragma unroll
+    for (int j = 0; j < kColsPerThread; ++j) {
+      float v = acc[r][j];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      acc[r][j] = v;
+    }
+  if (lane < kColGroups) {
+#pragma unroll
+    for (int r = 0; r < BT; ++r)
+#pragma unroll
+      for (int j = 0; j < kColsPerThread; ++j)
+        red[(warp * BT + r) * kTileCols + group * kColsPerThread + j] = acc[r][j];
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < BT * kTileCols; idx += kThreads) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += red[w * BT * kTileCols + idx];
+    res[idx] = s;
+  }
+  __syncthreads();
+}
+
+template <int BT>
+__global__ void __launch_bounds__(kThreads) int4_gemv_kernel(
+    const __nv_bfloat16* __restrict__ x,  // [B, n_in]
+    const int8_t* __restrict__ packed,    // [nb, half, O]
+    const float* __restrict__ scale,      // [nb, O]
+    __nv_bfloat16* __restrict__ y,        // [B, O]
+    int B, int n_in, int nb, int half, int O) {
+  __shared__ __nv_bfloat16 xs[kXElems];
+  __shared__ float red[kWarps * BT * kTileCols];
+  __shared__ float res[BT * kTileCols];
+  const int K = nb * 2 * half;
+  for (int idx = threadIdx.x; idx < B * K; idx += kThreads) {
+    const int r = idx / K, k = idx % K;
+    xs[idx] = k < n_in ? x[(size_t)r * n_in + k] : __float2bfloat16(0.f);
+  }
+  __syncthreads();
+  const int col0 = blockIdx.x * kTileCols;
+  for (int r0 = 0; r0 < B; r0 += BT) {
+    const int nr = min(BT, B - r0);
+    gemv_tile<BT>(packed, scale, half, O, 0, nb, xs, K, r0, nr, col0, red, res);
+    for (int idx = threadIdx.x; idx < nr * kTileCols; idx += kThreads) {
+      const int c = col0 + idx % kTileCols;
+      if (c < O) y[(size_t)(r0 + idx / kTileCols) * O + c] = __float2bfloat16(res[idx]);
+    }
+  }
+}
+
+// Scratch written and read inside the launch (part_o, x2g, act, part_d) is
+// accessed with plain loads, never through the read-only cache.
+template <int BT>
+__global__ void __launch_bounds__(kThreads) int4_o_mlp_kernel(
+    const void* __restrict__ attn, int attn_bf16,  // [B, n_attn] f32 or bf16
+    const __nv_bfloat16* __restrict__ x,           // [B, H] residual
+    const float* __restrict__ norm_w,              // [H]
+    const int8_t* __restrict__ o_p, const float* __restrict__ o_s,    // [nb_o, half_o, H]
+    const int8_t* __restrict__ gu_p, const float* __restrict__ gu_s,  // [2, nb_in, half_in, I]
+    const int8_t* __restrict__ d_p, const float* __restrict__ d_s,    // [nd, half_d, H]
+    float* part_o,        // [nb_o, B, H]
+    float* x2g,           // [B, H]
+    __nv_bfloat16* act,   // [B, I]
+    float* part_d,        // [nd, B, H]
+    __nv_bfloat16* __restrict__ out,  // [B, H]
+    int B, int n_attn, int H, int nb_o, int half_o, int nb_in, int half_in, int I, int nd, int half_d,
+    float eps) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ __nv_bfloat16 xs[kXElems];
+  __shared__ float red[kWarps * BT * kTileCols];
+  __shared__ float res_g[BT * kTileCols];
+  __shared__ float res_u[BT * kTileCols];
+  __shared__ float sm_sum[kWarps];
+  const int tiles_h = (H + kTileCols - 1) / kTileCols;
+  const int tiles_i = (I + kTileCols - 1) / kTileCols;
+
+  // phase 1: o_proj partials, one item per (column tile, scale block)
+  const int go = 2 * half_o;
+  for (int item = blockIdx.x; item < tiles_h * nb_o; item += gridDim.x) {
+    const int tile = item % tiles_h, b = item / tiles_h;
+    for (int idx = threadIdx.x; idx < B * go; idx += kThreads) {
+      const int r = idx / go, k = b * go + idx % go;
+      float v = 0.f;
+      if (k < n_attn) {
+        const size_t a = (size_t)r * n_attn + k;
+        v = attn_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(attn)[a])
+                      : static_cast<const float*>(attn)[a];
+      }
+      xs[idx] = __float2bfloat16(v);
+    }
+    __syncthreads();
+    for (int r0 = 0; r0 < B; r0 += BT) {
+      const int nr = min(BT, B - r0);
+      gemv_tile<BT>(o_p, o_s, half_o, H, b, b + 1, xs, go, r0, nr, tile * kTileCols, red, res_g);
+      for (int idx = threadIdx.x; idx < nr * kTileCols; idx += kThreads) {
+        const int c = tile * kTileCols + idx % kTileCols;
+        if (c < H) part_o[((size_t)b * B + r0 + idx / kTileCols) * H + c] = res_g[idx];
+      }
+    }
+    __syncthreads();
+  }
+  grid.sync();
+
+  // phase 2: x2, the norm and h2 in every block; then gate|up -> act
+  const int K_in = nb_in * 2 * half_in;
+  for (int r = 0; r < B; ++r) {
+    float ss = 0.f;
+    for (int k = threadIdx.x; k < H; k += kThreads) {
+      float o = 0.f;
+      for (int b = 0; b < nb_o; ++b) o += part_o[((size_t)b * B + r) * H + k];
+      const float v = __bfloat162float(x[(size_t)r * H + k]) + o;
+      ss += v * v;
+    }
+    const float inv = rsqrtf(block_sum(ss, sm_sum) / H + eps);
+    for (int k = threadIdx.x; k < K_in; k += kThreads) {
+      float h = 0.f;
+      if (k < H) {
+        float o = 0.f;
+        for (int b = 0; b < nb_o; ++b) o += part_o[((size_t)b * B + r) * H + k];
+        const float v = __bfloat162float(x[(size_t)r * H + k]) + o;
+        if (blockIdx.x == 0) x2g[(size_t)r * H + k] = v;
+        h = v * inv * norm_w[k];
+      }
+      xs[(size_t)r * K_in + k] = __float2bfloat16(h);
+    }
+  }
+  __syncthreads();
+  const size_t plane = (size_t)nb_in * half_in * I;
+  for (int tile = blockIdx.x; tile < tiles_i; tile += gridDim.x) {
+    for (int r0 = 0; r0 < B; r0 += BT) {
+      const int nr = min(BT, B - r0);
+      gemv_tile<BT>(gu_p, gu_s, half_in, I, 0, nb_in, xs, K_in, r0, nr, tile * kTileCols, red, res_g);
+      gemv_tile<BT>(gu_p + plane, gu_s + (size_t)nb_in * I, half_in, I, 0, nb_in, xs, K_in, r0, nr,
+                    tile * kTileCols, red, res_u);
+      for (int idx = threadIdx.x; idx < nr * kTileCols; idx += kThreads) {
+        const int c = tile * kTileCols + idx % kTileCols;
+        if (c < I) {
+          const float g = res_g[idx], u = res_u[idx];
+          act[(size_t)(r0 + idx / kTileCols) * I + c] = __float2bfloat16(g / (1.f + expf(-g)) * u);
+        }
+      }
+    }
+  }
+  grid.sync();
+
+  // phase 3: down partials, one item per (column tile, scale block)
+  const int gd = 2 * half_d;
+  for (int item = blockIdx.x; item < tiles_h * nd; item += gridDim.x) {
+    const int tile = item % tiles_h, c = item / tiles_h;
+    for (int idx = threadIdx.x; idx < B * gd; idx += kThreads)
+      xs[idx] = act[(size_t)(idx / gd) * I + c * gd + idx % gd];
+    __syncthreads();
+    for (int r0 = 0; r0 < B; r0 += BT) {
+      const int nr = min(BT, B - r0);
+      gemv_tile<BT>(d_p, d_s, half_d, H, c, c + 1, xs, gd, r0, nr, tile * kTileCols, red, res_g);
+      for (int idx = threadIdx.x; idx < nr * kTileCols; idx += kThreads) {
+        const int col = tile * kTileCols + idx % kTileCols;
+        if (col < H) part_d[((size_t)c * B + r0 + idx / kTileCols) * H + col] = res_g[idx];
+      }
+    }
+    __syncthreads();
+  }
+  grid.sync();
+
+  // phase 4: out = x2 + sum of the down partials, in order
+  for (int idx = blockIdx.x * kThreads + threadIdx.x; idx < B * H; idx += gridDim.x * kThreads) {
+    float d = 0.f;
+    for (int c = 0; c < nd; ++c) d += part_d[(size_t)c * B * H + idx];
+    out[idx] = __float2bfloat16(x2g[idx] + d);
+  }
+}
+
+template <int BT>
+int launch_o_mlp(const void* attn, int attn_bf16, const __nv_bfloat16* x, const float* norm_w,
+                 const int8_t* o_p, const float* o_s, const int8_t* gu_p, const float* gu_s,
+                 const int8_t* d_p, const float* d_s, float* part_o, float* x2g, __nv_bfloat16* act,
+                 float* part_d, __nv_bfloat16* out, int B, int n_attn, int H, int nb_o, int half_o,
+                 int nb_in, int half_in, int I, int nd, int half_d, float eps, cudaStream_t stream) {
+  // co-resident blocks of this kernel on the device, queried once
+  static int max_blocks = 0;
+  if (max_blocks == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, int4_o_mlp_kernel<BT>, kThreads, 0);
+    if (e != cudaSuccess) return (int)e;
+    if (sms * per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    max_blocks = sms * per_sm;
+  }
+  const int tiles_h = (H + kTileCols - 1) / kTileCols;
+  const int tiles_i = (I + kTileCols - 1) / kTileCols;
+  int work = tiles_h * nb_o;
+  if (tiles_i > work) work = tiles_i;
+  if (tiles_h * nd > work) work = tiles_h * nd;
+  const int grid = work < max_blocks ? work : max_blocks;
+  void* args[] = {&attn, &attn_bf16, &x,      &norm_w, &o_p,   &o_s,     &gu_p,    &gu_s,
+                  &d_p,  &d_s,       &part_o, &x2g,    &act,   &part_d,  &out,     &B,
+                  &n_attn, &H,       &nb_o,   &half_o, &nb_in, &half_in, &I,       &nd,
+                  &half_d, &eps};
+  const cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(int4_o_mlp_kernel<BT>),
+                                                    dim3(grid), dim3(kThreads), args, 0, stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+}  // namespace
+
+extern "C" {
+
+int cvt_int4_gemv(const void* x, const void* packed, const float* scale, void* y, int B, int n_in, int nb,
+                  int half, int O, void* stream) {
+  if (B < 1 || B > kMaxRows || O % kColsPerThread != 0 || half <= 0 || n_in > nb * 2 * half ||
+      B * nb * 2 * half > kXElems || !aligned16(packed) || !aligned16(scale))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((O + kTileCols - 1) / kTileCols);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* pb = static_cast<const int8_t*>(packed);
+  auto* yb = static_cast<__nv_bfloat16*>(y);
+  if (B == 1)
+    int4_gemv_kernel<1><<<grid, kThreads, 0, s>>>(xb, pb, scale, yb, B, n_in, nb, half, O);
+  else
+    int4_gemv_kernel<4><<<grid, kThreads, 0, s>>>(xb, pb, scale, yb, B, n_in, nb, half, O);
+  return (int)cudaGetLastError();
+}
+
+int cvt_int4_o_mlp(const void* attn, int attn_bf16, const void* x, const float* norm_w, const void* o_p,
+                   const float* o_s, const void* gu_p, const float* gu_s, const void* d_p, const float* d_s,
+                   float* part_o, float* x2g, void* act, float* part_d, void* out, int B, int n_attn, int H,
+                   int nb_o, int half_o, int nb_in, int half_in, int I, int nd, int half_d, float eps,
+                   void* stream) {
+  if (B < 1 || B > kMaxRows || H % kColsPerThread != 0 || I % kColsPerThread != 0 ||
+      n_attn > nb_o * 2 * half_o || H > nb_in * 2 * half_in || nd * 2 * half_d != I ||
+      B * 2 * half_o > kXElems || B * nb_in * 2 * half_in > kXElems || B * 2 * half_d > kXElems ||
+      !aligned16(o_p) || !aligned16(o_s) || !aligned16(gu_p) || !aligned16(gu_s) || !aligned16(d_p) ||
+      !aligned16(d_s))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* op = static_cast<const int8_t*>(o_p);
+  const auto* gp = static_cast<const int8_t*>(gu_p);
+  const auto* dp = static_cast<const int8_t*>(d_p);
+  auto* ab = static_cast<__nv_bfloat16*>(act);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  if (B == 1)
+    return launch_o_mlp<1>(attn, attn_bf16, xb, norm_w, op, o_s, gp, gu_s, dp, d_s, part_o, x2g, ab, part_d,
+                           ob, B, n_attn, H, nb_o, half_o, nb_in, half_in, I, nd, half_d, eps, s);
+  return launch_o_mlp<4>(attn, attn_bf16, xb, norm_w, op, o_s, gp, gu_s, dp, d_s, part_o, x2g, ab, part_d,
+                         ob, B, n_attn, H, nb_o, half_o, nb_in, half_in, I, nd, half_d, eps, s);
+}
+
+}  // extern "C"

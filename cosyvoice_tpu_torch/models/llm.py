@@ -8,9 +8,11 @@ bookkeeping) stays on the device, and the host fetches the tokens once per
 block, as the JAX version does with one lax.scan per block.
 
 Ported: the v2 layout (sos/task in `llm_embedding`), `generate` with the
-min_len eos suppression, max_len and stop ids. Not ported yet: bistream,
-the v3 layout, temperature and repetition penalty, continuous batching,
-quantized weights.
+min_len eos suppression, max_len and stop ids, and the quantised LM of
+`Qwen2Config(quant="int4p", kv_quant=True)` (int4p body, int8 head, int8 KV
+arena) or `kv_quant=True` alone. Not ported yet: bistream, the v3 layout,
+temperature and repetition penalty, continuous batching, the int8 and int4
+weight modes, and int4p with a bf16 arena (the whole-step kernel K7).
 """
 
 import logging
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from cosyvoice_tpu_torch.models.qwen2 import Qwen2Config, Qwen2Model
+from cosyvoice_tpu_torch.models.qwen2 import QuantDense, Qwen2Config, Qwen2Model
 from cosyvoice_tpu_torch.ops.sampling import NEG_INF, ras_sampling_batch
 from cosyvoice_tpu_torch.utils.devices import resolve_device
 
@@ -65,7 +67,11 @@ class Qwen2LMModule(nn.Module):
         self.llm = Qwen2Model(cfg.qwen)
         self.llm_embedding = nn.Embedding(2, dim)
         self.speech_embedding = nn.Embedding(cfg.head_size, dim)
-        self.llm_decoder = nn.Linear(dim, cfg.head_size)
+        if cfg.qwen.quant:
+            # the head stays int8 weight-only in int4p mode, as in the JAX package
+            self.llm_decoder = QuantDense(dim, cfg.head_size, cfg.qwen.dtype)
+        else:
+            self.llm_decoder = nn.Linear(dim, cfg.head_size)
 
     def embed_input(self, ids, types):
         """ids/types [B, T] -> [B, T, C] float32."""
@@ -79,6 +85,8 @@ class Qwen2LMModule(nn.Module):
         )
 
     def _head(self, hidden):
+        if self.cfg.qwen.quant:
+            return self.llm_decoder(hidden).float()
         return self.llm_decoder(hidden.float())
 
     def prefill(self, ids, types, true_len, cache):

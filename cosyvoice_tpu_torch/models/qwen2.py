@@ -1,18 +1,33 @@
 """Qwen2 transformer backbone (GQA + RoPE + SwiGLU + RMSNorm) in PyTorch.
 
-Counterpart of cosyvoice_tpu/models/qwen2.py for the bf16/fp32 layouts (the
-int8/int4 weight options and the int8 KV arena are not ported yet).
+Counterpart of cosyvoice_tpu/models/qwen2.py for bf16/fp32 weights and for
+the int4p weight-only layouts (`Qwen2Config(quant="int4p")`), each with a
+bf16 or an int8 KV arena (`kv_quant`):
 
 - fused qkv projection with bias, fused gate|up projection;
 - a preallocated KV arena [L, B, T, Hkv, d] per K and V, updated in place
-  (the JAX version returns updated arrays; here the arena is mutated);
-- the decode step writes each new K/V row with kernel K2
-  (ops/decode_attention.kv_arena_write) and attends with kernel K1
-  (ops/decode_attention.gqa_decode_attention), which reads only the live
-  keys; prefill attention is a plain grouped einsum, as in JAX.
+  (the JAX version returns updated arrays; here the arena is mutated); with
+  kv_quant the arena is int8 with per-token f32 scales [L, B, T] per K and V
+  (`ops/decode_attention.quantize_kv_rows`);
+- the decode step writes each new K/V row with kernel K2 (kv_arena_write)
+  and attends with K1 (gqa_decode_attention) or, over the int8 arena, K3
+  (gqa_decode_attention_quant); prefill attention is a plain grouped einsum
+  over the arena rows, dequantised first when they are int8, as in JAX;
+- int4p: the decode step's qkv projection is K4 (ops/int4_fused.int4_gemv)
+  and its whole post-attention tail, o_proj + residual + RMSNorm + MLP +
+  residual, is K6 (int4_o_mlp); prefill runs the plain blocked int4
+  matmuls (int4_matmul_blocked, int4_mlp_reference), as the JAX package
+  runs XLA there. int4p with a bf16 arena runs the whole-step kernel K7 in
+  the JAX package; the port refuses that configuration until K7 is ported.
+
+Routing is by shape: the decode step (one token per row) calls the kernel
+wrappers, which run the kernels on CUDA tensors and their plain versions on
+CPU tensors; prefill calls the plain functions.
 
 Parameters of the matmuls live in `cfg.dtype` (bf16 on the card); norm
 weights stay float32 and norms compute in float32, as the JAX module does.
+Packed int4/int8 weights are frozen int8 parameters under the JAX names
+(`kernel_q4b`, `scale4`, `kernel_q`, `scale`).
 """
 
 import math
@@ -23,7 +38,22 @@ from torch import nn
 from torch.nn import functional as F
 
 from cosyvoice_tpu_torch.nn.embedding import apply_rope, rope_frequencies
-from cosyvoice_tpu_torch.ops.decode_attention import gqa_decode_attention, kv_arena_write
+from cosyvoice_tpu_torch.ops.decode_attention import (
+    dequantize_kv_arena,
+    gqa_decode_attention,
+    gqa_decode_attention_quant,
+    kv_arena_write,
+    quantize_kv_rows,
+)
+from cosyvoice_tpu_torch.ops.int4_fused import (
+    GEMV_IN_ALIGN,
+    MLP_INTER_ALIGN,
+    _pad_to,
+    int4_gemv,
+    int4_matmul_blocked,
+    int4_mlp_reference,
+    int4_o_mlp,
+)
 
 NEG_INF = -1e30
 
@@ -41,6 +71,8 @@ class Qwen2Config:
     rope_theta: float = 1e6
     max_cache_len: int = 4096
     dtype: torch.dtype = torch.bfloat16
+    quant: object = False  # weight-only quantisation: False | "int4p"
+    kv_quant: bool = False  # int8 KV arena with per-token f32 scales
 
 
 class RMSNorm(nn.Module):
@@ -55,56 +87,160 @@ class RMSNorm(nn.Module):
         return (x32 * self.weight).to(x.dtype)
 
 
+def _frozen(shape, dtype, fill=0):
+    return nn.Parameter(torch.full(shape, fill, dtype=dtype), requires_grad=False)
+
+
+class QuantDense(nn.Module):
+    """int8 weight-only Dense (the head in int4p mode): kernel_q [out, in]
+    int8, per-output-channel scale [out] f32, bias [out]. Computes in
+    `dtype`, as the JAX QuantDense: (x @ Wq) * scale + bias."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel_q = _frozen((out_features, in_features), torch.int8)
+        self.scale = _frozen((out_features,), torch.float32, 1)
+        self.bias = nn.Parameter(torch.zeros(out_features, dtype=torch.float32))
+
+    def forward(self, x):
+        dt = self.dtype
+        return (x.to(dt) @ self.kernel_q.to(dt).T) * self.scale.to(dt) + self.bias.to(dt)
+
+
+class Int4PWeights(nn.Module):
+    """Holder of one weight in a blocked half-split int4 layout
+    (ops/int4_fused.py): kernel_q4b int8 and scale4 f32, handed to the
+    kernels and plain functions as they are."""
+
+    def __init__(self, wshape, sshape):
+        super().__init__()
+        self.kernel_q4b = _frozen(tuple(wshape), torch.int8)
+        self.scale4 = _frozen(tuple(sshape), torch.float32, 1)
+
+
+class QuantDense4P(Int4PWeights):
+    """int4p Dense with bias: kernel_q4b [nb, 128, out], scale4 [nb, out],
+    bias [out]. `forward` is the plain blocked matmul (prefill), `gemv` the
+    decode call through K4."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype):
+        nb = _pad_to(in_features, GEMV_IN_ALIGN) // GEMV_IN_ALIGN
+        super().__init__((nb, GEMV_IN_ALIGN // 2, out_features), (nb, out_features))
+        self.dtype = dtype
+        self.bias = nn.Parameter(torch.zeros(out_features, dtype=torch.float32))
+
+    def forward(self, x):
+        return int4_matmul_blocked(x, self.kernel_q4b, self.scale4, self.dtype) + self.bias.to(self.dtype)
+
+    def gemv(self, x):
+        """x [rows <= 16, in] -> [rows, out] through K4."""
+        return int4_gemv(x.to(self.dtype), self.kernel_q4b, self.scale4) + self.bias.to(self.dtype)
+
+
 class Qwen2Attention(nn.Module):
     def __init__(self, cfg: Qwen2Config):
         super().__init__()
         self.cfg = cfg
         nq, nkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
-        self.qkv_proj = nn.Linear(cfg.hidden_size, nq + 2 * nkv, bias=True, dtype=cfg.dtype)
-        self.o_proj = nn.Linear(nq, cfg.hidden_size, bias=False, dtype=cfg.dtype)
+        if cfg.quant == "int4p":
+            nb_o = _pad_to(nq, GEMV_IN_ALIGN) // GEMV_IN_ALIGN
+            self.qkv_proj = QuantDense4P(cfg.hidden_size, nq + 2 * nkv, cfg.dtype)
+            self.o_proj = Int4PWeights((nb_o, GEMV_IN_ALIGN // 2, cfg.hidden_size), (nb_o, cfg.hidden_size))
+        else:
+            self.qkv_proj = nn.Linear(cfg.hidden_size, nq + 2 * nkv, bias=True, dtype=cfg.dtype)
+            self.o_proj = nn.Linear(nq, cfg.hidden_size, bias=False, dtype=cfg.dtype)
 
-    def _qkv(self, x, cos, sin):
+    def _qkv(self, x, cos, sin, decode: bool):
+        """q, k rope'd (float32, as apply_rope returns) and v in cfg.dtype."""
         c = self.cfg
         B, S, _ = x.shape
         nq, nkv = c.num_heads * c.head_dim, c.num_kv_heads * c.head_dim
-        qkv = self.qkv_proj(x)
+        if decode and c.quant == "int4p":
+            qkv = self.qkv_proj.gemv(x.reshape(B * S, -1)).reshape(B, S, -1)
+        else:
+            qkv = self.qkv_proj(x)
         q = qkv[..., :nq].reshape(B, S, c.num_heads, c.head_dim)
         k = qkv[..., nq : nq + nkv].reshape(B, S, c.num_kv_heads, c.head_dim)
         v = qkv[..., nq + nkv :].reshape(B, S, c.num_kv_heads, c.head_dim)
         return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
-    def prefill(self, x, cos, sin, bias, k_arena, v_arena):
-        """x [B, S, C]; bias [B, 1, S, S] additive; writes arena rows [0, S)."""
+    def out(self, attn):
+        """o_proj of the pre-o attention output [B, S, nq] (prefill, and the
+        decode step of the unfused layouts)."""
+        c = self.cfg
+        if c.quant == "int4p":
+            return int4_matmul_blocked(attn, self.o_proj.kernel_q4b, self.o_proj.scale4, c.dtype)
+        return self.o_proj(attn.to(c.dtype))
+
+    def prefill(self, x, cos, sin, bias, cache):
+        """x [B, S, C]; bias [B, 1, S, S] additive; writes arena rows [0, S)
+        of the layer's cache. Returns the pre-o attention output [B, S, nq]."""
         c = self.cfg
         B, S, _ = x.shape
-        q, k, v = self._qkv(x, cos, sin)
-        k_arena[:, :S] = k.to(k_arena.dtype)
-        v_arena[:, :S] = v.to(v_arena.dtype)
+        q, k, v = self._qkv(x, cos, sin, decode=False)
+        if c.kv_quant:
+            ck, cv, cks, cvs = cache
+            (kq, ks), (vq, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+            ck[:, :S], cks[:, :S], cv[:, :S], cvs[:, :S] = kq, ks, vq, vs
+            # attention reads the dequantised arena rows, as the JAX path does
+            k_all = dequantize_kv_arena(ck[:, :S], cks[:, :S], c.dtype)
+            v_all = dequantize_kv_arena(cv[:, :S], cvs[:, :S], c.dtype)
+        else:
+            ck, cv = cache
+            ck[:, :S] = k.to(ck.dtype)
+            cv[:, :S] = v.to(cv.dtype)
+            k_all, v_all = ck[:, :S], cv[:, :S]
         rep = c.num_heads // c.num_kv_heads
         qg = q.reshape(B, S, c.num_kv_heads, rep, c.head_dim)
-        scores = torch.einsum("bsgrd,btgd->bgrst", qg, k_arena[:, :S].float()) / math.sqrt(c.head_dim)
-        attn = torch.softmax(scores + bias[:, None], dim=-1).to(v_arena.dtype)
-        out = torch.einsum("bgrst,btgd->bsgrd", attn, v_arena[:, :S])
-        return self.o_proj(out.reshape(B, S, -1).to(c.dtype))
+        scores = torch.einsum("bsgrd,btgd->bgrst", qg, k_all.float()) / math.sqrt(c.head_dim)
+        attn = torch.softmax(scores + bias[:, None], dim=-1).to(v_all.dtype)
+        return torch.einsum("bgrst,btgd->bsgrd", attn, v_all).reshape(B, S, -1)
 
-    def decode(self, x, cos, sin, cur_len, k_arena, v_arena):
-        """x [B, 1, C]; cur_len [B] int32 write positions (kernels K2, K1)."""
+    def decode(self, x, cos, sin, cur_len, cache):
+        """x [B, 1, C]; cur_len [B] int32 write positions. Writes the rows
+        with K2 and attends with K1 (bf16 arena) or K3 (int8 arena). Returns
+        the pre-o attention output [B, 1, nq]: float32 over the int8 arena
+        (K3 keeps the float32 rope output's precision), cfg.dtype otherwise."""
         B = x.shape[0]
-        dt = k_arena.dtype
-        q, k, v = self._qkv(x, cos, sin)
-        kv_arena_write(k_arena, k.to(dt).contiguous(), cur_len)
-        kv_arena_write(v_arena, v.to(dt).contiguous(), cur_len)
-        out = gqa_decode_attention(q[:, 0].to(dt).contiguous(), k_arena, v_arena, cur_len)
-        return self.o_proj(out.reshape(B, 1, -1).to(self.cfg.dtype))
+        q, k, v = self._qkv(x, cos, sin, decode=True)
+        if self.cfg.kv_quant:
+            ck, cv, cks, cvs = cache
+            (kq, ks), (vq, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+            kv_arena_write(ck, kq, cur_len)
+            kv_arena_write(cv, vq, cur_len)
+            rows, pos = torch.arange(B, device=x.device), cur_len.long()
+            cks[rows, pos] = ks[:, 0]
+            cvs[rows, pos] = vs[:, 0]
+            out = gqa_decode_attention_quant(q[:, 0].contiguous(), ck, cv, cks, cvs, cur_len)
+        else:
+            ck, cv = cache
+            dt = ck.dtype
+            kv_arena_write(ck, k.to(dt).contiguous(), cur_len)
+            kv_arena_write(cv, v.to(dt).contiguous(), cur_len)
+            out = gqa_decode_attention(q[:, 0].to(dt).contiguous(), ck, cv, cur_len)
+        return out.reshape(B, 1, -1)
 
 
 class Qwen2MLP(nn.Module):
     def __init__(self, cfg: Qwen2Config):
         super().__init__()
-        self.gate_up_proj = nn.Linear(cfg.hidden_size, 2 * cfg.intermediate_size, bias=False, dtype=cfg.dtype)
-        self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size, bias=False, dtype=cfg.dtype)
+        self.cfg = cfg
+        if cfg.quant == "int4p":
+            nb_in = _pad_to(cfg.hidden_size, GEMV_IN_ALIGN) // GEMV_IN_ALIGN
+            half_in = GEMV_IN_ALIGN // 2
+            inter_p = _pad_to(cfg.intermediate_size, MLP_INTER_ALIGN)
+            n_down = inter_p // MLP_INTER_ALIGN
+            self.gate_up_proj = Int4PWeights((2, nb_in, half_in, inter_p), (2, nb_in, inter_p))
+            self.down_proj = Int4PWeights((n_down, MLP_INTER_ALIGN // 2, cfg.hidden_size), (n_down, cfg.hidden_size))
+        else:
+            self.gate_up_proj = nn.Linear(cfg.hidden_size, 2 * cfg.intermediate_size, bias=False, dtype=cfg.dtype)
+            self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size, bias=False, dtype=cfg.dtype)
 
     def forward(self, x):
+        if self.cfg.quant == "int4p":
+            gu, d = self.gate_up_proj, self.down_proj
+            return int4_mlp_reference(x, gu.kernel_q4b, gu.scale4, d.kernel_q4b, d.scale4, self.cfg.dtype)
         gate, up = self.gate_up_proj(x).chunk(2, dim=-1)
         return self.down_proj(F.silu(gate) * up)
 
@@ -112,6 +248,7 @@ class Qwen2MLP(nn.Module):
 class Qwen2Layer(nn.Module):
     def __init__(self, cfg: Qwen2Config):
         super().__init__()
+        self.cfg = cfg
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.self_attn = Qwen2Attention(cfg)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
@@ -121,11 +258,21 @@ class Qwen2Layer(nn.Module):
         x = x + attn_out
         return x + self.mlp(self.post_attention_layernorm(x))
 
-    def prefill(self, x, cos, sin, bias, k_arena, v_arena):
-        return self._tail(x, self.self_attn.prefill(self.input_layernorm(x), cos, sin, bias, k_arena, v_arena))
+    def prefill(self, x, cos, sin, bias, cache):
+        attn = self.self_attn.prefill(self.input_layernorm(x), cos, sin, bias, cache)
+        return self._tail(x, self.self_attn.out(attn))
 
-    def decode(self, x, cos, sin, cur_len, k_arena, v_arena):
-        return self._tail(x, self.self_attn.decode(self.input_layernorm(x), cos, sin, cur_len, k_arena, v_arena))
+    def decode(self, x, cos, sin, cur_len, cache):
+        attn = self.self_attn.decode(self.input_layernorm(x), cos, sin, cur_len, cache)
+        if self.cfg.quant != "int4p":
+            return self._tail(x, self.self_attn.out(attn))
+        # the whole post-attention tail in one kernel (K6)
+        o, gu, d = self.self_attn.o_proj, self.mlp.gate_up_proj, self.mlp.down_proj
+        y = int4_o_mlp(
+            attn[:, 0], x[:, 0], self.post_attention_layernorm.weight, o.kernel_q4b, o.scale4,
+            gu.kernel_q4b, gu.scale4, d.kernel_q4b, d.scale4, eps=self.cfg.rms_norm_eps,
+        )
+        return y[:, None]
 
 
 class Qwen2Model(nn.Module):
@@ -134,6 +281,14 @@ class Qwen2Model(nn.Module):
 
     def __init__(self, cfg: Qwen2Config):
         super().__init__()
+        if cfg.quant not in (False, "int4p"):
+            raise NotImplementedError(f"Qwen2Config.quant={cfg.quant!r}: the port serves False and 'int4p'")
+        if cfg.quant == "int4p" and not cfg.kv_quant:
+            raise NotImplementedError(
+                "quant='int4p' with a bf16 KV arena decodes through the whole-step kernel K7 "
+                "(cosyvoice_tpu/ops/int4_block.py:int4_decode_layers) in the JAX package; K7 is not "
+                "ported yet (the next slice of the port). Use kv_quant=True, or quant=False."
+            )
         self.cfg = cfg
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, dtype=cfg.dtype)
         self.layers = nn.ModuleList(Qwen2Layer(cfg) for _ in range(cfg.num_layers))
@@ -143,10 +298,18 @@ class Qwen2Model(nn.Module):
         self.register_buffer("rope_sin", sin, persistent=False)
 
     def init_cache(self, batch: int):
-        """Zero KV arenas (k, v), each [L, B, max_cache_len, Hkv, d] in cfg.dtype."""
+        """Zero KV arenas: (k, v), each [L, B, max_cache_len, Hkv, d] in
+        cfg.dtype; with kv_quant (k, v) in int8 plus (k_scale, v_scale), each
+        [L, B, max_cache_len] float32."""
         c = self.cfg
         shape = (c.num_layers, batch, c.max_cache_len, c.num_kv_heads, c.head_dim)
         dev = self.norm.weight.device
+        if c.kv_quant:
+            sshape = shape[:3]
+            return (
+                torch.zeros(shape, dtype=torch.int8, device=dev), torch.zeros(shape, dtype=torch.int8, device=dev),
+                torch.zeros(sshape, dtype=torch.float32, device=dev), torch.zeros(sshape, dtype=torch.float32, device=dev),
+            )
         return (torch.zeros(shape, dtype=c.dtype, device=dev), torch.zeros(shape, dtype=c.dtype, device=dev))
 
     def prefill(self, embeds, true_len, cache):
@@ -159,7 +322,7 @@ class Qwen2Model(nn.Module):
         cos, sin = self.rope_cos[:S], self.rope_sin[:S]
         x = embeds.to(self.cfg.dtype)
         for i, layer in enumerate(self.layers):
-            x = layer.prefill(x, cos, sin, bias, cache[0][i], cache[1][i])
+            x = layer.prefill(x, cos, sin, bias, [part[i] for part in cache])
         x = self.norm(x)
         idx = (true_len.long() - 1).clamp_min(0)
         return x[torch.arange(B, device=x.device), idx], cache
@@ -172,5 +335,5 @@ class Qwen2Model(nn.Module):
         cos, sin = self.rope_cos[pos][:, None], self.rope_sin[pos][:, None]
         x = emb.to(self.cfg.dtype)
         for i, layer in enumerate(self.layers):
-            x = layer.decode(x, cos, sin, cur_len, cache[0][i], cache[1][i])
+            x = layer.decode(x, cos, sin, cur_len, [part[i] for part in cache])
         return self.norm(x)[:, 0], cache

@@ -1,21 +1,29 @@
 """Decode-step attention over the preallocated KV arena, and the arena row write.
 
-Counterpart of `cosyvoice_tpu/ops/decode_attention.py`. Two kernels, each
+Counterpart of `cosyvoice_tpu/ops/decode_attention.py`. Three kernels, each
 beside its plain PyTorch version:
 
 - K1 `gqa_decode_attention`: single-token GQA flash decode
   (csrc/decode_attention.cu, split-KV + log-sum-exp reduce). Replaces the
   Pallas `_decode_kernel`.
-- K2 `kv_arena_write`: in-place row write `arena[b, pos[b]] = new[b]`
-  (csrc/decode_attention.cu). Replaces the Pallas `_kv_write_kernel`.
+- K3 `gqa_decode_attention_quant`: K1 over an int8 arena with per-token f32
+  scales (csrc/decode_attention.cu). Replaces the Pallas
+  `_quant_decode_kernel`.
+- K2 `kv_arena_write`: in-place row write `arena[b, pos[b]] = new[b]` into a
+  bf16 or int8 arena (csrc/decode_attention.cu). Replaces the Pallas
+  `_kv_write_kernel`.
+
+`quantize_kv_rows` / `dequantize_kv_arena` are the int8 arena's per-token
+absmax quantiser and its inverse, as in the JAX package.
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors it
 launches the kernel or raises. Each wrapper counts its kernel launches in a
 plain int attribute (`gqa_decode_attention.launches`,
-`kv_arena_write.launches`) so a run can show that it went through the kernel.
+`gqa_decode_attention_quant.launches`, `kv_arena_write.launches`) so a run
+can show that it went through the kernel.
 
-Layouts are the JAX package's: q [B, Hq, d], arenas [B, T, Hkv, d],
-cur_len / pos [B] int32.
+Layouts are the JAX package's: q [B, Hq, d], arenas [B, T, Hkv, d], scales
+[B, T], cur_len / pos [B] int32.
 """
 
 import math
@@ -62,26 +70,25 @@ def _raise_on(rc: int, what: str):
         raise RuntimeError(f"{what} kernel launch failed: cudaError {rc}")
 
 
-def gqa_decode_attention(q, k_arena, v_arena, cur_len):
-    """Single-token GQA attention against a length-masked KV arena (K1).
-
-    q: [B, Hq, d] (rope applied); k_arena/v_arena: [B, T, Hkv, d], the
-    current token's K/V already written at cur_len[b]; cur_len: [B] int32.
-    Returns [B, Hq, d] in q.dtype."""
+def _check_decode_shapes(q, k_arena, v_arena, cur_len):
     B, Hq, d = q.shape
     if k_arena.shape != v_arena.shape or k_arena.dim() != 4 or k_arena.shape[0] != B or k_arena.shape[3] != d:
         raise ValueError(f"arena shapes {tuple(k_arena.shape)} / {tuple(v_arena.shape)} do not match q {tuple(q.shape)}")
-    T, Hkv = k_arena.shape[1], k_arena.shape[2]
-    if Hq % Hkv != 0:
-        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    if Hq % k_arena.shape[2] != 0:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={k_arena.shape[2]}")
     if cur_len.shape != (B,):
         raise ValueError(f"cur_len must be [B]={B}, got {tuple(cur_len.shape)}")
-    if q.device.type == "cpu":
-        return gqa_decode_attention_plain(q, k_arena, v_arena, cur_len)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
-    for name, t in (("q", q), ("k_arena", k_arena), ("v_arena", v_arena)):
-        _check_cuda(name, t, torch.bfloat16, q.device)
+
+
+def _launch_decode(entry, q, k_arena, v_arena, scales, cur_len, q_dtype, kv_dtype):
+    """Shared launch of K1 / K3: checks, partial buffers, one C call."""
+    B, Hq, d = q.shape
+    T, Hkv = k_arena.shape[1], k_arena.shape[2]
+    _check_cuda("q", q, q_dtype, q.device)
+    for name, t in (("k_arena", k_arena), ("v_arena", v_arena)):
+        _check_cuda(name, t, kv_dtype, q.device)
+    for name, t in zip(("k_scale", "v_scale"), scales):
+        _check_cuda(name, t, torch.float32, q.device)
     _check_cuda("cur_len", cur_len, torch.int32, q.device)
     if d not in (64, 128) or Hq // Hkv > 8:
         raise ValueError(f"kernel takes head_dim 64/128 and <= 8 query heads per KV head, got d={d}, rep={Hq // Hkv}")
@@ -93,18 +100,81 @@ def gqa_decode_attention(q, k_arena, v_arena, cur_len):
     part_m = torch.empty((B, Hq, splits), device=q.device, dtype=torch.float32)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((B, Hq, splits, d), device=q.device, dtype=torch.float32)
-    rc = lib.cvt_gqa_decode_attention(
-        q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), cur_len.data_ptr(), out.data_ptr(),
-        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+    rc = getattr(lib, entry)(
+        q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), *(t.data_ptr() for t in scales),
+        cur_len.data_ptr(), out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
         B, Hq, Hkv, T, d, splits, BLOCK_KEYS, 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _raise_on(rc, "gqa_decode_attention")
+    _raise_on(rc, entry)
+    return out
+
+
+def gqa_decode_attention(q, k_arena, v_arena, cur_len):
+    """Single-token GQA attention against a length-masked KV arena (K1).
+
+    q: [B, Hq, d] (rope applied); k_arena/v_arena: [B, T, Hkv, d], the
+    current token's K/V already written at cur_len[b]; cur_len: [B] int32.
+    Returns [B, Hq, d] in q.dtype."""
+    _check_decode_shapes(q, k_arena, v_arena, cur_len)
+    if q.device.type == "cpu":
+        return gqa_decode_attention_plain(q, k_arena, v_arena, cur_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    out = _launch_decode("cvt_gqa_decode_attention", q, k_arena, v_arena, (), cur_len, torch.bfloat16, torch.bfloat16)
     gqa_decode_attention.launches += 1
     return out
 
 
 gqa_decode_attention.launches = 0
+
+
+def quantize_kv_rows(x, eps: float = 1e-6):
+    """Per-token absmax int8 quantisation of new KV rows: x [B, S, Hkv, d] ->
+    (q int8 [B, S, Hkv, d], scale f32 [B, S]), one scale per token row
+    across the KV heads."""
+    x32 = x.float()
+    scale = x32.abs().amax(dim=(2, 3)).clamp_min(eps) / 127.0
+    return torch.round(x32 / scale[:, :, None, None]).to(torch.int8), scale
+
+
+def dequantize_kv_arena(arena_q, scale, dtype):
+    """Inverse of quantize_kv_rows over an arena: the scale multiplies in
+    float32 and only the product is cast to `dtype`."""
+    return (arena_q.float() * scale[:, :, None, None]).to(dtype)
+
+
+def gqa_decode_attention_quant_plain(q, k_arena, v_arena, k_scale, v_scale, cur_len):
+    """K3's plain version (= `gqa_decode_attention_quant_reference`): the
+    arenas dequantised in float32, then K1's plain version. Returns q.dtype."""
+    kd = dequantize_kv_arena(k_arena, k_scale, torch.float32)
+    vd = dequantize_kv_arena(v_arena, v_scale, torch.float32)
+    return gqa_decode_attention_plain(q, kd, vd, cur_len)
+
+
+def gqa_decode_attention_quant(q, k_arena, v_arena, k_scale, v_scale, cur_len):
+    """Single-token GQA attention against an int8 KV arena (K3).
+
+    q: [B, Hq, d] float32 (rope applied); k_arena/v_arena: [B, T, Hkv, d]
+    int8 with per-token scales k_scale/v_scale [B, T] f32, the current
+    token's row written at cur_len[b]; cur_len: [B] int32. Returns
+    [B, Hq, d] in q.dtype."""
+    _check_decode_shapes(q, k_arena, v_arena, cur_len)
+    B, T = k_arena.shape[:2]
+    if k_scale.shape != (B, T) or v_scale.shape != (B, T):
+        raise ValueError(f"scales must be [B, T]={(B, T)}, got {tuple(k_scale.shape)} / {tuple(v_scale.shape)}")
+    if q.device.type == "cpu":
+        return gqa_decode_attention_quant_plain(q, k_arena, v_arena, k_scale, v_scale, cur_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    out = _launch_decode(
+        "cvt_gqa_decode_attention_quant", q, k_arena, v_arena, (k_scale, v_scale), cur_len, torch.float32, torch.int8
+    )
+    gqa_decode_attention_quant.launches += 1
+    return out
+
+
+gqa_decode_attention_quant.launches = 0
 
 
 def kv_arena_write_plain(arena, new_kv, pos):
@@ -117,8 +187,9 @@ def kv_arena_write_plain(arena, new_kv, pos):
 def kv_arena_write(arena, new_kv, pos):
     """Write new_kv[b] into arena[b, pos[b]] in place (K2) and return arena.
 
-    arena: [B, T, Hkv, d]; new_kv: [B, 1, Hkv, d]; pos: [B] int32. The
-    JAX version donates the arena; here it is updated in place."""
+    arena: [B, T, Hkv, d] bf16 or int8; new_kv: [B, 1, Hkv, d] of the same
+    type; pos: [B] int32. The JAX version donates the arena; here it is
+    updated in place."""
     B, T, Hkv, d = arena.shape
     if new_kv.shape != (B, 1, Hkv, d):
         raise ValueError(f"new_kv must be {(B, 1, Hkv, d)}, got {tuple(new_kv.shape)}")
@@ -128,17 +199,21 @@ def kv_arena_write(arena, new_kv, pos):
         return kv_arena_write_plain(arena, new_kv, pos)
     if arena.device.type != "cuda":
         raise ValueError(f"no kernel for device {arena.device}")
-    _check_cuda("arena", arena, torch.bfloat16, arena.device)
-    _check_cuda("new_kv", new_kv, torch.bfloat16, arena.device)
+    if arena.dtype not in (torch.bfloat16, torch.int8):
+        raise TypeError(f"arena must be bfloat16 or int8, got {arena.dtype}")
+    _check_cuda("arena", arena, arena.dtype, arena.device)
+    _check_cuda("new_kv", new_kv, arena.dtype, arena.device)
     _check_cuda("pos", pos, torch.int32, arena.device)
-    if (Hkv * d) % 8 or arena.data_ptr() % 16 or new_kv.data_ptr() % 16:
+    row_bytes = Hkv * d * arena.element_size()
+    if row_bytes % 16 or arena.data_ptr() % 16 or new_kv.data_ptr() % 16:
         raise ValueError(
-            f"kernel copies 16-byte vectors: Hkv*d={Hkv * d} must be a multiple of 8 and arena/new_kv 16-byte aligned"
+            f"kernel copies 16-byte vectors: a row of {row_bytes} bytes must be a multiple of 16 and "
+            "arena/new_kv 16-byte aligned"
         )
     from cosyvoice_tpu_torch.ops._build import load_library
 
     rc = load_library().cvt_kv_arena_write(
-        arena.data_ptr(), new_kv.data_ptr(), pos.data_ptr(), B, T, Hkv * d,
+        arena.data_ptr(), new_kv.data_ptr(), pos.data_ptr(), B, T, row_bytes,
         torch.cuda.current_stream(arena.device).cuda_stream,
     )
     _raise_on(rc, "kv_arena_write")

@@ -1,0 +1,292 @@
+"""int4 weight-only decode: blocked half-split packing, plain versions, kernels K4 and K6.
+
+Counterpart of `cosyvoice_tpu/ops/int4_fused.py`. The port keeps its own
+copy of the numpy packers, bit-identical to the JAX package's:
+
+- a weight [n_in, n_out] is stored as packed [nb, half, n_out] int8 with
+  per-(scale block, column) f32 scales [nb, n_out]. Block b packs input row
+  b*2*half + i in the LOW nibble, offset-binary (q + 8), and row
+  b*2*half + half + i in the HIGH nibble, signed; q is in [-7, 7];
+- gemv weights (qkv, o) and gate|up have input rows zero-padded to a
+  multiple of GEMV_IN_ALIGN (256, so half = 128); the intermediate dim is
+  zero-padded to a multiple of MLP_INTER_ALIGN (512), and down uses scale
+  blocks of 512 rows (half = 256).
+
+Plain PyTorch versions (`int4_matmul_blocked`, `int4_mlp_reference`, the
+prefill path, as the JAX package runs XLA there) and two kernels, each beside
+its plain version:
+
+- K4 `int4_gemv`: y = x @ dequant(W) for at most 16 rows (csrc/int4_fused.cu).
+  Replaces the Pallas `_gemv_kernel`.
+- K6 `int4_o_mlp`: the layer's whole post-attention tail, o_proj + residual
+  + RMSNorm + SwiGLU MLP + residual, in one cooperative launch
+  (csrc/int4_fused.cu). Replaces the Pallas `_o_mlp_kernel`.
+
+A wrapper given CPU tensors computes the plain version; given CUDA tensors it
+launches the kernel or raises. `int4_gemv.launches` and `int4_o_mlp.launches`
+count kernel launches.
+"""
+
+from typing import Tuple
+
+import numpy as np
+import torch
+from torch.nn import functional as F
+
+from cosyvoice_tpu_torch.ops.decode_attention import _check_cuda, _raise_on
+
+NB = 8  # default block count of quantize_tensor_int4_blocked
+MLP_INTER_ALIGN = 512
+GEMV_IN_ALIGN = 256
+MAX_ROWS = 16  # rows the decode kernels take (the JAX package's Pallas route: <= 16)
+GEMV_X_ELEMS = 16 * 1024  # bf16 activations the kernels stage in shared memory
+
+
+def _pad_to(n: int, align: int) -> int:
+    return ((n + align - 1) // align) * align
+
+
+# ---------------------------------------------------------------------------
+# packing (numpy, on the host; bit-identical to the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def quantize_tensor_int4_blocked(w: np.ndarray, nb: int = NB) -> Tuple[np.ndarray, np.ndarray]:
+    """w [n_in, n_out] -> (packed [nb, half, n_out] int8, scale [nb, n_out] f32)."""
+    w = np.asarray(w, np.float32)
+    n_in, n_out = w.shape
+    assert n_in % (2 * nb) == 0, n_in
+    g = n_in // nb
+    half = g // 2
+    blocks = w.reshape(nb, g, n_out)
+    scale = np.max(np.abs(blocks), axis=1, keepdims=True) / 7.0
+    scale = np.maximum(scale, 1e-12)
+    q = np.clip(np.round(blocks / scale), -7, 7).astype(np.int8)
+    packed = ((q[:, :half] + 8) & 0x0F) | (q[:, half:] << 4)
+    return packed.astype(np.int8), scale[:, 0, :].astype(np.float32)
+
+
+def pack_gemv_int4(w: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Gemv weight [n_in, n_out] -> (packed [nb, 128, n_out], scale [nb, n_out]),
+    input rows zero-padded to a GEMV_IN_ALIGN multiple."""
+    w = np.asarray(w, np.float32)
+    n_in, n_out = w.shape
+    n_in_p = _pad_to(n_in, GEMV_IN_ALIGN)
+    wp = np.zeros((n_in_p, n_out), np.float32)
+    wp[:n_in] = w
+    return quantize_tensor_int4_blocked(wp, nb=n_in_p // GEMV_IN_ALIGN)
+
+
+def pack_gate_up_int4(w: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Fused gate|up kernel [n_in, 2*inter] -> (packed [2, nb, 128, inter_p],
+    scale [2, nb, inter_p]); input rows padded to GEMV_IN_ALIGN, intermediate
+    columns to MLP_INTER_ALIGN."""
+    w = np.asarray(w, np.float32)
+    n_in, n2 = w.shape
+    inter = n2 // 2
+    inter_p = _pad_to(inter, MLP_INTER_ALIGN)
+    n_in_p = _pad_to(n_in, GEMV_IN_ALIGN)
+    packs, scales = [], []
+    for plane in (w[:, :inter], w[:, inter:]):
+        wp = np.zeros((n_in_p, inter_p), np.float32)
+        wp[:n_in, :inter] = plane
+        p, s = quantize_tensor_int4_blocked(wp, nb=n_in_p // GEMV_IN_ALIGN)
+        packs.append(p)
+        scales.append(s)
+    return np.stack(packs), np.stack(scales)
+
+
+def pack_down_int4(w: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """down kernel [inter, n_out] -> (packed [inter_p/512, 256, n_out],
+    scale [inter_p/512, n_out]), input rows padded to MLP_INTER_ALIGN."""
+    w = np.asarray(w, np.float32)
+    inter, n_out = w.shape
+    inter_p = _pad_to(inter, MLP_INTER_ALIGN)
+    wp = np.zeros((inter_p, n_out), np.float32)
+    wp[:inter] = w
+    return quantize_tensor_int4_blocked(wp, nb=inter_p // MLP_INTER_ALIGN)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def _planes(packed, dtype):
+    """packed int8 [..., half, O] -> (low plane q, high plane q) in dtype."""
+    return ((packed & 15) - 8).to(dtype), (packed >> 4).to(dtype)
+
+
+def unpack_int4_blocked(packed, scale=None, dtype=torch.float32):
+    """packed [nb, half, O] -> dequantized (or raw int4 values if scale is
+    None) [nb * 2 * half, O]."""
+    lo, hi = _planes(packed, dtype)
+    w = torch.cat([lo, hi], dim=1)
+    if scale is not None:
+        w = w * scale[:, None, :].to(dtype)
+    return w.reshape(-1, packed.shape[-1])
+
+
+def int4_matmul_blocked(x, packed, scale, dtype=torch.bfloat16):
+    """y = x @ dequant(packed, scale) in `dtype`: one product per scale block,
+    the scale on the block's output (the JAX package's XLA path). x [..., n_in]
+    is zero-padded to the packed rows."""
+    nb, half, _ = packed.shape
+    g = 2 * half
+    pad = nb * g - x.shape[-1]
+    if pad:
+        x = F.pad(x, (0, pad))
+    xd = x.to(dtype)
+    lo, hi = _planes(packed, dtype)
+    y = 0
+    for b in range(nb):
+        xb = xd[..., b * g : (b + 1) * g]
+        part = xb[..., :half] @ lo[b] + xb[..., half:] @ hi[b]
+        y = y + part * scale[b].to(dtype)
+    return y
+
+
+def int4_mlp_reference(x, gu_packed, gu_scale, down_packed, down_scale, dtype=torch.bfloat16):
+    """down(silu(x @ Wg) * (x @ Wu)) over the padded int4 layouts, in `dtype`."""
+    gate = int4_matmul_blocked(x, gu_packed[0], gu_scale[0], dtype)
+    up = int4_matmul_blocked(x, gu_packed[1], gu_scale[1], dtype)
+    act = (F.silu(gate.float()) * up.float()).to(dtype)
+    return int4_matmul_blocked(act, down_packed, down_scale, dtype)
+
+
+def int4_gemv_plain(x, packed, scale):
+    """K4's plain version: `int4_matmul_blocked` accumulated in float32,
+    rounded once to x.dtype."""
+    return int4_matmul_blocked(x.float(), packed, scale, torch.float32).to(x.dtype)
+
+
+def int4_o_mlp_plain(attn, x, norm_w, o_packed, o_scale, gu_packed, gu_scale, down_packed, down_scale, eps=1e-6):
+    """K6's plain version (the JAX `int4_o_mlp_reference` accumulated in
+    float32). It rounds where the kernel rounds, to x.dtype: the attention
+    input, h2 = rmsnorm(x2) and silu(g)*u before their products, and the
+    output; x2 = x + attn @ Wo stays float32."""
+    dt = x.dtype
+    f32 = torch.float32
+    a = attn.to(dt).float()
+    x2 = x.float() + int4_matmul_blocked(a, o_packed, o_scale, f32)
+    h2 = x2 * torch.rsqrt(x2.square().mean(-1, keepdim=True) + eps) * norm_w.float()
+    h2 = h2.to(dt).float()
+    gate = int4_matmul_blocked(h2, gu_packed[0], gu_scale[0], f32)
+    up = int4_matmul_blocked(h2, gu_packed[1], gu_scale[1], f32)
+    act = (F.silu(gate) * up).to(dt).float()
+    return (x2 + int4_matmul_blocked(act, down_packed, down_scale, f32)).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
+
+
+def _check_weights(name, packed, scale, device):
+    _check_cuda(f"{name} packed", packed, torch.int8, device)
+    _check_cuda(f"{name} scale", scale, torch.float32, device)
+    if packed.shape[-1] % 16 or packed.data_ptr() % 16 or scale.data_ptr() % 16:
+        raise ValueError(
+            f"{name}: the kernels read 16 columns per 16-byte load: n_out={packed.shape[-1]} must be a "
+            "multiple of 16 and packed/scale 16-byte aligned"
+        )
+
+
+def int4_gemv(x, packed, scale):
+    """y[B, O] = x[B, n_in] @ dequant(packed [nb, half, O], scale [nb, O]) (K4).
+
+    Decode-shaped: B <= 16. Accumulates in float32 and rounds once to x.dtype."""
+    B, n_in = x.shape
+    nb, half, n_out = packed.shape
+    if scale.shape != (nb, n_out):
+        raise ValueError(f"scale must be {(nb, n_out)}, got {tuple(scale.shape)}")
+    if n_in > nb * 2 * half:
+        raise ValueError(f"x has {n_in} inputs, the packed weight {nb * 2 * half} rows")
+    if x.device.type == "cpu":
+        return int4_gemv_plain(x, packed, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    _check_cuda("x", x, torch.bfloat16, x.device)
+    _check_weights("int4_gemv", packed, scale, x.device)
+    if not 1 <= B <= MAX_ROWS or B * nb * 2 * half > GEMV_X_ELEMS:
+        raise ValueError(
+            f"kernel takes 1..{MAX_ROWS} rows with rows * padded inputs <= {GEMV_X_ELEMS}, got B={B}, "
+            f"padded inputs {nb * 2 * half}"
+        )
+    from cosyvoice_tpu_torch.ops._build import load_library
+
+    out = torch.empty((B, n_out), device=x.device, dtype=x.dtype)
+    rc = load_library().cvt_int4_gemv(
+        x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(), B, n_in, nb, half, n_out,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _raise_on(rc, "int4_gemv")
+    int4_gemv.launches += 1
+    return out
+
+
+int4_gemv.launches = 0
+
+
+def int4_o_mlp(attn, x, norm_w, o_packed, o_scale, gu_packed, gu_scale, down_packed, down_scale, eps=1e-6):
+    """The layer's post-attention tail in one launch (K6):
+
+        x2  = x + attn @ Wo
+        h2  = rmsnorm(x2) * norm_w
+        out = x2 + (silu(h2 @ Wg) * (h2 @ Wu)) @ Wd
+
+    attn [B, n_attn] (f32 or x.dtype), the pre-o_proj attention output; x
+    [B, H] the layer's residual input; norm_w [H] f32; weights in the layouts
+    of pack_gemv_int4 / pack_gate_up_int4 / pack_down_int4. Returns [B, H] in
+    x.dtype."""
+    B, n_attn = attn.shape
+    H = x.shape[-1]
+    nb_o, half_o, n_out_o = o_packed.shape
+    two, nb_in, half_in, inter_p = gu_packed.shape
+    n_down, half_d, n_out_d = down_packed.shape
+    if (
+        x.shape != (B, H) or norm_w.shape != (H,) or n_out_o != H or n_out_d != H or two != 2
+        or n_attn > nb_o * 2 * half_o or H > nb_in * 2 * half_in or n_down * 2 * half_d != inter_p
+        or o_scale.shape != (nb_o, H) or gu_scale.shape != (2, nb_in, inter_p) or down_scale.shape != (n_down, H)
+    ):
+        raise ValueError(
+            f"int4_o_mlp shapes do not fit: attn {tuple(attn.shape)}, x {tuple(x.shape)}, o {tuple(o_packed.shape)}, "
+            f"gate_up {tuple(gu_packed.shape)}, down {tuple(down_packed.shape)}"
+        )
+    if x.device.type == "cpu":
+        return int4_o_mlp_plain(attn, x, norm_w, o_packed, o_scale, gu_packed, gu_scale, down_packed, down_scale, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if attn.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"attn must be float32 or bfloat16, got {attn.dtype}")
+    _check_cuda("attn", attn, attn.dtype, x.device)
+    _check_cuda("x", x, torch.bfloat16, x.device)
+    _check_cuda("norm_w", norm_w, torch.float32, x.device)
+    for name, p, s in (("o", o_packed, o_scale), ("gate_up", gu_packed, gu_scale), ("down", down_packed, down_scale)):
+        _check_weights(name, p, s, x.device)
+    if not 1 <= B <= MAX_ROWS or B * nb_in * 2 * half_in > GEMV_X_ELEMS or B * 2 * half_d > GEMV_X_ELEMS:
+        raise ValueError(f"kernel takes 1..{MAX_ROWS} rows with rows * padded hidden <= {GEMV_X_ELEMS}, got B={B}")
+    from cosyvoice_tpu_torch.ops._build import load_library
+
+    # one f32 workspace: o partials [nb_o, B, H], x2 [B, H], down partials
+    # [n_down, B, H], then act [B, inter_p] bf16 (every piece 16-byte aligned)
+    n_f32 = (nb_o + 1 + n_down) * B * H
+    work = torch.empty(n_f32 + (B * inter_p + 1) // 2, device=x.device, dtype=torch.float32)
+    part_o = work.data_ptr()
+    x2 = part_o + nb_o * B * H * 4
+    part_d = x2 + B * H * 4
+    act = part_d + n_down * B * H * 4
+    out = torch.empty_like(x)
+    rc = load_library().cvt_int4_o_mlp(
+        attn.data_ptr(), int(attn.dtype == torch.bfloat16), x.data_ptr(), norm_w.data_ptr(),
+        o_packed.data_ptr(), o_scale.data_ptr(), gu_packed.data_ptr(), gu_scale.data_ptr(),
+        down_packed.data_ptr(), down_scale.data_ptr(), part_o, x2, act, part_d, out.data_ptr(),
+        B, n_attn, H, nb_o, half_o, nb_in, half_in, inter_p, n_down, half_d, float(eps),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _raise_on(rc, "int4_o_mlp")
+    int4_o_mlp.launches += 1
+    return out
+
+
+int4_o_mlp.launches = 0

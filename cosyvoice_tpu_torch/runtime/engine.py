@@ -15,15 +15,18 @@ S3 tokenizer, CAM++) is not part of it. Streaming, speed change, vc mode,
 per-request seeds and continuous batching are not ported yet.
 """
 
+import dataclasses
 import time
 from typing import Generator
 
 import numpy as np
 import torch
 
+from cosyvoice_tpu_torch.convert import export_lm_params, load_jax_params
 from cosyvoice_tpu_torch.models.flow import CausalFlow, FlowConfig
 from cosyvoice_tpu_torch.models.hift import HiFTConfig, HiFTGenerator
-from cosyvoice_tpu_torch.models.llm import TYPE_SPECIAL, TYPE_SPEECH, TYPE_TEXT, LMConfig, Qwen2LM
+from cosyvoice_tpu_torch.models.llm import TYPE_SPECIAL, TYPE_SPEECH, TYPE_TEXT, LMConfig, Qwen2LM, Qwen2LMModule
+from cosyvoice_tpu_torch.ops.quant import quantize_lm_params
 from cosyvoice_tpu_torch.utils.devices import resolve_device
 from cosyvoice_tpu_torch.utils.init import init_random_
 from cosyvoice_tpu_torch.utils.profiling import StageTimer
@@ -146,12 +149,29 @@ def build_random_engine(
     hift_cfg: HiFTConfig = HiFTConfig(),
 ) -> CosyVoice2Engine:
     """An engine with random weights made on `device` from `seed` (default
-    configs: full-width CosyVoice2-0.5B)."""
+    configs: full-width CosyVoice2-0.5B). With `lm_cfg.qwen.quant` set, the
+    LM's fp weights are made as for the unquantised LM, quantised on the host
+    by `quantize_lm_params` (as the JAX API quantises a checkpoint) and
+    loaded; the engine's timer records that host time as stage "quantize"."""
     dev = resolve_device(device)
     lm = Qwen2LM(lm_cfg, device=dev)
     flow = CausalFlow(flow_cfg, device=dev)
     hift = HiFTGenerator(hift_cfg, device=dev)
-    init_random_(lm.module, seed)
+    quantize_s = None
+    if lm_cfg.qwen.quant:
+        fp_qwen = dataclasses.replace(lm_cfg.qwen, quant=False, kv_quant=False)
+        with torch.device(dev):
+            fp = init_random_(Qwen2LMModule(dataclasses.replace(lm_cfg, qwen=fp_qwen)), seed)
+        t0 = time.perf_counter()
+        tree = quantize_lm_params(export_lm_params(fp), lm_cfg.qwen.quant)
+        del fp
+        load_jax_params(lm.module, tree)
+        quantize_s = time.perf_counter() - t0
+    else:
+        init_random_(lm.module, seed)
     init_random_(flow, seed + 1)
     init_random_(hift, seed + 2)
-    return CosyVoice2Engine(lm, flow, hift)
+    engine = CosyVoice2Engine(lm, flow, hift)
+    if quantize_s is not None:
+        engine.timer.add("quantize", quantize_s)
+    return engine

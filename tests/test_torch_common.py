@@ -39,6 +39,18 @@ def jax_lm_cfg(**kw):
     return JLMConfig(**{"speech_token_size": 20, "block_size": 8, "qwen": qwen, **kw})
 
 
+def jax_lm_cfg_quant(quant="int4p", kv_quant=True, **kw):
+    """Tiny widths the int4 layouts take: hidden 384 and the qkv/o widths are
+    multiples of 128; hidden pads to 512 and intermediate 448 to 512, as the
+    full width pads 896 to 1024 and 4864 to 5120."""
+    qwen = JQwen2Config(
+        hidden_size=384, num_layers=2, num_heads=6, num_kv_heads=2, head_dim=64,
+        intermediate_size=448, vocab_size=100, max_cache_len=256, dtype=jnp.float32,
+        quant=quant, kv_quant=kv_quant,
+    )
+    return JLMConfig(**{"speech_token_size": 20, "block_size": 8, "qwen": qwen, **kw})
+
+
 def jax_flow_cfg():
     return JFlowConfig(
         input_size=32, vocab_size=50, chunk_size=5, attention_heads=2, linear_units=64,

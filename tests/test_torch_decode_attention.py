@@ -1,8 +1,9 @@
-"""K1 (flash-decode GQA) and K2 (KV-arena row write) of the PyTorch port
-against the JAX package: the port's plain versions (what its wrappers run on
-CPU tensors) against the Pallas kernels in interpret mode and the JAX
-reference, in float32. The CUDA kernels themselves run only on a GPU
-(test at the end, skipped without one; chip_smoke.py runs them at full width)."""
+"""K1 (flash-decode GQA), K3 (the same over an int8 arena) and K2 (KV-arena
+row write, bf16 and int8) of the PyTorch port against the JAX package: the
+port's plain versions (what its wrappers run on CPU tensors) against the
+Pallas kernels in interpret mode and the JAX references, in float32. The CUDA
+kernels themselves, K4 and K6 included, run only on a GPU (test at the end,
+skipped without one; chip_smoke.py runs them at full width)."""
 
 import jax
 import jax.numpy as jnp
@@ -10,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from cosyvoice_tpu.ops import decode_attention as jda
-from cosyvoice_tpu_torch.ops import decode_attention as tda
+from cosyvoice_tpu.ops import decode_attention as jda, int4_fused as jint4
+from cosyvoice_tpu_torch.ops import decode_attention as tda, int4_fused as tint4
 
 torch.set_num_threads(1)
 
@@ -41,12 +42,44 @@ def test_decode_attention_plain_matches_pallas_and_reference(lens):
     np.testing.assert_allclose(got, pallas, rtol=0, atol=ATOL)
 
 
+def _quant_case(seed, lens, T=64, Hq=14, Hkv=2, d=64):
+    """int8 arenas with per-token scales; the dead region (positions >
+    cur_len) holds the largest int8 value at a huge scale."""
+    rng = np.random.default_rng(seed)
+    B = len(lens)
+    q = rng.standard_normal((B, Hq, d)).astype(np.float32)
+    k = rng.integers(-127, 128, (B, T, Hkv, d)).astype(np.int8)
+    v = rng.integers(-127, 128, (B, T, Hkv, d)).astype(np.int8)
+    ks = rng.uniform(0.002, 0.03, (B, T)).astype(np.float32)
+    vs = rng.uniform(0.002, 0.03, (B, T)).astype(np.float32)
+    for b, n in enumerate(lens):
+        k[b, n + 1 :], v[b, n + 1 :], ks[b, n + 1 :], vs[b, n + 1 :] = 127, -127, 1e3, 1e3
+    return q, k, v, ks, vs, np.asarray(lens, np.int32)
+
+
+# cur_len 0, a ragged batch, and the last arena row
+@pytest.mark.parametrize("lens", [[0], [17], [15, 16, 63], [63, 0, 31, 32]])
+def test_quant_decode_attention_plain_matches_pallas_and_reference(lens):
+    args = _quant_case(5, lens)
+    jargs = [jnp.asarray(a) for a in args]
+    ref = np.asarray(jda.gqa_decode_attention_quant_reference(*jargs))
+    pallas = np.asarray(jda.gqa_decode_attention_quant(*jargs, block_size=16, interpret=True))
+    got = tda.gqa_decode_attention_quant(*map(torch.from_numpy, args))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), pallas, rtol=0, atol=ATOL)
+
+
 def test_decode_attention_cpu_wrapper_is_plain_and_uncounted():
     q, k, v, cur = map(torch.from_numpy, _case(1, [5, 40]))
     before = tda.gqa_decode_attention.launches
     out = tda.gqa_decode_attention(q, k, v, cur)
     assert torch.equal(out, tda.gqa_decode_attention_plain(q, k, v, cur))
     assert tda.gqa_decode_attention.launches == before
+    args = list(map(torch.from_numpy, _quant_case(6, [5, 40])))
+    before = tda.gqa_decode_attention_quant.launches
+    assert torch.equal(tda.gqa_decode_attention_quant(*args), tda.gqa_decode_attention_quant_plain(*args))
+    assert tda.gqa_decode_attention_quant.launches == before
 
 
 @pytest.mark.parametrize("pos", [[0], [13, 63, 8]])
@@ -63,6 +96,21 @@ def test_kv_arena_write_plain_matches_pallas(pos):
     np.testing.assert_array_equal(out.numpy(), want)
 
 
+@pytest.mark.parametrize("pos", [[0], [13, 63, 8]])
+def test_kv_arena_write_int8_plain_matches_pallas(pos):
+    """The int8 arena (the JAX kernel rewrites a 32-row tile group): exact."""
+    rng = np.random.default_rng(3)
+    B, T, Hkv, d = len(pos), 64, 2, 64
+    arena = rng.integers(-127, 128, (B, T, Hkv, d)).astype(np.int8)
+    new = rng.integers(-127, 128, (B, 1, Hkv, d)).astype(np.int8)
+    p = np.asarray(pos, np.int32)
+    want = np.asarray(jda.kv_arena_write(jnp.asarray(arena), jnp.asarray(new), jnp.asarray(p), interpret=True))
+    ta = torch.from_numpy(arena.copy())
+    out = tda.kv_arena_write(ta, torch.from_numpy(new), torch.from_numpy(p))
+    assert out is ta and out.dtype == torch.int8
+    np.testing.assert_array_equal(out.numpy(), want)
+
+
 def test_wrappers_check_shapes_and_devices():
     q, k, v, cur = map(torch.from_numpy, _case(3, [3]))
     with pytest.raises(ValueError):
@@ -71,6 +119,9 @@ def test_wrappers_check_shapes_and_devices():
         tda.kv_arena_write(k, torch.zeros(1, 2, 2, 64), cur)
     with pytest.raises(ValueError, match="no kernel"):
         tda.gqa_decode_attention(q.to("meta"), k.to("meta"), v.to("meta"), cur.to("meta"))
+    q, k, v, ks, vs, cur = map(torch.from_numpy, _quant_case(7, [3]))
+    with pytest.raises(ValueError):
+        tda.gqa_decode_attention_quant(q, k, v, ks[:, :8], vs, cur)
 
 
 @pytest.mark.cuda
@@ -87,3 +138,31 @@ def test_cuda_kernels_match_plain():
     assert torch.equal(
         tda.kv_arena_write(arena.clone(), new, cur), tda.kv_arena_write_plain(arena.clone(), new, cur)
     )
+    # K3: float32 in and out, the same limit
+    args = [t.cuda() for t in map(torch.from_numpy, _quant_case(8, [0, 27, 63]))]
+    out = tda.gqa_decode_attention_quant(*args)
+    ref = tda.gqa_decode_attention_quant_plain(*args)
+    assert (out - ref).abs().max().item() <= 2**-6 * ref.abs().max().item()
+    # int8 K2: exact
+    arena8, new8 = args[1].clone(), torch.randint(-127, 128, (3, 1, 2, 64), device="cuda", dtype=torch.int8)
+    assert torch.equal(
+        tda.kv_arena_write(arena8.clone(), new8, args[-1]), tda.kv_arena_write_plain(arena8.clone(), new8, args[-1])
+    )
+    # K4 and K6 in bf16 at the full-width shapes: both accumulate in float32
+    # and round at the same points; limits of two bf16 ulps at the largest
+    # |reference| (K4) and four (K6, where a flipped rounding of h2 or
+    # silu(g)*u carries through the next product)
+    rng = np.random.default_rng(9)
+    w = lambda *sh: rng.standard_normal(sh).astype(np.float32) * 0.05  # noqa: E731
+    wq = [torch.from_numpy(a).cuda() for a in (
+        *jint4.pack_gemv_int4(w(896, 1152)), *jint4.pack_gemv_int4(w(896, 896)),
+        *jint4.pack_gate_up_int4(w(896, 2 * 4864)), *jint4.pack_down_int4(w(4864, 896)))]
+    for B in (1, 16):
+        x = torch.randn(B, 896, device="cuda").bfloat16()
+        out, ref = tint4.int4_gemv(x, *wq[:2]), tint4.int4_gemv_plain(x, *wq[:2])
+        assert (out.float() - ref.float()).abs().max().item() <= 2**-6 * ref.float().abs().max().item()
+    attn, x = torch.randn(1, 896, device="cuda"), torch.randn(1, 896, device="cuda").bfloat16()
+    nw = torch.ones(896, device="cuda")
+    out, ref = tint4.int4_o_mlp(attn, x, nw, *wq[2:]), tint4.int4_o_mlp_plain(attn, x, nw, *wq[2:])
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= 2**-5 * ref.float().abs().max().item()

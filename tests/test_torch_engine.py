@@ -6,7 +6,9 @@ draw the same tokens. The HiFT source is pinned by configuration, without
 injecting tensors: all samples voiced (threshold -1), no source noise
 (sigma 0) and a merge layer that reads only the fundamental, whose phase
 starts at 0 (`test_torch_hift.py` holds the random parts by distribution).
-The flow noise is the shared fixed buffer."""
+The flow noise is the shared fixed buffer. The quantised engine (int4p
+weights, int8 KV arena) runs both LMs from one tree quantised by the JAX
+package's quantize_lm_params."""
 
 import jax
 import jax.numpy as jnp
@@ -16,27 +18,34 @@ import torch
 
 from cosyvoice_tpu.models.flow import CausalFlow as JCausalFlow
 from cosyvoice_tpu.models.hift import HiFTGenerator as JHiFT
-from cosyvoice_tpu.models.llm import Qwen2LM as JQwen2LM
+from cosyvoice_tpu.models.llm import TYPE_SPECIAL, TYPE_SPEECH, TYPE_TEXT, Qwen2LM as JQwen2LM
 from cosyvoice_tpu.runtime.engine import CosyVoice2Engine as JEngine
 from cosyvoice_tpu_torch.convert import load_jax_params
 from cosyvoice_tpu_torch.models.flow import CausalFlow, FlowConfig
 from cosyvoice_tpu_torch.models.hift import HiFTConfig, HiFTGenerator
 from cosyvoice_tpu_torch.models.llm import LMConfig, Qwen2LM
 from cosyvoice_tpu_torch.runtime.engine import CosyVoice2Engine
-from tests.test_torch_common import jax_flow_cfg, jax_hift_cfg, jax_lm_cfg, np_tree, to_port_cfg
+from tests.test_torch_common import jax_flow_cfg, jax_hift_cfg, jax_lm_cfg, jax_lm_cfg_quant, np_tree, to_port_cfg
 
 torch.set_num_threads(1)
 
 ATOL = 1e-3  # float32 wav in [-1, 1] after LM, flow (3 Euler steps) and HiFT
 
 
-@pytest.fixture(scope="module")
-def engines():
+def _engines(lm_cfg, quantize=False):
     K = jax.random.PRNGKey
-    lm_cfg, flow_cfg = jax_lm_cfg(top_k=1, tau_r=2.0), jax_flow_cfg()
+    flow_cfg = jax_flow_cfg()
     hift_cfg = jax_hift_cfg(nsf_sigma=0.0, nsf_voiced_threshold=-1.0)
     jlm, jflow, jhift = JQwen2LM(lm_cfg), JCausalFlow(flow_cfg), JHiFT(hift_cfg)
-    lm_p, flow_p = jlm.init(K(0)), jflow.init(K(1))
+    if quantize:
+        from cosyvoice_tpu.ops.quant import quantize_lm_params
+
+        fp_cfg = jax_lm_cfg_quant(quant=False, kv_quant=False)
+        lm_p = {"params": quantize_lm_params(np_tree(JQwen2LM(fp_cfg).init(K(0))["params"]), lm_cfg.qwen.quant)}
+        lm_p = jax.tree.map(jnp.asarray, lm_p)
+    else:
+        lm_p = jlm.init(K(0))
+    flow_p = jflow.init(K(1))
     hift_p = np_tree(jhift.init(K(2), jnp.zeros((1, 8, 80)), K(3)))
     w = hift_p["params"]["m_source"]["l_linear"]["kernel"].copy()
     w[0, 0], w[1:, 0] = 1.5, 0.0
@@ -51,6 +60,16 @@ def engines():
     load_jax_params(flow, np_tree(flow_p))
     load_jax_params(hift, hift_p["params"])
     return jeng, CosyVoice2Engine(lm, flow, hift, token_bucket=16)
+
+
+@pytest.fixture(scope="module")
+def engines():
+    return _engines(jax_lm_cfg(top_k=1, tau_r=2.0))
+
+
+@pytest.fixture(scope="module")
+def quant_engines():
+    return _engines(jax_lm_cfg_quant(quant="int4p", kv_quant=True, top_k=1, tau_r=2.0), quantize=True)
 
 
 def _request(seed):
@@ -77,6 +96,32 @@ def test_offline_tts_matches_jax_engine(engines, seed):
     assert np.isfinite(out["tts_speech"]).all()
     np.testing.assert_allclose(out["tts_speech"], want, rtol=0, atol=ATOL)
     assert eng.lm.decode_steps % eng.lm.cfg.block_size == 0
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_offline_tts_quantised_lm_matches_jax_engine(quant_engines, seed):
+    """int4p weights + int8 KV arena: the same tokens (greedy), and the wav
+    within the float32 engine's limit; the LM's logits agree to ~1e-6 when no
+    int8 KV step flips (tests/test_torch_lm.py), far inside the greedy margin."""
+    jeng, eng = quant_engines
+    req = _request(seed)
+    wav = np.concatenate([c["tts_speech"] for c in jeng.tts(**req, stream=False)], axis=1)
+    (out,) = list(eng.tts(**req, stream=False))
+    # the JAX engine yields only the wav: draw its LM's tokens from the same prompt
+    c = eng.lm.cfg
+    text = np.concatenate([req["prompt_text_tokens"], req["text_tokens"]])
+    ids = np.concatenate([[c.sos_id], text, [c.task_id], req["llm_prompt_speech_token"]]).astype(np.int32)
+    types = np.concatenate([[TYPE_SPECIAL], np.full(len(text), TYPE_TEXT), [TYPE_SPECIAL],
+                            np.full(len(req["llm_prompt_speech_token"]), TYPE_SPEECH)]).astype(np.int32)
+    n_text = len(req["text_tokens"])
+    want_tokens = np.concatenate(list(jeng.lm.generate(jeng.lm_params, ids, types, jax.random.PRNGKey(0),
+                                                       2 * n_text, 20 * n_text)))
+    np.testing.assert_array_equal(out["speech_tokens"], want_tokens)
+    n_tok = len(out["speech_tokens"])
+    assert n_tok > 0
+    assert out["tts_speech"].shape == wav.shape == (1, n_tok * 2 * 480)
+    assert np.isfinite(out["tts_speech"]).all()
+    np.testing.assert_allclose(out["tts_speech"], wav, rtol=0, atol=ATOL)
 
 
 def test_streaming_is_refused_not_faked(engines):

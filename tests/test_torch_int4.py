@@ -1,0 +1,129 @@
+"""K4 (int4 GEMV) and K6 (fused int4 layer tail) of the PyTorch port against
+the JAX package: the plain versions (what the wrappers run on CPU tensors)
+against the XLA references in float32, and against the Pallas kernels in
+interpret mode, as tests/test_int4_fused.py runs them. The CUDA kernels run
+only on a GPU (tests/test_torch_decode_attention.py::test_cuda_kernels_match_plain;
+chip_smoke.py at full width)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cosyvoice_tpu.ops import int4_fused as jint4
+from cosyvoice_tpu_torch.ops import int4_fused as tint4
+
+torch.set_num_threads(1)
+
+# float32 against the float32 XLA references: the same block products, the
+# plain version's float32 sums in another order
+ATOL_F32 = 1e-5
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+def _gemv_case(seed, B, n_in, n_out):
+    rng = _rng(seed)
+    p, s = jint4.pack_gemv_int4(rng.standard_normal((n_in, n_out)).astype(np.float32) * 0.05)
+    return rng.standard_normal((B, n_in)).astype(np.float32), p, s
+
+
+def _tail_case(seed, B, hid=384, inter=448):
+    rng = _rng(seed)
+    w = lambda *sh: rng.standard_normal(sh).astype(np.float32) * 0.05  # noqa: E731
+    op, osc = jint4.pack_gemv_int4(w(hid, hid))
+    gup, gus = jint4.pack_gate_up_int4(w(hid, 2 * inter))
+    dp, ds = jint4.pack_down_int4(w(inter, hid))
+    attn, x = rng.standard_normal((B, hid)).astype(np.float32), rng.standard_normal((B, hid)).astype(np.float32)
+    nw = (1.0 + 0.1 * rng.standard_normal(hid)).astype(np.float32)
+    return attn, x, nw, op, osc, gup, gus, dp, ds
+
+
+def _t(arrs):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrs]
+
+
+def _j(arrs):
+    return [jnp.asarray(a) for a in arrs]
+
+
+# n_in 896 pads to 1024 (the last block's high half is all padding), as the
+# full-width qkv and o projections do
+GEMV_SHAPES = [(1, 896, 1152), (5, 256, 128), (16, 384, 640)]
+
+
+@pytest.mark.parametrize("B,n_in,n_out", GEMV_SHAPES)
+def test_gemv_plain_matches_xla_reference(B, n_in, n_out):
+    x, p, s = _gemv_case(0, B, n_in, n_out)
+    want = np.asarray(jint4.int4_matmul_blocked(*_j((x, p, s)), jnp.float32))
+    got = tint4.int4_gemv_plain(*_t((x, p, s))).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL_F32)
+    blocked = tint4.int4_matmul_blocked(*_t((x, p, s)), torch.float32).numpy()
+    np.testing.assert_allclose(blocked, want, rtol=0, atol=ATOL_F32)
+
+
+@pytest.mark.parametrize("B,n_in,n_out", GEMV_SHAPES)
+def test_gemv_plain_matches_pallas_interpret(B, n_in, n_out):
+    """The Pallas kernel rounds x to bf16 on entry and, in its default "fold"
+    scheme, dots bf16(x_lo - x_hi/16) with the low nibbles: two bf16
+    roundings of each activation term, each within 2**-8 of it. Limit per
+    output: 2**-7 * sum_k |x_k| |W_k,o| (W dequantised)."""
+    x, p, s = _gemv_case(1, B, n_in, n_out)
+    want = np.asarray(jint4.int4_gemv(*_j((x, p, s)), out_dtype=jnp.float32, interpret=True))
+    got = tint4.int4_gemv_plain(*_t((x, p, s))).numpy()
+    wd = tint4.unpack_int4_blocked(*_t((p, s))).numpy()[:n_in]
+    limit = 2**-7 * (np.abs(x) @ np.abs(wd)) + 1e-6
+    assert (np.abs(got - want) <= limit).all(), np.max(np.abs(got - want) / limit)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+def test_o_mlp_plain_matches_xla_reference(B):
+    args = _tail_case(2, B)
+    want = np.asarray(jint4.int4_o_mlp_reference(*_j(args), eps=1e-6, dtype=jnp.float32))
+    got = tint4.int4_o_mlp_plain(*_t(args), eps=1e-6).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL_F32)
+    # and the unfused prefill path it stands for: o, residual, norm, MLP, residual
+    attn, x, nw, op, osc, gup, gus, dp, ds = _t(args)
+    x2 = x + tint4.int4_matmul_blocked(attn, op, osc, torch.float32)
+    h2 = x2 * torch.rsqrt(x2.square().mean(-1, keepdim=True) + 1e-6) * nw
+    unfused = x2 + tint4.int4_mlp_reference(h2, gup, gus, dp, ds, torch.float32)
+    np.testing.assert_allclose(got, unfused.numpy(), rtol=0, atol=ATOL_F32)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+def test_o_mlp_plain_matches_pallas_interpret(B):
+    """Against the Pallas kernel (interpret mode, block_inter 512), which
+    rounds the attention input, h2 and silu(g)*u to bf16 and uses the fold
+    scheme in every product: the plain version in float32 differs by
+    bf16-level roundings compounded through o, the norm, gate/up and down.
+    Limit: 2**-5 of the output's largest |value|, four bf16 ulps there."""
+    args = _tail_case(3, B)
+    want = np.asarray(jint4.int4_o_mlp(*_j(args), eps=1e-6, out_dtype=jnp.float32, block_inter=512, interpret=True))
+    got = tint4.int4_o_mlp_plain(*_t(args), eps=1e-6).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=2**-5 * np.abs(want).max())
+
+
+def test_cpu_wrappers_are_plain_and_uncounted():
+    x, p, s = _t(_gemv_case(4, 2, 384, 256))
+    n4, n6 = tint4.int4_gemv.launches, tint4.int4_o_mlp.launches
+    assert torch.equal(tint4.int4_gemv(x, p, s), tint4.int4_gemv_plain(x, p, s))
+    args = _t(_tail_case(5, 2))
+    assert torch.equal(tint4.int4_o_mlp(*args), tint4.int4_o_mlp_plain(*args))
+    assert (tint4.int4_gemv.launches, tint4.int4_o_mlp.launches) == (n4, n6)
+
+
+def test_wrappers_check_shapes_and_devices():
+    x, p, s = _t(_gemv_case(6, 2, 384, 256))
+    with pytest.raises(ValueError):
+        tint4.int4_gemv(x, p, s[:, :128])
+    with pytest.raises(ValueError):
+        tint4.int4_gemv(torch.zeros(2, 1024), p, s)  # more inputs than packed rows
+    with pytest.raises(ValueError, match="no kernel"):
+        tint4.int4_gemv(x.to("meta"), p.to("meta"), s.to("meta"))
+    attn, xr, nw, *w = _t(_tail_case(7, 2))
+    with pytest.raises(ValueError):
+        tint4.int4_o_mlp(attn, xr[:, :128], nw, *w)
+    with pytest.raises(ValueError, match="no kernel"):
+        tint4.int4_o_mlp(*(t.to("meta") for t in (attn, xr, nw, *w)))
