@@ -31,11 +31,24 @@ exceeded, a kernel disagrees with its plain version, or anything raises):
    through K4, K3 and K6 (24 each per step) and K2 (48), and never K1.
 7. check_int4p: phase 5 for the quantised LM (its recompute is one prefill
    over the dequantised arena rows).
+8. slice_int4p_bf16: the engine with int4p weights over a bf16 arena,
+   `Qwen2Config(quant="int4p")`, serves the same 3 requests, every decode
+   step through K7 and K2 (1 and 2 per step), never K1, K3, K4 or K6; then
+   a request with a long voice prompt whose arena grows past K7's 2048 rows,
+   where the blocks after the switch take K4 + K1 + K6 (24 each per step)
+   and K2 (48).
+9. check_int4p_bf16: phase 5 for that LM (its decode takes the route the LM
+   takes), and K7's step against the K4 + K1 + K6 step for the same token
+   at pos ~100 and ~2040.
+
+Phase 3 also holds K7 (the whole int4p decode step) against its plain
+version at full width, B=1, arenas of 512 and 2048 rows, NaN in every row
+>= pos, and times it beside the port's unfused route for the same step.
 
 The line before the last is {"kernels": [...]}, with each kernel's launches
-summed over the runs of phases 4 and 6 (each counted from 0); the last line
-is {"ok": true, "device": {...}}. Without a card it exits 2 and prints no
-result.
+summed over the runs of phases 4, 6 and 8 (each counted from 0); the last
+line is {"ok": true, "device": {...}}. Without a card it exits 2 and prints
+no result.
 """
 
 import dataclasses
@@ -61,12 +74,18 @@ LOGIT_TOL = 0.02
 # prefill rounds each int4 block product to bf16, the decode kernels sum in
 # float32).
 LOGIT_TOL_INT4P = 0.031
+# The same check for the int4p LM over a bf16 arena, whose decode steps run
+# K7: twice its floor, plain decode against one prefill, which is 1.56e-2
+# after 1 step and 1.58e-2 after 96 on an H100 at full width (as for the
+# int8 arena, the prefill rounds each int4 block product to bf16). Phase 9
+# holds K7's step against the per-layer step to the same limit.
+LOGIT_TOL_INT4P_BF16 = 0.032
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16
 L2_BYTES = 50e6  # H100 L2 cache
 
 PHASE_BUDGET_S = {"device": 60, "build": 360, "kernels": 300, "slice": 420, "check": 120,
-                  "slice_int4p": 420, "check_int4p": 120}
+                  "slice_int4p": 420, "check_int4p": 120, "slice_int4p_bf16": 420, "check_int4p_bf16": 180}
 
 
 class Phase:
@@ -163,17 +182,18 @@ def phase_build():
     _build.load_library()
     regs = [ln.strip() for ln in info["log"].splitlines()
             if any(w in ln for w in ("registers", "spill", "Compiling entry"))]
-    print(f"kernels built in {info['seconds']:.1f} s -> {info['path']}")
+    per_src = ", ".join(f"{name} {secs:.1f} s" for name, secs in info["compile_s"].items())
+    print(f"kernels built in {info['seconds']:.1f} s ({per_src or 'cached'}, compiled in parallel) -> {info['path']}")
     for ln in regs:
         print(f"  ptxas: {ln}")
 
 
-def n_sets(bytes_per_call):
-    """Distinct input sets a timing rotates over: at least one per layer
-    (24), and enough that their bytes exceed twice the L2 cache, as a decode
-    step's weights and arenas do, so that no timed call finds its inputs in
-    L2 from an earlier call."""
-    return max(24, math.ceil(2 * L2_BYTES / bytes_per_call))
+def n_sets(bytes_per_call, calls_per_step=24):
+    """Distinct input sets a timing rotates over: at least one per call of a
+    decode step (24 for a per-layer kernel, 1 for K7), and enough that their
+    bytes exceed twice the L2 cache, as a decode step's weights and arenas
+    do, so that no timed call finds its inputs in L2 from an earlier call."""
+    return max(calls_per_step, math.ceil(2 * L2_BYTES / bytes_per_call))
 
 
 def time_fns(fns, calls):
@@ -466,17 +486,202 @@ def check_k6(int4, qc, gen):
     return row, host, n
 
 
+K7_KEYS = ("nw1", "nw2", "qkv_p", "qkv_s", "qkv_b", "o_p", "o_s", "gu_p", "gu_s", "d_p", "d_s")
+
+
+def _k7_weights(torch, int4, qc, gen):
+    """Every layer's int4p weights at full width, packed by the port's
+    packers on the host from random fp weights, stacked as
+    stack_decode_params stacks them."""
+    import numpy as np
+
+    H, inter, d = qc.hidden_size, qc.intermediate_size, qc.head_dim
+    nq, nqkv = qc.num_heads * d, (qc.num_heads + 2 * qc.num_kv_heads) * d
+
+    def w(*shape, scale=0.05):
+        return (torch.randn(shape, generator=gen, device=gen.device) * scale).cpu().numpy()
+
+    layers = []
+    for _ in range(qc.num_layers):
+        layers.append((1.0 + w(H, scale=0.1), 1.0 + w(H, scale=0.1), *int4.pack_gemv_int4(w(H, nqkv)), w(nqkv),
+                       *int4.pack_gemv_int4(w(nq, H)), *int4.pack_gate_up_int4(w(H, 2 * inter)),
+                       *int4.pack_down_int4(w(inter, H))))
+    return {k: torch.from_numpy(np.stack(v)).to(gen.device) for k, v in zip(K7_KEYS, zip(*layers))}
+
+
+def _k7_inputs(torch, qc, A, pos, gen, dead):
+    """x, cos, sin, pos and bf16 arenas [L, A, Hkv*d] whose rows >= pos (the
+    stale row AT pos included) hold `dead`."""
+    H, d, lanes, dev = qc.hidden_size, qc.head_dim, qc.num_kv_heads * qc.head_dim, gen.device
+    x = torch.randn((1, H), generator=gen, device=dev).to(torch.bfloat16)
+    ang = torch.randn((1, d // 2), generator=gen, device=dev) * 3
+    live = (torch.arange(A, device=dev) < pos)[None, :, None]
+    arenas = [torch.where(live, torch.randn((qc.num_layers, A, lanes), generator=gen, device=dev), dead)
+              .to(torch.bfloat16) for _ in range(2)]
+    return (x, ang.cos(), ang.sin(), torch.tensor([pos], dtype=torch.int32, device=dev), *arenas)
+
+
+# Peaked attention for the K7 check: with random keys the softmax over up to
+# 2047 keys is near uniform and the attention output small, which shows a
+# wrong head, chunk or merge only weakly through o_proj. Instead every query head
+# of KV group g gets the q bias K7_GAIN * s_g (s_g a random +-1 vector over
+# d), and group g's arena holds, at 3 known live rows (first chunk, middle,
+# last live row), the key K7_PLANT * rope(s_g) and a value of scale
+# K7_PLANT_V. Their scores are K7_PLANT * K7_GAIN * d / sqrt(d) = 16, against
+# 0.5-scaled random keys whose log-mass is ~10, so each head's attention is
+# ~1/3 on each of its group's planted rows: O(1), from known rows.
+K7_GAIN, K7_PLANT, K7_PLANT_V, K7_KEY_SCALE = 4.0, 0.5, 3.0, 0.5
+
+
+def _k7_peaked(torch, qc, W, A, pos, gen):
+    """(inputs, weights) of a K7 case with peaked attention at every layer:
+    K7's inputs as _k7_inputs gives them (NaN in rows >= pos) with the planted
+    rows, and W with the q part of every layer's bias replaced."""
+    L, d, Hkv, dev = qc.num_layers, qc.head_dim, qc.num_kv_heads, gen.device
+    rep = qc.num_heads // Hkv
+    x, cos, sin, p, ka, va = _k7_inputs(torch, qc, A, pos, gen, float("nan"))
+    live = (torch.arange(A, device=dev) < pos)[None, :, None]
+    ka = torch.where(live, ka.float() * K7_KEY_SCALE, ka.float())
+    va = va.float()
+    s = torch.randint(0, 2, (L, Hkv, d), generator=gen, device=dev).float() * 2 - 1
+    s1, s2 = s[..., : d // 2], s[..., d // 2 :]
+    key = torch.cat([s1 * cos - s2 * sin, s2 * cos + s1 * sin], dim=-1) * K7_PLANT  # rope(s_g), [L, Hkv, d]
+    for g in range(Hkv):
+        lanes = slice(g * d, (g + 1) * d)
+        for row in (g, pos // 2 + g, pos - 1 - g):
+            ka[:, row, lanes] = key[:, g]
+            va[:, row, lanes] = torch.randn((L, d), generator=gen, device=dev) * K7_PLANT_V
+    W = dict(W)
+    W["qkv_b"] = W["qkv_b"].clone()
+    W["qkv_b"][:, : qc.num_heads * d] = (K7_GAIN * s).repeat_interleave(rep, dim=1).reshape(L, -1)
+    return (x, cos, sin, p, ka.to(torch.bfloat16), va.to(torch.bfloat16)), W
+
+
+def _hold_k7(tb, label, inputs, W):
+    """Hold K7 against its plain version on one case and return the largest
+    error. Each output row (x_out; k_new and v_new per layer) is held to
+    twice its floor: the larger of what the bf16 roundings move that row (the
+    plain version against the same function unrounded) and one bf16 ulp at
+    the row's largest |reference|. Also checks that K7 repeats bit for bit
+    and reads no arena row >= pos (the same call with those rows zeroed)."""
+    import torch
+
+    x, cos, sin, p, ka, va = inputs
+    A, pos = ka.shape[1], int(p.item())
+    out = tb.int4_decode_layers(*inputs, **W)
+    again = tb.int4_decode_layers(*inputs, **W)
+    live = (torch.arange(A, device=ka.device) < pos)[None, :, None]
+    zero = tb.int4_decode_layers(x, cos, sin, p, torch.where(live, ka, 0), torch.where(live, va, 0), **W)
+    ref = tb.int4_decode_layers_plain(*inputs, **W)
+    exact = tb.int4_decode_layers_plain(*inputs, **W, out_dtype=torch.float32, round_dtype=torch.float32)
+    line, err_max = [], 0.0
+    for name, o, a, z, r, e in zip(("x_out", "k_new", "v_new"), out, again, zero, ref, exact):
+        err = (o.float() - r.float()).abs().amax(-1)
+        rounding = (r.float() - e.float()).abs().amax(-1)
+        tol = 2 * torch.maximum(rounding, K1_TOL_REL / 2 * r.float().abs().amax(-1))
+        worst = int((err / tol).argmax())
+        line.append(f"{name} {err[worst].item():.3e} (tol {tol[worst].item():.3e}, worst of {err.numel()} rows; "
+                    f"roundings move it {rounding[worst].item():.3e})")
+        if not torch.equal(o, a):
+            raise AssertionError(f"K7 {name} does not repeat bit for bit ({label})")
+        if not torch.equal(o, z):
+            raise AssertionError(f"K7 {name} read an arena row >= pos ({label})")
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"K7 {name} disagrees with its plain version ({label}): row {worst} err "
+                                 f"{err[worst].item():.4g}, tol {tol[worst].item():.4g}, "
+                                 f"{(err / tol).max().item():.1f}x the limit")
+        err_max = max(err_max, err.max().item())
+    print(f"K7 {label}: max_abs_err " + ", ".join(line) + "; repeats bit for bit, dead rows unread")
+    return err_max
+
+
+def k7_cases(torch, int4, qc, gen):
+    """K7's check cases at full width: (label, inputs, weights). Random
+    arenas of 512 and 2048 rows at pos 0, 1, 511 and A-1; then peaked
+    attention (_k7_peaked) at A=2048, pos 511 and 2047, over all layers and
+    over layer 0 alone (where x_out moves with the attention by O(1)). NaN in
+    every arena row >= pos, row pos included."""
+    t0 = time.perf_counter()
+    W = _k7_weights(torch, int4, qc, gen)
+    print(f"K7 weights: {qc.num_layers} layers packed on the host in {time.perf_counter() - t0:.1f} s, "
+          f"{_nbytes(*W.values()) / 1e6:.1f} MB stacked")
+    cases = []
+    for A in (512, 2048):
+        for pos in sorted({0, 1, 511, A - 1}):
+            cases.append((f"A={A} pos={pos} random arena", _k7_inputs(torch, qc, A, pos, gen, float("nan")), W))
+    for pos in (511, 2047):
+        inputs, Wp = _k7_peaked(torch, qc, W, 2048, pos, gen)
+        cases.append((f"A=2048 pos={pos} peaked attention, {qc.num_layers} layers", inputs, Wp))
+        cases.append((f"A=2048 pos={pos} peaked attention, layer 0", inputs[:4] + tuple(t[:1] for t in inputs[4:]),
+                      {k: v[:1] for k, v in Wp.items()}))
+    return W, cases
+
+
+def unfused_step(da, int4, qc, x, cos, sin, pos, ka, va, nw1, nw2, qkv_p, qkv_s, qkv_b, o_p, o_s, gu_p, gu_s, d_p,
+                 d_s):
+    """The kernels of the port's per-layer int4p step over a bf16 arena, on
+    K7's inputs: 24 x (K4 qkv, K1 attention, K6 tail) and the 2 K2 row
+    commits (the norms, rope and bias between them are left out: no kernel)."""
+    L, A, lanes = ka.shape
+    Hkv, d = qc.num_kv_heads, qc.head_dim
+    nq = qc.num_heads * d
+    for l in range(L):
+        qkv = int4.int4_gemv(x, qkv_p[l], qkv_s[l])
+        attn = da.gqa_decode_attention(qkv[:, :nq].view(1, qc.num_heads, d), ka[l].view(1, A, Hkv, d),
+                                       va[l].view(1, A, Hkv, d), pos)
+        x = int4.int4_o_mlp(attn.view(1, nq), x, nw2[l], o_p[l], o_s[l], gu_p[l], gu_s[l], d_p[l], d_s[l])
+    rows = pos.expand(L).contiguous()
+    new = qkv[:, nq : nq + lanes].view(1, 1, Hkv, d).expand(L, 1, Hkv, d).contiguous()
+    da.kv_arena_write(ka.view(L, A, Hkv, d), new, rows)
+    da.kv_arena_write(va.view(L, A, Hkv, d), new, rows)
+    return x
+
+
+def check_k7(da, int4, tb, qc, gen):
+    """K7 at full width, B=1, on the cases of k7_cases, each held by
+    _hold_k7. Timed at A=2048, pos=CUR_T beside the unfused route."""
+    import torch
+
+    W, cases = k7_cases(torch, int4, qc, gen)
+    err_max = max(_hold_k7(tb, label, inputs, Wc) for label, inputs, Wc in cases)
+    del cases
+
+    A, pos = 2048, CUR_T
+    inputs = _k7_inputs(torch, qc, A, pos, gen, 0.0)
+    k7_bytes = _nbytes(*W.values(), *inputs[:4]) + 2 * qc.num_layers * pos * inputs[4].shape[-1] * 2 \
+        + _nbytes(inputs[0]) + 2 * qc.num_layers * inputs[4].shape[-1] * 2
+    n = n_sets(k7_bytes, calls_per_step=1)
+    sets = [inputs] + [_k7_inputs(torch, qc, A, pos, gen, 0.0) for _ in range(n - 1)]
+    sets = [s[:4] + tuple(s[4:]) + tuple(W.values()) for s in sets]
+    fused = rotate(sets, tb.int4_decode_layers)
+    plain = rotate(sets, tb.int4_decode_layers_plain)
+    unfused = rotate([s[:4] + (s[4].clone(), s[5].clone()) + s[6:] for s in sets],
+                     lambda *a: unfused_step(da, int4, qc, *a))
+    calls = max(n, 4)
+    dev, host = time_fns({"kernel": fused, "plain": plain, "unfused": unfused}, calls)
+    # the same step with no arena key live: what the weights and barriers cost alone
+    no_keys = _k7_inputs(torch, qc, A, 0, gen, 0.0) + tuple(W.values())
+    print(f"K7 at A={A}: {graph_ms(lambda: tb.int4_decode_layers(*no_keys), calls=calls) * 1e3:.2f} us per step at "
+          f"pos 0 (no arena key read), {dev['kernel'] * 1e3:.2f} us at pos {pos}")
+    weight_bytes = sum(W[k].numel() for k in ("qkv_p", "o_p", "gu_p", "d_p"))  # two int4 weights per byte
+    flops = 2 * 2 * weight_bytes + 4 * qc.num_layers * pos * qc.num_heads * qc.head_dim
+    row = kernel_row("int4_decode_layers", "cosyvoice_tpu_torch/csrc/int4_block.cu",
+                     "cosyvoice_tpu/ops/int4_block.py:295", err_max, dev, *bound(k7_bytes, flops))
+    row["unfused"] = {"ms": dev["unfused"], "host_ms": host["unfused"]}
+    return row, {k: v for k, v in host.items() if k != "unfused"}, n
+
+
 def phase_kernels(cfg):
     """Hold every kernel against its plain version; time all three ways."""
     import torch
 
-    from cosyvoice_tpu_torch.ops import decode_attention as da, int4_fused as int4
+    from cosyvoice_tpu_torch.ops import decode_attention as da, int4_block as tb, int4_fused as int4
 
     qc = cfg.qwen
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = {"K1": lambda: check_k1(da, qc, gen), "K2": lambda: check_k2(da, qc, gen),
               "K3": lambda: check_k3(da, qc, gen), "K4": lambda: check_k4(int4, qc, gen),
-              "K6": lambda: check_k6(int4, qc, gen)}
+              "K6": lambda: check_k6(int4, qc, gen), "K7": lambda: check_k7(da, int4, tb, qc, gen)}
     kernels = {}
     for key, check in checks.items():
         row, host, n = check()
@@ -490,20 +695,29 @@ def phase_kernels(cfg):
             r8 = row.pop("int8")
             print(f"{key} int8 rows: device {r8['ms'] * 1e3:.2f} us, plain {r8['plain_ms'] * 1e3:.2f} us, "
                   f"library {r8['library_ms'] * 1e3:.2f} us, bound {r8['bound_ms'] * 1e3:.5f} us")
+        if "unfused" in row:
+            u = row.pop("unfused")
+            print(f"{key} against the port's unfused route for the same step, 24 x (K4 + K1 + K6) + 2 K2: device "
+                  f"{u['ms'] * 1e3:.2f} us per step (K7 {row['ms'] * 1e3:.2f} us, {u['ms'] / row['ms']:.2f}x), "
+                  f"eager host rate {u['host_ms'] * 1e3:.2f} us")
         torch.cuda.empty_cache()
     return kernels
 
 
 def _counters():
-    from cosyvoice_tpu_torch.ops import decode_attention as da, int4_fused as int4
+    from cosyvoice_tpu_torch.ops import decode_attention as da, int4_block as tb, int4_fused as int4
 
     return {"K1": da.gqa_decode_attention, "K2": da.kv_arena_write, "K3": da.gqa_decode_attention_quant,
-            "K4": int4.int4_gemv, "K6": int4.int4_o_mlp}
+            "K4": int4.int4_gemv, "K6": int4.int4_o_mlp, "K7": tb.int4_decode_layers}
 
 
-# kernel launches per decode step of the 24-layer LM, per engine
-PER_STEP = {"bf16": {"K1": 24, "K2": 48, "K3": 0, "K4": 0, "K6": 0},
-            "int4p": {"K1": 0, "K2": 48, "K3": 24, "K4": 24, "K6": 24}}
+# kernel launches per decode step of the 24-layer LM, per route: the
+# per-layer step of each engine, and the fused step (K7) of int4p over a
+# bf16 arena while the arena holds at most 2048 rows
+PER_STEP = {"bf16": {"K1": 24, "K2": 48, "K3": 0, "K4": 0, "K6": 0, "K7": 0},
+            "int4p": {"K1": 0, "K2": 48, "K3": 24, "K4": 24, "K6": 24, "K7": 0},
+            "int4p_bf16": {"K1": 24, "K2": 48, "K3": 0, "K4": 24, "K6": 24, "K7": 0},
+            "fused": {"K1": 0, "K2": 2, "K3": 0, "K4": 0, "K6": 0, "K7": 1}}
 
 
 def build_engine(lm_cfg):
@@ -526,10 +740,9 @@ def build_engine(lm_cfg):
     return eng
 
 
-def phase_slice(eng, per_step, text_lens=(16, 32, 48), n_prompt_speech=50, n_prompt_mel=100):
-    """Serve offline requests through CosyVoice2Engine.tts; check each wav and
-    that every decode step launched each kernel `per_step[key]` times.
-    Returns (prompt, requests, launches)."""
+def _requester(eng, n_prompt_speech=50, n_prompt_mel=100):
+    """A fixed prompt from seed 0 and request(n_text) -> (text, out), one
+    offline `tts` call with random text ids."""
     import numpy as np
 
     c = eng.lm.cfg
@@ -544,35 +757,107 @@ def phase_slice(eng, per_step, text_lens=(16, 32, 48), n_prompt_speech=50, n_pro
         (out,) = list(eng.tts(text, prompt_text, prompt_speech, prompt_speech, prompt_mel, emb, stream=False))
         return text, out
 
-    request(4)  # warm-up: first launches, cuDNN algorithm choice; not counted
+    return (prompt_text, prompt_speech), request
+
+
+def _zero_counts(eng):
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
-    eng.lm.decode_steps = 0
-    reqs = []
-    for n_text in text_lens:
-        eng.timer.reset()
-        t = time.perf_counter()
-        text, out = request(n_text)
-        wall = time.perf_counter() - t
-        wav, toks = out["tts_speech"], out["speech_tokens"]
-        if not np.isfinite(wav).all():
-            raise AssertionError(f"request text={n_text}: non-finite wav")
-        if wav.shape != (1, len(toks) * 2 * 480):
-            raise AssertionError(f"request text={n_text}: wav {wav.shape} for {len(toks)} tokens")
-        lm_s, t2w_s = eng.timer.records["lm"][-1], sum(eng.timer.records["t2w"])
-        audio_s = wav.shape[1] / 24000
-        rtf = f"{wall / audio_s:.4f}" if audio_s else "n/a (no audio)"
-        print(f"request text={n_text}: {len(toks)} tokens, LM {len(toks) / lm_s:.1f} tok/s ({lm_s * 1e3:.0f} ms), "
-              f"flow+HiFT {t2w_s * 1e3:.1f} ms, audio {audio_s:.2f} s, wall {wall * 1e3:.0f} ms, RTF {rtf}")
-        reqs.append((text, toks))
+    eng.lm.decode_steps = eng.lm.fused_steps = 0
+    return counters
+
+
+def _serve(eng, request, n_text):
+    """One request, timed and checked: a finite wav of n_tokens * 2 * 480
+    samples. Returns (text, tokens)."""
+    import numpy as np
+
+    eng.timer.reset()
+    t = time.perf_counter()
+    text, out = request(n_text)
+    wall = time.perf_counter() - t
+    wav, toks = out["tts_speech"], out["speech_tokens"]
+    if not np.isfinite(wav).all():
+        raise AssertionError(f"request text={n_text}: non-finite wav")
+    if wav.shape != (1, len(toks) * 2 * 480):
+        raise AssertionError(f"request text={n_text}: wav {wav.shape} for {len(toks)} tokens")
+    lm_s, t2w_s = eng.timer.records["lm"][-1], sum(eng.timer.records["t2w"])
+    audio_s = wav.shape[1] / 24000
+    rtf = f"{wall / audio_s:.4f}" if audio_s else "n/a (no audio)"
+    print(f"request text={n_text}: {len(toks)} tokens, LM {len(toks) / lm_s:.1f} tok/s ({lm_s * 1e3:.0f} ms), "
+          f"flow+HiFT {t2w_s * 1e3:.1f} ms, audio {audio_s:.2f} s, wall {wall * 1e3:.0f} ms, RTF {rtf}")
+    return text, toks
+
+
+def _check_launches(eng, counters, per_step):
+    """Every decode step launched each kernel per_step[key] times, and every
+    fused step (K7) PER_STEP["fused"][key] times. Returns the launches."""
     launches = {key: fn.launches for key, fn in counters.items()}
-    steps = eng.lm.decode_steps
-    print(f"decode steps {steps}: launches " + ", ".join(
-        f"{k} {n} (want {per_step[k] * steps})" for k, n in launches.items()))
-    if steps == 0 or any(n != per_step[k] * steps for k, n in launches.items()):
+    steps, fused = eng.lm.decode_steps, eng.lm.fused_steps
+    want = {k: per_step[k] * (steps - fused) + PER_STEP["fused"][k] * fused for k in launches}
+    print(f"decode steps {steps} ({fused} through K7): launches " + ", ".join(
+        f"{k} {n} (want {want[k]})" for k, n in launches.items()))
+    if steps == 0 or launches != want:
         raise AssertionError("the decode steps did not all go through their kernels")
-    return (prompt_text, prompt_speech), reqs, launches
+    return launches
+
+
+def phase_slice(eng, per_step, text_lens=(16, 32, 48)):
+    """Serve offline requests through CosyVoice2Engine.tts; check each wav and
+    that every decode step launched each kernel `per_step[key]` times (K7's
+    steps: PER_STEP["fused"]). Returns (prompt, requests, launches)."""
+    prompt, request = _requester(eng)
+    request(4)  # warm-up: first launches, cuDNN algorithm choice; not counted
+    counters = _zero_counts(eng)
+    reqs = [_serve(eng, request, n_text) for n_text in text_lens]
+    return prompt, reqs, _check_launches(eng, counters, per_step)
+
+
+def phase_cross(eng, text_len=16, n_prompt=1920, attempts=6):
+    """Requests of the int4p LM over a bf16 arena whose arena grows past K7's
+    MAX_FUSED_ARENA rows: a voice prompt that makes the LM prompt n_prompt
+    tokens long starts the arena at 2048 rows, so the fourth block of 28
+    tokens is the last through K7 and the fifth grows the arena to 2560 rows
+    and takes the per-layer kernels. Random weights can sample a stop id
+    before that (only eos is held back until min_len), so up to `attempts`
+    requests with fresh text are served, each printed, until one crosses.
+    Checks that request's blocks, steps and launches. Returns its launches."""
+    from cosyvoice_tpu_torch.ops.int4_block import MAX_FUSED_ARENA
+
+    lm = eng.lm
+    _, request = _requester(eng, n_prompt_speech=n_prompt - 12 - text_len)
+    routes, pack = [], lm._decode_pack
+
+    def recorded(cache):
+        stacked = pack(cache)
+        routes.append((cache[0].shape[2], stacked is not None))
+        return stacked
+
+    lm._decode_pack = recorded
+    try:
+        for attempt in range(attempts):
+            counters = _zero_counts(eng)
+            routes.clear()
+            _serve(eng, request, text_len)
+            if not all(f for _, f in routes):
+                break
+            print(f"attempt {attempt + 1}: the stream stopped after {len(routes)} blocks, all through K7; next text")
+    finally:
+        del lm._decode_pack
+    launches = _check_launches(eng, counters, PER_STEP["int4p_bf16"])
+    n_fused = sum(f for _, f in routes)
+    print(f"{len(routes)} blocks: {n_fused} through K7 over arenas of {sorted({a for a, f in routes if f})} rows, "
+          f"then {len(routes) - n_fused} through K4 + K1 + K6 over arenas of {sorted({a for a, f in routes if not f})} "
+          f"rows; steps {lm.fused_steps} fused + {lm.decode_steps - lm.fused_steps} per-layer = {lm.decode_steps}")
+    if not 0 < n_fused < len(routes):
+        raise AssertionError(f"no request crossed the route switch in {attempts} attempts: {routes}")
+    if [f for _, f in routes] != [True] * n_fused + [False] * (len(routes) - n_fused) or any(
+            f != (a <= MAX_FUSED_ARENA) for a, f in routes):
+        raise AssertionError(f"blocks took the wrong route for their arena: {routes}")
+    if lm.fused_steps != n_fused * lm.cfg.block_size or lm.decode_steps != len(routes) * lm.cfg.block_size:
+        raise AssertionError("step counts do not match the blocks' routes")
+    return launches
 
 
 def phase_check(eng, prompt, reqs, tol, n_tokens=96):
@@ -581,15 +866,18 @@ def phase_check(eng, prompt, reqs, tol, n_tokens=96):
     prefill over the whole sequence (plain attention, over the dequantised
     rows when the arena is int8): relative L2 error after the first and
     after the last step. Plain decode against the prefill is the floor: the
-    bf16 drift of two paths with exact attention."""
+    bf16 drift of two paths with exact attention. The decode takes the route
+    `generate` takes for an arena of that length (K7 for int4p over a bf16
+    arena)."""
     import numpy as np
     import torch
 
-    from cosyvoice_tpu_torch.models import qwen2
+    from cosyvoice_tpu_torch.models import llm, qwen2
     from cosyvoice_tpu_torch.models.llm import TYPE_SPECIAL, TYPE_SPEECH, TYPE_TEXT
-    from cosyvoice_tpu_torch.ops import decode_attention as da, int4_fused as int4
+    from cosyvoice_tpu_torch.ops import decode_attention as da, int4_block as tb, int4_fused as int4
 
-    c, m, dev = eng.lm.cfg, eng.lm.module, eng.device
+    lm, m, dev = eng.lm, eng.lm.module, eng.device
+    c = lm.cfg
     prompt_text, prompt_speech = prompt
     text, toks = max(reqs, key=lambda r: len(r[1]))
     toks = np.asarray(toks[:n_tokens], np.int64)
@@ -599,18 +887,23 @@ def phase_check(eng, prompt, reqs, tol, n_tokens=96):
     types = np.concatenate([[TYPE_SPECIAL], np.full(len(prompt_text) + len(text), TYPE_TEXT), [TYPE_SPECIAL],
                             np.full(len(prompt_speech), TYPE_SPEECH)]).astype(np.int64)
     T, n = len(ids), len(toks)
+    arena = lm.arena_bucket(T + n + 1)
 
     def prefill(i, t):
         return m.prefill(torch.as_tensor(i[None], device=dev), torch.as_tensor(t[None], device=dev),
-                         torch.tensor([len(i)], device=dev), eng.lm.init_cache(1))
+                         torch.tensor([len(i)], device=dev), lm.init_cache(1, arena))
 
     def decode_logits():
         """Logits after the first and after the last decode step."""
         logits, cache = prefill(ids, types)
+        stacked = lm._decode_pack(cache)
         seen = []
         for i, t in enumerate(toks):
-            logits, cache = m.decode_step(torch.tensor([int(t)], device=dev),
-                                          torch.tensor([T + i], dtype=torch.int32, device=dev), cache)
+            tok, cur = torch.tensor([int(t)], device=dev), torch.tensor([T + i], dtype=torch.int32, device=dev)
+            if stacked is None:
+                logits, cache = m.decode_step(tok, cur, cache)
+            else:
+                logits, cache = m.decode_step_fused(tok, cur, cache, stacked)
             if i in (0, n - 1):
                 seen.append(logits)
         return seen[0], seen[-1]
@@ -619,32 +912,74 @@ def phase_check(eng, prompt, reqs, tol, n_tokens=96):
         logits, _ = prefill(np.concatenate([ids, toks[:k]]), np.concatenate([types, np.full(k, TYPE_SPEECH)]))
         return logits
 
-    plain_fns = {"gqa_decode_attention": da.gqa_decode_attention_plain, "kv_arena_write": da.kv_arena_write_plain,
-                 "gqa_decode_attention_quant": da.gqa_decode_attention_quant_plain,
-                 "int4_gemv": int4.int4_gemv_plain, "int4_o_mlp": int4.int4_o_mlp_plain}
+    plain_fns = [(qwen2, "gqa_decode_attention", da.gqa_decode_attention_plain),
+                 (qwen2, "kv_arena_write", da.kv_arena_write_plain),
+                 (qwen2, "gqa_decode_attention_quant", da.gqa_decode_attention_quant_plain),
+                 (qwen2, "int4_gemv", int4.int4_gemv_plain), (qwen2, "int4_o_mlp", int4.int4_o_mlp_plain),
+                 (llm, "int4_decode_layers", tb.int4_decode_layers_plain), (llm, "kv_arena_write", da.kv_arena_write_plain)]
     with torch.inference_mode():
+        route = "K7" if lm._decode_pack(lm.init_cache(1, arena)) is not None else "the per-layer kernels"
         kern = decode_logits()
-        saved = {name: getattr(qwen2, name) for name in plain_fns}
-        for name, fn in plain_fns.items():
-            setattr(qwen2, name, fn)
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in plain_fns]
+        for mod, name, fn in plain_fns:
+            setattr(mod, name, fn)
         try:
             plain = decode_logits()
         finally:
-            for name, fn in saved.items():
-                setattr(qwen2, name, fn)
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
         full = full_logits(1), full_logits(n)
 
-    def rel(a, b):
-        return ((a.float() - b.float()).norm() / b.float().norm()).item()
-
-    e_plain, e_floor, e_full = ([rel(a[j], b[j]) for j in (0, 1)] for a, b in ((kern, plain), (plain, full),
-                                                                              (kern, full)))
-    print(f"LM logits rel L2 after 1 / {n} decode steps: kernel vs plain decode {e_plain[0]:.2e} / {e_plain[1]:.2e} "
-          f"(tol {tol}); floor, plain decode vs one prefill {e_floor[0]:.2e} / {e_floor[1]:.2e}; "
-          f"kernel vs one prefill {e_full[0]:.2e} / {e_full[1]:.2e} (tol {tol}); argmax after {n} "
+    e_plain, e_floor, e_full = ([_rel(a[j], b[j]) for j in (0, 1)] for a, b in ((kern, plain), (plain, full),
+                                                                               (kern, full)))
+    print(f"LM logits rel L2 after 1 / {n} decode steps through {route} (arena {arena} rows): kernel vs plain decode "
+          f"{e_plain[0]:.2e} / {e_plain[1]:.2e} (tol {tol}); floor, plain decode vs one prefill {e_floor[0]:.2e} / "
+          f"{e_floor[1]:.2e}; kernel vs one prefill {e_full[0]:.2e} / {e_full[1]:.2e} (tol {tol}); argmax after {n} "
           f"agrees: {int(kern[1].argmax()) == int(plain[1].argmax())}, {int(kern[1].argmax()) == int(full[1].argmax())}")
     if not max(e_plain + e_full) <= tol:
         raise AssertionError("LM decode through the kernels disagrees with the plain path")
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def phase_routes(eng, tol, positions=(100, 2040)):
+    """K7's step against the per-layer step (K4 + K1 + K6 and 2 K2 per layer)
+    for the same token over the same arena, a prefilled prompt of `pos`
+    tokens in an arena of MAX_FUSED_ARENA rows: logits' relative L2, argmax
+    agreement and the committed rows. The routes differ by bf16 roundings
+    (K7 keeps qkv and the self term's k, v in f32; the per-layer step rounds
+    qkv to bf16 and attends over the committed bf16 row), held to `tol`."""
+    import numpy as np
+    import torch
+
+    from cosyvoice_tpu_torch.models.llm import TYPE_SPECIAL, TYPE_SPEECH, TYPE_TEXT
+    from cosyvoice_tpu_torch.ops.int4_block import MAX_FUSED_ARENA
+
+    lm, m, dev = eng.lm, eng.lm.module, eng.device
+    c = lm.cfg
+    rng = np.random.default_rng(1)
+    for pos in positions:
+        n_text = 20
+        ids = np.concatenate([[c.sos_id], rng.integers(0, c.qwen.vocab_size, n_text), [c.task_id],
+                              rng.integers(0, c.speech_token_size, pos - n_text - 2)]).astype(np.int64)
+        types = np.concatenate([[TYPE_SPECIAL], np.full(n_text, TYPE_TEXT), [TYPE_SPECIAL],
+                                np.full(pos - n_text - 2, TYPE_SPEECH)]).astype(np.int64)
+        tok = torch.tensor([int(rng.integers(0, c.speech_token_size))], device=dev)
+        cur = torch.tensor([pos], dtype=torch.int32, device=dev)
+        with torch.inference_mode():
+            _, cache = m.prefill(torch.as_tensor(ids[None], device=dev), torch.as_tensor(types[None], device=dev),
+                                 torch.tensor([pos], device=dev), lm.init_cache(1, MAX_FUSED_ARENA))
+            stacked = lm._decode_pack(cache)
+            fused, cf = m.decode_step_fused(tok, cur, [t.clone() for t in cache], stacked)
+            per_layer, cp = m.decode_step(tok, cur, [t.clone() for t in cache])
+        rel, rows = _rel(fused, per_layer), max(_rel(a[:, :, pos], b[:, :, pos]) for a, b in zip(cf, cp))
+        same = int(fused.argmax()) == int(per_layer.argmax())
+        print(f"pos {pos}: K7 step vs K4 + K1 + K6 step, logits rel L2 {rel:.2e} (tol {tol}), argmax agrees: {same}; "
+              f"committed K/V rows rel L2 {rows:.2e}")
+        if not rel <= tol:
+            raise AssertionError(f"K7's step and the per-layer step disagree at pos {pos}: {rel}")
 
 
 def main(argv):
@@ -665,14 +1000,27 @@ def main(argv):
         kernels = phase_kernels(LMConfig())
     launches = dict.fromkeys(kernels, 0)
     bf16_cfg = LMConfig()
-    int4p_cfg = dataclasses.replace(bf16_cfg, qwen=dataclasses.replace(bf16_cfg.qwen, quant="int4p", kv_quant=True))
+
+    def lm_cfg(**qwen):
+        return dataclasses.replace(bf16_cfg, qwen=dataclasses.replace(bf16_cfg.qwen, **qwen))
+
     for suffix, cfg, per_step, tol in (("", bf16_cfg, PER_STEP["bf16"], LOGIT_TOL),
-                                       ("_int4p", int4p_cfg, PER_STEP["int4p"], LOGIT_TOL_INT4P)):
+                                       ("_int4p", lm_cfg(quant="int4p", kv_quant=True), PER_STEP["int4p"],
+                                        LOGIT_TOL_INT4P),
+                                       ("_int4p_bf16", lm_cfg(quant="int4p"), PER_STEP["int4p_bf16"],
+                                        LOGIT_TOL_INT4P_BF16)):
         with Phase("slice" + suffix):
             eng = build_engine(cfg)
             prompt, reqs, counts = phase_slice(eng, per_step)
+            if suffix == "_int4p_bf16":
+                if eng.lm.fused_steps != eng.lm.decode_steps:
+                    raise AssertionError("a decode step over an arena of at most 2048 rows did not take K7")
+                for key, n in phase_cross(eng).items():
+                    counts[key] += n
         with Phase("check" + suffix):
             phase_check(eng, prompt, reqs, tol)
+            if suffix == "_int4p_bf16":
+                phase_routes(eng, tol)
         for key, n in counts.items():
             launches[key] += n
         del eng

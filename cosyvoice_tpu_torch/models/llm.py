@@ -8,11 +8,16 @@ bookkeeping) stays on the device, and the host fetches the tokens once per
 block, as the JAX version does with one lax.scan per block.
 
 Ported: the v2 layout (sos/task in `llm_embedding`), `generate` with the
-min_len eos suppression, max_len and stop ids, and the quantised LM of
-`Qwen2Config(quant="int4p", kv_quant=True)` (int4p body, int8 head, int8 KV
-arena) or `kv_quant=True` alone. Not ported yet: bistream, the v3 layout,
-temperature and repetition penalty, continuous batching, the int8 and int4
-weight modes, and int4p with a bf16 arena (the whole-step kernel K7).
+min_len eos suppression, max_len and stop ids, the arena growth of the JAX
+LM (it starts at `arena_bucket(pad_T + block_size + 1)` rows and grows in
+ARENA_BUCKET steps before each block), and the three LM configurations of
+`Qwen2Config`: bf16 weights and arena; `quant="int4p"` (int4p body, int8
+head) with a bf16 arena, whose B=1 decode step runs the whole-step kernel
+K7 (`decode_step_fused`) while the arena holds at most
+ops/int4_block.MAX_FUSED_ARENA rows, and the per-layer kernels past that;
+and `kv_quant=True` (int8 arena), with int4p or bf16 weights. Not ported
+yet: bistream, the v3 layout, temperature and repetition penalty,
+continuous batching, and the int8 and int4 weight modes.
 """
 
 import logging
@@ -22,7 +27,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from cosyvoice_tpu_torch.models.qwen2 import QuantDense, Qwen2Config, Qwen2Model
+from cosyvoice_tpu_torch.models.qwen2 import QuantDense, Qwen2Config, Qwen2Model, grow_cache
+from cosyvoice_tpu_torch.ops import int4_block
+from cosyvoice_tpu_torch.ops.decode_attention import kv_arena_write
+from cosyvoice_tpu_torch.ops.int4_block import int4_decode_layers, stack_decode_params
 from cosyvoice_tpu_torch.ops.sampling import NEG_INF, ras_sampling_batch
 from cosyvoice_tpu_torch.utils.devices import resolve_device
 
@@ -99,19 +107,72 @@ class Qwen2LMModule(nn.Module):
         hidden, cache = self.llm.decode_step(emb, cur_len, cache)
         return self._head(hidden), cache
 
+    def decode_step_fused(self, token, cur_len, cache, stacked):
+        """The B=1 int4p decode step over a bf16 arena through K7: every layer
+        in one launch, then the two new rows of all layers committed with K2
+        over the [L, T, Hkv, d] view of the arena (pos repeated per layer).
+        token [1]; cur_len [1] int32 write position; `stacked` from
+        stack_decode_params. Returns (logits [1, head] f32, cache)."""
+        q = self.cfg.qwen
+        emb = self.speech_embedding(token.long().clamp_max(self.cfg.head_size - 1))  # [1, C]
+        pos = cur_len.long()
+        k_all, v_all = cache
+        L, _, A, Hkv, d = k_all.shape
+        xo, k_new, v_new = int4_decode_layers(
+            emb.to(q.dtype), self.llm.rope_cos[pos], self.llm.rope_sin[pos], cur_len,
+            k_all.view(L, A, Hkv * d), v_all.view(L, A, Hkv * d), **stacked, eps=q.rms_norm_eps, out_dtype=q.dtype,
+        )
+        rows = cur_len.expand(L).contiguous()
+        kv_arena_write(k_all.view(L, A, Hkv, d), k_new.view(L, 1, Hkv, d), rows)
+        kv_arena_write(v_all.view(L, A, Hkv, d), v_new.view(L, 1, Hkv, d), rows)
+        return self._head(self.llm.norm(xo)), cache
+
 
 class Qwen2LM:
     """Orchestrator: prefill + blockwise decode on `device`."""
+
+    ARENA_BUCKET = 512  # KV arena lengths are multiples of this
 
     def __init__(self, cfg: LMConfig = LMConfig(), device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
         with torch.device(self.device):
             self.module = Qwen2LMModule(cfg).eval()
-        self.decode_steps = 0  # decode_step calls made by generate (one per token slot)
+        self.decode_steps = 0  # decode steps made by generate (one per token slot)
+        self.fused_steps = 0  # those of them that went through decode_step_fused (K7)
+        self._pack = None  # (key of the layer parameters, stacked K7 weights)
 
-    def init_cache(self, batch: int = 1):
-        return self.module.llm.init_cache(batch)
+    def init_cache(self, batch: int = 1, length: int = None):
+        return self.module.llm.init_cache(batch, length)
+
+    def arena_bucket(self, need: int) -> int:
+        """Smallest arena length covering `need` positions: a multiple of
+        ARENA_BUCKET, at most max_cache_len (the JAX LM's rule)."""
+        b = self.ARENA_BUCKET
+        return min(-(-need // b) * b, self.cfg.qwen.max_cache_len)
+
+    grow_cache = staticmethod(grow_cache)
+
+    def _decode_pack(self, cache):
+        """The stacked weights for decode_step_fused (K7), or None where the
+        step takes the per-layer kernels: the JAX LM's gate (int4p, a bf16
+        arena, B=1, an arena of at most MAX_FUSED_ARENA rows, qkv width and
+        Hkv*d multiples of 128), decided per block from the arena's length.
+        The stack (~206 MB at full width) is built once and rebuilt when any
+        layer parameter has changed since (a load bumps their versions)."""
+        q = self.cfg.qwen
+        lanes = q.num_kv_heads * q.head_dim
+        if (
+            q.quant != "int4p" or q.kv_quant or cache[0].shape[1] != 1
+            or cache[0].shape[2] > int4_block.MAX_FUSED_ARENA
+            or (q.num_heads * q.head_dim + 2 * lanes) % 128 or lanes % 128
+        ):
+            return None
+        layers = self.module.llm.layers
+        key = tuple((p.data_ptr(), p._version) for p in layers.parameters())
+        if self._pack is None or self._pack[0] != key:
+            self._pack = (key, stack_decode_params(layers))
+        return self._pack[1]
 
     def _sample(self, generator, logits, n_dec, recent, min_len):
         c = self.cfg
@@ -125,8 +186,9 @@ class Qwen2LM:
             top_p=c.top_p, top_k=c.top_k, win_size=c.win_size, tau_r=c.tau_r,
         )
 
-    def _decode_block(self, generator, cache, cur, logits, recent, n_dec, min_len, fin):
-        """Decode cfg.block_size token slots on the device. Rows that stopped keep
+    def _decode_block(self, generator, cache, cur, logits, recent, n_dec, min_len, fin, stacked):
+        """Decode cfg.block_size token slots on the device, through
+        decode_step_fused when `stacked` is given. Rows that stopped keep
         emitting eos and stop advancing. Returns (tokens [B, block], logits,
         cur, recent, n_dec, fin)."""
         c = self.cfg
@@ -138,7 +200,11 @@ class Qwen2LM:
             fin_next = fin | stop_now
             recent = torch.where(fin[:, None], recent, torch.cat([recent[:, 1:], tok[:, None]], dim=1))
             n_dec = torch.where(fin, n_dec, n_dec + 1)
-            logits, cache = self.module.decode_step(tok_out, cur, cache)
+            if stacked is not None:
+                logits, cache = self.module.decode_step_fused(tok_out, cur, cache, stacked)
+                self.fused_steps += 1
+            else:
+                logits, cache = self.module.decode_step(tok_out, cur, cache)
             self.decode_steps += 1
             cur = cur + (~fin).to(cur.dtype)
             fin = fin_next
@@ -152,8 +218,9 @@ class Qwen2LM:
         c = self.cfg
         dev = self.device
         T = len(prompt_ids)
-        # the JAX version pads the prompt to this bucket; the arena capacity
-        # guard below uses the same padded length so max_len clamps alike
+        # the JAX version pads the prompt to this bucket; the capacity guard
+        # and the first arena use the same padded length, so max_len clamps
+        # and the arena grows alike
         bucket = min(128, max(c.qwen.max_cache_len // 4, 8))
         pad_T = ((T + bucket - 1) // bucket) * bucket
         capacity = ((c.qwen.max_cache_len - pad_T - 1) // c.block_size) * c.block_size
@@ -165,7 +232,7 @@ class Qwen2LM:
             max_len = max(capacity, 0)
             min_len = min(min_len, max_len)
 
-        cache = self.init_cache(1)
+        cache = self.init_cache(1, self.arena_bucket(pad_T + c.block_size + 1))
         ids = torch.as_tensor(np.asarray(prompt_ids, np.int64)[None], device=dev)
         types = torch.as_tensor(np.asarray(prompt_types, np.int64)[None], device=dev)
         logits, cache = self.module.prefill(ids, types, torch.tensor([T], device=dev), cache)
@@ -176,11 +243,14 @@ class Qwen2LM:
         min_l = torch.tensor([min_len], dtype=torch.int32, device=dev)
 
         produced = 0
+        cur_host = T  # host mirror of the worst-case write position
         stop_seen = False
         while produced < max_len and not stop_seen:
+            cache = self.grow_cache(cache, self.arena_bucket(cur_host + c.block_size + 1))
             tokens, logits, cur, recent, n_dec, fin = self._decode_block(
-                generator, cache, cur, logits, recent, n_dec, min_l, fin
+                generator, cache, cur, logits, recent, n_dec, min_l, fin, self._decode_pack(cache)
             )
+            cur_host += c.block_size
             toks = tokens[0].to(torch.int32).cpu().numpy()  # the one host sync per block
             stop_idx = np.nonzero(toks >= c.speech_token_size)[0]
             if len(stop_idx):

@@ -5,7 +5,7 @@ the int4p weight-only layouts (`Qwen2Config(quant="int4p")`), each with a
 bf16 or an int8 KV arena (`kv_quant`):
 
 - fused qkv projection with bias, fused gate|up projection;
-- a preallocated KV arena [L, B, T, Hkv, d] per K and V, updated in place
+- a KV arena [L, B, T, Hkv, d] per K and V, updated in place
   (the JAX version returns updated arrays; here the arena is mutated); with
   kv_quant the arena is int8 with per-token f32 scales [L, B, T] per K and V
   (`ops/decode_attention.quantize_kv_rows`);
@@ -17,8 +17,11 @@ bf16 or an int8 KV arena (`kv_quant`):
   and its whole post-attention tail, o_proj + residual + RMSNorm + MLP +
   residual, is K6 (int4_o_mlp); prefill runs the plain blocked int4
   matmuls (int4_matmul_blocked, int4_mlp_reference), as the JAX package
-  runs XLA there. int4p with a bf16 arena runs the whole-step kernel K7 in
-  the JAX package; the port refuses that configuration until K7 is ported.
+  runs XLA there. With a bf16 arena at B=1 and at most
+  ops/int4_block.MAX_FUSED_ARENA rows, the LM (models/llm.py) decodes
+  through the whole-step kernel K7 instead of `decode_step`;
+- the arena's length is the caller's (`init_cache(batch, length)`), grown
+  with zeros by `grow_cache` as the JAX LM grows it.
 
 Routing is by shape: the decode step (one token per row) calls the kernel
 wrappers, which run the kernels on CUDA tensors and their plain versions on
@@ -73,6 +76,21 @@ class Qwen2Config:
     dtype: torch.dtype = torch.bfloat16
     quant: object = False  # weight-only quantisation: False | "int4p"
     kv_quant: bool = False  # int8 KV arena with per-token f32 scales
+
+
+def grow_cache(cache, new_len: int):
+    """The arena extended with zero rows to new_len on axis 2 of every leaf
+    ([L, B, T, Hkv, d] K/V and [L, B, T] scale planes), as the JAX LM's
+    grow_cache pads; a new tuple, or `cache` itself if it is long enough."""
+    T = cache[0].shape[2]
+    if new_len <= T:
+        return cache
+    grown = []
+    for a in cache:
+        g = a.new_zeros(a.shape[:2] + (new_len,) + a.shape[3:])
+        g[:, :, :T] = a
+        grown.append(g)
+    return tuple(grown)
 
 
 class RMSNorm(nn.Module):
@@ -283,12 +301,6 @@ class Qwen2Model(nn.Module):
         super().__init__()
         if cfg.quant not in (False, "int4p"):
             raise NotImplementedError(f"Qwen2Config.quant={cfg.quant!r}: the port serves False and 'int4p'")
-        if cfg.quant == "int4p" and not cfg.kv_quant:
-            raise NotImplementedError(
-                "quant='int4p' with a bf16 KV arena decodes through the whole-step kernel K7 "
-                "(cosyvoice_tpu/ops/int4_block.py:int4_decode_layers) in the JAX package; K7 is not "
-                "ported yet (the next slice of the port). Use kv_quant=True, or quant=False."
-            )
         self.cfg = cfg
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, dtype=cfg.dtype)
         self.layers = nn.ModuleList(Qwen2Layer(cfg) for _ in range(cfg.num_layers))
@@ -297,12 +309,12 @@ class Qwen2Model(nn.Module):
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)
 
-    def init_cache(self, batch: int):
-        """Zero KV arenas: (k, v), each [L, B, max_cache_len, Hkv, d] in
-        cfg.dtype; with kv_quant (k, v) in int8 plus (k_scale, v_scale), each
-        [L, B, max_cache_len] float32."""
+    def init_cache(self, batch: int, length: int = None):
+        """Zero KV arenas of `length` rows (default max_cache_len): (k, v),
+        each [L, B, length, Hkv, d] in cfg.dtype; with kv_quant (k, v) in int8
+        plus (k_scale, v_scale), each [L, B, length] float32."""
         c = self.cfg
-        shape = (c.num_layers, batch, c.max_cache_len, c.num_kv_heads, c.head_dim)
+        shape = (c.num_layers, batch, length or c.max_cache_len, c.num_kv_heads, c.head_dim)
         dev = self.norm.weight.device
         if c.kv_quant:
             sshape = shape[:3]

@@ -10,8 +10,12 @@ Counterpart of cosyvoice_tpu/runtime/engine.py:CosyVoice2Engine for
    LOG_SILENCE up to the same length bucket as the JAX engine, and vocodes
    with HiFT (which ends in an iSTFT).
 
-The engine takes ids and features; the frontend (text normalisation, BPE,
-S3 tokenizer, CAM++) is not part of it. Streaming, speed change, vc mode,
+The engine serves each LM configuration of models/llm.py: bf16, int4p over
+an int8 arena, and int4p over a bf16 arena (whose decode steps run the
+whole-step kernel K7 while the arena holds at most 2048 rows), e.g.
+`build_random_engine(seed, "cuda", LMConfig(qwen=Qwen2Config(quant="int4p")))`.
+It takes ids and features; the frontend (text normalisation, BPE, S3
+tokenizer, CAM++) is not part of it. Streaming, speed change, vc mode,
 per-request seeds and continuous batching are not ported yet.
 """
 

@@ -1,0 +1,147 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card, at
+small shapes: K1, K2 (bf16 and int8 rows), K3, K4, K6 and K7. No JAX: these
+tests need only torch, numpy and a GPU, and skip inside each test without
+one (the kernels are built with nvcc and have no CPU mode). Run them on a
+card with `python -m pytest tests/test_torch_cuda_kernels.py -m cuda`;
+chip_smoke.py holds the same kernels at full width."""
+
+import numpy as np
+import pytest
+import torch
+
+from cosyvoice_tpu_torch.ops import decode_attention as tda, int4_block as tblock, int4_fused as tint4
+
+pytestmark = pytest.mark.cuda
+
+# two bf16 ulps at the largest |reference|: kernel and plain version each
+# round one f32 result to bf16
+TWO_ULPS = 2**-6
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels are built with nvcc and run only on the GPU")
+
+
+def _err(out, ref):
+    return (out.float() - ref.float()).abs().max().item()
+
+
+def _case(seed, lens, T=64, Hq=14, Hkv=2, d=64, garbage=1e3):
+    """Random q/arenas with the dead region (positions > cur_len) filled with garbage."""
+    rng = np.random.default_rng(seed)
+    B = len(lens)
+    q = rng.standard_normal((B, Hq, d)).astype(np.float32)
+    k = rng.standard_normal((B, T, Hkv, d)).astype(np.float32)
+    v = rng.standard_normal((B, T, Hkv, d)).astype(np.float32)
+    for b, n in enumerate(lens):
+        k[b, n + 1 :] = garbage
+        v[b, n + 1 :] = -garbage
+    return [torch.from_numpy(a).cuda() for a in (q, k, v, np.asarray(lens, np.int32))]
+
+
+def _quant_case(seed, lens, T=64, Hq=14, Hkv=2, d=64):
+    """int8 arenas with per-token scales; the dead region holds the largest
+    int8 value at a huge scale."""
+    rng = np.random.default_rng(seed)
+    B = len(lens)
+    q = rng.standard_normal((B, Hq, d)).astype(np.float32)
+    k = rng.integers(-127, 128, (B, T, Hkv, d)).astype(np.int8)
+    v = rng.integers(-127, 128, (B, T, Hkv, d)).astype(np.int8)
+    ks = rng.uniform(0.002, 0.03, (B, T)).astype(np.float32)
+    vs = rng.uniform(0.002, 0.03, (B, T)).astype(np.float32)
+    for b, n in enumerate(lens):
+        k[b, n + 1 :], v[b, n + 1 :], ks[b, n + 1 :], vs[b, n + 1 :] = 127, -127, 1e3, 1e3
+    return [torch.from_numpy(a).cuda() for a in (q, k, v, ks, vs, np.asarray(lens, np.int32))]
+
+
+def test_cuda_kernels_match_plain():
+    _need_card()
+    q, k, v, cur = _case(4, [0, 27, 63])
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    ref = tda.gqa_decode_attention_plain(q, k, v, cur)
+    assert _err(tda.gqa_decode_attention(q, k, v, cur), ref) <= TWO_ULPS * ref.float().abs().max().item()
+    arena, new = k.clone(), torch.randn(3, 1, 2, 64, device="cuda").bfloat16()
+    assert torch.equal(
+        tda.kv_arena_write(arena.clone(), new, cur), tda.kv_arena_write_plain(arena.clone(), new, cur)
+    )
+    # K3: float32 in and out, the same limit
+    args = _quant_case(8, [0, 27, 63])
+    ref = tda.gqa_decode_attention_quant_plain(*args)
+    assert _err(tda.gqa_decode_attention_quant(*args), ref) <= TWO_ULPS * ref.abs().max().item()
+    # int8 K2: exact
+    arena8, new8 = args[1].clone(), torch.randint(-127, 128, (3, 1, 2, 64), device="cuda", dtype=torch.int8)
+    assert torch.equal(
+        tda.kv_arena_write(arena8.clone(), new8, args[-1]), tda.kv_arena_write_plain(arena8.clone(), new8, args[-1])
+    )
+    # K4 and K6 in bf16 at the full-width shapes: both accumulate in float32
+    # and round at the same points; limits of two bf16 ulps at the largest
+    # |reference| (K4) and four (K6, where a flipped rounding of h2 or
+    # silu(g)*u carries through the next product)
+    rng = np.random.default_rng(9)
+    w = lambda *sh: rng.standard_normal(sh).astype(np.float32) * 0.05  # noqa: E731
+    wq = [torch.from_numpy(a).cuda() for a in (
+        *tint4.pack_gemv_int4(w(896, 1152)), *tint4.pack_gemv_int4(w(896, 896)),
+        *tint4.pack_gate_up_int4(w(896, 2 * 4864)), *tint4.pack_down_int4(w(4864, 896)))]
+    for B in (1, 16):
+        x = torch.randn(B, 896, device="cuda").bfloat16()
+        out, ref = tint4.int4_gemv(x, *wq[:2]), tint4.int4_gemv_plain(x, *wq[:2])
+        assert _err(out, ref) <= TWO_ULPS * ref.float().abs().max().item()
+    attn, x = torch.randn(1, 896, device="cuda"), torch.randn(1, 896, device="cuda").bfloat16()
+    nw = torch.ones(896, device="cuda")
+    out, ref = tint4.int4_o_mlp(attn, x, nw, *wq[2:]), tint4.int4_o_mlp_plain(attn, x, nw, *wq[2:])
+    torch.cuda.synchronize()
+    assert _err(out, ref) <= 2**-5 * ref.float().abs().max().item()
+
+
+def _k7_case(seed, L=2, H=384, n_heads=6, n_kv=2, d=64, inter=448, A=64):
+    """Stacked int4 weights packed by the port's packers, a bf16 input row and
+    a bf16 arena: the tiny widths of the CPU parity tests."""
+    rng = np.random.default_rng(seed)
+    lanes, nqkv = n_kv * d, (n_heads + 2 * n_kv) * d
+    layers = []
+    for _ in range(L):
+        qp, qs = tint4.pack_gemv_int4(rng.standard_normal((H, nqkv)).astype(np.float32) * 0.05)
+        op, osc = tint4.pack_gemv_int4(rng.standard_normal((n_heads * d, H)).astype(np.float32) * 0.05)
+        gp, gs = tint4.pack_gate_up_int4(rng.standard_normal((H, 2 * inter)).astype(np.float32) * 0.05)
+        dp, ds = tint4.pack_down_int4(rng.standard_normal((inter, H)).astype(np.float32) * 0.05)
+        nw1, nw2 = (1.0 + 0.1 * rng.standard_normal((2, H))).astype(np.float32)
+        bias = (rng.standard_normal(nqkv) * 0.05).astype(np.float32)
+        layers.append((nw1, nw2, qp, qs, bias, op, osc, gp, gs, dp, ds))
+    keys = ("nw1", "nw2", "qkv_p", "qkv_s", "qkv_b", "o_p", "o_s", "gu_p", "gu_s", "d_p", "d_s")
+    w = {k: torch.from_numpy(np.stack(v)).cuda() for k, v in zip(keys, zip(*layers))}
+    ang = rng.standard_normal((1, d // 2))
+    cos, sin = (torch.from_numpy(f(ang).astype(np.float32)).cuda() for f in (np.cos, np.sin))
+    x = torch.from_numpy(rng.standard_normal((1, H)).astype(np.float32) * 0.5).cuda().bfloat16()
+    ka, va = (torch.from_numpy(rng.standard_normal((L, A, lanes)).astype(np.float32) * 0.5).cuda().bfloat16()
+              for _ in range(2))
+    return x, cos, sin, ka, va, w
+
+
+@pytest.mark.parametrize("pos", [0, 1, 7, 63])
+def test_cuda_k7_matches_plain(pos):
+    """K7 against its plain version with NaN in every arena row >= pos (the
+    stale row at pos included): the same bits as with zeros there, and the
+    same run twice gives the same bits. Limit per output: twice a floor, the
+    larger of what the bf16 roundings themselves move (the plain version
+    against the same function unrounded) and one bf16 ulp at the largest
+    |reference|, as chip_smoke.py holds K7 at full width."""
+    _need_card()
+    x, cos, sin, ka, va, w = _k7_case(10 + pos)
+    p = torch.tensor([pos], dtype=torch.int32, device="cuda")
+    live = (torch.arange(ka.shape[1], device="cuda") < pos)[None, :, None]
+    nan = torch.full_like(ka, float("nan"))
+    ka_nan, va_nan = torch.where(live, ka, nan), torch.where(live, va, nan)
+    ka_zero, va_zero = torch.where(live, ka, 0), torch.where(live, va, 0)
+    out = tblock.int4_decode_layers(x, cos, sin, p, ka_nan, va_nan, **w)
+    again = tblock.int4_decode_layers(x, cos, sin, p, ka_nan, va_nan, **w)
+    zero = tblock.int4_decode_layers(x, cos, sin, p, ka_zero, va_zero, **w)
+    ref = tblock.int4_decode_layers_plain(x, cos, sin, p, ka_nan, va_nan, **w)
+    exact = tblock.int4_decode_layers_plain(x, cos, sin, p, ka_nan, va_nan, **w, out_dtype=torch.float32,
+                                            round_dtype=torch.float32)
+    torch.cuda.synchronize()
+    for o, a, z, r, e, what in zip(out, again, zero, ref, exact, ("x_out", "k_new", "v_new")):
+        assert torch.isfinite(o).all(), what
+        assert torch.equal(o, a) and torch.equal(o, z), what
+        floor = max(_err(r, e), TWO_ULPS / 2 * r.float().abs().max().item())
+        assert _err(o, r) <= 2 * floor, (what, _err(o, r), floor)

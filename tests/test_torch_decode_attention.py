@@ -2,17 +2,16 @@
 row write, bf16 and int8) of the PyTorch port against the JAX package: the
 port's plain versions (what its wrappers run on CPU tensors) against the
 Pallas kernels in interpret mode and the JAX references, in float32. The CUDA
-kernels themselves, K4 and K6 included, run only on a GPU (test at the end,
+kernels themselves run only on a GPU (tests/test_torch_cuda_kernels.py,
 skipped without one; chip_smoke.py runs them at full width)."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from cosyvoice_tpu.ops import decode_attention as jda, int4_fused as jint4
-from cosyvoice_tpu_torch.ops import decode_attention as tda, int4_fused as tint4
+from cosyvoice_tpu.ops import decode_attention as jda
+from cosyvoice_tpu_torch.ops import decode_attention as tda
 
 torch.set_num_threads(1)
 
@@ -122,47 +121,3 @@ def test_wrappers_check_shapes_and_devices():
     q, k, v, ks, vs, cur = map(torch.from_numpy, _quant_case(7, [3]))
     with pytest.raises(ValueError):
         tda.gqa_decode_attention_quant(q, k, v, ks[:, :8], vs, cur)
-
-
-@pytest.mark.cuda
-def test_cuda_kernels_match_plain():
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA device: the kernels are built with nvcc and run only on the GPU")
-    q, k, v, cur = (t.cuda() for t in map(torch.from_numpy, _case(4, [0, 27, 63])))
-    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
-    out = tda.gqa_decode_attention(q, k, v, cur)
-    ref = tda.gqa_decode_attention_plain(q, k, v, cur)
-    # two bf16 ulps at the largest |ref|: kernel and plain each round one fp32 result to bf16
-    assert (out.float() - ref.float()).abs().max().item() <= 2**-6 * ref.float().abs().max().item()
-    arena, new = k.clone(), torch.randn(3, 1, 2, 64, device="cuda").bfloat16()
-    assert torch.equal(
-        tda.kv_arena_write(arena.clone(), new, cur), tda.kv_arena_write_plain(arena.clone(), new, cur)
-    )
-    # K3: float32 in and out, the same limit
-    args = [t.cuda() for t in map(torch.from_numpy, _quant_case(8, [0, 27, 63]))]
-    out = tda.gqa_decode_attention_quant(*args)
-    ref = tda.gqa_decode_attention_quant_plain(*args)
-    assert (out - ref).abs().max().item() <= 2**-6 * ref.abs().max().item()
-    # int8 K2: exact
-    arena8, new8 = args[1].clone(), torch.randint(-127, 128, (3, 1, 2, 64), device="cuda", dtype=torch.int8)
-    assert torch.equal(
-        tda.kv_arena_write(arena8.clone(), new8, args[-1]), tda.kv_arena_write_plain(arena8.clone(), new8, args[-1])
-    )
-    # K4 and K6 in bf16 at the full-width shapes: both accumulate in float32
-    # and round at the same points; limits of two bf16 ulps at the largest
-    # |reference| (K4) and four (K6, where a flipped rounding of h2 or
-    # silu(g)*u carries through the next product)
-    rng = np.random.default_rng(9)
-    w = lambda *sh: rng.standard_normal(sh).astype(np.float32) * 0.05  # noqa: E731
-    wq = [torch.from_numpy(a).cuda() for a in (
-        *jint4.pack_gemv_int4(w(896, 1152)), *jint4.pack_gemv_int4(w(896, 896)),
-        *jint4.pack_gate_up_int4(w(896, 2 * 4864)), *jint4.pack_down_int4(w(4864, 896)))]
-    for B in (1, 16):
-        x = torch.randn(B, 896, device="cuda").bfloat16()
-        out, ref = tint4.int4_gemv(x, *wq[:2]), tint4.int4_gemv_plain(x, *wq[:2])
-        assert (out.float() - ref.float()).abs().max().item() <= 2**-6 * ref.float().abs().max().item()
-    attn, x = torch.randn(1, 896, device="cuda"), torch.randn(1, 896, device="cuda").bfloat16()
-    nw = torch.ones(896, device="cuda")
-    out, ref = tint4.int4_o_mlp(attn, x, nw, *wq[2:]), tint4.int4_o_mlp_plain(attn, x, nw, *wq[2:])
-    torch.cuda.synchronize()
-    assert (out.float() - ref.float()).abs().max().item() <= 2**-5 * ref.float().abs().max().item()

@@ -6,9 +6,10 @@ draw the same tokens. The HiFT source is pinned by configuration, without
 injecting tensors: all samples voiced (threshold -1), no source noise
 (sigma 0) and a merge layer that reads only the fundamental, whose phase
 starts at 0 (`test_torch_hift.py` holds the random parts by distribution).
-The flow noise is the shared fixed buffer. The quantised engine (int4p
-weights, int8 KV arena) runs both LMs from one tree quantised by the JAX
-package's quantize_lm_params."""
+The flow noise is the shared fixed buffer. The quantised engines (int4p
+weights with an int8 KV arena, and with a bf16 arena, whose decode steps run
+K7) run both LMs from one tree quantised by the JAX package's
+quantize_lm_params."""
 
 import jax
 import jax.numpy as jnp
@@ -67,9 +68,9 @@ def engines():
     return _engines(jax_lm_cfg(top_k=1, tau_r=2.0))
 
 
-@pytest.fixture(scope="module")
-def quant_engines():
-    return _engines(jax_lm_cfg_quant(quant="int4p", kv_quant=True, top_k=1, tau_r=2.0), quantize=True)
+@pytest.fixture(scope="module", params=[True, False], ids=["int4p_kv8", "int4p_bf16_arena"])
+def quant_engines(request):
+    return _engines(jax_lm_cfg_quant(quant="int4p", kv_quant=request.param, top_k=1, tau_r=2.0), quantize=True)
 
 
 def _request(seed):
@@ -99,11 +100,17 @@ def test_offline_tts_matches_jax_engine(engines, seed):
 
 
 @pytest.mark.parametrize("seed", [0, 3])
-def test_offline_tts_quantised_lm_matches_jax_engine(quant_engines, seed):
-    """int4p weights + int8 KV arena: the same tokens (greedy), and the wav
-    within the float32 engine's limit; the LM's logits agree to ~1e-6 when no
-    int8 KV step flips (tests/test_torch_lm.py), far inside the greedy margin."""
+def test_offline_tts_quantised_lm_matches_jax_engine(quant_engines, seed, monkeypatch):
+    """int4p weights with an int8 KV arena, and with a bf16 arena: the same
+    tokens (greedy), and the wav within the float32 engine's limit. With the
+    int8 arena the LMs' logits agree to ~1e-6 when no int8 KV step flips;
+    with the bf16 arena every decode step is the fused one (the JAX LM's
+    Pallas kernel in interpret mode under COSY_INT4_BLOCK=force, the port's
+    K7 plain version), whose logits agree to bf16 level
+    (tests/test_torch_lm.py): these prompts have no near tie."""
+    monkeypatch.setenv("COSY_INT4_BLOCK", "force")
     jeng, eng = quant_engines
+    steps, fused = eng.lm.decode_steps, eng.lm.fused_steps
     req = _request(seed)
     wav = np.concatenate([c["tts_speech"] for c in jeng.tts(**req, stream=False)], axis=1)
     (out,) = list(eng.tts(**req, stream=False))
@@ -122,6 +129,8 @@ def test_offline_tts_quantised_lm_matches_jax_engine(quant_engines, seed):
     assert out["tts_speech"].shape == wav.shape == (1, n_tok * 2 * 480)
     assert np.isfinite(out["tts_speech"]).all()
     np.testing.assert_allclose(out["tts_speech"], wav, rtol=0, atol=ATOL)
+    kv_quant = eng.lm.cfg.qwen.kv_quant
+    assert eng.lm.fused_steps - fused == (0 if kv_quant else eng.lm.decode_steps - steps)
 
 
 def test_streaming_is_refused_not_faked(engines):
