@@ -7,12 +7,16 @@ Phases, each under a hard time budget (the process exits non-zero if one is
 exceeded, a kernel disagrees with its plain version, or anything raises):
 
 1. device: the card's name and power limit; TF32 off for matmuls and convs.
-2. build: every CUDA kernel, one nvcc call, timed.
+2. build: every CUDA kernel, one `nvcc -c` per source, all started
+   together, then one link (ops/_build.py), timed per source.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the LM's decode shapes: K1 (flash-decode GQA, bf16) and K3 (the same over
    an int8 arena, f32 q) at B=1 and ragged B=4, cur_len 0/27/511/512/513/
    4095, with NaN in the dead arena; K2 (KV-arena row write) in bf16 and
-   int8; K4 (int4 GEMV) and K6 (fused int4 layer tail) at B=1 and 16.
+   int8; K4 (int4 GEMV) and K6 (fused int4 layer tail) at B=1 and 16; K5
+   (fused int4 MLP) at 1, 5, 15 and 16 rows, the row counts of the bistream
+   extends, timed at 5 and 16 rows beside the bf16 product route over the
+   dequantised weights.
    Kernel, plain and library device times (CUDA events around a replayed
    CUDA graph that rotates over enough distinct input sets to exceed twice
    the L2 cache, at least one per layer) and eager host rates, and the bound
@@ -31,6 +35,12 @@ exceeded, a kernel disagrees with its plain version, or anything raises):
    through K4, K3 and K6 (24 each per step) and K2 (48), and never K1.
 7. check_int4p: phase 5 for the quantised LM (its recompute is one prefill
    over the dequantised arena rows).
+   slice_bistream_int4p: with the same engine, one bi-streaming request
+   (`Qwen2LM.generate_bistream`, max_len 64): every extend of 2..16 rows
+   goes through K4 (48) and K5 (24), a one-row extend takes the decode
+   step's kernels; check_bistream_int4p: that request's feed schedule
+   replayed teacher-forced through the kernels, through the plain versions
+   and against one prefill over the whole sequence.
 8. slice_int4p_bf16: the engine with int4p weights over a bf16 arena,
    `Qwen2Config(quant="int4p")`, serves the same 3 requests, every decode
    step through K7 and K2 (1 and 2 per step), never K1, K3, K4 or K6; then
@@ -40,20 +50,34 @@ exceeded, a kernel disagrees with its plain version, or anything raises):
 9. check_int4p_bf16: phase 5 for that LM (its decode takes the route the LM
    takes), and K7's step against the K4 + K1 + K6 step for the same token
    at pos ~100 and ~2040.
+   slice_bistream_int4p_bf16: with the same engine, 4 bi-streaming requests
+   (text 16 / 32 / 48 / 2100 ids in uneven chunks, phase 4's prompt): the
+   first through `tts(<iterator>, stream=False)`, whose final drain may run
+   to the arena's end; the others through `generate_bistream` with max_len
+   20 x text and `synthesize_offline`. The last one's extends alone pass
+   K7's 2048 rows, and its spans run on to the capacity guard unless fills
+   are sampled early. Spans decode through K7 and, past 2048 rows, the
+   per-layer kernels; the counters must show every extend and step on its
+   kernels. check_bistream_int4p_bf16: phase 7's
+   bistream check for this LM.
 
 Phase 3 also holds K7 (the whole int4p decode step) against its plain
 version at full width, B=1, arenas of 512 and 2048 rows, NaN in every row
 >= pos, and times it beside the port's unfused route for the same step.
 
 The line before the last is {"kernels": [...]}, with each kernel's launches
-summed over the runs of phases 4, 6 and 8 (each counted from 0); the last
+summed over the runs of phases 4, 6 and 8 and the two bistream slices (each
+counted from 0); the last
 line is {"ok": true, "device": {...}}. Without a card it exits 2 and prints
 no result.
 """
 
+import collections
+import contextlib
 import dataclasses
 import faulthandler
 import json
+import logging
 import math
 import subprocess
 import sys
@@ -80,12 +104,22 @@ LOGIT_TOL_INT4P = 0.031
 # int8 arena, the prefill rounds each int4 block product to bf16). Phase 9
 # holds K7's step against the per-layer step to the same limit.
 LOGIT_TOL_INT4P_BF16 = 0.032
+# The bistream check (replayed extends and decode steps, kernels against the
+# plain versions and against one prefill over the whole sequence) for the
+# int4p LM over an int8 and over a bf16 arena: twice its floor, the plain
+# replay against that prefill, which is 1.54e-2 / 1.48e-2 (int8 arena) and
+# 1.42e-2 / 1.47e-2 (bf16 arena) after the first extend of 2..16 rows / the
+# last extend on an H100 at full width (the prefill rounds each int4 block
+# product to bf16, the extends' K4 and K5 sum in float32).
+LOGIT_TOL_BISTREAM = {"_int4p": 0.031, "_int4p_bf16": 0.030}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16
 L2_BYTES = 50e6  # H100 L2 cache
 
-PHASE_BUDGET_S = {"device": 60, "build": 360, "kernels": 300, "slice": 420, "check": 120,
-                  "slice_int4p": 420, "check_int4p": 120, "slice_int4p_bf16": 420, "check_int4p_bf16": 180}
+PHASE_BUDGET_S = {"device": 60, "build": 360, "kernels": 360, "slice": 420, "check": 120,
+                  "slice_int4p": 420, "check_int4p": 120, "slice_bistream_int4p": 240, "check_bistream_int4p": 120,
+                  "slice_int4p_bf16": 420, "check_int4p_bf16": 180, "slice_bistream_int4p_bf16": 420,
+                  "check_bistream_int4p_bf16": 120}
 
 
 class Phase:
@@ -486,6 +520,77 @@ def check_k6(int4, qc, gen):
     return row, host, n
 
 
+def _mlp_weights(torch, int4, H, inter, gen):
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda") * 0.05).cpu().numpy()
+
+    packs = (int4.pack_gate_up_int4(w(H, 2 * inter)), int4.pack_down_int4(w(inter, H)))
+    return tuple(torch.from_numpy(a).cuda() for p in packs for a in p)
+
+
+K5_ROWS = (1, 5, 15, 16)  # rows of the bistream extends: a one-token feed, text 5, speech 15, the limit
+
+
+def check_k5(int4, qc, gen):
+    """K5 at full width (hidden 896 -> 1024, intermediate 4864 -> 5120) at
+    K5_ROWS rows: within twice a floor of one bf16 ulp at max |ref| of its
+    plain version, the same bits twice. Timed at 5 rows (the row's numbers)
+    and 16, beside the bf16 product route over the dequantised weights:
+    gate|up as one matmul, silu * up, then down (no one PyTorch call
+    computes the function)."""
+    import torch
+
+    H, inter = qc.hidden_size, qc.intermediate_size
+    ws = _mlp_weights(torch, int4, H, inter, gen)
+    err_max = 0.0
+    for B in K5_ROWS:
+        x = torch.randn((B, H), generator=gen, device="cuda").to(torch.bfloat16)
+        out, again, ref = int4.int4_mlp(x, *ws), int4.int4_mlp(x, *ws), int4.int4_mlp_plain(x, *ws)
+        exact = int4.int4_mlp_plain(x.float(), *ws)  # the same function in float32 throughout
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        floor = K1_TOL_REL / 2 * ref.float().abs().max().item()
+        rounding = (ref.float() - exact).abs().max().item()
+        err_max = max(err_max, err)
+        print(f"K5 B={B} H={H} inter={inter}: max_abs_err {err:.3e} (tol {2 * floor:.3e} = 2 x floor {floor:.3e}, "
+              f"one bf16 ulp at max |ref|); the bf16 roundings themselves move the result by {rounding:.3e}; "
+              f"repeats bit for bit: {torch.equal(out, again)}")
+        if not torch.equal(out, again):
+            raise AssertionError(f"K5 does not repeat bit for bit at B={B}")
+        if not err <= 2 * floor:
+            raise AssertionError(f"K5 disagrees with its plain version at B={B}: {err} > 2 x {floor}")
+
+    def dense(gu_p, gu_s, d_p, d_s):
+        """The dequantised bf16 weights: gate|up [K_in, 2 * inter_p], down [inter_p, H]."""
+        gu = torch.cat([int4.unpack_int4_blocked(gu_p[i], gu_s[i], torch.bfloat16) for i in (0, 1)], dim=1)
+        return gu.contiguous(), int4.unpack_int4_blocked(d_p, d_s, torch.bfloat16).contiguous()
+
+    def bf16_route(x, gu, wd):
+        g, u = (torch.nn.functional.pad(x, (0, gu.shape[0] - x.shape[1])) @ gu).chunk(2, dim=-1)
+        return (torch.nn.functional.silu(g) * u) @ wd
+
+    timed = {}
+    for B in (5, 16):
+        k5_bytes = _nbytes(*ws) + 2 * B * H * 2
+        n = n_sets(k5_bytes)
+        sets = [(torch.randn((B, H), generator=gen, device="cuda").to(torch.bfloat16),)
+                + _mlp_weights(torch, int4, H, inter, gen) for _ in range(n)]
+        dense_sets = [(x,) + dense(*w) for x, *w in sets]
+        dev, host = time_fns({"kernel": rotate(sets, int4.int4_mlp), "plain": rotate(sets, int4.int4_mlp_plain),
+                              "bf16_route": rotate(dense_sets, bf16_route)}, n)
+        K_in, inter_p = ws[0].shape[1] * ws[0].shape[2] * 2, ws[0].shape[3]
+        timed[B] = dev, host, n, bound(k5_bytes, 2 * B * (K_in * 2 * inter_p + inter_p * H))
+        del sets, dense_sets
+    dev, host, n, (b_ms, b_by) = timed[5]
+    row = kernel_row("int4_mlp", "cosyvoice_tpu_torch/csrc/int4_fused.cu", "cosyvoice_tpu/ops/int4_fused.py:427",
+                     err_max, dev, b_ms, b_by)
+    d16, h16, _, (b16, _) = timed[16]
+    row["rows16"] = {"ms": d16["kernel"], "plain_ms": d16["plain"], "bf16_route_ms": d16["bf16_route"],
+                     "bound_ms": b16, "host_ms": h16["kernel"]}
+    row["bf16_route_ms"] = dev["bf16_route"]
+    return row, {k: v for k, v in host.items() if k != "bf16_route"}, n
+
+
 K7_KEYS = ("nw1", "nw2", "qkv_p", "qkv_s", "qkv_b", "o_p", "o_s", "gu_p", "gu_s", "d_p", "d_s")
 
 
@@ -681,7 +786,8 @@ def phase_kernels(cfg):
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = {"K1": lambda: check_k1(da, qc, gen), "K2": lambda: check_k2(da, qc, gen),
               "K3": lambda: check_k3(da, qc, gen), "K4": lambda: check_k4(int4, qc, gen),
-              "K6": lambda: check_k6(int4, qc, gen), "K7": lambda: check_k7(da, int4, tb, qc, gen)}
+              "K5": lambda: check_k5(int4, qc, gen), "K6": lambda: check_k6(int4, qc, gen),
+              "K7": lambda: check_k7(da, int4, tb, qc, gen)}
     kernels = {}
     for key, check in checks.items():
         row, host, n = check()
@@ -695,6 +801,12 @@ def phase_kernels(cfg):
             r8 = row.pop("int8")
             print(f"{key} int8 rows: device {r8['ms'] * 1e3:.2f} us, plain {r8['plain_ms'] * 1e3:.2f} us, "
                   f"library {r8['library_ms'] * 1e3:.2f} us, bound {r8['bound_ms'] * 1e3:.5f} us")
+        if "rows16" in row:
+            r16, bf = row.pop("rows16"), row.pop("bf16_route_ms")
+            print(f"{key} beside the bf16 product route over the dequantised weights (gate|up matmul, silu * up, "
+                  f"down): {bf * 1e3:.2f} us at 5 rows; at 16 rows: kernel {r16['ms'] * 1e3:.2f} us, plain "
+                  f"{r16['plain_ms'] * 1e3:.2f} us, bf16 route {r16['bf16_route_ms'] * 1e3:.2f} us, bound "
+                  f"{r16['bound_ms'] * 1e3:.4f} us, eager host rate {r16['host_ms'] * 1e3:.2f} us")
         if "unfused" in row:
             u = row.pop("unfused")
             print(f"{key} against the port's unfused route for the same step, 24 x (K4 + K1 + K6) + 2 K2: device "
@@ -708,16 +820,25 @@ def _counters():
     from cosyvoice_tpu_torch.ops import decode_attention as da, int4_block as tb, int4_fused as int4
 
     return {"K1": da.gqa_decode_attention, "K2": da.kv_arena_write, "K3": da.gqa_decode_attention_quant,
-            "K4": int4.int4_gemv, "K6": int4.int4_o_mlp, "K7": tb.int4_decode_layers}
+            "K4": int4.int4_gemv, "K5": int4.int4_mlp, "K6": int4.int4_o_mlp, "K7": tb.int4_decode_layers}
 
 
 # kernel launches per decode step of the 24-layer LM, per route: the
-# per-layer step of each engine, and the fused step (K7) of int4p over a
-# bf16 arena while the arena holds at most 2048 rows
-PER_STEP = {"bf16": {"K1": 24, "K2": 48, "K3": 0, "K4": 0, "K6": 0, "K7": 0},
-            "int4p": {"K1": 0, "K2": 48, "K3": 24, "K4": 24, "K6": 24, "K7": 0},
-            "int4p_bf16": {"K1": 24, "K2": 48, "K3": 0, "K4": 24, "K6": 24, "K7": 0},
-            "fused": {"K1": 0, "K2": 2, "K3": 0, "K4": 0, "K6": 0, "K7": 1}}
+# per-layer step of each engine (also a one-row bistream extend), and the
+# fused step (K7) of int4p over a bf16 arena while the arena holds at most
+# 2048 rows; and per int4p bistream extend of 2..16 rows (qkv and o_proj
+# through K4, the MLP through K5)
+PER_STEP = {"bf16": {"K1": 24, "K2": 48, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0},
+            "int4p": {"K1": 0, "K2": 48, "K3": 24, "K4": 24, "K5": 0, "K6": 24, "K7": 0},
+            "int4p_bf16": {"K1": 24, "K2": 48, "K3": 0, "K4": 24, "K5": 0, "K6": 24, "K7": 0},
+            "fused": {"K1": 0, "K2": 2, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 1}}
+PER_EXTEND = {"K1": 0, "K2": 0, "K3": 0, "K4": 48, "K5": 24, "K6": 0, "K7": 0}
+# the bistream slices, in the lifetimes of the int4p engines: one short
+# request over the int8 arena (its decode steps are host-bound); four over
+# the bf16 arena, the first through tts, the last with so much text that its
+# extends alone pass K7's 2048 rows (spans end only at fills, never at a
+# stop id) and its spans, if they run to the cadence, the arena's end
+BISTREAM = {"_int4p": {"text_lens": (16,), "max_len": 64}, "_int4p_bf16": {"text_lens": (16, 32, 48, 2100)}}
 
 
 def build_engine(lm_cfg):
@@ -740,9 +861,9 @@ def build_engine(lm_cfg):
     return eng
 
 
-def _requester(eng, n_prompt_speech=50, n_prompt_mel=100):
-    """A fixed prompt from seed 0 and request(n_text) -> (text, out), one
-    offline `tts` call with random text ids."""
+def _prompt(eng, n_prompt_speech=50, n_prompt_mel=100):
+    """A fixed voice prompt from seed 0, (prompt_text, prompt_speech,
+    prompt_mel, emb), and the generator that then draws request texts."""
     import numpy as np
 
     c = eng.lm.cfg
@@ -751,6 +872,14 @@ def _requester(eng, n_prompt_speech=50, n_prompt_mel=100):
     prompt_speech = rng.integers(0, min(c.speech_token_size, eng.flow.cfg.vocab_size), n_prompt_speech)
     prompt_mel = (rng.standard_normal((1, n_prompt_mel, 80)) - 5.0).astype(np.float32)
     emb = rng.standard_normal((1, 192)).astype(np.float32)
+    return (prompt_text, prompt_speech, prompt_mel, emb), rng
+
+
+def _requester(eng, n_prompt_speech=50, n_prompt_mel=100):
+    """A fixed prompt from seed 0 and request(n_text) -> (text, out), one
+    offline `tts` call with random text ids."""
+    c = eng.lm.cfg
+    (prompt_text, prompt_speech, prompt_mel, emb), rng = _prompt(eng, n_prompt_speech, n_prompt_mel)
 
     def request(n_text):
         text = rng.integers(0, c.qwen.vocab_size, n_text)
@@ -790,16 +919,19 @@ def _serve(eng, request, n_text):
     return text, toks
 
 
-def _check_launches(eng, counters, per_step):
-    """Every decode step launched each kernel per_step[key] times, and every
-    fused step (K7) PER_STEP["fused"][key] times. Returns the launches."""
+def _check_launches(eng, counters, per_step, one_row=0, short=0):
+    """Every decode step and every one-row extend launched each kernel
+    per_step[key] times, every fused step (K7) PER_STEP["fused"][key] times
+    and every extend of 2..16 rows PER_EXTEND[key] times. Returns the
+    launches."""
     launches = {key: fn.launches for key, fn in counters.items()}
     steps, fused = eng.lm.decode_steps, eng.lm.fused_steps
-    want = {k: per_step[k] * (steps - fused) + PER_STEP["fused"][k] * fused for k in launches}
-    print(f"decode steps {steps} ({fused} through K7): launches " + ", ".join(
-        f"{k} {n} (want {want[k]})" for k, n in launches.items()))
+    want = {k: per_step[k] * (steps - fused + one_row) + PER_STEP["fused"][k] * fused + PER_EXTEND[k] * short
+            for k in launches}
+    print(f"decode steps {steps} ({fused} through K7), extends of one row {one_row}, of 2..16 rows {short}: "
+          "launches " + ", ".join(f"{k} {n} (want {want[k]})" for k, n in launches.items()))
     if steps == 0 or launches != want:
-        raise AssertionError("the decode steps did not all go through their kernels")
+        raise AssertionError("the decode steps and extends did not all go through their kernels")
     return launches
 
 
@@ -860,6 +992,211 @@ def phase_cross(eng, text_len=16, n_prompt=1920, attempts=6):
     return launches
 
 
+def _bistream_chunks(text):
+    """text cut into chunks of 3, 7, 1, 11, 3, ... ids, with one empty chunk
+    second, as an LLM streams its reply."""
+    out, i, k = [], 0, 0
+    while i < len(text):
+        n = (3, 7, 1, 11)[k % 4]
+        out.append(text[i : i + n])
+        i, k = i + n, k + 1
+    return out[:1] + [text[:0]] + out[1:]
+
+
+@contextlib.contextmanager
+def _logged_warnings():
+    """The messages of the warnings logged while inside."""
+    messages, handler, root = [], logging.Handler(logging.WARNING), logging.getLogger()
+    handler.emit = lambda record: messages.append(record.getMessage())
+    root.addHandler(handler)
+    try:
+        yield messages
+    finally:
+        root.removeHandler(handler)
+
+
+@contextlib.contextmanager
+def _recorded_extends(lm):
+    """The LM's extends while inside, as [(start, ids, types)]."""
+    log, extend = [], lm.module.extend_mixed
+
+    def recorded(ids, types, start, cache):
+        log.append((start, ids[0].tolist(), types[0].tolist()))
+        return extend(ids, types, start, cache)
+
+    lm.module.extend_mixed = recorded
+    try:
+        yield log
+    finally:
+        del lm.module.extend_mixed
+
+
+def phase_slice_bistream(eng, per_step, text_lens, max_len=None):
+    """Bi-streaming requests (text as an iterator of uneven chunks, phase 4's
+    prompt). With max_len None the first goes through `tts` (the LM's default
+    max_len, so its final drain may run to the arena's end) and the others
+    through `generate_bistream` with max_len 20 x text and
+    `synthesize_offline`; else each through `generate_bistream` with
+    max_len. Prints each request's extends, steps per route and whether the
+    capacity guard ended it. Checks each wav and that every decode step, one-row extend and
+    extend of 2..16 rows launched its kernels. Returns ([(extends, tokens)]
+    per request, launches)."""
+    import numpy as np
+
+    lm = eng.lm
+    (prompt_text, prompt_speech, prompt_mel, emb), rng = _prompt(eng)
+    counters = _zero_counts(eng)
+    reqs = []
+    with _recorded_extends(lm) as log, _logged_warnings() as warned:
+        for i, n_text in enumerate(text_lens):
+            warned.clear()
+            chunks = _bistream_chunks(rng.integers(0, lm.cfg.qwen.vocab_size, n_text))
+            first, steps, fused = len(log), lm.decode_steps, lm.fused_steps
+            eng.timer.reset()
+            t = time.perf_counter()
+            if i == 0 and max_len is None:
+                how = "tts(<iterator>)"
+                (out,) = list(eng.tts(iter(chunks), prompt_text, prompt_speech, prompt_speech, prompt_mel, emb))
+                wav, toks, lm_s = out["tts_speech"], out["speech_tokens"], eng.timer.records["lm"][-1]
+            else:
+                cap = max_len or 20 * n_text
+                how = f"generate_bistream(max_len={cap})"
+                blocks = list(lm.generate_bistream(iter(chunks), prompt_text, prompt_speech, eng._generator(),
+                                                   max_len=cap))
+                toks = np.concatenate(blocks) if blocks else np.zeros(0, np.int32)
+                eng._sync()
+                lm_s = time.perf_counter() - t
+                wav = eng.synthesize_offline(toks, prompt_speech, prompt_mel, emb)
+            wall = time.perf_counter() - t
+            if not np.isfinite(wav).all() or wav.shape != (1, len(toks) * 2 * 480):
+                raise AssertionError(f"bistream text={n_text}: wav {wav.shape} (finite: {np.isfinite(wav).all()}) "
+                                     f"for {len(toks)} tokens")
+            feeds = log[first:]
+            audio_s = wav.shape[1] / 24000
+            rtf = f"{wall / audio_s:.4f}" if audio_s else "n/a (no audio)"
+            print(f"bistream text={n_text} via {how}: {len(toks)} tokens, LM {len(toks) / lm_s:.1f} tok/s "
+                  f"({lm_s * 1e3:.0f} ms), flow+HiFT {sum(eng.timer.records['t2w']) * 1e3:.1f} ms, audio "
+                  f"{audio_s:.2f} s, wall {wall * 1e3:.0f} ms, RTF {rtf}; {len(chunks)} chunks, extends (rows: count) "
+                  f"{dict(sorted(collections.Counter(len(ids) for _, ids, _ in feeds).items()))}, decode steps "
+                  f"{lm.decode_steps - steps} "
+                  f"({lm.fused_steps - fused} through K7), the arena filled to row {_arena_end(feeds, toks)}; "
+                  f"capacity guard: {warned or 'not reached'}")
+            reqs.append((feeds, toks))
+    rows = [len(ids) for _, ids, _ in log]
+    if any(n > 16 for n in rows):
+        raise AssertionError(f"a bistream extend had more than 16 rows: {rows}")
+    launches = _check_launches(eng, counters, per_step, one_row=rows.count(1), short=len(rows) - rows.count(1))
+    return reqs, launches
+
+
+def _arena_end(feeds, toks):
+    """The arena rows a bistream request filled: its last extend's end plus
+    the tokens decoded after it (those before it lie between extends)."""
+    between = sum(feeds[i + 1][0] - feeds[i][0] - len(feeds[i][1]) for i in range(len(feeds) - 1))
+    return feeds[-1][0] + len(feeds[-1][1]) + len(toks) - between
+
+
+def _replay_bistream(lm, feeds, toks, arena):
+    """One bistream request teacher-forced: every recorded extend, then its
+    tokens fed one per step at the positions up to the next extend's start,
+    through the route the LM takes for `arena` rows. Returns the logits after
+    every extend."""
+    import torch
+
+    m, dev = lm.module, lm.device
+    cache = lm.init_cache(1, arena)
+    stacked = lm._decode_pack(cache)
+    seen, k = [], 0
+    for i, (start, ids, types) in enumerate(feeds):
+        logits, cache = m.extend_mixed(torch.tensor([ids], device=dev), torch.tensor([types], device=dev), start, cache)
+        seen.append(logits)
+        pos = start + len(ids)
+        end = feeds[i + 1][0] if i + 1 < len(feeds) else pos + len(toks) - k
+        for p in range(pos, end):
+            tok, cur = torch.tensor([int(toks[k])], device=dev), torch.tensor([p], dtype=torch.int32, device=dev)
+            k += 1
+            if stacked is None:
+                logits, cache = m.decode_step(tok, cur, cache)
+            else:
+                logits, cache = m.decode_step_fused(tok, cur, cache, stacked)
+    if k != len(toks):
+        raise AssertionError(f"the replay fed {k} of {len(toks)} tokens")
+    return seen
+
+
+def check_bistream(eng, req, tol):
+    """A bistream request's schedule replayed teacher-forced through the
+    kernels, through the plain versions, and against one prefill over the
+    whole sequence up to the extend (plain, over the dequantised rows for an
+    int8 arena): logits' relative L2 after the first extend of 2..16 rows
+    and after the last extend. Plain replay against the prefill is the
+    floor; kernels against both are held to `tol`."""
+    import numpy as np
+    import torch
+
+    from cosyvoice_tpu_torch.models.llm import TYPE_SPEECH
+
+    lm, m, dev = eng.lm, eng.lm.module, eng.device
+    feeds, toks = req
+    # the sequence in the arena: each extend's rows at its start, the tokens
+    # at the decode positions after it (rows a rolled-back fill held are
+    # overwritten by the next extend)
+    end = _arena_end(feeds, toks)
+    ids, types = np.zeros(end, np.int64), np.zeros(end, np.int64)
+    k = 0
+    for i, (start, f_ids, f_types) in enumerate(feeds):
+        ids[start : start + len(f_ids)], types[start : start + len(f_ids)] = f_ids, f_types
+        nxt = feeds[i + 1][0] if i + 1 < len(feeds) else end
+        n = nxt - start - len(f_ids)
+        ids[start + len(f_ids) : nxt], types[start + len(f_ids) : nxt] = toks[k : k + n], TYPE_SPEECH
+        k += n
+    at = [next(j for j, f in enumerate(feeds) if len(f[1]) > 1), len(feeds) - 1]
+    ends = [feeds[j][0] + len(feeds[j][1]) for j in at]
+    arena = lm.arena_bucket(end + 1)
+
+    def prefill(e):
+        logits, _ = m.prefill(torch.as_tensor(ids[None, :e], device=dev), torch.as_tensor(types[None, :e], device=dev),
+                              torch.tensor([e], device=dev), lm.init_cache(1, arena))
+        return logits
+
+    with torch.inference_mode():
+        route = "K7" if lm._decode_pack(lm.init_cache(1, arena)) is not None else "the per-layer kernels"
+        kern = [lm_ for j, lm_ in enumerate(_replay_bistream(lm, feeds, toks, arena)) if j in at]
+        with _plain_kernels():
+            plain = [lm_ for j, lm_ in enumerate(_replay_bistream(lm, feeds, toks, arena)) if j in at]
+            full = [prefill(e) for e in ends]
+    e_plain, e_floor, e_full = ([_rel(a[j], b[j]) for j in (0, 1)] for a, b in ((kern, plain), (plain, full),
+                                                                               (kern, full)))
+    print(f"bistream replay, {len(feeds)} extends ({[len(f[1]) for f in feeds]} rows) and {len(toks)} tokens, decode "
+          f"through {route} (arena {arena} rows): LM logits rel L2 after the extends ending at rows {ends[0]} / "
+          f"{ends[1]}: kernel vs plain {e_plain[0]:.2e} / {e_plain[1]:.2e} (tol {tol}); floor, plain vs one prefill "
+          f"{e_floor[0]:.2e} / {e_floor[1]:.2e}; kernel vs one prefill {e_full[0]:.2e} / {e_full[1]:.2e} (tol {tol})")
+    if not max(e_plain + e_full) <= tol:
+        raise AssertionError("the bistream extends and steps through the kernels disagree with the plain path")
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """Every kernel wrapper the LM calls replaced by its plain version."""
+    from cosyvoice_tpu_torch.models import llm, qwen2
+    from cosyvoice_tpu_torch.ops import decode_attention as da, int4_block as tb, int4_fused as int4
+
+    plain_fns = [(qwen2, "gqa_decode_attention", da.gqa_decode_attention_plain),
+                 (qwen2, "kv_arena_write", da.kv_arena_write_plain),
+                 (qwen2, "gqa_decode_attention_quant", da.gqa_decode_attention_quant_plain),
+                 (qwen2, "int4_gemv", int4.int4_gemv_plain), (qwen2, "int4_mlp", int4.int4_mlp_plain),
+                 (qwen2, "int4_o_mlp", int4.int4_o_mlp_plain),
+                 (llm, "int4_decode_layers", tb.int4_decode_layers_plain), (llm, "kv_arena_write", da.kv_arena_write_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in plain_fns]
+    for mod, name, fn in plain_fns:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def phase_check(eng, prompt, reqs, tol, n_tokens=96):
     """LM logits after decoding generated tokens through the kernels, against
     the same decode with the plain versions swapped in, and against one
@@ -872,9 +1209,7 @@ def phase_check(eng, prompt, reqs, tol, n_tokens=96):
     import numpy as np
     import torch
 
-    from cosyvoice_tpu_torch.models import llm, qwen2
     from cosyvoice_tpu_torch.models.llm import TYPE_SPECIAL, TYPE_SPEECH, TYPE_TEXT
-    from cosyvoice_tpu_torch.ops import decode_attention as da, int4_block as tb, int4_fused as int4
 
     lm, m, dev = eng.lm, eng.lm.module, eng.device
     c = lm.cfg
@@ -912,22 +1247,11 @@ def phase_check(eng, prompt, reqs, tol, n_tokens=96):
         logits, _ = prefill(np.concatenate([ids, toks[:k]]), np.concatenate([types, np.full(k, TYPE_SPEECH)]))
         return logits
 
-    plain_fns = [(qwen2, "gqa_decode_attention", da.gqa_decode_attention_plain),
-                 (qwen2, "kv_arena_write", da.kv_arena_write_plain),
-                 (qwen2, "gqa_decode_attention_quant", da.gqa_decode_attention_quant_plain),
-                 (qwen2, "int4_gemv", int4.int4_gemv_plain), (qwen2, "int4_o_mlp", int4.int4_o_mlp_plain),
-                 (llm, "int4_decode_layers", tb.int4_decode_layers_plain), (llm, "kv_arena_write", da.kv_arena_write_plain)]
     with torch.inference_mode():
         route = "K7" if lm._decode_pack(lm.init_cache(1, arena)) is not None else "the per-layer kernels"
         kern = decode_logits()
-        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in plain_fns]
-        for mod, name, fn in plain_fns:
-            setattr(mod, name, fn)
-        try:
+        with _plain_kernels():
             plain = decode_logits()
-        finally:
-            for mod, name, fn in saved:
-                setattr(mod, name, fn)
         full = full_logits(1), full_logits(n)
 
     e_plain, e_floor, e_full = ([_rel(a[j], b[j]) for j in (0, 1)] for a, b in ((kern, plain), (plain, full),
@@ -1021,12 +1345,21 @@ def main(argv):
             phase_check(eng, prompt, reqs, tol)
             if suffix == "_int4p_bf16":
                 phase_routes(eng, tol)
+        if suffix in BISTREAM:
+            with Phase("slice_bistream" + suffix):
+                bs_reqs, bs_counts = phase_slice_bistream(eng, per_step, **BISTREAM[suffix])
+            with Phase("check_bistream" + suffix):
+                check_bistream(eng, bs_reqs[-1 if suffix == "_int4p" else 1], LOGIT_TOL_BISTREAM[suffix])
+            for key, n in bs_counts.items():
+                counts[key] += n
         for key, n in counts.items():
             launches[key] += n
         del eng
         torch.cuda.empty_cache()
     for key, n in launches.items():
         kernels[key]["launches"] = n
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel was never launched on the main path: {launches}")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,11 +1,11 @@
-// Hand-written Hopper (sm_90a) kernels for the int4 weight-only LM decode step.
+// Hand-written Hopper (sm_90a) kernels for the int4 weight-only LM's decode steps and short extends.
 //
 // Built with the other csrc/*.cu files by cosyvoice_tpu_torch/ops/_build.py
 // (plain C interface, loaded with ctypes). Every entry point launches on the
 // stream it is given and returns the launch's error code; the Python
 // wrappers raise if it is not 0.
 //
-// Both kernels are built from one work item, gemv_tile (int4_gemv_tile.cuh,
+// All three kernels are built from one work item, gemv_tile (int4_gemv_tile.cuh,
 // which also describes the weight layout). Input rows past the activation's
 // length are zero padding: the activation slice in shared memory is
 // zero-filled there, so they add nothing.
@@ -54,6 +54,33 @@
 //   4. out = x2 + the down partials summed in order.
 //   No float atomics: every cross-block sum goes through f32 partials summed
 //   in a fixed order after a barrier, so runs repeat bit for bit.
+//
+// K5  int4_mlp_kernel  (fused int4 SwiGLU MLP, <= 16 rows, one cooperative launch)
+//
+// Replaces: cosyvoice_tpu/ops/int4_fused.py:int4_mlp (pallas_call at :427,
+//   body _mlp_kernel :389, _mlp_cell :373).
+// Computes: act = bf16(silu(x @ Wg) * (x @ Wu)); out = bf16(act @ Wd), for
+//   B <= 16 rows of x (bf16), over the layouts of pack_gate_up_int4 and
+//   pack_down_int4. It runs in the exact-shape extends of 2..16 rows of the
+//   bi-streaming LM (models/qwen2.py:Qwen2Model.extend).
+// Bound on the H100: bytes. At Qwen2-0.5B's width: packed gate|up 5.24 MB +
+//   down 2.29 MB + scales 0.20 MB ~ 7.74 MB: ~2.3 us at 3.35 TB/s; at 16
+//   rows its ~0.48 GFLOP take ~0.5 us at the bf16 tensor-core rate.
+// Design: the TPU runs a sequential grid over 1024-column intermediate cells
+//   and carries the [B, H] down sum in VMEM. Blocks of a plain launch cannot
+//   carry a sum from one to the next, and down needs all of act, so this is
+//   K6's MLP half on its own: one cooperative launch with two grid barriers
+//   between three phases, sharing K6's device code (gate_up_items,
+//   down_items):
+//   1. gate|up work items (64-column tile, both planes, whole input) with x
+//      staged once per block in shared memory, write act in bf16;
+//   2. down work items (64-column tile, 512-row scale block) write f32
+//      partials;
+//   3. every output element sums the partials in a fixed order and rounds
+//      once to bf16.
+//   Every item streams its weights once with 16-byte loads; rows beyond 4 are
+//   taken in tiles of 4 that re-read the item's weights from L2. No float
+//   atomics, so runs repeat bit for bit.
 // ---------------------------------------------------------------------------
 
 #include <cooperative_groups.h>
@@ -97,8 +124,62 @@ __global__ void __launch_bounds__(kThreads) int4_gemv_kernel(
   }
 }
 
-// Scratch written and read inside the launch (part_o, x2g, act, part_d) is
-// accessed with plain loads, never through the read-only cache.
+// The MLP phases shared by K6 and K5. Scratch written and read inside a
+// launch (part_o, x2g, act, part_d) is accessed with plain loads, never
+// through the read-only cache.
+
+// gate|up work items, one per 64-column tile of the intermediate dim over both
+// planes: act[r, c] = bf16(silu(g) * u) for the B rows staged in xs (row
+// stride K_in, zero past the activation's length).
+template <int BT>
+__device__ void gate_up_items(const int8_t* __restrict__ gu_p, const float* __restrict__ gu_s, int nb_in,
+                              int half_in, int I, const __nv_bfloat16* xs, int K_in, int B, __nv_bfloat16* act,
+                              float* red, float* res_g, float* res_u) {
+  const int tiles_i = (I + kTileCols - 1) / kTileCols;
+  const size_t plane = (size_t)nb_in * half_in * I;
+  for (int tile = blockIdx.x; tile < tiles_i; tile += gridDim.x) {
+    for (int r0 = 0; r0 < B; r0 += BT) {
+      const int nr = min(BT, B - r0);
+      gemv_tile<BT>(gu_p, gu_s, half_in, I, 0, nb_in, xs, K_in, r0, nr, tile * kTileCols, red, res_g);
+      gemv_tile<BT>(gu_p + plane, gu_s + (size_t)nb_in * I, half_in, I, 0, nb_in, xs, K_in, r0, nr,
+                    tile * kTileCols, red, res_u);
+      for (int idx = threadIdx.x; idx < nr * kTileCols; idx += kThreads) {
+        const int c = tile * kTileCols + idx % kTileCols;
+        if (c < I) {
+          const float g = res_g[idx], u = res_u[idx];
+          act[(size_t)(r0 + idx / kTileCols) * I + c] = __float2bfloat16(g / (1.f + expf(-g)) * u);
+        }
+      }
+    }
+  }
+}
+
+// down work items, one per (64-column tile of O, 512-row scale block c):
+// part_d[c, r, :] = act[r, c-th block] . Wd[c-th block, :] in f32. xs is the
+// block's staging buffer (B * 2 * half_d bf16).
+template <int BT>
+__device__ void down_items(const int8_t* __restrict__ d_p, const float* __restrict__ d_s, int half_d, int O,
+                           int nd, int I, const __nv_bfloat16* act, float* part_d, int B, __nv_bfloat16* xs,
+                           float* red, float* res) {
+  const int tiles_o = (O + kTileCols - 1) / kTileCols;
+  const int gd = 2 * half_d;
+  for (int item = blockIdx.x; item < tiles_o * nd; item += gridDim.x) {
+    const int tile = item % tiles_o, c = item / tiles_o;
+    for (int idx = threadIdx.x; idx < B * gd; idx += kThreads)
+      xs[idx] = act[(size_t)(idx / gd) * I + c * gd + idx % gd];
+    __syncthreads();
+    for (int r0 = 0; r0 < B; r0 += BT) {
+      const int nr = min(BT, B - r0);
+      gemv_tile<BT>(d_p, d_s, half_d, O, c, c + 1, xs, gd, r0, nr, tile * kTileCols, red, res);
+      for (int idx = threadIdx.x; idx < nr * kTileCols; idx += kThreads) {
+        const int col = tile * kTileCols + idx % kTileCols;
+        if (col < O) part_d[((size_t)c * B + r0 + idx / kTileCols) * O + col] = res[idx];
+      }
+    }
+    __syncthreads();
+  }
+}
+
 template <int BT>
 __global__ void __launch_bounds__(kThreads) int4_o_mlp_kernel(
     const void* __restrict__ attn, int attn_bf16,  // [B, n_attn] f32 or bf16
@@ -121,7 +202,6 @@ __global__ void __launch_bounds__(kThreads) int4_o_mlp_kernel(
   __shared__ float res_u[BT * kTileCols];
   __shared__ float sm_sum[kWarps];
   const int tiles_h = (H + kTileCols - 1) / kTileCols;
-  const int tiles_i = (I + kTileCols - 1) / kTileCols;
 
   // phase 1: o_proj partials, one item per (column tile, scale block)
   const int go = 2 * half_o;
@@ -174,41 +254,11 @@ __global__ void __launch_bounds__(kThreads) int4_o_mlp_kernel(
     }
   }
   __syncthreads();
-  const size_t plane = (size_t)nb_in * half_in * I;
-  for (int tile = blockIdx.x; tile < tiles_i; tile += gridDim.x) {
-    for (int r0 = 0; r0 < B; r0 += BT) {
-      const int nr = min(BT, B - r0);
-      gemv_tile<BT>(gu_p, gu_s, half_in, I, 0, nb_in, xs, K_in, r0, nr, tile * kTileCols, red, res_g);
-      gemv_tile<BT>(gu_p + plane, gu_s + (size_t)nb_in * I, half_in, I, 0, nb_in, xs, K_in, r0, nr,
-                    tile * kTileCols, red, res_u);
-      for (int idx = threadIdx.x; idx < nr * kTileCols; idx += kThreads) {
-        const int c = tile * kTileCols + idx % kTileCols;
-        if (c < I) {
-          const float g = res_g[idx], u = res_u[idx];
-          act[(size_t)(r0 + idx / kTileCols) * I + c] = __float2bfloat16(g / (1.f + expf(-g)) * u);
-        }
-      }
-    }
-  }
+  gate_up_items<BT>(gu_p, gu_s, nb_in, half_in, I, xs, K_in, B, act, red, res_g, res_u);
   grid.sync();
 
   // phase 3: down partials, one item per (column tile, scale block)
-  const int gd = 2 * half_d;
-  for (int item = blockIdx.x; item < tiles_h * nd; item += gridDim.x) {
-    const int tile = item % tiles_h, c = item / tiles_h;
-    for (int idx = threadIdx.x; idx < B * gd; idx += kThreads)
-      xs[idx] = act[(size_t)(idx / gd) * I + c * gd + idx % gd];
-    __syncthreads();
-    for (int r0 = 0; r0 < B; r0 += BT) {
-      const int nr = min(BT, B - r0);
-      gemv_tile<BT>(d_p, d_s, half_d, H, c, c + 1, xs, gd, r0, nr, tile * kTileCols, red, res_g);
-      for (int idx = threadIdx.x; idx < nr * kTileCols; idx += kThreads) {
-        const int col = tile * kTileCols + idx % kTileCols;
-        if (col < H) part_d[((size_t)c * B + r0 + idx / kTileCols) * H + col] = res_g[idx];
-      }
-    }
-    __syncthreads();
-  }
+  down_items<BT>(d_p, d_s, half_d, H, nd, I, act, part_d, B, xs, red, res_g);
   grid.sync();
 
   // phase 4: out = x2 + sum of the down partials, in order
@@ -220,35 +270,98 @@ __global__ void __launch_bounds__(kThreads) int4_o_mlp_kernel(
 }
 
 template <int BT>
+__global__ void __launch_bounds__(kThreads) int4_mlp_kernel(
+    const __nv_bfloat16* __restrict__ x,                              // [B, n_in]
+    const int8_t* __restrict__ gu_p, const float* __restrict__ gu_s,  // [2, nb_in, half_in, I]
+    const int8_t* __restrict__ d_p, const float* __restrict__ d_s,    // [nd, half_d, O]
+    __nv_bfloat16* act,  // [B, I]
+    float* part_d,       // [nd, B, O]
+    __nv_bfloat16* __restrict__ out,  // [B, O]
+    int B, int n_in, int nb_in, int half_in, int I, int nd, int half_d, int O) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ __nv_bfloat16 xs[kXElems];
+  __shared__ float red[kWarps * BT * kTileCols];
+  __shared__ float res_g[BT * kTileCols];
+  __shared__ float res_u[BT * kTileCols];
+
+  // phase 1: x staged in every block (zero past n_in); gate|up -> act
+  const int K_in = nb_in * 2 * half_in;
+  for (int idx = threadIdx.x; idx < B * K_in; idx += kThreads) {
+    const int r = idx / K_in, k = idx % K_in;
+    xs[idx] = k < n_in ? x[(size_t)r * n_in + k] : __float2bfloat16(0.f);
+  }
+  __syncthreads();
+  gate_up_items<BT>(gu_p, gu_s, nb_in, half_in, I, xs, K_in, B, act, red, res_g, res_u);
+  grid.sync();
+
+  // phase 2: down partials, one item per (column tile, scale block)
+  down_items<BT>(d_p, d_s, half_d, O, nd, I, act, part_d, B, xs, red, res_g);
+  grid.sync();
+
+  // phase 3: out = the down partials summed in order, rounded once
+  for (int idx = blockIdx.x * kThreads + threadIdx.x; idx < B * O; idx += gridDim.x * kThreads) {
+    float d = 0.f;
+    for (int c = 0; c < nd; ++c) d += part_d[(size_t)c * B * O + idx];
+    out[idx] = __float2bfloat16(d);
+  }
+}
+
+// The grid of a cooperative launch of `kernel` with `work` items: at most the
+// blocks that fit on the device at once (queried once per kernel into
+// *max_blocks). Returns 0 or a CUDA error code.
+int cooperative_grid(const void* kernel, int work, int* max_blocks, int* grid) {
+  if (*max_blocks == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+    if (e != cudaSuccess) return (int)e;
+    if (sms * per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    *max_blocks = sms * per_sm;
+  }
+  *grid = work < *max_blocks ? work : *max_blocks;
+  return 0;
+}
+
+template <int BT>
+int launch_mlp(const __nv_bfloat16* x, const int8_t* gu_p, const float* gu_s, const int8_t* d_p,
+               const float* d_s, __nv_bfloat16* act, float* part_d, __nv_bfloat16* out, int B, int n_in,
+               int nb_in, int half_in, int I, int nd, int half_d, int O, cudaStream_t stream) {
+  static int max_blocks = 0;
+  const void* kernel = reinterpret_cast<const void*>(int4_mlp_kernel<BT>);
+  const int tiles_i = (I + kTileCols - 1) / kTileCols;
+  const int tiles_o = (O + kTileCols - 1) / kTileCols;
+  int grid = 0;
+  const int rc = cooperative_grid(kernel, tiles_i > tiles_o * nd ? tiles_i : tiles_o * nd, &max_blocks, &grid);
+  if (rc != 0) return rc;
+  void* args[] = {&x, &gu_p, &gu_s, &d_p, &d_s, &act, &part_d, &out, &B, &n_in, &nb_in, &half_in, &I, &nd,
+                  &half_d, &O};
+  const cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args, 0, stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <int BT>
 int launch_o_mlp(const void* attn, int attn_bf16, const __nv_bfloat16* x, const float* norm_w,
                  const int8_t* o_p, const float* o_s, const int8_t* gu_p, const float* gu_s,
                  const int8_t* d_p, const float* d_s, float* part_o, float* x2g, __nv_bfloat16* act,
                  float* part_d, __nv_bfloat16* out, int B, int n_attn, int H, int nb_o, int half_o,
                  int nb_in, int half_in, int I, int nd, int half_d, float eps, cudaStream_t stream) {
-  // co-resident blocks of this kernel on the device, queried once
   static int max_blocks = 0;
-  if (max_blocks == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, int4_o_mlp_kernel<BT>, kThreads, 0);
-    if (e != cudaSuccess) return (int)e;
-    if (sms * per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-    max_blocks = sms * per_sm;
-  }
+  const void* kernel = reinterpret_cast<const void*>(int4_o_mlp_kernel<BT>);
   const int tiles_h = (H + kTileCols - 1) / kTileCols;
   const int tiles_i = (I + kTileCols - 1) / kTileCols;
   int work = tiles_h * nb_o;
   if (tiles_i > work) work = tiles_i;
   if (tiles_h * nd > work) work = tiles_h * nd;
-  const int grid = work < max_blocks ? work : max_blocks;
+  int grid = 0;
+  const int rc = cooperative_grid(kernel, work, &max_blocks, &grid);
+  if (rc != 0) return rc;
   void* args[] = {&attn, &attn_bf16, &x,      &norm_w, &o_p,   &o_s,     &gu_p,    &gu_s,
                   &d_p,  &d_s,       &part_o, &x2g,    &act,   &part_d,  &out,     &B,
                   &n_attn, &H,       &nb_o,   &half_o, &nb_in, &half_in, &I,       &nd,
                   &half_d, &eps};
-  const cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(int4_o_mlp_kernel<BT>),
-                                                    dim3(grid), dim3(kThreads), args, 0, stream);
+  const cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args, 0, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -297,6 +410,24 @@ int cvt_int4_o_mlp(const void* attn, int attn_bf16, const void* x, const float* 
                            ob, B, n_attn, H, nb_o, half_o, nb_in, half_in, I, nd, half_d, eps, s);
   return launch_o_mlp<4>(attn, attn_bf16, xb, norm_w, op, o_s, gp, gu_s, dp, d_s, part_o, x2g, ab, part_d,
                          ob, B, n_attn, H, nb_o, half_o, nb_in, half_in, I, nd, half_d, eps, s);
+}
+
+int cvt_int4_mlp(const void* x, const void* gu_p, const float* gu_s, const void* d_p, const float* d_s, void* act,
+                 float* part_d, void* out, int B, int n_in, int nb_in, int half_in, int I, int nd, int half_d, int O,
+                 void* stream) {
+  if (B < 1 || B > kMaxRows || O % kColsPerThread != 0 || I % kColsPerThread != 0 || half_in <= 0 ||
+      n_in > nb_in * 2 * half_in || nd * 2 * half_d != I || B * nb_in * 2 * half_in > kXElems ||
+      B * 2 * half_d > kXElems || !aligned16(gu_p) || !aligned16(gu_s) || !aligned16(d_p) || !aligned16(d_s))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* gp = static_cast<const int8_t*>(gu_p);
+  const auto* dp = static_cast<const int8_t*>(d_p);
+  auto* ab = static_cast<__nv_bfloat16*>(act);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  if (B == 1)
+    return launch_mlp<1>(xb, gp, gu_s, dp, d_s, ab, part_d, ob, B, n_in, nb_in, half_in, I, nd, half_d, O, s);
+  return launch_mlp<4>(xb, gp, gu_s, dp, d_s, ab, part_d, ob, B, n_in, nb_in, half_in, I, nd, half_d, O, s);
 }
 
 }  // extern "C"

@@ -1,4 +1,4 @@
-// Device code shared by the int4 decode kernels (csrc/int4_fused.cu: K4, K6;
+// Device code shared by the int4 decode kernels (csrc/int4_fused.cu: K4, K5, K6;
 // csrc/int4_block.cu: K7): the block-level GEMV work item over the blocked
 // half-split int4 layout, and the fixed-order block reductions.
 //

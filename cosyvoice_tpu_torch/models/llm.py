@@ -10,18 +10,22 @@ block, as the JAX version does with one lax.scan per block.
 Ported: the v2 layout (sos/task in `llm_embedding`), `generate` with the
 min_len eos suppression, max_len and stop ids, the arena growth of the JAX
 LM (it starts at `arena_bucket(pad_T + block_size + 1)` rows and grows in
-ARENA_BUCKET steps before each block), and the three LM configurations of
-`Qwen2Config`: bf16 weights and arena; `quant="int4p"` (int4p body, int8
-head) with a bf16 arena, whose B=1 decode step runs the whole-step kernel
-K7 (`decode_step_fused`) while the arena holds at most
+ARENA_BUCKET steps before each block), `generate_bistream` (bi-streaming
+text input: exact-shape `extend_mixed` feeds of 5 text and up to 15 prompt
+speech tokens, fill-token handoffs, decode spans to the next fill, with a
+capacity guard at max_cache_len that the JAX version lacks), and the three
+LM configurations of `Qwen2Config`: bf16 weights and arena; `quant="int4p"`
+(int4p body, int8 head) with a bf16 arena, whose B=1 decode step runs the
+whole-step kernel K7 (`decode_step_fused`) while the arena holds at most
 ops/int4_block.MAX_FUSED_ARENA rows, and the per-layer kernels past that;
 and `kv_quant=True` (int8 arena), with int4p or bf16 weights. Not ported
-yet: bistream, the v3 layout, temperature and repetition penalty,
-continuous batching, and the int8 and int4 weight modes.
+yet: the v3 layout, temperature and repetition penalty, continuous
+batching, and the int8 and int4 weight modes.
 """
 
 import logging
 from dataclasses import dataclass, field
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -43,6 +47,7 @@ TYPE_SPECIAL = 2  # llm_embedding rows: 0 = sos, 1 = task_id
 class LMConfig:
     speech_token_size: int = 6561
     num_special_head: int = 3  # eos / unused / fill
+    mix_ratio: Tuple[int, int] = (5, 15)  # bistream: text tokens, then speech tokens per segment
     top_p: float = 0.8
     top_k: int = 25
     win_size: int = 10
@@ -57,6 +62,10 @@ class LMConfig:
     @property
     def eos_token(self) -> int:
         return self.speech_token_size
+
+    @property
+    def fill_token(self) -> int:
+        return self.speech_token_size + 2
 
     @property
     def sos_id(self) -> int:
@@ -99,6 +108,13 @@ class Qwen2LMModule(nn.Module):
 
     def prefill(self, ids, types, true_len, cache):
         hidden_last, cache = self.llm.prefill(self.embed_input(ids, types), true_len, cache)
+        return self._head(hidden_last), cache
+
+    def extend_mixed(self, ids, types, start: int, cache):
+        """Append an exact-shape mixed segment (bistream feeds) at arena rows
+        [start, start+S). ids/types [B, S]. Returns (logits of the last
+        position [B, head] f32, cache)."""
+        hidden_last, cache = self.llm.extend(self.embed_input(ids, types), start, cache)
         return self._head(hidden_last), cache
 
     def decode_step(self, token, cur_len, cache):
@@ -174,27 +190,38 @@ class Qwen2LM:
             self._pack = (key, stack_decode_params(layers))
         return self._pack[1]
 
-    def _sample(self, generator, logits, n_dec, recent, min_len):
+    def _sample(self, generator, logits, n_dec, recent, min_len, bistream=False):
         c = self.cfg
         logp = torch.log_softmax(logits.float(), dim=-1)
-        # v2 semantics: only eos is suppressed before min_len; the other stop
-        # ids stay samplable and end generation
-        suppress = n_dec < min_len
-        logp[:, c.eos_token] = torch.where(suppress, torch.full_like(n_dec, NEG_INF, dtype=logp.dtype), logp[:, c.eos_token])
+        if bistream:
+            # bistream spans: the fill token is the one legal stop, every
+            # other stop id is suppressed
+            logp[:, c.speech_token_size :] = torch.where(
+                torch.arange(c.speech_token_size, c.head_size, device=logp.device) == c.fill_token,
+                logp[:, c.speech_token_size :], NEG_INF,
+            )
+        else:
+            # v2 semantics: only eos is suppressed before min_len; the other
+            # stop ids stay samplable and end generation
+            suppress = n_dec < min_len
+            logp[:, c.eos_token] = torch.where(
+                suppress, torch.full_like(n_dec, NEG_INF, dtype=logp.dtype), logp[:, c.eos_token]
+            )
         return ras_sampling_batch(
             logp, recent, n_dec.clamp_max(c.win_size), generator,
             top_p=c.top_p, top_k=c.top_k, win_size=c.win_size, tau_r=c.tau_r,
         )
 
-    def _decode_block(self, generator, cache, cur, logits, recent, n_dec, min_len, fin, stacked):
-        """Decode cfg.block_size token slots on the device, through
-        decode_step_fused when `stacked` is given. Rows that stopped keep
-        emitting eos and stop advancing. Returns (tokens [B, block], logits,
-        cur, recent, n_dec, fin)."""
+    def _decode_block(self, generator, cache, cur, logits, recent, n_dec, min_len, fin, stacked, steps,
+                      bistream=False):
+        """Decode `steps` token slots on the device, through decode_step_fused
+        when `stacked` is given; `bistream` applies the bistream stop mask.
+        Rows that stopped keep emitting eos and stop advancing. Returns
+        (tokens [B, steps], logits, cur, recent, n_dec, fin)."""
         c = self.cfg
         tokens = []
-        for _ in range(c.block_size):
-            tok = self._sample(generator, logits, n_dec, recent, min_len)
+        for _ in range(steps):
+            tok = self._sample(generator, logits, n_dec, recent, min_len, bistream)
             stop_now = tok >= c.speech_token_size
             tok_out = torch.where(fin, torch.full_like(tok, c.eos_token), tok)
             fin_next = fin | stop_now
@@ -248,7 +275,7 @@ class Qwen2LM:
         while produced < max_len and not stop_seen:
             cache = self.grow_cache(cache, self.arena_bucket(cur_host + c.block_size + 1))
             tokens, logits, cur, recent, n_dec, fin = self._decode_block(
-                generator, cache, cur, logits, recent, n_dec, min_l, fin, self._decode_pack(cache)
+                generator, cache, cur, logits, recent, n_dec, min_l, fin, self._decode_pack(cache), c.block_size
             )
             cur_host += c.block_size
             toks = tokens[0].to(torch.int32).cpu().numpy()  # the one host sync per block
@@ -256,6 +283,147 @@ class Qwen2LM:
             if len(stop_idx):
                 toks = toks[: stop_idx[0]]
                 stop_seen = True
+            toks = toks[: max_len - produced]
+            produced += len(toks)
+            if len(toks):
+                yield toks
+
+    @torch.inference_mode()
+    def generate_bistream(self, text_stream, prompt_text, prompt_speech, generator, max_len: int = 4096):
+        """Bi-streaming decode: text arrives as an iterator of id chunks;
+        5-text / 15-speech segments interleave with fill-token handoffs;
+        once the text is exhausted, [remaining text][task] is fed and decoding
+        runs to a stop id. Yields np.int32 speech-token arrays (the JAX
+        `generate_bistream`, step for step).
+
+        Segments are appended by exact-shape `extend_mixed` calls; speech
+        decodes in spans that end at the next fill, sampled or forced by the
+        cadence. A sampled fill is recorded but never fed: the next segment
+        overwrites its arena row. The arena starts at ARENA_BUCKET rows and
+        grows before every feed and span; the route of each span (K7 or the
+        per-layer kernels) follows from the arena's length, as in `generate`.
+
+        Unlike the JAX version, a feed or a span that would write past
+        max_cache_len is not made: a span is cut to the rows that fit, a
+        warning is logged and the stream ends there."""
+        c = self.cfg
+        dev = self.device
+        mt, ms = c.mix_ratio
+        cap = c.qwen.max_cache_len
+
+        cache = self.init_cache(1, self.ARENA_BUCKET)
+        cur_host = 0  # the arena's write position, as the host knows it
+        logits = None
+        recent = torch.full((1, c.win_size), -1, dtype=torch.int32, device=dev)
+        n_dec = torch.zeros((1,), dtype=torch.int32, device=dev)
+        no_min = torch.zeros((1,), dtype=torch.int32, device=dev)
+        not_fin = torch.zeros((1,), dtype=torch.bool, device=dev)
+        out_count = 0  # decoded tokens, fills included
+        produced = 0  # yielded speech tokens
+        # forced-fill cadence: the out index at which a fill is due
+        next_fill = (len(prompt_speech) // ms + 1) * ms - len(prompt_speech)
+        full = False  # the arena reached max_cache_len: the stream ends
+
+        def room(rows, what):
+            """Rows of `rows` that fit below max_cache_len; warns if fewer."""
+            nonlocal full
+            fit = min(rows, cap - cur_host)
+            if fit < rows:
+                logging.warning("bistream %s of %d rows at position %d passes the KV arena's end "
+                                "(max_cache_len=%d); ending the stream", what, rows, cur_host, cap)
+                full = True
+            return fit
+
+        def feed(ids, types):
+            nonlocal cache, cur_host, logits
+            S = len(ids)
+            if full or room(S, "feed") < S:
+                return
+            cache = self.grow_cache(cache, self.arena_bucket(cur_host + S + 1))
+            logits, cache = self.module.extend_mixed(
+                torch.as_tensor(np.asarray(ids, np.int64)[None], device=dev),
+                torch.as_tensor(np.asarray(types, np.int64)[None], device=dev), cur_host, cache,
+            )
+            cur_host += S
+
+        def decode(steps, bistream):
+            """One span or final block of `steps` slots, cut to the rows that
+            fit; the tokens as np.int32 (after a stop id, eos)."""
+            nonlocal cache, logits, recent, n_dec
+            n = room(steps, "decode span" if bistream else "final decode block")
+            if n <= 0:
+                return np.zeros(0, np.int32)
+            cache = self.grow_cache(cache, self.arena_bucket(cur_host + steps + 1))
+            cur = torch.tensor([cur_host], dtype=torch.int32, device=dev)
+            tokens, logits, _, recent, n_dec, _ = self._decode_block(
+                generator, cache, cur, logits, recent, n_dec, no_min, not_fin, self._decode_pack(cache), n, bistream
+            )
+            return tokens[0].to(torch.int32).cpu().numpy()
+
+        def decode_span():
+            """Decode until the next fill (sampled or forced); yields arrays
+            and returns with the fill counted in out_count."""
+            nonlocal cur_host, out_count, produced, next_fill
+            while not full:
+                steps = max(1, next_fill - out_count)
+                toks = decode(steps, True)
+                stop = np.nonzero(toks >= c.speech_token_size)[0]
+                if len(stop):
+                    # the sampled fill is never fed: the next segment lands
+                    # on its row, right after the last real token
+                    emit = toks[: stop[0]]
+                    cur_host += int(stop[0])
+                    out_count += len(emit)
+                    produced += len(emit)
+                    if len(emit):
+                        yield emit
+                    next_fill = out_count + ms + 1
+                    out_count += 1  # the sampled fill
+                    return
+                cur_host += len(toks)
+                out_count += len(toks)
+                produced += len(toks)
+                if len(toks):
+                    yield toks
+                if out_count >= next_fill:
+                    # cadence-forced fill
+                    next_fill = out_count + ms + 1
+                    out_count += 1
+                    return
+
+        feed([c.sos_id], [TYPE_SPECIAL])
+        text_cache = [int(t) for t in prompt_text]
+        speech_q = [int(t) for t in prompt_speech]
+        for this_text in text_stream:
+            text_cache.extend(int(t) for t in this_text)
+            # interleave the remaining prompt speech
+            while speech_q and len(text_cache) >= mt:
+                feed(text_cache[:mt], [TYPE_TEXT] * mt)
+                n_sp = min(ms, len(speech_q))
+                feed(speech_q[:n_sp], [TYPE_SPEECH] * n_sp)
+                text_cache, speech_q = text_cache[mt:], speech_q[n_sp:]
+            if full:
+                return
+            if speech_q:
+                continue
+            # a text segment, then speech up to the next fill
+            while len(text_cache) >= mt:
+                feed(text_cache[:mt], [TYPE_TEXT] * mt)
+                text_cache = text_cache[mt:]
+                yield from decode_span()
+                if produced >= max_len or full:
+                    return
+
+        # final drain: [remaining text][task], then decode to a stop id
+        feed(text_cache + [c.task_id], [TYPE_TEXT] * len(text_cache) + [TYPE_SPECIAL])
+        stopped = False
+        while produced < max_len and not stopped and not full:
+            toks = decode(c.block_size, False)
+            cur_host += len(toks)
+            stop_idx = np.nonzero(toks >= c.speech_token_size)[0]
+            if len(stop_idx):
+                toks = toks[: stop_idx[0]]
+                stopped = True
             toks = toks[: max_len - produced]
             produced += len(toks)
             if len(toks):

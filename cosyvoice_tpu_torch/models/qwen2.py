@@ -9,23 +9,28 @@ bf16 or an int8 KV arena (`kv_quant`):
   (the JAX version returns updated arrays; here the arena is mutated); with
   kv_quant the arena is int8 with per-token f32 scales [L, B, T] per K and V
   (`ops/decode_attention.quantize_kv_rows`);
-- the decode step writes each new K/V row with kernel K2 (kv_arena_write)
-  and attends with K1 (gqa_decode_attention) or, over the int8 arena, K3
-  (gqa_decode_attention_quant); prefill attention is a plain grouped einsum
-  over the arena rows, dequantised first when they are int8, as in JAX;
-- int4p: the decode step's qkv projection is K4 (ops/int4_fused.int4_gemv)
-  and its whole post-attention tail, o_proj + residual + RMSNorm + MLP +
-  residual, is K6 (int4_o_mlp); prefill runs the plain blocked int4
-  matmuls (int4_matmul_blocked, int4_mlp_reference), as the JAX package
-  runs XLA there. With a bf16 arena at B=1 and at most
-  ops/int4_block.MAX_FUSED_ARENA rows, the LM (models/llm.py) decodes
-  through the whole-step kernel K7 instead of `decode_step`;
+- `decode_step` (one token per row) writes each new K/V row with kernel K2
+  (kv_arena_write) and attends with K1 (gqa_decode_attention) or, over the
+  int8 arena, K3 (gqa_decode_attention_quant); with int4p its qkv
+  projection is K4 (ops/int4_fused.int4_gemv) and its whole post-attention
+  tail, o_proj + residual + RMSNorm + MLP + residual, is K6 (int4_o_mlp).
+  With a bf16 arena at B=1 and at most ops/int4_block.MAX_FUSED_ARENA rows,
+  the LM (models/llm.py) decodes through the whole-step kernel K7 instead;
+- `prefill` and `extend` (an exact-shape segment at arena rows
+  [start, start+S), the bi-streaming feeds) write their rows with a slice
+  and attend with a plain grouped einsum over the arena rows up to the
+  segment's end, dequantised first when they are int8, as in JAX. A
+  one-row `extend` takes the decode step's route instead. Their int4p
+  products route by shape, as the JAX layers do on the TPU
+  (`_int4p_use_pallas`): at most 16 rows with 128-multiple widths take K4
+  for qkv and o_proj and K5 (int4_mlp) for the MLP, more rows the plain
+  blocked matmuls (int4_matmul_blocked, int4_mlp_reference), where the JAX
+  package runs XLA;
 - the arena's length is the caller's (`init_cache(batch, length)`), grown
   with zeros by `grow_cache` as the JAX LM grows it.
 
-Routing is by shape: the decode step (one token per row) calls the kernel
-wrappers, which run the kernels on CUDA tensors and their plain versions on
-CPU tensors; prefill calls the plain functions.
+The kernel wrappers run the kernels on CUDA tensors and their plain versions
+on CPU tensors.
 
 Parameters of the matmuls live in `cfg.dtype` (bf16 on the card); norm
 weights stay float32 and norms compute in float32, as the JAX module does.
@@ -50,10 +55,12 @@ from cosyvoice_tpu_torch.ops.decode_attention import (
 )
 from cosyvoice_tpu_torch.ops.int4_fused import (
     GEMV_IN_ALIGN,
+    MAX_ROWS,
     MLP_INTER_ALIGN,
     _pad_to,
     int4_gemv,
     int4_matmul_blocked,
+    int4_mlp,
     int4_mlp_reference,
     int4_o_mlp,
 )
@@ -76,6 +83,13 @@ class Qwen2Config:
     dtype: torch.dtype = torch.bfloat16
     quant: object = False  # weight-only quantisation: False | "int4p"
     kv_quant: bool = False  # int8 KV arena with per-token f32 scales
+
+
+def _int4p_kernel(cfg, rows: int, n_in: int, n_out: int = 0) -> bool:
+    """Whether an int4p product of `rows` rows takes its kernel (K4, K5): the
+    JAX package's `_int4p_use_pallas` without its backend test. At most 16
+    rows, input and output widths multiples of 128."""
+    return cfg.quant == "int4p" and rows <= MAX_ROWS and n_in % 128 == 0 and n_out % 128 == 0
 
 
 def grow_cache(cache, new_len: int):
@@ -139,8 +153,8 @@ class Int4PWeights(nn.Module):
 
 class QuantDense4P(Int4PWeights):
     """int4p Dense with bias: kernel_q4b [nb, 128, out], scale4 [nb, out],
-    bias [out]. `forward` is the plain blocked matmul (prefill), `gemv` the
-    decode call through K4."""
+    bias [out]. `forward` is the plain blocked matmul, `gemv` the call
+    through K4 for at most 16 rows."""
 
     def __init__(self, in_features: int, out_features: int, dtype: torch.dtype):
         nb = _pad_to(in_features, GEMV_IN_ALIGN) // GEMV_IN_ALIGN
@@ -169,12 +183,12 @@ class Qwen2Attention(nn.Module):
             self.qkv_proj = nn.Linear(cfg.hidden_size, nq + 2 * nkv, bias=True, dtype=cfg.dtype)
             self.o_proj = nn.Linear(nq, cfg.hidden_size, bias=False, dtype=cfg.dtype)
 
-    def _qkv(self, x, cos, sin, decode: bool):
+    def _qkv(self, x, cos, sin):
         """q, k rope'd (float32, as apply_rope returns) and v in cfg.dtype."""
         c = self.cfg
         B, S, _ = x.shape
         nq, nkv = c.num_heads * c.head_dim, c.num_kv_heads * c.head_dim
-        if decode and c.quant == "int4p":
+        if _int4p_kernel(c, B * S, c.hidden_size, nq + 2 * nkv):
             qkv = self.qkv_proj.gemv(x.reshape(B * S, -1)).reshape(B, S, -1)
         else:
             qkv = self.qkv_proj(x)
@@ -184,31 +198,39 @@ class Qwen2Attention(nn.Module):
         return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
     def out(self, attn):
-        """o_proj of the pre-o attention output [B, S, nq] (prefill, and the
-        decode step of the unfused layouts)."""
+        """o_proj of the pre-o attention output [B, S, nq] (prefill, extends,
+        and the decode step of the unfused layouts): K4 for at most 16 rows
+        of int4p, the plain blocked matmul for more."""
         c = self.cfg
+        B, S, nq = attn.shape
+        o = self.o_proj
+        if _int4p_kernel(c, B * S, nq, c.hidden_size):
+            return int4_gemv(attn.reshape(B * S, nq).to(c.dtype), o.kernel_q4b, o.scale4).reshape(B, S, -1)
         if c.quant == "int4p":
-            return int4_matmul_blocked(attn, self.o_proj.kernel_q4b, self.o_proj.scale4, c.dtype)
-        return self.o_proj(attn.to(c.dtype))
+            return int4_matmul_blocked(attn, o.kernel_q4b, o.scale4, c.dtype)
+        return o(attn.to(c.dtype))
 
-    def prefill(self, x, cos, sin, bias, cache):
-        """x [B, S, C]; bias [B, 1, S, S] additive; writes arena rows [0, S)
-        of the layer's cache. Returns the pre-o attention output [B, S, nq]."""
+    def extend(self, x, cos, sin, bias, start: int, cache):
+        """x [B, S, C] at positions start..start+S-1; bias [B, 1, S, start+S]
+        additive. Writes arena rows [start, start+S) of the layer's cache and
+        attends over rows [0, start+S) (prefill: start 0). Returns the pre-o
+        attention output [B, S, nq]."""
         c = self.cfg
         B, S, _ = x.shape
-        q, k, v = self._qkv(x, cos, sin, decode=False)
+        end = start + S
+        q, k, v = self._qkv(x, cos, sin)
         if c.kv_quant:
             ck, cv, cks, cvs = cache
             (kq, ks), (vq, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
-            ck[:, :S], cks[:, :S], cv[:, :S], cvs[:, :S] = kq, ks, vq, vs
+            ck[:, start:end], cks[:, start:end], cv[:, start:end], cvs[:, start:end] = kq, ks, vq, vs
             # attention reads the dequantised arena rows, as the JAX path does
-            k_all = dequantize_kv_arena(ck[:, :S], cks[:, :S], c.dtype)
-            v_all = dequantize_kv_arena(cv[:, :S], cvs[:, :S], c.dtype)
+            k_all = dequantize_kv_arena(ck[:, :end], cks[:, :end], c.dtype)
+            v_all = dequantize_kv_arena(cv[:, :end], cvs[:, :end], c.dtype)
         else:
             ck, cv = cache
-            ck[:, :S] = k.to(ck.dtype)
-            cv[:, :S] = v.to(cv.dtype)
-            k_all, v_all = ck[:, :S], cv[:, :S]
+            ck[:, start:end] = k.to(ck.dtype)
+            cv[:, start:end] = v.to(cv.dtype)
+            k_all, v_all = ck[:, :end], cv[:, :end]
         rep = c.num_heads // c.num_kv_heads
         qg = q.reshape(B, S, c.num_kv_heads, rep, c.head_dim)
         scores = torch.einsum("bsgrd,btgd->bgrst", qg, k_all.float()) / math.sqrt(c.head_dim)
@@ -221,7 +243,7 @@ class Qwen2Attention(nn.Module):
         the pre-o attention output [B, 1, nq]: float32 over the int8 arena
         (K3 keeps the float32 rope output's precision), cfg.dtype otherwise."""
         B = x.shape[0]
-        q, k, v = self._qkv(x, cos, sin, decode=True)
+        q, k, v = self._qkv(x, cos, sin)
         if self.cfg.kv_quant:
             ck, cv, cks, cvs = cache
             (kq, ks), (vq, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
@@ -256,9 +278,16 @@ class Qwen2MLP(nn.Module):
             self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size, bias=False, dtype=cfg.dtype)
 
     def forward(self, x):
-        if self.cfg.quant == "int4p":
+        """The MLP of x [..., H]: int4p through K5 for at most 16 rows, the
+        plain blocked matmuls for more."""
+        c = self.cfg
+        if c.quant == "int4p":
             gu, d = self.gate_up_proj, self.down_proj
-            return int4_mlp_reference(x, gu.kernel_q4b, gu.scale4, d.kernel_q4b, d.scale4, self.cfg.dtype)
+            w = (gu.kernel_q4b, gu.scale4, d.kernel_q4b, d.scale4)
+            rows = x.numel() // c.hidden_size
+            if _int4p_kernel(c, rows, c.hidden_size):
+                return int4_mlp(x.reshape(rows, -1).to(c.dtype), *w).reshape(x.shape)
+            return int4_mlp_reference(x, *w, c.dtype)
         gate, up = self.gate_up_proj(x).chunk(2, dim=-1)
         return self.down_proj(F.silu(gate) * up)
 
@@ -276,8 +305,8 @@ class Qwen2Layer(nn.Module):
         x = x + attn_out
         return x + self.mlp(self.post_attention_layernorm(x))
 
-    def prefill(self, x, cos, sin, bias, cache):
-        attn = self.self_attn.prefill(self.input_layernorm(x), cos, sin, bias, cache)
+    def extend(self, x, cos, sin, bias, start: int, cache):
+        attn = self.self_attn.extend(self.input_layernorm(x), cos, sin, bias, start, cache)
         return self._tail(x, self.self_attn.out(attn))
 
     def decode(self, x, cos, sin, cur_len, cache):
@@ -334,10 +363,30 @@ class Qwen2Model(nn.Module):
         cos, sin = self.rope_cos[:S], self.rope_sin[:S]
         x = embeds.to(self.cfg.dtype)
         for i, layer in enumerate(self.layers):
-            x = layer.prefill(x, cos, sin, bias, [part[i] for part in cache])
+            x = layer.extend(x, cos, sin, bias, 0, [part[i] for part in cache])
         x = self.norm(x)
         idx = (true_len.long() - 1).clamp_min(0)
         return x[torch.arange(B, device=x.device), idx], cache
+
+    def extend(self, embeds, start: int, cache):
+        """Append an exact-shape segment at arena rows [start, start+S) (the
+        bi-streaming feeds). embeds [B, S, C], every row valid; position
+        start+s attends to arena rows 0..start+s. One row per batch row takes
+        the decode step's route (K4, K2, K1 or K3, K6); more rows run the
+        layers' `extend`, whose products route by shape (K4 and K5 for at
+        most 16 rows of int4p). Returns (hidden of the last row [B, C], cache)."""
+        B, S, _ = embeds.shape
+        if S == 1:
+            return self.decode_step(embeds, torch.full((B,), start, dtype=torch.int32, device=embeds.device), cache)
+        end = start + S
+        qpos = torch.arange(start, end, device=embeds.device)
+        keep = torch.arange(end, device=embeds.device)[None, :] <= qpos[:, None]
+        bias = torch.where(keep, 0.0, NEG_INF).to(torch.float32).expand(B, 1, S, end)
+        cos, sin = self.rope_cos[start:end], self.rope_sin[start:end]
+        x = embeds.to(self.cfg.dtype)
+        for i, layer in enumerate(self.layers):
+            x = layer.extend(x, cos, sin, bias, start, [part[i] for part in cache])
+        return self.norm(x[:, -1]), cache
 
     def decode_step(self, emb, cur_len, cache):
         """One token per row. emb [B, 1, C]; cur_len [B] int32 positions

@@ -1,4 +1,4 @@
-"""int4 weight-only decode: blocked half-split packing, plain versions, kernels K4 and K6.
+"""int4 weight-only decode: blocked half-split packing, plain versions, kernels K4, K5 and K6.
 
 Counterpart of `cosyvoice_tpu/ops/int4_fused.py`. The port keeps its own
 copy of the numpy packers, bit-identical to the JAX package's:
@@ -18,13 +18,16 @@ its plain version:
 
 - K4 `int4_gemv`: y = x @ dequant(W) for at most 16 rows (csrc/int4_fused.cu).
   Replaces the Pallas `_gemv_kernel`.
+- K5 `int4_mlp`: the SwiGLU MLP, down(silu(x @ Wg) * (x @ Wu)), for at most
+  16 rows in one cooperative launch (csrc/int4_fused.cu). Replaces the
+  Pallas `_mlp_kernel`.
 - K6 `int4_o_mlp`: the layer's whole post-attention tail, o_proj + residual
   + RMSNorm + SwiGLU MLP + residual, in one cooperative launch
   (csrc/int4_fused.cu). Replaces the Pallas `_o_mlp_kernel`.
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors it
-launches the kernel or raises. `int4_gemv.launches` and `int4_o_mlp.launches`
-count kernel launches.
+launches the kernel or raises. `int4_gemv.launches`, `int4_mlp.launches` and
+`int4_o_mlp.launches` count kernel launches.
 """
 
 from typing import Tuple
@@ -160,6 +163,19 @@ def int4_gemv_plain(x, packed, scale):
     return int4_matmul_blocked(x.float(), packed, scale, torch.float32).to(x.dtype)
 
 
+def int4_mlp_plain(x, gu_packed, gu_scale, down_packed, down_scale):
+    """K5's plain version (the JAX `int4_mlp_reference` accumulated in
+    float32). It rounds where the kernel rounds, to x.dtype: silu(g)*u before
+    the down product, and the output once."""
+    dt = x.dtype
+    f32 = torch.float32
+    a = x.float()
+    gate = int4_matmul_blocked(a, gu_packed[0], gu_scale[0], f32)
+    up = int4_matmul_blocked(a, gu_packed[1], gu_scale[1], f32)
+    act = (F.silu(gate) * up).to(dt).float()
+    return int4_matmul_blocked(act, down_packed, down_scale, f32).to(dt)
+
+
 def int4_o_mlp_plain(attn, x, norm_w, o_packed, o_scale, gu_packed, gu_scale, down_packed, down_scale, eps=1e-6):
     """K6's plain version (the JAX `int4_o_mlp_reference` accumulated in
     float32). It rounds where the kernel rounds, to x.dtype: the attention
@@ -228,6 +244,63 @@ def int4_gemv(x, packed, scale):
 int4_gemv.launches = 0
 
 
+def _check_mlp_shapes(B, H, gu_packed, gu_scale, down_packed, down_scale):
+    """(nb_in, half_in, inter_p, n_down, half_d, n_out) of the gate|up and
+    down layouts; raises if they do not fit together or take H inputs."""
+    two, nb_in, half_in, inter_p = gu_packed.shape
+    n_down, half_d, n_out = down_packed.shape
+    if (
+        two != 2 or H > nb_in * 2 * half_in or n_down * 2 * half_d != inter_p
+        or gu_scale.shape != (2, nb_in, inter_p) or down_scale.shape != (n_down, n_out)
+    ):
+        raise ValueError(
+            f"MLP shapes do not fit: x [{B}, {H}], gate_up {tuple(gu_packed.shape)} / {tuple(gu_scale.shape)}, "
+            f"down {tuple(down_packed.shape)} / {tuple(down_scale.shape)}"
+        )
+    return nb_in, half_in, inter_p, n_down, half_d, n_out
+
+
+def int4_mlp(x, gu_packed, gu_scale, down_packed, down_scale):
+    """out = (silu(x @ Wg) * (x @ Wu)) @ Wd in one launch (K5).
+
+    x [B, H] (B <= 16) in bf16; gate|up in the layout of pack_gate_up_int4,
+    down in that of pack_down_int4. Accumulates in float32, rounds
+    silu(g)*u and the output [B, n_out] to x.dtype."""
+    B, H = x.shape
+    nb_in, half_in, inter_p, n_down, half_d, n_out = _check_mlp_shapes(
+        B, H, gu_packed, gu_scale, down_packed, down_scale
+    )
+    if x.device.type == "cpu":
+        return int4_mlp_plain(x, gu_packed, gu_scale, down_packed, down_scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    _check_cuda("x", x, torch.bfloat16, x.device)
+    for name, p, s in (("gate_up", gu_packed, gu_scale), ("down", down_packed, down_scale)):
+        _check_weights(name, p, s, x.device)
+    if not 1 <= B <= MAX_ROWS or B * nb_in * 2 * half_in > GEMV_X_ELEMS or B * 2 * half_d > GEMV_X_ELEMS:
+        raise ValueError(f"kernel takes 1..{MAX_ROWS} rows with rows * padded inputs <= {GEMV_X_ELEMS}, got B={B}")
+    from cosyvoice_tpu_torch.ops._build import load_library
+
+    # one f32 workspace: down partials [n_down, B, n_out], then act [B, inter_p]
+    # bf16 (16-byte aligned: n_out is a multiple of 16)
+    n_f32 = n_down * B * n_out
+    work = torch.empty(n_f32 + (B * inter_p + 1) // 2, device=x.device, dtype=torch.float32)
+    part_d = work.data_ptr()
+    act = part_d + n_f32 * 4
+    out = torch.empty((B, n_out), device=x.device, dtype=x.dtype)
+    rc = load_library().cvt_int4_mlp(
+        x.data_ptr(), gu_packed.data_ptr(), gu_scale.data_ptr(), down_packed.data_ptr(), down_scale.data_ptr(),
+        act, part_d, out.data_ptr(), B, H, nb_in, half_in, inter_p, n_down, half_d, n_out,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _raise_on(rc, "int4_mlp")
+    int4_mlp.launches += 1
+    return out
+
+
+int4_mlp.launches = 0
+
+
 def int4_o_mlp(attn, x, norm_w, o_packed, o_scale, gu_packed, gu_scale, down_packed, down_scale, eps=1e-6):
     """The layer's post-attention tail in one launch (K6):
 
@@ -242,12 +315,12 @@ def int4_o_mlp(attn, x, norm_w, o_packed, o_scale, gu_packed, gu_scale, down_pac
     B, n_attn = attn.shape
     H = x.shape[-1]
     nb_o, half_o, n_out_o = o_packed.shape
-    two, nb_in, half_in, inter_p = gu_packed.shape
-    n_down, half_d, n_out_d = down_packed.shape
+    nb_in, half_in, inter_p, n_down, half_d, n_out_d = _check_mlp_shapes(
+        B, H, gu_packed, gu_scale, down_packed, down_scale
+    )
     if (
-        x.shape != (B, H) or norm_w.shape != (H,) or n_out_o != H or n_out_d != H or two != 2
-        or n_attn > nb_o * 2 * half_o or H > nb_in * 2 * half_in or n_down * 2 * half_d != inter_p
-        or o_scale.shape != (nb_o, H) or gu_scale.shape != (2, nb_in, inter_p) or down_scale.shape != (n_down, H)
+        x.shape != (B, H) or norm_w.shape != (H,) or n_out_o != H or n_out_d != H
+        or n_attn > nb_o * 2 * half_o or o_scale.shape != (nb_o, H)
     ):
         raise ValueError(
             f"int4_o_mlp shapes do not fit: attn {tuple(attn.shape)}, x {tuple(x.shape)}, o {tuple(o_packed.shape)}, "

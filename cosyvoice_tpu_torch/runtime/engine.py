@@ -5,6 +5,10 @@ Counterpart of cosyvoice_tpu/runtime/engine.py:CosyVoice2Engine for
 
 1. the LM prompt [sos, prompt_text, text, task, prompt_speech] is decoded by
    `Qwen2LM.generate` with min_len = 2*len(text), max_len = 20*len(text);
+   when `text_tokens` is an iterator of id chunks (bi-streaming text input,
+   as for LLM-generated text), by `Qwen2LM.generate_bistream` instead, with
+   no length bounds from the text, whose exact-shape extends of 2..16 rows
+   run K4 and K5;
 2. `synthesize_offline` runs the flow offline on prompt + generated tokens
    (10 CFG Euler steps), drops the prompt mel, pads the tail with
    LOG_SILENCE up to the same length bucket as the JAX engine, and vocodes
@@ -15,8 +19,9 @@ an int8 arena, and int4p over a bf16 arena (whose decode steps run the
 whole-step kernel K7 while the arena holds at most 2048 rows), e.g.
 `build_random_engine(seed, "cuda", LMConfig(qwen=Qwen2Config(quant="int4p")))`.
 It takes ids and features; the frontend (text normalisation, BPE, S3
-tokenizer, CAM++) is not part of it. Streaming, speed change, vc mode,
-per-request seeds and continuous batching are not ported yet.
+tokenizer, CAM++) is not part of it. Streaming output (`stream=True`), speed
+change, vc mode, per-request seeds and continuous batching are not ported
+yet.
 """
 
 import dataclasses
@@ -110,7 +115,10 @@ class CosyVoice2Engine:
         flow_embedding: np.ndarray,
         stream: bool = False,
     ) -> Generator[dict, None, None]:
-        """Yields one {'tts_speech': np.ndarray [1, n], 'speech_tokens': [n_tok]}."""
+        """Yields one {'tts_speech': np.ndarray [1, n], 'speech_tokens': [n_tok]}.
+
+        `text_tokens` is an id array, or an iterator of id chunks for
+        bi-streaming text input (`Qwen2LM.generate_bistream`)."""
         if stream:
             raise NotImplementedError("streaming tts is not ported yet; pass stream=False")
         c = self.lm.cfg
@@ -123,18 +131,22 @@ class CosyVoice2Engine:
                     f"{name} has id {int(np.max(arr))} >= codec vocab {vocab}: the model config "
                     "does not match the speech tokenizer that produced these tokens"
                 )
-        text = np.concatenate([prompt_text_tokens, text_tokens]).astype(np.int32)
         prompt_speech = np.asarray(llm_prompt_speech_token, np.int32)
-        ids = np.concatenate([[c.sos_id], text, [c.task_id], prompt_speech]).astype(np.int32)
-        types = np.concatenate(
-            [[TYPE_SPECIAL], np.full(len(text), TYPE_TEXT), [TYPE_SPECIAL], np.full(len(prompt_speech), TYPE_SPEECH)]
-        ).astype(np.int32)
-        min_len, max_len = int(len(text_tokens) * 2), int(len(text_tokens) * 20)
-
         t0 = time.perf_counter()
         gen = self._generator()
+        if hasattr(text_tokens, "__next__"):
+            # bi-streaming text input: no length bounds from the text
+            blocks = self.lm.generate_bistream(text_tokens, np.asarray(prompt_text_tokens, np.int32), prompt_speech, gen)
+        else:
+            text = np.concatenate([prompt_text_tokens, text_tokens]).astype(np.int32)
+            ids = np.concatenate([[c.sos_id], text, [c.task_id], prompt_speech]).astype(np.int32)
+            types = np.concatenate(
+                [[TYPE_SPECIAL], np.full(len(text), TYPE_TEXT), [TYPE_SPECIAL], np.full(len(prompt_speech), TYPE_SPEECH)]
+            ).astype(np.int32)
+            min_len, max_len = int(len(text_tokens) * 2), int(len(text_tokens) * 20)
+            blocks = self.lm.generate(ids, types, gen, min_len, max_len)
         produced = []
-        for block in self.lm.generate(ids, types, gen, min_len, max_len):
+        for block in blocks:
             produced.extend(block.tolist())
         self._sync()
         self.timer.add("lm", time.perf_counter() - t0)

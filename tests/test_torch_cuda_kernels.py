@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card, at
-small shapes: K1, K2 (bf16 and int8 rows), K3, K4, K6 and K7. No JAX: these
+small shapes: K1, K2 (bf16 and int8 rows), K3, K4, K5, K6 and K7. No JAX: these
 tests need only torch, numpy and a GPU, and skip inside each test without
 one (the kernels are built with nvcc and have no CPU mode). Run them on a
 card with `python -m pytest tests/test_torch_cuda_kernels.py -m cuda`;
@@ -92,6 +92,27 @@ def test_cuda_kernels_match_plain():
     out, ref = tint4.int4_o_mlp(attn, x, nw, *wq[2:]), tint4.int4_o_mlp_plain(attn, x, nw, *wq[2:])
     torch.cuda.synchronize()
     assert _err(out, ref) <= 2**-5 * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("B", [1, 5, 16])
+def test_cuda_k5_matches_plain(B):
+    """K5 at the full-width MLP (hidden 896, intermediate 4864 -> 5120) at the
+    row counts of the bistream extends: within two bf16 ulps at the largest
+    |reference| of its plain version (both sum in float32 and round
+    silu(g)*u and the output to bf16), and the same bits twice."""
+    _need_card()
+    rng = np.random.default_rng(20 + B)
+    w = lambda *sh: rng.standard_normal(sh).astype(np.float32) * 0.05  # noqa: E731
+    wq = [torch.from_numpy(a).cuda() for a in (*tint4.pack_gate_up_int4(w(896, 2 * 4864)),
+                                               *tint4.pack_down_int4(w(4864, 896)))]
+    x = torch.from_numpy(rng.standard_normal((B, 896)).astype(np.float32)).cuda().bfloat16()
+    n = tint4.int4_mlp.launches
+    out, again, ref = tint4.int4_mlp(x, *wq), tint4.int4_mlp(x, *wq), tint4.int4_mlp_plain(x, *wq)
+    torch.cuda.synchronize()
+    assert tint4.int4_mlp.launches == n + 2
+    assert out.shape == (B, 896) and out.dtype == torch.bfloat16
+    assert torch.equal(out, again)
+    assert _err(out, ref) <= TWO_ULPS * ref.float().abs().max().item()
 
 
 def _k7_case(seed, L=2, H=384, n_heads=6, n_kv=2, d=64, inter=448, A=64):

@@ -1,5 +1,6 @@
 """The port's offline engine end to end against the JAX engine at tiny width,
-float32: `tts(stream=False)` from ids and features to the waveform.
+float32: `tts(stream=False)` from ids and features to the waveform, with the
+text as an array and as an iterator of chunks (bi-streaming text input).
 
 The LM decodes greedily (top_k=1, RAS resample disabled) so both engines
 draw the same tokens. The HiFT source is pinned by configuration, without
@@ -131,6 +132,45 @@ def test_offline_tts_quantised_lm_matches_jax_engine(quant_engines, seed, monkey
     np.testing.assert_allclose(out["tts_speech"], wav, rtol=0, atol=ATOL)
     kv_quant = eng.lm.cfg.qwen.kv_quant
     assert eng.lm.fused_steps - fused == (0 if kv_quant else eng.lm.decode_steps - steps)
+
+
+def _bistream_request(seed):
+    """_request(seed) with 14 text ids streamed as uneven chunks (an empty
+    one among them); seeds whose greedy streams stop before the tiny arena's
+    end."""
+    from tests.test_torch_bistream import _chunks
+
+    req = _request(seed)
+    req["text_tokens"] = _chunks(np.random.default_rng(100 + seed).integers(0, 100, 14).astype(np.int32))
+    return req
+
+
+def _check_bistream_tts(jeng, eng, seed):
+    req = _bistream_request(seed)
+    want = np.concatenate([c["tts_speech"] for c in jeng.tts(**{**req, "text_tokens": iter(req["text_tokens"])},
+                                                             stream=False)], axis=1)
+    (out,) = list(eng.tts(**{**req, "text_tokens": iter(req["text_tokens"])}, stream=False))
+    n_tok = len(out["speech_tokens"])
+    assert n_tok > 0
+    assert out["tts_speech"].shape == want.shape == (1, n_tok * 2 * 480)
+    assert np.isfinite(out["tts_speech"]).all()
+    np.testing.assert_allclose(out["tts_speech"], want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("seed", [2, 4])
+def test_bistream_tts_matches_jax_engine(engines, seed):
+    """`tts` with an iterator of text chunks (bi-streaming text input): the
+    same wav as the JAX engine's bistream route."""
+    _check_bistream_tts(*engines, seed)
+
+
+@pytest.mark.parametrize("seed", [2, 4])
+def test_bistream_tts_quantised_lm_matches_jax_engine(quant_engines, seed, monkeypatch):
+    """The same for int4p weights over an int8 and over a bf16 arena (the
+    latter's spans through K7, the JAX LM's Pallas kernel under
+    COSY_INT4_BLOCK=force); these requests have no near tie."""
+    monkeypatch.setenv("COSY_INT4_BLOCK", "force")
+    _check_bistream_tts(*quant_engines, seed)
 
 
 def test_streaming_is_refused_not_faked(engines):
