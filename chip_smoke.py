@@ -12,15 +12,22 @@ exceeded, a kernel disagrees with its plain version, or anything raises):
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the LM's decode shapes: K1 (flash-decode GQA, bf16) and K3 (the same over
    an int8 arena, f32 q) at B=1 and ragged B=4, cur_len 0/27/511/512/513/
-   4095, with NaN in the dead arena; K2 (KV-arena row write) in bf16 and
-   int8; K4 (int4 GEMV) and K6 (fused int4 layer tail) at B=1 and 16; K5
-   (fused int4 MLP) at 1, 5, 15 and 16 rows, the row counts of the bistream
-   extends, timed at 5 and 16 rows beside the bf16 product route over the
-   dequantised weights.
+   4095 and the uneven-split values 1/15/16/17/63/64/65/1023/2047, with NaN
+   in the dead arena, and peaked cases (dominant keys planted in each split
+   in turn and the next, at cur_len 1023 and 4095); K2 (KV-arena row write)
+   in bf16 and int8; K4 (int4 GEMV) at 1, 2, 5, 15 and 16 rows at the qkv
+   and o_proj shapes, with x one-hot in each scale block in turn and a
+   weight whose scale blocks add distinct multiples; K6 (fused int4 layer
+   tail) at B=1 and 16; K5 (fused int4 MLP) at 1, 5, 15 and 16 rows, the
+   row counts of the bistream extends, timed at 5 and 16 rows beside the
+   bf16 product route over the dequantised weights. K1, K3, K4, K5, K6 and
+   K7 must repeat bit for bit.
    Kernel, plain and library device times (CUDA events around a replayed
    CUDA graph that rotates over enough distinct input sets to exceed twice
    the L2 cache, at least one per layer) and eager host rates, and the bound
-   from the bytes and operations of each call.
+   from the bytes and operations of each call; K1 and K3 also at cur_len
+   127 in a 512-row arena and at 4095, K4 also at o_proj B=1 and qkv B=5
+   and 16.
 4. slice: the full-width CosyVoice2-0.5B offline engine, random weights from
    seed 0, serves 3 `tts(stream=False)` requests; wavs must be finite and
    n_tokens * 2 * 480 long, and the launch counters must show that every
@@ -287,11 +294,159 @@ def _quant_arena_case(torch, B, T, Hq, Hkv, d, cur, gen, dead):
     return q, k, v, ks, vs
 
 
-CASES = [[c] for c in (0, 27, 511, 512, 513, 4095)] + [[0, 27, 513, 4095], [511, 512, 4095, 27]]
+# cur_len values of the checks: the arena's edges (0, 511-513, 4095) at B=1
+# and in ragged batches of 4, then values that split the live keys unevenly
+# over the 66 splits of B=1 or leave splits empty (fewer live keys than splits)
+UNEVEN = (1, 15, 16, 17, 63, 64, 65, 1023, 2047)
+CASES = [[c] for c in (0, 27, 511, 512, 513, 4095)] + [[0, 27, 513, 4095], [511, 512, 4095, 27]] + [[c] for c in UNEVEN]
 CUR_T = 1023  # timed decode position, mid-utterance
+# further timed (cur_len, arena rows) of K1 / K3: the first arena bucket, and
+# a full 4096-row arena
+DECODE_SUB = {"cur127_T512": (127, 512), "cur4095": (4095, 4096)}
+# Peaked decode cases: every query head of KV group g is PEAK_GAIN * u_g (u_g
+# a random +-1 vector over d), and two live keys per group, the first key of
+# split s and the last of split s+1, are u_g with values of scale PEAK_V
+# (over all s every split's first and last keys are planted); their scores,
+# PEAK_GAIN * sqrt(d) = 20, dominate random keys (log-mass ~11 at 4096
+# keys), so the output is ~ the mean of the two planted values: a dropped
+# split moves it by ~PEAK_V / 2, a doubled one by ~PEAK_V / 6, far past
+# two bf16 ulps at max |ref|.
+PEAK_GAIN, PEAK_V = 2.5, 3.0
+PEAK_CUR = (1023, 4095)
 
 
-def check_k1(da, qc, gen):
+def _peaked_case(torch, da, T, Hq, Hkv, d, cur, gen, dead=100.0):
+    """f32 q of B=1 and plant(s, splits) -> (k, v): random keys and values,
+    `dead` past cur, and the two keys planted at the first key of split s and
+    the last of split (s + 1) % splits of the live range."""
+    rep, dev = Hq // Hkv, "cuda"
+    u = torch.randint(0, 2, (Hkv, d), generator=gen, device=dev).float() * 2 - 1
+    q = (PEAK_GAIN * u).repeat_interleave(rep, dim=0)[None]
+    live = (torch.arange(T, device=dev) <= cur)[None, :, None, None]
+    k, v = (torch.where(live, torch.randn((1, T, Hkv, d), generator=gen, device=dev), dead) for _ in range(2))
+    vals = torch.randn((2, Hkv, d), generator=gen, device=dev) * PEAK_V
+
+    def plant(s, splits):
+        kp, vp = k.clone(), v.clone()
+        n = da.live_keys(cur, T)
+        first = da.decode_split_range(s, n, splits)[0]
+        last = da.decode_split_range((s + 1) % splits, n, splits)[1] - 1
+        for i, t in enumerate((first, last)):
+            kp[0, t], vp[0, t] = u, vals[i]
+        return kp, vp
+
+    return q, plant
+
+
+def _hold_decode(name, fn, plain, args, label, dead_check=None):
+    """Hold one K1 / K3 case: within two bf16 ulps at max |ref| of the plain
+    version, the same bits on a second call, and (dead_check: the same call
+    with NaN in the dead arena) no read past cur_len. Returns the error."""
+    import torch
+
+    out, again, ref = fn(*args), fn(*args), plain(*args)
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = K1_TOL_REL * ref.float().abs().max().item()
+    if dead_check is not None and not torch.equal(fn(*dead_check), out):
+        raise AssertionError(f"{name} read dead arena ({label})")
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name} does not repeat bit for bit ({label})")
+    if not err <= tol:
+        raise AssertionError(f"{name} disagrees with its plain version ({label}): {err} > {tol}")
+    return err, tol
+
+
+def _worst(errs):
+    """The (error, limit) pair of a list nearest its limit (the first if all
+    errors are 0)."""
+    return max(errs, key=lambda e: e[0] / e[1])
+
+
+def _peaked_decode(name, da, qc, gen, quant):
+    """The peaked cases of K1 (quant False) or K3 at B=1 over a
+    max_cache_len arena: for each split s of decode_plan, keys planted in s
+    and s+1. Returns the largest error."""
+    import torch
+
+    Hq, Hkv, d, T = qc.num_heads, qc.num_kv_heads, qc.head_dim, qc.max_cache_len
+    S = da.decode_plan(1, Hkv, T)
+    err_max = 0.0
+    for cur in PEAK_CUR:
+        c = torch.tensor([cur], device="cuda", dtype=torch.int32)
+        q, plant = _peaked_case(torch, da, T, Hq, Hkv, d, cur, gen)
+        errs = []
+        for s in range(S):
+            k, v = plant(s, S)
+            if quant:
+                (k8, ks), (v8, vs) = da.quantize_kv_rows(k), da.quantize_kv_rows(v)
+                fns, args = (da.gqa_decode_attention_quant, da.gqa_decode_attention_quant_plain), (q, k8, v8, ks, vs, c)
+            else:
+                bf = torch.bfloat16
+                fns, args = (da.gqa_decode_attention, da.gqa_decode_attention_plain), (q.to(bf), k.to(bf), v.to(bf), c)
+            errs.append(_hold_decode(name, *fns, args, f"peaked, cur_len {cur}, split {s}"))
+        worst = _worst(errs)
+        err_max = max(err_max, max(e for e, _ in errs))
+        print(f"{name} peaked, cur_len {cur}, keys planted at the first key of each of {S} splits and the last of "
+              f"the next: worst max_abs_err "
+              f"{worst[0]:.3e} (tol {worst[1]:.3e}); repeats bit for bit")
+    return err_max
+
+
+def _time_decode(da, qc, gen, cur_t, T, quant):
+    """Device ms of K1 (quant False) or K3, their plain version and SDPA
+    (over the dequantised bf16 arena for K3) at B=1, cur_len cur_t in a
+    T-row arena, and the bound. Returns (dev, host, n, (bound_ms, by))."""
+    import torch
+
+    Hq, Hkv, d = qc.num_heads, qc.num_kv_heads, qc.head_dim
+    cur = torch.tensor([cur_t], device="cuda", dtype=torch.int32)
+    live = cur_t + 1
+    if quant:
+        nbytes = 2 * Hq * d * 4 + 2 * live * (Hkv * d + 4) + 4
+    else:
+        nbytes = 2 * Hq * d * 2 + 2 * live * Hkv * d * 2 + 4
+    n = n_sets(nbytes)
+    mask = (torch.arange(T, device="cuda") <= cur_t)[None, None, None, :]
+
+    def sdpa(q, k, v):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, enable_gqa=True
+        )
+
+    if quant:
+        sets = [_quant_arena_case(torch, 1, T, Hq, Hkv, d, cur, gen, dead=0.0) + (cur,) for _ in range(n)]
+        deq = [(q.to(torch.bfloat16), da.dequantize_kv_arena(k, ks, torch.bfloat16),
+                da.dequantize_kv_arena(v, vs, torch.bfloat16)) for q, k, v, ks, vs, _ in sets]
+        fns = {"kernel": rotate(sets, da.gqa_decode_attention_quant),
+               "plain": rotate(sets, da.gqa_decode_attention_quant_plain), "library": rotate(deq, sdpa)}
+    else:
+        sets = [_arena_case(torch, 1, T, Hq, Hkv, d, cur, gen, dead=0.0) + (cur,) for _ in range(n)]
+        fns = {"kernel": rotate(sets, da.gqa_decode_attention), "plain": rotate(sets, da.gqa_decode_attention_plain),
+               "library": rotate([s[:3] for s in sets], sdpa)}
+    dev, host = time_fns(fns, n)
+    return dev, host, n, bound(nbytes, 4 * live * Hq * d)
+
+
+def _decode_row(da, qc, gen, quant, name, replaces, err_max):
+    """The K1 / K3 row: timed at CUR_T in a max_cache_len arena beside SDPA,
+    with DECODE_SUB as sub-entries."""
+    import torch
+
+    dev, host, n, (b_ms, b_by) = _time_decode(da, qc, gen, CUR_T, qc.max_cache_len, quant)
+    row = kernel_row(name, "cosyvoice_tpu_torch/csrc/decode_attention.cu", replaces, err_max, dev, b_ms, b_by)
+    row["sub"] = {}
+    for key, (cur_t, T) in DECODE_SUB.items():
+        d2, _, _, (b2, _) = _time_decode(da, qc, gen, cur_t, T, quant)
+        row["sub"][key] = {"ms": d2["kernel"], "plain_ms": d2["plain"], "library_ms": d2["library"], "bound_ms": b2}
+        torch.cuda.empty_cache()
+    return row, host, n
+
+
+def hold_k1(da, qc, gen):
+    """K1 on CASES (NaN in the dead arena) and the peaked cases: each within
+    two bf16 ulps at max |ref| of its plain version, the same bits twice.
+    Returns the largest error; raises on the first case that fails."""
     import torch
 
     Hq, Hkv, d, T = qc.num_heads, qc.num_kv_heads, qc.head_dim, qc.max_cache_len
@@ -299,43 +454,24 @@ def check_k1(da, qc, gen):
     for cl in CASES:
         cur = torch.tensor(cl, device="cuda", dtype=torch.int32)
         q, k, v = _arena_case(torch, len(cl), T, Hq, Hkv, d, cur, gen, dead=100.0)
-        out = da.gqa_decode_attention(q, k, v, cur)
-        ref = da.gqa_decode_attention_plain(q, k, v, cur)
-        err = (out.float() - ref.float()).abs().max().item()
-        tol = K1_TOL_REL * ref.float().abs().max().item()
         # NaN in the dead arena must not reach the output: the kernel never reads it
         kn = torch.where(k == 100.0, torch.full_like(k, float("nan")), k)
         vn = torch.where(v == 100.0, torch.full_like(v, float("nan")), v)
-        out_nan = da.gqa_decode_attention(q, kn, vn, cur)
-        torch.cuda.synchronize()
-        if not torch.equal(out_nan, out):
-            raise AssertionError(f"K1 read dead arena at cur_len={cl}")
+        err, tol = _hold_decode("K1", da.gqa_decode_attention, da.gqa_decode_attention_plain, (q, k, v, cur),
+                                f"cur_len={cl}", dead_check=(q, kn, vn, cur))
         err_max = max(err_max, err)
-        print(f"K1 B={len(cl)} cur_len={cl}: max_abs_err {err:.3e} (tol {tol:.3e} = 2 bf16 ulps at max |ref|)")
-        if not err <= tol:
-            raise AssertionError(f"K1 disagrees with its plain version at cur_len={cl}: {err}")
-
-    cur = torch.tensor([CUR_T], device="cuda", dtype=torch.int32)
-    live = CUR_T + 1
-    k1_bytes = 2 * Hq * d * 2 + 2 * live * Hkv * d * 2 + 4
-    n = n_sets(k1_bytes)
-    sets = [_arena_case(torch, 1, T, Hq, Hkv, d, cur, gen, dead=0.0) + (cur,) for _ in range(n)]
-    mask = (torch.arange(T, device="cuda") <= CUR_T)[None, None, None, :]
-
-    def sdpa(q, k, v, c):
-        return torch.nn.functional.scaled_dot_product_attention(
-            q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, enable_gqa=True
-        )
-
-    dev, host = time_fns({"kernel": rotate(sets, da.gqa_decode_attention),
-                          "plain": rotate(sets, da.gqa_decode_attention_plain), "library": rotate(sets, sdpa)}, n)
-    row = kernel_row("gqa_decode_attention", "cosyvoice_tpu_torch/csrc/decode_attention.cu",
-                     "cosyvoice_tpu/ops/decode_attention.py:290", err_max, dev,
-                     *bound(k1_bytes, 4 * live * Hq * d))
-    return row, host, n
+        print(f"K1 B={len(cl)} cur_len={cl}: max_abs_err {err:.3e} (tol {tol:.3e} = 2 bf16 ulps at max |ref|); "
+              "repeats bit for bit, dead arena unread")
+    return max(err_max, _peaked_decode("K1", da, qc, gen, quant=False))
 
 
-def check_k3(da, qc, gen):
+def check_k1(da, qc, gen):
+    return _decode_row(da, qc, gen, False, "gqa_decode_attention", "cosyvoice_tpu/ops/decode_attention.py:290",
+                       hold_k1(da, qc, gen))
+
+
+def hold_k3(da, qc, gen):
+    """hold_k1 for K3 over int8 arenas (NaN scales in the dead arena)."""
     import torch
 
     Hq, Hkv, d, T = qc.num_heads, qc.num_kv_heads, qc.head_dim, qc.max_cache_len
@@ -343,43 +479,20 @@ def check_k3(da, qc, gen):
     for cl in CASES:
         cur = torch.tensor(cl, device="cuda", dtype=torch.int32)
         q, k, v, ks, vs = _quant_arena_case(torch, len(cl), T, Hq, Hkv, d, cur, gen, dead=100.0)
-        out = da.gqa_decode_attention_quant(q, k, v, ks, vs, cur)
-        ref = da.gqa_decode_attention_quant_plain(q, k, v, ks, vs, cur)
-        err = (out - ref).abs().max().item()
-        tol = K1_TOL_REL * ref.abs().max().item()
         # NaN scales in the dead arena must not reach the output: the kernel never reads them
         ksn = torch.where(ks == 100.0, torch.full_like(ks, float("nan")), ks)
         vsn = torch.where(vs == 100.0, torch.full_like(vs, float("nan")), vs)
-        out_nan = da.gqa_decode_attention_quant(q, k, v, ksn, vsn, cur)
-        torch.cuda.synchronize()
-        if not torch.equal(out_nan, out):
-            raise AssertionError(f"K3 read dead arena at cur_len={cl}")
+        err, tol = _hold_decode("K3", da.gqa_decode_attention_quant, da.gqa_decode_attention_quant_plain,
+                                (q, k, v, ks, vs, cur), f"cur_len={cl}", dead_check=(q, k, v, ksn, vsn, cur))
         err_max = max(err_max, err)
-        print(f"K3 B={len(cl)} cur_len={cl}: max_abs_err {err:.3e} (tol {tol:.3e} = 2 bf16 ulps at max |ref|)")
-        if not err <= tol:
-            raise AssertionError(f"K3 disagrees with its plain version at cur_len={cl}: {err}")
+        print(f"K3 B={len(cl)} cur_len={cl}: max_abs_err {err:.3e} (tol {tol:.3e} = 2 bf16 ulps at max |ref|); "
+              "repeats bit for bit, dead arena unread")
+    return max(err_max, _peaked_decode("K3", da, qc, gen, quant=True))
 
-    cur = torch.tensor([CUR_T], device="cuda", dtype=torch.int32)
-    live = CUR_T + 1
-    k3_bytes = 2 * Hq * d * 4 + 2 * live * (Hkv * d + 4) + 4
-    n = n_sets(k3_bytes)
-    sets = [_quant_arena_case(torch, 1, T, Hq, Hkv, d, cur, gen, dead=0.0) + (cur,) for _ in range(n)]
-    deq = [(q.to(torch.bfloat16), da.dequantize_kv_arena(k, ks, torch.bfloat16),
-            da.dequantize_kv_arena(v, vs, torch.bfloat16)) for q, k, v, ks, vs, _ in sets]
-    mask = (torch.arange(T, device="cuda") <= CUR_T)[None, None, None, :]
 
-    def sdpa(q, k, v):
-        return torch.nn.functional.scaled_dot_product_attention(
-            q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, enable_gqa=True
-        )
-
-    dev, host = time_fns({"kernel": rotate(sets, da.gqa_decode_attention_quant),
-                          "plain": rotate(sets, da.gqa_decode_attention_quant_plain),
-                          "library": rotate(deq, sdpa)}, n)
-    row = kernel_row("gqa_decode_attention_quant", "cosyvoice_tpu_torch/csrc/decode_attention.cu",
-                     "cosyvoice_tpu/ops/decode_attention.py:344", err_max, dev,
-                     *bound(k3_bytes, 4 * live * Hq * d))
-    return row, host, n
+def check_k3(da, qc, gen):
+    return _decode_row(da, qc, gen, True, "gqa_decode_attention_quant", "cosyvoice_tpu/ops/decode_attention.py:344",
+                       hold_k3(da, qc, gen))
 
 
 def check_k2(da, qc, gen):
@@ -441,33 +554,107 @@ def _nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def check_k4(int4, qc, gen):
-    """K4 at the qkv projection's shape: x [B, 896] -> [B, 1152]."""
+K4_ROWS = (1, 2, 5, 15, 16)  # decode steps (1), the bistream extends' row counts (2..16)
+# timed K4 sub-entries beside the row (qkv at B=1): (rows, projection)
+K4_SUB = {"o_proj_B1": (1, "o_proj"), "qkv_B5": (5, "qkv"), "qkv_B16": (16, "qkv")}
+
+
+def _hold_k4(int4, x, p, s, label):
+    """Hold K4 on one input: within two bf16 ulps at max |ref| of its plain
+    version, the same bits twice. Returns the error."""
     import torch
 
-    n_in, n_out = qc.hidden_size, (qc.num_heads + 2 * qc.num_kv_heads) * qc.head_dim
-    p, s = _gemv_weights(torch, int4, n_in, n_out, gen)
-    err_max = 0.0
-    for B in (1, 16):
-        x = torch.randn((B, n_in), generator=gen, device="cuda").to(torch.bfloat16)
-        out, ref = int4.int4_gemv(x, p, s), int4.int4_gemv_plain(x, p, s)
-        err = (out.float() - ref.float()).abs().max().item()
-        tol = K1_TOL_REL * ref.float().abs().max().item()
-        err_max = max(err_max, err)
-        print(f"K4 B={B} [{B}, {n_in}] x int4 [{n_in}, {n_out}]: max_abs_err {err:.3e} (tol {tol:.3e} = 2 bf16 "
-              "ulps at max |ref|)")
-        if not err <= tol:
-            raise AssertionError(f"K4 disagrees with its plain version at B={B}: {err}")
+    out, again, ref = int4.int4_gemv(x, p, s), int4.int4_gemv(x, p, s), int4.int4_gemv_plain(x, p, s)
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = K1_TOL_REL * ref.float().abs().max().item()
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"K4 does not repeat bit for bit ({label})")
+    if not err <= tol:
+        raise AssertionError(f"K4 disagrees with its plain version ({label}): {err} > {tol}")
+    return err, tol
 
-    x = torch.randn((1, n_in), generator=gen, device="cuda").to(torch.bfloat16)
-    k4_bytes = _nbytes(x, p, s) + n_out * 2
-    n = n_sets(k4_bytes)
-    sets = [(x,) + _gemv_weights(torch, int4, n_in, n_out, gen) for _ in range(n)]
-    dense = [(x, int4.unpack_int4_blocked(pp, ss, torch.bfloat16)[:n_in].contiguous()) for x, pp, ss in sets]
-    dev, host = time_fns({"kernel": rotate(sets, int4.int4_gemv), "plain": rotate(sets, int4.int4_gemv_plain),
-                          "library": rotate(dense, torch.matmul)}, n)
+
+def _block_weights(torch, int4, n_in, n_out, gen):
+    """A weight whose rows in scale block b are all (b + 1) * 0.01 * sign[o]
+    (sign a random +-1 per column), so each scale block adds its own multiple
+    to every column sum: with x all ones a dropped or doubled block moves
+    every output by >= 1/8 of it."""
+    from cosyvoice_tpu_torch.ops.int4_fused import GEMV_IN_ALIGN
+
+    sign = torch.randint(0, 2, (n_out,), generator=gen, device="cuda").float() * 2 - 1
+    block = torch.arange(n_in, device="cuda") // GEMV_IN_ALIGN
+    w = ((block[:, None] + 1) * 0.01 * sign[None, :]).cpu().numpy()
+    return tuple(torch.from_numpy(a).cuda() for a in int4.pack_gemv_int4(w))
+
+
+def _k4_shapes(qc):
+    return {"qkv": (qc.num_heads + 2 * qc.num_kv_heads) * qc.head_dim, "o_proj": qc.num_heads * qc.head_dim}
+
+
+def hold_k4(int4, qc, gen):
+    """K4 at the qkv (x [B, 896] -> [B, 1152]) and o_proj (896 -> 896)
+    shapes at K4_ROWS rows: random x; x one-hot in each scale block's rows
+    in turn; x all ones over a weight whose scale blocks add distinct
+    multiples. Each within two bf16 ulps at max |ref| of the plain version,
+    the same bits twice. Returns the largest error; raises on the first
+    case that fails."""
+    import torch
+
+    n_in = qc.hidden_size
+    err_max = 0.0
+    for proj, n_out in _k4_shapes(qc).items():
+        p, s = _gemv_weights(torch, int4, n_in, n_out, gen)
+        pb, sb = _block_weights(torch, int4, n_in, n_out, gen)
+        nb = p.shape[0]
+        tiles, cluster = int4.gemv_plan(nb, n_out)
+        errs = []
+        for B in K4_ROWS:
+            x = torch.randn((B, n_in), generator=gen, device="cuda").to(torch.bfloat16)
+            cases = [(x, p, s, "random x")]
+            for b in range(nb):  # one-hot: a row of scale block b (the last block is half padding)
+                xo = torch.zeros((B, n_in), device="cuda", dtype=torch.bfloat16)
+                xo[:, b * 256 + 7 + B] = 1.0
+                cases.append((xo, p, s, f"x one-hot in scale block {b}"))
+            cases.append((torch.ones((B, n_in), device="cuda", dtype=torch.bfloat16), pb, sb,
+                          "x ones, distinct scale-block sums"))
+            for xc, pc, sc, label in cases:
+                errs.append(_hold_k4(int4, xc, pc, sc, f"{proj} B={B} {label}"))
+        worst = _worst(errs)
+        err_max = max(err_max, max(e for e, _ in errs))
+        print(f"K4 {proj} [B, {n_in}] x int4 [{n_in}, {n_out}] ({tiles} tiles x {int4.K4_COLS} columns, clusters of "
+              f"{cluster}) at B={K4_ROWS}, random, one-hot per scale block and block-sum weights: worst max_abs_err "
+              f"{worst[0]:.3e} (tol {worst[1]:.3e} = 2 bf16 ulps at max |ref|); repeats bit for bit")
+    return err_max
+
+
+def check_k4(int4, qc, gen):
+    """hold_k4, then K4 timed at B=1 qkv beside a bf16 torch.matmul over the
+    dequantised weight, with K4_SUB as sub-entries."""
+    import torch
+
+    err_max = hold_k4(int4, qc, gen)
+    n_in, shapes = qc.hidden_size, _k4_shapes(qc)
+
+    def timed(B, n_out):
+        x = torch.randn((B, n_in), generator=gen, device="cuda").to(torch.bfloat16)
+        p, s = _gemv_weights(torch, int4, n_in, n_out, gen)
+        nbytes = _nbytes(x, p, s) + B * n_out * 2
+        n = n_sets(nbytes)
+        sets = [(x,) + _gemv_weights(torch, int4, n_in, n_out, gen) for _ in range(n)]
+        dense = [(x, int4.unpack_int4_blocked(pp, ss, torch.bfloat16)[:n_in].contiguous()) for x, pp, ss in sets]
+        dev, host = time_fns({"kernel": rotate(sets, int4.int4_gemv), "plain": rotate(sets, int4.int4_gemv_plain),
+                              "library": rotate(dense, torch.matmul)}, n)
+        return dev, host, n, bound(nbytes, 2 * B * n_in * n_out)
+
+    dev, host, n, (b_ms, b_by) = timed(1, shapes["qkv"])
     row = kernel_row("int4_gemv", "cosyvoice_tpu_torch/csrc/int4_fused.cu", "cosyvoice_tpu/ops/int4_fused.py:339",
-                     err_max, dev, *bound(k4_bytes, 2 * n_in * n_out))
+                     err_max, dev, b_ms, b_by)
+    row["sub"] = {}
+    for key, (B, proj) in K4_SUB.items():
+        d2, _, _, (b2, _) = timed(B, shapes[proj])
+        row["sub"][key] = {"ms": d2["kernel"], "plain_ms": d2["plain"], "library_ms": d2["library"], "bound_ms": b2}
+        torch.cuda.empty_cache()
     return row, host, n
 
 
@@ -797,6 +984,10 @@ def phase_kernels(cfg):
         print(f"{key} {row['name']} device time per call ({n} rotating input sets): {row['ms'] * 1e3:.2f} us, "
               f"plain {row['plain_ms'] * 1e3:.2f} us, library {lib}, bound {row['bound_ms'] * 1e3:.4f} us "
               f"({row['bound_by']}); eager host rate: {eager}")
+        for sub_key, sub in row.pop("sub", {}).items():
+            print(f"{key} {sub_key}: device {sub['ms'] * 1e3:.2f} us, plain {sub['plain_ms'] * 1e3:.2f} us, "
+                  f"library {sub['library_ms'] * 1e3:.2f} us ({sub['ms'] / sub['library_ms']:.2f}x), bound "
+                  f"{sub['bound_ms'] * 1e3:.4f} us")
         if "int8" in row:
             r8 = row.pop("int8")
             print(f"{key} int8 rows: device {r8['ms'] * 1e3:.2f} us, plain {r8['plain_ms'] * 1e3:.2f} us, "

@@ -7,30 +7,53 @@
 // cudaGetLastError(); the Python wrappers raise if that is not 0.
 //
 // ---------------------------------------------------------------------------
-// K1  gqa_decode_split_kernel + gqa_decode_reduce_kernel  (flash decode)
+// K1  gqa_decode_kernel<D, false>  (flash decode, one launch)
 //
 // Replaces: cosyvoice_tpu/ops/decode_attention.py:gqa_decode_attention
 //   (pallas_call at :290, body _decode_kernel at :38).
 // Computes: single-token GQA attention of q [B,Hq,D] against a KV arena
 //   [B,T,Hkv,D]; keys at positions <= cur_len[b] are live, the rest is dead
-//   arena that is never read. fp32 online softmax; KV is never head-repeated.
+//   arena that is never read. fp32 softmax; KV is never head-repeated.
 // Bound on the H100: bytes. Per call it must read q, the live K and V rows
 //   (2 * (cur_len+1) * Hkv * D * 2 bytes per batch row) and write the output;
-//   at 3.35 TB/s that is ~0.15 us for one layer at cur_len 1000, B=1. The
+//   at 3.35 TB/s that is ~0.16 us for one layer at cur_len 1023, B=1. The
 //   arithmetic is 4 * Hq * D flops per live key, ~1/7 flop per byte read.
-// Design: the TPU walks the live blocks of one row in one grid step
-//   (grid=(B,)); at B=1 that would be a single block on 132 SMs. Here the
-//   grid is (splits, Hkv, B): each block takes a contiguous share of the
-//   ceil((cur_len+1)/blk) live key blocks of one (row, KV head), holds the
-//   rep = Hq/Hkv query heads of that KV head in registers, and keeps a
-//   running max and sum in fp32. Each warp streams whole 128-byte K and V
-//   rows (coalesced, one load per lane), reduces q.k with warp shuffles,
-//   and the block's warps merge through shared memory into one partial
-//   (m, l, acc) per split. The second kernel merges the splits of each
-//   (row, query head) by log-sum-exp. Splits past the live range exit before
-//   reading anything, and the reduction reads only the live splits.
+// Design: at B=1 the work is a few hundred KB, so the call is latency: a
+//   launch, one DRAM round trip, a merge. The grid is (S, Hkv, B) with S
+//   splits per (row, KV head) chosen on the host from B*Hkv alone (~132 /
+//   (B*Hkv) blocks, ops/decode_attention.py:decode_plan; 66 at B=1), and
+//   each split takes the live keys [floor(s*n/S), floor((s+1)*n/S)) with
+//   n = cur_len+1 read on the device: every split is live once n >= S (16
+//   keys each at cur_len 1023, B=1) and no host sync reads cur_len.
+//   - One round trip: the block issues cp.async 16-byte copies of all its K
+//     and V rows (and, for K3, the two scales of each key) into shared
+//     memory before the first wait, in chunks of kChunk = 64 keys; on the
+//     main path (B*Hkv <= 2, T <= 4096) a split is one chunk. Rows are
+//     padded by 16 bytes, so the score loop reads them free of bank
+//     conflicts. q, pre-scaled by 1/sqrt(D), sits in shared memory in f32.
+//   - No per-key shuffle chain: a thread owns (query head, key) pairs and
+//     dots over D from shared memory; each head's max and sum are one warp
+//     reduction per chunk; for P.V a thread owns (head, dim pair) slots and
+//     sums over the chunk's keys in key order. Chunks merge by the usual
+//     online-softmax rescale.
+//   - Merge in the same launch: each block writes (m, l, acc) for its
+//     split to one scratch buffer, fences, and takes a ticket from an
+//     integer counter per (row, KV head) (atomicAdd: integers only). The
+//     block that draws the last ticket merges the S partials in split order
+//     (log-sum-exp), with every load of the merge in flight at once (one L2
+//     round trip at D=64, S <= 66: merging in dependent rounds cost more on
+//     the H100 than the rest of the kernel), writes the output and puts the
+//     counter back to 0, so
+//     the counters (a persistent zeroed buffer of the wrapper's module) are
+//     0 between calls and across CUDA-graph replays. A split with no live
+//     key writes the neutral partial (m = -1e30, l = 0, acc = 0) without
+//     reading the arena, so the merge needs no liveness test. The merge
+//     order is fixed: a call repeats bit for bit.
+//   A cluster over the splits with a DSMEM merge was not taken: a portable
+//   cluster holds at most 8 blocks (16 with an opt-in), so at B=1 it would
+//   cap the grid at 2 * 16 = 32 blocks.
 //
-// K3  gqa_decode_split_kernel<D, true> + gqa_decode_reduce_kernel  (int8 KV)
+// K3  gqa_decode_kernel<D, true>  (int8 KV)
 //
 // Replaces: cosyvoice_tpu/ops/decode_attention.py:gqa_decode_attention_quant
 //   (pallas_call at :344, body _quant_decode_kernel at :125).
@@ -42,9 +65,9 @@
 //   weight, as the Pallas kernel's does.
 // Bound on the H100: bytes. At B=1, cur_len 1023: 1024 * 128 B of int8 K and
 //   V rows + 1024 * 8 B of scales ~ 0.27 MB: ~0.08 us at 3.35 TB/s.
-// Design: K1's kernels, instantiated for int8 rows, f32 q and output, and two
-//   scale loads per key (one 4-byte broadcast each); the split count is
-//   fixed from T, so no host sync reads cur_len.
+// Design: K1's kernel instantiated for int8 rows (64 bytes per row at D=64,
+//   padded to 80 in shared memory), f32 q and output, and the two scales of
+//   each key copied with 4-byte cp.async beside the rows.
 //
 // K2  kv_arena_write_kernel  (arena row write)
 //
@@ -68,9 +91,11 @@
 
 namespace {
 
-constexpr int kWarps = 4;
+constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxRep = 8;
+constexpr int kMaxRep = kWarps;  // a warp owns one query head in the softmax and the merge
+constexpr int kChunk = 64;       // keys staged in shared memory per round trip
+constexpr int kMaxSplits = 132;  // splits per (row, KV head): one per SM at most
 constexpr float kNegInf = -1e30f;
 
 // Element types of the two instantiations: K1 (bf16 q, arena and output) and
@@ -90,14 +115,57 @@ struct DecodeTypes<true> {
 
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
+
+// The two neighbouring elements of a shared-memory row at p, in f32.
+__device__ __forceinline__ float2 pair_f32(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 pair_f32(const int8_t* p) {
+  const char2 c = *reinterpret_cast<const char2*>(p);
+  return make_float2(static_cast<float>(c.x), static_cast<float>(c.y));
+}
+
+// The 16 bytes at p (a shared-memory row slice) as f32: 8 bf16 or 16 int8.
+__device__ __forceinline__ void vec_f32(const __nv_bfloat16* p, float (&f)[8]) {
+  const uint4 w = *reinterpret_cast<const uint4*>(p);
+  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&words[i]));
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+__device__ __forceinline__ void vec_f32(const int8_t* p, float (&f)[16]) {
+  const uint4 w = *reinterpret_cast<const uint4*>(p);
+  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 16; ++i) f[i] = static_cast<float>(static_cast<int>(words[i / 4] << (24 - 8 * (i % 4))) >> 24);
+}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
+}
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Live keys of row b: positions 0..cur_len[b], clamped to the arena.
@@ -106,141 +174,254 @@ __device__ __forceinline__ int live_keys(const int* cur_len, int b, int T) {
   return n < 1 ? 1 : (n > T ? T : n);
 }
 
+// First key of split s of n live keys in S splits (decode_split_range in
+// ops/decode_attention.py mirrors it): the splits cover [0, n) in order,
+// each floor(n/S) or ceil(n/S) keys.
+__device__ __forceinline__ int split_begin(int s, int n, int S) {
+  return static_cast<int>(static_cast<long long>(s) * n / S);
+}
+
 template <int D, bool kQuant>
-__global__ void __launch_bounds__(kThreads) gqa_decode_split_kernel(
+__global__ void __launch_bounds__(kThreads) gqa_decode_kernel(
     const typename DecodeTypes<kQuant>::q_t* __restrict__ q,   // [B, Hq, D]
     const typename DecodeTypes<kQuant>::kv_t* __restrict__ k,  // [B, T, Hkv, D]
     const typename DecodeTypes<kQuant>::kv_t* __restrict__ v,  // [B, T, Hkv, D]
-    const float* __restrict__ k_scale,     // [B, T] (K3 only)
-    const float* __restrict__ v_scale,     // [B, T] (K3 only)
-    const int* __restrict__ cur_len,       // [B]
-    float* __restrict__ part_m,            // [B, Hq, splits]
-    float* __restrict__ part_l,            // [B, Hq, splits]
-    float* __restrict__ part_acc,          // [B, Hq, splits, D]
-    int Hkv, int T, int rep, int splits, int blk, float scale) {
-  constexpr int DPL = D / 32;  // dims held by each lane
+    const float* __restrict__ k_scale,  // [B, T] (K3 only)
+    const float* __restrict__ v_scale,  // [B, T] (K3 only)
+    const int* __restrict__ cur_len,    // [B]
+    typename DecodeTypes<kQuant>::out_t* __restrict__ out,  // [B, Hq, D]
+    float* part,     // m [B*Hq, S], l [B*Hq, S], acc [B*Hq, S, D]
+    int* counters,   // [B * Hkv], 0 between calls
+    int Hkv, int T, int rep, int splits, float scale) {
+  using kv_t = typename DecodeTypes<kQuant>::kv_t;
+  constexpr int kVec = 16 / sizeof(kv_t);      // elements per 16-byte copy
+  constexpr int kVecPerRow = D / kVec;
+  constexpr int kRow = D + kVec;               // shared row stride: 16 bytes of padding
+  constexpr int kQRow = D + 4;
+  constexpr int kDP = D / 2;                   // dim pairs of a head
+  constexpr int kHeadGroups = kThreads / kDP;  // 4 at D=64, 2 at D=128
+  constexpr int kHPT = kMaxRep / kHeadGroups;  // head slots per thread
+  constexpr int kBatch = kMaxSplits / 2;      // partials a merging thread loads at once
+  constexpr int kLaneSplits = (kMaxSplits + 31) / 32;
+
+  __shared__ __align__(16) kv_t ks_[kChunk * kRow];
+  __shared__ __align__(16) kv_t vs_[kChunk * kRow];
+  __shared__ __align__(16) float qs[kMaxRep * kQRow];
+  __shared__ float ps[kMaxRep * kChunk];  // scores, then softmax weights
+  __shared__ float ksc[kChunk], vsc[kChunk];
+  __shared__ float m_run[kMaxRep], l_run[kMaxRep], corr[kMaxRep];
+  __shared__ float wgt[kMaxRep * kMaxSplits];  // merge weights of the last block
+  __shared__ int is_last;
+
   const int s = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int dp = tid % kDP, hg = tid / kDP;
   const int n_live = live_keys(cur_len, b, T);
-  const int n_blocks = (n_live + blk - 1) / blk;
-  const int per_split = (n_blocks + splits - 1) / splits;
-  const int key0 = s * per_split * blk;
-  if (key0 >= n_live) return;  // dead split: nothing read, reduce skips it
-  const int key1 = min(n_live, (s + 1) * per_split * blk);
+  const int key0 = split_begin(s, n_live, splits), key1 = split_begin(s + 1, n_live, splits);
   const int Hq = Hkv * rep;
-
-  float qr[kMaxRep][DPL];
-  float m[kMaxRep], l[kMaxRep], acc[kMaxRep][DPL];
-#pragma unroll
-  for (int r = 0; r < kMaxRep; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      acc[r][i] = 0.f;
-      qr[r][i] = r < rep
-          ? to_f32(q[((size_t)b * Hq + g * rep + r) * D + lane * DPL + i]) * scale
-          : 0.f;
-    }
-  }
-
   const size_t row = (size_t)Hkv * D;
-  const auto* kb = k + (size_t)b * T * row + (size_t)g * D + lane * DPL;
-  const auto* vb = v + (size_t)b * T * row + (size_t)g * D + lane * DPL;
-  for (int j = key0 + warp; j < key1; j += kWarps) {
-    float kf[DPL], vf[DPL];
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      kf[i] = to_f32(kb[(size_t)j * row + i]);
-      vf[i] = to_f32(vb[(size_t)j * row + i]);
+  const kv_t* kb = k + (size_t)b * T * row + (size_t)g * D;
+  const kv_t* vb = v + (size_t)b * T * row + (size_t)g * D;
+
+  // issue every copy of one chunk of keys [c0, c0 + nk): K rows, V rows and
+  // (K3) their scales, all before anything waits on them
+  auto issue = [&](int c0, int nk) {
+    for (int idx = tid; idx < 2 * nk * kVecPerRow; idx += kThreads) {
+      const int which = idx / (nk * kVecPerRow), rem = idx % (nk * kVecPerRow);
+      const int j = rem / kVecPerRow, c = rem % kVecPerRow;
+      cp_async16((which ? vs_ : ks_) + j * kRow + c * kVec, (which ? vb : kb) + (size_t)(c0 + j) * row + c * kVec);
     }
-    float ks = 1.f, vs = 1.f;
     if constexpr (kQuant) {
-      ks = k_scale[(size_t)b * T + j];
-      vs = v_scale[(size_t)b * T + j];
-    }
-#pragma unroll
-    for (int r = 0; r < kMaxRep; ++r) {
-      if (r < rep) {
-        float p = 0.f;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) p += qr[r][i] * kf[i];
-        p = warp_sum(p);
-        if constexpr (kQuant) p *= ks;  // column dequant of the score
-        const float m_new = fmaxf(m[r], p);
-        const float corr = __expf(m[r] - m_new);
-        const float e = __expf(p - m_new);
-        l[r] = l[r] * corr + e;
-        float ev = e;
-        if constexpr (kQuant) ev *= vs;  // v dequant folded into the weight
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[r][i] = acc[r][i] * corr + ev * vf[i];
-        m[r] = m_new;
+      for (int j = tid; j < 2 * nk; j += kThreads) {
+        const bool is_v = j >= nk;
+        const int jj = is_v ? j - nk : j;
+        cp_async4((is_v ? vsc : ksc) + jj, (is_v ? v_scale : k_scale) + (size_t)b * T + c0 + jj);
       }
     }
+  };
+  if (key0 < key1) issue(key0, min(kChunk, key1 - key0));
+
+  for (int idx = tid; idx < rep * D; idx += kThreads)
+    qs[(idx / D) * kQRow + idx % D] = to_f32(q[((size_t)b * Hq + g * rep) * D + idx]) * scale;
+  if (tid < kMaxRep) {
+    m_run[tid] = kNegInf;
+    l_run[tid] = 0.f;
+  }
+  float acc[kHPT][2];
+#pragma unroll
+  for (int i = 0; i < kHPT; ++i) acc[i][0] = acc[i][1] = 0.f;
+
+  for (int c0 = key0; c0 < key1; c0 += kChunk) {
+    const int nk = min(kChunk, key1 - c0);
+    if (c0 != key0) issue(c0, nk);
+    cp_async_wait_all();
+    __syncthreads();
+
+    // scores: a thread owns (head, key) pairs and dots over D (four
+    // independent partial sums, added in a fixed order)
+    for (int idx = tid; idx < rep * nk; idx += kThreads) {
+      const int r = idx / nk, j = idx % nk;
+      const float* qr = qs + r * kQRow;
+      const kv_t* kr = ks_ + j * kRow;
+      float p4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int c = 0; c < kVecPerRow; ++c) {
+        float f[kVec];
+        vec_f32(kr + c * kVec, f);
+#pragma unroll
+        for (int e = 0; e < kVec; e += 4) {
+          const float4 qv = *reinterpret_cast<const float4*>(qr + c * kVec + e);
+          p4[0] = fmaf(qv.x, f[e], p4[0]);
+          p4[1] = fmaf(qv.y, f[e + 1], p4[1]);
+          p4[2] = fmaf(qv.z, f[e + 2], p4[2]);
+          p4[3] = fmaf(qv.w, f[e + 3], p4[3]);
+        }
+      }
+      float p = (p4[0] + p4[1]) + (p4[2] + p4[3]);
+      if constexpr (kQuant) p *= ksc[j];  // column dequant of the score
+      ps[r * kChunk + j] = p;
+    }
+    __syncthreads();
+
+    // one max and one sum per head per chunk, warp r taking head r; the
+    // weights replace the scores. Warps past rep repeat the last head and
+    // write nothing: a `warp < rep` branch around this and the merge's
+    // weights step measured slower on the H100.
+    {
+      const int r = min(warp, rep - 1);
+      float mx = kNegInf;
+      for (int j = lane; j < nk; j += 32) mx = fmaxf(mx, ps[r * kChunk + j]);
+      const float m_new = fmaxf(m_run[r], warp_max(mx));
+      float sum = 0.f;
+      for (int j = lane; j < nk; j += 32) {
+        const float e = __expf(ps[r * kChunk + j] - m_new);
+        sum += e;
+        float w = e;
+        if constexpr (kQuant) w *= vsc[j];  // v dequant folded into the weight
+        if (warp < rep) ps[r * kChunk + j] = w;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0 && warp < rep) {
+        const float cr = __expf(m_run[r] - m_new);
+        corr[r] = cr;
+        l_run[r] = l_run[r] * cr + sum;
+        m_run[r] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // P.V: a thread owns (head, dim pair) slots and sums over keys in order;
+    // each V pair is read once for all of the thread's heads
+    {
+      int hr[kHPT];
+#pragma unroll
+      for (int i = 0; i < kHPT; ++i) {
+        hr[i] = min(hg + i * kHeadGroups, rep - 1);
+        acc[i][0] *= corr[hr[i]];
+        acc[i][1] *= corr[hr[i]];
+      }
+#pragma unroll 4
+      for (int j = 0; j < nk; ++j) {
+        const float2 vv = pair_f32(vs_ + j * kRow + 2 * dp);
+#pragma unroll
+        for (int i = 0; i < kHPT; ++i) {
+          const float w = ps[hr[i] * kChunk + j];
+          acc[i][0] = fmaf(w, vv.x, acc[i][0]);
+          acc[i][1] = fmaf(w, vv.y, acc[i][1]);
+        }
+      }
+    }
+    __syncthreads();  // the next chunk's copies overwrite ks_, vs_ and ps
   }
 
-  __shared__ float sm_m[kWarps][kMaxRep];
-  __shared__ float sm_l[kWarps][kMaxRep];
-  __shared__ float sm_acc[kWarps][kMaxRep][D];
+  // this split's partial (neutral if it had no live key)
+  const int bh0 = b * Hq + g * rep;
+  float* part_m = part;
+  float* part_l = part + (size_t)gridDim.z * Hq * splits;
+  float* part_acc = part + 2 * (size_t)gridDim.z * Hq * splits;
 #pragma unroll
-  for (int r = 0; r < kMaxRep; ++r) {
-    if (r < rep) {
-      if (lane == 0) {
-        sm_m[warp][r] = m[r];
-        sm_l[warp][r] = l[r];
-      }
+  for (int i = 0; i < kHPT; ++i) {
+    const int r = hg + i * kHeadGroups;
+    if (r < rep)
+      *reinterpret_cast<float2*>(part_acc + ((size_t)(bh0 + r) * splits + s) * D + 2 * dp) =
+          make_float2(acc[i][0], acc[i][1]);
+  }
+  if (tid < rep) {
+    part_m[(size_t)(bh0 + tid) * splits + s] = m_run[tid];
+    part_l[(size_t)(bh0 + tid) * splits + s] = l_run[tid];
+  }
+
+  // the last of the S blocks of this (row, KV head) merges all partials
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(counters + b * Hkv + g, 1) == splits - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+
+  // The merge issues its loads in batches: a thread owns (head, dim pair)
+  // slots and loads up to kBatch splits of one slot at once; the first
+  // batch goes out before the weights step, whose m and l loads go out
+  // together, so at D=64 and S <= kBatch the merge is one round trip.
+  __shared__ float L_all[kMaxRep];
+  float2 v2[kBatch];
+  const int r0 = min(tid / kDP, rep - 1);
+  const float* pa0 = part_acc + (size_t)(bh0 + r0) * splits * D + 2 * (tid % kDP);
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) sm_acc[warp][r][lane * DPL + i] = acc[r][i];
+  for (int u = 0; u < kBatch; ++u)
+    if (u < splits) v2[u] = __ldcg(reinterpret_cast<const float2*>(pa0 + (size_t)u * D));
+  {  // warp r: head r's weights and L (warps past rep repeat the last head)
+    const int r = min(warp, rep - 1);
+    const size_t base = (size_t)(bh0 + r) * splits;
+    float mv[kLaneSplits], lv[kLaneSplits];
+#pragma unroll
+    for (int u = 0; u < kLaneSplits; ++u) {
+      const int t = lane + 32 * u;
+      mv[u] = t < splits ? __ldcg(part_m + base + t) : kNegInf;
+      lv[u] = t < splits ? __ldcg(part_l + base + t) : 0.f;
     }
+    float mx = kNegInf;
+#pragma unroll
+    for (int u = 0; u < kLaneSplits; ++u) mx = fmaxf(mx, mv[u]);
+    mx = warp_max(mx);
+    float L = 0.f;
+#pragma unroll
+    for (int u = 0; u < kLaneSplits; ++u) {
+      const int t = lane + 32 * u;
+      const float w = t < splits ? __expf(mv[u] - mx) : 0.f;
+      if (warp < rep && t < splits) wgt[r * kMaxSplits + t] = w;
+      L = fmaf(lv[u], w, L);
+    }
+    L = warp_sum(L);
+    if (lane == 0 && warp < rep) L_all[r] = L;
   }
   __syncthreads();
-
-  for (int idx = threadIdx.x; idx < rep * D; idx += kThreads) {
-    const int r = idx / D, dd = idx % D;
-    float M = kNegInf;
+  // out = sum over splits in order of acc_s * w_s, over L
+  for (int slot = tid; slot < rep * kDP; slot += kThreads) {
+    const int r = slot / kDP;
+    const float* pa = part_acc + (size_t)(bh0 + r) * splits * D + 2 * (slot % kDP);
+    const float* wr = wgt + r * kMaxSplits;
+    float a0 = 0.f, a1 = 0.f;
+    for (int t0 = 0; t0 < splits; t0 += kBatch) {
+      if (slot != tid || t0 != 0) {
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sm_m[w][r]);
-    float L = 0.f, A = 0.f;
+        for (int u = 0; u < kBatch; ++u)
+          if (t0 + u < splits) v2[u] = __ldcg(reinterpret_cast<const float2*>(pa + (size_t)(t0 + u) * D));
+      }
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = __expf(sm_m[w][r] - M);
-      L += sm_l[w][r] * f;
-      A += sm_acc[w][r][dd] * f;
+      for (int u = 0; u < kBatch; ++u) {
+        if (t0 + u < splits) {
+          const float w = wr[t0 + u];
+          a0 = fmaf(v2[u].x, w, a0);
+          a1 = fmaf(v2[u].y, w, a1);
+        }
+      }
     }
-    const size_t o = ((size_t)b * Hq + g * rep + r) * splits + s;
-    part_acc[o * D + dd] = A;
-    if (dd == 0) {
-      part_m[o] = M;
-      part_l[o] = L;
-    }
+    auto* o = out + (size_t)(bh0 + r) * D + 2 * (slot % kDP);
+    store(o, a0 / L_all[r]);
+    store(o + 1, a1 / L_all[r]);
   }
-}
-
-template <int D, typename OutT>
-__global__ void gqa_decode_reduce_kernel(
-    const float* __restrict__ part_m, const float* __restrict__ part_l,
-    const float* __restrict__ part_acc, const int* __restrict__ cur_len,
-    OutT* __restrict__ out,  // [B, Hq, D]
-    int Hq, int T, int splits, int blk) {
-  const int bh = blockIdx.x, b = bh / Hq;
-  const int n_live = live_keys(cur_len, b, T);
-  const int n_blocks = (n_live + blk - 1) / blk;
-  const int per_split = (n_blocks + splits - 1) / splits;
-  const int active = (n_blocks + per_split - 1) / per_split;
-  const size_t base = (size_t)bh * splits;
-  float M = kNegInf;
-  for (int s = 0; s < active; ++s) M = fmaxf(M, part_m[base + s]);
-  for (int dd = threadIdx.x; dd < D; dd += blockDim.x) {
-    float L = 0.f, A = 0.f;
-    for (int s = 0; s < active; ++s) {
-      const float f = __expf(part_m[base + s] - M);
-      L += part_l[base + s] * f;
-      A += part_acc[(base + s) * D + dd] * f;
-    }
-    store(out + (size_t)bh * D + dd, A / L);
-  }
+  if (tid == 0) counters[b * Hkv + g] = 0;  // ready for the next call
 }
 
 __global__ void kv_arena_write_kernel(
@@ -259,34 +440,30 @@ __global__ void kv_arena_write_kernel(
 }
 
 template <int D, bool kQuant>
-void launch_decode(const void* q, const void* k, const void* v, const float* k_scale,
-                   const float* v_scale, const int* cur_len, void* out, float* part_m, float* part_l,
-                   float* part_acc, int B, int Hq, int Hkv, int T, int splits, int blk, float scale,
-                   cudaStream_t stream) {
+void launch_decode(const void* q, const void* k, const void* v, const float* k_scale, const float* v_scale,
+                   const int* cur_len, void* out, float* part, int* counters, int B, int Hq, int Hkv, int T,
+                   int splits, float scale, cudaStream_t stream) {
   using Ty = DecodeTypes<kQuant>;
-  dim3 grid(splits, Hkv, B);
-  gqa_decode_split_kernel<D, kQuant><<<grid, kThreads, 0, stream>>>(
+  gqa_decode_kernel<D, kQuant><<<dim3(splits, Hkv, B), kThreads, 0, stream>>>(
       static_cast<const typename Ty::q_t*>(q), static_cast<const typename Ty::kv_t*>(k),
-      static_cast<const typename Ty::kv_t*>(v), k_scale, v_scale, cur_len, part_m, part_l, part_acc,
-      Hkv, T, Hq / Hkv, splits, blk, scale);
-  gqa_decode_reduce_kernel<D, typename Ty::out_t><<<B * Hq, D, 0, stream>>>(
-      part_m, part_l, part_acc, cur_len, static_cast<typename Ty::out_t*>(out), Hq, T, splits, blk);
+      static_cast<const typename Ty::kv_t*>(v), k_scale, v_scale, cur_len, static_cast<typename Ty::out_t*>(out),
+      part, counters, Hkv, T, Hq / Hkv, splits, scale);
 }
 
 template <bool kQuant>
-int decode_entry(const void* q, const void* k, const void* v, const float* k_scale,
-                 const float* v_scale, const int* cur_len, void* out, float* part_m, float* part_l,
-                 float* part_acc, int B, int Hq, int Hkv, int T, int D, int splits, int blk,
-                 float scale, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxRep || splits <= 0 || blk <= 0)
+int decode_entry(const void* q, const void* k, const void* v, const float* k_scale, const float* v_scale,
+                 const int* cur_len, void* out, float* part, int* counters, int B, int Hq, int Hkv, int T, int D,
+                 int splits, float scale, void* stream) {
+  if (B <= 0 || Hkv <= 0 || T <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxRep || splits <= 0 ||
+      splits > kMaxSplits || reinterpret_cast<uintptr_t>(k) % 16 != 0 || reinterpret_cast<uintptr_t>(v) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) {
-    launch_decode<64, kQuant>(q, k, v, k_scale, v_scale, cur_len, out, part_m, part_l, part_acc, B,
-                              Hq, Hkv, T, splits, blk, scale, s);
+    launch_decode<64, kQuant>(q, k, v, k_scale, v_scale, cur_len, out, part, counters, B, Hq, Hkv, T, splits,
+                              scale, s);
   } else if (D == 128) {
-    launch_decode<128, kQuant>(q, k, v, k_scale, v_scale, cur_len, out, part_m, part_l, part_acc, B,
-                               Hq, Hkv, T, splits, blk, scale, s);
+    launch_decode<128, kQuant>(q, k, v, k_scale, v_scale, cur_len, out, part, counters, B, Hq, Hkv, T, splits,
+                               scale, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -297,23 +474,22 @@ int decode_entry(const void* q, const void* k, const void* v, const float* k_sca
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launches, or cudaErrorInvalidValue
-// for a shape the kernel does not take (the Python wrapper checks first).
-int cvt_gqa_decode_attention(const void* q, const void* k, const void* v, const int* cur_len,
-                             void* out, float* part_m, float* part_l, float* part_acc, int B,
-                             int Hq, int Hkv, int T, int D, int splits, int blk, float scale,
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// a shape the kernel does not take (the Python wrapper checks first).
+// part: 2 * B*Hq*splits + B*Hq*splits*D floats of scratch; counters: B*Hkv
+// ints, all 0 on entry and again on exit.
+int cvt_gqa_decode_attention(const void* q, const void* k, const void* v, const int* cur_len, void* out, float* part,
+                             int* counters, int B, int Hq, int Hkv, int T, int D, int splits, float scale,
                              void* stream) {
-  return decode_entry<false>(q, k, v, nullptr, nullptr, cur_len, out, part_m, part_l, part_acc, B,
-                             Hq, Hkv, T, D, splits, blk, scale, stream);
+  return decode_entry<false>(q, k, v, nullptr, nullptr, cur_len, out, part, counters, B, Hq, Hkv, T, D, splits,
+                             scale, stream);
 }
 
-int cvt_gqa_decode_attention_quant(const void* q, const void* k, const void* v,
-                                   const float* k_scale, const float* v_scale, const int* cur_len,
-                                   void* out, float* part_m, float* part_l, float* part_acc, int B,
-                                   int Hq, int Hkv, int T, int D, int splits, int blk, float scale,
-                                   void* stream) {
-  return decode_entry<true>(q, k, v, k_scale, v_scale, cur_len, out, part_m, part_l, part_acc, B,
-                            Hq, Hkv, T, D, splits, blk, scale, stream);
+int cvt_gqa_decode_attention_quant(const void* q, const void* k, const void* v, const float* k_scale,
+                                   const float* v_scale, const int* cur_len, void* out, float* part, int* counters,
+                                   int B, int Hq, int Hkv, int T, int D, int splits, float scale, void* stream) {
+  return decode_entry<true>(q, k, v, k_scale, v_scale, cur_len, out, part, counters, B, Hq, Hkv, T, D, splits,
+                            scale, stream);
 }
 
 int cvt_kv_arena_write(void* arena, const void* new_kv, const int* pos, int B, int T, int row_bytes,

@@ -5,13 +5,14 @@
 // stream it is given and returns the launch's error code; the Python
 // wrappers raise if it is not 0.
 //
-// All three kernels are built from one work item, gemv_tile (int4_gemv_tile.cuh,
-// which also describes the weight layout). Input rows past the activation's
-// length are zero padding: the activation slice in shared memory is
-// zero-filled there, so they add nothing.
+// K5 and K6 are built from one work item, gemv_tile (int4_gemv_tile.cuh,
+// which also describes the weight layout); K4 has its own device code over
+// the same layout. Input rows past the activation's length are zero
+// padding: the activation slice in shared memory is zero-filled there, so
+// they add nothing.
 //
 // ---------------------------------------------------------------------------
-// K4  int4_gemv_kernel  (int4 GEMV, <= 16 rows)
+// K4  int4_gemv_kernel  (int4 GEMV, <= 16 rows, one cluster launch)
 //
 // Replaces: cosyvoice_tpu/ops/int4_fused.py:int4_gemv (pallas_call at :339,
 //   body _gemv_kernel :307).
@@ -19,16 +20,32 @@
 //   once to bf16. Exact dequant arithmetic of int4_matmul_blocked: the
 //   Pallas kernel's default "fold" scheme (_gemv_planes_fold) instead rounds
 //   x_lo - x_hi/16 to bf16 and dots the raw byte; this kernel decodes both
-//   nibbles and multiplies the unrounded activations.
+//   nibbles and multiplies the unrounded activations, sums each scale
+//   block's partial in f32 and multiplies it by the block's scale.
 // Bound on the H100: bytes. The qkv projection of Qwen2-0.5B (n_in 896 ->
 //   1024, O 1152) reads 4*128*1152 B of packed weights + 4*1152*4 B of
 //   scales ~ 0.61 MB: ~0.18 us at 3.35 TB/s; ~2 flops per weight byte.
-// Design: one block per 64-column tile (18 blocks for qkv), the whole input
-//   dimension per block; the activation rows are staged once per block in
-//   shared memory (B * padded n_in <= 16384 bf16). Each thread issues its
-//   nb * half / 64 16-byte weight loads (8 for qkv) independent of each
-//   other. Rows beyond 4 are processed in tiles of 4 that re-read the
-//   weights from L2.
+// Why the first design took ~10 us: one block per 64-column tile
+//   (18 blocks on 132 SMs for qkv) staged all 1024 inputs with 2-byte loads,
+//   then walked the scale blocks in a runtime loop whose scale load fed its
+//   own FMAs, so a thread's loads went out in several dependent rounds;
+//   past 4 rows each 4-row tile re-read the weights from L2.
+// Design: a work item is (32-column tile, scale block): 36 tiles x 4 scale
+//   blocks = 144 blocks for qkv, 28 x 4 for o_proj (ops/int4_fused.py:
+//   gemv_plan). 32 columns took less time on the H100 than 16 (which would
+//   fill every SM for o_proj) at 1 to 16 rows (scripts/decode_gemv_
+//   ablation.py): each block pays a fixed reduction. Every thread issues all of
+//   its weight loads (32 bytes) and its scale load before the first FMA, so
+//   a block makes one DRAM round trip; its scale block's inputs come from
+//   global memory straight into registers at <= 2 rows, else are staged
+//   once in shared memory with 16-byte loads (256 inputs per row, not
+//   1024). All rows go through the loaded weights in one pass (see the note
+//   at int4_gemv_kernel). The nb scale blocks of a column tile form one
+//   thread-block cluster (nb <= 8; past 8 each rank loops over nb / 8
+//   blocks): each rank writes its f32 partial tile into its slot of rank 0's
+//   shared memory, and after one cluster barrier rank 0 sums the slots in
+//   rank order and rounds once to bf16. No second launch, no atomics: a call
+//   repeats bit for bit.
 //
 // K6  int4_o_mlp_kernel  (fused int4 layer tail, one cooperative launch)
 //
@@ -97,32 +114,214 @@ namespace {
 constexpr int kMaxRows = 16;
 constexpr int kXElems = 16 * 1024;  // bf16 activations staged in shared memory
 
+// ---- K4: its own device code (gemv_tile stays K5's, K6's and K7's) ----
+//
+// FMA, not mma.sync: at 16 rows a block's products are ~2 k FMAs per thread,
+// well under a microsecond of the SM's f32 rate, and an mma B fragment would
+// need the nibbles restaged in shared memory in the fragment's layout. The
+// columns per thread narrow as the rows grow (16, 8, 4 at <= 4, 8, 16 rows),
+// so the f32 sums of all rows stay in registers and one pass over the
+// weights serves every row.
+
+constexpr int kGemvCols = 32;               // columns of a tile
+constexpr int kGemvXElems = 16 * 256;       // staged bf16 inputs: rows * 2 * half
+constexpr int kGemvMaxCluster = 8;          // portable cluster size
+constexpr int kGemvBytesPerThread = 32;     // weight bytes a thread loads per round
+
+template <int BT>
+struct GemvRows {
+  static constexpr int kCols = BT <= 4 ? 16 : (BT == 8 ? 8 : 4);  // columns per thread
+  static constexpr int kWords = kCols / 4;                        // 32-bit words per load
+  static constexpr int kLoads = kGemvBytesPerThread / kCols;      // loads per round
+  static constexpr int kGroups = kGemvCols / kCols;                // column groups of a tile
+};
+
+template <int W>
+__device__ __forceinline__ void load_words(const int8_t* p, uint32_t (&w)[W]) {
+  if constexpr (W == 4) {
+    const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
+    w[0] = t.x, w[1] = t.y, w[2] = t.z, w[3] = t.w;
+  } else if constexpr (W == 2) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = t.x, w[1] = t.y;
+  } else {
+    w[0] = __ldg(reinterpret_cast<const uint32_t*>(p));
+  }
+}
+
+// Grid (cluster, tiles), cluster (cluster, 1, 1): the blocks of a cluster are
+// the scale blocks of one column tile. Block rank c takes scale blocks c,
+// c + cluster, ... and writes its f32 partial tile into rank 0's shared
+// memory (distributed shared memory); rank 0 sums the tiles in rank order
+// and rounds once to bf16.
 template <int BT>
 __global__ void __launch_bounds__(kThreads) int4_gemv_kernel(
     const __nv_bfloat16* __restrict__ x,  // [B, n_in]
     const int8_t* __restrict__ packed,    // [nb, half, O]
     const float* __restrict__ scale,      // [nb, O]
     __nv_bfloat16* __restrict__ y,        // [B, O]
-    int B, int n_in, int nb, int half, int O) {
-  __shared__ __nv_bfloat16 xs[kXElems];
-  __shared__ float red[kWarps * BT * kTileCols];
-  __shared__ float res[BT * kTileCols];
-  const int K = nb * 2 * half;
-  for (int idx = threadIdx.x; idx < B * K; idx += kThreads) {
-    const int r = idx / K, k = idx % K;
-    xs[idx] = k < n_in ? x[(size_t)r * n_in + k] : __float2bfloat16(0.f);
+    int B, int n_in, int nb, int half, int O, int x_vec) {
+  using R = GemvRows<BT>;
+  constexpr int CPT = R::kCols, G = R::kGroups, cols = kGemvCols;
+  constexpr int slices = kThreads / G;  // row slices
+  __shared__ __align__(16) __nv_bfloat16 xs[BT <= 2 ? 8 : kGemvXElems];
+  __shared__ float red[kWarps * BT * cols];
+  __shared__ float res[BT * cols];
+  __shared__ float gather[kGemvMaxCluster * BT * cols];  // rank 0's: every rank's tile
+  __shared__ float s_sc[cols];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank()), csize = static_cast<int>(cluster.num_blocks());
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int group = tid % G, slice = tid / G;
+  const int col0 = blockIdx.y * cols, col = col0 + group * CPT;
+  const bool live_col = col < O;  // O % 16 == 0: a group is wholly in or out
+  const int K = 2 * half;
+
+  for (int blk = rank; blk < nb; blk += csize) {
+    // every weight load of the first round and the scale load go out first
+    const int8_t* pb = packed + (size_t)blk * half * O + col;
+    uint32_t w[R::kLoads][R::kWords];
+#pragma unroll
+    for (int l = 0; l < R::kLoads; ++l) {
+      const int i = slice + l * slices;
+      if (live_col && i < half) load_words<R::kWords>(pb + (size_t)i * O, w[l]);
+    }
+    float sc = 0.f;
+    if (tid < cols && col0 + tid < O) sc = __ldg(scale + (size_t)blk * O + col0 + tid);
+
+    // this scale block's inputs of every row (zero past n_in and past B):
+    // at <= 2 rows each thread reads its own from global memory (L2), else
+    // the block stages them in shared memory
+    const size_t k0 = (size_t)blk * K;
+    if constexpr (BT <= 2) {
+    } else if (x_vec) {
+      for (int idx = tid; idx < BT * K / 8; idx += kThreads) {
+        const int r = idx / (K / 8), k = (idx % (K / 8)) * 8;
+        uint4 t = make_uint4(0, 0, 0, 0);
+        if (r < B && k0 + k < (size_t)n_in) t = __ldg(reinterpret_cast<const uint4*>(x + (size_t)r * n_in + k0 + k));
+        *reinterpret_cast<uint4*>(xs + r * K + k) = t;
+      }
+    } else {
+      for (int idx = tid; idx < BT * K; idx += kThreads) {
+        const int r = idx / K, k = idx % K;
+        xs[idx] = r < B && k0 + k < (size_t)n_in ? x[(size_t)r * n_in + k0 + k] : __float2bfloat16(0.f);
+      }
+    }
+    if constexpr (BT > 2) __syncthreads();
+
+    float part[BT][CPT];
+#pragma unroll
+    for (int r = 0; r < BT; ++r)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) part[r][j] = 0.f;
+    for (int base = slice; base < half; base += R::kLoads * slices) {
+      if (base != slice) {  // later rounds (half > 128 at narrow tiles): load again
+#pragma unroll
+        for (int l = 0; l < R::kLoads; ++l) {
+          const int i = base + l * slices;
+          if (live_col && i < half) load_words<R::kWords>(pb + (size_t)i * O, w[l]);
+        }
+      }
+#pragma unroll
+      for (int l = 0; l < R::kLoads; ++l) {
+        const int i = base + l * slices;
+        if (live_col && i < half) {
+          float xl[BT], xh[BT];
+#pragma unroll
+          for (int r = 0; r < BT; ++r) {
+            if constexpr (BT <= 2) {
+              const __nv_bfloat16* xr = x + (size_t)r * n_in + k0;
+              xl[r] = r < B && k0 + i < (size_t)n_in ? __bfloat162float(__ldg(xr + i)) : 0.f;
+              xh[r] = r < B && k0 + half + i < (size_t)n_in ? __bfloat162float(__ldg(xr + half + i)) : 0.f;
+            } else {
+              xl[r] = __bfloat162float(xs[r * K + i]);
+              xh[r] = __bfloat162float(xs[r * K + half + i]);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) {
+            // byte j, sign-extended: the high nibble is then the signed q_hi,
+            // the low nibble q_lo + 8
+            const int byte = static_cast<int>(w[l][j / 4] << (24 - 8 * (j % 4))) >> 24;
+            const float lo = static_cast<float>((byte & 15) - 8);
+            const float hi = static_cast<float>(byte >> 4);
+#pragma unroll
+            for (int r = 0; r < BT; ++r) part[r][j] += xl[r] * lo + xh[r] * hi;
+          }
+        }
+      }
+    }
+
+    // the row slices of a warp sit in the lane bits above the group's; each
+    // step shuffles every sum at once, so the steps are the only chain
+#pragma unroll
+    for (int off = G; off < 32; off <<= 1) {
+#pragma unroll
+      for (int r = 0; r < BT; ++r)
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) part[r][j] += __shfl_xor_sync(0xffffffffu, part[r][j], off);
+    }
+    if (lane < G) {
+#pragma unroll
+      for (int r = 0; r < BT; ++r)
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) red[(warp * BT + r) * cols + group * CPT + j] = part[r][j];
+    }
+    if (tid < cols) s_sc[tid] = sc;
+    __syncthreads();
+    // the block's partial: the warps summed in order, times the block's
+    // scale; after the rank's last scale block it goes straight into its
+    // slot in rank 0's shared memory
+    const bool last = blk + csize >= nb;
+    float* slot = last ? cluster.map_shared_rank(&gather[0], 0) + rank * BT * cols : res;
+    for (int idx = tid; idx < (last ? B : BT) * cols; idx += kThreads) {
+      float t = 0.f;
+#pragma unroll
+      for (int wp = 0; wp < kWarps; ++wp) t += red[wp * BT * cols + idx];
+      t *= s_sc[idx % cols];
+      slot[idx] = blk == rank ? t : res[idx] + t;
+    }
+    if (!last) __syncthreads();  // xs, red and s_sc are rewritten by the next scale block
   }
-  __syncthreads();
-  const int col0 = blockIdx.x * kTileCols;
-  for (int r0 = 0; r0 < B; r0 += BT) {
-    const int nr = min(BT, B - r0);
-    gemv_tile<BT>(packed, scale, half, O, 0, nb, xs, K, r0, nr, col0, red, res);
-    for (int idx = threadIdx.x; idx < nr * kTileCols; idx += kThreads) {
-      const int c = col0 + idx % kTileCols;
-      if (c < O) y[(size_t)(r0 + idx / kTileCols) * O + c] = __float2bfloat16(res[idx]);
+
+  // after one cluster barrier rank 0 sums the ranks' tiles in rank order,
+  // and the other ranks may exit (nobody reads their shared memory)
+  cluster.sync();
+  if (rank == 0) {
+    for (int idx = tid; idx < B * cols; idx += kThreads) {
+      const int c = col0 + idx % cols;
+      if (c < O) {
+        float t = 0.f;
+        for (int q = 0; q < csize; ++q) t += gather[q * BT * cols + idx];
+        y[(size_t)(idx / cols) * O + c] = __float2bfloat16(t);
+      }
     }
   }
 }
+
+template <int BT>
+int launch_gemv(const __nv_bfloat16* x, const int8_t* packed, const float* scale, __nv_bfloat16* y, int B,
+                int n_in, int nb, int half, int O, int tiles, int cluster, int x_vec, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, tiles);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, int4_gemv_kernel<BT>, x, packed, scale, y, B, n_in, nb, half, O, x_vec);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// Rows of x padded to the kernel's row bucket (gemv_rows in ops/int4_fused.py).
+inline int gemv_rows(int B) { return B == 1 ? 1 : B == 2 ? 2 : B <= 4 ? 4 : B <= 8 ? 8 : 16; }
 
 // The MLP phases shared by K6 and K5. Scratch written and read inside a
 // launch (part_o, x2g, act, part_d) is accessed with plain loads, never
@@ -370,21 +569,25 @@ int launch_o_mlp(const void* attn, int attn_bf16, const __nv_bfloat16* x, const 
 
 extern "C" {
 
+// tiles and cluster come from gemv_plan in ops/int4_fused.py.
 int cvt_int4_gemv(const void* x, const void* packed, const float* scale, void* y, int B, int n_in, int nb,
-                  int half, int O, void* stream) {
-  if (B < 1 || B > kMaxRows || O % kColsPerThread != 0 || half <= 0 || n_in > nb * 2 * half ||
-      B * nb * 2 * half > kXElems || !aligned16(packed) || !aligned16(scale))
+                  int half, int O, int tiles, int cluster, void* stream) {
+  if (B < 1 || B > kMaxRows || O % kColsPerThread != 0 || half <= 0 || half % 8 != 0 || nb < 1 ||
+      n_in > nb * 2 * half || gemv_rows(B) * 2 * half > kGemvXElems || tiles != (O + kGemvCols - 1) / kGemvCols ||
+      cluster < 1 || cluster > kGemvMaxCluster || cluster > nb || !aligned16(packed) || !aligned16(scale))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((O + kTileCols - 1) / kTileCols);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* pb = static_cast<const int8_t*>(packed);
   auto* yb = static_cast<__nv_bfloat16*>(y);
-  if (B == 1)
-    int4_gemv_kernel<1><<<grid, kThreads, 0, s>>>(xb, pb, scale, yb, B, n_in, nb, half, O);
-  else
-    int4_gemv_kernel<4><<<grid, kThreads, 0, s>>>(xb, pb, scale, yb, B, n_in, nb, half, O);
-  return (int)cudaGetLastError();
+  const int x_vec = n_in % 8 == 0 && aligned16(x);
+  switch (gemv_rows(B)) {
+    case 1: return launch_gemv<1>(xb, pb, scale, yb, B, n_in, nb, half, O, tiles, cluster, x_vec, s);
+    case 2: return launch_gemv<2>(xb, pb, scale, yb, B, n_in, nb, half, O, tiles, cluster, x_vec, s);
+    case 4: return launch_gemv<4>(xb, pb, scale, yb, B, n_in, nb, half, O, tiles, cluster, x_vec, s);
+    case 8: return launch_gemv<8>(xb, pb, scale, yb, B, n_in, nb, half, O, tiles, cluster, x_vec, s);
+    default: return launch_gemv<16>(xb, pb, scale, yb, B, n_in, nb, half, O, tiles, cluster, x_vec, s);
+  }
 }
 
 int cvt_int4_o_mlp(const void* attn, int attn_bf16, const void* x, const float* norm_w, const void* o_p,

@@ -39,10 +39,10 @@ _c_float = ctypes.c_float
 # argtypes of every C entry point; pointers and the stream are c_void_p so
 # ctypes never truncates them to 32 bits
 _SIGNATURES = {
-    "cvt_gqa_decode_attention": [_c_void_p] * 8 + [_c_int] * 7 + [_c_float, _c_void_p],
-    "cvt_gqa_decode_attention_quant": [_c_void_p] * 10 + [_c_int] * 7 + [_c_float, _c_void_p],
+    "cvt_gqa_decode_attention": [_c_void_p] * 7 + [_c_int] * 6 + [_c_float, _c_void_p],
+    "cvt_gqa_decode_attention_quant": [_c_void_p] * 9 + [_c_int] * 6 + [_c_float, _c_void_p],
     "cvt_kv_arena_write": [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p],
-    "cvt_int4_gemv": [_c_void_p] * 4 + [_c_int] * 5 + [_c_void_p],
+    "cvt_int4_gemv": [_c_void_p] * 4 + [_c_int] * 7 + [_c_void_p],
     "cvt_int4_mlp": [_c_void_p] * 8 + [_c_int] * 8 + [_c_void_p],
     "cvt_int4_o_mlp": [_c_void_p, _c_int] + [_c_void_p] * 13 + [_c_int] * 10 + [_c_float, _c_void_p],
     "cvt_int4_decode_layers": [_c_void_p] * 27 + [_c_int] * 17 + [_c_float, _c_void_p],

@@ -4,8 +4,8 @@ Counterpart of `cosyvoice_tpu/ops/decode_attention.py`. Three kernels, each
 beside its plain PyTorch version:
 
 - K1 `gqa_decode_attention`: single-token GQA flash decode
-  (csrc/decode_attention.cu, split-KV + log-sum-exp reduce). Replaces the
-  Pallas `_decode_kernel`.
+  (csrc/decode_attention.cu: the live keys split over ~132 blocks, merged by
+  log-sum-exp in the same launch). Replaces the Pallas `_decode_kernel`.
 - K3 `gqa_decode_attention_quant`: K1 over an int8 arena with per-token f32
   scales (csrc/decode_attention.cu). Replaces the Pallas
   `_quant_decode_kernel`.
@@ -31,8 +31,8 @@ import math
 import torch
 
 NEG_INF = -1e30
-BLOCK_KEYS = 64  # keys per live block walked by the CUDA kernel
-NUM_SMS = 132
+NUM_SMS = 132  # H100 SXM
+DECODE_CHUNK = 64  # keys the CUDA kernel stages in shared memory per round trip
 
 
 def gqa_decode_attention_plain(q, k_arena, v_arena, cur_len):
@@ -51,9 +51,39 @@ def gqa_decode_attention_plain(q, k_arena, v_arena, cur_len):
     return out.reshape(B, Hq, d).to(q.dtype)
 
 
-def _num_splits(B: int, Hkv: int, T: int) -> int:
-    """KV splits per (row, KV head): enough blocks to cover every SM at B=1."""
-    return max(1, min(-(-T // BLOCK_KEYS), -(-2 * NUM_SMS // (B * Hkv))))
+def decode_plan(B: int, Hkv: int, T: int) -> int:
+    """Splits per (row, KV head) of K1 / K3: about one block per SM over the
+    B * Hkv (row, KV head) pairs (66 at B=1 for Qwen2-0.5B), at most one per
+    arena row. It depends on the shapes alone: the kernel spreads the live
+    keys over the splits on the device, so no host sync reads cur_len."""
+    return max(1, min(T, NUM_SMS // (B * Hkv)))
+
+
+def decode_split_range(s: int, n_live: int, splits: int) -> tuple:
+    """Keys [begin, end) of split s over n_live live keys: the CUDA kernel's
+    split_begin, mirrored for the tests. Each split holds floor or ceil of
+    n_live / splits keys, in order."""
+    return s * n_live // splits, (s + 1) * n_live // splits
+
+
+def live_keys(cur_len: int, T: int) -> int:
+    """Live keys of a row, positions 0..cur_len clamped to the arena, as the
+    kernel counts them."""
+    return min(max(cur_len + 1, 1), T)
+
+
+# Per-device ticket counters of K1 / K3, one int per (row, KV head): zeroed
+# once, returned to 0 by every call's merging block, grown with B * Hkv. One
+# stream at a time: two calls in flight on two streams would share them.
+_COUNTERS = {}
+
+
+def _counters(device, n: int):
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 64), device=device, dtype=torch.int32)
+        _COUNTERS[device] = buf
+    return buf
 
 
 def _check_cuda(name, t, dtype, device):
@@ -81,7 +111,7 @@ def _check_decode_shapes(q, k_arena, v_arena, cur_len):
 
 
 def _launch_decode(entry, q, k_arena, v_arena, scales, cur_len, q_dtype, kv_dtype):
-    """Shared launch of K1 / K3: checks, partial buffers, one C call."""
+    """Shared launch of K1 / K3: checks, the scratch buffer, one C call."""
     B, Hq, d = q.shape
     T, Hkv = k_arena.shape[1], k_arena.shape[2]
     _check_cuda("q", q, q_dtype, q.device)
@@ -92,19 +122,18 @@ def _launch_decode(entry, q, k_arena, v_arena, scales, cur_len, q_dtype, kv_dtyp
     _check_cuda("cur_len", cur_len, torch.int32, q.device)
     if d not in (64, 128) or Hq // Hkv > 8:
         raise ValueError(f"kernel takes head_dim 64/128 and <= 8 query heads per KV head, got d={d}, rep={Hq // Hkv}")
+    if k_arena.data_ptr() % 16 or v_arena.data_ptr() % 16:
+        raise ValueError("kernel copies 16-byte rows: k_arena/v_arena must be 16-byte aligned")
     from cosyvoice_tpu_torch.ops._build import load_library
 
-    lib = load_library()
-    splits = _num_splits(B, Hkv, T)
+    splits = decode_plan(B, Hkv, T)
     out = torch.empty_like(q)
-    part_m = torch.empty((B, Hq, splits), device=q.device, dtype=torch.float32)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B, Hq, splits, d), device=q.device, dtype=torch.float32)
-    rc = getattr(lib, entry)(
+    # one scratch buffer: m and l [B*Hq, splits], then acc [B*Hq, splits, d]
+    part = torch.empty(B * Hq * splits * (d + 2), device=q.device, dtype=torch.float32)
+    rc = getattr(load_library(), entry)(
         q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), *(t.data_ptr() for t in scales),
-        cur_len.data_ptr(), out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-        B, Hq, Hkv, T, d, splits, BLOCK_KEYS, 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        cur_len.data_ptr(), out.data_ptr(), part.data_ptr(), _counters(q.device, B * Hkv).data_ptr(),
+        B, Hq, Hkv, T, d, splits, 1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(rc, entry)
     return out

@@ -16,8 +16,9 @@ Plain PyTorch versions (`int4_matmul_blocked`, `int4_mlp_reference`, the
 prefill path, as the JAX package runs XLA there) and two kernels, each beside
 its plain version:
 
-- K4 `int4_gemv`: y = x @ dequant(W) for at most 16 rows (csrc/int4_fused.cu).
-  Replaces the Pallas `_gemv_kernel`.
+- K4 `int4_gemv`: y = x @ dequant(W) for at most 16 rows (csrc/int4_fused.cu:
+  one thread-block cluster per 32-column tile over its scale blocks,
+  geometry from `gemv_plan`). Replaces the Pallas `_gemv_kernel`.
 - K5 `int4_mlp`: the SwiGLU MLP, down(silu(x @ Wg) * (x @ Wu)), for at most
   16 rows in one cooperative launch (csrc/int4_fused.cu). Replaces the
   Pallas `_mlp_kernel`.
@@ -42,7 +43,10 @@ NB = 8  # default block count of quantize_tensor_int4_blocked
 MLP_INTER_ALIGN = 512
 GEMV_IN_ALIGN = 256
 MAX_ROWS = 16  # rows the decode kernels take (the JAX package's Pallas route: <= 16)
-GEMV_X_ELEMS = 16 * 1024  # bf16 activations the kernels stage in shared memory
+GEMV_X_ELEMS = 16 * 1024  # bf16 activations K5 and K6 stage in shared memory
+K4_X_ELEMS = 16 * 256  # bf16 inputs a K4 block stages: row bucket * 2 * half
+K4_COLS = 32  # output columns of a K4 tile
+K4_MAX_CLUSTER = 8  # portable thread-block cluster size
 
 
 def _pad_to(n: int, align: int) -> int:
@@ -208,6 +212,28 @@ def _check_weights(name, packed, scale, device):
         )
 
 
+def gemv_rows(B: int) -> int:
+    """K4's row bucket: B rounded up to 1, 2, 4, 8 or 16 (one instantiation
+    each; the columns a thread owns narrow as it grows)."""
+    return next(r for r in (1, 2, 4, 8, 16) if B <= r)
+
+
+def gemv_plan(nb: int, O: int) -> tuple:
+    """K4's geometry, (tiles, cluster): one cluster of min(nb, 8) blocks, the
+    tile's scale blocks, per tile of K4_COLS output columns (qkv of
+    Qwen2-0.5B: 36 tiles x 4 = 144 blocks on 132 SMs; o_proj 28 x 4). On an
+    H100 32-column tiles took less time than 16-column ones (which would
+    fill every SM for o_proj) at 1, 2, 5 and 16 rows of both shapes
+    (scripts/decode_gemv_ablation.py)."""
+    return -(-O // K4_COLS), min(nb, K4_MAX_CLUSTER)
+
+
+def gemv_scale_blocks(rank: int, cluster: int, nb: int) -> range:
+    """The scale blocks that the block of cluster rank `rank` sums (the
+    kernel's loop, mirrored for the tests)."""
+    return range(rank, nb, cluster)
+
+
 def int4_gemv(x, packed, scale):
     """y[B, O] = x[B, n_in] @ dequant(packed [nb, half, O], scale [nb, O]) (K4).
 
@@ -224,17 +250,17 @@ def int4_gemv(x, packed, scale):
         raise ValueError(f"no kernel for device {x.device}")
     _check_cuda("x", x, torch.bfloat16, x.device)
     _check_weights("int4_gemv", packed, scale, x.device)
-    if not 1 <= B <= MAX_ROWS or B * nb * 2 * half > GEMV_X_ELEMS:
+    if not 1 <= B <= MAX_ROWS or gemv_rows(B) * 2 * half > K4_X_ELEMS or half % 8:
         raise ValueError(
-            f"kernel takes 1..{MAX_ROWS} rows with rows * padded inputs <= {GEMV_X_ELEMS}, got B={B}, "
-            f"padded inputs {nb * 2 * half}"
+            f"kernel takes 1..{MAX_ROWS} rows with row bucket * scale-block rows <= {K4_X_ELEMS} and half a "
+            f"multiple of 8, got B={B}, half={half}"
         )
     from cosyvoice_tpu_torch.ops._build import load_library
 
     out = torch.empty((B, n_out), device=x.device, dtype=x.dtype)
     rc = load_library().cvt_int4_gemv(
         x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(), B, n_in, nb, half, n_out,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        *gemv_plan(nb, n_out), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _raise_on(rc, "int4_gemv")
     int4_gemv.launches += 1

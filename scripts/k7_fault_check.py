@@ -49,28 +49,29 @@ MUTANTS = {
 }
 
 
-def build_variants(workdir):
-    """{variant: library path}, "as_is" and every mutant, compiled in parallel."""
+def build_variants(workdir, source="int4_block.cu", mutants=None):
+    """{variant: library path} of csrc/<source> as it is ("as_is") and with
+    each planted fault of `mutants` (default MUTANTS), compiled in parallel."""
     from cosyvoice_tpu_torch.ops import _build
 
-    src = (_build.CSRC_DIR / "int4_block.cu").read_text()
+    src = (_build.CSRC_DIR / source).read_text()
     jobs = {}
-    for name, subs in {"as_is": [], **MUTANTS}.items():
+    for name, subs in {"as_is": [], **(MUTANTS if mutants is None else mutants)}.items():
         text = src
         for old, new in subs:
             if old not in text:
-                raise RuntimeError(f"mutant {name}: text not found in int4_block.cu: {old!r}")
+                raise RuntimeError(f"mutant {name}: text not found in {source}: {old!r}")
             text = text.replace(old, new)
         d = workdir / name
         d.mkdir(parents=True, exist_ok=True)
         for header in _build.CSRC_DIR.glob("*.cuh"):
             shutil.copy(header, d)
-        (d / "int4_block.cu").write_text(text)
-        jobs[name] = [*_build.COMPILE_FLAGS, "-shared", "-o", str(d / "lib.so"), str(d / "int4_block.cu")]
+        (d / source).write_text(text)
+        jobs[name] = [*_build.COMPILE_FLAGS, "-shared", "-o", str(d / "lib.so"), str(d / source)]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
         list(pool.map(_build.run_nvcc, jobs.values()))
-    print(f"{len(jobs)} variants of int4_block.cu built in {time.perf_counter() - t0:.1f} s")
+    print(f"{len(jobs)} variants of {source} built in {time.perf_counter() - t0:.1f} s")
     return {name: workdir / name / "lib.so" for name in jobs}
 
 

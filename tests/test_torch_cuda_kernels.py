@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card, at
-small shapes: K1, K2 (bf16 and int8 rows), K3, K4, K5, K6 and K7. No JAX: these
+small shapes (K4 at the full-width qkv and o_proj): K1, K2 (bf16 and int8
+rows), K3, K4, K5, K6 and K7, and bit-for-bit repeats of K1, K3 and K4. No JAX: these
 tests need only torch, numpy and a GPU, and skip inside each test without
 one (the kernels are built with nvcc and have no CPU mode). Run them on a
 card with `python -m pytest tests/test_torch_cuda_kernels.py -m cuda`;
@@ -55,12 +56,26 @@ def _quant_case(seed, lens, T=64, Hq=14, Hkv=2, d=64):
     return [torch.from_numpy(a).cuda() for a in (q, k, v, ks, vs, np.asarray(lens, np.int32))]
 
 
+# cur_len values that split unevenly (or leave splits empty) at 66 splits
+UNEVEN = (1, 15, 16, 17, 63, 64, 65, 1023, 2047)
+
+
 def test_cuda_kernels_match_plain():
     _need_card()
     q, k, v, cur = _case(4, [0, 27, 63])
     q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
     ref = tda.gqa_decode_attention_plain(q, k, v, cur)
     assert _err(tda.gqa_decode_attention(q, k, v, cur), ref) <= TWO_ULPS * ref.float().abs().max().item()
+    # K1 and K3 where the live keys split unevenly over the 66 splits of a
+    # 4096-row arena, or leave splits empty, one row and a ragged batch
+    for i, lens in enumerate([[n] for n in UNEVEN] + [UNEVEN[:4], UNEVEN[5:]]):
+        q1, k1, v1, c1 = _case(30 + i, lens, T=4096)
+        q1, k1, v1 = q1.bfloat16(), k1.bfloat16(), v1.bfloat16()
+        ref = tda.gqa_decode_attention_plain(q1, k1, v1, c1)
+        assert _err(tda.gqa_decode_attention(q1, k1, v1, c1), ref) <= TWO_ULPS * ref.float().abs().max().item(), lens
+        qargs = _quant_case(50 + i, lens, T=4096)
+        ref = tda.gqa_decode_attention_quant_plain(*qargs)
+        assert _err(tda.gqa_decode_attention_quant(*qargs), ref) <= TWO_ULPS * ref.abs().max().item(), lens
     arena, new = k.clone(), torch.randn(3, 1, 2, 64, device="cuda").bfloat16()
     assert torch.equal(
         tda.kv_arena_write(arena.clone(), new, cur), tda.kv_arena_write_plain(arena.clone(), new, cur)
@@ -83,15 +98,46 @@ def test_cuda_kernels_match_plain():
     wq = [torch.from_numpy(a).cuda() for a in (
         *tint4.pack_gemv_int4(w(896, 1152)), *tint4.pack_gemv_int4(w(896, 896)),
         *tint4.pack_gate_up_int4(w(896, 2 * 4864)), *tint4.pack_down_int4(w(4864, 896)))]
-    for B in (1, 16):
+    wq_tail = [wq[2], wq[3], *wq[4:]]
+    for B in (1, 2, 5, 16):  # every row bucket of K4 but 8; qkv then o_proj
         x = torch.randn(B, 896, device="cuda").bfloat16()
-        out, ref = tint4.int4_gemv(x, *wq[:2]), tint4.int4_gemv_plain(x, *wq[:2])
-        assert _err(out, ref) <= TWO_ULPS * ref.float().abs().max().item()
+        for p, s in (wq[:2], wq[2:4]):
+            out, ref = tint4.int4_gemv(x, p, s), tint4.int4_gemv_plain(x, p, s)
+            assert _err(out, ref) <= TWO_ULPS * ref.float().abs().max().item(), (B, tuple(p.shape))
     attn, x = torch.randn(1, 896, device="cuda"), torch.randn(1, 896, device="cuda").bfloat16()
     nw = torch.ones(896, device="cuda")
-    out, ref = tint4.int4_o_mlp(attn, x, nw, *wq[2:]), tint4.int4_o_mlp_plain(attn, x, nw, *wq[2:])
+    out, ref = tint4.int4_o_mlp(attn, x, nw, *wq_tail), tint4.int4_o_mlp_plain(attn, x, nw, *wq_tail)
     torch.cuda.synchronize()
     assert _err(out, ref) <= 2**-5 * ref.float().abs().max().item()
+
+
+def _repeat_case(kernel, B):
+    """(fn, args) of one call of a redesigned kernel at its main-path shape,
+    B rows for K4."""
+    if kernel == "K1":
+        q, k, v, cur = _case(60, [1023], T=4096)
+        return tda.gqa_decode_attention, (q.bfloat16(), k.bfloat16(), v.bfloat16(), cur)
+    if kernel == "K3":
+        return tda.gqa_decode_attention_quant, _quant_case(61, [1023], T=4096)
+    rng = np.random.default_rng(62)
+    w = rng.standard_normal((896, 1152)).astype(np.float32) * 0.05
+    p, s = (torch.from_numpy(a).cuda() for a in tint4.pack_gemv_int4(w))
+    return tint4.int4_gemv, (torch.from_numpy(rng.standard_normal((B, 896)).astype(np.float32)).cuda().bfloat16(), p, s)
+
+
+@pytest.mark.parametrize("kernel,B", [("K1", 1), ("K3", 1), ("K4", 1), ("K4", 16)])
+def test_cuda_kernel_repeats_bit_for_bit(kernel, B):
+    """K1, K3 (merge of 66 splits in split order) and K4 (cluster partials
+    summed in rank order): no float atomics, so the same call twice gives
+    the same bits, and K1/K3's ticket counters are back at 0 after each
+    call."""
+    _need_card()
+    fn, args = _repeat_case(kernel, B)
+    outs = [fn(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    if kernel in ("K1", "K3"):
+        assert int(tda._COUNTERS[args[0].device].abs().sum()) == 0
 
 
 @pytest.mark.parametrize("B", [1, 5, 16])

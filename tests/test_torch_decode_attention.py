@@ -121,3 +121,48 @@ def test_wrappers_check_shapes_and_devices():
     q, k, v, ks, vs, cur = map(torch.from_numpy, _quant_case(7, [3]))
     with pytest.raises(ValueError):
         tda.gqa_decode_attention_quant(q, k, v, ks[:, :8], vs, cur)
+
+
+# (B, Hkv, T): the LM's first arena bucket and its 4096-row arena at B=1, the
+# ragged B=4 of the card checks, the tiny widths of these tests, and an
+# arena shorter than the split count
+SPLIT_SHAPES = [(1, 2, 512), (1, 2, 4096), (4, 2, 4096), (1, 2, 64), (3, 1, 100), (1, 2, 40)]
+
+
+@pytest.mark.parametrize("B,Hkv,T", SPLIT_SHAPES)
+def test_decode_splits_cover_each_live_key_once(B, Hkv, T):
+    """K1 / K3 geometry: for every cur_len of the arena, the splits of
+    decode_plan (ranges from the mirror of the kernel's split_begin) cover
+    each live key exactly once, in order, and no dead key; every split is
+    live once there are at least as many live keys as splits; no split
+    holds more than ceil(T / S) keys."""
+    S = tda.decode_plan(B, Hkv, T)
+    assert 1 <= S <= min(T, tda.NUM_SMS) and B * Hkv * S <= max(tda.NUM_SMS, B * Hkv)
+    cap = -(-T // S)
+    for cur in range(T):
+        n = tda.live_keys(cur, T)
+        ranges = [tda.decode_split_range(s, n, S) for s in range(S)]
+        assert ranges[0][0] == 0 and ranges[-1][1] == n
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        sizes = [hi - lo for lo, hi in ranges]
+        assert min(sizes) >= 0 and max(sizes) <= cap
+        if n >= S:
+            assert min(sizes) >= 1
+        else:
+            assert sum(size > 0 for size in sizes) == n
+
+
+@pytest.mark.parametrize("B,Hkv,T,S", [(1, 2, 4096, 66), (1, 2, 512, 66), (4, 2, 4096, 16), (1, 2, 40, 40),
+                                       (200, 1, 4096, 1)])
+def test_decode_plan_fills_the_sms_from_shapes_alone(B, Hkv, T, S):
+    """About one block per SM over the (row, KV head) pairs, at most one
+    split per arena row, at least one; on the LM's B=1 path a split fits
+    the kernel's one shared-memory chunk, so it makes one round trip."""
+    assert tda.decode_plan(B, Hkv, T) == S
+    if B * Hkv <= 2 and T <= 4096:
+        assert -(-T // S) <= tda.DECODE_CHUNK
+
+
+@pytest.mark.parametrize("cur,T,n", [(-1, 64, 1), (0, 64, 1), (62, 64, 63), (63, 64, 64), (99, 64, 64)])
+def test_live_keys_clamps_to_the_arena(cur, T, n):
+    assert tda.live_keys(cur, T) == n

@@ -176,3 +176,39 @@ def test_wrappers_check_shapes_and_devices():
         tint4.int4_o_mlp(attn, xr[:, :128], nw, *w)
     with pytest.raises(ValueError, match="no kernel"):
         tint4.int4_o_mlp(*(t.to("meta") for t in (attn, xr, nw, *w)))
+
+
+# (nb, O): the qkv and o_proj projections of Qwen2-0.5B, the small widths of
+# these tests (nb = 1, 2), and scale-block counts past one cluster
+PLAN_SHAPES = [(4, 1152), (4, 896), (1, 128), (2, 640), (1, 1152), (12, 896), (16, 64), (3, 48)]
+
+
+@pytest.mark.parametrize("nb,O", PLAN_SHAPES)
+def test_gemv_plan_covers_every_column_and_scale_block_once(nb, O):
+    """K4 geometry: the tiles of gemv_plan cover every output column once,
+    and the ranks of a cluster take every scale block once per tile; the
+    cluster is portable (<= 8 blocks) and, the grid being (cluster, tiles),
+    divides the block count."""
+    tiles, cluster = tint4.gemv_plan(nb, O)
+    assert 1 <= cluster <= min(nb, tint4.K4_MAX_CLUSTER)
+    cover = np.zeros(O, int)
+    for t in range(tiles):
+        cover[t * tint4.K4_COLS : min((t + 1) * tint4.K4_COLS, O)] += 1
+    assert (cover == 1).all() and (tiles - 1) * tint4.K4_COLS < O
+    blocks = sorted(b for rank in range(cluster) for b in tint4.gemv_scale_blocks(rank, cluster, nb))
+    assert blocks == list(range(nb))
+
+
+@pytest.mark.parametrize("B,bucket", [(1, 1), (2, 2), (3, 4), (4, 4), (5, 8), (8, 8), (9, 16), (16, 16)])
+def test_gemv_rows_bucket_fits_the_staging(B, bucket):
+    """K4's row bucket covers B, and its staged inputs (bucket x one scale
+    block of 256 rows) fit the kernel's shared-memory buffer."""
+    assert tint4.gemv_rows(B) == bucket
+    assert bucket * tint4.GEMV_IN_ALIGN <= tint4.K4_X_ELEMS
+
+
+def test_gemv_plan_at_the_lm_shapes():
+    """qkv: 36 tiles of 32 columns in clusters of 4 (nb = 4), 144 blocks for
+    132 SMs; o_proj: 28 tiles, 112 blocks."""
+    assert tint4.gemv_plan(4, 1152) == (36, 4)
+    assert tint4.gemv_plan(4, 896) == (28, 4)
