@@ -18,10 +18,13 @@ exceeded, a kernel disagrees with its plain version, or anything raises):
    in bf16 and int8; K4 (int4 GEMV) at 1, 2, 5, 15 and 16 rows at the qkv
    and o_proj shapes, with x one-hot in each scale block in turn and a
    weight whose scale blocks add distinct multiples; K6 (fused int4 layer
-   tail) at B=1 and 16; K5 (fused int4 MLP) at 1, 5, 15 and 16 rows, the
-   row counts of the bistream extends, timed at 5 and 16 rows beside the
-   bf16 product route over the dequantised weights. K1, K3, K4, K5, K6 and
-   K7 must repeat bit for bit.
+   tail) at B=1 and 16, timed at B=1 beside the bf16 product route over its
+   dequantised weights (o matmul, residual, RMSNorm, gate|up matmul,
+   silu * up, down matmul, residual); K5 (fused int4 MLP) at 1, 5, 15 and 16
+   rows, the row counts of the bistream extends, timed at 5 and 16 rows
+   beside the bf16 product route over the dequantised weights. K1, K3, K4,
+   K5, K6 and K7 must repeat bit for bit. The grid and the dynamic shared
+   memory per block of K6 (B=1) and K7 are printed.
    Kernel, plain and library device times (CUDA events around a replayed
    CUDA graph that rotates over enough distinct input sets to exceed twice
    the L2 cache, at least one per layer) and eager host rates, and the bound
@@ -658,24 +661,31 @@ def check_k4(int4, qc, gen):
     return row, host, n
 
 
-def check_k6(int4, qc, gen):
+def _k6_inputs(torch, H, gen, B=1):
+    attn = torch.randn((B, H), generator=gen, device="cuda")
+    x = torch.randn((B, H), generator=gen, device="cuda").to(torch.bfloat16)
+    nw = 1.0 + 0.1 * torch.randn((H,), generator=gen, device="cuda")
+    return attn, x, nw
+
+
+def hold_k6(int4, qc, gen, ws=None):
     """K6 at full width, B=1 (the decode step's shape) and B=16: attn [B, 896]
-    f32 (K3's output), x [B, 896] bf16; timed at B=1."""
+    f32 (K3's output), x [B, 896] bf16, within twice a floor of one bf16 ulp
+    at max |ref| of its plain version, the same bits twice, with a call on
+    other weights in between (so that nothing the first call leaves in
+    shared memory or scratch can stand in for what the second must load or
+    compute). Returns the largest error; raises on the first case that
+    fails."""
     import torch
 
     H, inter = qc.hidden_size, qc.intermediate_size
-    ws = _tail_weights(torch, int4, H, inter, gen)
-
-    def inputs(B=1):
-        attn = torch.randn((B, H), generator=gen, device="cuda")
-        x = torch.randn((B, H), generator=gen, device="cuda").to(torch.bfloat16)
-        nw = 1.0 + 0.1 * torch.randn((H,), generator=gen, device="cuda")
-        return attn, x, nw
-
+    ws = ws or _tail_weights(torch, int4, H, inter, gen)
+    other = _tail_weights(torch, int4, H, inter, gen)
     err_max = 0.0
     for B in (1, 16):
-        attn, x, nw = inputs(B)
+        attn, x, nw = _k6_inputs(torch, H, gen, B)
         out = int4.int4_o_mlp(attn, x, nw, *ws)
+        int4.int4_o_mlp(attn, x, nw, *other)
         again = int4.int4_o_mlp(attn, x, nw, *ws)
         ref = int4.int4_o_mlp_plain(attn, x, nw, *ws)
         # what rounding to bf16 where both round adds: the plain version
@@ -694,17 +704,58 @@ def check_k6(int4, qc, gen):
         if not torch.equal(out, again):
             raise AssertionError(f"K6 does not repeat bit for bit at B={B}")
         if not err <= 2 * floor:
-            raise AssertionError(f"K6 disagrees with its plain version at B={B}: {err} > 2 x {floor}")
+            raise AssertionError(f"K6 disagrees with its plain version at B={B}: {err} > 2 x {floor} "
+                                 f"({err / (2 * floor):.1f}x the limit)")
+    return err_max
+
+
+def check_k6(int4, qc, gen):
+    """hold_k6, then K6 timed at B=1 beside the bf16 product route over its
+    dequantised weights."""
+    import torch
+
+    H, inter = qc.hidden_size, qc.intermediate_size
+    ws = _tail_weights(torch, int4, H, inter, gen)
+    err_max = hold_k6(int4, qc, gen, ws)
+
+    def inputs():
+        return _k6_inputs(torch, H, gen)
+
+    grid = int4.grid_of(torch.device("cuda"))
+    o_p, o_s, gu_p, gu_s, d_p, d_s = ws
+    plan = int4.o_mlp_plan(grid, H, *o_p.shape[:2], *gu_p.shape[1:], *d_p.shape[:2])
+    print(f"K6 at B=1: grid {grid} blocks (one per SM), {plan['xs_bytes'] + plan['img_bytes']} B of "
+          f"dynamic shared memory per block (largest block's weight images {plan['img_bytes']} B), splits o/down "
+          f"{plan['ko']}/{plan['kd']}")
+
+    def dense(o_p, o_s, gu_p, gu_s, d_p, d_s):
+        """The dequantised bf16 weights: o [K_o, H], gate|up [K_in, 2 * inter_p], down [inter_p, H]."""
+        gu = torch.cat([int4.unpack_int4_blocked(gu_p[i], gu_s[i], torch.bfloat16) for i in (0, 1)], dim=1)
+        return (int4.unpack_int4_blocked(o_p, o_s, torch.bfloat16).contiguous(), gu.contiguous(),
+                int4.unpack_int4_blocked(d_p, d_s, torch.bfloat16).contiguous())
+
+    def bf16_route(attn, x, nw, wo, gu, wd):
+        """K6's function as bf16 products over the dequantised weights: o matmul, residual, RMSNorm, gate|up
+        matmul, silu * up, down matmul, residual."""
+        a = torch.nn.functional.pad(attn.to(torch.bfloat16), (0, wo.shape[0] - attn.shape[1]))
+        x2 = x.float() + (a @ wo).float()
+        h2 = (x2 * torch.rsqrt(x2.square().mean(-1, keepdim=True) + 1e-6) * nw).to(torch.bfloat16)
+        g, u = (torch.nn.functional.pad(h2, (0, gu.shape[0] - H)) @ gu).chunk(2, dim=-1)
+        return (x2 + ((torch.nn.functional.silu(g) * u) @ wd).float()).to(torch.bfloat16)
 
     attn, x, nw = inputs()
     k6_bytes = _nbytes(attn, x, nw, *ws) + H * 2
     n = n_sets(k6_bytes)
     sets = [inputs() + _tail_weights(torch, int4, H, inter, gen) for _ in range(n)]
-    dev, host = time_fns({"kernel": rotate(sets, int4.int4_o_mlp), "plain": rotate(sets, int4.int4_o_mlp_plain)}, n)
+    dense_sets = [s[:3] + dense(*s[3:]) for s in sets]
+    dev, host = time_fns({"kernel": rotate(sets, int4.int4_o_mlp), "plain": rotate(sets, int4.int4_o_mlp_plain),
+                          "bf16_route": rotate(dense_sets, bf16_route)}, n)
+    del dense_sets
     flops = 2 * H * H + 2 * H * 2 * inter + 2 * inter * H
     row = kernel_row("int4_o_mlp", "cosyvoice_tpu_torch/csrc/int4_fused.cu", "cosyvoice_tpu/ops/int4_fused.py:519",
                      err_max, dev, *bound(k6_bytes, flops))
-    return row, host, n
+    row["bf16_route_ms"] = dev["bf16_route"]
+    return row, {k: v for k, v in host.items() if k != "bf16_route"}, n
 
 
 def _mlp_weights(torch, int4, H, inter, gen):
@@ -854,13 +905,17 @@ def _hold_k7(tb, label, inputs, W):
     error. Each output row (x_out; k_new and v_new per layer) is held to
     twice its floor: the larger of what the bf16 roundings move that row (the
     plain version against the same function unrounded) and one bf16 ulp at
-    the row's largest |reference|. Also checks that K7 repeats bit for bit
-    and reads no arena row >= pos (the same call with those rows zeroed)."""
+    the row's largest |reference|. Also checks that K7 repeats bit for bit,
+    with a call on another input row in between (so that nothing the first
+    call leaves in shared memory or scratch can stand in for what the second
+    must load or compute), and reads no arena row >= pos (the same call with
+    those rows zeroed)."""
     import torch
 
     x, cos, sin, p, ka, va = inputs
     A, pos = ka.shape[1], int(p.item())
     out = tb.int4_decode_layers(*inputs, **W)
+    tb.int4_decode_layers(x.flip(-1), cos, sin, p, ka, va, **W)
     again = tb.int4_decode_layers(*inputs, **W)
     live = (torch.arange(A, device=ka.device) < pos)[None, :, None]
     zero = tb.int4_decode_layers(x, cos, sin, p, torch.where(live, ka, 0), torch.where(live, va, 0), **W)
@@ -940,6 +995,12 @@ def check_k7(da, int4, tb, qc, gen):
 
     A, pos = 2048, CUR_T
     inputs = _k7_inputs(torch, qc, A, pos, gen, 0.0)
+    grid = int4.grid_of(inputs[0].device)
+    plan = tb.decode_layers_plan(grid, A, qc.hidden_size, qc.num_kv_heads, *W["qkv_p"].shape[1:],
+                                 *W["o_p"].shape[1:3], *W["gu_p"].shape[2:], *W["d_p"].shape[1:3])
+    print(f"K7 at A={A}: grid {grid} blocks (one per SM), {plan['xs_bytes'] + plan['slot_bytes']} B of dynamic shared "
+          f"memory per block (ring of one layer's share, largest block {plan['slot_bytes']} B), splits qkv/o/down "
+          f"{plan['kq']}/{plan['ko']}/{plan['kd']}, attention items of {tb.ATTN_CHUNK} keys")
     k7_bytes = _nbytes(*W.values(), *inputs[:4]) + 2 * qc.num_layers * pos * inputs[4].shape[-1] * 2 \
         + _nbytes(inputs[0]) + 2 * qc.num_layers * inputs[4].shape[-1] * 2
     n = n_sets(k7_bytes, calls_per_step=1)
@@ -992,6 +1053,11 @@ def phase_kernels(cfg):
             r8 = row.pop("int8")
             print(f"{key} int8 rows: device {r8['ms'] * 1e3:.2f} us, plain {r8['plain_ms'] * 1e3:.2f} us, "
                   f"library {r8['library_ms'] * 1e3:.2f} us, bound {r8['bound_ms'] * 1e3:.5f} us")
+        if "bf16_route_ms" in row and "rows16" not in row:
+            bf = row.pop("bf16_route_ms")
+            print(f"{key} beside the bf16 product route over the dequantised weights (o matmul, residual, RMSNorm, "
+                  f"gate|up matmul, silu * up, down matmul, residual): {bf * 1e3:.2f} us (kernel {row['ms'] * 1e3:.2f} "
+                  f"us, {row['ms'] / bf:.2f}x)")
         if "rows16" in row:
             r16, bf = row.pop("rows16"), row.pop("bf16_route_ms")
             print(f"{key} beside the bf16 product route over the dequantised weights (gate|up matmul, silu * up, "

@@ -47,7 +47,7 @@
 //   rank order and rounds once to bf16. No second launch, no atomics: a call
 //   repeats bit for bit.
 //
-// K6  int4_o_mlp_kernel  (fused int4 layer tail, one cooperative launch)
+// K6  int4_o_mlp_resident_kernel (B=1) / int4_o_mlp_kernel (B > 1)  (fused int4 layer tail, one cooperative launch)
 //
 // Replaces: cosyvoice_tpu/ops/int4_fused.py:int4_o_mlp (pallas_call at :519,
 //   body _o_mlp_kernel :451).
@@ -56,21 +56,23 @@
 //   attn is rounded to bf16 on entry, as the Pallas kernel does.
 // Bound on the H100: bytes. At B=1, Qwen2-0.5B: packed o 0.46 MB + gate|up
 //   5.24 MB + down 2.29 MB + ~0.21 MB of scales ~ 8.2 MB: ~2.45 us.
-// Design: the TPU runs the tail as one sequential grid that carries x2, h2
-//   and the down sum in VMEM. Its phases depend on each other globally (the
-//   norm needs all of x2, gate/up all of h2, down all of act), and blocks of
-//   a plain launch cannot wait for each other. So this is one cooperative
-//   launch, grid no larger than the co-resident blocks, with
-//   cooperative_groups grid syncs between four phases:
-//   1. o_proj: work items (64-column tile, scale block) write f32 partials;
-//   2. every block sums the partials in order (x2), computes the norm and
-//      stages h2 in shared memory; block 0 stores x2; gate|up work items
-//      (64-column tile, both planes, whole input) write act in bf16;
-//   3. down: work items (64-column tile, 512-row scale block) write f32
-//      partials;
-//   4. out = x2 + the down partials summed in order.
-//   No float atomics: every cross-block sum goes through f32 partials summed
-//   in a fixed order after a barrier, so runs repeat bit for bit.
+// Design at B=1 (the decode step's shape): the tail's phases depend on each
+//   other globally (the norm needs all of x2, gate/up all of h2, down all of
+//   act), so it is one cooperative launch, one block per SM. Every unit of
+//   every phase (int4_resident.cuh: 64 columns of one weight over a split of
+//   its input's scale blocks) is fixed per block on the host
+//   (ops/int4_fused.py:resident_plan), and right after reading attn every
+//   block has the TMA engine copy all its units' weights (~60-100 KB) into
+//   shared memory, one stage per phase on an mbarrier, so the weights stream
+//   in while the phases before them run. Three phases, two grid barriers:
+//   1. o_proj units (one scale block each) write f32 partials;
+//   2. every block sums x2 = x + the o partials, computes the norm and stages
+//      h2; gate|up units (both planes, whole input) write act in bf16;
+//   3. down units (a split of the scale blocks) write f32 partials; the last
+//      unit of each 64-column tile (a ticket counter, returned to 0) writes
+//      out = bf16(x2 + the tile's partials in split order).
+//   No float atomics, so runs repeat bit for bit. B > 1 keeps the first
+//   design: gemv_tile items, partials per scale block, three barriers.
 //
 // K5  int4_mlp_kernel  (fused int4 SwiGLU MLP, <= 16 rows, one cooperative launch)
 //
@@ -106,6 +108,7 @@
 #include <stdint.h>
 
 #include "int4_gemv_tile.cuh"
+#include "int4_resident.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -468,6 +471,135 @@ __global__ void __launch_bounds__(kThreads) int4_o_mlp_kernel(
   }
 }
 
+// ---- K6 at B=1: every unit's weights stream into shared memory at launch (int4_resident.cuh)
+struct TailParams {
+  const void* attn;                 // [n_attn] f32 or bf16
+  const __nv_bfloat16* x;           // [H] residual
+  const float* norm_w;              // [H]
+  WeightMaps mo, mg, md;            // tensor maps: o [nb_o, half_o, H], gate|up [2, nb_in, half_in, I],
+                                    // down [nd, half_d, H]
+  float* part_o;                    // [ko, H] scratch
+  float* part_d;                    // [kd, H] scratch
+  __nv_bfloat16* act;               // [I] scratch
+  __nv_bfloat16* out;               // [H]
+  unsigned* bar;                    // [2] grid barrier, then [H / 64] down tickets; 0 between launches
+  const int* plan;                  // [grid, 3, 1 + maxu]: count, unit ids (o, gate|up, down)
+  int attn_bf16, n_attn, H, nb_o, half_o, nb_in, half_in, I, nd, half_d, ko, kd, maxu, parts_o, parts_g, parts_d;
+  int xs_bytes;
+  float eps;
+};
+
+__global__ void __launch_bounds__(kResThreads, 1) int4_o_mlp_resident_kernel(const __grid_constant__ TailParams p) {
+  extern __shared__ __align__(128) uint8_t dyn[];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(dyn);  // the current phase's bf16 activations
+  uint8_t* img = dyn + p.xs_bytes;                             // o images, norm weight, gate|up, down images
+  __shared__ float x2s[kResMaxHid];
+  __shared__ __align__(16) float red[kMaxItems * kUnitCols];
+  __shared__ float sm[kResWarps];
+  __shared__ int last_flag;
+  __shared__ __align__(8) uint64_t mbar[3];  // o, norm weight + gate|up, down: their copies have landed
+  const int H = p.H, Ko = p.nb_o * 2 * p.half_o, Kin = p.nb_in * 2 * p.half_in, tiles = H / kUnitCols;
+  const int* mine = p.plan + (size_t)blockIdx.x * 3 * (1 + p.maxu);
+  const int n_o = mine[0], n_g = mine[1 + p.maxu], n_d = mine[2 * (1 + p.maxu)];
+  const int *ids_o = mine + 1, *ids_g = mine + 2 + p.maxu, *ids_d = mine + 3 + 2 * p.maxu;
+  const UnitShape uo = {1, p.nb_o / p.ko, p.half_o, H, p.parts_o}, ug = {2, p.nb_in, p.half_in, p.I, p.parts_g},
+                  ud = {1, p.nd / p.kd, p.half_d, H, p.parts_d};
+  uint8_t* img_g = img + n_o * uo.bytes() + H * 4;
+  uint8_t* img_d = img_g + n_g * ug.bytes();
+
+  // attn is read first, then every copy of the launch goes out: o, then the norm weight and gate|up, then down
+  float av[4];  // this thread's attn values (Ko <= 4 * kResThreads)
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = threadIdx.x + i * kResThreads;
+    av[i] = 0.f;
+    if (k < p.n_attn)
+      av[i] = p.attn_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p.attn)[k])
+                          : static_cast<const float*>(p.attn)[k];
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 3; ++s) mbar_init(mbar + s);
+    mbar_fence_init();
+    mbar_expect(mbar, n_o * uo.bytes());
+    for (int k = 0; k < n_o; ++k)
+      copy_unit(img + k * uo.bytes(), uo, p.mo, 0, 0, 0, 0, (ids_o[k] / tiles) * uo.nb, (ids_o[k] % tiles) * kUnitCols,
+                mbar);
+    mbar_expect(mbar + 1, H * 4 + n_g * ug.bytes());
+    bulk_copy(img_g - H * 4, p.norm_w, H * 4, mbar + 1);
+    for (int k = 0; k < n_g; ++k)
+      copy_unit(img_g + k * ug.bytes(), ug, p.mg, 0, p.nb_in * p.half_in, 0, p.nb_in, 0, ids_g[k] * kUnitCols, mbar + 1);
+    mbar_expect(mbar + 2, n_d * ud.bytes());
+    for (int k = 0; k < n_d; ++k)
+      copy_unit(img_d + k * ud.bytes(), ud, p.md, 0, 0, 0, 0, (ids_d[k] / tiles) * ud.nb, (ids_d[k] % tiles) * kUnitCols,
+                mbar + 2);
+  }
+  __syncthreads();
+
+  // phase 1: o_proj units over bf16(attn) -> f32 partials per split of the input
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (threadIdx.x + i * kResThreads < Ko) xs[threadIdx.x + i * kResThreads] = __float2bfloat16(av[i]);
+  mbar_wait(mbar, 0);
+  __syncthreads();
+  run_units(img, uo, n_o, [&](int k) { return xs + (ids_o[k] / tiles) * uo.nb * 2 * p.half_o; }, red,
+            [&](int k, int j, float s, float) {
+              p.part_o[(size_t)(ids_o[k] / tiles) * H + (ids_o[k] % tiles) * kUnitCols + j] = s;
+            });
+  grid_arrive(p.bar);
+  grid_wait(p.bar, gridDim.x);
+
+  // phase 2: x2 and the norm (every block); gate|up units -> act
+  {
+    float o[kPerThread];
+    sum_splits(p.part_o, p.ko, H, o);
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      const int k = threadIdx.x + i * kResThreads;
+      if (k < H) x2s[k] = __bfloat162float(p.x[k]) + o[i];
+    }
+  }
+  mbar_wait(mbar + 1, 0);
+  __syncthreads();
+  rmsnorm_bf16(x2s, reinterpret_cast<const float*>(img_g) - H, H, Kin, p.eps, xs, sm);
+  run_units(img_g, ug, n_g, [&](int) { return xs; }, red, [&](int k, int j, float g, float u) {
+    p.act[ids_g[k] * kUnitCols + j] = __float2bfloat16(g / (1.f + expf(-g)) * u);
+  });
+  grid_arrive(p.bar);
+  grid_wait(p.bar, 2 * gridDim.x);
+
+  // phase 3: down units -> f32 partials; the last unit of a column tile (a ticket, returned to 0) writes
+  // out = bf16(x2 + the tile's partials summed in split order)
+  mbar_wait(mbar + 2, 0);
+  __syncthreads();
+  if (n_d > 0) {
+    stage_bf16(xs, p.act, p.I, p.I);
+    run_units(img_d, ud, n_d, [&](int k) { return xs + (ids_d[k] / tiles) * ud.nb * 2 * p.half_d; }, red,
+              [&](int k, int j, float s, float) {
+                p.part_d[(size_t)(ids_d[k] / tiles) * H + (ids_d[k] % tiles) * kUnitCols + j] = s;
+              });
+    for (int k = 0; k < n_d; ++k) {
+      const int tile = ids_d[k] % tiles;
+      if (threadIdx.x == 0) last_flag = ticket_add(p.bar + 2 + tile) == (unsigned)(p.kd - 1);
+      __syncthreads();
+      if (last_flag) {
+        if (threadIdx.x < kUnitCols) {
+          const int c = tile * kUnitCols + threadIdx.x;
+          float d[kMaxSplits];
+#pragma unroll
+          for (int s = 0; s < kMaxSplits; ++s) d[s] = s < p.kd ? ld_cg(p.part_d + (size_t)s * H + c) : 0.f;
+          float sum = 0.f;
+#pragma unroll
+          for (int s = 0; s < kMaxSplits; ++s) sum += d[s];
+          p.out[c] = __float2bfloat16(x2s[c] + sum);
+        }
+        if (threadIdx.x == 0) p.bar[2 + tile] = 0;
+      }
+      __syncthreads();
+    }
+  }
+  grid_exit(p.bar);
+}
+
 template <int BT>
 __global__ void __launch_bounds__(kThreads) int4_mlp_kernel(
     const __nv_bfloat16* __restrict__ x,                              // [B, n_in]
@@ -590,6 +722,7 @@ int cvt_int4_gemv(const void* x, const void* packed, const float* scale, void* y
   }
 }
 
+// B > 1 (B = 1 takes cvt_int4_o_mlp_resident).
 int cvt_int4_o_mlp(const void* attn, int attn_bf16, const void* x, const float* norm_w, const void* o_p,
                    const float* o_s, const void* gu_p, const float* gu_s, const void* d_p, const float* d_s,
                    float* part_o, float* x2g, void* act, float* part_d, void* out, int B, int n_attn, int H,
@@ -608,11 +741,75 @@ int cvt_int4_o_mlp(const void* attn, int attn_bf16, const void* x, const float* 
   const auto* dp = static_cast<const int8_t*>(d_p);
   auto* ab = static_cast<__nv_bfloat16*>(act);
   auto* ob = static_cast<__nv_bfloat16*>(out);
-  if (B == 1)
-    return launch_o_mlp<1>(attn, attn_bf16, xb, norm_w, op, o_s, gp, gu_s, dp, d_s, part_o, x2g, ab, part_d,
-                           ob, B, n_attn, H, nb_o, half_o, nb_in, half_in, I, nd, half_d, eps, s);
   return launch_o_mlp<4>(attn, attn_bf16, xb, norm_w, op, o_s, gp, gu_s, dp, d_s, part_o, x2g, ab, part_d,
                          ob, B, n_attn, H, nb_o, half_o, nb_in, half_in, I, nd, half_d, eps, s);
+}
+
+// K6 at B=1. plan, the splits ko and kd, maxu, parts_*, xs_bytes, img_bytes and grid come from
+// ops/int4_fused.py:o_mlp_plan.
+int cvt_int4_o_mlp_resident(const void* attn, int attn_bf16, const void* x, const float* norm_w, const void* o_p,
+                            const float* o_s, const void* gu_p, const float* gu_s, const void* d_p, const float* d_s,
+                            float* work, void* out, void* counters, const int* plan, int n_attn, int H, int nb_o,
+                            int half_o, int nb_in, int half_in, int I, int nd, int half_d, int ko, int kd, int maxu,
+                            int parts_o, int parts_g, int parts_d, int xs_bytes, int img_bytes, int grid, float eps,
+                            void* stream) {
+  const int Ko = nb_o * 2 * half_o, Kin = nb_in * 2 * half_in;
+  const bool splits_ok = ko >= 1 && kd >= 1 && ko <= kMaxSplits && kd <= kMaxSplits && nb_o % ko == 0 && nd % kd == 0;
+  const bool halves_ok = half_o % (8 * parts_o) == 0 && half_in % (8 * parts_g) == 0 &&
+                         half_d % (8 * parts_d) == 0 && half_o <= 256 && half_in <= 256 && half_d <= 256;
+  const bool items_ok = nb_o / ko * parts_o <= kMaxItems && 2 * nb_in * parts_g <= kMaxItems &&
+                        nd / kd * parts_d <= kMaxItems;
+  const bool aligned = aligned16(o_p) && aligned16(o_s) && aligned16(gu_p) && aligned16(gu_s) && aligned16(d_p) &&
+                       aligned16(d_s) && aligned16(norm_w) && aligned16(work);
+  if (!splits_ok || !halves_ok || !items_ok || !aligned || H % kUnitCols != 0 || I % kUnitCols != 0 ||
+      H > kResMaxHid || Ko > 4 * kResThreads || n_attn > Ko || H > Kin || nd * 2 * half_d != I ||
+      xs_bytes < 2 * Ko || xs_bytes < 2 * Kin || xs_bytes < 2 * I || xs_bytes % 128 || img_bytes % 16 || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  const void* kernel = reinterpret_cast<const void*>(int4_o_mlp_resident_kernel);
+  const int dyn = xs_bytes + img_bytes;
+  int sms = 0, per_sm = 0;
+  const int rc = resident_blocks(kernel, dyn, &sms, &per_sm);
+  if (rc != 0) return rc;
+  if (per_sm < 1 || grid > sms * per_sm) return (int)cudaErrorCooperativeLaunchTooLarge;
+  TailParams p;
+  p.attn = attn;
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.norm_w = norm_w;
+  int rc_map = weight_maps(&p.mo, o_p, o_s, H, (uint64_t)nb_o * half_o, half_o, nb_o, nb_o / ko);
+  if (rc_map == 0)
+    rc_map = weight_maps(&p.mg, gu_p, gu_s, I, (uint64_t)2 * nb_in * half_in, half_in, 2 * nb_in, nb_in);
+  if (rc_map == 0) rc_map = weight_maps(&p.md, d_p, d_s, H, (uint64_t)nd * half_d, half_d, nd, nd / kd);
+  if (rc_map != 0) return rc_map;
+  // one f32 workspace: o partials [ko, H], down partials [kd, H], then act [I] bf16
+  p.part_o = work;
+  p.part_d = work + (size_t)ko * H;
+  p.act = reinterpret_cast<__nv_bfloat16*>(work + (size_t)(ko + kd) * H);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.bar = static_cast<unsigned*>(counters);
+  p.plan = plan;
+  p.attn_bf16 = attn_bf16;
+  p.n_attn = n_attn;
+  p.H = H;
+  p.nb_o = nb_o;
+  p.half_o = half_o;
+  p.nb_in = nb_in;
+  p.half_in = half_in;
+  p.I = I;
+  p.nd = nd;
+  p.half_d = half_d;
+  p.ko = ko;
+  p.kd = kd;
+  p.maxu = maxu;
+  p.parts_o = parts_o;
+  p.parts_g = parts_g;
+  p.parts_d = parts_d;
+  p.xs_bytes = xs_bytes;
+  p.eps = eps;
+  void* args[] = {&p};
+  const cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kResThreads), args, dyn,
+                                                    static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 int cvt_int4_mlp(const void* x, const void* gu_p, const float* gu_s, const void* d_p, const float* d_s, void* act,

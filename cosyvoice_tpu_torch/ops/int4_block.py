@@ -15,6 +15,9 @@ decode step is K4 + K1 + K6, layer by layer.
 - `int4_decode_layers(...)`: the K7 wrapper (csrc/int4_block.cu). Given CPU
   tensors it computes the plain version; given CUDA tensors it launches the
   kernel or raises. `int4_decode_layers.launches` counts kernel launches.
+- `decode_layers_plan(...)`: K7's geometry on a grid of one block per SM:
+  each block's units of every phase (`int4_fused.resident_plan`), whose
+  weights it streams into a ring in shared memory, a layer ahead.
 
 Semantics, as in the JAX function: the arena [L, A, Hkv*d] is read-only;
 keys at positions < pos are visible; the row AT pos is stale and never read:
@@ -22,21 +25,38 @@ the step's own (k, v) enter attention fresh, in float32. The new rows come
 back as k_new, v_new [L, Hkv*d] for the caller to commit (kernel K2).
 """
 
+import functools
 import math
 
 import torch
 from torch.nn import functional as F
 
-from cosyvoice_tpu_torch.ops.decode_attention import NEG_INF, _check_cuda, _raise_on
-from cosyvoice_tpu_torch.ops.int4_fused import _check_weights, int4_matmul_blocked
+from cosyvoice_tpu_torch.ops.decode_attention import NEG_INF, _check_cuda, _counters, _raise_on
+from cosyvoice_tpu_torch.ops.int4_fused import (
+    K7_STATIC_SMEM,
+    UNIT_COLS,
+    _check_weights,
+    _plan_on,
+    _round,
+    check_shared_memory,
+    grid_of,
+    int4_matmul_blocked,
+    input_splits,
+    item_parts,
+    plan_table,
+    resident_plan,
+    smem_limit,
+    unit_bytes,
+)
 
 # arena rows the fused step takes (the JAX package's VMEM-driven gate, kept so
 # that both packages route each block alike); read at call time
 MAX_FUSED_ARENA = 2048
 HEAD_DIM = 64  # the kernel's head_dim
 MAX_REP = 8  # query heads per KV head the kernel takes
-MAX_HIDDEN = 2048  # hidden size and padded input rows the kernel stages
-ATTN_CHUNK = 64  # arena keys per attention work item of the kernel
+MAX_HIDDEN = 2048  # hidden size the kernel stages
+ATTN_CHUNK = 32  # arena keys per attention work item of the kernel (one per lane)
+MAX_CHUNKS = 64  # attention items per KV head the kernel merges
 
 _STACKED = {
     "nw1": ("input_layernorm", "weight"),
@@ -66,6 +86,37 @@ def stack_decode_params(layers):
         return layer.detach()
 
     return {key: torch.stack([get(layer, path) for layer in layers]) for key, path in _STACKED.items()}
+
+
+ITEM_BYTES = ATTN_CHUNK * 2 * HEAD_DIM * 2 + (MAX_REP + 2) * HEAD_DIM * 4  # K, V rows and the group's bias
+
+
+@functools.lru_cache(maxsize=None)
+def decode_layers_plan(grid: int, A: int, H: int, n_kv: int, nbq: int, half_q: int, nqkv: int, nbo: int,
+                       half_o: int, nb_in: int, half_in: int, inter: int, nd: int, half_d: int) -> dict:
+    """K7's geometry on `grid` blocks: units of 64 columns of qkv, o_proj and
+    down (kq, ko, kd splits of their scale blocks; unit id = split * tiles +
+    tile) and of gate|up (both planes, whole input), placed by
+    resident_plan; attention item i (KV head i % n_kv, chunk i // n_kv of
+    ATTN_CHUNK keys) on block i % grid. Returns {"plan", "table", "maxu",
+    "kq", "ko", "kd", "kv_items" (attention items per block at most),
+    "parts" (qkv, o, gate|up, down), "xs_bytes", "slot_bytes" (the largest
+    block's share of one layer, the kernel's ring of one stage per phase)};
+    the ring's layout is the kernel's Layout, mirrored."""
+    tq, th, ti = nqkv // UNIT_COLS, H // UNIT_COLS, inter // UNIT_COLS
+    # o_proj by scale block: a unit's input is 4 whole heads, whose partials it merges itself
+    kq, ko, kd = input_splits(nbq, tq, grid), nbo, input_splits(nd, th, grid)
+    shapes = ((1, nbq // kq, half_q), (1, nbo // ko, half_o), (2, nb_in, half_in), (1, nd // kd, half_d))
+    sizes = [unit_bytes(*s) for s in shapes]
+    plan = resident_plan(grid, list(zip((tq * kq, th * ko, ti, th * kd), sizes)))
+    maxu = [max(len(ids) for ids in ph) for ph in plan]
+    kv_items = -(-n_kv * -(-A // ATTN_CHUNK) // grid)
+    slot = max(2 * H * 4 + kv_items * ITEM_BYTES + sum(len(plan[k][b]) * sizes[k] for k in range(4))
+               for b in range(grid))
+    return {"plan": plan, "table": plan_table(plan), "maxu": max(maxu), "kq": kq, "ko": ko, "kd": kd,
+            "kv_items": kv_items, "parts": tuple(item_parts(m, *s) for m, s in zip(maxu, shapes)),
+            "xs_bytes": _round(2 * max(nbq * 2 * half_q, nbo * 2 * half_o, nb_in * 2 * half_in, inter), 128),
+            "slot_bytes": slot}
 
 
 def _dims(cos, k_arena, qkv_p):
@@ -196,36 +247,39 @@ def int4_decode_layers(
     _check_cuda("pos", pos, torch.int32, x.device)
     for name, p, s in (("qkv", qkv_p, qkv_s), ("o", o_p, o_s), ("gate_up", gu_p, gu_s), ("down", d_p, d_s)):
         _check_weights(name, p, s, x.device)
-    if d != HEAD_DIM or n_heads // n_kv > MAX_REP or max(H, nbq * 2 * half_q, nb_in * 2 * half_in) > MAX_HIDDEN:
+    if (
+        d != HEAD_DIM or n_heads // n_kv > MAX_REP or H > MAX_HIDDEN or H % UNIT_COLS or A > MAX_CHUNKS * ATTN_CHUNK
+        or min(half_q, half_o, half_in, half_d) % 8 or max(half_q, half_in, half_d) > 256 or half_o > 4 * HEAD_DIM
+    ):
         raise ValueError(
-            f"kernel takes head_dim {HEAD_DIM}, <= {MAX_REP} query heads per KV head and hidden/padded inputs <= "
-            f"{MAX_HIDDEN}, got d={d}, rep={n_heads // n_kv}, H={H}"
+            f"kernel takes head_dim {HEAD_DIM}, <= {MAX_REP} query heads per KV head, a hidden size <= {MAX_HIDDEN} "
+            f"and a multiple of {UNIT_COLS}, arenas of <= {MAX_CHUNKS * ATTN_CHUNK} rows and scale blocks of a "
+            f"multiple of 16 rows, got d={d}, rep={n_heads // n_kv}, H={H}, A={A}"
         )
     from cosyvoice_tpu_torch.ops._build import load_library
 
-    # one f32 workspace: qkv partials [nbq, nqkv], attention partials m, l
-    # [Hkv, chunks, MAX_REP] and acc [Hkv, chunks, MAX_REP, d], o partials
-    # [nbo, H], down partials [nd, H], then act [inter] bf16; every piece a
-    # multiple of 4 floats, so each starts 16-byte aligned
-    chunks = -(-A // ATTN_CHUNK)
-    sizes = [nbq * nqkv, n_kv * chunks * MAX_REP, n_kv * chunks * MAX_REP, n_kv * chunks * MAX_REP * d,
-             nbo * H, nd * H, -(-inter // 2)]
-    sizes = [-(-n // 4) * 4 for n in sizes]
-    work = torch.empty(sum(sizes), device=x.device, dtype=torch.float32)
-    ptrs, off = [], work.data_ptr()
-    for n in sizes:
-        ptrs.append(off)
-        off += 4 * n
-    part_q, part_m, part_l, part_acc, part_o, part_d, act = ptrs
+    dev = x.device
+    grid = grid_of(dev)
+    key = (grid, A, H, n_kv, nbq, half_q, nqkv, nbo, half_o, nb_in, half_in, inter, nd, half_d)
+    plan = decode_layers_plan(*key)
+    check_shared_memory("int4_decode_layers", plan["xs_bytes"] + plan["slot_bytes"], K7_STATIC_SMEM,
+                        smem_limit(dev))
+    # one f32 workspace (the kernel's layout): qkv partials [kq, nqkv], attention
+    # partials m, l [Hkv, MAX_CHUNKS, MAX_REP] and acc [..., d], o partials
+    # [ko, H], down partials [kd, H], then act [inter] in bf16
+    parts = n_kv * MAX_CHUNKS * MAX_REP
+    n_f32 = plan["kq"] * nqkv + parts * (2 + d) + (plan["ko"] + plan["kd"]) * H
+    work = torch.empty(n_f32 + inter // 2, device=dev, dtype=torch.float32)
     x_out = torch.empty_like(x)
-    k_new = torch.empty((L, lanes), device=x.device, dtype=k_arena.dtype)
+    k_new = torch.empty((L, lanes), device=dev, dtype=k_arena.dtype)
     v_new = torch.empty_like(k_new)
     rc = load_library().cvt_int4_decode_layers(
         x.data_ptr(), cos.data_ptr(), sin.data_ptr(), pos.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
-        *(t.data_ptr() for t in weights), x_out.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        part_q, part_m, part_l, part_acc, part_o, act, part_d,
-        L, A, H, n_heads, n_kv, d, nbq, half_q, nqkv, nbo, half_o, nb_in, half_in, inter, nd, half_d, ATTN_CHUNK,
-        float(eps), torch.cuda.current_stream(x.device).cuda_stream,
+        *(t.data_ptr() for t in weights), x_out.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), work.data_ptr(),
+        _counters(dev, 2).data_ptr(), _plan_on(dev, ("decode_layers",) + key, plan["table"]).data_ptr(),
+        L, A, H, n_heads, n_kv, d, nbq, half_q, nqkv, nbo, half_o, nb_in, half_in, inter, nd, half_d, plan["kq"],
+        plan["ko"], plan["kd"], plan["maxu"], plan["kv_items"], *plan["parts"], plan["slot_bytes"], plan["xs_bytes"],
+        grid, float(eps), torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, "int4_decode_layers")
     int4_decode_layers.launches += 1

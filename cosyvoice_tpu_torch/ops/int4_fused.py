@@ -24,20 +24,24 @@ its plain version:
   Pallas `_mlp_kernel`.
 - K6 `int4_o_mlp`: the layer's whole post-attention tail, o_proj + residual
   + RMSNorm + SwiGLU MLP + residual, in one cooperative launch
-  (csrc/int4_fused.cu). Replaces the Pallas `_o_mlp_kernel`.
+  (csrc/int4_fused.cu). Replaces the Pallas `_o_mlp_kernel`. At B=1 one
+  block per SM, each with a fixed share of the units of every phase
+  (`resident_plan`, `o_mlp_plan`), whose weights it copies into shared
+  memory at launch.
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors it
 launches the kernel or raises. `int4_gemv.launches`, `int4_mlp.launches` and
 `int4_o_mlp.launches` count kernel launches.
 """
 
+import functools
 from typing import Tuple
 
 import numpy as np
 import torch
 from torch.nn import functional as F
 
-from cosyvoice_tpu_torch.ops.decode_attention import _check_cuda, _raise_on
+from cosyvoice_tpu_torch.ops.decode_attention import _check_cuda, _counters, _raise_on
 
 NB = 8  # default block count of quantize_tensor_int4_blocked
 MLP_INTER_ALIGN = 512
@@ -234,6 +238,151 @@ def gemv_scale_blocks(rank: int, cluster: int, nb: int) -> range:
     return range(rank, nb, cluster)
 
 
+# ---------------------------------------------------------------------------
+# plans of the kernels whose weights stream into shared memory (K6 at B=1, K7;
+# csrc/int4_resident.cuh)
+# ---------------------------------------------------------------------------
+
+UNIT_COLS = 64  # output columns of a unit
+RES_WARPS = 16  # warps of a block
+RES_MAX_ITEMS = 32  # items of one batch of units (csrc: kMaxItems)
+RES_MAX_HIDDEN = 2048  # hidden size the kernels stage in static shared memory
+RES_MAX_SPLITS = 10  # f32 partials per output a reader of the kernels sums (csrc: kMaxSplits)
+
+
+def unit_bytes(planes: int, nb: int, half: int) -> int:
+    """Bytes of a unit's image in shared memory: 64 bytes per packed row of
+    each plane, then 64 f32 scales per (plane, scale block)."""
+    return planes * nb * half * UNIT_COLS + planes * nb * UNIT_COLS * 4
+
+
+def input_splits(nb: int, tiles: int, grid: int) -> int:
+    """Parts of a weight's scale blocks that its units split (f32 partials,
+    summed in a fixed order by their reader): the divisor of nb whose busiest
+    block reads the fewest scale blocks of one column tile, then the fewest
+    parts. Full width on 132 blocks: qkv 4 (72 units), o_proj 4 (56), down 5
+    (70 units of 2 scale blocks)."""
+    return min((d for d in range(1, min(nb, RES_MAX_SPLITS) + 1) if nb % d == 0),
+               key=lambda d: (-(-tiles * d // grid) * (nb // d), d))
+
+
+def resident_plan(grid: int, phases) -> list:
+    """Every unit of every phase on one of `grid` blocks, fixed before the
+    launch. phases: [(n_units, unit_bytes)] in the kernel's phase order.
+    Returns, per phase, a list of `grid` lists of unit ids (ascending).
+
+    Within a phase the blocks' unit counts differ by at most one (a phase
+    takes as long as its busiest block); among the blocks with the fewest
+    units of the phase a unit goes to the one holding the fewest bytes so far
+    (then the lowest index), phases with larger units first, so that the
+    shares of shared memory and of the weight stream stay even too."""
+    out = [[[] for _ in range(grid)] for _ in phases]
+    total = [0] * grid
+    for ph in sorted(range(len(phases)), key=lambda i: -phases[i][1]):
+        n, nbytes = phases[ph]
+        count = [0] * grid
+        for u in range(n):
+            b = min(range(grid), key=lambda b: (count[b], total[b], b))
+            out[ph][b].append(u)
+            count[b] += 1
+            total[b] += nbytes
+    return out
+
+
+def item_parts(max_units: int, planes: int, nb: int, half: int) -> int:
+    """Items per (plane, scale block) of a unit: the divisor p of half / 8
+    (a warp reads 8 rows at a time) that keeps a unit's items within
+    RES_MAX_ITEMS (the kernel takes a phase's units in batches that fit) and
+    least takes the busiest warp of a block with max_units units (item rounds
+    times rows per lane, plus two rows' worth for each item's reduction)."""
+    best = None
+    for p in (d for d in range(1, half // 8 + 1) if (half // 8) % d == 0):
+        if planes * nb * p > RES_MAX_ITEMS:
+            break
+        cost = -(-max(max_units, 1) * planes * nb * p // RES_WARPS) * (half // p // 8 + 2)
+        if best is None or cost < best[0]:
+            best = (cost, p)
+    if best is None:
+        raise ValueError(f"a unit of {planes} x {nb} scale blocks has more items than {RES_MAX_ITEMS}")
+    return best[1]
+
+
+def plan_table(plan) -> np.ndarray:
+    """The per-block plan as the kernels read it: int32 [grid, phases,
+    1 + maxu], each row the unit count then the unit ids (zero-padded)."""
+    grid, maxu = len(plan[0]), max(len(ids) for ph in plan for ids in ph)
+    table = np.zeros((grid, len(plan), 1 + maxu), np.int32)
+    for k, ph in enumerate(plan):
+        for b, ids in enumerate(ph):
+            table[b, k, 0] = len(ids)
+            table[b, k, 1 : 1 + len(ids)] = ids
+    return table
+
+
+def _round(n: int, align: int) -> int:
+    return -(-n // align) * align
+
+
+@functools.lru_cache(maxsize=None)
+def o_mlp_plan(grid: int, H: int, nb_o: int, half_o: int, nb_in: int, half_in: int, inter: int, nd: int,
+               half_d: int) -> dict:
+    """K6's geometry at B=1 on `grid` blocks: units of 64 columns of o_proj
+    (ko splits of its scale blocks), gate|up (both planes, whole input) and
+    down (kd splits), unit id = split * tiles + tile, placed by
+    resident_plan. Returns {"plan" (per phase, per block unit ids), "table",
+    "maxu", "ko", "kd", "parts" (o, gate|up, down), "xs_bytes" (the staged
+    activations), "img_bytes" (the largest block's images and norm
+    weight)}."""
+    tiles_h, tiles_i = H // UNIT_COLS, inter // UNIT_COLS
+    ko, kd = input_splits(nb_o, tiles_h, grid), input_splits(nd, tiles_h, grid)
+    shapes = ((1, nb_o // ko, half_o), (2, nb_in, half_in), (1, nd // kd, half_d))
+    sizes = [unit_bytes(*s) for s in shapes]
+    plan = resident_plan(grid, list(zip((tiles_h * ko, tiles_i, tiles_h * kd), sizes)))
+    maxu = [max(len(ids) for ids in ph) for ph in plan]
+    img = max(len(plan[0][b]) * sizes[0] + H * 4 + len(plan[1][b]) * sizes[1] + len(plan[2][b]) * sizes[2]
+              for b in range(grid))
+    return {"plan": plan, "table": plan_table(plan), "maxu": max(maxu), "ko": ko, "kd": kd,
+            "parts": tuple(item_parts(m, *s) for m, s in zip(maxu, shapes)),
+            "xs_bytes": _round(2 * max(nb_o * 2 * half_o, nb_in * 2 * half_in, inter), 128), "img_bytes": img}
+
+
+# static shared memory of the kernels beside their dynamic share (csrc), plus
+# 128 bytes for alignment: K6 at B=1 (x2, the items' sums, a block sum, a
+# flag, 3 mbarriers) and K7 (the residual, x2, the items' sums, a block sum,
+# the attention item's q/k/v, the merge weights, rope, 5 mbarriers)
+K6_STATIC_SMEM = RES_MAX_HIDDEN * 4 + RES_MAX_ITEMS * UNIT_COLS * 4 + RES_WARPS * 4 + 4 + 3 * 8 + 128
+K7_STATIC_SMEM = (2 * RES_MAX_HIDDEN * 4 + RES_MAX_ITEMS * UNIT_COLS * 4 + RES_WARPS * 4 + 10 * 64 * 4
+                  + RES_WARPS * 32 * 4 + 64 * 4 + 5 * 8 + 128)
+
+_PLANS = {}  # (device, plan key) -> the plan table on the device
+
+
+def _plan_on(device, key, table: np.ndarray):
+    t = _PLANS.get((device, key))
+    if t is None:
+        t = _PLANS[device, key] = torch.from_numpy(table).to(device)
+    return t
+
+
+def grid_of(device) -> int:
+    """The grid of the resident kernels: one block per SM of the card."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def check_shared_memory(name: str, dynamic: int, static: int, limit: int):
+    """Raises if a block needs more shared memory than the card gives one
+    block (`limit`, its opt-in maximum)."""
+    if dynamic + static > limit:
+        raise ValueError(
+            f"{name}: a block needs {dynamic} B of dynamic + {static} B of static shared memory, more than the "
+            f"{limit} B the card gives one block"
+        )
+
+
+def smem_limit(device) -> int:
+    return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+
+
 def int4_gemv(x, packed, scale):
     """y[B, O] = x[B, n_in] @ dequant(packed [nb, half, O], scale [nb, O]) (K4).
 
@@ -367,6 +516,10 @@ def int4_o_mlp(attn, x, norm_w, o_packed, o_scale, gu_packed, gu_scale, down_pac
         raise ValueError(f"kernel takes 1..{MAX_ROWS} rows with rows * padded hidden <= {GEMV_X_ELEMS}, got B={B}")
     from cosyvoice_tpu_torch.ops._build import load_library
 
+    if B == 1:
+        out = _o_mlp_resident(attn, x, norm_w, o_packed, o_scale, gu_packed, gu_scale, down_packed, down_scale, eps)
+        int4_o_mlp.launches += 1
+        return out
     # one f32 workspace: o partials [nb_o, B, H], x2 [B, H], down partials
     # [n_down, B, H], then act [B, inter_p] bf16 (every piece 16-byte aligned)
     n_f32 = (nb_o + 1 + n_down) * B * H
@@ -389,3 +542,36 @@ def int4_o_mlp(attn, x, norm_w, o_packed, o_scale, gu_packed, gu_scale, down_pac
 
 
 int4_o_mlp.launches = 0
+
+
+def _o_mlp_resident(attn, x, norm_w, o_packed, o_scale, gu_packed, gu_scale, down_packed, down_scale, eps):
+    """K6 at B=1 (int4_o_mlp_resident_kernel): one block per SM, the plan of
+    o_mlp_plan."""
+    from cosyvoice_tpu_torch.ops._build import load_library
+
+    H, dev = x.shape[-1], x.device
+    nb_o, half_o, _ = o_packed.shape
+    _, nb_in, half_in, inter_p = gu_packed.shape
+    n_down, half_d, _ = down_packed.shape
+    if H > RES_MAX_HIDDEN or H % UNIT_COLS or min(half_o, half_in, half_d) % 8 or norm_w.data_ptr() % 16:
+        raise ValueError(
+            f"kernel takes H <= {RES_MAX_HIDDEN} and a multiple of {UNIT_COLS}, scale blocks of a multiple of 16 rows "
+            f"and a 16-byte aligned norm weight at B=1, got H={H}, half {half_o}/{half_in}/{half_d}"
+        )
+    grid = grid_of(dev)
+    key = ("o_mlp", grid, H, nb_o, half_o, nb_in, half_in, inter_p, n_down, half_d)
+    plan = o_mlp_plan(*key[1:])
+    check_shared_memory("int4_o_mlp", plan["xs_bytes"] + plan["img_bytes"], K6_STATIC_SMEM, smem_limit(dev))
+    # one f32 workspace: o partials [ko, H], down partials [kd, H], then act [inter_p] bf16
+    work = torch.empty((plan["ko"] + plan["kd"]) * H + inter_p // 2, device=dev, dtype=torch.float32)
+    out = torch.empty_like(x)
+    rc = load_library().cvt_int4_o_mlp_resident(
+        attn.data_ptr(), int(attn.dtype == torch.bfloat16), x.data_ptr(), norm_w.data_ptr(), o_packed.data_ptr(),
+        o_scale.data_ptr(), gu_packed.data_ptr(), gu_scale.data_ptr(), down_packed.data_ptr(), down_scale.data_ptr(),
+        work.data_ptr(), out.data_ptr(), _counters(dev, 2 + H // UNIT_COLS).data_ptr(),
+        _plan_on(dev, key, plan["table"]).data_ptr(), attn.shape[1], H, nb_o, half_o, nb_in, half_in, inter_p,
+        n_down, half_d, plan["ko"], plan["kd"], plan["maxu"], *plan["parts"], plan["xs_bytes"], plan["img_bytes"],
+        grid, float(eps), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, "int4_o_mlp")
+    return out

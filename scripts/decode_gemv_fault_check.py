@@ -1,10 +1,10 @@
-"""Fault check of chip_smoke.py's K1, K3 and K4 comparisons; needs one CUDA card.
+"""Fault check of chip_smoke.py's K1, K3, K4 and K6 comparisons; needs one CUDA card.
 
 Builds `cosyvoice_tpu_torch/csrc/decode_attention.cu` (K1, K3) and
-`int4_fused.cu` (K4) as they are and once per planted fault (MUTANTS), each
-into a library of its own under `build/decode_gemv_faults/`, and runs
-chip_smoke's holding checks (`hold_k1`, `hold_k3` for the attention source,
-`hold_k4` for the GEMV source) through each library in turn. It passes when
+`int4_fused.cu` (K4, and K6 at B=1) as they are and once per planted fault
+(MUTANTS), each into a library of its own under `build/decode_gemv_faults/`,
+and runs chip_smoke's holding checks (`hold_k1`, `hold_k3` for the attention
+source, `hold_k4` and `hold_k6` for the int4 source) through each library in turn. It passes when
 the sources as they are pass every check and every mutant fails at least one;
 for each failure it prints the first case that failed, with its error and
 limit.
@@ -59,11 +59,22 @@ MUTANTS = {
         "high_inputs_shifted": [("__ldg(xr + half + i)", "__ldg(xr + half + (i + 1) % half)")],
         # every staged row (> 2 rows) reads row 0's low inputs
         "staged_rows_of_row_0": [("xl[r] = __bfloat162float(xs[r * K + i]);", "xl[r] = __bfloat162float(xs[i]);")],
+        # K6 at B=1: the o_proj stage is read before its copies have landed (its wait dropped)
+        "k6_o_read_before_landing": [("  mbar_wait(mbar, 0);\n  __syncthreads();\n", "  __syncthreads();\n")],
+        # K6 at B=1: the o_proj units of column tile 0 copy the weights of tile 1 in place of their own
+        "k6_plan_unit_off_by_one": [("(ids_o[k] % tiles) * kUnitCols,\n                mbar);",
+                                     "(ids_o[k] % tiles + (ids_o[k] % tiles == 0)) * kUnitCols,\n                mbar);")],
+        # K6 at B=1: the last unit of a tile leaves out the last split of the down partials
+        "k6_tile_sum_drops_last_split": [("d[s] = s < p.kd ? ld_cg", "d[s] = s < p.kd - 1 ? ld_cg")],
+        # K6 at B=1: the down tickets are not returned to 0, so the next launch never writes out
+        "k6_ticket_not_reset": [("        if (threadIdx.x == 0) p.bar[2 + tile] = 0;\n", "")],
+        # K6 at B=1: the grid barrier's counters are not returned to 0 at the end of a launch
+        "k6_barrier_not_reset": [("  grid_exit(p.bar);\n}\n\ntemplate", "  __syncthreads();\n}\n\ntemplate")],
     },
 }
-HOLDS = {"decode_attention.cu": ("hold_k1", "hold_k3"), "int4_fused.cu": ("hold_k4",)}
+HOLDS = {"decode_attention.cu": ("hold_k1", "hold_k3"), "int4_fused.cu": ("hold_k4", "hold_k6")}
 ENTRIES = {"decode_attention.cu": ("cvt_gqa_decode_attention", "cvt_gqa_decode_attention_quant"),
-           "int4_fused.cu": ("cvt_int4_gemv",)}
+           "int4_fused.cu": ("cvt_int4_gemv", "cvt_int4_o_mlp", "cvt_int4_o_mlp_resident")}
 
 
 def main():
@@ -80,7 +91,7 @@ def main():
         return 1
     print(torch.cuda.get_device_name(0))
     qc = Qwen2Config()
-    modules = {"hold_k1": da, "hold_k3": da, "hold_k4": int4}
+    modules = {"hold_k1": da, "hold_k3": da, "hold_k4": int4, "hold_k6": int4}
     real_load = _build.load_library
     results = {}
     try:
@@ -94,7 +105,7 @@ def main():
                 _build.load_library = lambda lib=lib: lib
                 caught = {}
                 for hold in HOLDS[source]:
-                    da._COUNTERS.clear()  # a mutant may leave the ticket counters set
+                    da._COUNTERS.clear()  # a mutant may leave the ticket or barrier counters set
                     gen = torch.Generator(device="cuda").manual_seed(0)
                     try:
                         getattr(chip_smoke, hold)(modules[hold], qc, gen)

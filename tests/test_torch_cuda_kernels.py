@@ -212,3 +212,29 @@ def test_cuda_k7_matches_plain(pos):
         assert torch.equal(o, a) and torch.equal(o, z), what
         floor = max(_err(r, e), TWO_ULPS / 2 * r.float().abs().max().item())
         assert _err(o, r) <= 2 * floor, (what, _err(o, r), floor)
+
+
+@pytest.mark.parametrize("kernel", ["K6", "K7"])
+def test_cuda_resident_kernels_repeat_and_zero_their_counters(kernel):
+    """K6 at B=1 and K7 (one block per SM, weights streamed into shared
+    memory, grid barriers and tickets on a persistent counter buffer): the
+    same call three times gives the same bits, and every counter is back at
+    0 after each call, so the next launch or a graph replay finds them
+    zeroed."""
+    _need_card()
+    if kernel == "K6":
+        rng = np.random.default_rng(70)
+        w = lambda *sh: rng.standard_normal(sh).astype(np.float32) * 0.05  # noqa: E731
+        wq = [torch.from_numpy(a).cuda() for a in (*tint4.pack_gemv_int4(w(896, 896)),
+                                                   *tint4.pack_gate_up_int4(w(896, 2 * 4864)),
+                                                   *tint4.pack_down_int4(w(4864, 896)))]
+        args = (torch.randn(1, 896, device="cuda"), torch.randn(1, 896, device="cuda").bfloat16(),
+                torch.ones(896, device="cuda"), *wq)
+        outs = [tint4.int4_o_mlp(*args) for _ in range(3)]
+    else:
+        x, cos, sin, ka, va, w = _k7_case(71)
+        p = torch.tensor([40], dtype=torch.int32, device="cuda")
+        outs = [tblock.int4_decode_layers(x, cos, sin, p, ka, va, **w)[0] for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    assert int(tda._COUNTERS[outs[0].device].abs().sum()) == 0

@@ -212,3 +212,100 @@ def test_gemv_plan_at_the_lm_shapes():
     132 SMs; o_proj: 28 tiles, 112 blocks."""
     assert tint4.gemv_plan(4, 1152) == (36, 4)
     assert tint4.gemv_plan(4, 896) == (28, 4)
+
+
+# K6 at B=1 (int4_o_mlp_resident_kernel): (H, nb_o, half_o, nb_in, half_in,
+# inter_p, nd, half_d) at full width and at these tests' widths (hidden 384,
+# intermediate 448 -> 512)
+O_MLP_SHAPES = {"full": (896, 4, 128, 4, 128, 5120, 10, 256), "tiny": (384, 2, 128, 2, 128, 512, 1, 256)}
+H100_SMEM_OPTIN = 232448  # bytes of shared memory one block may use on an H100
+
+
+def _check_resident_plan(plan, counts, grid, every_block):
+    """Every unit of every phase on exactly one block, per-phase counts
+    within one of each other, and (where asked) every block with work."""
+    busy = np.zeros(grid, bool)
+    for ph, n in zip(plan, counts):
+        assert len(ph) == grid
+        ids = sorted(u for blk in ph for u in blk)
+        assert ids == list(range(n))
+        sizes = [len(blk) for blk in ph]
+        assert max(sizes) - min(sizes) <= 1
+        busy |= np.asarray(sizes) > 0
+    if every_block:
+        assert busy.all()
+
+
+def _cover_splits(plan_phase, tiles, nb, splits):
+    """[nb, tiles] count of the (scale block, column tile) pairs that the
+    units (id = split * tiles + tile, nb / splits scale blocks each) cover."""
+    cover = np.zeros((nb, tiles), int)
+    for blk in plan_phase:
+        for u in blk:
+            s, tile = divmod(u, tiles)
+            cover[s * (nb // splits) : (s + 1) * (nb // splits), tile] += 1
+    return cover
+
+
+@pytest.mark.parametrize("grid", [132, 16])
+@pytest.mark.parametrize("width", ["full", "tiny"])
+def test_o_mlp_plan_covers_every_unit_once(width, grid):
+    """K6's plan: every unit of o_proj (64 columns, a split of the scale
+    blocks), gate|up (64 columns, whole input) and down on one block, every
+    (column tile, scale block) of o_proj and down exactly once; the table
+    the kernel reads says the same; each unit's items fit the kernel's
+    buffer; the staged activations fit xs."""
+    H, nb_o, half_o, nb_in, half_in, inter, nd, half_d = O_MLP_SHAPES[width]
+    plan = tint4.o_mlp_plan(grid, *O_MLP_SHAPES[width])
+    tiles, ko, kd = H // 64, plan["ko"], plan["kd"]
+    counts = (tiles * ko, inter // 64, tiles * kd)
+    _check_resident_plan(plan["plan"], counts, grid, every_block=width == "full" or grid <= sum(counts))
+    assert (_cover_splits(plan["plan"][0], tiles, nb_o, ko) == 1).all()
+    assert (_cover_splits(plan["plan"][2], tiles, nd, kd) == 1).all()
+    table = plan["table"]
+    for k, ph in enumerate(plan["plan"]):
+        for b, ids in enumerate(ph):
+            assert table[b, k, 0] == len(ids) and list(table[b, k, 1 : 1 + len(ids)]) == ids
+    for (planes, nb, half), parts in zip(((1, nb_o // ko, half_o), (2, nb_in, half_in), (1, nd // kd, half_d)),
+                                         plan["parts"]):
+        assert (half // parts) % 8 == 0 and planes * nb * parts <= tint4.RES_MAX_ITEMS
+    assert plan["xs_bytes"] >= 2 * max(nb_o * 2 * half_o, nb_in * 2 * half_in, inter) and plan["xs_bytes"] % 128 == 0
+
+
+def test_o_mlp_units_compute_the_tail_products():
+    """The plan's units, each 64 columns of a weight over a split of its
+    scale blocks, summed per column in split order give the three products
+    of K6 (the kernel's unit decomposition, mirrored on the host)."""
+    attn, x, nw, op, osc, gup, gus, dp, ds = _t(_tail_case(11, 1))
+    plan = tint4.o_mlp_plan(16, 384, *op.shape[:2], *gup.shape[1:], *dp.shape[:2])
+    splits = (plan["ko"], 1, plan["kd"])
+    weights = ((op, osc), (gup[0], gus[0]), (dp, ds))
+    for (p, s), ph, k in zip(weights, plan["plan"], splits):
+        nb, half, n_out = p.shape
+        xin = torch.randn(1, nb * 2 * half)
+        parts = torch.zeros(k, n_out)
+        for blk in ph:
+            for u in blk:
+                sp, tile = divmod(u, n_out // 64)
+                rows, cols = slice(sp * nb // k, (sp + 1) * nb // k), slice(64 * tile, 64 * tile + 64)
+                xs = xin[:, sp * (nb // k) * 2 * half : (sp + 1) * (nb // k) * 2 * half]
+                parts[sp, cols] = tint4.int4_matmul_blocked(xs, p[rows, :, cols], s[rows, cols], torch.float32)[0]
+        np.testing.assert_allclose(parts.sum(0).numpy(), tint4.int4_matmul_blocked(xin, p, s, torch.float32)[0].numpy(),
+                                   rtol=0, atol=1e-5)
+
+
+def test_item_parts_and_shared_memory_limit():
+    """Items per scale block keep a unit within the kernel's item buffer and
+    rows per item a multiple of 8; K6 at full width fits an H100 block's
+    shared memory, and a size the card cannot give is refused."""
+    assert tint4.item_parts(1, 1, 1, 128) == 16  # a qkv / o_proj unit of one scale block: one item per warp
+    assert tint4.item_parts(1, 2, 4, 128) == 2  # a gate|up unit: 16 items of 64 rows
+    assert tint4.item_parts(1, 1, 2, 256) == 8  # a down unit of two scale blocks: 16 items of 32 rows
+    with pytest.raises(ValueError):
+        tint4.item_parts(1, 2, 40, 128)
+    assert (tint4.input_splits(4, 14, 132), tint4.input_splits(10, 14, 132), tint4.input_splits(1, 6, 16)) == (4, 5, 1)
+    plan = tint4.o_mlp_plan(132, *O_MLP_SHAPES["full"])
+    need = plan["xs_bytes"] + plan["img_bytes"]
+    tint4.check_shared_memory("int4_o_mlp", need, tint4.K6_STATIC_SMEM, H100_SMEM_OPTIN)
+    with pytest.raises(ValueError, match="shared memory"):
+        tint4.check_shared_memory("int4_o_mlp", need, tint4.K6_STATIC_SMEM, need)

@@ -179,3 +179,64 @@ def test_wrapper_checks_shapes_dtypes_and_devices(monkeypatch):
     with pytest.raises(ValueError, match="no kernel"):
         tblock.int4_decode_layers(*(t.to("meta") for t in (x, cos, sin, pos, ka, va)),
                                   **{k: v.to("meta") for k, v in w.items()})
+
+
+# K7's geometry: (A, H, n_kv, nbq, half_q, nqkv, nbo, half_o, nb_in, half_in,
+# inter_p, nd, half_d) at full width (an arena of 2048 rows) and at these
+# tests' widths
+PLAN_SHAPES = {"full": (2048, 896, 2, 4, 128, 1152, 4, 128, 4, 128, 5120, 10, 256),
+               "tiny": (A, HID, NKV, 2, 128, NQKV, 2, 128, 2, 128, 512, 1, 256)}
+H100_SMEM_OPTIN = 232448  # bytes of shared memory one block may use on an H100
+
+
+@pytest.mark.parametrize("grid", [132, 16])
+@pytest.mark.parametrize("width", ["full", "tiny"])
+def test_decode_layers_plan_covers_every_item_once(width, grid):
+    """K7's plan: every unit of qkv, o_proj and down (64 columns, a split of
+    the scale blocks) and of gate|up (64 columns, whole input) on exactly
+    one block, every (column tile, scale block) of the split weights
+    exactly once, the per-phase counts within one of each other; every
+    attention item (KV head, chunk of the largest live range) on one block
+    within its kv_items; every block with work where there are as many units
+    as blocks (full width; the tests' widths on 16 blocks)."""
+    Ar, H, n_kv, nbq, half_q, nqkv, nbo, half_o, nb_in, half_in, inter, nd, half_d = PLAN_SHAPES[width]
+    plan = tblock.decode_layers_plan(grid, *PLAN_SHAPES[width])
+    splits = (plan["kq"], plan["ko"], 1, plan["kd"])
+    tiles = (nqkv // 64, H // 64, inter // 64, H // 64)
+    nbs = (nbq, nbo, nb_in, nd)
+    busy = np.zeros(grid, bool)
+    for k, ph in enumerate(plan["plan"]):
+        assert sorted(u for blk in ph for u in blk) == list(range(tiles[k] * splits[k]))
+        sizes = [len(blk) for blk in ph]
+        assert max(sizes) - min(sizes) <= 1
+        busy |= np.asarray(sizes) > 0
+        for b, ids in enumerate(ph):
+            assert plan["table"][b, k, 0] == len(ids) and list(plan["table"][b, k, 1 : 1 + len(ids)]) == ids
+        cover = np.zeros((nbs[k], tiles[k]), int)
+        for blk in ph:
+            for u in blk:
+                s, tile = divmod(u, tiles[k])
+                cover[s * (nbs[k] // splits[k]) : (s + 1) * (nbs[k] // splits[k]), tile] += 1
+        assert (cover == 1).all()
+    items = n_kv * -(-Ar // tblock.ATTN_CHUNK)
+    owners = [i % grid for i in range(items)]
+    assert max(owners.count(b) for b in range(grid)) <= plan["kv_items"]
+    if width == "full" or grid <= sum(tiles[k] * splits[k] for k in range(4)):
+        assert busy.all()
+    assert plan["xs_bytes"] >= 2 * max(nbq * 2 * half_q, nbo * 2 * half_o, nb_in * 2 * half_in, inter)
+
+
+def test_decode_layers_plan_at_full_width():
+    """Full width on an H100 (132 SMs): qkv and o_proj split by scale block
+    (72 and 56 units of one), down in 5 splits of two (70 units), 80
+    gate|up units; one unit of each kind per block at most, one attention
+    item per block at 2048 rows (128 items), and a ring of one layer's
+    share that fits a block's shared memory; a size the card cannot give is
+    refused."""
+    plan = tblock.decode_layers_plan(132, *PLAN_SHAPES["full"])
+    assert (plan["kq"], plan["ko"], plan["kd"], plan["kv_items"]) == (4, 4, 5, 1)
+    assert [int(plan["table"][:, k, 0].max()) for k in range(4)] == [1, 1, 1, 1]
+    need = plan["xs_bytes"] + plan["slot_bytes"]
+    tblock.check_shared_memory("int4_decode_layers", need, tblock.K7_STATIC_SMEM, H100_SMEM_OPTIN)
+    with pytest.raises(ValueError, match="shared memory"):
+        tblock.check_shared_memory("int4_decode_layers", need, tblock.K7_STATIC_SMEM, need)
