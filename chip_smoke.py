@@ -14,8 +14,10 @@ exceeded, a kernel disagrees with its plain version, or anything raises):
    an int8 arena, f32 q) at B=1 and ragged B=4, cur_len 0/27/511/512/513/
    4095 and the uneven-split values 1/15/16/17/63/64/65/1023/2047, with NaN
    in the dead arena, and peaked cases (dominant keys planted in each split
-   in turn and the next, at cur_len 1023 and 4095); K2 (KV-arena row write)
-   in bf16 and int8; K4 (int4 GEMV) at 1, 2, 5, 15 and 16 rows at the qkv
+   in turn and the next, at cur_len 1023 and 4095); K2 (KV-arena row write:
+   K, V and over the int8 arena both scales in one launch) exactly, in bf16
+   and int8 with scales, at B=1, ragged B=4 and over the 24-layer stacked
+   arena of the fused step, and the single-arena write; K4 (int4 GEMV) at 1, 2, 5, 15 and 16 rows at the qkv
    and o_proj shapes, with x one-hot in each scale block in turn and a
    weight whose scale blocks add distinct multiples; K6 (fused int4 layer
    tail) at B=1 and 16, timed at B=1 beside the bf16 product route over its
@@ -24,7 +26,9 @@ exceeded, a kernel disagrees with its plain version, or anything raises):
    rows, the row counts of the bistream extends, timed at 5 and 16 rows
    beside the bf16 product route over the dequantised weights. K1, K3, K4,
    K5, K6 and K7 must repeat bit for bit. The grid and the dynamic shared
-   memory per block of K6 (B=1) and K7 are printed.
+   memory per block of K5, K6 (B=1) and K7 are printed, and the SMs each
+   phase of K5 occupies; beside K2, an empty kernel's launch in the same
+   harness (the floor a launch sets).
    Kernel, plain and library device times (CUDA events around a replayed
    CUDA graph that rotates over enough distinct input sets to exceed twice
    the L2 cache, at least one per layer) and eager host rates, and the bound
@@ -34,7 +38,7 @@ exceeded, a kernel disagrees with its plain version, or anything raises):
 4. slice: the full-width CosyVoice2-0.5B offline engine, random weights from
    seed 0, serves 3 `tts(stream=False)` requests; wavs must be finite and
    n_tokens * 2 * 480 long, and the launch counters must show that every
-   decode step went through K1 (24 per step) and K2 (48 per step).
+   decode step went through K1 and K2 (24 each per step).
 5. check: the LM's kernel decode path against the same decode with the
    plain versions and against a full-prefix recompute of the same tokens
    (plain attention), logits within twice the floor that plain decode
@@ -42,7 +46,7 @@ exceeded, a kernel disagrees with its plain version, or anything raises):
 6. slice_int4p: the same engine with the quantised LM,
    `Qwen2Config(quant="int4p", kv_quant=True)` (fp weights from seed 0,
    quantised on the host), serves 3 requests; every decode step goes
-   through K4, K3 and K6 (24 each per step) and K2 (48), and never K1.
+   through K4, K3, K6 and K2 (24 each per step), and never K1.
 7. check_int4p: phase 5 for the quantised LM (its recompute is one prefill
    over the dequantised arena rows).
    slice_bistream_int4p: with the same engine, one bi-streaming request
@@ -53,10 +57,10 @@ exceeded, a kernel disagrees with its plain version, or anything raises):
    and against one prefill over the whole sequence.
 8. slice_int4p_bf16: the engine with int4p weights over a bf16 arena,
    `Qwen2Config(quant="int4p")`, serves the same 3 requests, every decode
-   step through K7 and K2 (1 and 2 per step), never K1, K3, K4 or K6; then
+   step through K7 and K2 (1 each per step), never K1, K3, K4 or K6; then
    a request with a long voice prompt whose arena grows past K7's 2048 rows,
-   where the blocks after the switch take K4 + K1 + K6 (24 each per step)
-   and K2 (48).
+   where the blocks after the switch take K4 + K1 + K6 + K2 (24 each per
+   step).
 9. check_int4p_bf16: phase 5 for that LM (its decode takes the route the LM
    takes), and K7's step against the K4 + K1 + K6 step for the same token
    at pos ~100 and ~2040.
@@ -499,45 +503,88 @@ def check_k3(da, qc, gen):
 
 
 def check_k2(da, qc, gen):
+    """K2 exactly (tolerance 0: a copy) against its plain version: the fused
+    write (K, V and, over the int8 arena, both scales; kv_arena_write_kv) and
+    the single-arena write (kv_arena_write), in bf16 and int8, at B=1 and
+    ragged B=4 over CASES, and the fused write over the 24-layer stacked
+    arena of the fused decode step with one position for every layer. Timed
+    at B=1 beside its plain version, the index_copy_ route of the same writes
+    (no one PyTorch call writes both arenas and the scales), an empty
+    kernel's launch, and the single-arena write beside index_copy_."""
     import torch
 
-    Hkv, d, T = qc.num_kv_heads, qc.head_dim, qc.max_cache_len
+    Hkv, d, T, L = qc.num_kv_heads, qc.head_dim, qc.max_cache_len, qc.num_layers
+
+    def arena(B, dtype, rows=T):
+        return (torch.randn((B, rows, Hkv, d), generator=gen, device="cuda") * 50).to(dtype)
+
+    def scales(B):
+        return tuple(torch.rand(shape, generator=gen, device="cuda") + 0.1 for shape in ((B, T), (B, T), (B, 1), (B, 1)))
+
+    def fresh(ts):
+        return [t.clone() if t is not None else None for t in ts]
+
+    cases = [(f"pos={cl}", torch.tensor(cl, device="cuda", dtype=torch.int32)) for cl in CASES]
+    cases += [(f"{L} stacked layers, one pos={c}", torch.tensor([c], device="cuda", dtype=torch.int32))
+              for c in (0, 511, 2047)]
     errs = {}
     for dtype in (torch.bfloat16, torch.int8):
-        for cl in CASES:
-            B = len(cl)
-            pos = torch.tensor(cl, device="cuda", dtype=torch.int32)
-            arena = (torch.randn((B, T, Hkv, d), generator=gen, device="cuda") * 50).to(dtype)
-            new = (torch.randn((B, 1, Hkv, d), generator=gen, device="cuda") * 50).to(dtype)
-            ref = da.kv_arena_write_plain(arena.clone(), new, pos)
-            out = da.kv_arena_write(arena.clone(), new, pos)
-            err = (out.float() - ref.float()).abs().max().item()
+        for label, pos in cases:
+            B = len(pos) if len(pos) > 1 or "stacked" not in label else L
+            ka, va, kn, vn = arena(B, dtype), arena(B, dtype), arena(B, dtype, 1), arena(B, dtype, 1)
+            sc = scales(B) if dtype == torch.int8 else (None,) * 4
+            want, got = [ka.clone(), va.clone(), *fresh(sc[:2])], [ka.clone(), va.clone(), *fresh(sc[:2])]
+            da.kv_arena_write_kv_plain(want[0], want[1], kn, vn, pos, *want[2:], *sc[2:])
+            da.kv_arena_write_kv(got[0], got[1], kn, vn, pos, *got[2:], *sc[2:])
+            pos_b = pos.expand(B).contiguous()
+            want.append(da.kv_arena_write_plain(ka.clone(), kn, pos_b))
+            got.append(da.kv_arena_write(ka.clone(), kn, pos_b))
+            err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want) if w is not None)
             errs[dtype] = max(errs.get(dtype, 0.0), err)
             if err != 0.0:
-                raise AssertionError(f"K2 ({dtype}) disagrees with its plain version at pos={cl}: {err}")
-        print(f"K2 {dtype} {len(CASES)} cases (B=1 and ragged B=4): max_abs_err {errs[dtype]} (tol 0, exact copy)")
+                raise AssertionError(f"K2 ({dtype}) disagrees with its plain version at {label}: {err}")
+        print(f"K2 {dtype}{' with scales' if dtype == torch.int8 else ''}: {len(cases)} cases (B=1, ragged B=4, "
+              f"{L} stacked layers; fused and single-arena writes): max_abs_err {errs[dtype]} (tol 0, exact copy)")
 
     cur = torch.tensor([CUR_T], device="cuda", dtype=torch.int32)
-    flat_idx = cur.long()  # row b*T + pos[b] of the [B*T, F] view, B=1
+    flat = cur.long()  # row b*T + pos[b] of the [B*T, F] view, B=1
     F = Hkv * d
     timed = {}
     for dtype in (torch.bfloat16, torch.int8):
-        arena = (torch.randn((1, T, Hkv, d), generator=gen, device="cuda") * 50).to(dtype)
-        new = (torch.randn((1, 1, Hkv, d), generator=gen, device="cuda") * 50).to(dtype)
-        fns = {
-            "kernel": lambda a=arena, n=new: da.kv_arena_write(a, n, cur),
-            "plain": lambda a=arena, n=new: da.kv_arena_write_plain(a, n, cur),
-            "library": lambda a=arena, n=new: a.view(T, F).index_copy_(0, flat_idx, n.view(1, F)),
-        }
-        timed[dtype] = time_fns(fns, 50) + (bound(2 * F * arena.element_size() + 4, 0),)
+        ka, va, kn, vn = arena(1, dtype), arena(1, dtype), arena(1, dtype, 1), arena(1, dtype, 1)
+        sc = scales(1) if dtype == torch.int8 else (None,) * 4
+
+        def route(ka=ka, va=va, kn=kn, vn=vn, sc=sc):
+            ka.view(T, F).index_copy_(0, flat, kn.view(1, F))
+            va.view(T, F).index_copy_(0, flat, vn.view(1, F))
+            if sc[0] is not None:
+                sc[0].view(T).index_copy_(0, flat, sc[2].view(1))
+                sc[1].view(T).index_copy_(0, flat, sc[3].view(1))
+
+        fns = {"kernel": lambda a=(ka, va, kn, vn, cur, *sc): da.kv_arena_write_kv(*a),
+               "plain": lambda a=(ka, va, kn, vn, cur, *sc): da.kv_arena_write_kv_plain(*a),
+               "index_copy_route": route}
+        if dtype == torch.bfloat16:
+            dev_cuda = torch.device("cuda")
+            fns["empty kernel"] = lambda: da.empty_kernel(dev_cuda)
+            fns["single-arena write"] = lambda: da.kv_arena_write(ka, kn, cur)
+            fns["single index_copy_"] = lambda: ka.view(T, F).index_copy_(0, flat, kn.view(1, F))
+        nbytes = 4 * F * ka.element_size() + 4 + (0 if sc[0] is None else 16)
+        timed[dtype] = time_fns(fns, 50) + (bound(nbytes, 0),)
     dev, host, (b_ms, b_by) = timed[torch.bfloat16]
-    row = kernel_row("kv_arena_write", "cosyvoice_tpu_torch/csrc/decode_attention.cu",
+    row = kernel_row("kv_arena_write_kv", "cosyvoice_tpu_torch/csrc/decode_attention.cu",
                      "cosyvoice_tpu/ops/decode_attention.py:447", max(errs.values()), dev, b_ms, b_by)
-    # the int8 row write (the quantised LM's path) beside the bf16 one
-    dev8, _, (b8_ms, _) = timed[torch.int8]
-    row["int8"] = {"ms": dev8["kernel"], "plain_ms": dev8["plain"], "library_ms": dev8["library"],
-                   "bound_ms": b8_ms}
-    return row, host, 50
+    dev8, host8, (b8_ms, _) = timed[torch.int8]
+    print(f"K2 beside its floor, one launch of an empty kernel in the same graph harness: {dev['empty kernel'] * 1e3:.3f} us "
+          f"(K2 bf16 {dev['kernel'] * 1e3:.3f} us, {dev['kernel'] - dev['empty kernel']:+.4f} ms over it)")
+    print(f"K2 bf16 (K and V rows): device {dev['kernel'] * 1e3:.3f} us, plain {dev['plain'] * 1e3:.3f} us, the "
+          f"index_copy_ route (2 calls) {dev['index_copy_route'] * 1e3:.3f} us, bound {b_ms * 1e3:.5f} us; the single-"
+          f"arena write {dev['single-arena write'] * 1e3:.3f} us beside one index_copy_ {dev['single index_copy_'] * 1e3:.3f} us")
+    print(f"K2 int8 with scales (K, V rows and both scales): device {dev8['kernel'] * 1e3:.3f} us, plain "
+          f"{dev8['plain'] * 1e3:.3f} us, the index_copy_ route (4 calls) {dev8['index_copy_route'] * 1e3:.3f} us, bound "
+          f"{b8_ms * 1e3:.5f} us; eager host rate kernel {host8['kernel'] * 1e3:.2f} us, route "
+          f"{host8['index_copy_route'] * 1e3:.2f} us")
+    return row, {k: host[k] for k in ("kernel", "plain", "index_copy_route", "empty kernel")}, 50
 
 
 def _gemv_weights(torch, int4, n_in, n_out, gen):
@@ -769,21 +816,26 @@ def _mlp_weights(torch, int4, H, inter, gen):
 K5_ROWS = (1, 5, 15, 16)  # rows of the bistream extends: a one-token feed, text 5, speech 15, the limit
 
 
-def check_k5(int4, qc, gen):
+def hold_k5(int4, qc, gen, ws=None):
     """K5 at full width (hidden 896 -> 1024, intermediate 4864 -> 5120) at
     K5_ROWS rows: within twice a floor of one bf16 ulp at max |ref| of its
-    plain version, the same bits twice. Timed at 5 rows (the row's numbers)
-    and 16, beside the bf16 product route over the dequantised weights:
-    gate|up as one matmul, silu * up, then down (no one PyTorch call
-    computes the function)."""
+    plain version, the same bits twice, with a call on other inputs and
+    weights in between (so that nothing the first call leaves in shared
+    memory or scratch can stand in for what the second must load or
+    compute). Returns the largest error; raises on the first case that
+    fails."""
     import torch
 
     H, inter = qc.hidden_size, qc.intermediate_size
-    ws = _mlp_weights(torch, int4, H, inter, gen)
+    ws = ws or _mlp_weights(torch, int4, H, inter, gen)
+    other = _mlp_weights(torch, int4, H, inter, gen)
     err_max = 0.0
     for B in K5_ROWS:
         x = torch.randn((B, H), generator=gen, device="cuda").to(torch.bfloat16)
-        out, again, ref = int4.int4_mlp(x, *ws), int4.int4_mlp(x, *ws), int4.int4_mlp_plain(x, *ws)
+        out = int4.int4_mlp(x, *ws)
+        int4.int4_mlp(torch.randn((B, H), generator=gen, device="cuda").to(torch.bfloat16), *other)
+        again = int4.int4_mlp(x, *ws)
+        ref = int4.int4_mlp_plain(x, *ws)
         exact = int4.int4_mlp_plain(x.float(), *ws)  # the same function in float32 throughout
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
@@ -796,7 +848,31 @@ def check_k5(int4, qc, gen):
         if not torch.equal(out, again):
             raise AssertionError(f"K5 does not repeat bit for bit at B={B}")
         if not err <= 2 * floor:
-            raise AssertionError(f"K5 disagrees with its plain version at B={B}: {err} > 2 x {floor}")
+            raise AssertionError(f"K5 disagrees with its plain version at B={B}: {err} > 2 x {floor} "
+                                 f"({err / (2 * floor):.1f}x the limit)")
+    return err_max
+
+
+def check_k5(int4, qc, gen):
+    """hold_k5, the plan (grid, shared memory, the SMs each phase occupies),
+    then K5 timed at 5 rows (the row's numbers) and 16, beside the bf16
+    product route over the dequantised weights: gate|up as one matmul,
+    silu * up, then down (no one PyTorch call computes the function)."""
+    import torch
+
+    H, inter = qc.hidden_size, qc.intermediate_size
+    ws = _mlp_weights(torch, int4, H, inter, gen)
+    err_max = hold_k5(int4, qc, gen, ws)
+    grid = int4.grid_of(torch.device("cuda"))
+    for B in (5, 16):
+        plan = int4.mlp_plan(grid, H, *ws[0].shape[1:], *ws[2].shape[:2], B)
+        busy = [sum(1 for ids in ph if ids) for ph in plan["plan"]]
+        print(f"K5 at {B} rows ({plan['rows']} in the products): grid {grid} blocks (one per SM), "
+              f"{plan['xs_bytes'] + plan['red_bytes'] + plan['img_bytes']} B of dynamic shared memory per block "
+              f"(staged activations {plan['xs_bytes']}, item sums {plan['red_bytes']}, largest block's weight images "
+              f"{plan['img_bytes']}); gate|up {sum(len(ids) for ids in plan['plan'][0])} units on {busy[0]} SMs, "
+              f"down {sum(len(ids) for ids in plan['plan'][1])} units ({plan['kd']} splits) on {busy[1]} SMs; "
+              f"items per scale block {plan['parts']}")
 
     def dense(gu_p, gu_s, d_p, d_s):
         """The dequantised bf16 weights: gate|up [K_in, 2 * inter_p], down [inter_p, H]."""
@@ -967,8 +1043,9 @@ def k7_cases(torch, int4, qc, gen):
 def unfused_step(da, int4, qc, x, cos, sin, pos, ka, va, nw1, nw2, qkv_p, qkv_s, qkv_b, o_p, o_s, gu_p, gu_s, d_p,
                  d_s):
     """The kernels of the port's per-layer int4p step over a bf16 arena, on
-    K7's inputs: 24 x (K4 qkv, K1 attention, K6 tail) and the 2 K2 row
-    commits (the norms, rope and bias between them are left out: no kernel)."""
+    K7's inputs: 24 x (K4 qkv, K1 attention, K6 tail) and the K2 launch that
+    commits the K and V rows (the norms, rope and bias between them are left
+    out: no kernel)."""
     L, A, lanes = ka.shape
     Hkv, d = qc.num_kv_heads, qc.head_dim
     nq = qc.num_heads * d
@@ -977,10 +1054,8 @@ def unfused_step(da, int4, qc, x, cos, sin, pos, ka, va, nw1, nw2, qkv_p, qkv_s,
         attn = da.gqa_decode_attention(qkv[:, :nq].view(1, qc.num_heads, d), ka[l].view(1, A, Hkv, d),
                                        va[l].view(1, A, Hkv, d), pos)
         x = int4.int4_o_mlp(attn.view(1, nq), x, nw2[l], o_p[l], o_s[l], gu_p[l], gu_s[l], d_p[l], d_s[l])
-    rows = pos.expand(L).contiguous()
     new = qkv[:, nq : nq + lanes].view(1, 1, Hkv, d).expand(L, 1, Hkv, d).contiguous()
-    da.kv_arena_write(ka.view(L, A, Hkv, d), new, rows)
-    da.kv_arena_write(va.view(L, A, Hkv, d), new, rows)
+    da.kv_arena_write_kv(ka.view(L, A, Hkv, d), va.view(L, A, Hkv, d), new, new, pos)
     return x
 
 
@@ -1066,7 +1141,7 @@ def phase_kernels(cfg):
                   f"{r16['bound_ms'] * 1e3:.4f} us, eager host rate {r16['host_ms'] * 1e3:.2f} us")
         if "unfused" in row:
             u = row.pop("unfused")
-            print(f"{key} against the port's unfused route for the same step, 24 x (K4 + K1 + K6) + 2 K2: device "
+            print(f"{key} against the port's unfused route for the same step, 24 x (K4 + K1 + K6) + K2: device "
                   f"{u['ms'] * 1e3:.2f} us per step (K7 {row['ms'] * 1e3:.2f} us, {u['ms'] / row['ms']:.2f}x), "
                   f"eager host rate {u['host_ms'] * 1e3:.2f} us")
         torch.cuda.empty_cache()
@@ -1076,19 +1151,21 @@ def phase_kernels(cfg):
 def _counters():
     from cosyvoice_tpu_torch.ops import decode_attention as da, int4_block as tb, int4_fused as int4
 
-    return {"K1": da.gqa_decode_attention, "K2": da.kv_arena_write, "K3": da.gqa_decode_attention_quant,
+    return {"K1": da.gqa_decode_attention, "K2": da.kv_arena_write_kv, "K3": da.gqa_decode_attention_quant,
             "K4": int4.int4_gemv, "K5": int4.int4_mlp, "K6": int4.int4_o_mlp, "K7": tb.int4_decode_layers}
 
 
 # kernel launches per decode step of the 24-layer LM, per route: the
-# per-layer step of each engine (also a one-row bistream extend), and the
-# fused step (K7) of int4p over a bf16 arena while the arena holds at most
-# 2048 rows; and per int4p bistream extend of 2..16 rows (qkv and o_proj
-# through K4, the MLP through K5)
-PER_STEP = {"bf16": {"K1": 24, "K2": 48, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0},
-            "int4p": {"K1": 0, "K2": 48, "K3": 24, "K4": 24, "K5": 0, "K6": 24, "K7": 0},
-            "int4p_bf16": {"K1": 24, "K2": 48, "K3": 0, "K4": 24, "K5": 0, "K6": 24, "K7": 0},
-            "fused": {"K1": 0, "K2": 2, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 1}}
+# per-layer step of each engine (also a one-row bistream extend; K2 writes a
+# layer's K and V rows, and their scales over the int8 arena, in one launch),
+# and the fused step (K7, then one K2 for every layer's rows) of int4p over
+# a bf16 arena while the arena holds at most 2048 rows; and per int4p
+# bistream extend of 2..16 rows (qkv and o_proj through K4, the MLP through
+# K5)
+PER_STEP = {"bf16": {"K1": 24, "K2": 24, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0},
+            "int4p": {"K1": 0, "K2": 24, "K3": 24, "K4": 24, "K5": 0, "K6": 24, "K7": 0},
+            "int4p_bf16": {"K1": 24, "K2": 24, "K3": 0, "K4": 24, "K5": 0, "K6": 24, "K7": 0},
+            "fused": {"K1": 0, "K2": 1, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 1}}
 PER_EXTEND = {"K1": 0, "K2": 0, "K3": 0, "K4": 48, "K5": 24, "K6": 0, "K7": 0}
 # the bistream slices, in the lifetimes of the int4p engines: one short
 # request over the int8 arena (its decode steps are host-bound); four over
@@ -1439,11 +1516,12 @@ def _plain_kernels():
     from cosyvoice_tpu_torch.ops import decode_attention as da, int4_block as tb, int4_fused as int4
 
     plain_fns = [(qwen2, "gqa_decode_attention", da.gqa_decode_attention_plain),
-                 (qwen2, "kv_arena_write", da.kv_arena_write_plain),
+                 (qwen2, "kv_arena_write_kv", da.kv_arena_write_kv_plain),
                  (qwen2, "gqa_decode_attention_quant", da.gqa_decode_attention_quant_plain),
                  (qwen2, "int4_gemv", int4.int4_gemv_plain), (qwen2, "int4_mlp", int4.int4_mlp_plain),
                  (qwen2, "int4_o_mlp", int4.int4_o_mlp_plain),
-                 (llm, "int4_decode_layers", tb.int4_decode_layers_plain), (llm, "kv_arena_write", da.kv_arena_write_plain)]
+                 (llm, "int4_decode_layers", tb.int4_decode_layers_plain),
+                 (llm, "kv_arena_write_kv", da.kv_arena_write_kv_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in plain_fns]
     for mod, name, fn in plain_fns:
         setattr(mod, name, fn)

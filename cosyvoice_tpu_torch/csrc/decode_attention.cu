@@ -69,20 +69,33 @@
 //   padded to 80 in shared memory), f32 q and output, and the two scales of
 //   each key copied with 4-byte cp.async beside the rows.
 //
-// K2  kv_arena_write_kernel  (arena row write)
+// K2  kv_write_kernel  (KV arena row write: K, V and their scales in one launch)
 //
 // Replaces: cosyvoice_tpu/ops/decode_attention.py:kv_arena_write /
-//   kv_arena_write_traced (pallas_call at :447, body _kv_write_kernel :413).
-// Computes: arena[b, pos[b]] = new_kv[b] in place, for every batch row, for
-//   bf16 and int8 arenas alike (a row is Hkv*D elements, copied as bytes).
-// Bound on the H100: bytes. It reads B * Hkv * D new values and writes as
-//   many (512 bytes at B=1 for Qwen2-0.5B in bf16, 256 in int8): ~0.0003 us,
-//   far below the cost of a launch.
-// Design: one block per batch row copies its row bytes (128 B in int8, 256 B
-//   in bf16) with 16-byte vector loads and stores (the row must be a
-//   multiple of 16 bytes and both tensors 16-byte aligned); the rest of the
-//   arena is never touched (the TPU kernel rewrites one 8-row tile group per
-//   row in bf16, 32 in int8).
+//   kv_arena_write_traced (pallas_call at :447, body _kv_write_kernel :413),
+//   called once for K and once for V, and over the int8 arena the two
+//   masked-select scale writes beside them (cosyvoice_tpu/models/
+//   qwen2.py:265-278), which one compiled step fuses on the TPU.
+// Computes: k_arena[b, pos[b]] = k_new[b] and v_arena[b, pos[b]] = v_new[b]
+//   in place, for every row b (a batch row, or a layer of the stacked
+//   arena of the fused decode step, where one pos serves every layer), for
+//   bf16 and int8 arenas alike (a row is Hkv*D elements, copied as bytes);
+//   over the int8 arena also k_scale[b, pos[b]] = ks[b] and
+//   v_scale[b, pos[b]] = vs[b]. One arena alone (no V) is the JAX
+//   function's single write.
+// Bound on the H100: bytes. It reads 2 * B * Hkv * D new values and writes
+//   as many (1 KB at B=1 for Qwen2-0.5B in bf16, 512 B in int8): ~0.0003 us,
+//   far below the cost of a launch, which sets its time. So the design is
+//   one launch per layer and step where the port made two (K, V) or four
+//   (K, V and two scale writes over the int8 arena), and one per step of the
+//   fused decode for all layers.
+// Design: one block per row copies the row's K and V bytes (128 B each in
+//   int8, 256 B in bf16) with 16-byte vector loads and stores, one vector a
+//   thread (the row must be a multiple of 16 bytes and every tensor 16-byte
+//   aligned), and two threads write the scales; the new rows, the scales and
+//   pos are all loaded before the first store, so the launch makes one
+//   memory round trip. The rest of the arena is never touched (the TPU
+//   kernel rewrites one 8-row tile group per row in bf16, 32 in int8).
 // ---------------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -424,20 +437,31 @@ __global__ void __launch_bounds__(kThreads) gqa_decode_kernel(
   if (tid == 0) counters[b * Hkv + g] = 0;  // ready for the next call
 }
 
-__global__ void kv_arena_write_kernel(
-    uint8_t* __restrict__ arena,         // [B, T, row_bytes]
-    const uint8_t* __restrict__ new_kv,  // [B, row_bytes]
-    const int* __restrict__ pos,         // [B]
+__global__ void kv_write_kernel(
+    uint8_t* __restrict__ k_arena, uint8_t* __restrict__ v_arena,  // [B, T, row_bytes]; v_arena may be null
+    const uint8_t* __restrict__ k_new, const uint8_t* __restrict__ v_new,  // [B, row_bytes]
+    const int* __restrict__ pos, int pos_stride,  // row b writes at pos[b * pos_stride]
+    float* __restrict__ k_scale, float* __restrict__ v_scale,  // [B, T] or null
+    const float* __restrict__ ks, const float* __restrict__ vs,  // [B]
     int T, int row_bytes) {
-  const int b = blockIdx.x;
-  const int p = pos[b];
+  // thread i < n16 copies 16-byte vector i of the K row, n16 <= i < 2 * n16 vector i - n16 of the V row
+  // (row_bytes % 16 == 0 and 16-byte-aligned bases, checked by the entry point); threads 0 and 1 the scales.
+  // Every load (the new vector, the scale, pos) goes out before the first store: one round trip, not two.
+  const int b = blockIdx.x, i = threadIdx.x, n16 = row_bytes / 16;
+  const bool is_v = i >= n16, live = i < 2 * n16 && (!is_v || v_arena != nullptr);
+  uint4 vec = make_uint4(0, 0, 0, 0);
+  if (live) vec = reinterpret_cast<const uint4*>(is_v ? v_new : k_new)[(size_t)b * n16 + i % n16];
+  const bool scale = k_scale != nullptr && i < 2;
+  const float sv = scale ? (i == 0 ? ks : vs)[b] : 0.f;
+  const int p = pos[b * pos_stride];
   if (p < 0 || p >= T) return;  // out of the arena: nothing is written
-  // row_bytes % 16 == 0 and 16-byte-aligned bases (checked by the entry
-  // point), so every row starts on a 16-byte boundary: one uint4 per thread
-  uint4* dst = reinterpret_cast<uint4*>(arena + ((size_t)b * T + p) * row_bytes);
-  const uint4* src = reinterpret_cast<const uint4*>(new_kv + (size_t)b * row_bytes);
-  for (int i = threadIdx.x; i < row_bytes / 16; i += blockDim.x) dst[i] = src[i];
+  const size_t row = (size_t)b * T + p;
+  if (live) reinterpret_cast<uint4*>(is_v ? v_arena : k_arena)[row * n16 + i % n16] = vec;
+  if (scale) (i == 0 ? k_scale : v_scale)[row] = sv;
 }
+
+// Launches nothing useful: the floor of a launch, against which K2 is timed.
+__global__ void empty_kernel() {}
 
 template <int D, bool kQuant>
 void launch_decode(const void* q, const void* k, const void* v, const float* k_scale, const float* v_scale,
@@ -492,13 +516,27 @@ int cvt_gqa_decode_attention_quant(const void* q, const void* k, const void* v, 
                             scale, stream);
 }
 
-int cvt_kv_arena_write(void* arena, const void* new_kv, const int* pos, int B, int T, int row_bytes,
-                       void* stream) {
-  if (row_bytes <= 0 || row_bytes % 16 != 0 || reinterpret_cast<uintptr_t>(arena) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(new_kv) % 16 != 0)
+// K2: k_arena / k_new always; v_arena / v_new both or neither; the four
+// scale pointers all or none; pos_stride 0 (one pos for every row) or 1.
+int cvt_kv_arena_write_kv(void* k_arena, void* v_arena, const void* k_new, const void* v_new, const int* pos,
+                          int pos_stride, float* k_scale, float* v_scale, const float* ks, const float* vs, int B,
+                          int T, int row_bytes, void* stream) {
+  auto a16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool v_ok = (v_arena == nullptr) == (v_new == nullptr);
+  const bool s_ok = (k_scale == nullptr) == (v_scale == nullptr) && (k_scale == nullptr) == (ks == nullptr) &&
+                    (k_scale == nullptr) == (vs == nullptr) && (k_scale == nullptr || v_arena != nullptr);
+  if (B <= 0 || T <= 0 || row_bytes <= 0 || row_bytes % 16 != 0 || row_bytes > 16 * 512 || !v_ok || !s_ok ||
+      (pos_stride != 0 && pos_stride != 1) || !a16(k_arena) || !a16(v_arena) || !a16(k_new) || !a16(v_new))
     return (int)cudaErrorInvalidValue;
-  kv_arena_write_kernel<<<B, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint8_t*>(arena), static_cast<const uint8_t*>(new_kv), pos, T, row_bytes);
+  const int threads = row_bytes / 8 < 32 ? 32 : (row_bytes / 8 + 31) / 32 * 32;  // a vector of K or V each
+  kv_write_kernel<<<B, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint8_t*>(k_arena), static_cast<uint8_t*>(v_arena), static_cast<const uint8_t*>(k_new),
+      static_cast<const uint8_t*>(v_new), pos, pos_stride, k_scale, v_scale, ks, vs, T, row_bytes);
+  return (int)cudaGetLastError();
+}
+
+int cvt_empty_kernel(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }
 

@@ -5,11 +5,12 @@
 // stream it is given and returns the launch's error code; the Python
 // wrappers raise if it is not 0.
 //
-// K5 and K6 are built from one work item, gemv_tile (int4_gemv_tile.cuh,
+// K6 at B > 1 is built from one work item, gemv_tile (int4_gemv_tile.cuh,
 // which also describes the weight layout); K4 has its own device code over
-// the same layout. Input rows past the activation's length are zero
-// padding: the activation slice in shared memory is zero-filled there, so
-// they add nothing.
+// the same layout; K6 at B = 1 and K5 read unit images resident in shared
+// memory (int4_resident.cuh). Input rows past the activation's length are
+// zero padding: the activation slice in shared memory is zero-filled there,
+// so they add nothing.
 //
 // ---------------------------------------------------------------------------
 // K4  int4_gemv_kernel  (int4 GEMV, <= 16 rows, one cluster launch)
@@ -86,20 +87,32 @@
 //   down 2.29 MB + scales 0.20 MB ~ 7.74 MB: ~2.3 us at 3.35 TB/s; at 16
 //   rows its ~0.48 GFLOP take ~0.5 us at the bf16 tensor-core rate.
 // Design: the TPU runs a sequential grid over 1024-column intermediate cells
-//   and carries the [B, H] down sum in VMEM. Blocks of a plain launch cannot
-//   carry a sum from one to the next, and down needs all of act, so this is
-//   K6's MLP half on its own: one cooperative launch with two grid barriers
-//   between three phases, sharing K6's device code (gate_up_items,
-//   down_items):
-//   1. gate|up work items (64-column tile, both planes, whole input) with x
-//      staged once per block in shared memory, write act in bf16;
-//   2. down work items (64-column tile, 512-row scale block) write f32
-//      partials;
-//   3. every output element sums the partials in a fixed order and rounds
-//      once to bf16.
-//   Every item streams its weights once with 16-byte loads; rows beyond 4 are
-//   taken in tiles of 4 that re-read the item's weights from L2. No float
-//   atomics, so runs repeat bit for bit.
+//   and carries the [B, H] down sum in VMEM. Down needs all of act, so here it
+//   is one cooperative launch, one block per SM, on K6's resident base
+//   (int4_resident.cuh): every block's units (64 columns of gate|up over both
+//   planes and the whole input; 64 columns of down over a split of its scale
+//   blocks) are fixed on the host (ops/int4_fused.py:mlp_plan), and at entry
+//   the TMA engine copies all their weights into shared memory, one stage per
+//   phase, so the down weights land while gate|up runs. One grid barrier:
+//   1. gate|up units write act in bf16;
+//   2. down units stage their split of act, write f32 partials, and the last
+//      unit of each 64-column tile (a ticket counter, returned to 0) writes
+//      out = bf16(the tile's partials summed in split order).
+//   Every weight is decoded once and serves all rows: tensor cores
+//   (mma.sync.m16n8k16, bf16 x bf16 -> f32) with the weights as the 16-row A
+//   operand (16 output columns) and x as B (8 rows; two products past 8
+//   rows). A nibble goes into the mantissa of bf16 0x4300 (128 + nibble,
+//   the high nibble's sign flipped to make it offset-binary) and one bf16x2
+//   subtraction of 136 leaves q exactly, two per register, straight from the
+//   JAX layout in shared memory: the low nibbles of packed rows k and k + 1
+//   of a column make one register, their high nibbles another, so one load
+//   of two rows feeds a 16-input k-step. Products of int4 values and bf16
+//   activations are exact; each item (a part of one scale block's rows)
+//   sums in f32 and is multiplied by its block's scales, and a unit's items
+//   are added in a fixed order. No float atomics: runs repeat bit for bit.
+//   Gate|up is not split over its input: a split's f32 partials would have
+//   to be summed by every down unit that reads the same inputs (14 of them
+//   per split at full width), B x 1024 x 8 values each.
 // ---------------------------------------------------------------------------
 
 #include <cooperative_groups.h>
@@ -117,7 +130,7 @@ namespace {
 constexpr int kMaxRows = 16;
 constexpr int kXElems = 16 * 1024;  // bf16 activations staged in shared memory
 
-// ---- K4: its own device code (gemv_tile stays K5's, K6's and K7's) ----
+// ---- K4: its own device code (gemv_tile stays K6's at B > 1) ----
 //
 // FMA, not mma.sync: at 16 rows a block's products are ~2 k FMAs per thread,
 // well under a microsecond of the SM's f32 rate, and an mma B fragment would
@@ -326,7 +339,7 @@ int launch_gemv(const __nv_bfloat16* x, const int8_t* packed, const float* scale
 // Rows of x padded to the kernel's row bucket (gemv_rows in ops/int4_fused.py).
 inline int gemv_rows(int B) { return B == 1 ? 1 : B == 2 ? 2 : B <= 4 ? 4 : B <= 8 ? 8 : 16; }
 
-// The MLP phases shared by K6 and K5. Scratch written and read inside a
+// The MLP phases of K6 at B > 1. Scratch written and read inside a
 // launch (part_o, x2g, act, part_d) is accessed with plain loads, never
 // through the read-only cache.
 
@@ -600,41 +613,235 @@ __global__ void __launch_bounds__(kResThreads, 1) int4_o_mlp_resident_kernel(con
   grid_exit(p.bar);
 }
 
-template <int BT>
-__global__ void __launch_bounds__(kThreads) int4_mlp_kernel(
-    const __nv_bfloat16* __restrict__ x,                              // [B, n_in]
-    const int8_t* __restrict__ gu_p, const float* __restrict__ gu_s,  // [2, nb_in, half_in, I]
-    const int8_t* __restrict__ d_p, const float* __restrict__ d_s,    // [nd, half_d, O]
-    __nv_bfloat16* act,  // [B, I]
-    float* part_d,       // [nd, B, O]
-    __nv_bfloat16* __restrict__ out,  // [B, O]
-    int B, int n_in, int nb_in, int half_in, int I, int nd, int half_d, int O) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ __nv_bfloat16 xs[kXElems];
-  __shared__ float red[kWarps * BT * kTileCols];
-  __shared__ float res_g[BT * kTileCols];
-  __shared__ float res_u[BT * kTileCols];
+// ---- K5: mma.sync over resident unit images (int4_resident.cuh), every decoded weight serving all rows
+constexpr int kMlpMaxItems = 16;  // items of one batch of units: red holds 16 * 16 * NH f32 per lane for each
 
-  // phase 1: x staged in every block (zero past n_in); gate|up -> act
-  const int K_in = nb_in * 2 * half_in;
-  for (int idx = threadIdx.x; idx < B * K_in; idx += kThreads) {
-    const int r = idx / K_in, k = idx % K_in;
-    xs[idx] = k < n_in ? x[(size_t)r * n_in + k] : __float2bfloat16(0.f);
+// One 16-input k-step of 16 weight columns (the A operand): four registers of bf16 pairs, each a nibble of
+// packed rows k and k + 1 of one column (low halves row k). A nibble sits in the mantissa of bf16 0x4300
+// (128 + nibble; the high nibble's sign bit flipped makes it offset-binary like the low one), and one bf16x2
+// subtraction of 136 leaves q exactly.
+__device__ __forceinline__ uint32_t nib_pair(uint32_t a, uint32_t b, uint32_t sel, uint32_t magic) {
+  const uint32_t v = __byte_perm(a, b, sel);  // byte 0 from a, byte 2 from b
+  uint32_t r;
+  asm("lop3.b32 %0, %1, %2, %3, 0x6A;" : "=r"(r) : "r"(v), "r"(0x000F000Fu), "r"(magic));  // (v & mask) ^ magic
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(r) : "r"(r), "r"(0x3F803F80u), "r"(0xC308C308u));  // * 1 - 136
+  return r;
+}
+
+// d += A (16 x 16, row-major) . B (16 x 8, column-major), bf16 in, f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The items of n_units units whose images lie at img + k * u.bytes(), NH * 8 rows of activations at
+// x + k * x_unit (row stride sx, scale block b's inputs at + b * 2 * half): warp w takes items w, w + 16, ...;
+// an item is a part of one (plane, scale block), u.half / u.parts packed rows, read 8 at a time.
+//
+// Lane (g, t) = (lane / 4, lane % 4) of a k-step over packed rows R..R+7 loads 8 bytes (columns 8g..8g+7) of
+// rows R + 2t and R + 2t + 1: byte j of its first word is column 8g + j, row g of the product's A operand in
+// m-tile j; byte j of its second word is column 8g + 4 + j, row g + 8. The k index 2t + e (e = 0, 1) is input
+// R + 2t + e of the scale block (low nibbles), 8 + 2t + e input half + R + 2t + e (high nibbles), so x's B
+// operand is two 32-bit loads per 8 rows. The sums land as the accumulator fragments: element c of m-tile j,
+// row half h is column 8g + j + 4 (c / 2), row 8h + 2t + c % 2; times the column's scale, each is stored at
+// red[(item * V + v) * 32 + lane], v = (j * NH + h) * 4 + c, V = 16 * NH. Ends with a __syncthreads().
+template <int NH>
+__device__ void mma_items(const uint8_t* img, const UnitShape& u, int n_units, const __nv_bfloat16* x, size_t x_unit,
+                          int sx, float* red) {
+  constexpr int V = 16 * NH;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int per_unit = u.items(), steps = u.half / 8 / u.parts;
+  for (int it = warp; it < n_units * per_unit; it += kResWarps) {
+    const int k = it / per_unit, r = it % per_unit;
+    const int pl = r / (u.nb * u.parts), b = (r / u.parts) % u.nb, row0 = (r % u.parts) * steps * 8;
+    const uint8_t* im = img + (size_t)k * u.bytes();
+    const uint8_t* wp = im + ((size_t)(pl * u.nb + b) * u.half + row0 + 2 * t) * kUnitCols + 8 * g;
+    const __nv_bfloat16* xp = x + k * x_unit + (size_t)g * sx + b * 2 * u.half + row0 + 2 * t;
+    float acc[4][NH][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[j][h][c] = 0.f;
+#pragma unroll 2
+    for (int s = 0; s < steps; ++s) {
+      const uint2 wa = *reinterpret_cast<const uint2*>(wp + s * 8 * kUnitCols);
+      const uint2 wb = *reinterpret_cast<const uint2*>(wp + (s * 8 + 1) * kUnitCols);
+      uint32_t bx[NH][2];
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        const __nv_bfloat16* xr = xp + (size_t)h * 8 * sx + s * 8;
+        bx[h][0] = *reinterpret_cast<const uint32_t*>(xr);
+        bx[h][1] = *reinterpret_cast<const uint32_t*>(xr + u.half);
+      }
+      const uint32_t ax4 = wa.x >> 4, bx4 = wb.x >> 4, ay4 = wa.y >> 4, by4 = wb.y >> 4;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t sel = 0x4400u + 0x1111u * j;
+        const uint32_t a[4] = {nib_pair(wa.x, wb.x, sel, 0x43004300u), nib_pair(wa.y, wb.y, sel, 0x43004300u),
+                               nib_pair(ax4, bx4, sel, 0x43084308u), nib_pair(ay4, by4, sel, 0x43084308u)};
+#pragma unroll
+        for (int h = 0; h < NH; ++h) mma_bf16(acc[j][h], a, bx[h][0], bx[h][1]);
+      }
+    }
+    const float* sc = reinterpret_cast<const float*>(im + u.row_bytes()) + (pl * u.nb + b) * kUnitCols + 8 * g;
+    const float4 s_lo = *reinterpret_cast<const float4*>(sc), s_hi = *reinterpret_cast<const float4*>(sc + 4);
+    const float slo[4] = {s_lo.x, s_lo.y, s_lo.z, s_lo.w}, shi[4] = {s_hi.x, s_hi.y, s_hi.z, s_hi.w};
+    float* dst = red + (size_t)it * V * 32 + lane;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        const int v = (j * NH + h) * 4;
+        dst[(v + 0) * 32] = acc[j][h][0] * slo[j];
+        dst[(v + 1) * 32] = acc[j][h][1] * slo[j];
+        dst[(v + 2) * 32] = acc[j][h][2] * shi[j];
+        dst[(v + 3) * 32] = acc[j][h][3] * shi[j];
+      }
   }
   __syncthreads();
-  gate_up_items<BT>(gu_p, gu_s, nb_in, half_in, I, xs, K_in, B, act, red, res_g, res_u);
-  grid.sync();
+}
 
-  // phase 2: down partials, one item per (column tile, scale block)
-  down_items<BT>(d_p, d_s, half_d, O, nd, I, act, part_d, B, xs, red, res_g);
-  grid.sync();
-
-  // phase 3: out = the down partials summed in order, rounded once
-  for (int idx = blockIdx.x * kThreads + threadIdx.x; idx < B * O; idx += gridDim.x * kThreads) {
-    float d = 0.f;
-    for (int c = 0; c < nd; ++c) d += part_d[(size_t)c * B * O + idx];
-    out[idx] = __float2bfloat16(d);
+// The n units of a phase (images at img + k * u.bytes(), activations at x + k * x_unit), in batches whose
+// items fit red: out(k, row, col, s0, s1) receives row `row`, column `col` of unit k, summed over its items in
+// order, of plane 0 and plane 1 (0 for one plane).
+template <int NH, typename Out>
+__device__ void run_mma_units(const uint8_t* img, const UnitShape& u, int n, const __nv_bfloat16* x, size_t x_unit,
+                              int sx, float* red, Out out) {
+  constexpr int V = 16 * NH;
+  const int per_unit = u.items(), per_plane = u.nb * u.parts, batch = kMlpMaxItems / per_unit;
+  for (int k0 = 0; k0 < n; k0 += batch) {
+    const int nk = min(batch, n - k0);
+    mma_items<NH>(img + (size_t)k0 * u.bytes(), u, nk, x + k0 * x_unit, x_unit, sx, red);
+    for (int idx = threadIdx.x; idx < nk * V * 32; idx += kResThreads) {
+      const int k = idx / (V * 32), v = idx / 32 % V, lane = idx % 32;
+      const int c = v % 4, h = v / 4 % NH, j = v / 4 / NH;
+      const float* r = red + (size_t)k * per_unit * V * 32 + idx % (V * 32);
+      float s0 = 0.f, s1 = 0.f;
+      for (int i = 0; i < per_plane; ++i) s0 += r[(size_t)i * V * 32];
+      if (u.planes > 1)
+        for (int i = per_plane; i < 2 * per_plane; ++i) s1 += r[(size_t)i * V * 32];
+      out(k0 + k, 8 * h + 2 * (lane % 4) + c % 2, 8 * (lane / 4) + j + 4 * (c / 2), s0, s1);
+    }
+    __syncthreads();
   }
+}
+
+// xs[r * sx + c] = src[r * ld + c] for r < live, c < n (a multiple of 8, 16-byte aligned rows), zero up to K
+// columns and `rows` rows. kL2: src was written by other blocks of this launch (read through L2).
+template <bool kL2>
+__device__ void stage_rows(__nv_bfloat16* xs, const __nv_bfloat16* src, int live, int rows, int n, int K, size_t ld,
+                           int sx) {
+  constexpr int kBatch = 4;  // loads in flight per thread before their stores
+  const int per = K / 8, total = rows * per;
+  for (int q0 = threadIdx.x; q0 < total; q0 += kBatch * kResThreads) {
+    uint4 v[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int q = q0 + i * kResThreads, r = q / per, c = q % per * 8;
+      v[i] = make_uint4(0, 0, 0, 0);
+      if (q < total && r < live && c < n) {
+        const uint4* p = reinterpret_cast<const uint4*>(src + r * ld + c);
+        v[i] = kL2 ? __ldcg(p) : __ldg(p);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int q = q0 + i * kResThreads;
+      if (q < total) *reinterpret_cast<uint4*>(xs + (size_t)(q / per) * sx + q % per * 8) = v[i];
+    }
+  }
+}
+
+struct MlpParams {
+  const __nv_bfloat16* x;  // [B, n_in]
+  WeightMaps mg, md;       // tensor maps: gate|up [2, nb_in, half_in, I], down [nd, half_d, H]
+  __nv_bfloat16* act;      // [B, I] scratch
+  float* part_d;           // [kd, B, H] scratch
+  __nv_bfloat16* out;      // [B, H]
+  unsigned* bar;           // [2] grid barrier, then [H / 64] down tickets; 0 between launches
+  const int* plan;         // [grid, 2, 1 + maxu]: count, unit ids (gate|up, down)
+  int B, n_in, nb_in, half_in, I, nd, half_d, H, kd, maxu, parts_g, parts_d, xs_bytes, red_bytes;
+};
+
+template <int NH>
+__global__ void __launch_bounds__(kResThreads, 1) int4_mlp_kernel(const __grid_constant__ MlpParams p) {
+  constexpr int kRows = 8 * NH;
+  extern __shared__ __align__(128) uint8_t dyn[];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(dyn);  // the phase's bf16 activations, kRows rows
+  float* red = reinterpret_cast<float*>(dyn + p.xs_bytes);    // the items' sums
+  uint8_t* img = dyn + p.xs_bytes + p.red_bytes;              // gate|up images, then down images
+  __shared__ int last_flag;
+  __shared__ __align__(8) uint64_t mbar[2];  // gate|up, down: their copies have landed
+  const int H = p.H, tiles = H / kUnitCols;
+  const int* mine = p.plan + (size_t)blockIdx.x * 2 * (1 + p.maxu);
+  const int n_g = mine[0], n_d = mine[1 + p.maxu];
+  const int *ids_g = mine + 1, *ids_d = mine + 2 + p.maxu;
+  const UnitShape ug = {2, p.nb_in, p.half_in, p.I, p.parts_g}, ud = {1, p.nd / p.kd, p.half_d, H, p.parts_d};
+  uint8_t* img_d = img + n_g * ug.bytes();
+
+  // every copy of the launch goes out first: gate|up, then down
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) mbar_init(mbar + s);
+    mbar_fence_init();
+    mbar_expect(mbar, n_g * ug.bytes());
+    for (int k = 0; k < n_g; ++k)
+      copy_unit(img + k * ug.bytes(), ug, p.mg, 0, p.nb_in * p.half_in, 0, p.nb_in, 0, ids_g[k] * kUnitCols, mbar);
+    mbar_expect(mbar + 1, n_d * ud.bytes());
+    for (int k = 0; k < n_d; ++k)
+      copy_unit(img_d + k * ud.bytes(), ud, p.md, 0, 0, 0, 0, (ids_d[k] / tiles) * ud.nb, (ids_d[k] % tiles) * kUnitCols,
+                mbar + 1);
+  }
+
+  // phase 1: x staged (zero past n_in and past B); gate|up units -> act
+  const int Kin = p.nb_in * 2 * p.half_in, sx = Kin + 8;  // 16 bytes of padding: lanes' rows on other banks
+  if (n_g > 0) stage_rows<false>(xs, p.x, p.B, kRows, p.n_in, Kin, p.n_in, sx);
+  __syncthreads();
+  mbar_wait(mbar, 0);
+  run_mma_units<NH>(img, ug, n_g, xs, 0, sx, red, [&](int k, int r, int j, float g, float u) {
+    if (r < p.B) p.act[(size_t)r * p.I + ids_g[k] * kUnitCols + j] = __float2bfloat16(g / (1.f + expf(-g)) * u);
+  });
+  grid_arrive(p.bar);
+  grid_wait(p.bar, gridDim.x);
+
+  // phase 2: down units over their split of act -> f32 partials; the last unit of a column tile (a ticket,
+  // returned to 0) writes out = bf16(the tile's partials summed in split order)
+  if (n_d > 0) {
+    const int Kd = ud.nb * 2 * p.half_d, sd = Kd + 8;
+    for (int k = 0; k < n_d; ++k)
+      stage_rows<true>(xs + (size_t)k * kRows * sd, p.act + (size_t)(ids_d[k] / tiles) * Kd, p.B, kRows, Kd, Kd, p.I,
+                       sd);
+    mbar_wait(mbar + 1, 0);
+    __syncthreads();
+    run_mma_units<NH>(img_d, ud, n_d, xs, (size_t)kRows * sd, sd, red,
+                      [&](int k, int r, int j, float s, float) {
+                        if (r < p.B)
+                          p.part_d[((size_t)(ids_d[k] / tiles) * p.B + r) * H + (ids_d[k] % tiles) * kUnitCols + j] = s;
+                      });
+    for (int k = 0; k < n_d; ++k) {
+      const int tile = ids_d[k] % tiles;
+      if (threadIdx.x == 0) last_flag = ticket_add(p.bar + 2 + tile) == (unsigned)(p.kd - 1);
+      __syncthreads();
+      if (last_flag) {
+        for (int idx = threadIdx.x; idx < p.B * kUnitCols; idx += kResThreads) {
+          const size_t o = (size_t)(idx / kUnitCols) * H + tile * kUnitCols + idx % kUnitCols;
+          float d[kMaxSplits];
+#pragma unroll
+          for (int s = 0; s < kMaxSplits; ++s) d[s] = s < p.kd ? ld_cg(p.part_d + (size_t)s * p.B * H + o) : 0.f;
+          float sum = 0.f;
+#pragma unroll
+          for (int s = 0; s < kMaxSplits; ++s) sum += d[s];
+          p.out[o] = __float2bfloat16(sum);
+        }
+        if (threadIdx.x == 0) p.bar[2 + tile] = 0;
+      }
+      __syncthreads();
+    }
+  }
+  grid_exit(p.bar);
 }
 
 // The grid of a cooperative launch of `kernel` with `work` items: at most the
@@ -652,24 +859,6 @@ int cooperative_grid(const void* kernel, int work, int* max_blocks, int* grid) {
   }
   *grid = work < *max_blocks ? work : *max_blocks;
   return 0;
-}
-
-template <int BT>
-int launch_mlp(const __nv_bfloat16* x, const int8_t* gu_p, const float* gu_s, const int8_t* d_p,
-               const float* d_s, __nv_bfloat16* act, float* part_d, __nv_bfloat16* out, int B, int n_in,
-               int nb_in, int half_in, int I, int nd, int half_d, int O, cudaStream_t stream) {
-  static int max_blocks = 0;
-  const void* kernel = reinterpret_cast<const void*>(int4_mlp_kernel<BT>);
-  const int tiles_i = (I + kTileCols - 1) / kTileCols;
-  const int tiles_o = (O + kTileCols - 1) / kTileCols;
-  int grid = 0;
-  const int rc = cooperative_grid(kernel, tiles_i > tiles_o * nd ? tiles_i : tiles_o * nd, &max_blocks, &grid);
-  if (rc != 0) return rc;
-  void* args[] = {&x, &gu_p, &gu_s, &d_p, &d_s, &act, &part_d, &out, &B, &n_in, &nb_in, &half_in, &I, &nd,
-                  &half_d, &O};
-  const cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args, 0, stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
 }
 
 template <int BT>
@@ -812,22 +1001,61 @@ int cvt_int4_o_mlp_resident(const void* attn, int attn_bf16, const void* x, cons
   return (int)cudaGetLastError();
 }
 
-int cvt_int4_mlp(const void* x, const void* gu_p, const float* gu_s, const void* d_p, const float* d_s, void* act,
-                 float* part_d, void* out, int B, int n_in, int nb_in, int half_in, int I, int nd, int half_d, int O,
-                 void* stream) {
-  if (B < 1 || B > kMaxRows || O % kColsPerThread != 0 || I % kColsPerThread != 0 || half_in <= 0 ||
-      n_in > nb_in * 2 * half_in || nd * 2 * half_d != I || B * nb_in * 2 * half_in > kXElems ||
-      B * 2 * half_d > kXElems || !aligned16(gu_p) || !aligned16(gu_s) || !aligned16(d_p) || !aligned16(d_s))
+// K5. plan, kd, maxu, parts_*, xs_bytes, red_bytes, img_bytes and grid come from ops/int4_fused.py:mlp_plan;
+// work holds the down partials [kd, B, H] f32, then act [B, I] bf16; counters 2 + H / 64 ints, 0 on entry.
+int cvt_int4_mlp(const void* x, const void* gu_p, const float* gu_s, const void* d_p, const float* d_s, float* work,
+                 void* out, void* counters, const int* plan, int B, int n_in, int nb_in, int half_in, int I, int nd,
+                 int half_d, int H, int kd, int maxu, int parts_g, int parts_d, int xs_bytes, int red_bytes,
+                 int img_bytes, int grid, void* stream) {
+  const int NH = B <= 8 ? 1 : 2, rows = 8 * NH, Kin = nb_in * 2 * half_in;
+  const bool splits_ok = kd >= 1 && kd <= kMaxSplits && nd % kd == 0;
+  const bool halves_ok = parts_g >= 1 && parts_d >= 1 && half_in % (8 * parts_g) == 0 && half_d % (8 * parts_d) == 0 &&
+                         half_in <= 256 && half_d <= 256;
+  const bool items_ok = 2 * nb_in * parts_g <= kMlpMaxItems && nd / kd * parts_d <= kMlpMaxItems;
+  const bool aligned = aligned16(x) && aligned16(gu_p) && aligned16(gu_s) && aligned16(d_p) && aligned16(d_s) &&
+                       aligned16(work);
+  const bool smem_ok = xs_bytes >= rows * (Kin + 8) * 2 && xs_bytes >= maxu * rows * (nd / kd * 2 * half_d + 8) * 2 &&
+                       red_bytes >= kMlpMaxItems * 16 * NH * 32 * 4 && xs_bytes % 128 == 0 && red_bytes % 128 == 0 &&
+                       img_bytes % 16 == 0;
+  if (B < 1 || B > kMaxRows || !splits_ok || !halves_ok || !items_ok || !aligned || !smem_ok || n_in % 8 != 0 ||
+      n_in > Kin || H % kUnitCols != 0 || I % kUnitCols != 0 || nd * 2 * half_d != I || maxu < 1 || grid < 1)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* gp = static_cast<const int8_t*>(gu_p);
-  const auto* dp = static_cast<const int8_t*>(d_p);
-  auto* ab = static_cast<__nv_bfloat16*>(act);
-  auto* ob = static_cast<__nv_bfloat16*>(out);
-  if (B == 1)
-    return launch_mlp<1>(xb, gp, gu_s, dp, d_s, ab, part_d, ob, B, n_in, nb_in, half_in, I, nd, half_d, O, s);
-  return launch_mlp<4>(xb, gp, gu_s, dp, d_s, ab, part_d, ob, B, n_in, nb_in, half_in, I, nd, half_d, O, s);
+  const void* kernel =
+      NH == 1 ? reinterpret_cast<const void*>(int4_mlp_kernel<1>) : reinterpret_cast<const void*>(int4_mlp_kernel<2>);
+  const int dyn = xs_bytes + red_bytes + img_bytes;
+  int sms = 0, per_sm = 0;
+  const int rc = resident_blocks(kernel, dyn, &sms, &per_sm);
+  if (rc != 0) return rc;
+  if (per_sm < 1 || grid > sms * per_sm) return (int)cudaErrorCooperativeLaunchTooLarge;
+  MlpParams p;
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  int rc_map = weight_maps(&p.mg, gu_p, gu_s, I, (uint64_t)2 * nb_in * half_in, half_in, 2 * nb_in, nb_in);
+  if (rc_map == 0) rc_map = weight_maps(&p.md, d_p, d_s, H, (uint64_t)nd * half_d, half_d, nd, nd / kd);
+  if (rc_map != 0) return rc_map;
+  p.part_d = work;
+  p.act = reinterpret_cast<__nv_bfloat16*>(work + (size_t)kd * B * H);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.bar = static_cast<unsigned*>(counters);
+  p.plan = plan;
+  p.B = B;
+  p.n_in = n_in;
+  p.nb_in = nb_in;
+  p.half_in = half_in;
+  p.I = I;
+  p.nd = nd;
+  p.half_d = half_d;
+  p.H = H;
+  p.kd = kd;
+  p.maxu = maxu;
+  p.parts_g = parts_g;
+  p.parts_d = parts_d;
+  p.xs_bytes = xs_bytes;
+  p.red_bytes = red_bytes;
+  void* args[] = {&p};
+  const cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kResThreads), args, dyn,
+                                                    static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
-// Device code shared by the int4 decode kernels (csrc/int4_fused.cu: K4, K5, K6;
-// csrc/int4_block.cu: K7): the block-level GEMV work item over the blocked
-// half-split int4 layout, and the fixed-order block reductions.
+// Device code shared by the int4 decode kernels (csrc/int4_fused.cu: K4, K5,
+// K6; csrc/int4_block.cu: K7): the block-level GEMV work item over the
+// blocked half-split int4 layout (K6 at B > 1), the layout itself, and the
+// fixed-order block reductions.
 //
 // Weight layout (ops/int4_fused.py packers, the JAX package's "blocked
 // half-split"): packed [nb, half, O] int8 and scale [nb, O] f32. In scale

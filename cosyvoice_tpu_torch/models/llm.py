@@ -33,7 +33,7 @@ from torch import nn
 
 from cosyvoice_tpu_torch.models.qwen2 import QuantDense, Qwen2Config, Qwen2Model, grow_cache
 from cosyvoice_tpu_torch.ops import int4_block
-from cosyvoice_tpu_torch.ops.decode_attention import kv_arena_write
+from cosyvoice_tpu_torch.ops.decode_attention import kv_arena_write_kv
 from cosyvoice_tpu_torch.ops.int4_block import int4_decode_layers, stack_decode_params
 from cosyvoice_tpu_torch.ops.sampling import NEG_INF, ras_sampling_batch
 from cosyvoice_tpu_torch.utils.devices import resolve_device
@@ -125,8 +125,9 @@ class Qwen2LMModule(nn.Module):
 
     def decode_step_fused(self, token, cur_len, cache, stacked):
         """The B=1 int4p decode step over a bf16 arena through K7: every layer
-        in one launch, then the two new rows of all layers committed with K2
-        over the [L, T, Hkv, d] view of the arena (pos repeated per layer).
+        in one launch, then the new K and V rows of all layers committed with
+        one K2 launch over the [L, T, Hkv, d] views of the arenas (one pos
+        for every layer).
         token [1]; cur_len [1] int32 write position; `stacked` from
         stack_decode_params. Returns (logits [1, head] f32, cache)."""
         q = self.cfg.qwen
@@ -138,9 +139,8 @@ class Qwen2LMModule(nn.Module):
             emb.to(q.dtype), self.llm.rope_cos[pos], self.llm.rope_sin[pos], cur_len,
             k_all.view(L, A, Hkv * d), v_all.view(L, A, Hkv * d), **stacked, eps=q.rms_norm_eps, out_dtype=q.dtype,
         )
-        rows = cur_len.expand(L).contiguous()
-        kv_arena_write(k_all.view(L, A, Hkv, d), k_new.view(L, 1, Hkv, d), rows)
-        kv_arena_write(v_all.view(L, A, Hkv, d), v_new.view(L, 1, Hkv, d), rows)
+        kv_arena_write_kv(k_all.view(L, A, Hkv, d), v_all.view(L, A, Hkv, d), k_new.view(L, 1, Hkv, d),
+                          v_new.view(L, 1, Hkv, d), cur_len)
         return self._head(self.llm.norm(xo)), cache
 
 

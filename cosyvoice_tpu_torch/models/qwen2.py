@@ -9,8 +9,9 @@ bf16 or an int8 KV arena (`kv_quant`):
   (the JAX version returns updated arrays; here the arena is mutated); with
   kv_quant the arena is int8 with per-token f32 scales [L, B, T] per K and V
   (`ops/decode_attention.quantize_kv_rows`);
-- `decode_step` (one token per row) writes each new K/V row with kernel K2
-  (kv_arena_write) and attends with K1 (gqa_decode_attention) or, over the
+- `decode_step` (one token per row) writes each layer's new K and V rows
+  (and over the int8 arena their scales) with one launch of kernel K2
+  (kv_arena_write_kv) and attends with K1 (gqa_decode_attention) or, over the
   int8 arena, K3 (gqa_decode_attention_quant); with int4p its qkv
   projection is K4 (ops/int4_fused.int4_gemv) and its whole post-attention
   tail, o_proj + residual + RMSNorm + MLP + residual, is K6 (int4_o_mlp).
@@ -50,7 +51,7 @@ from cosyvoice_tpu_torch.ops.decode_attention import (
     dequantize_kv_arena,
     gqa_decode_attention,
     gqa_decode_attention_quant,
-    kv_arena_write,
+    kv_arena_write_kv,
     quantize_kv_rows,
 )
 from cosyvoice_tpu_torch.ops.int4_fused import (
@@ -238,8 +239,8 @@ class Qwen2Attention(nn.Module):
         return torch.einsum("bgrst,btgd->bsgrd", attn, v_all).reshape(B, S, -1)
 
     def decode(self, x, cos, sin, cur_len, cache):
-        """x [B, 1, C]; cur_len [B] int32 write positions. Writes the rows
-        with K2 and attends with K1 (bf16 arena) or K3 (int8 arena). Returns
+        """x [B, 1, C]; cur_len [B] int32 write positions. Writes the K and V
+        rows (and their int8 scales) with one K2 launch and attends with K1 (bf16 arena) or K3 (int8 arena). Returns
         the pre-o attention output [B, 1, nq]: float32 over the int8 arena
         (K3 keeps the float32 rope output's precision), cfg.dtype otherwise."""
         B = x.shape[0]
@@ -247,17 +248,12 @@ class Qwen2Attention(nn.Module):
         if self.cfg.kv_quant:
             ck, cv, cks, cvs = cache
             (kq, ks), (vq, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
-            kv_arena_write(ck, kq, cur_len)
-            kv_arena_write(cv, vq, cur_len)
-            rows, pos = torch.arange(B, device=x.device), cur_len.long()
-            cks[rows, pos] = ks[:, 0]
-            cvs[rows, pos] = vs[:, 0]
+            kv_arena_write_kv(ck, cv, kq, vq, cur_len, cks, cvs, ks, vs)
             out = gqa_decode_attention_quant(q[:, 0].contiguous(), ck, cv, cks, cvs, cur_len)
         else:
             ck, cv = cache
             dt = ck.dtype
-            kv_arena_write(ck, k.to(dt).contiguous(), cur_len)
-            kv_arena_write(cv, v.to(dt).contiguous(), cur_len)
+            kv_arena_write_kv(ck, cv, k.to(dt).contiguous(), v.to(dt).contiguous(), cur_len)
             out = gqa_decode_attention(q[:, 0].to(dt).contiguous(), ck, cv, cur_len)
         return out.reshape(B, 1, -1)
 

@@ -41,9 +41,10 @@ _c_float = ctypes.c_float
 _SIGNATURES = {
     "cvt_gqa_decode_attention": [_c_void_p] * 7 + [_c_int] * 6 + [_c_float, _c_void_p],
     "cvt_gqa_decode_attention_quant": [_c_void_p] * 9 + [_c_int] * 6 + [_c_float, _c_void_p],
-    "cvt_kv_arena_write": [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p],
+    "cvt_kv_arena_write_kv": [_c_void_p] * 5 + [_c_int] + [_c_void_p] * 4 + [_c_int] * 3 + [_c_void_p],
+    "cvt_empty_kernel": [_c_void_p],
     "cvt_int4_gemv": [_c_void_p] * 4 + [_c_int] * 7 + [_c_void_p],
-    "cvt_int4_mlp": [_c_void_p] * 8 + [_c_int] * 8 + [_c_void_p],
+    "cvt_int4_mlp": [_c_void_p] * 9 + [_c_int] * 16 + [_c_void_p],
     "cvt_int4_o_mlp": [_c_void_p, _c_int] + [_c_void_p] * 13 + [_c_int] * 10 + [_c_float, _c_void_p],
     "cvt_int4_o_mlp_resident": [_c_void_p, _c_int] + [_c_void_p] * 12 + [_c_int] * 18 + [_c_float, _c_void_p],
     "cvt_int4_decode_layers": [_c_void_p] * 23 + [_c_int] * 28 + [_c_float, _c_void_p],

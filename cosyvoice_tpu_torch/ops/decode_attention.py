@@ -9,9 +9,13 @@ beside its plain PyTorch version:
 - K3 `gqa_decode_attention_quant`: K1 over an int8 arena with per-token f32
   scales (csrc/decode_attention.cu). Replaces the Pallas
   `_quant_decode_kernel`.
-- K2 `kv_arena_write`: in-place row write `arena[b, pos[b]] = new[b]` into a
-  bf16 or int8 arena (csrc/decode_attention.cu). Replaces the Pallas
-  `_kv_write_kernel`.
+- K2 `kv_arena_write_kv`: the decode step's whole arena write in one launch
+  (csrc/decode_attention.cu): the K row and the V row of every batch row (or
+  of every layer of the stacked arena) at pos[b], and over the int8 arena
+  their two per-row scales. `kv_arena_write`, one arena's row write
+  `arena[b, pos[b]] = new[b]`, is the same kernel without V. Replaces the
+  Pallas `_kv_write_kernel`, which the JAX model calls once for K and once
+  for V beside two masked-select scale writes.
 
 `quantize_kv_rows` / `dequantize_kv_arena` are the int8 arena's per-token
 absmax quantiser and its inverse, as in the JAX package.
@@ -19,8 +23,9 @@ absmax quantiser and its inverse, as in the JAX package.
 A wrapper given CPU tensors computes the plain version; given CUDA tensors it
 launches the kernel or raises. Each wrapper counts its kernel launches in a
 plain int attribute (`gqa_decode_attention.launches`,
-`gqa_decode_attention_quant.launches`, `kv_arena_write.launches`) so a run
-can show that it went through the kernel.
+`gqa_decode_attention_quant.launches`, `kv_arena_write.launches`,
+`kv_arena_write_kv.launches`) so a run can show that it went through the
+kernel.
 
 Layouts are the JAX package's: q [B, Hq, d], arenas [B, T, Hkv, d], scales
 [B, T], cur_len / pos [B] int32.
@@ -228,26 +233,98 @@ def kv_arena_write(arena, new_kv, pos):
         return kv_arena_write_plain(arena, new_kv, pos)
     if arena.device.type != "cuda":
         raise ValueError(f"no kernel for device {arena.device}")
-    if arena.dtype not in (torch.bfloat16, torch.int8):
-        raise TypeError(f"arena must be bfloat16 or int8, got {arena.dtype}")
-    _check_cuda("arena", arena, arena.dtype, arena.device)
-    _check_cuda("new_kv", new_kv, arena.dtype, arena.device)
-    _check_cuda("pos", pos, torch.int32, arena.device)
-    row_bytes = Hkv * d * arena.element_size()
-    if row_bytes % 16 or arena.data_ptr() % 16 or new_kv.data_ptr() % 16:
-        raise ValueError(
-            f"kernel copies 16-byte vectors: a row of {row_bytes} bytes must be a multiple of 16 and "
-            "arena/new_kv 16-byte aligned"
-        )
-    from cosyvoice_tpu_torch.ops._build import load_library
-
-    rc = load_library().cvt_kv_arena_write(
-        arena.data_ptr(), new_kv.data_ptr(), pos.data_ptr(), B, T, row_bytes,
-        torch.cuda.current_stream(arena.device).cuda_stream,
-    )
-    _raise_on(rc, "kv_arena_write")
+    _write_rows(arena, None, new_kv, None, pos)
     kv_arena_write.launches += 1
     return arena
 
 
 kv_arena_write.launches = 0
+
+
+def kv_arena_write_kv_plain(k_arena, v_arena, k_new, v_new, pos, k_scale=None, v_scale=None, ks=None, vs=None):
+    """K2's plain version: kv_arena_write_plain on each arena, and over the
+    int8 arena the advanced-index writes k_scale[b, pos[b]] = ks[b] and
+    v_scale[b, pos[b]] = vs[b]; pos [B] or [1] (one position for every row)."""
+    B = k_arena.shape[0]
+    pos = pos.expand(B)
+    kv_arena_write_plain(k_arena, k_new, pos)
+    kv_arena_write_plain(v_arena, v_new, pos)
+    if k_scale is not None:
+        rows, p = torch.arange(B, device=k_arena.device), pos.long()
+        k_scale[rows, p] = ks.reshape(B)
+        v_scale[rows, p] = vs.reshape(B)
+    return k_arena, v_arena
+
+
+def kv_arena_write_kv(k_arena, v_arena, k_new, v_new, pos, k_scale=None, v_scale=None, ks=None, vs=None):
+    """The decode step's arena write in one launch (K2), in place: for every
+    row b, k_arena[b, pos[b]] = k_new[b] and v_arena[b, pos[b]] = v_new[b]
+    and, over an int8 arena, k_scale[b, pos[b]] = ks[b] and
+    v_scale[b, pos[b]] = vs[b]. Returns (k_arena, v_arena).
+
+    Arenas [B, T, Hkv, d] bf16 or int8; new rows [B, 1, Hkv, d] of the same
+    type; pos [B] int32, or [1] for one position in every row (the stacked
+    [L, T, Hkv, d] arena of the fused decode step); scales [B, T] f32 and ks,
+    vs [B] or [B, 1] f32, all four or none."""
+    B, T, Hkv, d = k_arena.shape
+    scales = (k_scale, v_scale, ks, vs)
+    if v_arena.shape != k_arena.shape or k_new.shape != (B, 1, Hkv, d) or v_new.shape != (B, 1, Hkv, d):
+        raise ValueError(f"arenas {tuple(k_arena.shape)} / {tuple(v_arena.shape)} and new rows "
+                         f"{tuple(k_new.shape)} / {tuple(v_new.shape)} do not fit")
+    if pos.shape not in ((B,), (1,)):
+        raise ValueError(f"pos must be [B]={B} or [1], got {tuple(pos.shape)}")
+    if any(t is None for t in scales) != all(t is None for t in scales):
+        raise ValueError("pass all four of k_scale, v_scale, ks, vs or none")
+    if k_scale is not None and (k_scale.shape != (B, T) or v_scale.shape != (B, T) or ks.numel() != B
+                                or vs.numel() != B):
+        raise ValueError(f"scales must be [B, T]={(B, T)} and ks / vs [B], got {tuple(k_scale.shape)}, "
+                         f"{tuple(v_scale.shape)}, {tuple(ks.shape)}, {tuple(vs.shape)}")
+    if k_arena.device.type == "cpu":
+        return kv_arena_write_kv_plain(k_arena, v_arena, k_new, v_new, pos, *scales)
+    if k_arena.device.type != "cuda":
+        raise ValueError(f"no kernel for device {k_arena.device}")
+    _write_rows(k_arena, v_arena, k_new, v_new, pos, scales if k_scale is not None else None)
+    kv_arena_write_kv.launches += 1
+    return k_arena, v_arena
+
+
+kv_arena_write_kv.launches = 0
+
+
+def _write_rows(k_arena, v_arena, k_new, v_new, pos, scales=None):
+    """Checks and the one C call of K2 (v_arena / v_new and scales optional)."""
+    B, T, Hkv, d = k_arena.shape
+    dev = k_arena.device
+    if k_arena.dtype not in (torch.bfloat16, torch.int8):
+        raise TypeError(f"arena must be bfloat16 or int8, got {k_arena.dtype}")
+    tensors = [("k_arena", k_arena), ("k_new", k_new)]
+    if v_arena is not None:
+        tensors += [("v_arena", v_arena), ("v_new", v_new)]
+    for name, t in tensors:
+        _check_cuda(name, t, k_arena.dtype, dev)
+    _check_cuda("pos", pos, torch.int32, dev)
+    if scales is not None:
+        for name, t in zip(("k_scale", "v_scale", "ks", "vs"), scales):
+            _check_cuda(name, t, torch.float32, dev)
+    row_bytes = Hkv * d * k_arena.element_size()
+    if row_bytes % 16 or row_bytes > 16 * 512 or any(t.data_ptr() % 16 for _, t in tensors):
+        raise ValueError(
+            f"kernel copies 16-byte vectors: a row of {row_bytes} bytes must be a multiple of 16 (at most 8 KB) "
+            "and arenas / new rows 16-byte aligned"
+        )
+    from cosyvoice_tpu_torch.ops._build import load_library
+
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = load_library().cvt_kv_arena_write_kv(
+        k_arena.data_ptr(), ptr(v_arena), k_new.data_ptr(), ptr(v_new), pos.data_ptr(), int(pos.numel() == B),
+        *(ptr(t) for t in (scales or (None,) * 4)), B, T, row_bytes, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, "kv_arena_write")
+
+
+def empty_kernel(device):
+    """One launch of a kernel that does nothing: the floor that a launch sets
+    under K2's time (timed beside it)."""
+    from cosyvoice_tpu_torch.ops._build import load_library
+
+    _raise_on(load_library().cvt_empty_kernel(torch.cuda.current_stream(device).cuda_stream), "empty_kernel")

@@ -20,8 +20,10 @@ its plain version:
   one thread-block cluster per 32-column tile over its scale blocks,
   geometry from `gemv_plan`). Replaces the Pallas `_gemv_kernel`.
 - K5 `int4_mlp`: the SwiGLU MLP, down(silu(x @ Wg) * (x @ Wu)), for at most
-  16 rows in one cooperative launch (csrc/int4_fused.cu). Replaces the
-  Pallas `_mlp_kernel`.
+  16 rows in one cooperative launch (csrc/int4_fused.cu), one block per SM
+  with a fixed share of the gate|up and down units (`mlp_plan`), whose
+  weights it copies into shared memory at launch and decodes once for all
+  rows on the tensor cores. Replaces the Pallas `_mlp_kernel`.
 - K6 `int4_o_mlp`: the layer's whole post-attention tail, o_proj + residual
   + RMSNorm + SwiGLU MLP + residual, in one cooperative launch
   (csrc/int4_fused.cu). Replaces the Pallas `_o_mlp_kernel`. At B=1 one
@@ -47,7 +49,7 @@ NB = 8  # default block count of quantize_tensor_int4_blocked
 MLP_INTER_ALIGN = 512
 GEMV_IN_ALIGN = 256
 MAX_ROWS = 16  # rows the decode kernels take (the JAX package's Pallas route: <= 16)
-GEMV_X_ELEMS = 16 * 1024  # bf16 activations K5 and K6 stage in shared memory
+GEMV_X_ELEMS = 16 * 1024  # bf16 activations K6 (B > 1) stages in shared memory
 K4_X_ELEMS = 16 * 256  # bf16 inputs a K4 block stages: row bucket * 2 * half
 K4_COLS = 32  # output columns of a K4 tile
 K4_MAX_CLUSTER = 8  # portable thread-block cluster size
@@ -239,8 +241,8 @@ def gemv_scale_blocks(rank: int, cluster: int, nb: int) -> range:
 
 
 # ---------------------------------------------------------------------------
-# plans of the kernels whose weights stream into shared memory (K6 at B=1, K7;
-# csrc/int4_resident.cuh)
+# plans of the kernels whose weights stream into shared memory (K5, K6 at B=1,
+# K7; csrc/int4_resident.cuh)
 # ---------------------------------------------------------------------------
 
 UNIT_COLS = 64  # output columns of a unit
@@ -248,6 +250,7 @@ RES_WARPS = 16  # warps of a block
 RES_MAX_ITEMS = 32  # items of one batch of units (csrc: kMaxItems)
 RES_MAX_HIDDEN = 2048  # hidden size the kernels stage in static shared memory
 RES_MAX_SPLITS = 10  # f32 partials per output a reader of the kernels sums (csrc: kMaxSplits)
+MLP_MAX_ITEMS = 16  # K5's items of one batch of units (csrc: kMlpMaxItems)
 
 
 def unit_bytes(planes: int, nb: int, half: int) -> int:
@@ -289,21 +292,21 @@ def resident_plan(grid: int, phases) -> list:
     return out
 
 
-def item_parts(max_units: int, planes: int, nb: int, half: int) -> int:
+def item_parts(max_units: int, planes: int, nb: int, half: int, max_items: int = RES_MAX_ITEMS) -> int:
     """Items per (plane, scale block) of a unit: the divisor p of half / 8
     (a warp reads 8 rows at a time) that keeps a unit's items within
-    RES_MAX_ITEMS (the kernel takes a phase's units in batches that fit) and
+    max_items (the kernel takes a phase's units in batches that fit) and
     least takes the busiest warp of a block with max_units units (item rounds
     times rows per lane, plus two rows' worth for each item's reduction)."""
     best = None
     for p in (d for d in range(1, half // 8 + 1) if (half // 8) % d == 0):
-        if planes * nb * p > RES_MAX_ITEMS:
+        if planes * nb * p > max_items:
             break
         cost = -(-max(max_units, 1) * planes * nb * p // RES_WARPS) * (half // p // 8 + 2)
         if best is None or cost < best[0]:
             best = (cost, p)
     if best is None:
-        raise ValueError(f"a unit of {planes} x {nb} scale blocks has more items than {RES_MAX_ITEMS}")
+        raise ValueError(f"a unit of {planes} x {nb} scale blocks has more items than {max_items}")
     return best[1]
 
 
@@ -346,10 +349,45 @@ def o_mlp_plan(grid: int, H: int, nb_o: int, half_o: int, nb_in: int, half_in: i
             "xs_bytes": _round(2 * max(nb_o * 2 * half_o, nb_in * 2 * half_in, inter), 128), "img_bytes": img}
 
 
+def mlp_rows(B: int) -> int:
+    """K5's rows: B padded to 8 or 16, one or two tensor-core products of 8
+    rows per weight fragment."""
+    return 8 if B <= 8 else 16
+
+
+@functools.lru_cache(maxsize=None)
+def mlp_plan(grid: int, H: int, nb_in: int, half_in: int, inter: int, nd: int, half_d: int, B: int) -> dict:
+    """K5's geometry on `grid` blocks for B rows: units of 64 columns of
+    gate|up (both planes, the whole input: unit id = tile) and of down (kd
+    splits of its scale blocks: unit id = split * tiles + tile), placed by
+    resident_plan. Returns {"plan" (per phase, per block unit ids), "table",
+    "maxu", "kd", "parts" (gate|up, down), "rows" (B padded to 8 or 16),
+    "xs_bytes" (the staged activations: x for gate|up, each down unit's split
+    of act), "red_bytes" (the items' sums), "img_bytes" (the largest block's
+    images)}.
+
+    Gate|up is not split over its input: the split partials would be summed
+    again by each of the down units that read the same split of act."""
+    tiles_h, tiles_i = H // UNIT_COLS, inter // UNIT_COLS
+    kd = input_splits(nd, tiles_h, grid)
+    shapes = ((2, nb_in, half_in), (1, nd // kd, half_d))
+    sizes = [unit_bytes(*sh) for sh in shapes]
+    plan = resident_plan(grid, list(zip((tiles_i, tiles_h * kd), sizes)))
+    maxu = [max(len(ids) for ids in ph) for ph in plan]
+    rows = mlp_rows(B)
+    stage = max(rows * (nb_in * 2 * half_in + 8), maxu[1] * rows * (nd // kd * 2 * half_d + 8))
+    img = max(len(plan[0][b]) * sizes[0] + len(plan[1][b]) * sizes[1] for b in range(grid))
+    return {"plan": plan, "table": plan_table(plan), "maxu": max(maxu), "kd": kd, "rows": rows,
+            "parts": tuple(item_parts(m, *sh, max_items=MLP_MAX_ITEMS) for m, sh in zip(maxu, shapes)),
+            "xs_bytes": _round(2 * stage, 128), "red_bytes": MLP_MAX_ITEMS * 2 * rows * 32 * 4, "img_bytes": img}
+
+
 # static shared memory of the kernels beside their dynamic share (csrc), plus
-# 128 bytes for alignment: K6 at B=1 (x2, the items' sums, a block sum, a
-# flag, 3 mbarriers) and K7 (the residual, x2, the items' sums, a block sum,
-# the attention item's q/k/v, the merge weights, rope, 5 mbarriers)
+# 128 bytes for alignment: K5 (a flag, 2 mbarriers), K6 at B=1 (x2, the
+# items' sums, a block sum, a flag, 3 mbarriers) and K7 (the residual, x2,
+# the items' sums, a block sum, the attention item's q/k/v, the merge
+# weights, rope, 5 mbarriers)
+K5_STATIC_SMEM = 4 + 2 * 8 + 128
 K6_STATIC_SMEM = RES_MAX_HIDDEN * 4 + RES_MAX_ITEMS * UNIT_COLS * 4 + RES_WARPS * 4 + 4 + 3 * 8 + 128
 K7_STATIC_SMEM = (2 * RES_MAX_HIDDEN * 4 + RES_MAX_ITEMS * UNIT_COLS * 4 + RES_WARPS * 4 + 10 * 64 * 4
                   + RES_WARPS * 32 * 4 + 64 * 4 + 5 * 8 + 128)
@@ -449,24 +487,35 @@ def int4_mlp(x, gu_packed, gu_scale, down_packed, down_scale):
         return int4_mlp_plain(x, gu_packed, gu_scale, down_packed, down_scale)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    _check_cuda("x", x, torch.bfloat16, x.device)
+    dev = x.device
+    _check_cuda("x", x, torch.bfloat16, dev)
     for name, p, s in (("gate_up", gu_packed, gu_scale), ("down", down_packed, down_scale)):
-        _check_weights(name, p, s, x.device)
-    if not 1 <= B <= MAX_ROWS or B * nb_in * 2 * half_in > GEMV_X_ELEMS or B * 2 * half_d > GEMV_X_ELEMS:
-        raise ValueError(f"kernel takes 1..{MAX_ROWS} rows with rows * padded inputs <= {GEMV_X_ELEMS}, got B={B}")
+        _check_weights(name, p, s, dev)
+    if (
+        not 1 <= B <= MAX_ROWS or H % 8 or x.data_ptr() % 16 or n_out % UNIT_COLS or inter_p % UNIT_COLS
+        or max(half_in, half_d) > 256 or min(half_in, half_d) % 8
+    ):
+        raise ValueError(
+            f"kernel takes 1..{MAX_ROWS} rows of a 16-byte aligned x with a multiple of 8 inputs, widths that are "
+            f"multiples of {UNIT_COLS} and scale blocks of 16..512 rows, got B={B}, H={H}, n_out={n_out}, "
+            f"inter={inter_p}, half {half_in}/{half_d}"
+        )
     from cosyvoice_tpu_torch.ops._build import load_library
 
-    # one f32 workspace: down partials [n_down, B, n_out], then act [B, inter_p]
-    # bf16 (16-byte aligned: n_out is a multiple of 16)
-    n_f32 = n_down * B * n_out
-    work = torch.empty(n_f32 + (B * inter_p + 1) // 2, device=x.device, dtype=torch.float32)
-    part_d = work.data_ptr()
-    act = part_d + n_f32 * 4
-    out = torch.empty((B, n_out), device=x.device, dtype=x.dtype)
+    grid = grid_of(dev)
+    key = ("mlp", grid, n_out, nb_in, half_in, inter_p, n_down, half_d, mlp_rows(B))
+    plan = mlp_plan(*key[1:])
+    check_shared_memory("int4_mlp", plan["xs_bytes"] + plan["red_bytes"] + plan["img_bytes"], K5_STATIC_SMEM,
+                        smem_limit(dev))
+    # one f32 workspace: down partials [kd, B, n_out], then act [B, inter_p] bf16
+    work = torch.empty(plan["kd"] * B * n_out + B * inter_p // 2, device=dev, dtype=torch.float32)
+    out = torch.empty((B, n_out), device=dev, dtype=x.dtype)
     rc = load_library().cvt_int4_mlp(
         x.data_ptr(), gu_packed.data_ptr(), gu_scale.data_ptr(), down_packed.data_ptr(), down_scale.data_ptr(),
-        act, part_d, out.data_ptr(), B, H, nb_in, half_in, inter_p, n_down, half_d, n_out,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        work.data_ptr(), out.data_ptr(), _counters(dev, 2 + n_out // UNIT_COLS).data_ptr(),
+        _plan_on(dev, key, plan["table"]).data_ptr(), B, H, nb_in, half_in, inter_p, n_down, half_d, n_out,
+        plan["kd"], plan["maxu"], *plan["parts"], plan["xs_bytes"], plan["red_bytes"], plan["img_bytes"], grid,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, "int4_mlp")
     int4_mlp.launches += 1

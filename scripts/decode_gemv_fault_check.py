@@ -1,10 +1,11 @@
-"""Fault check of chip_smoke.py's K1, K3, K4 and K6 comparisons; needs one CUDA card.
+"""Fault check of chip_smoke.py's K1, K3, K4, K5 and K6 comparisons; needs one CUDA card.
 
 Builds `cosyvoice_tpu_torch/csrc/decode_attention.cu` (K1, K3) and
-`int4_fused.cu` (K4, and K6 at B=1) as they are and once per planted fault
-(MUTANTS), each into a library of its own under `build/decode_gemv_faults/`,
-and runs chip_smoke's holding checks (`hold_k1`, `hold_k3` for the attention
-source, `hold_k4` and `hold_k6` for the int4 source) through each library in turn. It passes when
+`int4_fused.cu` (K4, K5, and K6 at B=1) as they are and once per planted
+fault (MUTANTS), each into a library of its own under
+`build/decode_gemv_faults/`, and runs chip_smoke's holding checks (`hold_k1`,
+`hold_k3` for the attention source, `hold_k4`, `hold_k5` and `hold_k6` for the
+int4 source) through each library in turn. It passes when
 the sources as they are pass every check and every mutant fails at least one;
 for each failure it prints the first case that failed, with its error and
 limit.
@@ -65,16 +66,39 @@ MUTANTS = {
         "k6_plan_unit_off_by_one": [("(ids_o[k] % tiles) * kUnitCols,\n                mbar);",
                                      "(ids_o[k] % tiles + (ids_o[k] % tiles == 0)) * kUnitCols,\n                mbar);")],
         # K6 at B=1: the last unit of a tile leaves out the last split of the down partials
-        "k6_tile_sum_drops_last_split": [("d[s] = s < p.kd ? ld_cg", "d[s] = s < p.kd - 1 ? ld_cg")],
+        "k6_tile_sum_drops_last_split": [("d[s] = s < p.kd ? ld_cg(p.part_d + (size_t)s * H + c)",
+                                          "d[s] = s < p.kd - 1 ? ld_cg(p.part_d + (size_t)s * H + c)")],
         # K6 at B=1: the down tickets are not returned to 0, so the next launch never writes out
-        "k6_ticket_not_reset": [("        if (threadIdx.x == 0) p.bar[2 + tile] = 0;\n", "")],
+        "k6_ticket_not_reset": [("x2s[c] + sum);\n        }\n        if (threadIdx.x == 0) p.bar[2 + tile] = 0;\n",
+                                 "x2s[c] + sum);\n        }\n")],
         # K6 at B=1: the grid barrier's counters are not returned to 0 at the end of a launch
-        "k6_barrier_not_reset": [("  grid_exit(p.bar);\n}\n\ntemplate", "  __syncthreads();\n}\n\ntemplate")],
+        "k6_barrier_not_reset": [("  grid_exit(p.bar);\n}\n\n// ---- K5", "  __syncthreads();\n}\n\n// ---- K5")],
+        # K5: block 0 drops its gate|up unit from the plan (neither copied nor computed)
+        "k5_unit_dropped_from_plan": [("const int n_g = mine[0], n_d = mine[1 + p.maxu];",
+                                       "const int n_g = mine[0] - (blockIdx.x == 0 && mine[0] > 0), n_d = mine[1 + p.maxu];")],
+        # K5: the gate|up stage is read before its copies have landed (its wait dropped)
+        "k5_gate_up_read_before_landing": [("  __syncthreads();\n  mbar_wait(mbar, 0);\n  run_mma_units", "  __syncthreads();\n  run_mma_units")],
+        # K5: the last down unit of a tile leaves out the last split of the partials
+        "k5_tile_sum_drops_last_split": [("d[s] = s < p.kd ? ld_cg(p.part_d + (size_t)s * p.B * H + o)",
+                                          "d[s] = s < p.kd - 1 ? ld_cg(p.part_d + (size_t)s * p.B * H + o)")],
+        # K5: the down tickets are not returned to 0, so the next launch never writes out
+        "k5_ticket_not_reset": [("p.out[o] = __float2bfloat16(sum);\n        }\n        if (threadIdx.x == 0) p.bar[2 + tile] = 0;\n",
+                                 "p.out[o] = __float2bfloat16(sum);\n        }\n")],
+        # K5: the rows past the first 8 get no tensor-core product (their sums stay 0)
+        "k5_rows_past_8_skipped": [("for (int h = 0; h < NH; ++h) mma_bf16(", "for (int h = 0; h < 1; ++h) mma_bf16(")],
+        # K5: every item takes the scales of its plane's first scale block
+        "k5_scales_of_block_0": [("(pl * u.nb + b) * kUnitCols + 8 * g;", "(pl * u.nb) * kUnitCols + 8 * g;")],
+        # K5: the high nibbles are decoded without their sign flip (offset by 8)
+        "k5_high_nibbles_unsigned": [("nib_pair(ax4, bx4, sel, 0x43084308u), nib_pair(ay4, by4, sel, 0x43084308u)",
+                                      "nib_pair(ax4, bx4, sel, 0x43004300u), nib_pair(ay4, by4, sel, 0x43004300u)")],
+        # K5: the grid barrier's counters are not returned to 0, so the next launch passes its barrier early
+        "k5_barrier_not_reset": [("  grid_exit(p.bar);\n}\n\n// The grid of a cooperative launch",
+                                  "  __syncthreads();\n}\n\n// The grid of a cooperative launch")],
     },
 }
-HOLDS = {"decode_attention.cu": ("hold_k1", "hold_k3"), "int4_fused.cu": ("hold_k4", "hold_k6")}
+HOLDS = {"decode_attention.cu": ("hold_k1", "hold_k3"), "int4_fused.cu": ("hold_k4", "hold_k5", "hold_k6")}
 ENTRIES = {"decode_attention.cu": ("cvt_gqa_decode_attention", "cvt_gqa_decode_attention_quant"),
-           "int4_fused.cu": ("cvt_int4_gemv", "cvt_int4_o_mlp", "cvt_int4_o_mlp_resident")}
+           "int4_fused.cu": ("cvt_int4_gemv", "cvt_int4_mlp", "cvt_int4_o_mlp", "cvt_int4_o_mlp_resident")}
 
 
 def main():
@@ -91,7 +115,7 @@ def main():
         return 1
     print(torch.cuda.get_device_name(0))
     qc = Qwen2Config()
-    modules = {"hold_k1": da, "hold_k3": da, "hold_k4": int4, "hold_k6": int4}
+    modules = {"hold_k1": da, "hold_k3": da, "hold_k4": int4, "hold_k5": int4, "hold_k6": int4}
     real_load = _build.load_library
     results = {}
     try:

@@ -1,20 +1,20 @@
-"""Where the time of K7 (whole int4p decode step) and K6 (fused int4 layer tail, B=1) goes, by ablation; needs one
-CUDA card.
+"""Where the time of K7 (whole int4p decode step), K6 (fused int4 layer tail, B=1) and K5 (fused int4 MLP of the
+bistream extends) goes, by ablation; needs one CUDA card.
 
-Builds `csrc/int4_block.cu` and `csrc/int4_fused.cu` as they are and cut short at successive points (CUTS), each
-into a library of its own under `build/int4_block_ablation/`, and times each through the real wrappers at
-chip_smoke.py's phase-3 shapes: K7 over a 2048-row arena at pos 0 (no arena key read) and at pos 1023, K6 at B=1
-(CUDA events around a replayed graph over rotating input sets that exceed twice the L2). The difference between
-two successive cuts is the time of the stage between them; "as is without copies" is the kernel with no weight or
-arena copy issued (it computes on whatever shared memory holds). The cut kernels compute nothing useful: only their
-times are read.
+Builds `csrc/int4_block.cu` and `csrc/int4_fused.cu` as they are and cut short at successive points (CUTS, per
+kernel), each into a library of its own under `build/int4_block_ablation/`, and times each through the real wrappers
+at chip_smoke.py's phase-3 shapes: K7 over a 2048-row arena at pos 0 (no arena key read) and at pos 1023, K6 at B=1,
+K5 at 5 and 16 rows (CUDA events around a replayed graph over rotating input sets that exceed twice the L2). The
+difference between two successive cuts is the time of the stage between them; "as is without copies" is the kernel
+with no weight or arena copy issued (it computes on whatever shared memory holds), K5's "as is without k-steps" the
+kernel with its tensor-core loop left out. The cut kernels compute nothing useful: only their times are read.
 
-For the resident design it also prints a timeline of one call: %globaltimer stamps (0.26 us steps on an H100) at
-each phase's end and after each grid barrier, K7 at layer 12, min / median / max over the blocks.
+For the resident designs it also prints a timeline of one call: %globaltimer stamps (0.26 us steps on an H100) at
+each phase's end and after each grid barrier (K7 at layer 12), min / median / max over the blocks that pass them.
 
-The cuts are written for the sources of this checkout. The table holds those of the design before the
-whole-step redesign too ("grid barriers", chosen when that design's marker text is in the source), so the
-same script run from a checkout of the earlier commit (copied into its `scripts/`) times that design:
+The cuts are written for the sources of this checkout. The table holds those of each kernel's design before its
+redesign too ("grid barriers", chosen when that design's marker text is in the source), so the same script run from
+a checkout of an earlier commit (copied into its `scripts/`) times that design:
 
     python3 scripts/int4_block_ablation.py
 """
@@ -67,9 +67,16 @@ K6_COPIES = [("    mbar_expect(mbar, n_o * uo.bytes());\n    for (int k = 0; k <
              ("    mbar_expect(mbar + 2, n_d * ud.bytes());\n    for (int k = 0; k < n_d; ++k)\n",
               "    mbar_expect(mbar + 2, 0);\n    if (threadIdx.x >= 100000)\n    for (int k = 0; k < n_d; ++k)\n")]
 
-# source -> design -> (marker text, {cut: [(text, replacement)]}), the cuts in the order the stages run
+# K5's copies, and the no-copy stand-ins that keep its mbarriers' accounting
+K5_COPIES = [("    mbar_expect(mbar, n_g * ug.bytes());\n    for (int k = 0; k < n_g; ++k)\n",
+              "    mbar_expect(mbar, 0);\n    if (threadIdx.x >= 100000)\n    for (int k = 0; k < n_g; ++k)\n"),
+             ("    mbar_expect(mbar + 1, n_d * ud.bytes());\n    for (int k = 0; k < n_d; ++k)\n",
+              "    mbar_expect(mbar + 1, 0);\n    if (threadIdx.x >= 100000)\n    for (int k = 0; k < n_d; ++k)\n")]
+K5_BARRIER = "grid_arrive(p.bar); grid_wait(p.bar, gridDim.x);"
+
+# kernel -> (source, {design: (marker text, {cut: [(text, replacement)]})}), the cuts in the order the stages run
 CUTS = {
-    "int4_block.cu": {
+    "K7": ("int4_block.cu", {
         "resident": ("issue_stage(", {
             "launch only": [("  // the first layer's stages go out before anything else\n", "  " + RETURN)],
             "barriers alone": [("  // the first layer's stages go out before anything else\n", "  " + _skip(
@@ -99,8 +106,8 @@ CUTS = {
             "+ E (down)": [("    grid.sync();\n\n    // layer boundary", "    grid.sync();\n    " + _skip("continue;")
                             + "\n    // layer boundary")],
         }),
-    },
-    "int4_fused.cu": {
+    }),
+    "K6": ("int4_fused.cu", {
         "resident": ("int4_o_mlp_resident_kernel", {
             "launch only": [("  // attn is read first, then every copy", "  " + RETURN + "  // attn is read first, then every copy")],
             "barriers alone": [("  // attn is read first, then every copy",
@@ -129,7 +136,43 @@ CUTS = {
             "+ 3 (down)": [("  grid.sync();\n\n  // phase 4: out = x2", "  grid.sync();\n  " + _skip("return;")
                             + "\n  // phase 4: out = x2")],
         }),
-    },
+    }),
+    "K5": ("int4_fused.cu", {
+        "resident": ("int4_mlp_kernel<1>", {
+            "launch only": [("  // every copy of the launch goes out first: gate|up, then down\n",
+                             "  " + RETURN + "  // every copy of the launch goes out first: gate|up, then down\n")],
+            "barrier alone": [("  // every copy of the launch goes out first: gate|up, then down\n",
+                               "  " + _skip(K5_BARRIER + " grid_exit(p.bar); return;")
+                               + "  // every copy of the launch goes out first: gate|up, then down\n")],
+            "+ weight copies": [("  // phase 1: x staged (zero past n_in and past B); gate|up units -> act\n", "  " + _skip(
+                "__syncthreads(); mbar_wait(mbar, 0); mbar_wait(mbar + 1, 0); " + K5_BARRIER + " grid_exit(p.bar); return;")
+                                 + "  // phase 1: x staged (zero past n_in and past B); gate|up units -> act\n")],
+            "+ 1 (x staging, gate|up)": [("  grid_wait(p.bar, gridDim.x);\n\n  // phase 2: down units", "  grid_wait(p.bar, "
+                                          "gridDim.x);\n  " + _skip("mbar_wait(mbar + 1, 0); grid_exit(p.bar); return;")
+                                          + "\n  // phase 2: down units")],
+            "+ act staging": [("    mbar_wait(mbar + 1, 0);\n    __syncthreads();\n    run_mma_units<NH>(img_d",
+                               "    mbar_wait(mbar + 1, 0);\n    __syncthreads();\n    " + _skip("grid_exit(p.bar); return;")
+                               + "    run_mma_units<NH>(img_d")],
+            "+ down units": [("    for (int k = 0; k < n_d; ++k) {\n      const int tile = ids_d[k] % tiles;\n      if (threadIdx.x"
+                              " == 0) last_flag = ticket_add(p.bar + 2 + tile) == (unsigned)(p.kd - 1);",
+                              "    " + _skip("grid_exit(p.bar); return;") + "    for (int k = 0; k < n_d; ++k) {\n      const int "
+                              "tile = ids_d[k] % tiles;\n      if (threadIdx.x == 0) last_flag = ticket_add(p.bar + 2 + tile) == "
+                              "(unsigned)(p.kd - 1);")],
+            "as is without copies": K5_COPIES,
+            "as is without k-steps": [("    for (int s = 0; s < steps; ++s) {\n      const uint2 wa",
+                                       "    for (int s = 0; s < steps * 0; ++s) {\n      const uint2 wa")],
+        }),
+        "grid barriers": ("launch_mlp<4>(", {
+            "launch only": [("  // phase 1: x staged in every block (zero past n_in); gate|up -> act\n", "  " + RETURN)],
+            "barrier alone": [("  // phase 1: x staged in every block (zero past n_in); gate|up -> act\n",
+                               "  " + _skip("grid.sync(); grid.sync(); return;"))],
+            "+ 1 (x staging, gate|up)": [("  grid.sync();\n\n  // phase 2: down partials, one item per (column tile, scale block)\n"
+                                          "  down_items", "  grid.sync();\n  " + _skip("grid.sync(); return;") + "\n  // phase 2:"
+                                          " down partials, one item per (column tile, scale block)\n  down_items")],
+            "+ down units": [("  grid.sync();\n\n  // phase 3: out = the down partials summed in order",
+                              "  grid.sync();\n  " + _skip("return;") + "\n  // phase 3: out = the down partials summed in order")],
+        }),
+    }),
 }
 # A timeline of the resident design: %globaltimer stamps (every block, after a __syncthreads()) at the points
 # below, K7 at layer 12, read back through cvt_trace. source -> ([(text, text with stamps)], point labels).
@@ -144,11 +187,11 @@ for _s in range(5):
           "    grid_wait(p.bar, ++barriers * G);\n")
     _K7_STAMPS.append((_a, f"    if (l == 12) TR({2 * _s + 1});\n" + _a + f"    if (l == 12) TR({2 * _s + 2});\n"))
 TIMELINE = {
-    "int4_block.cu": ([_TRACE_HDR, *_K7_STAMPS], ["layer start", "A (x, norm, qkv) done", "A barrier passed",
+    "K7": ([_TRACE_HDR, *_K7_STAMPS], ["layer start", "A (x, norm, qkv) done", "A barrier passed",
                                                   "B (attention) done", "B barrier passed", "C (merge, o_proj) done",
                                                   "C barrier passed", "D (x2, norm, gate|up) done", "D barrier passed",
                                                   "E (down) done", "E barrier passed"]),
-    "int4_fused.cu": ([_TRACE_HDR,
+    "K6": ([_TRACE_HDR,
                        ("  uint8_t* img_d = img_g + n_g * ug.bytes();\n", "  uint8_t* img_d = img_g + n_g * ug.bytes();\n  TR(0);\n"),
                        ("  // phase 1: o_proj units over bf16(attn)", "  TR(1);\n  // phase 1: o_proj units over bf16(attn)"),
                        ("  mbar_wait(mbar, 0);\n  __syncthreads();\n", "  mbar_wait(mbar, 0);\n  __syncthreads();\n  TR(2);\n"),
@@ -157,20 +200,34 @@ TIMELINE = {
                        ("  mbar_wait(mbar + 1, 0);\n  __syncthreads();\n", "  TR(5);\n  mbar_wait(mbar + 1, 0);\n  __syncthreads();\n"),
                        ("  grid_arrive(p.bar);\n  grid_wait(p.bar, 2 * gridDim.x);\n",
                         "  TR(6);\n  grid_arrive(p.bar);\n  grid_wait(p.bar, 2 * gridDim.x);\n  TR(7);\n"),
-                       ("  grid_exit(p.bar);\n}\n\ntemplate", "  TR(8);\n  grid_exit(p.bar);\n}\n\ntemplate")],
+                       ("  grid_exit(p.bar);\n}\n\n", "  TR(8);\n  grid_exit(p.bar);\n}\n\n")],
                       ["start", "copies issued", "o landed", "o units done", "barrier 1 passed", "x2 summed",
                        "gate|up units done", "barrier 2 passed", "down units and tickets done"]),
+    "K5": ([_TRACE_HDR,
+            ("  uint8_t* img_d = img + n_g * ug.bytes();\n", "  uint8_t* img_d = img + n_g * ug.bytes();\n  TR(0);\n"),
+            ("  // phase 1: x staged (zero past n_in and past B)", "  TR(1);\n  // phase 1: x staged (zero past n_in and past B)"),
+            ("  mbar_wait(mbar, 0);\n  run_mma_units<NH>(img, ug", "  mbar_wait(mbar, 0);\n  TR(2);\n  run_mma_units<NH>(img, ug"),
+            ("  grid_arrive(p.bar);\n  grid_wait(p.bar, gridDim.x);\n\n  // phase 2: down units",
+             "  TR(3);\n  grid_arrive(p.bar);\n  grid_wait(p.bar, gridDim.x);\n  TR(4);\n\n  // phase 2: down units"),
+            ("    __syncthreads();\n    run_mma_units<NH>(img_d", "    __syncthreads();\n    TR(5);\n    run_mma_units<NH>(img_d"),
+            ("                      });\n    for (int k = 0; k < n_d; ++k) {\n      const int tile = ids_d[k] % tiles;",
+             "                      });\n    TR(6);\n    for (int k = 0; k < n_d; ++k) {\n      const int tile = ids_d[k] % tiles;"),
+            ("  grid_exit(p.bar);\n}\n\n// The grid of a cooperative launch",
+             "  TR(7);\n  grid_exit(p.bar);\n}\n\n// The grid of a cooperative launch")],
+           ["start", "copies issued", "x staged, gate|up landed", "gate|up units done", "barrier passed",
+            "act staged, down landed", "down units done", "tile sums done"]),
 }
 
-ENTRIES = {"int4_block.cu": ("cvt_int4_decode_layers",), "int4_fused.cu": ("cvt_int4_o_mlp", "cvt_int4_o_mlp_resident")}
+ENTRIES = {"int4_block.cu": ("cvt_int4_decode_layers",),
+           "int4_fused.cu": ("cvt_int4_mlp", "cvt_int4_o_mlp", "cvt_int4_o_mlp_resident")}
 
 
-def design_of(source, text):
-    """(design name, cuts) of the design whose marker is in the source text."""
-    for name, (marker, cuts) in CUTS[source].items():
+def design_of(kernel, text):
+    """(design name, cuts) of the kernel's design whose marker is in its source text."""
+    for name, (marker, cuts) in CUTS[kernel][1].items():
         if marker in text:
             return name, cuts
-    raise RuntimeError(f"{source}: no design of CUTS matches this source")
+    raise RuntimeError(f"{kernel}: no design of CUTS matches {CUTS[kernel][0]}")
 
 
 def main():
@@ -189,11 +246,11 @@ def main():
     qc = Qwen2Config()
     gen = torch.Generator(device="cuda").manual_seed(0)
     libs, order = {}, {}
-    for source in CUTS:
-        design, cuts = design_of(source, (_build.CSRC_DIR / source).read_text())
-        variants = {**cuts, "timeline": TIMELINE[source][0]} if design == "resident" else cuts
-        paths = build_variants(REPO / "build" / "int4_block_ablation" / source.split(".")[0], source, variants)
-        order[source] = (design, [*cuts, "as is"])
+    for kernel, (source, _) in CUTS.items():
+        design, cuts = design_of(kernel, (_build.CSRC_DIR / source).read_text())
+        variants = {**cuts, "timeline": TIMELINE[kernel][0]} if design == "resident" and kernel in TIMELINE else cuts
+        paths = build_variants(REPO / "build" / "int4_block_ablation" / kernel, source, variants)
+        order[kernel] = (design, [*cuts, "as is"])
         for name, path in paths.items():
             lib = ctypes.CDLL(str(path))
             for entry in (e for e in ENTRIES[source] if hasattr(lib, e)):
@@ -201,42 +258,42 @@ def main():
                 getattr(lib, entry).restype = ctypes.c_int
             if hasattr(lib, "cvt_trace"):
                 lib.cvt_trace.argtypes = [ctypes.c_void_p]
-            libs[source, "as is" if name == "as_is" else name] = lib
+            libs[kernel, "as is" if name == "as_is" else name] = lib
     real_load = _build.load_library
 
-    def timeline(source, label, fn, args):
+    def timeline(kernel, label, fn, args):
         """One traced call after three untraced ones: per stamp, us from the earliest first stamp, min / median /
         max over the blocks."""
         import numpy as np
 
-        _build.load_library = lambda: libs[source, "timeline"]
+        _build.load_library = lambda: libs[kernel, "timeline"]
         for _ in range(4):
             fn(*args[0], **args[1])
         torch.cuda.synchronize()
         buf = np.zeros((1024, 32), np.uint64)
-        if libs[source, "timeline"].cvt_trace(buf.ctypes.data) != 0:
+        if libs[kernel, "timeline"].cvt_trace(buf.ctypes.data) != 0:
             raise RuntimeError("cvt_trace failed")
-        labels = TIMELINE[source][1]
+        labels = TIMELINE[kernel][1]
         rel = buf[: int4.grid_of(torch.device("cuda")), : len(labels)].astype(np.float64)
-        rel = (rel - rel[:, 0].min()) / 1e3
+        rel[rel == 0] = np.nan  # a stamp on a path a block does not take (K5: the blocks without down units)
+        rel = (rel - np.nanmin(rel[:, 0])) / 1e3
         print(f"{label} timeline, us (min / median / max over blocks): " + "; ".join(
-            f"{name} {rel[:, i].min():.2f} / {np.median(rel[:, i]):.2f} / {rel[:, i].max():.2f}"
+            f"{name} {np.nanmin(rel[:, i]):.2f} / {np.nanmedian(rel[:, i]):.2f} / {np.nanmax(rel[:, i]):.2f}"
             for i, name in enumerate(labels)))
 
-    def timed(source, name, sets, fn, calls):
-        _build.load_library = lambda: libs[source, name]
+    def timed(kernel, name, sets, fn, calls):
+        _build.load_library = lambda: libs[kernel, name]
         return cs.graph_ms(cs.rotate(sets, fn), calls=calls) * 1e3
 
     try:
         W = cs._k7_weights(torch, int4, qc, gen)
-        design, names = order["int4_block.cu"]
+        design, names = order["K7"]
         for pos in (0, cs.CUR_T):
             sets = [cs._k7_inputs(torch, qc, 2048, pos, gen, 0.0) + tuple(W.values())]
-            cuts = ", ".join(f"{name} {timed('int4_block.cu', name, sets, tb.int4_decode_layers, 4):.2f}"
-                             for name in names)
+            cuts = ", ".join(f"{name} {timed('K7', name, sets, tb.int4_decode_layers, 4):.2f}" for name in names)
             print(f"K7 ({design}) A=2048 pos {pos}, us per step: {cuts}")
             if design == "resident":
-                timeline("int4_block.cu", f"K7 layer 12, A=2048 pos {pos}", tb.int4_decode_layers,
+                timeline("K7", f"K7 layer 12, A=2048 pos {pos}", tb.int4_decode_layers,
                          (sets[0][:6], dict(zip(cs.K7_KEYS, sets[0][6:]))))
         del W, sets
         torch.cuda.empty_cache()
@@ -248,11 +305,22 @@ def main():
             x = torch.randn((1, H), generator=gen, device="cuda").to(torch.bfloat16)
             nw = 1.0 + 0.1 * torch.randn((H,), generator=gen, device="cuda")
             sets.append((attn, x, nw) + cs._tail_weights(torch, int4, H, inter, gen))
-        design, names = order["int4_fused.cu"]
-        cuts = ", ".join(f"{name} {timed('int4_fused.cu', name, sets, int4.int4_o_mlp, n):.2f}" for name in names)
+        design, names = order["K6"]
+        cuts = ", ".join(f"{name} {timed('K6', name, sets, int4.int4_o_mlp, n):.2f}" for name in names)
         print(f"K6 ({design}) B=1, us per call: {cuts}")
         if design == "resident":
-            timeline("int4_fused.cu", "K6 B=1", int4.int4_o_mlp, (sets[0], {}))
+            timeline("K6", "K6 B=1", int4.int4_o_mlp, (sets[0], {}))
+        del sets
+        torch.cuda.empty_cache()
+        design, names = order["K5"]
+        n = cs.n_sets(7.74e6)
+        weights = [cs._mlp_weights(torch, int4, H, inter, gen) for _ in range(n)]
+        for B in (5, 16):
+            sets = [(torch.randn((B, H), generator=gen, device="cuda").to(torch.bfloat16),) + w for w in weights]
+            cuts = ", ".join(f"{name} {timed('K5', name, sets, int4.int4_mlp, n):.2f}" for name in names)
+            print(f"K5 ({design}) {B} rows, us per call: {cuts}")
+            if design == "resident":
+                timeline("K5", f"K5 {B} rows", int4.int4_mlp, (sets[0], {}))
     finally:
         _build.load_library = real_load
     return 0

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card, at
 small shapes (K4 at the full-width qkv and o_proj): K1, K2 (bf16 and int8
-rows), K3, K4, K5, K6 and K7, and bit-for-bit repeats of K1, K3 and K4. No JAX: these
+rows; the fused K, V and scales write), K3, K4, K5, K6 and K7, and
+bit-for-bit repeats of K1, K3, K4, K5, K6 and K7. No JAX: these
 tests need only torch, numpy and a GPU, and skip inside each test without
 one (the kernels are built with nvcc and have no CPU mode). Run them on a
 card with `python -m pytest tests/test_torch_cuda_kernels.py -m cuda`;
@@ -140,25 +141,63 @@ def test_cuda_kernel_repeats_bit_for_bit(kernel, B):
         assert int(tda._COUNTERS[args[0].device].abs().sum()) == 0
 
 
-@pytest.mark.parametrize("B", [1, 5, 16])
+@pytest.mark.parametrize("B", [1, 5, 15, 16])
 def test_cuda_k5_matches_plain(B):
     """K5 at the full-width MLP (hidden 896, intermediate 4864 -> 5120) at the
     row counts of the bistream extends: within two bf16 ulps at the largest
     |reference| of its plain version (both sum in float32 and round
-    silu(g)*u and the output to bf16), and the same bits twice."""
+    silu(g)*u and the output to bf16), the same bits twice with a call on
+    other weights in between, one launch counted per call, and the grid
+    barrier's and tickets' counters back at 0."""
     _need_card()
     rng = np.random.default_rng(20 + B)
     w = lambda *sh: rng.standard_normal(sh).astype(np.float32) * 0.05  # noqa: E731
-    wq = [torch.from_numpy(a).cuda() for a in (*tint4.pack_gate_up_int4(w(896, 2 * 4864)),
-                                               *tint4.pack_down_int4(w(4864, 896)))]
+
+    def weights():
+        return [torch.from_numpy(a).cuda() for a in (*tint4.pack_gate_up_int4(w(896, 2 * 4864)),
+                                                     *tint4.pack_down_int4(w(4864, 896)))]
+
+    wq, other = weights(), weights()
     x = torch.from_numpy(rng.standard_normal((B, 896)).astype(np.float32)).cuda().bfloat16()
     n = tint4.int4_mlp.launches
-    out, again, ref = tint4.int4_mlp(x, *wq), tint4.int4_mlp(x, *wq), tint4.int4_mlp_plain(x, *wq)
+    out = tint4.int4_mlp(x, *wq)
+    tint4.int4_mlp(x, *other)
+    again, ref = tint4.int4_mlp(x, *wq), tint4.int4_mlp_plain(x, *wq)
     torch.cuda.synchronize()
-    assert tint4.int4_mlp.launches == n + 2
+    assert tint4.int4_mlp.launches == n + 3
     assert out.shape == (B, 896) and out.dtype == torch.bfloat16
     assert torch.equal(out, again)
     assert _err(out, ref) <= TWO_ULPS * ref.float().abs().max().item()
+    assert int(tda._COUNTERS[out.device].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("pos,rows", [([5], 1), ([0, 27, 63, 40], 4), ([63], 24)])
+def test_cuda_k2_fused_write_matches_plain(dtype, pos, rows):
+    """K2's one launch (K and V rows, and over the int8 arena both scales) at
+    B=1, a ragged B=4 and 24 stacked layers with one position: exactly its
+    plain version (a copy), nothing else of the arenas touched, one launch
+    counted."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(len(pos) + rows)
+    T = 64
+
+    def rnd(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda") * 50).to(dtype)
+
+    ka, va, kn, vn = rnd(rows, T, 2, 64), rnd(rows, T, 2, 64), rnd(rows, 1, 2, 64), rnd(rows, 1, 2, 64)
+    sc = ((torch.rand(rows, T, device="cuda"), torch.rand(rows, T, device="cuda"), torch.rand(rows, 1, device="cuda"),
+           torch.rand(rows, 1, device="cuda")) if dtype == torch.int8 else (None,) * 4)
+    p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    got = [ka.clone(), va.clone(), *(t.clone() if t is not None else None for t in sc[:2])]
+    want = [ka.clone(), va.clone(), *(t.clone() if t is not None else None for t in sc[:2])]
+    n = tda.kv_arena_write_kv.launches
+    tda.kv_arena_write_kv(got[0], got[1], kn, vn, p, *got[2:], *sc[2:])
+    tda.kv_arena_write_kv_plain(want[0], want[1], kn, vn, p, *want[2:], *sc[2:])
+    torch.cuda.synchronize()
+    assert tda.kv_arena_write_kv.launches == n + 1
+    for g, w in zip(got, want):
+        assert w is None or torch.equal(g, w)
 
 
 def _k7_case(seed, L=2, H=384, n_heads=6, n_kv=2, d=64, inter=448, A=64):

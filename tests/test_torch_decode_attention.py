@@ -1,5 +1,6 @@
 """K1 (flash-decode GQA), K3 (the same over an int8 arena) and K2 (KV-arena
-row write, bf16 and int8) of the PyTorch port against the JAX package: the
+row write, bf16 and int8; the K, V and scales write of one launch) of the
+PyTorch port against the JAX package: the
 port's plain versions (what its wrappers run on CPU tensors) against the
 Pallas kernels in interpret mode and the JAX references, in float32. The CUDA
 kernels themselves run only on a GPU (tests/test_torch_cuda_kernels.py,
@@ -110,6 +111,65 @@ def test_kv_arena_write_int8_plain_matches_pallas(pos):
     np.testing.assert_array_equal(out.numpy(), want)
 
 
+def _jax_scale_write(scale, new, pos):
+    """The JAX decode step's masked-select write of one scale plane
+    (cosyvoice_tpu/models/qwen2.py, kv_quant): scale[b, pos[b]] = new[b]."""
+    ssel = jnp.arange(scale.shape[1])[None, :] == jnp.asarray(pos)[:, None]
+    return np.asarray(jnp.where(ssel, jnp.asarray(new), jnp.asarray(scale)))
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("pos", [[0], [13, 63, 8, 40]])
+def test_kv_arena_write_kv_plain_matches_pallas(quant, pos):
+    """K2's one launch (K and V rows, and over the int8 arena both scales):
+    its plain version against the JAX package's two Pallas row writes
+    (interpret mode) and its two masked-select scale writes, at B=1 and a
+    ragged B=4, bf16-valued float32 and int8 arenas: exact."""
+    rng = np.random.default_rng(4 + quant)
+    B, T, Hkv, d = len(pos), 64, 2, 64
+    if quant:
+        arenas = [rng.integers(-127, 128, (B, T, Hkv, d)).astype(np.int8) for _ in range(2)]
+        new = [rng.integers(-127, 128, (B, 1, Hkv, d)).astype(np.int8) for _ in range(2)]
+        scales = [rng.uniform(0.002, 0.03, (B, T)).astype(np.float32) for _ in range(2)]
+        s_new = [rng.uniform(0.002, 0.03, (B, 1)).astype(np.float32) for _ in range(2)]
+    else:
+        arenas = [rng.standard_normal((B, T, Hkv, d)).astype(np.float32) for _ in range(2)]
+        new = [rng.standard_normal((B, 1, Hkv, d)).astype(np.float32) for _ in range(2)]
+        scales, s_new = [], []
+    p = np.asarray(pos, np.int32)
+    want = [np.asarray(jda.kv_arena_write(jnp.asarray(a), jnp.asarray(n), jnp.asarray(p), interpret=True))
+            for a, n in zip(arenas, new)]
+    want += [_jax_scale_write(sc, sn, p) for sc, sn in zip(scales, s_new)]
+    got = [torch.from_numpy(a.copy()) for a in arenas + scales]
+    k_out, v_out = tda.kv_arena_write_kv(got[0], got[1], *map(torch.from_numpy, new), torch.from_numpy(p), *got[2:],
+                                         *map(torch.from_numpy, s_new))
+    assert k_out is got[0] and v_out is got[1]  # in place
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+def test_kv_arena_write_kv_one_pos_serves_every_row():
+    """The fused decode step's write over the [L, T, Hkv, d] stacked arena:
+    pos [1] writes every layer's row at that position, as pos repeated per
+    layer does; the CPU wrapper is the plain version and counts nothing."""
+    rng = np.random.default_rng(6)
+    L, T = 24, 16
+    ka, va = (torch.from_numpy(rng.standard_normal((L, T, 2, 64)).astype(np.float32)) for _ in range(2))
+    kn, vn = (torch.from_numpy(rng.standard_normal((L, 1, 2, 64)).astype(np.float32)) for _ in range(2))
+    one, every = torch.tensor([9], dtype=torch.int32), torch.full((L,), 9, dtype=torch.int32)
+    before = tda.kv_arena_write_kv.launches
+    got = tda.kv_arena_write_kv(ka.clone(), va.clone(), kn, vn, one)
+    want = (tda.kv_arena_write_plain(ka.clone(), kn, every), tda.kv_arena_write_plain(va.clone(), vn, every))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert tda.kv_arena_write_kv.launches == before
+    with pytest.raises(ValueError):
+        tda.kv_arena_write_kv(ka, va, kn, vn, torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="all four"):
+        tda.kv_arena_write_kv(ka, va, kn, vn, one, torch.zeros(L, T))
+    with pytest.raises(ValueError, match="no kernel"):
+        tda.kv_arena_write_kv(*(t.to("meta") for t in (ka, va, kn, vn, one)))
+
+
 def test_wrappers_check_shapes_and_devices():
     q, k, v, cur = map(torch.from_numpy, _case(3, [3]))
     with pytest.raises(ValueError):
@@ -166,3 +226,33 @@ def test_decode_plan_fills_the_sms_from_shapes_alone(B, Hkv, T, S):
 @pytest.mark.parametrize("cur,T,n", [(-1, 64, 1), (0, 64, 1), (62, 64, 63), (63, 64, 64), (99, 64, 64)])
 def test_live_keys_clamps_to_the_arena(cur, T, n):
     assert tda.live_keys(cur, T) == n
+
+
+@pytest.mark.parametrize("quant,kv_quant,fused", [(False, False, False), ("int4p", True, False), ("int4p", False, True)],
+                         ids=["bf16_lm", "int4p_int8_arena", "int4p_k7_step"])
+def test_decode_steps_write_the_arena_in_one_k2_call_per_layer(quant, kv_quant, fused, monkeypatch):
+    """A per-layer decode step (the bf16 LM; int4p over the int8 arena, scales
+    included) writes each layer's K and V rows through one K2 call, and the
+    fused int4p step over a bf16 arena (K7) every layer's rows through one:
+    the calls the port's LMs make, counted at the wrapper (on CPU tensors it
+    runs the plain version)."""
+    from cosyvoice_tpu_torch.models import llm as tllm, qwen2 as tqwen2
+    from tests.test_torch_common import jax_lm_cfg_quant, to_port_cfg
+
+    lm = tllm.Qwen2LM(to_port_cfg(jax_lm_cfg_quant(quant=quant, kv_quant=kv_quant), tllm.LMConfig), device="cpu")
+    calls = []
+    for mod in (tqwen2, tllm):
+        monkeypatch.setattr(mod, "kv_arena_write_kv",
+                            lambda *a, real=mod.kv_arena_write_kv, **k: calls.append(a[0].shape) or real(*a, **k))
+    monkeypatch.setattr(tda, "kv_arena_write", lambda *a, **k: pytest.fail("a single-arena write on the decode path"))
+    cache = lm.init_cache(1, 64)
+    token, cur = torch.tensor([3]), torch.tensor([5], dtype=torch.int32)
+    with torch.inference_mode():
+        if fused:
+            stacked = lm._decode_pack(cache)
+            assert stacked is not None
+            lm.module.decode_step_fused(token, cur, cache, stacked)
+        else:
+            lm.module.decode_step(token, cur, cache)
+    L = lm.cfg.qwen.num_layers
+    assert calls == ([(L, 64, 2, 64)] if fused else [(1, 64, 2, 64)] * L)

@@ -309,3 +309,124 @@ def test_item_parts_and_shared_memory_limit():
     tint4.check_shared_memory("int4_o_mlp", need, tint4.K6_STATIC_SMEM, H100_SMEM_OPTIN)
     with pytest.raises(ValueError, match="shared memory"):
         tint4.check_shared_memory("int4_o_mlp", need, tint4.K6_STATIC_SMEM, need)
+
+
+# K5 (int4_mlp_kernel): (H, nb_in, half_in, inter_p, nd, half_d) at full
+# width and at these tests' widths (hidden 384, intermediate 448 -> 512)
+MLP_SHAPES = {"full": (896, 4, 128, 5120, 10, 256), "tiny": (384, 2, 128, 512, 1, 256)}
+
+
+@pytest.mark.parametrize("B", [5, 16])
+@pytest.mark.parametrize("width,grid", [("full", 132), ("full", 114), ("tiny", 132), ("tiny", 4)])
+def test_mlp_plan_covers_every_unit_once(width, grid, B):
+    """K5's plan: every gate|up unit (64 columns, both planes, whole input)
+    and every down unit (64 columns, a split of the scale blocks) on exactly
+    one block, per-phase counts within one of each other, every (column
+    tile, scale block) of down once; the table the kernel reads says the
+    same; each unit's items fit the kernel's item buffer; the staged rows of
+    x and of each down unit's split of act fit xs; the whole fits an H100
+    block's shared memory."""
+    H, nb_in, half_in, inter, nd, half_d = MLP_SHAPES[width]
+    plan = tint4.mlp_plan(grid, *MLP_SHAPES[width], B)
+    tiles, kd, rows = H // 64, plan["kd"], plan["rows"]
+    assert rows == (8 if B <= 8 else 16) and rows >= B
+    counts = (inter // 64, tiles * kd)
+    _check_resident_plan(plan["plan"], counts, grid, every_block=False)
+    assert (_cover_splits(plan["plan"][1], tiles, nd, kd) == 1).all()
+    table = plan["table"]
+    for k, ph in enumerate(plan["plan"]):
+        for b, ids in enumerate(ph):
+            assert table[b, k, 0] == len(ids) and list(table[b, k, 1 : 1 + len(ids)]) == ids
+    for (planes, nb, half), parts in zip(((2, nb_in, half_in), (1, nd // kd, half_d)), plan["parts"]):
+        assert (half // parts) % 8 == 0 and planes * nb * parts <= tint4.MLP_MAX_ITEMS
+    maxd = max(len(ids) for ids in plan["plan"][1])
+    need = max(rows * (nb_in * 2 * half_in + 8), maxd * rows * (nd // kd * 2 * half_d + 8)) * 2
+    assert plan["xs_bytes"] >= need and plan["xs_bytes"] % 128 == 0
+    assert plan["red_bytes"] == tint4.MLP_MAX_ITEMS * 2 * rows * 32 * 4
+    sizes = [tint4.unit_bytes(2, nb_in, half_in), tint4.unit_bytes(1, nd // kd, half_d)]
+    assert plan["img_bytes"] == max(sum(len(ph[b]) * n for ph, n in zip(plan["plan"], sizes)) for b in range(grid))
+    dyn = plan["xs_bytes"] + plan["red_bytes"] + plan["img_bytes"]
+    tint4.check_shared_memory("int4_mlp", dyn, tint4.K5_STATIC_SMEM, H100_SMEM_OPTIN)
+
+
+def test_mlp_plan_at_full_width_and_refusals():
+    """At full width on 132 SMs: 80 gate|up units on 80 blocks, down in 5
+    splits of two scale blocks (70 units on 70 blocks), 16 items per unit;
+    a block needs ~147 KB at 5 rows and ~195 KB at 16. A size the card
+    cannot give is refused, and so is a unit with more items than the
+    kernel's buffer."""
+    for B, dyn_max in ((5, 151_000), (16, 200_000)):
+        plan = tint4.mlp_plan(132, *MLP_SHAPES["full"], B)
+        assert plan["kd"] == 5 and plan["parts"] == (2, 8) and plan["maxu"] == 1
+        assert [sum(1 for ids in ph if ids) for ph in plan["plan"]] == [80, 70]
+        need = plan["xs_bytes"] + plan["red_bytes"] + plan["img_bytes"]
+        assert need + tint4.K5_STATIC_SMEM <= dyn_max
+        with pytest.raises(ValueError, match="shared memory"):
+            tint4.check_shared_memory("int4_mlp", need, tint4.K5_STATIC_SMEM, need)
+    with pytest.raises(ValueError):
+        tint4.item_parts(1, 2, 9, 128, max_items=tint4.MLP_MAX_ITEMS)  # 18 items of whole scale blocks
+
+
+def _mlp_by_units(x, gup, gus, dp, ds, grid=16):
+    """K5's unit decomposition on the host, as the kernel computes it: each
+    gate|up unit (64 columns, both planes) sums its items (a part of one
+    scale block's rows, times the block's scales) in item order per plane,
+    then act = bf16(silu(g) * u); each down unit sums its items over its
+    split's scale blocks into a partial; each column tile's partials are
+    summed in split order and rounded once to bf16."""
+    B = x.shape[0]
+    _, nb_in, half_in, inter = gup.shape
+    nd, half_d, H = dp.shape
+    plan = tint4.mlp_plan(grid, H, nb_in, half_in, inter, nd, half_d, B)
+    kd, (parts_g, parts_d), tiles = plan["kd"], plan["parts"], H // 64
+    xin = torch.nn.functional.pad(x.float(), (0, nb_in * 2 * half_in - x.shape[1]))
+
+    def unit(xs, p, s, blocks, half, parts, cols):
+        """Items of one plane: (scale block, part of its rows), each times
+        the block's scales, summed in item order."""
+        out, rows = 0, half // parts
+        for b in blocks:
+            for part in range(parts):
+                r = slice(part * rows, (part + 1) * rows)
+                xb = xs[:, (b - blocks[0]) * 2 * half :]
+                y = xb[:, r] @ ((p[b, r, cols] & 15) - 8).float() + xb[:, half:][:, r] @ (p[b, r, cols] >> 4).float()
+                out = out + y * s[b, cols]
+        return out
+
+    act = torch.zeros(B, inter)
+    for blk in plan["plan"][0]:
+        for tile in blk:
+            cols = slice(64 * tile, 64 * tile + 64)
+            g, u = (unit(xin, gup[pl], gus[pl], range(nb_in), half_in, parts_g, cols) for pl in (0, 1))
+            act[:, cols] = torch.nn.functional.silu(g) * u
+    act = act.to(torch.bfloat16).float()
+    part = torch.zeros(kd, B, H)
+    nbu = nd // kd
+    for blk in plan["plan"][1]:
+        for uid in blk:
+            sp, tile = divmod(uid, tiles)
+            cols = slice(64 * tile, 64 * tile + 64)
+            xs = act[:, sp * nbu * 2 * half_d : (sp + 1) * nbu * 2 * half_d]
+            part[sp, :, cols] = unit(xs, dp, ds, range(sp * nbu, (sp + 1) * nbu), half_d, parts_d, cols)
+    out = part[0]
+    for sp in range(1, kd):
+        out = out + part[sp]
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("B", MLP_ROWS)
+def test_mlp_units_compute_the_mlp(B):
+    """The plan's units summed as the kernel sums them give K5's function:
+    within two bf16 ulps at the largest |reference| of int4_mlp_plain (both
+    round act and the output to bf16, the sums run in another order), and
+    within 2**-5 of it of the JAX int4_mlp_reference in float32 (act is not
+    rounded there: the rounding moves the output by about 0.5 % of its
+    largest |value| at these widths)."""
+    x, gup, gus, dp, ds = _mlp_case(12, B)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    w = _t((gup, gus, dp, ds))
+    got = _mlp_by_units(xb, *w).float().numpy()
+    plain = tint4.int4_mlp_plain(xb, *w).float().numpy()
+    np.testing.assert_allclose(got, plain, rtol=0, atol=2**-6 * np.abs(plain).max())
+    ref = np.asarray(jint4.int4_mlp_reference(*_j((xb.float().numpy(), gup, gus, dp, ds)), dtype=jnp.float32))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=2**-5 * np.abs(ref).max())
