@@ -79,9 +79,33 @@ Phase 3 also holds K7 (the whole int4p decode step) against its plain
 version at full width, B=1, arenas of 512 and 2048 rows, NaN in every row
 >= pos, and times it beside the port's unfused route for the same step.
 
+The LMs decode on CUDA graphs (models/decode_graph.py: one captured step
+per route, arena bucket and stop mask, replayed per token) in every serving
+phase; the launch counters count replayed launches. After each LM's phases,
+graphs (graphs_int4p, graphs_int4p_bf16) serves the same requests on the
+graphs and then eagerly (`graphs=False`, the reference) and requires
+identical sampled tokens (seed 1986), wavs and LM generator state: the bf16
+LM's 960-token request (the arena grows 512 -> 1024 -> 1536), the int4p LMs'
+text-16 request, the long-prompt request across the 2048-row route switch,
+and one bistream request per int4p LM (text 16 with max_len 64; text 32
+with max_len 640). It prints LM tokens/s and ms per token of both (capture
+time apart), the host time of the LM's replay loop per replay, and the host
+cost of one replay against its device time, and requires every captured
+graph's K1..K7 kernel nodes (CUDAGraph.debug_dump) to equal the launches
+its capture counted, which each replay adds to the counters. After every
+LM's phases, idle takes the device's idle share (torch.profiler traces)
+over the LM stage and the flow+HiFT stage of each LM's text-16 offline
+request (320 tokens; graphs and eager), the bf16 LM's 960-token request,
+the route-switch request and the bistream requests (graphs), and requires
+the K1..K7 kernels the LM stage's traces show to be at most the launches
+counted and at most TRACE_LOSS fewer (the profiler drops some records). It
+runs last because a profiler session multiplies the host cost of every
+later graph replay in the process (scripts/decode_graph_block.py: 5-7x
+per-layer).
+
 The line before the last is {"kernels": [...]}, with each kernel's launches
 summed over the runs of phases 4, 6 and 8 and the two bistream slices (each
-counted from 0); the last
+counted from 0, replays included); the last
 line is {"ok": true, "device": {...}}. Without a card it exits 2 and prints
 no result.
 """
@@ -93,6 +117,7 @@ import faulthandler
 import json
 import logging
 import math
+import re
 import subprocess
 import sys
 import time
@@ -130,10 +155,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16
 L2_BYTES = 50e6  # H100 L2 cache
 
-PHASE_BUDGET_S = {"device": 60, "build": 360, "kernels": 360, "slice": 420, "check": 120,
-                  "slice_int4p": 420, "check_int4p": 120, "slice_bistream_int4p": 240, "check_bistream_int4p": 120,
-                  "slice_int4p_bf16": 420, "check_int4p_bf16": 180, "slice_bistream_int4p_bf16": 420,
-                  "check_bistream_int4p_bf16": 120}
+PHASE_BUDGET_S = {"device": 60, "build": 360, "kernels": 360, "slice": 240, "check": 120, "graphs": 120,
+                  "slice_int4p": 240, "check_int4p": 120, "slice_bistream_int4p": 180, "check_bistream_int4p": 120,
+                  "graphs_int4p": 120, "slice_int4p_bf16": 300, "check_int4p_bf16": 180,
+                  "slice_bistream_int4p_bf16": 300, "check_bistream_int4p_bf16": 120, "graphs_int4p_bf16": 120,
+                  "idle": 300}
 
 
 class Phase:
@@ -1173,6 +1199,9 @@ PER_EXTEND = {"K1": 0, "K2": 0, "K3": 0, "K4": 48, "K5": 24, "K6": 0, "K7": 0}
 # extends alone pass K7's 2048 rows (spans end only at fills, never at a
 # stop id) and its spans, if they run to the cadence, the arena's end
 BISTREAM = {"_int4p": {"text_lens": (16,), "max_len": 64}, "_int4p_bf16": {"text_lens": (16, 32, 48, 2100)}}
+# the bistream request of each int4p LM's `graphs` phase: (text ids, max_len)
+GRAPH_BISTREAM = {"_int4p": (16, 64), "_int4p_bf16": (32, 640)}
+CROSS_PROMPT = 1920  # LM prompt tokens of phase_cross's requests: the arena starts at 2048 rows
 
 
 def build_engine(lm_cfg):
@@ -1227,7 +1256,9 @@ def _zero_counts(eng):
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
-    eng.lm.decode_steps = eng.lm.fused_steps = 0
+    lm = eng.lm
+    lm.decode_steps = lm.fused_steps = lm.graph_captures = lm.graph_replays = lm.graph_warmups = 0
+    lm.graph_capture_s = lm.graph_replay_s = 0.0
     return counters
 
 
@@ -1258,14 +1289,22 @@ def _check_launches(eng, counters, per_step, one_row=0, short=0):
     per_step[key] times, every fused step (K7) PER_STEP["fused"][key] times
     and every extend of 2..16 rows PER_EXTEND[key] times. Returns the
     launches."""
+    lm = eng.lm
     launches = {key: fn.launches for key, fn in counters.items()}
-    steps, fused = eng.lm.decode_steps, eng.lm.fused_steps
+    steps, fused = lm.decode_steps, lm.fused_steps
     want = {k: per_step[k] * (steps - fused + one_row) + PER_STEP["fused"][k] * fused + PER_EXTEND[k] * short
             for k in launches}
-    print(f"decode steps {steps} ({fused} through K7), extends of one row {one_row}, of 2..16 rows {short}: "
-          "launches " + ", ".join(f"{k} {n} (want {want[k]})" for k, n in launches.items()))
+    print(f"decode steps {steps} ({fused} through K7; {lm.graph_replays} replayed from CUDA graphs, "
+          f"{lm.graph_warmups} eager first steps at a key, {lm.graph_captures} graphs captured in "
+          f"{lm.graph_capture_s:.2f} s), extends of one row {one_row}, of 2..16 rows {short}: launches "
+          + ", ".join(f"{k} {n} (want {want[k]})" for k, n in launches.items()))
     if steps == 0 or launches != want:
         raise AssertionError("the decode steps and extends did not all go through their kernels")
+    # on the graph path the only eager step at a key (route, arena, mask) is
+    # the first, before its capture; graph_warmups counts those of this run
+    if lm.graphs and steps - lm.graph_replays != lm.graph_warmups:
+        raise AssertionError(f"{steps - lm.graph_replays} decode steps ran eagerly on the graph path, not the "
+                             f"{lm.graph_warmups} first steps at a key of this run")
     return launches
 
 
@@ -1280,7 +1319,7 @@ def phase_slice(eng, per_step, text_lens=(16, 32, 48)):
     return prompt, reqs, _check_launches(eng, counters, per_step)
 
 
-def phase_cross(eng, text_len=16, n_prompt=1920, attempts=6):
+def phase_cross(eng, text_len=16, n_prompt=CROSS_PROMPT, attempts=6):
     """Requests of the int4p LM over a bf16 arena whose arena grows past K7's
     MAX_FUSED_ARENA rows: a voice prompt that makes the LM prompt n_prompt
     tokens long starts the arena at 2048 rows, so the fourth block of 28
@@ -1288,7 +1327,8 @@ def phase_cross(eng, text_len=16, n_prompt=1920, attempts=6):
     and takes the per-layer kernels. Random weights can sample a stop id
     before that (only eos is held back until min_len), so up to `attempts`
     requests with fresh text are served, each printed, until one crosses.
-    Checks that request's blocks, steps and launches. Returns its launches."""
+    Checks that request's blocks, steps and launches. Returns its launches
+    and its text."""
     from cosyvoice_tpu_torch.ops.int4_block import MAX_FUSED_ARENA
 
     lm = eng.lm
@@ -1305,7 +1345,7 @@ def phase_cross(eng, text_len=16, n_prompt=1920, attempts=6):
         for attempt in range(attempts):
             counters = _zero_counts(eng)
             routes.clear()
-            _serve(eng, request, text_len)
+            text, _ = _serve(eng, request, text_len)
             if not all(f for _, f in routes):
                 break
             print(f"attempt {attempt + 1}: the stream stopped after {len(routes)} blocks, all through K7; next text")
@@ -1323,7 +1363,7 @@ def phase_cross(eng, text_len=16, n_prompt=1920, attempts=6):
         raise AssertionError(f"blocks took the wrong route for their arena: {routes}")
     if lm.fused_steps != n_fused * lm.cfg.block_size or lm.decode_steps != len(routes) * lm.cfg.block_size:
         raise AssertionError("step counts do not match the blocks' routes")
-    return launches
+    return launches, text
 
 
 def _bistream_chunks(text):
@@ -1395,9 +1435,8 @@ def phase_slice_bistream(eng, per_step, text_lens, max_len=None):
             else:
                 cap = max_len or 20 * n_text
                 how = f"generate_bistream(max_len={cap})"
-                blocks = list(lm.generate_bistream(iter(chunks), prompt_text, prompt_speech, eng._generator(),
-                                                   max_len=cap))
-                toks = np.concatenate(blocks) if blocks else np.zeros(0, np.int32)
+                toks = _cat(list(lm.generate_bistream(iter(chunks), prompt_text, prompt_speech, eng._generator(),
+                                                      max_len=cap)))
                 eng._sync()
                 lm_s = time.perf_counter() - t
                 wav = eng.synthesize_offline(toks, prompt_speech, prompt_mel, emb)
@@ -1641,7 +1680,355 @@ def phase_routes(eng, tol, positions=(100, 2040)):
             raise AssertionError(f"K7's step and the per-layer step disagree at pos {pos}: {rel}")
 
 
+def _cat(blocks):
+    import numpy as np
+
+    return np.concatenate(blocks) if blocks else np.zeros(0, np.int32)
+
+
+def _offline_run(eng, prompt, text):
+    """run() -> (tokens, wav, LM seconds) of one offline `tts` request."""
+    prompt_text, prompt_speech, prompt_mel, emb = prompt
+
+    def run():
+        eng.timer.reset()
+        (out,) = list(eng.tts(text, prompt_text, prompt_speech, prompt_speech, prompt_mel, emb))
+        return out["speech_tokens"], out["tts_speech"], eng.timer.records["lm"][-1]
+
+    return run
+
+
+def _bistream_run(eng, prompt, text, max_len):
+    """run() -> (tokens, wav, LM seconds) of one bistream request
+    (generate_bistream, then synthesize_offline)."""
+    blocks, t2w_stage = _bistream_stages(eng, prompt, text, max_len)
+
+    def run():
+        gen = eng._generator()
+        t = time.perf_counter()
+        toks = _cat(list(blocks(gen)))
+        eng._sync()
+        lm_s = time.perf_counter() - t
+        return toks, t2w_stage(toks), lm_s
+
+    return run
+
+
+@contextlib.contextmanager
+def _timed(obj, name, seconds, sync):
+    """obj.name(...) timed between two calls of sync() while inside; the
+    seconds summed into seconds[name]."""
+    fn = getattr(obj, name)
+    seconds[name] = 0.0
+
+    def timed(*args, **kw):
+        sync()
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        sync()
+        seconds[name] += time.perf_counter() - t
+        return out
+
+    setattr(obj, name, timed)
+    try:
+        yield seconds
+    finally:
+        delattr(obj, name)
+
+
+@contextlib.contextmanager
+def _graphs(lm, on):
+    """The LM's decode steps on CUDA graphs (on) or eager (the reference)
+    while inside."""
+    saved, lm.graphs = lm.graphs, on
+    try:
+        yield
+    finally:
+        lm.graphs = saved
+
+
+def _on(eng, graphs, run):
+    """run() with the LM's decode steps on CUDA graphs (graphs True) or
+    eager, the generators the engine makes meanwhile recorded, and the LM's
+    prefill, extends and decode blocks timed between synchronisations.
+    Returns the tokens, wav, LM seconds, the state of the first generator
+    made (the LM's) afterwards, the graph captures, capture seconds,
+    replays and host seconds enqueueing them, and the seconds of each timed
+    call."""
+    lm = eng.lm
+    made, make = [], eng._generator
+    before = (lm.graph_captures, lm.graph_capture_s, lm.graph_replays, lm.graph_replay_s)
+    eng._generator = lambda: made.append(make()) or made[-1]
+    secs = {}
+    try:
+        with _graphs(lm, graphs), _timed(lm.module, "prefill", secs, eng._sync), \
+                _timed(lm.module, "extend_mixed", secs, eng._sync), _timed(lm, "_decode_block", secs, eng._sync):
+            toks, wav, lm_s = run()
+    finally:
+        del eng._generator
+    return {"tokens": toks, "wav": wav, "lm_s": lm_s, "state": made[0].get_state(),
+            "captures": lm.graph_captures - before[0], "capture_s": lm.graph_capture_s - before[1],
+            "replays": lm.graph_replays - before[2], "replay_s": lm.graph_replay_s - before[3], "secs": secs}
+
+
+def hold_graphs(eng, label, run, want=None):
+    """One request on CUDA graphs, then the same request eagerly
+    (graphs=False): sampled tokens (seed SEED), wavs and the LM generator's
+    final state must be identical, and the graph path's tokens `want` (the
+    same request's in an earlier phase) where given. Prints LM tokens/s and
+    ms per token of each (decode, capture time apart), and the host time
+    the LM's replay loop took per replay."""
+    import numpy as np
+    import torch
+
+    # the vocoder's transposed convolutions may take a cuDNN algorithm that
+    # sums in a varying order; deterministic ones for this comparison
+    cudnn = torch.backends.cudnn
+    saved, cudnn.deterministic = cudnn.deterministic, True
+    try:
+        g, e = _on(eng, True, run), _on(eng, False, run)
+    finally:
+        cudnn.deterministic = saved
+    n = len(g["tokens"])
+
+    def rate(r):
+        dec, t = r["lm_s"] - r["capture_s"], r["secs"]
+        blocks, fed = t["_decode_block"] - r["capture_s"], t["prefill"] + t["extend_mixed"]
+        return (f"LM {n / dec:.1f} tokens/s, {dec / n * 1e3:.3f} ms per token (prefill {t['prefill'] * 1e3:.1f} ms, "
+                f"extends {t['extend_mixed'] * 1e3:.1f} ms, decode blocks {blocks * 1e3:.1f} ms = "
+                f"{blocks / n * 1e3:.3f} ms per token, the rest {(dec - blocks - fed) * 1e3:.1f} ms)")
+
+    same = (np.array_equal(g["tokens"], e["tokens"]), np.array_equal(g["wav"], e["wav"]),
+            torch.equal(g["state"], e["state"]))
+    per_replay = g["replay_s"] / max(g["replays"], 1) * 1e6
+    print(f"{label}: {n} tokens; graphs: {rate(g)} (captures {g['captures']} in {g['capture_s']:.3f} s apart, "
+          f"replays {g['replays']}, the replay loop's host time {per_replay:.1f} us per replay); eager: {rate(e)}; "
+          f"speed-up {(e['lm_s'] / (g['lm_s'] - g['capture_s'])):.2f}x; identical tokens / wavs / generator "
+          f"state: {same}" + ("" if same[1] or not same[0] else f" (wavs differ by "
+                                                                 f"{np.abs(g['wav'] - e['wav']).max():.3e})"))
+    if n == 0 or not all(same) or g["replays"] == 0 or e["replays"] or e["captures"]:
+        raise AssertionError(f"{label}: the graph path disagrees with the eager path or did not replay")
+    if want is not None and not np.array_equal(g["tokens"], want):
+        raise AssertionError(f"{label}: the graph path's tokens differ from the same request's in the slice phase")
+
+
+def replay_cost(lm):
+    """Host us to enqueue one replay of a captured decode-step graph per
+    route against its device ms (utils/profiling.py:enqueue_cost, as
+    scripts/decode_graph_block.py times it): whether one step per graph
+    leaves the host ahead of the device. Replays from row T/4 of the
+    graph's arena."""
+    from cosyvoice_tpu_torch.utils.profiling import enqueue_cost
+
+    s, seen = lm.decoder.state, set()
+    for (fused, T, bistream), (graph, _) in sorted(lm.decoder.graphs.items()):
+        route = "K7" if fused else "per-layer"
+        if route in seen:
+            continue
+        seen.add(route)
+
+        def reset():
+            s.cur.fill_(T // 4)
+            s.fin.zero_()
+            s.slot.zero_()
+
+        host_us, dev_ms, host = enqueue_cost(graph.replay, reset)
+        print(f"replay of one {route} decode step (arena {T} rows, {'bistream' if bistream else 'v2'} mask): host "
+              f"{host_us:.1f} us to enqueue (median of 5 x 4; all {[round(h, 1) for h in host]}), device "
+              f"{dev_ms:.4f} ms: host/device {host_us / (dev_ms * 1e3):.3f}")
+
+
+# K1..K7 by the identifiers in the mangled names of their kernel functions
+# (K1 and K3 are one template, its bool argument Lb0 / Lb1)
+GRAPH_KERNELS = re.compile(r"(\d+)(gqa_decode_kernelILi\d+ELb[01]|kv_write_kernel|int4_gemv_kernel|int4_mlp_kernel|"
+                           r"int4_o_mlp_kernel|int4_o_mlp_resident_kernel|int4_decode_layers_kernel)")
+GRAPH_KEYS = {"kv_write_kernel": "K2", "int4_gemv_kernel": "K4", "int4_mlp_kernel": "K5", "int4_o_mlp_kernel": "K6",
+              "int4_o_mlp_resident_kernel": "K6", "int4_decode_layers_kernel": "K7"}
+
+
+def graph_kernels(dot):
+    """{K: kernel nodes of K} in a CUDA graph's `debug_dump` (one
+    "{ID | n (topoId: m) | <mangled function name>" per kernel node)."""
+    out = dict.fromkeys(_counters(), 0)
+    for node in re.findall(r"\{ID \| \d+ \(topoId: \d+\) \| (\S+)", dot):
+        for m in GRAPH_KERNELS.finditer(node):
+            ident = m.group(2)
+            name = ident.split("I")[0] if ident.startswith("gqa") else ident
+            if m.group(1).endswith(str(len(name))):  # the identifier's length prefix: a whole name
+                out[("K3" if ident.endswith("Lb1") else "K1") if name == "gqa_decode_kernel" else GRAPH_KEYS[name]] += 1
+                break
+    return out
+
+
+def hold_graph_nodes(lm):
+    """Every decode graph the LM holds: its K1..K7 kernel nodes (listed by
+    `CUDAGraph.debug_dump`) must equal the launches its capture counted,
+    which each replay adds to the counters."""
+    import warnings
+    from pathlib import Path
+
+    from cosyvoice_tpu_torch.ops.decode_attention import kv_arena_write
+
+    out = Path("build") / "decode_graphs"
+    out.mkdir(parents=True, exist_ok=True)
+    wrappers = dict(_counters())
+    for i, (key, (graph, deltas)) in enumerate(sorted(lm.decoder.graphs.items())):
+        delta = {obj: d for (obj, _), d in zip(lm.decoder.counters(), deltas)}
+        counted = {k: delta[fn] for k, fn in wrappers.items()}
+        counted["K2"] += delta[kv_arena_write]
+        path = out / f"graph_{i}.dot"
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # debug_dump warns that it is a debugging call
+            graph.debug_dump(str(path.resolve()))
+        nodes = graph_kernels(path.read_text())
+        print(f"decode graph {key} (K7?, arena rows, bistream mask?): kernel nodes {nodes}, counted at capture "
+              f"{counted}")
+        if nodes != counted or not any(nodes.values()):
+            raise AssertionError(f"decode graph {key}: its kernel nodes are not the launches its replays count")
+
+
+def phase_graphs(eng, runs):
+    """The graph path against the eager path on `runs` [(label, run, want)],
+    each graph's kernel nodes against its counted launches, and the host
+    cost of a replay."""
+    lm = eng.lm
+    print(f"static KV arenas: {sorted(n for _, n in lm.arenas.buffers)} rows, {lm.arenas.nbytes() / 1e6:.1f} MB; "
+          f"{len(lm.decoder.graphs)} decode graphs (K7?, arena rows, bistream mask?): "
+          f"{sorted(lm.decoder.graphs)}")
+    for label, run, want in runs:
+        hold_graphs(eng, label, run, want)
+    hold_graph_nodes(lm)
+    replay_cost(lm)
+
+
+def _offline_stages(eng, prompt, text):
+    """The LM stage (generator -> its iterator of token blocks) and the
+    flow+HiFT stage (tokens -> wav) of one offline request, as `tts` runs
+    them."""
+    import numpy as np
+
+    from cosyvoice_tpu_torch.models.llm import TYPE_SPECIAL, TYPE_SPEECH, TYPE_TEXT
+
+    c = eng.lm.cfg
+    prompt_text, prompt_speech, prompt_mel, emb = prompt
+    full = np.concatenate([prompt_text, text])
+    ids = np.concatenate([[c.sos_id], full, [c.task_id], prompt_speech]).astype(np.int32)
+    types = np.concatenate([[TYPE_SPECIAL], np.full(len(full), TYPE_TEXT), [TYPE_SPECIAL],
+                            np.full(len(prompt_speech), TYPE_SPEECH)]).astype(np.int32)
+    return (lambda gen: eng.lm.generate(ids, types, gen, 2 * len(text), 20 * len(text)),
+            lambda toks: eng.synthesize_offline(toks, prompt_speech, prompt_mel, emb))
+
+
+def _bistream_stages(eng, prompt, text, max_len):
+    """The two stages of one bistream request (generate_bistream, then
+    synthesize_offline)."""
+    prompt_text, prompt_speech, prompt_mel, emb = prompt
+    return (lambda gen: eng.lm.generate_bistream(iter(_bistream_chunks(text)), prompt_text, prompt_speech, gen,
+                                                 max_len=max_len),
+            lambda toks: eng.synthesize_offline(toks, prompt_speech, prompt_mel, emb))
+
+
+PER_TRACE = 1  # blocks or spans per profiler trace: ~34,000 device events of a per-layer LM's block
+# the share of a kernel's records the traces of a request may lack: the
+# profiler dropped up to 3.9 % of them (int4p bistream request, 64 tokens;
+# NVIDIA H100 80GB HBM3, torch 2.11)
+TRACE_LOSS = 0.1
+# K1..K7 by the kernel function names a CUDA trace shows (K1 and K3 are one template)
+TRACE_KERNELS = {"kv_write_kernel": "K2", "int4_gemv_kernel": "K4", "int4_mlp_kernel": "K5",
+                 "int4_o_mlp_kernel": "K6", "int4_o_mlp_resident_kernel": "K6", "int4_decode_layers_kernel": "K7"}
+
+
+def _trace_launches(names):
+    """{K: kernels of that K in a trace's {device event name: count}}."""
+    out = dict.fromkeys(_counters(), 0)
+    for name, n in names.items():
+        m = re.search(r"(?:^|::|\s)(\w+)(<[^()]*>)?\(", name)
+        if m is None:
+            continue
+        base, args = m.group(1), m.group(2) or ""
+        key = ("K3" if "true" in args else "K1") if base == "gqa_decode_kernel" else TRACE_KERNELS.get(base)
+        if key:
+            out[key] += n
+    return out
+
+
+def _launch_counts():
+    from cosyvoice_tpu_torch.ops.decode_attention import kv_arena_write
+
+    counts = {key: fn.launches for key, fn in _counters().items()}
+    counts["K2"] += kv_arena_write.launches  # the single-arena write runs K2's kernel
+    return counts
+
+
+def idle_share(eng, label, stages, modes):
+    """The device's idle share (utils/profiling.py:device_idle, torch.profiler
+    traces, a new one every PER_TRACE blocks or spans) over the LM stage and
+    over the flow+HiFT stage of one request, for each mode (True: the decode
+    on CUDA graphs, False: eager): each stage runs once untraced, timed
+    between synchronisations, then once traced; both runs must give the
+    same tokens. The share is read two ways: over the traced windows, and
+    the traces' busy time against the untraced wall time (the profiler adds
+    host time to every launch while it records; a share below 0 means the
+    device was busy for all of the untraced wall time, within the spread of
+    device time between two runs). The K1..K7 kernels the LM stage's traces
+    show must match the launches the wrappers' counters added over that
+    run, replays included: never more, and at most TRACE_LOSS fewer, as the
+    profiler drops some records (hold_graph_nodes holds each graph's nodes
+    exactly)."""
+    import numpy as np
+
+    from cosyvoice_tpu_torch.utils.profiling import device_idle
+
+    blocks, t2w_stage = stages
+    lm = eng.lm
+
+    def timed(fn, *args):
+        eng._sync()
+        t = time.perf_counter()
+        out = fn(*args)
+        eng._sync()
+        return out, (time.perf_counter() - t) * 1e3
+
+    def show(stats, wall_ms):
+        if stats is None:
+            return "not measured (no device activity in the trace)"
+        top = "; ".join(f"{name[:60]} {ms:.1f} ms x{n}" for name, ms, n in stats["top"])
+        return (f"idle {stats['idle_share']:.4f} of the traced {stats['window_ms']:.1f} ms ({stats['traces']} traces), "
+                f"{1 - stats['busy_ms'] / wall_ms:.4f} of the untraced {wall_ms:.1f} ms ({stats['busy_ms']:.1f} ms "
+                f"busy, {stats['events']} device events; most device time: {top})")
+
+    for graphs in modes:
+        with _graphs(lm, graphs):
+            toks, lm_ms = timed(lambda: _cat(list(blocks(eng._generator()))))
+            _, t2w_ms = timed(t2w_stage, toks)
+            before = _launch_counts()
+            traced, lm_stats = device_idle(blocks(eng._generator()), eng.device, PER_TRACE)
+            counted = {k: n - before[k] for k, n in _launch_counts().items()}
+            _, t2w_stats = device_idle(lambda: t2w_stage(toks), eng.device)
+        mode = "graphs" if graphs else "eager"
+        seen = _trace_launches(lm_stats["names"]) if lm_stats else dict.fromkeys(counted, 0)
+        print(f"device idle share, {label}, {mode}, {len(toks)} tokens: LM stage {show(lm_stats, lm_ms)}; "
+              f"flow+HiFT {show(t2w_stats, t2w_ms)}; K1..K7 in the LM stage's traces {seen}, counted {counted}")
+        if not np.array_equal(toks, _cat(traced)):
+            raise AssertionError(f"{label}, {mode}: the traced request's tokens differ from the untraced one's")
+        if not any(counted.values()) or any(not n * (1 - TRACE_LOSS) <= seen[k] <= n for k, n in counted.items()):
+            raise AssertionError(f"{label}, {mode}: the kernels in the trace are not the launches counted")
+
+
+def phase_idle(held):
+    """idle_share over the requests each LM held in its graphs phase: the
+    text-16 offline request (320 tokens) eager and on graphs, the others
+    (the bf16 LM's 960-token request, the route switch, the bistream
+    requests) on graphs. Runs after every timed phase: a profiler session
+    multiplies the host cost of every later graph replay in the process
+    (scripts/decode_graph_block.py)."""
+    for suffix, eng, reqs in held:
+        for i, (label, stages) in enumerate(reqs):
+            idle_share(eng, f"LM{suffix or '_bf16'} {label}", stages, (True, False) if i == 0 else (True,))
+
+
 def main(argv):
+    import numpy as np
     import torch
 
     sys.stdout.reconfigure(line_buffering=True)  # keep every line if a phase budget ends the process
@@ -1659,6 +2046,7 @@ def main(argv):
         kernels = phase_kernels(LMConfig())
     launches = dict.fromkeys(kernels, 0)
     bf16_cfg = LMConfig()
+    held = []  # (suffix, engine, [(label, (LM stage, flow+HiFT stage))]) for the idle phase
 
     def lm_cfg(**qwen):
         return dataclasses.replace(bf16_cfg, qwen=dataclasses.replace(bf16_cfg.qwen, **qwen))
@@ -1674,7 +2062,8 @@ def main(argv):
             if suffix == "_int4p_bf16":
                 if eng.lm.fused_steps != eng.lm.decode_steps:
                     raise AssertionError("a decode step over an arena of at most 2048 rows did not take K7")
-                for key, n in phase_cross(eng).items():
+                cross, cross_text = phase_cross(eng)
+                for key, n in cross.items():
                     counts[key] += n
         with Phase("check" + suffix):
             phase_check(eng, prompt, reqs, tol)
@@ -1687,10 +2076,40 @@ def main(argv):
                 check_bistream(eng, bs_reqs[-1 if suffix == "_int4p" else 1], LOGIT_TOL_BISTREAM[suffix])
             for key, n in bs_counts.items():
                 counts[key] += n
+        with Phase("graphs" + suffix):
+            # the requests held eager beside graphs: one per LM through
+            # generate (the bf16 LM's 960-token request grows the arena
+            # twice), the long-prompt request across the 2048-row route
+            # switch, one bistream request per int4p LM
+            full = _prompt(eng)[0]
+            text = reqs[2 if suffix == "" else 0][0]
+            runs = [(f"offline text={len(text)}", _offline_run(eng, full, text), reqs[2 if suffix == "" else 0][1])]
+            # the idle phase's requests: the text-16 offline request (320
+            # tokens), the bf16 LM's 960-token one, the route switch, the
+            # bistream requests
+            idle = [(f"offline text={len(reqs[0][0])}", _offline_stages(eng, full, reqs[0][0]))]
+            if suffix == "":
+                idle.append((f"offline text={len(text)}", _offline_stages(eng, full, text)))
+            if suffix == "_int4p_bf16":
+                label = f"offline text={len(cross_text)}, {CROSS_PROMPT}-token LM prompt (route switch)"
+                cross_prompt = _prompt(eng, CROSS_PROMPT - 12 - len(cross_text))[0]
+                runs.append((label, _offline_run(eng, cross_prompt, cross_text), None))
+                idle.append((label, _offline_stages(eng, cross_prompt, cross_text)))
+            if suffix in BISTREAM:
+                n_bs, cap = GRAPH_BISTREAM[suffix]
+                bs_text = np.random.default_rng(7).integers(0, cfg.qwen.vocab_size, n_bs)
+                label = f"bistream text={n_bs}, max_len {cap}"
+                runs.append((label, _bistream_run(eng, full, bs_text, cap), None))
+                idle.append((label, _bistream_stages(eng, full, bs_text, cap)))
+            phase_graphs(eng, runs)
         for key, n in counts.items():
             launches[key] += n
+        held.append((suffix, eng, idle))
         del eng
-        torch.cuda.empty_cache()
+    with Phase("idle"):
+        phase_idle(held)
+    del held
+    torch.cuda.empty_cache()
     for key, n in launches.items():
         kernels[key]["launches"] = n
     if not all(launches.values()):

@@ -1,0 +1,196 @@
+"""The LM's decode step as a CUDA graph over static buffers.
+
+Counterpart of the JAX LM's one compiled program per decode block
+(cosyvoice_tpu/models/llm.py: `_jit_decode_block` over `_decode_block_impl`,
+a `lax.scan` of the step; one program per span length in the bistream
+spans).
+
+- `DecodeState`: one B=1 decode's state in buffers that never move: the
+  logits the next token is sampled from, the write position `cur`, the RAS
+  window `recent`, the decoded count `n_dec`, `min_len`, the stop flag
+  `fin`, and the tokens of the current block with the device-side slot that
+  the next token is written at.
+- `step`: one token slot on that state: sample, stop bookkeeping, the decode
+  step (per layer, or K7's `decode_step_fused`), `cur` advance, the token
+  at its slot. The eager path and the graphs run this same function, so the
+  CPU tests exercise what the card captures.
+- `DecodeGraphs`: runs a block of slots, eagerly (`Qwen2LM(graphs=False)`,
+  and always on CPU) or by replaying one captured step per slot. One graph
+  per key (route: K7 or the per-layer kernels; arena length; stop mask: the
+  v2 min_len mask or the bistream mask), captured lazily after one eager
+  step at that key, so that the kernels are built, their plan tables are on
+  the card and K7's tensor maps are encoded before capture. A graph of a
+  whole 28-step block saved no time on the card: a one-step replay's host
+  cost is 1-3 % of the step's device time (scripts/decode_graph_block.py,
+  PERF.md §6). The graphs run over the LM's `StaticArenas`
+  (models/qwen2.py), whose buffers never move.
+  A failed capture or replay raises; nothing falls back to eager. Replays
+  run on the current stream, one at a time: the kernels' ticket and barrier
+  counters (ops/decode_attention.py:_counters, never replaced once a graph
+  is captured) and each graph's scratch are shared.
+
+Sampling: the graphs draw from one generator of their own, registered with
+every graph (`CUDAGraph.register_generator_state`), so that each replay
+advances its Philox offset as the eager step's draws advance it. The
+request's generator state is handed in before the replays of a block and
+back out after, so the caller's generator ends where the eager path leaves
+it and the sampled tokens are the eager path's.
+
+Counters: the kernel wrappers' `launches` and the LM's `decode_steps` and
+`fused_steps` move while a step is captured, which launches nothing. Each
+graph keeps the deltas of its capture, takes them back, and adds them once
+per replay, so the counters count what ran (chip_smoke.py holds each
+graph's deltas against its kernel nodes).
+`Qwen2LM.graph_captures`, `graph_replays`, `graph_warmups`,
+`graph_capture_s` and `graph_replay_s` count the graphs captured, the
+decode steps replayed, the eager first steps at a key, and the host seconds
+spent capturing and enqueueing replays.
+"""
+
+import time
+
+import torch
+
+from cosyvoice_tpu_torch.ops import decode_attention
+from cosyvoice_tpu_torch.ops.decode_attention import (
+    gqa_decode_attention,
+    gqa_decode_attention_quant,
+    kv_arena_write,
+    kv_arena_write_kv,
+)
+from cosyvoice_tpu_torch.ops.int4_block import int4_decode_layers
+from cosyvoice_tpu_torch.ops.int4_fused import int4_gemv, int4_mlp, int4_o_mlp
+
+KERNEL_WRAPPERS = (gqa_decode_attention, gqa_decode_attention_quant, kv_arena_write, kv_arena_write_kv, int4_gemv,
+                   int4_mlp, int4_o_mlp, int4_decode_layers)
+
+
+class DecodeState:
+    """Static buffers of one B=1 decode on `device`; `tokens` holds the
+    `capacity` slots of the longest block."""
+
+    def __init__(self, cfg, device, capacity: int):
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        self.logits = zeros(1, cfg.head_size, dtype=torch.float32)
+        self.cur, self.n_dec, self.min_len = zeros(1), zeros(1), zeros(1)
+        self.recent = zeros(1, cfg.win_size)
+        self.fin = zeros(1, dtype=torch.bool)
+        self.tokens = zeros(1, capacity)
+        self.slot = zeros(1, dtype=torch.int64)
+
+    def load(self, logits, cur, recent, n_dec, min_len, fin):
+        """Copy a block's inputs in (a copy of a buffer onto itself does
+        nothing) and reset the slot."""
+        for dst, src in ((self.logits, logits), (self.cur, cur), (self.recent, recent), (self.n_dec, n_dec),
+                         (self.min_len, min_len), (self.fin, fin)):
+            dst.copy_(src)
+        self.slot.zero_()
+
+
+def step(lm, s: DecodeState, cache, generator, stacked, bistream: bool):
+    """One token slot on `s`, through decode_step_fused (K7) when `stacked`
+    is given; `bistream` applies the bistream stop mask. A row that stopped
+    keeps emitting eos and stops advancing."""
+    c = lm.cfg
+    tok = lm._sample(generator, s.logits, s.n_dec, s.recent, s.min_len, bistream)
+    stop_now = tok >= c.speech_token_size
+    tok_out = torch.where(s.fin, torch.full_like(tok, c.eos_token), tok)
+    s.recent.copy_(torch.where(s.fin[:, None], s.recent, torch.cat([s.recent[:, 1:], tok[:, None]], dim=1)))
+    s.n_dec.copy_(torch.where(s.fin, s.n_dec, s.n_dec + 1))
+    if stacked is not None:
+        logits, _ = lm.module.decode_step_fused(tok_out, s.cur, cache, stacked)
+        lm.fused_steps += 1
+    else:
+        logits, _ = lm.module.decode_step(tok_out, s.cur, cache)
+    lm.decode_steps += 1
+    s.logits.copy_(logits)
+    s.cur.add_((~s.fin).to(s.cur.dtype))
+    s.fin.logical_or_(stop_now)
+    s.tokens.index_copy_(1, s.slot, tok_out[:, None])
+    s.slot.add_(1)
+
+
+class DecodeGraphs:
+    """The LM's decode blocks, eager or on CUDA graphs (see the module
+    docstring)."""
+
+    def __init__(self, lm):
+        self.lm = lm
+        self.enabled = False  # Qwen2LM.graphs sets it
+        # the longest block: generate's, or a bistream span of up to mix_ratio[1] + 1 slots
+        self.state = DecodeState(lm.cfg, lm.device, max(lm.cfg.block_size, lm.cfg.mix_ratio[1] + 1))
+        self.graphs = {}  # key -> (CUDAGraph, [counter deltas])
+        self.warm = set()  # keys with an eager step behind them
+        self.generator = torch.Generator(device=lm.device) if lm.device.type == "cuda" else None
+
+    def counters(self):
+        return [(fn, "launches") for fn in KERNEL_WRAPPERS] + [(self.lm, "decode_steps"), (self.lm, "fused_steps")]
+
+    def drop_fused(self):
+        """Forget the graphs of the K7 route (its weight stack was rebuilt);
+        the next block at such a key captures anew."""
+        for key in [k for k in self.graphs if k[0]]:
+            del self.graphs[key]
+            self.warm.discard(key)
+
+    def run(self, generator, cache, stacked, steps: int, bistream: bool):
+        """`steps` token slots on `self.state` (loaded) over `cache`.
+        Returns the tokens [1, steps] int32."""
+        s, lm = self.state, self.lm
+        key = (stacked is not None, cache[0].shape[2], bistream)
+        if steps > s.tokens.shape[1]:
+            raise ValueError(f"a block of {steps} slots is longer than the decoder's {s.tokens.shape[1]}")
+        if self.enabled and cache is not lm.arenas.buffers.get((1, key[1])):
+            raise ValueError("graph decode runs over the LM's static arenas (Qwen2LM.arenas), not this cache")
+        done = 0
+        if not self.enabled or key not in self.warm:
+            # eager: the reference path, and the first step at a key
+            done = steps if not self.enabled else 1
+            for _ in range(done):
+                step(lm, s, cache, generator, stacked, bistream)
+            if self.enabled:
+                self.warm.add(key)
+                lm.graph_warmups += 1
+        if done < steps:
+            graph, deltas = self.graphs.get(key) or self._capture(key, cache, stacked, bistream)
+            self.generator.set_state(generator.get_state())
+            t0 = time.perf_counter()
+            for _ in range(steps - done):
+                graph.replay()
+            lm.graph_replay_s += time.perf_counter() - t0
+            for (obj, attr), d in zip(self.counters(), deltas):
+                setattr(obj, attr, getattr(obj, attr) + d * (steps - done))
+            lm.graph_replays += steps - done
+            generator.set_state(self.generator.get_state())
+        return s.tokens[:, :steps].clone()
+
+    def _capture(self, key, cache, stacked, bistream):
+        """Capture one step at `key` (after its eager step); the counters
+        keep the values they had before the capture."""
+        lm = self.lm
+        t0 = time.perf_counter()
+        decode_attention.CAPTURED.add(lm.device)
+        counters = self.counters()
+        before = [getattr(obj, attr) for obj, attr in counters]
+        # the captured nodes are kept (keep_graph, debug mode) so that
+        # `debug_dump` can list them: chip_smoke.py holds each graph's
+        # kernel nodes against its counter deltas
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        graph.enable_debug_mode()
+        graph.register_generator_state(self.generator)
+        try:
+            with torch.cuda.graph(graph):
+                step(lm, self.state, cache, self.generator, stacked, bistream)
+            graph.instantiate()
+        finally:
+            after = [getattr(obj, attr) for obj, attr in counters]
+            for (obj, attr), v in zip(counters, before):
+                setattr(obj, attr, v)
+        deltas = [a - b for a, b in zip(after, before)]
+        self.graphs[key] = (graph, deltas)
+        lm.graph_captures += 1
+        lm.graph_capture_s += time.perf_counter() - t0
+        return self.graphs[key]
+

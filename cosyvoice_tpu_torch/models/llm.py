@@ -5,15 +5,20 @@ sequence [sos][text tokens][task_id][prompt speech tokens] and emits speech
 tokens with RAS sampling. Decoding runs in blocks of `block_size` tokens: the
 per-step loop (24-layer decode step, head, log-softmax, sampling, stop
 bookkeeping) stays on the device, and the host fetches the tokens once per
-block, as the JAX version does with one lax.scan per block.
+block, as the JAX version does with one lax.scan per block. On the card each
+step is a replayed CUDA graph, one per (route, arena bucket, stop mask),
+over static state and static per-bucket KV arenas (models/decode_graph.py,
+`Qwen2LM(graphs=...)`): the counterpart of the JAX LM's one compiled
+program per block. The prompt prefill and the bistream extends run eagerly.
 
 Ported: the v2 layout (sos/task in `llm_embedding`), `generate` with the
 min_len eos suppression, max_len and stop ids, the arena growth of the JAX
 LM (it starts at `arena_bucket(pad_T + block_size + 1)` rows and grows in
-ARENA_BUCKET steps before each block), `generate_bistream` (bi-streaming
-text input: exact-shape `extend_mixed` feeds of 5 text and up to 15 prompt
-speech tokens, fill-token handoffs, decode spans to the next fill, with a
-capacity guard at max_cache_len that the JAX version lacks), and the three
+ARENA_BUCKET steps before each block, into the LM's StaticArenas),
+`generate_bistream` (bi-streaming text input: exact-shape `extend_mixed`
+feeds of 5 text and up to 15 prompt speech tokens, fill-token handoffs,
+decode spans to the next fill, with a capacity guard at max_cache_len that
+the JAX version lacks), and the three
 LM configurations of `Qwen2Config`: bf16 weights and arena; `quant="int4p"`
 (int4p body, int8 head) with a bf16 arena, whose B=1 decode step runs the
 whole-step kernel K7 (`decode_step_fused`) while the arena holds at most
@@ -23,6 +28,7 @@ yet: the v3 layout, temperature and repetition penalty, continuous
 batching, and the int8 and int4 weight modes.
 """
 
+import contextlib
 import logging
 from dataclasses import dataclass, field
 from typing import Tuple
@@ -31,7 +37,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from cosyvoice_tpu_torch.models.qwen2 import QuantDense, Qwen2Config, Qwen2Model, grow_cache
+from cosyvoice_tpu_torch.models.decode_graph import DecodeGraphs
+from cosyvoice_tpu_torch.models.qwen2 import QuantDense, Qwen2Config, Qwen2Model, StaticArenas
 from cosyvoice_tpu_torch.ops import int4_block
 from cosyvoice_tpu_torch.ops.decode_attention import kv_arena_write_kv
 from cosyvoice_tpu_torch.ops.int4_block import int4_decode_layers, stack_decode_params
@@ -145,18 +152,57 @@ class Qwen2LMModule(nn.Module):
 
 
 class Qwen2LM:
-    """Orchestrator: prefill + blockwise decode on `device`."""
+    """Orchestrator: prefill + blockwise decode on `device`.
+
+    graphs: None runs the decode steps on CUDA graphs on the card and
+    eagerly on the CPU; False runs them eagerly on the card too (the
+    reference the graphs are held against); True on the CPU raises. The
+    `graphs` attribute is the same switch on a built LM.
+
+    One request at a time: `generate` and `generate_bistream` decode over
+    the LM's one set of static arenas and decoder state, so a second
+    request started while another one's generator is still open raises
+    RuntimeError (close or exhaust the first; a server that interleaves
+    requests needs one LM per request in flight)."""
 
     ARENA_BUCKET = 512  # KV arena lengths are multiples of this
 
-    def __init__(self, cfg: LMConfig = LMConfig(), device="cuda"):
+    def __init__(self, cfg: LMConfig = LMConfig(), device="cuda", graphs=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         with torch.device(self.device):
             self.module = Qwen2LMModule(cfg).eval()
         self.decode_steps = 0  # decode steps made by generate (one per token slot)
         self.fused_steps = 0  # those of them that went through decode_step_fused (K7)
+        self.graph_captures = self.graph_replays = 0  # CUDA graphs captured / decode steps replayed from them
+        self.graph_warmups = 0  # eager decode steps on the graph path: the first at each key, before its capture
+        self.graph_capture_s = self.graph_replay_s = 0.0  # host seconds capturing graphs / enqueueing replays
         self._pack = None  # (key of the layer parameters, stacked K7 weights)
+        self._busy = False  # a request's generator is open
+        self.arenas = StaticArenas(self.module.llm)  # the decode's KV arenas, one per length bucket
+        self.decoder = DecodeGraphs(self)
+        self.graphs = self.device.type == "cuda" if graphs is None else graphs
+
+    @property
+    def graphs(self) -> bool:
+        return self.decoder.enabled
+
+    @graphs.setter
+    def graphs(self, on: bool):
+        if on and self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, got {self.device}; pass graphs=None or False")
+        self.decoder.enabled = bool(on)
+
+    @contextlib.contextmanager
+    def _one_request(self):
+        if self._busy:
+            raise RuntimeError("Qwen2LM decodes one request at a time: another generate / generate_bistream "
+                               "generator is still open (exhaust or close it first)")
+        self._busy = True
+        try:
+            yield
+        finally:
+            self._busy = False
 
     def init_cache(self, batch: int = 1, length: int = None):
         return self.module.llm.init_cache(batch, length)
@@ -167,7 +213,10 @@ class Qwen2LM:
         b = self.ARENA_BUCKET
         return min(-(-need // b) * b, self.cfg.qwen.max_cache_len)
 
-    grow_cache = staticmethod(grow_cache)
+    def grow_cache(self, cache, new_len: int):
+        """`cache` grown to new_len rows in the static arena of that length
+        (models/qwen2.py:grow_cache's values); `cache` if long enough."""
+        return self.arenas.grow(cache, new_len)
 
     def _decode_pack(self, cache):
         """The stacked weights for decode_step_fused (K7), or None where the
@@ -188,6 +237,7 @@ class Qwen2LM:
         key = tuple((p.data_ptr(), p._version) for p in layers.parameters())
         if self._pack is None or self._pack[0] != key:
             self._pack = (key, stack_decode_params(layers))
+            self.decoder.drop_fused()  # K7's graphs read the old stack
         return self._pack[1]
 
     def _sample(self, generator, logits, n_dec, recent, min_len, bistream=False):
@@ -214,34 +264,26 @@ class Qwen2LM:
 
     def _decode_block(self, generator, cache, cur, logits, recent, n_dec, min_len, fin, stacked, steps,
                       bistream=False):
-        """Decode `steps` token slots on the device, through decode_step_fused
-        when `stacked` is given; `bistream` applies the bistream stop mask.
-        Rows that stopped keep emitting eos and stop advancing. Returns
-        (tokens [B, steps], logits, cur, recent, n_dec, fin)."""
-        c = self.cfg
-        tokens = []
-        for _ in range(steps):
-            tok = self._sample(generator, logits, n_dec, recent, min_len, bistream)
-            stop_now = tok >= c.speech_token_size
-            tok_out = torch.where(fin, torch.full_like(tok, c.eos_token), tok)
-            fin_next = fin | stop_now
-            recent = torch.where(fin[:, None], recent, torch.cat([recent[:, 1:], tok[:, None]], dim=1))
-            n_dec = torch.where(fin, n_dec, n_dec + 1)
-            if stacked is not None:
-                logits, cache = self.module.decode_step_fused(tok_out, cur, cache, stacked)
-                self.fused_steps += 1
-            else:
-                logits, cache = self.module.decode_step(tok_out, cur, cache)
-            self.decode_steps += 1
-            cur = cur + (~fin).to(cur.dtype)
-            fin = fin_next
-            tokens.append(tok_out)
-        return torch.stack(tokens, dim=1), logits, cur, recent, n_dec, fin
+        """Decode `steps` token slots on the device (models/decode_graph.py:
+        `step` per slot, eager or replayed from a CUDA graph), through
+        decode_step_fused when `stacked` is given; `bistream` applies the
+        bistream stop mask. Rows that stopped keep emitting eos and stop
+        advancing. Returns (tokens [B, steps], logits, cur, recent, n_dec,
+        fin), the last five the decoder's static buffers."""
+        s = self.decoder.state
+        s.load(logits, cur, recent, n_dec, min_len, fin)
+        tokens = self.decoder.run(generator, cache, stacked, steps, bistream)
+        return tokens, s.logits, s.cur, s.recent, s.n_dec, s.fin
 
-    @torch.inference_mode()
     def generate(self, prompt_ids, prompt_types, generator, min_len: int, max_len: int):
         """Host generator: yields speech-token blocks (np.ndarray int32) until
-        a stop token or max_len. prompt_ids/types: [T] mixed sequence."""
+        a stop token or max_len. prompt_ids/types: [T] mixed sequence. One
+        request at a time (see the class docstring)."""
+        with self._one_request():
+            yield from self._generate(prompt_ids, prompt_types, generator, min_len, max_len)
+
+    @torch.inference_mode()
+    def _generate(self, prompt_ids, prompt_types, generator, min_len, max_len):
         c = self.cfg
         dev = self.device
         T = len(prompt_ids)
@@ -259,7 +301,7 @@ class Qwen2LM:
             max_len = max(capacity, 0)
             min_len = min(min_len, max_len)
 
-        cache = self.init_cache(1, self.arena_bucket(pad_T + c.block_size + 1))
+        cache = self.arenas.first(1, self.arena_bucket(pad_T + c.block_size + 1))
         ids = torch.as_tensor(np.asarray(prompt_ids, np.int64)[None], device=dev)
         types = torch.as_tensor(np.asarray(prompt_types, np.int64)[None], device=dev)
         logits, cache = self.module.prefill(ids, types, torch.tensor([T], device=dev), cache)
@@ -288,7 +330,6 @@ class Qwen2LM:
             if len(toks):
                 yield toks
 
-    @torch.inference_mode()
     def generate_bistream(self, text_stream, prompt_text, prompt_speech, generator, max_len: int = 4096):
         """Bi-streaming decode: text arrives as an iterator of id chunks;
         5-text / 15-speech segments interleave with fill-token handoffs;
@@ -305,13 +346,19 @@ class Qwen2LM:
 
         Unlike the JAX version, a feed or a span that would write past
         max_cache_len is not made: a span is cut to the rows that fit, a
-        warning is logged and the stream ends there."""
+        warning is logged and the stream ends there. One request at a time
+        (see the class docstring)."""
+        with self._one_request():
+            yield from self._generate_bistream(text_stream, prompt_text, prompt_speech, generator, max_len)
+
+    @torch.inference_mode()
+    def _generate_bistream(self, text_stream, prompt_text, prompt_speech, generator, max_len):
         c = self.cfg
         dev = self.device
         mt, ms = c.mix_ratio
         cap = c.qwen.max_cache_len
 
-        cache = self.init_cache(1, self.ARENA_BUCKET)
+        cache = self.arenas.first(1, self.ARENA_BUCKET)
         cur_host = 0  # the arena's write position, as the host knows it
         logits = None
         recent = torch.full((1, c.win_size), -1, dtype=torch.int32, device=dev)

@@ -27,8 +27,9 @@ bf16 or an int8 KV arena (`kv_quant`):
   for qkv and o_proj and K5 (int4_mlp) for the MLP, more rows the plain
   blocked matmuls (int4_matmul_blocked, int4_mlp_reference), where the JAX
   package runs XLA;
-- the arena's length is the caller's (`init_cache(batch, length)`), grown
-  with zeros by `grow_cache` as the JAX LM grows it.
+- the arena's length is the caller's (`init_cache(batch, length)`);
+  `StaticArenas` keeps one arena per length bucket for the LM's decode
+  graphs, grown with zeros by `grow_cache` as the JAX LM grows it.
 
 The kernel wrappers run the kernels on CUDA tensors and their plain versions
 on CPU tensors.
@@ -93,19 +94,49 @@ def _int4p_kernel(cfg, rows: int, n_in: int, n_out: int = 0) -> bool:
     return cfg.quant == "int4p" and rows <= MAX_ROWS and n_in % 128 == 0 and n_out % 128 == 0
 
 
-def grow_cache(cache, new_len: int):
-    """The arena extended with zero rows to new_len on axis 2 of every leaf
-    ([L, B, T, Hkv, d] K/V and [L, B, T] scale planes), as the JAX LM's
-    grow_cache pads; a new tuple, or `cache` itself if it is long enough."""
+def grow_cache(cache, out):
+    """`cache` grown into `out`, buffers of more rows on axis 2 of every leaf
+    ([L, B, T, Hkv, d] K/V and [L, B, T] scale planes): its rows copied, the
+    rest zero, as the JAX LM's grow_cache pads. Returns `out`."""
     T = cache[0].shape[2]
-    if new_len <= T:
-        return cache
-    grown = []
-    for a in cache:
-        g = a.new_zeros(a.shape[:2] + (new_len,) + a.shape[3:])
+    for a, g in zip(cache, out):
         g[:, :, :T] = a
-        grown.append(g)
-    return tuple(grown)
+        g[:, :, T:] = 0
+    return out
+
+
+class StaticArenas:
+    """KV arenas that never move: one set of buffers per (batch, length),
+    allocated on first use and kept for the owner's life. A CUDA graph bakes
+    in the arena's pointers (and K7 its tensor maps), so the LM decodes over
+    these and its graphs stay valid for every later request. `first` zeroes
+    a bucket's buffers (a request's first arena); `grow` copies an arena
+    into the next bucket's buffers and zeroes the rest (grow_cache)."""
+
+    def __init__(self, model: "Qwen2Model"):
+        self.model = model
+        self.buffers = {}  # (batch, length) -> cache tuple
+
+    def get(self, batch: int, length: int):
+        key = (batch, length)
+        if key not in self.buffers:
+            with torch.inference_mode(False):
+                self.buffers[key] = self.model.init_cache(batch, length)
+        return self.buffers[key]
+
+    def first(self, batch: int, length: int):
+        cache = self.get(batch, length)
+        for a in cache:
+            a.zero_()
+        return cache
+
+    def grow(self, cache, new_len: int):
+        if new_len <= cache[0].shape[2]:
+            return cache
+        return grow_cache(cache, self.get(cache[0].shape[1], new_len))
+
+    def nbytes(self) -> int:
+        return sum(a.numel() * a.element_size() for cache in self.buffers.values() for a in cache)
 
 
 class RMSNorm(nn.Module):

@@ -77,15 +77,22 @@ def live_keys(cur_len: int, T: int) -> int:
     return min(max(cur_len + 1, 1), T)
 
 
-# Per-device ticket counters of K1 / K3, one int per (row, KV head): zeroed
-# once, returned to 0 by every call's merging block, grown with B * Hkv. One
-# stream at a time: two calls in flight on two streams would share them.
+# Per-device ticket counters of K1 / K3 (and the tickets and grid barriers
+# of K5, K6, K7), one int per (row, KV head): zeroed once, returned to 0 by
+# every call's merging block, grown with B * Hkv. One stream at a time: two
+# calls in flight on two streams would share them. A CUDA graph bakes in
+# their pointer, so once a graph was captured on a device (CAPTURED, kept by
+# models/decode_graph.py) they are never replaced there.
 _COUNTERS = {}
+CAPTURED = set()
 
 
 def _counters(device, n: int):
     buf = _COUNTERS.get(device)
     if buf is None or buf.numel() < n:
+        if buf is not None and device in CAPTURED:
+            raise RuntimeError(f"the kernels' counters on {device} would move to hold {n} ints, under captured CUDA "
+                               "graphs that use them")
         buf = torch.zeros(max(n, 64), device=device, dtype=torch.int32)
         _COUNTERS[device] = buf
     return buf

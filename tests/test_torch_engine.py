@@ -61,7 +61,7 @@ def _engines(lm_cfg, quantize=False):
     load_jax_params(lm.module, np_tree(lm_p["params"]))
     load_jax_params(flow, np_tree(flow_p))
     load_jax_params(hift, hift_p["params"])
-    return jeng, CosyVoice2Engine(lm, flow, hift, token_bucket=16)
+    return jeng, CosyVoice2Engine(lm, flow, hift, token_bucket=16, mel_bucket=8)
 
 
 @pytest.fixture(scope="module")
@@ -171,6 +171,26 @@ def test_bistream_tts_quantised_lm_matches_jax_engine(quant_engines, seed, monke
     COSY_INT4_BLOCK=force); these requests have no near tie."""
     monkeypatch.setenv("COSY_INT4_BLOCK", "force")
     _check_bistream_tts(*quant_engines, seed)
+
+
+@pytest.mark.parametrize("pm,rows", [(5, 3), (8, 0)], ids=["odd_prompt", "even_prompt"])
+def test_no_generated_token_matches_jax_engine(engines, pm, rows):
+    """`synthesize_offline` with no token (a bistream drain can get there):
+    the JAX engine's token2wav route, the flow over the 4 prompt tokens and
+    the mel rows from pm to 2 * 4 vocoded. A 5-row prompt mel leaves 3 rows,
+    1440 samples; an 8-row one none, an empty wav."""
+    jeng, eng = engines
+    req = _request(0)
+    prompt_token, emb = req["flow_prompt_speech_token"], req["flow_embedding"]
+    feat = req["prompt_speech_feat"][:, :pm]
+    none = np.zeros(0, np.int32)
+    want = jeng.synthesize_offline(none, prompt_token, feat, emb)
+    got = eng.synthesize_offline(none, prompt_token, feat, emb)
+    assert got.shape == want.shape == (1, rows * 480)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    if rows:
+        assert np.abs(got).max() > 0
 
 
 def test_streaming_is_refused_not_faked(engines):
