@@ -103,9 +103,31 @@ runs last because a profiler session multiplies the host cost of every
 later graph replay in the process (scripts/decode_graph_block.py: 5-7x
 per-layer).
 
+After each LM's graphs phase, stream (stream_int4p, stream_int4p_bf16)
+serves `tts(stream=True)` requests (STREAM): the bf16 LM's text-16
+request (320 tokens) on a fresh LM with the same weights and no decode
+graph captured (its graphs are captured mid-stream, with token->wav on
+another thread), then its text-48 request (960 tokens; it crosses
+flow_incr_min_tok and grows the flow arena 256 -> 512 -> 1024 tokens); the
+int4p + int8 LM's text-16 request; the K7 LM's text-16
+and text-48 requests and a bistream request through `tts(<iterator>,
+stream=True)` (text 32, the LM's max_len 640). Each is streamed, streamed
+again on the recompute path alone and served offline (cuDNN
+deterministic): the streamed tokens must equal the offline ones (and the
+slice phase's), the wav be n_tokens * 2 * 480 long and finite, the chunks
+follow the doubling schedule, and each chunk equal the recompute-only
+stream's, bit for bit before the first incremental chunk and within
+STREAM_TOL after. It prints per chunk the path, tokens, wall and device ms
+(CUDA events on the token->wav stream), the first-chunk latency (p50 per
+LM), streaming and offline RTF, the LM's tokens/s in both, and the flow
+state's largest size; the bf16 phase also closes a stream after its first
+chunk and requires the LM's thread gone and the LM free. The decode steps
+and extends of every stream and its offline request are counted and
+checked as in phase 4.
+
 The line before the last is {"kernels": [...]}, with each kernel's launches
-summed over the runs of phases 4, 6 and 8 and the two bistream slices (each
-counted from 0, replays included); the last
+summed over the runs of phases 4, 6 and 8, the two bistream slices and the
+three stream phases (each counted from 0, replays included); the last
 line is {"ok": true, "device": {...}}. Without a card it exits 2 and prints
 no result.
 """
@@ -155,11 +177,16 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16
 L2_BYTES = 50e6  # H100 L2 cache
 
-PHASE_BUDGET_S = {"device": 60, "build": 360, "kernels": 360, "slice": 240, "check": 120, "graphs": 120,
-                  "slice_int4p": 240, "check_int4p": 120, "slice_bistream_int4p": 180, "check_bistream_int4p": 120,
-                  "graphs_int4p": 120, "slice_int4p_bf16": 300, "check_int4p_bf16": 180,
-                  "slice_bistream_int4p_bf16": 300, "check_bistream_int4p_bf16": 120, "graphs_int4p_bf16": 120,
-                  "idle": 300}
+# Each phase's watchdog budget, about 1.4-3x its time on the slowest card
+# host measured (670 s of phases there, 432-479 s on others; PERF.md §5);
+# the budgets sum to 1125 s, inside the run's 1200 s limit with room to
+# start up.
+PHASE_BUDGET_S = {"device": 15, "build": 60, "kernels": 100, "slice": 30, "check": 15, "graphs": 60, "stream": 70,
+                  "slice_int4p": 35, "check_int4p": 30, "slice_bistream_int4p": 10, "check_bistream_int4p": 25,
+                  "graphs_int4p": 30, "stream_int4p": 20, "slice_int4p_bf16": 35, "check_int4p_bf16": 25,
+                  "slice_bistream_int4p_bf16": 70, "check_bistream_int4p_bf16": 100, "graphs_int4p_bf16": 35,
+                  "stream_int4p_bf16": 60, "idle": 300}
+PHASE_SECONDS = {}  # each phase's measured seconds in this run
 
 
 class Phase:
@@ -178,7 +205,8 @@ class Phase:
 
     def __exit__(self, *exc):
         faulthandler.cancel_dump_traceback_later()
-        print(f"== phase {self.name} done in {time.perf_counter() - self.t0:.1f} s", flush=True)
+        PHASE_SECONDS[self.name] = time.perf_counter() - self.t0
+        print(f"== phase {self.name} done in {PHASE_SECONDS[self.name]:.1f} s", flush=True)
         return False
 
 
@@ -1901,6 +1929,231 @@ def phase_graphs(eng, runs):
     replay_cost(lm)
 
 
+# the stream phases' requests per LM (after its graphs phase): the offline
+# requests of its slice phase streamed (text ids), a bistream request
+# through tts(<iterator>, stream=True) (text ids, the LM's max_len), and
+# whether the first of them runs on a fresh LM with no graph captured yet
+# (instead of this LM)
+STREAM = {"": {"texts": (16, 48), "fresh": True}, "_int4p": {"texts": (16,)},
+          "_int4p_bf16": {"texts": (16, 48), "bistream": (32, 640)}}
+RECOMPUTE_ONLY = 10**9  # flow_incr_min_tok of the reference streams: every chunk recomputes the prefix
+STREAM_TOL = 1e-3  # chunks after the crossover against the recompute path: tests/test_torch_stream.py's ATOL
+
+
+def _doubling_schedule(eng, n_tokens, n_prompt):
+    """The chunk token counts of a stream of n_tokens under the doubling
+    policy: the first hop plus the prompt's pad to a hop multiple, each hop
+    doubled up to token_max_hop_len while hop + lookahead tokens remain,
+    then the rest (the finalize)."""
+    hop, la = eng.token_hop_len, eng.pre_lookahead_len
+    sched, off, this = [], 0, hop + (-n_prompt % hop)
+    while n_tokens - off >= this + la:
+        sched.append(this)
+        off += this
+        hop = min(eng.token_max_hop_len, hop * eng.stream_scale_factor)
+        this = hop
+    return sched + [n_tokens - off]
+
+
+@contextlib.contextmanager
+def _bistream_max_len(lm, max_len):
+    """The LM's generate_bistream with max_len while inside (tts passes the
+    LM's default, 4096, which random weights run to the arena's end)."""
+    if max_len is None:
+        yield
+        return
+    gen = lm.generate_bistream
+    lm.generate_bistream = lambda *args, **kw: gen(*args, **{**kw, "max_len": max_len})
+    try:
+        yield
+    finally:
+        del lm.generate_bistream
+
+
+def _stream_once(eng, prompt, text, bistream):
+    """One `tts(stream=True)` request: its chunks, the ms from the call to the
+    first non-empty chunk, wall ms, the LM thread's seconds and the engine's
+    chunk log."""
+    prompt_text, prompt_speech, prompt_mel, emb = prompt
+    eng.timer.reset()
+    t = time.perf_counter()
+    first_ms, chunks = None, []
+    for c in eng.tts(iter(_bistream_chunks(text)) if bistream else text, prompt_text, prompt_speech, prompt_speech,
+                     prompt_mel, emb, stream=True):
+        if first_ms is None and c["tts_speech"].size:
+            first_ms = (time.perf_counter() - t) * 1e3
+        chunks.append(c)
+    return {"chunks": chunks, "first_ms": first_ms, "wall_ms": (time.perf_counter() - t) * 1e3,
+            "lm_s": eng.timer.records["lm"][-1], "log": list(eng.stream_log)}
+
+
+def hold_stream(eng, label, prompt, text, want=None, bistream=None):
+    """One request streamed, streamed again on the recompute path alone
+    (flow_incr_min_tok RECOMPUTE_ONLY), then offline, the decode on graphs,
+    cuDNN deterministic. Checks: the streamed tokens are the offline ones
+    (and `want`, where given); the wav is n_tokens * 2 * 480 long and finite;
+    the chunks follow the doubling schedule; each chunk equals the reference
+    stream's, bit for bit before the first incremental chunk, within
+    STREAM_TOL after. Prints each chunk's path, tokens, wall and device ms,
+    the first-chunk latency, the streaming and offline RTF and the LM's
+    tokens/s in both. `bistream` (max_len): the text as an iterator of
+    chunks. Returns the first-chunk ms of both streams and the largest flow
+    state bytes."""
+    import numpy as np
+    import torch
+
+    prompt_text, prompt_speech, prompt_mel, emb = prompt
+    cudnn = torch.backends.cudnn
+    saved, cudnn.deterministic = cudnn.deterministic, True
+    saved_min = eng.flow_incr_min_tok
+    eng.flow_state_max_bytes = 0
+    cuda = eng.device.type == "cuda"
+    try:
+        with _bistream_max_len(eng.lm, bistream):
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(eng.device)
+                base = torch.cuda.memory_allocated(eng.device)
+            run = _stream_once(eng, prompt, text, bistream is not None)
+            peak = f"{(torch.cuda.max_memory_allocated(eng.device) - base) / 1e9:.3f} GB" if cuda else "not measured"
+            eng.flow_incr_min_tok = RECOMPUTE_ONLY
+            ref = _stream_once(eng, prompt, text, bistream is not None)
+            eng.flow_incr_min_tok = saved_min
+            eng.timer.reset()
+            t = time.perf_counter()
+            src = iter(_bistream_chunks(text)) if bistream else text
+            (off,) = list(eng.tts(src, prompt_text, prompt_speech, prompt_speech, prompt_mel, emb))
+            off_ms = (time.perf_counter() - t) * 1e3
+            off_lm = eng.timer.records["lm"][-1]
+    finally:
+        eng.flow_incr_min_tok = saved_min
+        cudnn.deterministic = saved
+    toks = off["speech_tokens"]
+    n = len(toks)
+    if want is not None and not np.array_equal(toks, want):
+        raise AssertionError(f"{label}: the offline request's {n} tokens differ from the slice phase's {len(want)}")
+    audio_s = n * 2 * 480 / 24000
+    for name, r in (("stream", run), ("recompute-only stream", ref)):
+        got = np.concatenate([c["speech_tokens"] for c in r["chunks"]])
+        wav = np.concatenate([c["tts_speech"] for c in r["chunks"]], axis=1)
+        sizes = [len(c["speech_tokens"]) for c in r["chunks"]]
+        if not np.array_equal(got, toks):
+            raise AssertionError(f"{label}, {name}: {len(got)} streamed tokens differ from the offline {n}")
+        if wav.shape != (1, n * 2 * 480) or not np.isfinite(wav).all():
+            raise AssertionError(f"{label}, {name}: wav {wav.shape} (finite: {np.isfinite(wav).all()}) for {n} tokens")
+        if sizes != _doubling_schedule(eng, n, len(prompt_speech)):
+            raise AssertionError(f"{label}, {name}: chunk tokens {sizes}, not the doubling schedule")
+    paths = [c["path"] for c in run["log"]]
+    cross = next((i for i, p in enumerate(paths) if p in ("catch-up", "incremental", "finalize-incremental")),
+                 len(paths))
+    diffs = []
+    for i, (a, b) in enumerate(zip(run["chunks"], ref["chunks"])):
+        a, b = a["tts_speech"], b["tts_speech"]
+        d = float(np.abs(a - b).max()) if a.size else 0.0
+        diffs.append(d)
+        if a.shape != b.shape or (d != 0.0 if i < cross else d > STREAM_TOL):
+            raise AssertionError(f"{label}: chunk {i} ({paths[i]}) differs from the recompute path's by {d:.3e}")
+    def ms(x):
+        return "n/a" if x is None else f"{x:.1f}"
+
+    table = "; ".join(f"{c['path']} {c['tokens']} tok {c['wall_ms']:.1f} ms wall {ms(c['device_ms'])} ms device"
+                      for c in run["log"])
+    ref_table = "; ".join(f"{c['tokens']} tok {c['wall_ms']:.1f} / {ms(c['device_ms'])} ms" for c in ref["log"])
+    print(f"{label}: {n} tokens ({audio_s:.2f} s audio), chunks {[len(c['speech_tokens']) for c in run['chunks']]}; "
+          f"first chunk {run['first_ms']:.1f} ms (recompute-only {ref['first_ms']:.1f} ms); stream wall "
+          f"{run['wall_ms']:.0f} ms, RTF {run['wall_ms'] / 1e3 / audio_s:.4f} (recompute-only "
+          f"{ref['wall_ms'] / 1e3 / audio_s:.4f}; offline {off_ms / 1e3 / audio_s:.4f}); LM {n / run['lm_s']:.1f} "
+          f"tok/s streaming ({n / ref['lm_s']:.1f} beside the recompute-only stream), {n / off_lm:.1f} offline; "
+          f"flow state at most {eng.flow_state_max_bytes / 1e9:.3f} GB (device memory over the stream's start at "
+          f"its peak: {peak}); chunks identical to the recompute path's "
+          f"before the crossover ({cross} of {len(paths)}), max |diff| after {max(diffs[cross:], default=0.0):.3e}")
+    print(f"  chunks (path, tokens, wall, device): {table}")
+    print(f"  recompute-only chunks (tokens, wall / device): {ref_table}")
+    return [run["first_ms"], ref["first_ms"]], eng.flow_state_max_bytes
+
+
+def _prefetch_threads():
+    import threading
+
+    return [t for t in threading.enumerate() if t.name == "lm-prefetch" and t.is_alive()]
+
+
+def close_early(eng, prompt, text):
+    """A stream closed after its first chunk frees the LM: the prefetch
+    thread ends and the next request runs."""
+    prompt_text, prompt_speech, prompt_mel, emb = prompt
+    stream = eng.tts(text, prompt_text, prompt_speech, prompt_speech, prompt_mel, emb, stream=True)
+    first = next(stream)
+    alive = len(_prefetch_threads())
+    stream.close()
+    if alive != 1 or _prefetch_threads() or eng.lm._busy or not first["tts_speech"].size:
+        raise AssertionError(f"closing a stream after its first chunk left {len(_prefetch_threads())} prefetch "
+                             f"threads (1 before), the LM busy: {eng.lm._busy}")
+    (out,) = list(eng.tts(text[:4], prompt_text, prompt_speech, prompt_speech, prompt_mel, emb))
+    print(f"closed a stream after its first chunk ({first['tts_speech'].shape[1]} samples): no prefetch thread "
+          f"left, the LM free; the next request ran ({len(out['speech_tokens'])} tokens)")
+
+
+def phase_stream(eng, suffix, reqs, per_step, cfg):
+    """Streaming `tts(stream=True)` on this LM (STREAM[suffix]): the slice
+    phase's offline requests of the listed text lengths (the first on a
+    fresh LM with the same weights that has captured no decode graph, where
+    asked) and a bistream request; each held by hold_stream, and every
+    decode step and extend on its kernels. Returns the launches."""
+    import numpy as np
+
+    from cosyvoice_tpu_torch.runtime.engine import CosyVoice2Engine, random_lm
+
+    spec = STREAM[suffix]
+    prompt = _prompt(eng)[0]
+    by_len = {len(text): (text, toks) for text, toks in reqs}
+    counters = _zero_counts(eng)
+    firsts, state_bytes, rows = [], 0, []
+    texts = spec["texts"]
+    if spec.get("fresh"):
+        # the same weights (seed 0) in a new LM: its decode graphs are captured mid-stream
+        fresh = CosyVoice2Engine(random_lm(0, eng.device, cfg)[0], eng.flow, eng.hift)
+        text, toks = by_len[texts[0]]
+        texts = texts[1:]
+        if fresh.lm.graph_captures or fresh.lm.decoder.graphs:
+            raise AssertionError("a new LM has decode graphs")
+        first, b = hold_stream(fresh, f"stream LM{suffix or '_bf16'} text={len(text)} on a fresh LM (no graph "
+                                      f"captured before it)", prompt, text, toks)
+        print(f"  the fresh LM captured {fresh.lm.graph_captures} decode graphs during its first stream "
+              f"({fresh.lm.graph_capture_s:.2f} s)")
+        if fresh.lm.graphs and not fresh.lm.graph_captures:
+            raise AssertionError("the fresh LM's stream captured no decode graph")
+        launches = _check_launches(fresh, counters, per_step)
+        firsts += first
+        state_bytes = max(state_bytes, b)
+        del fresh
+        counters = _zero_counts(eng)
+    else:
+        launches = dict.fromkeys(counters, 0)
+    with _recorded_extends(eng.lm) as log:
+        for n_text in texts:
+            text, toks = by_len[n_text]
+            first, b = hold_stream(eng, f"stream LM{suffix or '_bf16'} text={n_text}", prompt, text, toks)
+            firsts += first
+            state_bytes = max(state_bytes, b)
+        if "bistream" in spec:
+            n_text, cap = spec["bistream"]
+            text = np.random.default_rng(7).integers(0, cfg.qwen.vocab_size, n_text)
+            first, b = hold_stream(eng, f"stream LM{suffix or '_bf16'} bistream text={n_text} via "
+                                        f"tts(<iterator>, stream=True), max_len {cap}", prompt, text, bistream=cap)
+            firsts += first
+            state_bytes = max(state_bytes, b)
+        rows = [len(ids) for _, ids, _ in log]
+    if suffix == "":
+        close_early(eng, prompt, by_len[spec["texts"][0]][0])
+    for key, n in _check_launches(eng, counters, per_step, one_row=rows.count(1),
+                                  short=len(rows) - rows.count(1)).items():
+        launches[key] += n
+    print(f"stream LM{suffix or '_bf16'}: first-chunk latency p50 {np.percentile(firsts, 50):.1f} ms over "
+          f"{len(firsts)} streams ({', '.join(f'{x:.1f}' for x in firsts)} ms); flow state at most "
+          f"{state_bytes / 1e9:.3f} GB")
+    return launches
+
+
 def _offline_stages(eng, prompt, text):
     """The LM stage (generator -> its iterator of token blocks) and the
     flow+HiFT stage (tokens -> wav) of one offline request, as `tts` runs
@@ -2102,6 +2355,9 @@ def main(argv):
                 runs.append((label, _bistream_run(eng, full, bs_text, cap), None))
                 idle.append((label, _bistream_stages(eng, full, bs_text, cap)))
             phase_graphs(eng, runs)
+        with Phase("stream" + suffix):
+            for key, n in phase_stream(eng, suffix, reqs, per_step, cfg).items():
+                counts[key] += n
         for key, n in counts.items():
             launches[key] += n
         held.append((suffix, eng, idle))
@@ -2114,6 +2370,8 @@ def main(argv):
         kernels[key]["launches"] = n
     if not all(launches.values()):
         raise AssertionError(f"a kernel was never launched on the main path: {launches}")
+    print(f"phases: {sum(PHASE_SECONDS.values()):.1f} s measured of {sum(PHASE_BUDGET_S.values())} s budgeted; "
+          + ", ".join(f"{name} {secs:.1f}/{PHASE_BUDGET_S[name]}" for name, secs in PHASE_SECONDS.items()))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

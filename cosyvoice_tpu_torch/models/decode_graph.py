@@ -29,6 +29,12 @@ spans).
   counters (ops/decode_attention.py:_counters, never replaced once a graph
   is captured) and each graph's scratch are shared.
 
+Captures can happen mid-request while another thread works on the card: a
+streaming `tts` decodes on a thread of its own while its own thread turns
+tokens into wav. A capture therefore holds `capture_lock`, which that work
+takes too, and captures in "thread_local" mode, so that only the capturing
+thread's own unsafe calls could invalidate it.
+
 Sampling: the graphs draw from one generator of their own, registered with
 every graph (`CUDAGraph.register_generator_state`), so that each replay
 advances its Philox offset as the eager step's draws advance it. The
@@ -47,6 +53,7 @@ decode steps replayed, the eager first steps at a key, and the host seconds
 spent capturing and enqueueing replays.
 """
 
+import threading
 import time
 
 import torch
@@ -124,6 +131,7 @@ class DecodeGraphs:
         self.graphs = {}  # key -> (CUDAGraph, [counter deltas])
         self.warm = set()  # keys with an eager step behind them
         self.generator = torch.Generator(device=lm.device) if lm.device.type == "cuda" else None
+        self.capture_lock = threading.Lock()  # held while a graph is captured (see the module docstring)
 
     def counters(self):
         return [(fn, "launches") for fn in KERNEL_WRAPPERS] + [(self.lm, "decode_steps"), (self.lm, "fused_steps")]
@@ -181,7 +189,7 @@ class DecodeGraphs:
         graph.enable_debug_mode()
         graph.register_generator_state(self.generator)
         try:
-            with torch.cuda.graph(graph):
+            with self.capture_lock, torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 step(lm, self.state, cache, self.generator, stacked, bistream)
             graph.instantiate()
         finally:

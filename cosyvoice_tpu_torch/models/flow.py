@@ -1,18 +1,20 @@
 """Flow acoustic model: speech tokens -> mel (upsample conformer + CFM).
 
 Counterpart of cosyvoice_tpu/models/flow.py:CausalFlow for the CosyVoice2
-layout (upsample-conformer encoder, causal U-Net estimator), offline
-inference. Streaming (chunk masks, lookahead context, incremental chunk
-state) and the v3 DiT variant are not ported yet.
+layout (upsample-conformer encoder, causal U-Net estimator): `inference`
+over a full prefix, offline or streaming (chunk masks, lookahead context),
+and the incremental chunk (`stream_state`, `grow_stream_state`,
+`inference_chunk`) over carried KV arenas and conv caches. The v3 DiT
+variant is not ported yet.
 """
 
 from dataclasses import dataclass, field
 import torch
 from torch import nn
 
-from cosyvoice_tpu_torch.models.flow_decoder import ConditionalDecoder, EstimatorConfig
-from cosyvoice_tpu_torch.models.flow_matching import CFMConfig, fixed_noise_buffer, solve_euler
-from cosyvoice_tpu_torch.nn.conformer import UpsampleConformerEncoder
+from cosyvoice_tpu_torch.models.flow_decoder import ConditionalDecoder, EstimatorConfig, estimator_stream_state
+from cosyvoice_tpu_torch.models.flow_matching import CFMConfig, fixed_noise_buffer, solve_euler, solve_euler_chunk
+from cosyvoice_tpu_torch.nn.conformer import UpsampleConformerEncoder, upsample_encoder_stream_state
 from cosyvoice_tpu_torch.ops.masks import make_non_pad_mask
 from cosyvoice_tpu_torch.utils.devices import resolve_device
 
@@ -25,6 +27,7 @@ class FlowConfig:
     vocab_size: int = 6561
     token_mel_ratio: int = 2
     pre_lookahead_len: int = 3
+    chunk_size: int = 25  # streaming chunk, tokens
     attention_heads: int = 8
     linear_units: int = 2048
     num_blocks: int = 6
@@ -50,6 +53,7 @@ class FlowEncoder(nn.Module):
             num_up_blocks=c.num_up_blocks,
             pre_lookahead_len=c.pre_lookahead_len,
             up_stride=c.token_mel_ratio,
+            static_chunk_size=c.chunk_size,
         )
         self.encoder_proj = nn.Linear(c.input_size, c.output_size)
 
@@ -58,12 +62,26 @@ class FlowEncoder(nn.Module):
         embedding = embedding / (torch.linalg.norm(embedding, dim=-1, keepdim=True) + 1e-12)
         return self.spk_embed_affine_layer(embedding)
 
-    def forward(self, token, token_len):
-        """token [B, L] (tail-padded, true length token_len) -> (mu [B, L*r, 80],
-        mel non-pad mask [B, L*r])."""
+    def forward(self, token, token_len, context_token=None, streaming=False):
+        """token [B, L] body tokens (tail-padded, true length token_len);
+        context_token [B, la] the lookahead tokens, or None (finalize);
+        streaming: chunk masks. Returns (mu [B, L*r, 80], mel non-pad mask
+        [B, L*r])."""
         mask = make_non_pad_mask(token_len, token.shape[1])
-        h, mel_mask = self.encoder(self.input_embedding(token.clamp_min(0)) * mask[..., None], token_len)
+        ctx = None if context_token is None else self.input_embedding(context_token.clamp_min(0))
+        h, mel_mask = self.encoder(self.input_embedding(token.clamp_min(0)) * mask[..., None], token_len, ctx,
+                                   streaming)
         return self.encoder_proj(h), mel_mask
+
+    def forward_chunk(self, token, context_token, enc_state, pos: int, real_n: int):
+        """Incremental encoder chunk: token [B, n] (padding beyond real_n),
+        context_token [B, la] or None (finalize). Returns (mu [B, n*r, 80],
+        enc_state)."""
+        valid = torch.arange(token.shape[1], device=token.device)[None, :] < real_n
+        emb = self.input_embedding(token.clamp_min(0)) * valid[..., None]
+        ctx = None if context_token is None else self.input_embedding(context_token.clamp_min(0))
+        h, enc_state = self.encoder.forward_chunk(emb, ctx, enc_state, pos, real_n)
+        return self.encoder_proj(h), enc_state
 
 
 class CausalFlow(nn.Module):
@@ -78,13 +96,107 @@ class CausalFlow(nn.Module):
         self.eval()
 
     @torch.inference_mode()
-    def inference(self, token, token_len, conds, embedding):
-        """token [1, L] prompt+generated tokens (zero tail-padded, true length
-        token_len); conds [1, L*r, 80] prompt mel at the front; embedding
-        [1, 192]. Returns mel [1, L*r, 80], zero beyond r*token_len."""
-        mu, mel_mask = self.encoder(token, token_len)
+    def inference(self, token, token_len, conds, embedding, context_token=None, streaming=False):
+        """token [1, L] prompt+generated body tokens (zero tail-padded, true
+        length token_len; L >= token_len + la with a context); conds
+        [1, L*r, 80] prompt mel at the front; embedding [1, 192];
+        context_token [1, la] the lookahead tokens when not finalizing;
+        streaming: chunk masks in encoder and estimator. Returns mel
+        [1, L*r, 80], zero beyond r*token_len."""
+        mu, mel_mask = self.encoder(token, token_len, context_token, streaming)
         spks = self.encoder.project_spk(embedding)
         z = torch.from_numpy(fixed_noise_buffer()[None, : mu.shape[1]]).to(mu.device)
         mask_f = mel_mask.to(mu.dtype)
-        mel = solve_euler(self.estimator, z, mu, mask_f, spks, conds, self.cfg.cfm)
+        mel = solve_euler(self.estimator, z, mu, mask_f, spks, conds, self.cfg.cfm, streaming)
         return mel * mask_f[..., None]
+
+    # ---------------- incremental streaming ----------------
+    def stream_state(self, B: int = 1, arena_tok: int = 256) -> dict:
+        """Zero state of the incremental chunk: the encoder's float32 KV
+        arenas (arena_tok token rows, arena_tok*r mel rows) and conv caches
+        ("enc"), and one estimator state per Euler step ("est", a list),
+        each with KV arenas of arena_tok*r rows for the CFG pair. The arenas
+        are views of one buffer (one allocation, not ~1100)."""
+        mel = arena_tok * self.cfg.token_mel_ratio
+        meta = {"enc": upsample_encoder_stream_state(self.encoder.encoder, B, arena_tok, mel, "meta"),
+                "est": [estimator_stream_state(self.cfg.estimator, 2 * B, mel, "meta")
+                        for _ in range(self.cfg.cfm.n_timesteps)]}
+        return self._place_arenas(meta, arena_tok)
+
+    @staticmethod
+    def stream_state_nbytes(state: dict) -> int:
+        """Bytes of every tensor in a stream state."""
+        def leaves(x):
+            if isinstance(x, torch.Tensor):
+                yield x
+            elif isinstance(x, dict):
+                for v in x.values():
+                    yield from leaves(v)
+            else:
+                for v in x:
+                    yield from leaves(v)
+
+        return sum(t.numel() * t.element_size() for t in leaves(state))
+
+    def _place_arenas(self, state: dict, arena_tok: int) -> dict:
+        """`state` (updated by entry) with every KV arena a view of one new
+        zeroed buffer of arena_tok token rows (arena_tok*r mel rows) that
+        holds the arena's current rows, and every other leaf on "meta" made
+        zeros on the flow's device."""
+        dev = next(self.parameters()).device
+        r = self.cfg.token_mel_ratio
+        arenas = []  # (state part, key, rows)
+        for part, st in [("enc", state["enc"])] + [("est", st) for st in state["est"]]:
+            for k, v in st.items():
+                if ("enc_" in k) if part == "enc" else ("_tf_" in k):
+                    arenas.append((st, k, arena_tok if k.startswith("enc_") else arena_tok * r))
+                elif isinstance(v, tuple):
+                    st[k] = tuple(torch.zeros(a.shape, device=dev) if a.is_meta else a for a in v)
+                elif v.is_meta:
+                    st[k] = torch.zeros(v.shape, device=dev)
+        flat = torch.zeros(sum(2 * a.shape[0] * rows * a.shape[2] for st, k, rows in arenas for a in st[k][:1]),
+                           device=dev)
+        off = 0
+        for st, k, rows in arenas:
+            views = []
+            for a in st[k]:
+                n = a.shape[0] * rows * a.shape[2]
+                view = flat[off : off + n].view(a.shape[0], rows, a.shape[2])
+                off += n
+                if not a.is_meta:
+                    view[:, : a.shape[1]] = a
+                views.append(view)
+            st[k] = tuple(views)
+        return state
+
+    @torch.inference_mode()
+    def grow_stream_state(self, state: dict, new_arena_tok: int) -> dict:
+        """A state whose KV arenas hold new_arena_tok token rows, the old rows
+        copied and zeros past them (the mask hides rows past the frontier,
+        so growth changes no value); the old and new arenas coexist while it
+        runs. `state` if it is as long."""
+        if new_arena_tok <= state["enc"]["enc_0"][0].shape[1]:
+            return state
+        return self._place_arenas({"enc": dict(state["enc"]), "est": [dict(st) for st in state["est"]]},
+                                  new_arena_tok)
+
+    @torch.inference_mode()
+    def inference_chunk(self, token_chunk, context_token, conds_chunk, embedding, state: dict, pos_tok: int,
+                        real_n: int):
+        """One incremental streaming chunk. token_chunk [B, n] new tokens
+        (padding beyond real_n); context_token [B, la] the lookahead tokens or
+        None (finalize); conds_chunk [B, n*r, 80] the prompt mel at this
+        chunk's mel offset; embedding [B, 192]; state from stream_state,
+        updated in place, with pos_tok tokens already consumed. Returns
+        (mel [B, n*r, 80], state): rows [0, real_n*r) equal the streaming
+        recompute's new rows. The noise is the fixed buffer sliced at the
+        chunk's mel offset."""
+        r = self.cfg.token_mel_ratio
+        mu, state["enc"] = self.encoder.forward_chunk(token_chunk, context_token, state["enc"], pos_tok, real_n)
+        spks = self.encoder.project_spk(embedding)
+        n_mel = mu.shape[1]
+        z = torch.from_numpy(fixed_noise_buffer()[pos_tok * r : pos_tok * r + n_mel]).to(mu.device)
+        z = z[None].expand(mu.shape[0], -1, -1)
+        mel = solve_euler_chunk(self.estimator, z, mu, spks, conds_chunk, self.cfg.cfm, state["est"], pos_tok * r,
+                                real_n * r)
+        return mel, state

@@ -1,10 +1,12 @@
 """Flow-matching estimator: the causal Matcha-style 1D U-Net of CosyVoice2.
 
 Counterpart of cosyvoice_tpu/models/flow_decoder.py:ConditionalDecoder for
-the shipped causal single-level config (channels=(256,)), full-sequence mode
-with the offline attention masks. Maps (x_t, mu, spks, cond, t) to the
-vector field. The streaming chunk masks, the incremental chunk-arena mode
-and non-causal multi-level configs are not ported yet.
+the shipped causal single-level config (channels=(256,)). Maps (x_t, mu,
+spks, cond, t) to the vector field, over a full sequence (offline masks, or
+with `streaming` the chunk masks of `static_chunk_size` mel frames) or, with
+`stream=(state, pos, real_n)`, over one incremental chunk with the per-step
+KV arenas and conv caches of `estimator_stream_state`. Non-causal and
+multi-level configs are not ported yet.
 """
 
 from dataclasses import dataclass
@@ -16,7 +18,8 @@ from torch import nn
 from cosyvoice_tpu_torch.nn.conv import CausalConv1d, Conv1d
 from cosyvoice_tpu_torch.nn.embedding import SinusoidalPosEmb
 from cosyvoice_tpu_torch.nn.unet import BasicTransformerBlock, CausalBlock1D, ResnetBlock1D, TimestepEmbedding
-from cosyvoice_tpu_torch.ops.masks import add_optional_chunk_mask, mask_to_bias
+from cosyvoice_tpu_torch.nn.conv import roll_cache
+from cosyvoice_tpu_torch.ops.masks import add_optional_chunk_mask, chunk_attn_bias, mask_to_bias
 
 
 @dataclass(frozen=True)
@@ -28,17 +31,47 @@ class EstimatorConfig:
     n_blocks: int = 4
     num_mid_blocks: int = 12
     num_heads: int = 8
+    static_chunk_size: int = 50  # mel frames (= chunk_size * token_mel_ratio)
+    causal: bool = True
 
 
-def _attn_bias(mask: torch.Tensor) -> torch.Tensor:
-    """mask [B, T] float -> additive offline attention bias [B, T, T]."""
-    return mask_to_bias(add_optional_chunk_mask((mask > 0.5)[:, None, :], 0))
+def _attn_bias(mask: torch.Tensor, streaming: bool = False, chunk: int = 0) -> torch.Tensor:
+    """mask [B, T] float -> additive attention bias [B, T, T]: the pad mask,
+    and with `streaming` the static chunk mask of `chunk` frames."""
+    return mask_to_bias(add_optional_chunk_mask((mask > 0.5)[:, None, :], chunk if streaming else 0))
+
+
+def estimator_stream_state(cfg: EstimatorConfig, B2: int, arena: int, device=None) -> dict:
+    """Zero incremental-chunk state for ONE Euler step of ConditionalDecoder:
+    float32 KV arenas [B2, arena, inner] per transformer block and 2-frame
+    causal-conv caches. B2 = 2*B (the CFG cond/uncond pair); the solver keeps
+    one such state per Euler step."""
+    if not cfg.causal or len(cfg.channels) != 1:
+        raise NotImplementedError("the chunked estimator is the shipped causal single-level config only")
+    inner = cfg.num_heads * cfg.attention_head_dim
+    ch = cfg.channels[0]
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=device)
+
+    st = {"down_resnet_0": (zeros(B2, 2, cfg.in_channels), zeros(B2, 2, ch)), "down_post_0": zeros(B2, 2, ch)}
+    names = ["down_tf_0"]
+    for i in range(cfg.num_mid_blocks):
+        st[f"mid_resnet_{i}"] = (zeros(B2, 2, ch), zeros(B2, 2, ch))
+        names.append(f"mid_tf_{i}")
+    st["up_resnet_0"] = (zeros(B2, 2, 2 * ch), zeros(B2, 2, ch))
+    st["up_post_0"] = zeros(B2, 2, ch)
+    st["final_block"] = zeros(B2, 2, ch)
+    for name in names + ["up_tf_0"]:
+        for j in range(cfg.n_blocks):
+            st[f"{name}_{j}"] = (zeros(B2, arena, inner), zeros(B2, arena, inner))
+    return st
 
 
 class ConditionalDecoder(nn.Module):
     def __init__(self, cfg: EstimatorConfig = EstimatorConfig()):
         super().__init__()
-        if len(cfg.channels) != 1:
+        if len(cfg.channels) != 1 or not cfg.causal:
             raise NotImplementedError("only the causal single-level estimator (CosyVoice2) is ported")
         self.cfg = cfg
         ch = cfg.channels[0]
@@ -62,14 +95,23 @@ class ConditionalDecoder(nn.Module):
         self.final_block = CausalBlock1D(ch, ch)
         self.final_proj = Conv1d(ch, cfg.out_channels, 1)
 
-    def forward(self, x, mask, mu, t, spks, cond):
+    def forward(self, x, mask, mu, t, spks, cond, streaming: bool = False, stream=None):
         """x/mu/cond [B, T, 80]; mask [B, T] float; t [B]; spks [B, 80].
-        Returns the vector field [B, T, 80]."""
+        Returns the vector field [B, T, 80].
+
+        stream=(state, pos, real_n): incremental-chunk mode. x/mu/cond are
+        the new chunk only (T its padded length, real_n true frames; `mask`
+        is not read), `state` one Euler step's estimator_stream_state
+        (arenas written in place, caches replaced by entry) and `pos` the
+        mel frames already in the arenas. Returns (field, state), equal to
+        the streaming recompute's rows under chunk-causal masks."""
         t_emb = self.time_mlp(self.time_emb(t))
         h = torch.cat([x, mu, spks[:, None, :].expand(-1, x.shape[1], -1), cond], dim=-1)
+        if stream is not None:
+            return self._forward_chunk(h, t_emb, *stream)
         m = mask
         mm = m[..., None]
-        bias = _attn_bias(m)
+        bias = _attn_bias(m, streaming, self.cfg.static_chunk_size)
 
         h = self.down_resnet[0](h, m, t_emb)
         for blk in self.down_tf[0]:
@@ -87,3 +129,35 @@ class ConditionalDecoder(nn.Module):
         h = self.up_post[0](h * mm)
         h = self.final_block(h, m)
         return self.final_proj(h * mm) * mm
+
+    def _forward_chunk(self, h, t_emb, st: dict, pos: int, real_n: int):
+        B, n, _ = h.shape
+        dev = h.device
+        m = (torch.arange(n, device=dev) < real_n).to(h.dtype)[None].expand(B, n)
+        mm = m[..., None]
+        bias = chunk_attn_bias(B, n, pos + n, pos, real_n, self.cfg.static_chunk_size, dev)
+
+        def tblocks(blocks, name):
+            nonlocal h
+            for j, blk in enumerate(blocks):
+                h = blk(h, bias, st[f"{name}_{j}"], pos)
+
+        def causal3(conv, name):
+            hm = h * mm
+            y = conv(hm, st[name])
+            st[name] = roll_cache(st[name], hm, real_n)
+            return y
+
+        h, st["down_resnet_0"] = self.down_resnet[0](h, m, t_emb, st["down_resnet_0"], real_n)
+        tblocks(self.down_tf[0], "down_tf_0")
+        skip = h
+        h = causal3(self.down_post[0], "down_post_0")
+        for i, (resnet, tblk) in enumerate(zip(self.mid_resnet, self.mid_tf)):
+            h, st[f"mid_resnet_{i}"] = resnet(h, m, t_emb, st[f"mid_resnet_{i}"], real_n)
+            tblocks(tblk, f"mid_tf_{i}")
+        h = torch.cat([h, skip], dim=-1)
+        h, st["up_resnet_0"] = self.up_resnet[0](h, m, t_emb, st["up_resnet_0"], real_n)
+        tblocks(self.up_tf[0], "up_tf_0")
+        h = causal3(self.up_post[0], "up_post_0")
+        h, st["final_block"] = self.final_block(h, m, st["final_block"], real_n)
+        return self.final_proj(h * mm) * mm, st

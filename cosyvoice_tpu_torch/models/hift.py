@@ -195,8 +195,13 @@ class HiFTGenerator(nn.Module):
         return self.m_source(repeat_interleave_time(f0, self.cfg.hop_total, axis=-1), generator)
 
     @torch.inference_mode()
-    def inference(self, mel, generator: torch.Generator, source: Optional[torch.Tensor] = None):
-        """mel [B, T, 80] -> (wav [B, T*480], source [B, T*480]). `source`,
-        when given, replaces the generated excitation (for tests)."""
+    def inference(self, mel, generator: torch.Generator, cache_source: Optional[torch.Tensor] = None,
+                  source: Optional[torch.Tensor] = None):
+        """mel [B, T, 80] -> (wav [B, T*480], source [B, T*480]).
+        cache_source [B, Lc], a streaming chunk's source cache, overwrites
+        the head of the generated source (no phase glitch across chunks).
+        `source`, when given, replaces the generated excitation (for tests)."""
         s = self.source_from_f0(self.predict_f0(mel), generator) if source is None else source
+        if cache_source is not None and cache_source.shape[1] > 0:
+            s = torch.cat([cache_source.to(s.dtype), s[:, cache_source.shape[1] :]], dim=1)
         return self.decode(mel, s), s

@@ -66,18 +66,32 @@ class WNConvTranspose1d(nn.Module):
         return _cl(lambda t: F.conv_transpose1d(t, w, self.bias, self.stride, self.padding), x)
 
 
+def roll_cache(cache: torch.Tensor, x: torch.Tensor, real_n: int) -> torch.Tensor:
+    """Advance a causal conv's left-context cache past a chunk: cache
+    [B, P, C] frames left of the chunk, x [B, n, C] the chunk's input (the
+    tail beyond real_n may be padding). Returns the P frames that end at the
+    real boundary, concat(cache, x)[:, real_n : real_n + P]."""
+    P = cache.shape[1]
+    return torch.cat([cache, x.to(cache.dtype)], dim=1)[:, real_n : real_n + P]
+
+
 class CausalConv1d(nn.Module):
-    """Left-causal conv: k-1 zero frames on the left (the streaming cache
-    and the right-causal/weight-normed variants of causal HiFT are not
-    ported yet)."""
+    """Left-causal conv: k-1 frames on the left, zeros or, in a streaming
+    chunk, `cache` [B, k-1, C], the frames left of the chunk (the
+    right-causal and weight-normed variants of causal HiFT are not ported
+    yet)."""
 
     def __init__(self, in_channels, out_channels, kernel_size):
         super().__init__()
         self.conv = Conv1d(in_channels, out_channels, kernel_size)
         self.causal_padding = kernel_size - 1
 
-    def forward(self, x):
-        return self.conv(F.pad(x, (0, 0, self.causal_padding, 0)))
+    def forward(self, x, cache=None):
+        if cache is None:
+            return self.conv(F.pad(x, (0, 0, self.causal_padding, 0)))
+        if cache.shape[1] != self.causal_padding:
+            raise ValueError(f"cache must hold {self.causal_padding} frames, not {cache.shape[1]}")
+        return self.conv(torch.cat([cache, x], dim=1))
 
 
 class ConvolutionModule(nn.Module):

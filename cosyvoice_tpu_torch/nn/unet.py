@@ -2,9 +2,11 @@
 
 Counterpart of cosyvoice_tpu/nn/unet.py for the causal blocks the CosyVoice2
 estimator uses (CausalBlock1D, causal ResnetBlock1D, TimestepEmbedding,
-BasicTransformerBlock). x [B, T, C]; mask [B, T] float; t_emb [B, time_dim].
-The non-causal GroupNorm blocks and the down/up-sampling of multi-level
-configs are not ported yet.
+BasicTransformerBlock), with the incremental-chunk forms of the streaming
+flow: the conv blocks take left-context caches, the transformer blocks a KV
+arena. x [B, T, C]; mask [B, T] float; t_emb [B, time_dim]. The non-causal
+GroupNorm blocks and the down/up-sampling of multi-level configs are not
+ported yet.
 """
 
 import math
@@ -14,20 +16,25 @@ from torch import nn
 from torch.nn import functional as F
 
 from cosyvoice_tpu_torch.nn.activation import mish
-from cosyvoice_tpu_torch.nn.conv import CausalConv1d, Conv1d
+from cosyvoice_tpu_torch.nn.conv import CausalConv1d, Conv1d, roll_cache
 
 
 class CausalBlock1D(nn.Module):
-    """CausalConv k=3 + LayerNorm + Mish, masked in and out."""
+    """CausalConv k=3 + LayerNorm + Mish, masked in and out.
+
+    cache/real_n: incremental-chunk mode, `cache` [B, 2, C] the two masked
+    input frames left of the chunk; returns (y, new_cache)."""
 
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
         self.conv = CausalConv1d(dim_in, dim_out, 3)
         self.norm = nn.LayerNorm(dim_out, eps=1e-5)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, cache=None, real_n=None):
         m = mask[..., None]
-        return mish(self.norm(self.conv(x * m))) * m
+        xm = x * m
+        y = mish(self.norm(self.conv(xm, cache))) * m
+        return y if cache is None else (y, roll_cache(cache, xm, real_n))
 
 
 class ResnetBlock1D(nn.Module):
@@ -40,10 +47,16 @@ class ResnetBlock1D(nn.Module):
         self.block2 = CausalBlock1D(dim_out, dim_out)
         self.res_conv = Conv1d(dim_in, dim_out, 1)
 
-    def forward(self, x, mask, t_emb):
-        h = self.block1(x, mask) + self.mlp(mish(t_emb))[:, None, :]
-        h = self.block2(h, mask)
-        return h + self.res_conv(x * mask[..., None])
+    def forward(self, x, mask, t_emb, caches=None, real_n=None):
+        """caches: (block1's, block2's) in incremental-chunk mode; returns
+        (y, new_caches) when given."""
+        if caches is None:
+            h = self.block1(x, mask) + self.mlp(mish(t_emb))[:, None, :]
+            h = self.block2(h, mask)
+            return h + self.res_conv(x * mask[..., None])
+        h, c1 = self.block1(x, mask, caches[0], real_n)
+        h, c2 = self.block2(h + self.mlp(mish(t_emb))[:, None, :], mask, caches[1], real_n)
+        return h + self.res_conv(x * mask[..., None]), (c1, c2)
 
 
 class TimestepEmbedding(nn.Module):
@@ -57,7 +70,12 @@ class TimestepEmbedding(nn.Module):
 
 
 class UNetAttention(nn.Module):
-    """diffusers-style attention: q/k/v without bias, out projection with bias."""
+    """diffusers-style attention: q/k/v without bias, out projection with bias.
+
+    Chunked mode (`arena`=(k, v) [B, A_arena, inner], `pos`): x is the new
+    chunk [B, n, C], its K/V rows are written in place at [pos, pos+n), and
+    attention reads the arena's first A rows under `attn_bias` [B, n, A]:
+    the full recompute's rows under chunk-causal masks."""
 
     def __init__(self, dim: int, heads: int, head_dim: int):
         super().__init__()
@@ -68,11 +86,17 @@ class UNetAttention(nn.Module):
         self.to_v = nn.Linear(dim, inner, bias=False)
         self.to_out = nn.Linear(inner, dim)
 
-    def forward(self, x, attn_bias=None):
+    def forward(self, x, attn_bias=None, arena=None, pos=None):
         B, T, _ = x.shape
         q = self.to_q(x).reshape(B, T, self.heads, self.head_dim)
-        k = self.to_k(x).reshape(B, T, self.heads, self.head_dim)
-        v = self.to_v(x).reshape(B, T, self.heads, self.head_dim)
+        k, v = self.to_k(x), self.to_v(x)
+        if arena is not None:
+            A = attn_bias.shape[-1]
+            arena[0][:, pos : pos + T] = k
+            arena[1][:, pos : pos + T] = v
+            k, v = arena[0][:, :A], arena[1][:, :A]
+        k = k.reshape(B, -1, self.heads, self.head_dim)
+        v = v.reshape(B, -1, self.heads, self.head_dim)
         scores = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(self.head_dim)
         if attn_bias is not None:
             scores = scores + attn_bias[:, None]
@@ -91,6 +115,7 @@ class BasicTransformerBlock(nn.Module):
         self.ff_in = nn.Linear(dim, dim * ff_mult)
         self.ff_out = nn.Linear(dim * ff_mult, dim)
 
-    def forward(self, x, attn_bias=None):
-        x = x + self.attn1(self.norm1(x), attn_bias)
+    def forward(self, x, attn_bias=None, arena=None, pos=None):
+        """arena/pos: chunked mode (see UNetAttention), attn_bias [B, n, A]."""
+        x = x + self.attn1(self.norm1(x), attn_bias, arena, pos)
         return x + self.ff_out(F.gelu(self.ff_in(self.norm3(x))))

@@ -1,4 +1,6 @@
-"""Padding / chunk masks (counterpart of cosyvoice_tpu/ops/masks.py)."""
+"""Padding / chunk masks (counterpart of cosyvoice_tpu/ops/masks.py), and the
+incremental chunk masks over KV arenas (cosyvoice_tpu/nn/conformer.py:
+chunk_arena_mask, cosyvoice_tpu/models/flow_decoder.py:_chunk_attn_bias)."""
 
 import torch
 
@@ -27,3 +29,21 @@ def add_optional_chunk_mask(pad_mask: torch.Tensor, static_chunk_size: int) -> t
 def mask_to_bias(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """bool mask -> additive attention bias (0 keep / -1e10 drop)."""
     return (1.0 - mask.to(dtype)) * -1.0e10
+
+
+def chunk_arena_mask(B: int, n: int, A: int, pos: int, real_n: int, chunk: int, device=None) -> torch.Tensor:
+    """Bool mask [B, n, A] for incremental chunk queries at positions pos+i
+    over the first A rows of a KV arena that holds pos+real_n valid keys,
+    under the streaming chunk rule (key s visible iff s < (t//chunk+1)*chunk)."""
+    i = torch.arange(n, device=device)[None, :, None]
+    s = torch.arange(A, device=device)[None, None, :]
+    keep = s < (((pos + i) // chunk + 1) * chunk).clamp_max(pos + real_n)
+    return keep.expand(B, n, A)
+
+
+def chunk_attn_bias(B: int, n: int, A: int, pos: int, real_n: int, chunk: int, device=None) -> torch.Tensor:
+    """Additive bias [B, n, A] of chunk_arena_mask (the estimator's arena
+    attention). Chunk boundaries are hop-aligned in the engine, so the
+    frontier cuts a chunk only at finalize: exactly the full-recompute mask
+    restricted to the new rows."""
+    return mask_to_bias(chunk_arena_mask(B, n, A, pos, real_n, chunk, device))

@@ -1,7 +1,6 @@
-"""Offline TTS engine: LM speech tokens -> flow mel -> HiFT wav.
+"""TTS engine: LM speech tokens -> flow mel -> HiFT wav, offline and streaming.
 
-Counterpart of cosyvoice_tpu/runtime/engine.py:CosyVoice2Engine for
-`tts(stream=False)`:
+Counterpart of cosyvoice_tpu/runtime/engine.py:CosyVoice2Engine:
 
 1. the LM prompt [sos, prompt_text, text, task, prompt_speech] is decoded by
    `Qwen2LM.generate` with min_len = 2*len(text), max_len = 20*len(text);
@@ -10,27 +9,51 @@ Counterpart of cosyvoice_tpu/runtime/engine.py:CosyVoice2Engine for
    no length bounds from the text, whose exact-shape extends of 2..16 rows
    run K4 and K5; on the card the LM's decode steps run as CUDA graphs
    (models/decode_graph.py), eagerly with `Qwen2LM(..., graphs=False)`;
-2. `synthesize_offline` runs the flow offline on prompt + generated tokens
-   (10 CFG Euler steps), drops the prompt mel, pads the tail with
-   LOG_SILENCE up to the same length bucket as the JAX engine, and vocodes
-   with HiFT (which ends in an iSTFT). With no generated token it takes
-   the JAX engine's token2wav route: the flow over the prompt tokens alone,
-   and the mel rows past the prompt mel (some only for an odd prompt)
-   vocoded in the `mel_bucket` bucket.
+2. offline (`tts(stream=False)`), `synthesize_offline` runs the flow on
+   prompt + generated tokens (10 CFG Euler steps), drops the prompt mel,
+   pads the tail with LOG_SILENCE up to the same length bucket as the JAX
+   engine, and vocodes with HiFT (which ends in an iSTFT). With no
+   generated token it takes the JAX engine's generic token2wav finalize;
+3. streaming (`tts(stream=True)`), the LM runs ahead on a thread of its own
+   (`_Prefetcher`; on the card on a CUDA stream of its own) while this
+   thread turns hop-scheduled chunks of tokens into wav on another stream:
+   hops of `token_hop_len` 25 tokens (the first padded so that prompt +
+   hop is a multiple of it) growing by `next_hop` ("doubling" to 100,
+   "exponential" or "time_based"), each chunk gated on 3 lookahead tokens.
+   A chunk's mel is either recomputed over the whole prefix under chunk
+   masks (below `flow_incr_min_tok` prompt + body tokens) or made by the
+   incremental flow over the session's carried KV arenas (from there on,
+   after one catch-up chunk over the whole prefix; `flow_arena0` tokens
+   first, doubled as needed up to `flow_arena_max`). Non-final chunks
+   vocode the 8-row mel cache + the new mel unpadded, overwrite the source
+   head with the cached source and cross-fade the held-back tail of the
+   last chunk with a hamming window; the finalize vocodes the rest in the
+   JAX engine's mel bucket. The mel, source and speech caches stay on the
+   card between chunks. Each chunk equals the JAX engine's default
+   streaming chunk (fused_stream, incremental_flow, flow_incr_min_tok 320,
+   doubling hops), except that an odd prompt (prompt mel rows != 2 x
+   prompt tokens) finalizes through the generic recompute path, which the
+   JAX default engine skips (ROADMAP C4).
 
 The engine serves each LM configuration of models/llm.py: bf16, int4p over
 an int8 arena, and int4p over a bf16 arena (whose decode steps run the
 whole-step kernel K7 while the arena holds at most 2048 rows), e.g.
 `build_random_engine(seed, "cuda", LMConfig(qwen=Qwen2Config(quant="int4p")))`.
 It takes ids and features; the frontend (text normalisation, BPE, S3
-tokenizer, CAM++) is not part of it. Streaming output (`stream=True`), speed
-change, vc mode, per-request seeds and continuous batching are not ported
-yet.
+tokenizer, CAM++) is not part of it. Not ported: the JAX engine's
+speculative fused first chunk (its chunks equal the standard path's), speed
+change, vc mode, per-request seeds, external token generators and
+continuous batching, and the v3 and v1 engines.
 """
 
+import contextlib
 import dataclasses
+import math
+import queue
+import threading
 import time
-from typing import Generator
+from dataclasses import dataclass
+from typing import Generator, Optional
 
 import numpy as np
 import torch
@@ -62,9 +85,114 @@ def _bucket_geo(n: int, b: int) -> int:
     return _bucket(n, max(step, b))
 
 
+@dataclass
+class SessionState:
+    """One streaming request's caches, on the engine's device: the HiFT mel
+    cache [1, 8, 80], source and speech caches [1, 8*480], and the
+    incremental flow's state (`CausalFlow.stream_state`) with the prompt +
+    body tokens it has consumed and its arena length in tokens."""
+
+    hift_mel_cache: Optional[torch.Tensor] = None
+    hift_source_cache: Optional[torch.Tensor] = None
+    hift_speech_cache: Optional[torch.Tensor] = None
+    flow_state: Optional[dict] = None
+    flow_pos: int = 0
+    flow_arena: int = 0
+
+
+class _Prefetcher:
+    """Drains a token-block generator on a thread of its own (a bounded
+    queue), on `stream` when given, so that the LM decodes ahead while the
+    consumer turns tokens into wav. `close()` stops the thread and closes
+    the generator there (the LM serves one request at a time, so a stream
+    dropped early must free it). `busy_s` sums the seconds spent inside the
+    generator."""
+
+    _END = object()
+
+    def __init__(self, gen, depth: int = 4, stream=None):
+        self._q = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._exc = None
+        self.busy_s = 0.0
+        self._thread = threading.Thread(target=self._run, args=(gen, stream), daemon=True, name="lm-prefetch")
+        self._thread.start()
+
+    def _run(self, gen, stream):
+        try:
+            ctx = contextlib.nullcontext() if stream is None else torch.cuda.stream(stream)
+            with ctx:
+                if stream is not None:
+                    stream.wait_stream(torch.cuda.default_stream(stream.device))
+                try:
+                    while not self._stop.is_set():
+                        t = time.perf_counter()
+                        item = next(gen, self._END)
+                        self.busy_s += time.perf_counter() - t
+                        if item is self._END or not self._put(item):
+                            break
+                finally:
+                    gen.close()
+        except BaseException as e:  # re-raised on the consumer's thread
+            self._exc = e
+        finally:
+            self._put(self._END)
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is self._END:
+            self._q.put(item)  # later calls end too
+            if self._exc is not None:
+                raise self._exc
+            raise StopIteration
+        return item
+
+    def drain_nowait(self):
+        """Every block already queued, without blocking: the adaptive hop
+        policies see the whole LM backlog."""
+        items = []
+        while True:
+            try:
+                item = self._q.get_nowait()
+            except queue.Empty:
+                break
+            if item is self._END:
+                self._q.put(item)
+                break
+            items.append(item)
+        return items
+
+    def close(self):
+        """Stop the thread (it closes the generator) and wait for it."""
+        self._stop.set()
+        self._thread.join()
+
+
 class CosyVoice2Engine:
+    # the incremental streaming flow: a session takes it once prompt + body
+    # reach flow_incr_min_tok tokens (below, a chunk that recomputes the
+    # whole prefix costs less), starts with arenas of flow_arena0 tokens,
+    # doubles them as needed and leaves the path past flow_arena_max
+    flow_incr_min_tok = 320
+    flow_arena0 = 256
+    flow_arena_max = 2048
+
     def __init__(self, lm: Qwen2LM, flow: CausalFlow, hift: HiFTGenerator, token_bucket: int = 64,
-                 mel_bucket: int = 32):
+                 mel_bucket: int = 32, hop_policy: str = "doubling"):
+        if hop_policy not in ("doubling", "exponential", "time_based"):
+            raise ValueError(f"hop_policy {hop_policy!r}: doubling, exponential or time_based")
         self.lm, self.flow, self.hift = lm, flow, hift
         self.device = lm.device
         for name, m in (("flow", flow), ("hift", hift)):
@@ -72,9 +200,30 @@ class CosyVoice2Engine:
             if dev != self.device:
                 raise ValueError(f"{name} is on {dev}, the LM on {self.device}")
         self.token_mel_ratio = flow.cfg.token_mel_ratio
+        self.pre_lookahead_len = flow.cfg.pre_lookahead_len
         self.wav_hop = hift.cfg.hop_total  # samples per mel frame (480 at 24 kHz)
         self.token_bucket = token_bucket
-        self.mel_bucket = mel_bucket  # the vocoder's length bucket when it runs alone (no tokens generated)
+        self.mel_bucket = mel_bucket  # the vocoder's length bucket when it pads a finalize
+        # a hop is the flow's streaming chunk (25 tokens), so chunk boundaries
+        # fall on the flow's chunk-mask boundaries (the incremental flow is
+        # exact only there)
+        self.token_hop_len = flow.cfg.chunk_size
+        self.token_max_hop_len = 4 * self.token_hop_len
+        self.stream_scale_factor = 2
+        self.hop_policy = hop_policy
+        self.token_rate = 25  # Hz, the time_based policy's audio clock
+        self.mel_cache_len = 8
+        self.source_cache_len = self.mel_cache_len * self.wav_hop
+        self.speech_window = torch.as_tensor(np.hamming(2 * self.source_cache_len), dtype=torch.float32,
+                                             device=self.device)
+        cuda = self.device.type == "cuda"
+        # streaming: the LM's thread and the token->wav work each on a stream
+        # of its own; token->wav at the higher priority, so that its kernels
+        # take free SMs before the LM's (which runs far ahead of real time)
+        self._lm_stream = torch.cuda.Stream(self.device) if cuda else None
+        self._t2w_stream = torch.cuda.Stream(self.device, priority=-1) if cuda else None
+        self.stream_log = []  # per chunk of the last streaming request: path, tokens, wall and device ms
+        self.flow_state_max_bytes = 0  # the incremental flow state's largest footprint, growth copies included
         self.timer = StageTimer()
 
     def _generator(self) -> torch.Generator:
@@ -84,49 +233,294 @@ class CosyVoice2Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _flow_mel(self, all_tokens, prompt_feat, embedding):
-        """The flow over prompt + generated tokens, padded to the JAX
-        engine's token bucket: mel [1, Lpad * r, 80], zero past L * r."""
-        dev, r = self.device, self.token_mel_ratio
+    def _tensor(self, a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    # ------------------------------------------------------------------ flow
+
+    def _flow_prefix(self, all_tokens, prompt_feat, embedding, streaming: bool, finalize: bool):
+        """The flow over prompt + generated tokens, padded to the JAX engine's
+        token bucket of len(all_tokens): the last pre_lookahead_len tokens are
+        the lookahead context unless `finalize`. Returns (mel [1, Lpad*r, 80],
+        zero past the body, body length)."""
+        r, la = self.token_mel_ratio, self.pre_lookahead_len
         L = len(all_tokens)
+        body = all_tokens if finalize else all_tokens[:-la]
         Lpad = _bucket_geo(L, self.token_bucket)
-        tok = torch.zeros((1, Lpad), dtype=torch.long, device=dev)
-        tok[0, :L] = torch.as_tensor(np.asarray(all_tokens, np.int64), device=dev)
-        conds = torch.zeros((1, Lpad * r, 80), dtype=torch.float32, device=dev)
-        conds[:, : prompt_feat.shape[1]] = torch.as_tensor(prompt_feat, dtype=torch.float32, device=dev)
-        emb = torch.as_tensor(embedding, dtype=torch.float32, device=dev)
-        return self.flow.inference(tok, torch.tensor([L], device=dev), conds, emb)
+        tok = torch.zeros((1, Lpad), dtype=torch.long, device=self.device)
+        tok[0, : len(body)] = self._tensor(body, torch.long)
+        conds = torch.zeros((1, Lpad * r, 80), device=self.device)
+        conds[:, : prompt_feat.shape[1]] = self._tensor(prompt_feat)
+        ctx = None if finalize else self._tensor(all_tokens[None, -la:], torch.long)
+        mel = self.flow.inference(tok, torch.tensor([len(body)], device=self.device), conds, self._tensor(embedding),
+                                  ctx, streaming)
+        return mel, len(body)
+
+    def _incr_chunk_inputs(self, state, all_tokens, prompt_feat, n_real: int):
+        """The next incremental chunk's tokens (n_real real, padded to a
+        multiple of 16) and its slice of the prompt mel; grows the flow
+        state to cover it."""
+        r, pm, consumed = self.token_mel_ratio, prompt_feat.shape[1], state.flow_pos
+        n_pad = _bucket(n_real, 16)
+        chunk = torch.zeros((1, n_pad), dtype=torch.long, device=self.device)
+        chunk[0, :n_real] = self._tensor(all_tokens[consumed : consumed + n_real], torch.long)
+        conds = torch.zeros((1, n_pad * r, 80), device=self.device)
+        lo = consumed * r
+        if lo < pm:
+            k = min(pm - lo, n_pad * r)
+            conds[0, :k] = self._tensor(prompt_feat[0, lo : lo + k])
+        self._ensure_flow_capacity(state, consumed + n_pad)
+        return chunk, conds
+
+    def _ensure_flow_capacity(self, state, need_tok: int):
+        """Make or grow the session's flow arenas (doubling from flow_arena0)
+        to cover need_tok positions."""
+        arena = state.flow_arena if state.flow_state is not None else self.flow_arena0
+        while arena < need_tok:
+            arena *= 2
+        if state.flow_state is None:
+            state.flow_state = self.flow.stream_state(1, arena)
+            state.flow_pos = 0
+            total = CausalFlow.stream_state_nbytes(state.flow_state)
+        elif arena > state.flow_arena:
+            old = CausalFlow.stream_state_nbytes(state.flow_state)
+            state.flow_state = self.flow.grow_stream_state(state.flow_state, arena)
+            total = old + CausalFlow.stream_state_nbytes(state.flow_state)  # both live while it copies
+        else:
+            return
+        state.flow_arena = arena
+        self.flow_state_max_bytes = max(self.flow_state_max_bytes, total)
+
+    # ------------------------------------------------------------------ vocoder
+
+    def _fade(self, wav, prev_tail):
+        """Hamming cross-fade of wav's head with the last chunk's held-back tail."""
+        n, w = self.source_cache_len, self.speech_window
+        return torch.cat([wav[:, :n] * w[n:] + prev_tail * w[:n], wav[:, n:]], dim=1)
+
+    def _vocode(self, mel, cache_source):
+        """mel [1, T, 80] padded with LOG_SILENCE to the `mel_bucket` bucket,
+        vocoded -> (wav, source) [1, T*480]."""
+        T = mel.shape[1]
+        mel_p = torch.full((1, _bucket_geo(T, self.mel_bucket), 80), LOG_SILENCE, device=self.device)
+        mel_p[:, :T] = mel
+        wav, src = self.hift.inference(mel_p, self._generator(), cache_source)
+        return wav[:, : T * self.wav_hop], src[:, : T * self.wav_hop]
+
+    def _vocode_chunk(self, state, mel_new, keep: bool = True):
+        """The fused paths' vocoder step: a first chunk alone, a later one
+        after the 8-row mel cache with the source cache overwriting the
+        source's head and the faded head; unpadded. With `keep`, the caches
+        move on and the last 8 * 480 samples are held back."""
+        if state.hift_mel_cache is None:
+            mel = mel_new
+            wav, src = self.hift.inference(mel, self._generator())
+        else:
+            mel = torch.cat([state.hift_mel_cache, mel_new], dim=1)
+            wav, src = self.hift.inference(mel, self._generator(), state.hift_source_cache)
+            wav = self._fade(wav, state.hift_speech_cache)
+        if not keep:
+            return wav
+        n = self.source_cache_len
+        state.hift_mel_cache = mel[:, -self.mel_cache_len :]
+        state.hift_source_cache, state.hift_speech_cache = src[:, -n:], wav[:, -n:]
+        return wav[:, :-n]
+
+    # ------------------------------------------------------------------ chunks
+
+    def _stream_chunk_recompute(self, state, all_tokens, prompt_feat, embedding, token_offset, this_hop):
+        """Non-final chunk, recompute: the streaming flow over the whole
+        prefix (lookahead included), the chunk's this_hop * r new mel rows
+        sliced out (the JAX engine's _stream_chunk_fused)."""
+        r = self.token_mel_ratio
+        mel_full, _ = self._flow_prefix(all_tokens, prompt_feat, embedding, streaming=True, finalize=False)
+        rows = this_hop * r
+        start = min(prompt_feat.shape[1] + token_offset * r, mel_full.shape[1] - rows)  # dynamic_slice's clamp
+        return self._vocode_chunk(state, mel_full[:, start : start + rows])
+
+    def _stream_chunk_incr(self, state, all_tokens, prompt_feat, embedding, token_offset, this_hop):
+        """Non-final chunk, incremental: the tokens the flow state has not
+        consumed (the whole prefix on a session's first incremental chunk)
+        through inference_chunk, this_hop * r rows emitted."""
+        r, la, consumed = self.token_mel_ratio, self.pre_lookahead_len, state.flow_pos
+        n_real = len(all_tokens) - la - consumed
+        ctx = self._tensor(all_tokens[None, consumed + n_real : consumed + n_real + la], torch.long)
+        chunk, conds = self._incr_chunk_inputs(state, all_tokens, prompt_feat, n_real)
+        mel, state.flow_state = self.flow.inference_chunk(chunk, ctx, conds, self._tensor(embedding), state.flow_state,
+                                                          consumed, n_real)
+        state.flow_pos = consumed + n_real
+        start = (n_real - this_hop) * r
+        return self._vocode_chunk(state, mel[:, start : start + this_hop * r])
+
+    def _finalize_incr(self, state, all_tokens, prompt_feat, embedding):
+        """Final chunk, incremental: the remaining tokens through the flow
+        state (no lookahead), then the bucketed vocode + fade."""
+        rem = len(all_tokens) - state.flow_pos
+        mel = torch.zeros((1, 0, 80), device=self.device)
+        if rem > 0:
+            consumed = state.flow_pos
+            chunk, conds = self._incr_chunk_inputs(state, all_tokens, prompt_feat, rem)
+            mel, state.flow_state = self.flow.inference_chunk(chunk, None, conds, self._tensor(embedding),
+                                                              state.flow_state, consumed, rem)
+            state.flow_pos = consumed + rem
+            mel = mel[:, : rem * self.token_mel_ratio]
+        return self._vocode_rest(state, mel)
+
+    def _finalize_recompute(self, state, all_tokens, prompt_feat, embedding, token_offset, rem):
+        """Final chunk, recompute (the JAX engine's _finalize_fused): the
+        streaming flow over every token, the rem * r remaining rows padded
+        with LOG_SILENCE so that cache + rows fill exactly the `mel_bucket`
+        bucket of the generic path (the non-causal vocoder sees the pad),
+        vocoded after the caches; cut to the valid samples."""
+        r = self.token_mel_ratio
+        mel_full, _ = self._flow_prefix(all_tokens, prompt_feat, embedding, streaming=True, finalize=True)
+        cache_rows = 0 if state.hift_mel_cache is None else self.mel_cache_len
+        chunk_mel = _bucket_geo(cache_rows + rem * r, self.mel_bucket) - cache_rows
+        mel_new = torch.full((1, chunk_mel, 80), LOG_SILENCE, device=self.device)
+        start = prompt_feat.shape[1] + token_offset * r
+        real = mel_full[:, start : start + min(rem * r, chunk_mel)]
+        mel_new[:, : real.shape[1]] = real
+        wav = self._vocode_chunk(state, mel_new, keep=False)
+        return wav[:, : (cache_rows + rem * r) * self.wav_hop]
+
+    def _finalize_generic(self, state, all_tokens, prompt_feat, embedding, token_offset, streaming: bool = True):
+        """Final chunk, the generic path: the flow over every token, the mel
+        past the prompt mel and the emitted chunks, bucketed vocode + fade.
+        Odd prompts finalize here (ROADMAP C4), as does a finalize with no
+        token left, and the offline path with no generated token."""
+        r = self.token_mel_ratio
+        mel, n = self._flow_prefix(all_tokens, prompt_feat, embedding, streaming, finalize=True)
+        return self._vocode_rest(state, mel[:, prompt_feat.shape[1] + token_offset * r : n * r])
+
+    def _vocode_rest(self, state, mel):
+        """A finalize's mel after the mel cache, vocoded in the `mel_bucket`
+        bucket with the source cache, faded."""
+        if mel.shape[1] == 0 and state.hift_mel_cache is None:
+            return torch.zeros((1, 0), device=self.device)
+        if state.hift_mel_cache is None:
+            wav, _ = self._vocode(mel, None)
+            return wav
+        wav, _ = self._vocode(torch.cat([state.hift_mel_cache, mel], dim=1), state.hift_source_cache)
+        return self._fade(wav, state.hift_speech_cache)
+
+    @torch.inference_mode()
+    def token2wav(self, state: SessionState, tokens, prompt_token, prompt_feat, embedding, token_offset: int,
+                  finalize: bool = False) -> np.ndarray:
+        """One streaming chunk (the JAX engine's token2wav routing): tokens
+        [L] generated so far (with the 3 lookahead tokens unless finalize),
+        prompt_token [Lp], prompt_feat [1, pm, 80], embedding [1, 192],
+        token_offset the tokens already emitted. Returns the chunk's wav
+        [1, n] on the host and logs its path, tokens and times in
+        `stream_log`. The incremental flow needs pm == 2 * Lp; a session
+        takes it once prompt + body reach flow_incr_min_tok and keeps it
+        while they stay within flow_arena_max - 16."""
+        t0 = time.perf_counter()
+        all_tokens = np.concatenate([prompt_token, tokens]).astype(np.int64)
+        even = prompt_feat.shape[1] == len(prompt_token) * self.token_mel_ratio
+        incr = (even and len(all_tokens) + 16 <= self.flow_arena_max
+                and (state.flow_state is not None or len(all_tokens) >= self.flow_incr_min_tok))
+        timed = self.device.type == "cuda"
+        if timed:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        if not finalize:
+            this_hop = len(tokens) - token_offset - self.pre_lookahead_len
+            if this_hop <= 0 and state.hift_mel_cache is None:
+                return np.zeros((1, 0), np.float32)
+            n_tok = this_hop
+            if incr:
+                path = "incremental" if state.flow_state is not None or token_offset == 0 else "catch-up"
+                wav = self._stream_chunk_incr(state, all_tokens, prompt_feat, embedding, token_offset, this_hop)
+            else:
+                path = "recompute"
+                wav = self._stream_chunk_recompute(state, all_tokens, prompt_feat, embedding, token_offset,
+                                                   this_hop)
+        else:
+            n_tok = len(tokens) - token_offset
+            if incr and state.flow_state is not None:
+                path = "finalize-incremental"
+                wav = self._finalize_incr(state, all_tokens, prompt_feat, embedding)
+            elif n_tok > 0 and even:
+                path = "finalize-recompute"
+                wav = self._finalize_recompute(state, all_tokens, prompt_feat, embedding, token_offset, n_tok)
+            else:
+                path = "finalize-generic"
+                wav = self._finalize_generic(state, all_tokens, prompt_feat, embedding, token_offset)
+        if timed:
+            ev[1].record()
+        out = wav.float().cpu().numpy()
+        wall = time.perf_counter() - t0
+        self.timer.add("stream_chunk", wall)
+        self.stream_log.append({"path": path, "tokens": n_tok, "wall_ms": wall * 1e3,
+                                "device_ms": ev[0].elapsed_time(ev[1]) if timed else None})
+        return out
 
     def synthesize_offline(self, tokens, prompt_token, prompt_feat, embedding):
         """tokens [L] generated, prompt_token [Lp], prompt_feat [1, pm, 80],
         embedding [1, 192] -> wav np.ndarray [1, L * 2 * 480].
 
         With no tokens it does what the JAX engine's token2wav(finalize=True)
-        does: the flow over the prompt tokens alone, mel rows pm .. 2*Lp
-        padded with LOG_SILENCE to the vocoder's bucket (`mel_bucket`), so an
-        odd prompt (pm < 2*Lp) gives (2*Lp - pm) * 480 samples and an even
-        one an empty wav."""
+        does (the generic finalize, offline masks): the flow over the prompt
+        tokens alone, mel rows pm .. 2*Lp padded with LOG_SILENCE to the
+        vocoder's bucket (`mel_bucket`), so an odd prompt (pm < 2*Lp) gives
+        (2*Lp - pm) * 480 samples and an even one an empty wav."""
         t0 = time.perf_counter()
         r, pm = self.token_mel_ratio, prompt_feat.shape[1]
         all_tokens = np.concatenate([prompt_token, tokens]).astype(np.int64)
         L = len(all_tokens)
-        n_mel = L * r - pm  # mel rows past the prompt mel
-        if len(tokens) == 0 and n_mel <= 0:
-            return np.zeros((1, 0), np.float32)
-        mel = self._flow_mel(all_tokens, prompt_feat, embedding)
-        if len(tokens):
-            # drop the prompt mel and silence the padded tail (the JAX engine's roll + mask)
-            mel_v = torch.full_like(mel, LOG_SILENCE)
-            n_valid = (L - len(prompt_token)) * r * self.wav_hop
-        else:
-            # the JAX engine's token2wav: those rows alone, padded to the vocoder's bucket
-            mel_v = torch.full((1, _bucket_geo(n_mel, self.mel_bucket), 80), LOG_SILENCE, device=self.device)
-            n_valid = n_mel * self.wav_hop
-        mel_v[:, :n_mel] = mel[:, pm : L * r]
-        wav, _ = self.hift.inference(mel_v, self._generator())
-        out = wav[:, :n_valid].float().cpu().numpy()
+        with torch.inference_mode():
+            if len(tokens) == 0:
+                wav = self._finalize_generic(SessionState(), all_tokens, prompt_feat, embedding, 0, streaming=False)
+            else:
+                # drop the prompt mel and silence the padded tail (the JAX engine's roll + mask)
+                mel, _ = self._flow_prefix(all_tokens, prompt_feat, embedding, streaming=False, finalize=True)
+                mel_v = torch.full_like(mel, LOG_SILENCE)
+                mel_v[:, : L * r - pm] = mel[:, pm : L * r]
+                wav, _ = self.hift.inference(mel_v, self._generator())
+                wav = wav[:, : (L - len(prompt_token)) * r * self.wav_hop]
+            out = wav.float().cpu().numpy()
         self.timer.add("t2w", time.perf_counter() - t0)
         return out
+
+    def next_hop(self, hop: int, chunk_index: int, elapsed_s: float, token_offset: int, n_pending: int) -> int:
+        """Token hop of the chunk after chunk `chunk_index` (the JAX engine's
+        policies): "doubling" x stream_scale_factor up to token_max_hop_len
+        (25 -> 50 -> 100); "exponential" base * 2**chunk_index, uncapped;
+        "time_based" the whole pending backlog rounded up to a hop multiple
+        when the emitted audio leads the wall clock by more than 4 average
+        chunk times, rounded down when by more than 2, else the base hop."""
+        base = self.token_hop_len
+        if self.hop_policy == "exponential":
+            return base * (2**chunk_index)
+        if self.hop_policy == "time_based":
+            if chunk_index <= 0 or elapsed_s <= 0:
+                return base
+            duration_s = token_offset / float(self.token_rate)
+            avg_chunk_s = elapsed_s / (chunk_index + 1)
+            if avg_chunk_s <= 0:
+                return base
+            multiples = (duration_s - elapsed_s) / avg_chunk_s
+            if multiples > 4:
+                nxt = (n_pending // base + 1) * base
+            elif multiples > 2:
+                nxt = (n_pending // base) * base
+            else:
+                nxt = base
+            return max(base, nxt)
+        return min(self.token_max_hop_len, hop * self.stream_scale_factor)
+
+    @contextlib.contextmanager
+    def _on_t2w(self):
+        """Token->wav work of a streaming request: on the engine's own CUDA
+        stream, and never while the LM's thread captures a decode graph
+        (which would see this thread's allocations and syncs)."""
+        with self.lm.decoder.capture_lock:
+            if self._t2w_stream is None:
+                yield
+                return
+            self._t2w_stream.wait_stream(torch.cuda.default_stream(self.device))
+            with torch.cuda.stream(self._t2w_stream):
+                yield
 
     def tts(
         self,
@@ -138,12 +532,12 @@ class CosyVoice2Engine:
         flow_embedding: np.ndarray,
         stream: bool = False,
     ) -> Generator[dict, None, None]:
-        """Yields one {'tts_speech': np.ndarray [1, n], 'speech_tokens': [n_tok]}.
+        """Yields {'tts_speech': np.ndarray [1, n], 'speech_tokens': [n_tok]}:
+        offline one dict with every token, streaming one per chunk with the
+        tokens it covers (their concatenation is the request's tokens).
 
         `text_tokens` is an id array, or an iterator of id chunks for
         bi-streaming text input (`Qwen2LM.generate_bistream`)."""
-        if stream:
-            raise NotImplementedError("streaming tts is not ported yet; pass stream=False")
         c = self.lm.cfg
         for name, arr, vocab in (
             ("llm_prompt_speech_token", llm_prompt_speech_token, c.speech_token_size),
@@ -168,16 +562,69 @@ class CosyVoice2Engine:
             ).astype(np.int32)
             min_len, max_len = int(len(text_tokens) * 2), int(len(text_tokens) * 20)
             blocks = self.lm.generate(ids, types, gen, min_len, max_len)
+        prompt_token = np.asarray(flow_prompt_speech_token, np.int32)
+        if stream:
+            yield from self._stream(blocks, t0, prompt_token, prompt_speech_feat, flow_embedding)
+            return
         produced = []
         for block in blocks:
             produced.extend(block.tolist())
         self._sync()
         self.timer.add("lm", time.perf_counter() - t0)
         tokens = np.asarray(produced, np.int32)
-        wav = self.synthesize_offline(
-            tokens, np.asarray(flow_prompt_speech_token, np.int32), prompt_speech_feat, flow_embedding
-        )
+        wav = self.synthesize_offline(tokens, prompt_token, prompt_speech_feat, flow_embedding)
         yield {"tts_speech": wav, "speech_tokens": tokens}
+
+    def _stream(self, blocks, t_req, prompt_token, prompt_feat, embedding):
+        """The JAX engine's streaming loop: pull LM blocks until prompt pad +
+        hop + 3 lookahead tokens are there, emit a chunk, drain the backlog,
+        take the next hop; at the LM's end, the finalize. Stage "lm" of the
+        timer gets the LM thread's seconds inside the generator,
+        "first_chunk" the seconds from the tts call to the first non-empty
+        chunk."""
+        la = self.pre_lookahead_len
+        hop = self.token_hop_len
+        prompt_pad = math.ceil(len(prompt_token) / hop) * hop - len(prompt_token)
+        state = SessionState()
+        produced, token_offset, chunk_index = [], 0, 0
+        gen_done = first_emitted = False
+        self.stream_log = []
+        lm = _Prefetcher(blocks, stream=self._lm_stream)
+        try:
+            while True:
+                this_hop = hop + prompt_pad if token_offset == 0 else hop
+                while not gen_done and len(produced) - token_offset < this_hop + la:
+                    try:
+                        produced.extend(next(lm).tolist())
+                    except StopIteration:
+                        gen_done = True
+                if len(produced) - token_offset >= this_hop + la:
+                    chunk_tokens = np.asarray(produced[: token_offset + this_hop + la], np.int32)
+                    with self._on_t2w():
+                        wav = self.token2wav(state, chunk_tokens, prompt_token, prompt_feat, embedding, token_offset)
+                    emitted = chunk_tokens[token_offset : token_offset + this_hop]
+                    token_offset += this_hop
+                    for blk in lm.drain_nowait():
+                        produced.extend(blk.tolist())
+                    hop = self.next_hop(hop, chunk_index, elapsed_s=time.perf_counter() - t_req,
+                                        token_offset=token_offset, n_pending=len(produced) - token_offset)
+                    chunk_index += 1
+                    if not first_emitted and wav.size:
+                        self.timer.add("first_chunk", time.perf_counter() - t_req)
+                        first_emitted = True
+                    yield {"tts_speech": wav, "speech_tokens": emitted}
+                if gen_done and len(produced) - token_offset < this_hop + la:
+                    break
+            self.timer.add("lm", lm.busy_s)
+            tokens = np.asarray(produced, np.int32)
+            with self._on_t2w():
+                wav = self.token2wav(state, tokens, prompt_token, prompt_feat, embedding, token_offset,
+                                     finalize=True)
+            if not first_emitted and wav.size:
+                self.timer.add("first_chunk", time.perf_counter() - t_req)
+            yield {"tts_speech": wav, "speech_tokens": tokens[token_offset:]}
+        finally:
+            lm.close()
 
 
 def random_lm(seed: int = 0, device="cuda", lm_cfg: LMConfig = LMConfig()):

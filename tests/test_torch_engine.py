@@ -194,6 +194,15 @@ def test_no_generated_token_matches_jax_engine(engines, pm, rows):
 
 
 def test_streaming_is_refused_not_faked(engines):
+    """Streaming was refused until it was ported; now it must be real, not
+    the offline wav in one piece: several chunks, the first of them the
+    prompt pad + first hop of tokens, whose wav adds up to the offline
+    wav's length for the same tokens (tests/test_torch_stream.py holds the
+    chunks against the JAX engine's)."""
     _, eng = engines
-    with pytest.raises(NotImplementedError):
-        next(eng.tts(**_request(1), stream=True))
+    chunks = list(eng.tts(**_request(1), stream=True))
+    (off,) = list(eng.tts(**_request(1), stream=False))
+    assert len(chunks) >= 2
+    assert len(chunks[0]["speech_tokens"]) == 5 + 1  # hop 5, plus the pad of the 4-token prompt to 5
+    np.testing.assert_array_equal(np.concatenate([c["speech_tokens"] for c in chunks]), off["speech_tokens"])
+    assert sum(c["tts_speech"].shape[1] for c in chunks) == off["tts_speech"].shape[1]
