@@ -125,11 +125,29 @@ chunk and requires the LM's thread gone and the LM free. The decode steps
 and extends of every stream and its offline request are counted and
 checked as in phase 4.
 
+Last, once every engine above is freed, api builds the public API,
+`CosyVoice2(model_dir="", seed=0)` (runtime/api.py: frontend + the bf16
+engine; S3 1280-d, 6 layers, FSQ 6561; CAM++ at its default config), and
+on a seeded 3 s synthetic 16 kHz voice prompt (no file read) holds the
+frontend on the card against a copy of it on the host (fp32, TF32 off:
+whisper log-mel, fbank and prompt mel within FEATURE_ATOL, the x-vector
+within XVEC_RTOL, the S3 tokens equal) and times it per part (text,
+whisper mel + S3, fbank + CAM++, 24 kHz mel) on a cold prompt and on an
+LRU hit. Then, counted: a zero-shot request whose tokens and wav must
+equal engine.tts on its frontend's outputs (API RTF beside the engine's),
+the same request streamed (every chunk non-empty, the doubling schedule,
+the offline tokens; the first-chunk ms), a cold-prompt request,
+cross-lingual, instruct2, vc (a second seeded wav as the source: its S3
+tokens are the token stream), sft after add_zero_shot_spk, speed 1.5 and a
+text that splits into two segments; every wav finite and as long as its
+tokens give. api_int4p does the zero-shot hold through
+`CosyVoice2(quant_lm="int4p")`, every decode step through K7.
+
 The line before the last is {"kernels": [...]}, with each kernel's launches
-summed over the runs of phases 4, 6 and 8, the two bistream slices and the
-three stream phases (each counted from 0, replays included); the last
-line is {"ok": true, "device": {...}}. Without a card it exits 2 and prints
-no result.
+summed over the runs of phases 4, 6 and 8, the two bistream slices, the
+three stream phases and the two api phases (each counted from 0, replays
+included); the last line is {"ok": true, "device": {...}}. Without a card
+it exits 2 and prints no result.
 """
 
 import collections
@@ -178,14 +196,14 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16
 L2_BYTES = 50e6  # H100 L2 cache
 
 # Each phase's watchdog budget, about 1.4-3x its time on the slowest card
-# host measured (670 s of phases there, 432-479 s on others; PERF.md §5);
-# the budgets sum to 1125 s, inside the run's 1200 s limit with room to
-# start up.
-PHASE_BUDGET_S = {"device": 15, "build": 60, "kernels": 100, "slice": 30, "check": 15, "graphs": 60, "stream": 70,
-                  "slice_int4p": 35, "check_int4p": 30, "slice_bistream_int4p": 10, "check_bistream_int4p": 25,
-                  "graphs_int4p": 30, "stream_int4p": 20, "slice_int4p_bf16": 35, "check_int4p_bf16": 25,
+# host measured (670 s of phases there, 432-479 s on others; PERF.md §5;
+# the api phases 2.7-3.7x their first run's); the budgets sum to 1122 s,
+# inside the run's 1200 s limit with room to start up.
+PHASE_BUDGET_S = {"device": 5, "build": 40, "kernels": 85, "slice": 25, "check": 12, "graphs": 45, "stream": 55,
+                  "slice_int4p": 35, "check_int4p": 25, "slice_bistream_int4p": 10, "check_bistream_int4p": 20,
+                  "graphs_int4p": 25, "stream_int4p": 20, "slice_int4p_bf16": 35, "check_int4p_bf16": 20,
                   "slice_bistream_int4p_bf16": 70, "check_bistream_int4p_bf16": 100, "graphs_int4p_bf16": 35,
-                  "stream_int4p_bf16": 60, "idle": 300}
+                  "stream_int4p_bf16": 50, "idle": 300, "api": 75, "api_int4p": 35}
 PHASE_SECONDS = {}  # each phase's measured seconds in this run
 
 
@@ -2280,6 +2298,279 @@ def phase_idle(held):
             idle_share(eng, f"LM{suffix or '_bf16'} {label}", stages, (True, False) if i == 0 else (True,))
 
 
+# ---------------------------------------------------------------- the public API
+
+# the api phases' texts: the byte tokenizer gives one id per UTF-8 byte, and
+# the random LM draws 20 x its text ids (max_len); split_paragraph closes an
+# English segment past 80 ids once it holds more than 60, and joins a last
+# one under 20 to the one before
+API_TEXT, API_PROMPT_TEXT, API_INSTRUCT = "Hello, world.", "A voice prompt.", "Speak slowly."
+API_TWO_SEGMENTS = "This first sentence is long enough to close a segment on its own. Then a second, shorter one."
+API_SPEED = 1.5
+# the frontend on the card against the same frontend on the host (fp32, TF32
+# off): the log features (computed in float64, ops/mel.py) within
+# FEATURE_ATOL, the x-vector (CAM++, 52 layers) within XVEC_RTOL of its norm,
+# the S3 tokens equal save frames whose host pre-round value lies within
+# S3_BOUNDARY of a rounding boundary (counted and printed)
+FEATURE_ATOL = 1e-4
+XVEC_RTOL = 1e-3
+S3_BOUNDARY = 1e-4
+
+
+def synthetic_voice(seed, seconds, sr=16000):
+    """A voice-like 16 kHz signal [1, L] from a seed: 19 harmonics of a
+    120 Hz f0 with vibrato under a syllable-rate envelope, plus noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(sr * seconds)) / sr
+    f0 = 120 + 20 * np.sin(2 * np.pi * 3 * t + rng.uniform(0, 2 * np.pi))
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    wav = sum(np.sin(k * phase + rng.uniform(0, 2 * np.pi)) / k for k in range(1, 20))
+    env = 0.2 + 0.8 * np.sin(2 * np.pi * 1.5 * t) ** 2
+    wav = 0.3 * env * wav / np.abs(wav).max() + 0.01 * rng.standard_normal(len(t))
+    return wav.astype(np.float32)[None]
+
+
+def build_api(**kw):
+    import torch
+
+    from cosyvoice_tpu_torch.runtime.api import CosyVoice2
+
+    t0 = time.perf_counter()
+    api = CosyVoice2(seed=0, **kw)
+    if api.frontend.device.type == "cuda":
+        torch.cuda.synchronize()
+    fe = api.frontend
+    n = {name: sum(p.numel() for p in m.parameters()) / 1e6
+         for name, m in (("LM", api.lm.module), ("S3", fe.speech_tokenizer), ("CAM++", fe.campplus))}
+    print(f"CosyVoice2(model_dir='', seed=0{''.join(f', {k}={v!r}' for k, v in kw.items())}) in "
+          f"{time.perf_counter() - t0:.1f} s: " + ", ".join(f"{k} {v:.1f}M params" for k, v in n.items())
+          + f"; S3 {fe.speech_tokenizer.cfg}")
+    return api
+
+
+def hold_frontend(fe, wav):
+    """The frontend on its device against a copy of it on the host (the same
+    weights), on one prompt wav: the whisper log-mel, the CMN'd fbank and
+    the prompt mel within FEATURE_ATOL, the x-vector within XVEC_RTOL, the
+    S3 tokens equal but for frames within S3_BOUNDARY of an FSQ rounding
+    boundary on the host."""
+    import numpy as np
+    import torch
+
+    from cosyvoice_tpu_torch.frontend.frontend import CosyVoiceFrontEnd
+    from cosyvoice_tpu_torch.ops import mel
+
+    host = CosyVoiceFrontEnd(tokenizer=fe.tokenizer, sample_rate=fe.sample_rate, s3_cfg=fe.speech_tokenizer.cfg,
+                             campplus_cfg=fe.campplus.cfg, device="cpu")
+    for name in ("speech_tokenizer", "campplus"):
+        getattr(host, name).load_state_dict({k: v.cpu() for k, v in getattr(fe, name).state_dict().items()})
+    x, xh = torch.as_tensor(wav, device=fe.device), torch.as_tensor(wav)
+    errs = {
+        "whisper log-mel": (mel.whisper_log_mel(x).cpu() - mel.whisper_log_mel(xh)).abs().max().item(),
+        "fbank": (mel.kaldi_fbank(x[0], cmn=True).cpu() - mel.kaldi_fbank(xh[0], cmn=True)).abs().max().item(),
+        "prompt mel": float(np.abs(fe._extract_speech_feat(fe._resample(wav))
+                                   - host._extract_speech_feat(host._resample(wav))).max()),
+    }
+    xv, xv_host = fe._extract_spk_embedding(wav), host._extract_spk_embedding(wav)
+    xv_err = float(np.linalg.norm(xv - xv_host) / np.linalg.norm(xv_host))
+    tok, tok_host = fe._extract_speech_token(wav), host._extract_speech_token(wav)
+    with torch.inference_mode():
+        m = mel.whisper_log_mel(xh, n_mels=host.speech_tokenizer.cfg.n_mels).transpose(1, 2)
+        enc, n_tok = host.speech_tokenizer.encode(m, torch.tensor([m.shape[1]]))
+        levels = np.asarray(host.speech_tokenizer.cfg.fsq_levels)
+        pre = (torch.tanh(host.speech_tokenizer.fsq_proj(enc)) * torch.tensor((levels - 1) / 2.0)
+               + torch.tensor((levels - 1) / 2.0))[0, : int(n_tok[0])].numpy()
+    near = (np.abs(pre - np.floor(pre) - 0.5) < S3_BOUNDARY).any(-1)
+    differ = (tok != tok_host) & ~near
+    print("frontend, card against host: max abs " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (limit {FEATURE_ATOL}); x-vector relative error {xv_err:.3g} (limit {XVEC_RTOL}, |x| "
+          f"{np.linalg.norm(xv_host):.3g}); S3 tokens {len(tok)}, {int((tok != tok_host).sum())} differ, "
+          f"{int(near.sum())} frames within {S3_BOUNDARY} of a rounding boundary")
+    if (any(v > FEATURE_ATOL for v in errs.values()) or xv_err > XVEC_RTOL or len(tok) != len(tok_host)
+            or differ.any() or not np.isfinite(xv).all()):
+        raise AssertionError("the frontend on the card disagrees with the host's")
+
+
+def frontend_parts(fe, text, prompt_text, wav):
+    """ms per part of text_normalize + one frontend_zero_shot call, each
+    part between synchronisations: text (normalise, tokenise tts and prompt
+    text), whisper mel + S3, fbank + CAM++, 24 kHz mel (resample + mel)."""
+    secs = {}
+    sync = _sync_fn(fe.device)
+    with contextlib.ExitStack() as stack:
+        for name in ("text_normalize", "_extract_text_token", "_extract_speech_token", "_extract_spk_embedding",
+                     "_resample", "_extract_speech_feat"):
+            stack.enter_context(_timed(fe, name, secs, sync))
+        sync()
+        t = time.perf_counter()
+        fe.frontend_zero_shot(fe.text_normalize(text)[0], prompt_text, wav)
+        sync()
+        total = time.perf_counter() - t
+    parts = {"text": secs["text_normalize"] + secs["_extract_text_token"],
+             "whisper mel + S3": secs["_extract_speech_token"], "fbank + CAM++": secs["_extract_spk_embedding"],
+             "24 kHz mel": secs["_resample"] + secs["_extract_speech_feat"], "total": total}
+    return {k: v * 1e3 for k, v in parts.items()}
+
+
+def _sync_fn(device):
+    import torch
+
+    return (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
+
+
+def _check_chunks(label, outs, speed=1.0, stream=False):
+    """Finite wavs, each int(n_tokens * 2 / speed) * 480 samples long (a
+    stream's chunks hold back a cross-fade tail: their sum). Returns the
+    tokens and the audio seconds."""
+    import numpy as np
+
+    wavs = [o["tts_speech"] for o in outs]
+    lens = [int(len(o["speech_tokens"]) * 2 / speed) * 480 for o in outs]
+    got = [w.shape[1] for w in wavs]
+    if stream:
+        lens, got = [sum(lens)], [sum(got)]
+    if not all(np.isfinite(w).all() for w in wavs) or got != lens:
+        raise AssertionError(f"{label}: wavs of {got} samples (finite: {[bool(np.isfinite(w).all()) for w in wavs]}), "
+                             f"want {lens} at speed {speed}")
+    toks = np.concatenate([o["speech_tokens"] for o in outs])
+    if len(toks) == 0:
+        raise AssertionError(f"{label}: no token")
+    return toks, sum(got) / 24000
+
+
+def _api_call(label, sync, gen, speed=1.0, stream=False):
+    """Drain one API generator: (outputs, tokens, wall s, ms to the first
+    non-empty chunk, audio s), printed with its RTF."""
+    sync()
+    t = time.perf_counter()
+    outs, first = [], None
+    for o in gen:
+        outs.append(o)
+        if first is None and o["tts_speech"].size:
+            first = (time.perf_counter() - t) * 1e3
+    sync()
+    wall = time.perf_counter() - t
+    toks, audio = _check_chunks(label, outs, speed, stream)
+    print(f"api {label}: {len(outs)} output(s), {len(toks)} tokens, audio {audio:.2f} s, wall {wall * 1e3:.0f} ms, "
+          f"RTF {wall / audio:.4f}")
+    return outs, toks, wall, first, audio
+
+
+ENGINE_INPUTS = ("text_tokens", "prompt_text_tokens", "llm_prompt_speech_token", "flow_prompt_speech_token",
+                 "prompt_speech_feat", "flow_embedding")
+
+
+def hold_api_against_engine(api, label, prompt, text=API_TEXT):
+    """One offline zero-shot request through the API, then engine.tts on the
+    frontend's outputs for the same text and prompt (the LM's generator
+    seeded alike): tokens and wav equal. Returns (API tokens, API RTF,
+    engine RTF)."""
+    import numpy as np
+
+    fe, eng = api.frontend, api.engine
+    sync = _sync_fn(fe.device)
+    outs, toks, wall, _, audio = _api_call(f"{label} zero-shot".strip(), sync, api.inference_zero_shot(
+        text, API_PROMPT_TEXT, prompt))
+    (seg,) = fe.text_normalize(text)
+    mi = fe.frontend_zero_shot(seg, fe.text_normalize(API_PROMPT_TEXT, split=False), prompt)
+    sync()
+    t = time.perf_counter()
+    (ref,) = list(eng.tts(**{k: mi[k] for k in ENGINE_INPUTS}))
+    sync()
+    eng_wall = time.perf_counter() - t
+    same = np.array_equal(ref["speech_tokens"], toks), np.array_equal(ref["tts_speech"], outs[0]["tts_speech"])
+    print(f"api {label + ' ' if label else ''}zero-shot against engine.tts on its frontend's outputs: tokens equal {same[0]}, wav equal "
+          f"{same[1]}; API RTF {wall / audio:.4f}, engine RTF {eng_wall / audio:.4f} ({eng_wall * 1e3:.0f} ms)")
+    if not all(same) or len(outs) != 1:
+        raise AssertionError(f"api {label}: the API's request differs from engine.tts on the same inputs")
+    return toks, wall / audio, eng_wall / audio
+
+
+def phase_api(api, per_step):
+    """The public API at full width: the frontend held card against host
+    and timed per part (cold prompt, then the LRU hit); then, counted, a
+    zero-shot request held against engine.tts on its frontend's outputs,
+    the same request streamed (first chunk, doubling schedule, the offline
+    tokens), a cold-prompt request, cross-lingual, instruct2, vc, sft after
+    add_zero_shot_spk, speed API_SPEED and a two-segment text; every decode
+    step through its kernels. Returns the launches."""
+    import numpy as np
+    import torch
+
+    fe, eng = api.frontend, api.engine
+    sync = _sync_fn(fe.device)
+    prompt, fresh, source = synthetic_voice(1, 3.0), synthetic_voice(3, 3.0), synthetic_voice(2, 2.0)
+    cudnn = torch.backends.cudnn
+    saved, cudnn.deterministic = cudnn.deterministic, True
+    try:
+        hold_frontend(fe, prompt)
+        norm_prompt = fe.text_normalize(API_PROMPT_TEXT, split=False)
+        for label in ("first call", "cold prompt (LRU miss)", "warm prompt (LRU hit)"):
+            wav = fresh if label == "first call" else prompt
+            parts = frontend_parts(fe, API_TEXT, norm_prompt, wav)
+            print(f"frontend ms, {label}: " + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
+        # warm-up, uncounted: the decode graphs of this prompt's arena buckets, cuDNN's algorithm choices
+        _api_call("zero-shot warm-up", sync, api.inference_zero_shot(API_TEXT, API_PROMPT_TEXT, prompt))
+        counters = _zero_counts(eng)
+        toks, api_rtf, eng_rtf = hold_api_against_engine(api, "", prompt)
+        n_prompt = len(fe.frontend_zero_shot("", norm_prompt, prompt)["flow_prompt_speech_token"])
+        outs, stoks, _, first, _ = _api_call("zero-shot stream", sync, api.inference_zero_shot(
+            API_TEXT, API_PROMPT_TEXT, prompt, stream=True), stream=True)
+        sched = [len(o["speech_tokens"]) for o in outs]
+        want = _doubling_schedule(eng, len(stoks), n_prompt)
+        print(f"api zero-shot stream: first chunk {first:.1f} ms (engine {eng.timer.records['first_chunk'][-1] * 1e3:.1f}"
+              f" ms from its tts call), chunks of {sched} tokens (doubling: {want}), tokens equal offline "
+              f"{np.array_equal(stoks, toks)}")
+        if sched != want or not all(o["tts_speech"].size for o in outs) or not np.array_equal(stoks, toks):
+            raise AssertionError("api stream: empty chunk, not the doubling schedule, or not the offline tokens")
+        _, _, cold_wall, _, cold_audio = _api_call("zero-shot, cold prompt", sync, api.inference_zero_shot(
+            API_TEXT, API_PROMPT_TEXT, fresh))
+        _api_call("cross-lingual", sync, api.inference_cross_lingual(API_TEXT, prompt))
+        _api_call("instruct2", sync, api.inference_instruct2(API_TEXT, API_INSTRUCT, prompt))
+        _, vtoks, _, _, _ = _api_call("vc", sync, api.inference_vc(source, prompt))
+        if not np.array_equal(vtoks, fe._extract_speech_token(source)):
+            raise AssertionError("api vc: the tokens are not the source's S3 tokens")
+        api.add_zero_shot_spk(API_PROMPT_TEXT, prompt, "spk0")
+        _, ftoks, _, _, _ = _api_call("sft (add_zero_shot_spk)", sync, api.inference_sft(API_TEXT, "spk0"))
+        _api_call(f"speed {API_SPEED}", sync, api.inference_zero_shot(API_TEXT, API_PROMPT_TEXT, prompt,
+                                                                      speed=API_SPEED), API_SPEED)
+        segs = fe.text_normalize(API_TWO_SEGMENTS)
+        outs, _, _, _, _ = _api_call(f"{len(segs)} segments", sync, api.inference_zero_shot(
+            API_TWO_SEGMENTS, API_PROMPT_TEXT, prompt))
+        if len(segs) < 2 or len(outs) != len(segs):
+            raise AssertionError(f"api: {len(segs)} segments, {len(outs)} outputs")
+        launches = _check_launches(eng, counters, per_step)
+    finally:
+        cudnn.deterministic = saved
+    print(f"api RTF: warm prompt {api_rtf:.4f} against the engine's {eng_rtf:.4f} on the same ids; cold prompt "
+          f"{cold_wall / cold_audio:.4f}")
+    return launches
+
+
+def phase_api_int4p(api, per_step):
+    """One zero-shot request through CosyVoice2(quant_lm="int4p"): every
+    decode step through K7 (the arena stays within 2048 rows), the tokens
+    and wav those of engine.tts on its frontend's outputs. Returns the
+    launches."""
+    import torch
+
+    cudnn = torch.backends.cudnn
+    saved, cudnn.deterministic = cudnn.deterministic, True
+    try:
+        prompt = synthetic_voice(1, 3.0)
+        api.frontend.frontend_zero_shot("", api.frontend.text_normalize(API_PROMPT_TEXT, split=False), prompt)
+        counters = _zero_counts(api.engine)
+        hold_api_against_engine(api, "int4p", prompt)
+        lm = api.lm
+        if lm.decode_steps == 0 or lm.fused_steps != lm.decode_steps:
+            raise AssertionError(f"api int4p: {lm.fused_steps} of {lm.decode_steps} decode steps through K7")
+        return _check_launches(api.engine, counters, per_step)
+    finally:
+        cudnn.deterministic = saved
+
+
 def main(argv):
     import numpy as np
     import torch
@@ -2366,6 +2657,16 @@ def main(argv):
         phase_idle(held)
     del held
     torch.cuda.empty_cache()
+    # the public API from text and a prompt wav, once the engines above are freed
+    for suffix, kw, per_step in (("", {}, PER_STEP["bf16"]), ("_int4p", {"quant_lm": "int4p"},
+                                                              PER_STEP["int4p_bf16"])):
+        with Phase("api" + suffix):
+            api = build_api(**kw)
+            counts = (phase_api_int4p if suffix else phase_api)(api, per_step)
+            for key, n in counts.items():
+                launches[key] += n
+            del api
+            torch.cuda.empty_cache()
     for key, n in launches.items():
         kernels[key]["launches"] = n
     if not all(launches.values()):

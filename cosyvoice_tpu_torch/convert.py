@@ -3,16 +3,19 @@
 `load_jax_params(module, tree)` takes a param tree of the JAX package
 (`Qwen2LM.init`, `CausalFlow.init`, `HiFTGenerator.init`, as nested dicts of
 numpy arrays) and copies every leaf into the matching parameter of the port's
-module (Qwen2LMModule, CausalFlow, HiFTGenerator):
+module (Qwen2LMModule, CausalFlow, HiFTGenerator, and the frontend's
+S3Tokenizer and CamPPEmbedding):
 
 - names: "/"-joined Flax paths become "."-joined PyTorch names, with the
   Flax list suffixes (`layers_3`, `mid_tf_2_1`) as ModuleList indices
-  (`layers.3`, `mid_tf.2.1`) and `kernel`/`embedding`/`scale` as `weight`,
-  unless the port's module has a parameter of the leaf's own name: the
-  quantised leaves (`kernel_q4b`, `scale4`, and the int8 head's `kernel_q`
-  and `scale`) keep their names;
+  (`layers.3`, `mid_tf.2.1`, `blocks.0`) and `kernel`/`embedding`/`scale`
+  as `weight`, unless the port's module has a parameter of the leaf's own
+  name: the quantised leaves (`kernel_q4b`, `scale4`, and the int8 head's
+  `kernel_q` and `scale`) and CAM++'s batch norms (`mean`, `var`, `scale`,
+  `bias`) keep their names;
 - layouts: Dense [in, out] -> Linear [out, in]; conv [k, in, out] ->
-  [out, in, k]; weight-normed ConvTranspose v [k, in, out] -> [in, out, k];
+  [out, in, k]; 2-D conv [kF, kT, in, out] -> [out, in, kF, kT];
+  weight-normed ConvTranspose v [k, in, out] -> [in, out, k];
   the int8 head's kernel_q [in, out] -> [out, in] and scale [1, out] ->
   [out]; the int4p layouts (`kernel_q4b`, `scale4`) as they are.
 
@@ -35,7 +38,7 @@ from cosyvoice_tpu_torch.nn.conv import WNConvTranspose1d
 
 _LISTS = (
     "layers|encoders|up_encoders|condnet|resblocks|source_resblocks|source_downs|ups|act1|act2|convs1|convs2"
-    "|down_resnet|mid_resnet|up_resnet|down_post|up_post|down_tf|mid_tf|up_tf"
+    "|down_resnet|mid_resnet|up_resnet|down_post|up_post|down_tf|mid_tf|up_tf|blocks"
 )
 _LIST_SEGMENT = re.compile(rf"^({_LISTS})((?:_\d+)+)$")
 _LEAF_NAMES = {"kernel": "weight", "embedding": "weight", "scale": "weight"}
@@ -71,6 +74,8 @@ def _port_layout(leaf: str, arr: np.ndarray, owner) -> np.ndarray:
         return arr.T
     if leaf == "kernel" and arr.ndim == 3:
         return arr.transpose(2, 1, 0)
+    if leaf == "kernel" and arr.ndim == 4:
+        return arr.transpose(3, 2, 0, 1)
     if leaf == "v":
         return arr.transpose(1, 2, 0) if isinstance(owner, WNConvTranspose1d) else arr.transpose(2, 1, 0)
     return arr

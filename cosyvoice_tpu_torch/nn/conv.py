@@ -19,15 +19,16 @@ def _cl(fn, x):
 class Conv1d(nn.Module):
     """torch-Conv1d semantics with symmetric zero pad `padding`."""
 
-    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0, groups=1):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0, groups=1, dilation=1, bias=True):
         super().__init__()
-        self.stride, self.padding, self.groups = stride, padding, groups
+        self.stride, self.padding, self.groups, self.dilation = stride, padding, groups, dilation
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels // groups, kernel_size))
-        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
         nn.init.kaiming_uniform_(self.weight, a=5**0.5)
 
     def forward(self, x):
-        return _cl(lambda t: F.conv1d(t, self.weight, self.bias, self.stride, self.padding, 1, self.groups), x)
+        return _cl(lambda t: F.conv1d(t, self.weight, self.bias, self.stride, self.padding, self.dilation,
+                                      self.groups), x)
 
 
 class WNConv1d(nn.Module):

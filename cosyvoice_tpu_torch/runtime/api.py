@@ -1,0 +1,239 @@
+"""Public API: text and a voice-prompt wav in, 24 kHz speech out.
+
+Counterpart of cosyvoice_tpu/runtime/api.py (the reference CLI surface,
+cosyvoice/cli/cosyvoice.py). `CosyVoice2` runs the frontend
+(frontend/frontend.py: text normalisation, tokenizer, S3 tokens, x-vector,
+prompt mel) and the engine (runtime/engine.py) on one device:
+`inference_zero_shot`, `_cross_lingual`, `_instruct2`, `_vc` and `_sft`
+are generators of {'tts_speech': np.ndarray [1, n], 'speech_tokens': ...}
+chunks, offline or streamed; `add_zero_shot_spk` / `save_spkinfo` keep the
+speaker cache. `AutoModel` picks the class from the model dir.
+
+The weights are random, made on the device from `seed` (engine: seed,
+seed + 1, seed + 2; frontend: seed + 3, seed + 4); a model dir supplies
+config.json (architectures, `engine.hop_policy`) and spk2info.pkl. Not
+ported yet, and raising NotImplementedError rather than serving random
+weights or byte ids in their place: checkpoint files and tokenizer assets
+in the model dir, `save_pretrained` and `set_sampling` (ROADMAP A6b),
+`enable_continuous_batching` (A7), `quant_lm` True / "int8" / "int4" (A8),
+and the CosyVoice3 (A9) and CosyVoice (v1, A10) models.
+"""
+
+import dataclasses
+import json
+import logging
+import os
+import time
+from typing import Optional
+
+import numpy as np
+
+from cosyvoice_tpu_torch.frontend.frontend import CosyVoiceFrontEnd
+from cosyvoice_tpu_torch.frontend.tokenizer import find_tokenizer_assets
+from cosyvoice_tpu_torch.models.flow import FlowConfig
+from cosyvoice_tpu_torch.models.hift import HiFTConfig
+from cosyvoice_tpu_torch.models.llm import LMConfig
+from cosyvoice_tpu_torch.runtime.engine import build_random_engine
+from cosyvoice_tpu_torch.utils.config import build_flow_config, build_hift_config, build_lm_config, build_s3_config
+
+CHECKPOINTS = ("lm", "flow", "hift", "speech_tokenizer", "campplus")  # <name>.msgpack in a model dir
+
+
+def _read_dir_config(model_dir: str) -> dict:
+    path = os.path.join(model_dir, "config.json") if model_dir else ""
+    if path and os.path.exists(path):
+        with open(path) as f:
+            return json.load(f)
+    return {}
+
+
+def _refuse_checkpoints(model_dir: str):
+    found = [f"{name}.msgpack" for name in CHECKPOINTS
+             if model_dir and os.path.exists(os.path.join(model_dir, f"{name}.msgpack"))]
+    if found:
+        raise NotImplementedError(
+            f"{model_dir} holds checkpoints {found}: the port cannot load them yet (ROADMAP A6b) and does not "
+            "serve random weights in their place"
+        )
+
+
+def load_frontend(model_dir: str = "", sample_rate: int = 24000, version: int = 2, seed: int = 0,
+                  device="cuda") -> CosyVoiceFrontEnd:
+    """A CosyVoiceFrontEnd for a model dir: the S3 architecture from
+    config.json "frontend": {"s3": ...}, the speakers of spk2info.pkl, random
+    S3 and CAM++ weights from `seed`. Raises NotImplementedError on
+    speech_tokenizer.msgpack / campplus.msgpack or tokenizer assets."""
+    _refuse_checkpoints(model_dir)
+    s3 = _read_dir_config(model_dir).get("frontend", {}).get("s3")
+    return CosyVoiceFrontEnd(
+        token_path=find_tokenizer_assets(model_dir),
+        sample_rate=sample_rate,
+        spk2info_path=os.path.join(model_dir, "spk2info.pkl") if model_dir else "",
+        s3_cfg=build_s3_config(s3) if s3 else None,
+        seed=seed,
+        version=version,
+        device=device,
+    )
+
+
+def _require_v2(version: int):
+    if version != 2:
+        item = {1: "A10", 3: "A9"}.get(version)
+        if item is None:
+            raise ValueError(f"unsupported model version {version}")
+        raise NotImplementedError(f"CosyVoice version {version} is not ported yet (ROADMAP {item})")
+
+
+class CosyVoice2:
+    sample_rate = 24000
+
+    def __init__(
+        self,
+        model_dir: str = "",
+        seed: int = 1986,
+        lm_cfg: Optional[LMConfig] = None,
+        flow_cfg: Optional[FlowConfig] = None,
+        hift_cfg: Optional[HiFTConfig] = None,
+        quant_lm=False,  # False, or "int4p": int4 weights on the fused decode kernels (K4..K7)
+        kv_quant: bool = False,  # int8 KV arena with per-row scales (K3)
+        hop_policy: str = "",  # doubling | exponential | time_based; "" = config.json's engine.hop_policy, else doubling
+        device="cuda",
+    ):
+        self.model_dir = model_dir
+        file_cfg = _read_dir_config(model_dir)
+        _require_v2(int(file_cfg.get("version", 2)))
+        if quant_lm not in (False, "int4p"):
+            raise NotImplementedError(f"quant_lm={quant_lm!r}: only 'int4p' is ported (the others: ROADMAP A8)")
+        lm_cfg = lm_cfg or (build_lm_config(file_cfg["llm"]) if "llm" in file_cfg else LMConfig())
+        if quant_lm or kv_quant:
+            qwen = dataclasses.replace(lm_cfg.qwen, quant=quant_lm or lm_cfg.qwen.quant,
+                                       kv_quant=kv_quant or lm_cfg.qwen.kv_quant)
+            lm_cfg = dataclasses.replace(lm_cfg, qwen=qwen)
+        flow_cfg = flow_cfg or (build_flow_config(file_cfg["flow"]) if "flow" in file_cfg else FlowConfig())
+        hift_cfg = hift_cfg or (build_hift_config(file_cfg["hift"]) if "hift" in file_cfg else HiFTConfig())
+        self.frontend = load_frontend(model_dir, self.sample_rate, seed=seed + 3, device=device)
+        self.engine = build_random_engine(
+            seed, device, lm_cfg, flow_cfg, hift_cfg,
+            hop_policy=hop_policy or file_cfg.get("engine", {}).get("hop_policy", "doubling"),
+        )
+        self.lm, self.flow, self.hift = self.engine.lm, self.engine.flow, self.engine.hift
+
+    # ---------------- speaker cache ----------------
+    def list_available_spks(self):
+        return list(self.frontend.spk2info.keys())
+
+    def add_zero_shot_spk(self, prompt_text: str, prompt_wav, zero_shot_spk_id: str) -> bool:
+        if zero_shot_spk_id == "":
+            raise ValueError("do not use empty zero_shot_spk_id")
+        return self.frontend.add_zero_shot_spk(prompt_text, prompt_wav, zero_shot_spk_id)
+
+    def save_spkinfo(self):
+        self.frontend.save_spkinfo(os.path.join(self.model_dir or ".", "spk2info.pkl"))
+
+    # ---------------- not ported yet ----------------
+    def set_sampling(self, top_p=None, top_k=None, temperature=None, repetition_penalty=None):
+        raise NotImplementedError("set_sampling is not ported yet (ROADMAP A6b)")
+
+    def enable_continuous_batching(self, max_batch: int = 4, block_size=None):
+        raise NotImplementedError("continuous batching is not ported yet (ROADMAP A7)")
+
+    def save_pretrained(self, out_dir: str):
+        raise NotImplementedError("save_pretrained is not ported yet (ROADMAP A6b)")
+
+    # ---------------- inference modes ----------------
+    def _run(self, model_input: dict, stream: bool, speed: float):
+        start = time.time()
+        for out in self.engine.tts(
+            text_tokens=model_input.get("text_tokens", np.zeros(0, np.int32)),
+            prompt_text_tokens=model_input.get("prompt_text_tokens", np.zeros(0, np.int32)),
+            llm_prompt_speech_token=model_input.get("llm_prompt_speech_token", np.zeros(0, np.int32)),
+            flow_prompt_speech_token=model_input.get("flow_prompt_speech_token", np.zeros(0, np.int32)),
+            prompt_speech_feat=model_input.get("prompt_speech_feat", np.zeros((1, 0, 80), np.float32)),
+            flow_embedding=model_input.get("flow_embedding", np.zeros((1, 192), np.float32)),
+            stream=stream,
+            speed=speed,
+            source_speech_token=model_input.get("source_speech_token"),
+        ):
+            speech_len = out["tts_speech"].shape[1] / self.sample_rate
+            logging.info("yield speech len %.2f, rtf %.3f", speech_len, (time.time() - start) / max(speech_len, 1e-6))
+            yield out
+            start = time.time()
+
+    def _run_segments(self, inputs, stream: bool, speed: float):
+        """`inputs` lazily yields each text segment's model input: the
+        segments run one after another, each one's frontend as reached."""
+        for mi in inputs:
+            yield from self._run(mi, stream, speed)
+
+    def _segments(self, tts_text, text_frontend: bool):
+        return self.frontend.text_normalize(tts_text, split=True) if text_frontend else [tts_text]
+
+    def inference_zero_shot(self, tts_text, prompt_text, prompt_wav, zero_shot_spk_id="", stream=False, speed=1.0,
+                            text_frontend=True):
+        prompt_texts = self.frontend.text_normalize(prompt_text, split=False) if text_frontend else prompt_text
+
+        def jobs():
+            for seg in self._segments(tts_text, text_frontend):
+                # a generator segment (text from an upstream LLM) takes the LM's bistream decode
+                if not hasattr(seg, "__next__") and len(seg) < 0.5 * len(prompt_text):
+                    logging.warning("synthesis text %s too short compared to prompt text %s", seg, prompt_text)
+                yield self.frontend.frontend_zero_shot(seg, prompt_texts, prompt_wav, zero_shot_spk_id)
+
+        yield from self._run_segments(jobs(), stream, speed)
+
+    def inference_cross_lingual(self, tts_text, prompt_wav, zero_shot_spk_id="", stream=False, speed=1.0,
+                                text_frontend=True):
+        def jobs():
+            for seg in self._segments(tts_text, text_frontend):
+                yield self.frontend.frontend_cross_lingual(seg, prompt_wav, zero_shot_spk_id)
+
+        yield from self._run_segments(jobs(), stream, speed)
+
+    def inference_instruct2(self, tts_text, instruct_text, prompt_wav, zero_shot_spk_id="", stream=False, speed=1.0,
+                            text_frontend=True):
+        def jobs():
+            for seg in self._segments(tts_text, text_frontend):
+                yield self.frontend.frontend_instruct2(seg, instruct_text, prompt_wav, zero_shot_spk_id)
+
+        yield from self._run_segments(jobs(), stream, speed)
+
+    def inference_vc(self, source_speech_16k, prompt_wav, stream=False, speed=1.0):
+        yield from self._run(self.frontend.frontend_vc(source_speech_16k, prompt_wav), stream, speed)
+
+    def inference_sft(self, tts_text, spk_id, stream=False, speed=1.0, text_frontend=True):
+        """A pre-enrolled speaker, no prompt wav: an add_zero_shot_spk entry
+        (the whole prompt) or a released entry (an 'embedding' x-vector alone)."""
+        info = self.frontend.spk2info[spk_id]
+
+        def jobs():
+            for seg in self._segments(tts_text, text_frontend):
+                if "embedding" in info:
+                    mi = {"flow_embedding": np.asarray(info["embedding"], np.float32).reshape(1, -1)}
+                else:
+                    mi = dict(info)
+                mi["text_tokens"] = self.frontend._extract_text_token(seg)
+                yield mi
+
+        yield from self._run_segments(jobs(), stream, speed)
+
+
+def detect_model_version(model_dir: str) -> int:
+    """config.json's 'version', else the reference's yaml name
+    (cosyvoice{,2,3}.yaml), else 2."""
+    cfg_path = os.path.join(model_dir, "config.json") if model_dir else ""
+    if cfg_path and os.path.exists(cfg_path):
+        with open(cfg_path) as f:
+            return json.load(f).get("version", 2)
+    if model_dir:
+        for v, name in ((3, "cosyvoice3.yaml"), (2, "cosyvoice2.yaml"), (1, "cosyvoice.yaml")):
+            if os.path.exists(os.path.join(model_dir, name)):
+                return v
+    return 2
+
+
+class AutoModel:
+    """The model class the model dir names (reference cosyvoice.py:228-238)."""
+
+    def __new__(cls, model_dir: str = "", **kwargs):
+        _require_v2(detect_model_version(model_dir))
+        return CosyVoice2(model_dir, **kwargs)

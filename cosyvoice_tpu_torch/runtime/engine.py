@@ -39,11 +39,14 @@ The engine serves each LM configuration of models/llm.py: bf16, int4p over
 an int8 arena, and int4p over a bf16 arena (whose decode steps run the
 whole-step kernel K7 while the arena holds at most 2048 rows), e.g.
 `build_random_engine(seed, "cuda", LMConfig(qwen=Qwen2Config(quant="int4p")))`.
-It takes ids and features; the frontend (text normalisation, BPE, S3
-tokenizer, CAM++) is not part of it. Not ported: the JAX engine's
-speculative fused first chunk (its chunks equal the standard path's), speed
-change, vc mode, per-request seeds, external token generators and
-continuous batching, and the v3 and v1 engines.
+It takes ids and features (runtime/api.py's frontend makes them from text
+and a prompt wav). `tts(source_speech_token=...)` (vc) takes the source's
+speech tokens as the token stream, with no LM call; `tts(speed=...)`
+stretches the offline mel by linear interpolation before the vocoder (the
+generic finalize), and raises when streaming. Not ported: the JAX engine's
+speculative fused first chunk (its chunks equal the standard path's),
+per-request seeds, external token generators and continuous batching, and
+the v3 and v1 engines.
 """
 
 import contextlib
@@ -63,6 +66,7 @@ from cosyvoice_tpu_torch.models.flow import CausalFlow, FlowConfig
 from cosyvoice_tpu_torch.models.hift import HiFTConfig, HiFTGenerator
 from cosyvoice_tpu_torch.models.llm import TYPE_SPECIAL, TYPE_SPEECH, TYPE_TEXT, LMConfig, Qwen2LM, Qwen2LMModule
 from cosyvoice_tpu_torch.ops.quant import quantize_lm_params
+from cosyvoice_tpu_torch.ops.resample import interpolate_linear
 from cosyvoice_tpu_torch.utils.devices import resolve_device
 from cosyvoice_tpu_torch.utils.init import init_random_
 from cosyvoice_tpu_torch.utils.profiling import StageTimer
@@ -383,14 +387,20 @@ class CosyVoice2Engine:
         wav = self._vocode_chunk(state, mel_new, keep=False)
         return wav[:, : (cache_rows + rem * r) * self.wav_hop]
 
-    def _finalize_generic(self, state, all_tokens, prompt_feat, embedding, token_offset, streaming: bool = True):
+    def _finalize_generic(self, state, all_tokens, prompt_feat, embedding, token_offset, streaming: bool = True,
+                          speed: float = 1.0):
         """Final chunk, the generic path: the flow over every token, the mel
-        past the prompt mel and the emitted chunks, bucketed vocode + fade.
+        past the prompt mel and the emitted chunks (offline with `speed` !=
+        1, stretched to int(rows / speed) rows), bucketed vocode + fade.
         Odd prompts finalize here (ROADMAP C4), as does a finalize with no
-        token left, and the offline path with no generated token."""
+        token left, and the offline path with no generated token or a speed
+        change."""
         r = self.token_mel_ratio
         mel, n = self._flow_prefix(all_tokens, prompt_feat, embedding, streaming, finalize=True)
-        return self._vocode_rest(state, mel[:, prompt_feat.shape[1] + token_offset * r : n * r])
+        mel = mel[:, prompt_feat.shape[1] + token_offset * r : n * r]
+        if speed != 1.0:
+            mel = interpolate_linear(mel.transpose(1, 2), int(mel.shape[1] / speed)).transpose(1, 2)
+        return self._vocode_rest(state, mel)
 
     def _vocode_rest(self, state, mel):
         """A finalize's mel after the mel cache, vocoded in the `mel_bucket`
@@ -455,22 +465,24 @@ class CosyVoice2Engine:
                                 "device_ms": ev[0].elapsed_time(ev[1]) if timed else None})
         return out
 
-    def synthesize_offline(self, tokens, prompt_token, prompt_feat, embedding):
+    def synthesize_offline(self, tokens, prompt_token, prompt_feat, embedding, speed: float = 1.0):
         """tokens [L] generated, prompt_token [Lp], prompt_feat [1, pm, 80],
-        embedding [1, 192] -> wav np.ndarray [1, L * 2 * 480].
+        embedding [1, 192] -> wav np.ndarray [1, L * 2 * 480] (at speed 1).
 
-        With no tokens it does what the JAX engine's token2wav(finalize=True)
-        does (the generic finalize, offline masks): the flow over the prompt
-        tokens alone, mel rows pm .. 2*Lp padded with LOG_SILENCE to the
-        vocoder's bucket (`mel_bucket`), so an odd prompt (pm < 2*Lp) gives
+        With no tokens, or a speed change, it does what the JAX engine's
+        token2wav(finalize=True) does (the generic finalize, offline masks):
+        the flow over prompt and tokens, mel rows from pm on (stretched to
+        int(rows / speed)) padded with LOG_SILENCE to the vocoder's bucket
+        (`mel_bucket`); with no tokens an odd prompt (pm < 2*Lp) gives
         (2*Lp - pm) * 480 samples and an even one an empty wav."""
         t0 = time.perf_counter()
         r, pm = self.token_mel_ratio, prompt_feat.shape[1]
         all_tokens = np.concatenate([prompt_token, tokens]).astype(np.int64)
         L = len(all_tokens)
         with torch.inference_mode():
-            if len(tokens) == 0:
-                wav = self._finalize_generic(SessionState(), all_tokens, prompt_feat, embedding, 0, streaming=False)
+            if len(tokens) == 0 or speed != 1.0:
+                wav = self._finalize_generic(SessionState(), all_tokens, prompt_feat, embedding, 0, streaming=False,
+                                             speed=speed)
             else:
                 # drop the prompt mel and silence the padded tail (the JAX engine's roll + mask)
                 mel, _ = self._flow_prefix(all_tokens, prompt_feat, embedding, streaming=False, finalize=True)
@@ -531,19 +543,26 @@ class CosyVoice2Engine:
         prompt_speech_feat: np.ndarray,
         flow_embedding: np.ndarray,
         stream: bool = False,
+        speed: float = 1.0,
+        source_speech_token: Optional[np.ndarray] = None,
     ) -> Generator[dict, None, None]:
         """Yields {'tts_speech': np.ndarray [1, n], 'speech_tokens': [n_tok]}:
         offline one dict with every token, streaming one per chunk with the
         tokens it covers (their concatenation is the request's tokens).
 
         `text_tokens` is an id array, or an iterator of id chunks for
-        bi-streaming text input (`Qwen2LM.generate_bistream`)."""
+        bi-streaming text input (`Qwen2LM.generate_bistream`). With
+        `source_speech_token` (vc) those tokens are the token stream and the
+        LM is not called. `speed` != 1 is offline only."""
         c = self.lm.cfg
+        if stream and speed != 1.0:
+            raise ValueError("speed change only supports non-stream mode")
         for name, arr, vocab in (
             ("llm_prompt_speech_token", llm_prompt_speech_token, c.speech_token_size),
             ("flow_prompt_speech_token", flow_prompt_speech_token, self.flow.cfg.vocab_size),
+            ("source_speech_token", source_speech_token, self.flow.cfg.vocab_size),
         ):
-            if np.asarray(arr).size and int(np.max(arr)) >= vocab:
+            if arr is not None and np.asarray(arr).size and int(np.max(arr)) >= vocab:
                 raise ValueError(
                     f"{name} has id {int(np.max(arr))} >= codec vocab {vocab}: the model config "
                     "does not match the speech tokenizer that produced these tokens"
@@ -551,7 +570,9 @@ class CosyVoice2Engine:
         prompt_speech = np.asarray(llm_prompt_speech_token, np.int32)
         t0 = time.perf_counter()
         gen = self._generator()
-        if hasattr(text_tokens, "__next__"):
+        if source_speech_token is not None:
+            blocks = iter([np.asarray(source_speech_token, np.int32)])
+        elif hasattr(text_tokens, "__next__"):
             # bi-streaming text input: no length bounds from the text
             blocks = self.lm.generate_bistream(text_tokens, np.asarray(prompt_text_tokens, np.int32), prompt_speech, gen)
         else:
@@ -572,7 +593,7 @@ class CosyVoice2Engine:
         self._sync()
         self.timer.add("lm", time.perf_counter() - t0)
         tokens = np.asarray(produced, np.int32)
-        wav = self.synthesize_offline(tokens, prompt_token, prompt_speech_feat, flow_embedding)
+        wav = self.synthesize_offline(tokens, prompt_token, prompt_speech_feat, flow_embedding, speed)
         yield {"tts_speech": wav, "speech_tokens": tokens}
 
     def _stream(self, blocks, t_req, prompt_token, prompt_feat, embedding):
@@ -654,6 +675,7 @@ def build_random_engine(
     lm_cfg: LMConfig = LMConfig(),
     flow_cfg: FlowConfig = FlowConfig(),
     hift_cfg: HiFTConfig = HiFTConfig(),
+    hop_policy: str = "doubling",
 ) -> CosyVoice2Engine:
     """An engine with random weights made on `device` from `seed` (default
     configs: full-width CosyVoice2-0.5B), its LM from `random_lm`; the
@@ -664,7 +686,7 @@ def build_random_engine(
     hift = HiFTGenerator(hift_cfg, device=lm.device)
     init_random_(flow, seed + 1)
     init_random_(hift, seed + 2)
-    engine = CosyVoice2Engine(lm, flow, hift)
+    engine = CosyVoice2Engine(lm, flow, hift, hop_policy=hop_policy)
     if quantize_s is not None:
         engine.timer.add("quantize", quantize_s)
     return engine

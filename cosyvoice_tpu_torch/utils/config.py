@@ -1,0 +1,75 @@
+"""Declarative JSON configs -> the port's config dataclasses.
+
+Counterpart of cosyvoice_tpu/utils/config.py: a model dir's config.json has
+sections {"llm": {...}, "flow": {...}, "hift": {...}, "frontend": {"s3":
+{...}}} whose keys are dataclass fields; nested dataclasses (qwen,
+estimator, cfm) nest as dicts, dtypes are strings ("bfloat16"), lists
+become tuples. An unknown key raises. The v1 builders wait for ROADMAP A10.
+"""
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+_DTYPES = {
+    "bfloat16": torch.bfloat16,
+    "bf16": torch.bfloat16,
+    "float32": torch.float32,
+    "fp32": torch.float32,
+    "float16": torch.float16,
+    "fp16": torch.float16,
+    None: None,
+    "": None,
+}
+
+
+def _coerce(field: dataclasses.Field, value: Any) -> Any:
+    if field.name == "dtype" and (isinstance(value, str) or value is None):
+        return _DTYPES[value]
+    if isinstance(value, list):
+        return tuple(tuple(v) if isinstance(v, list) else v for v in value)
+    return value
+
+
+def build_dataclass(cls, d: Optional[Dict[str, Any]], **nested):
+    """Build dataclass `cls` from dict `d`; `nested` maps a field name to the
+    dataclass type used to build it recursively from a sub-dict."""
+    kwargs = {}
+    fields = {f.name: f for f in dataclasses.fields(cls)}
+    for key, value in dict(d or {}).items():
+        if key not in fields:
+            raise ValueError(f"unknown {cls.__name__} field: {key!r} (have {sorted(fields)})")
+        if key in nested and isinstance(value, dict):
+            kwargs[key] = build_dataclass(nested[key], value)
+        else:
+            kwargs[key] = _coerce(fields[key], value)
+    return cls(**kwargs)
+
+
+def build_lm_config(d: Optional[Dict[str, Any]] = None):
+    from cosyvoice_tpu_torch.models.llm import LMConfig
+    from cosyvoice_tpu_torch.models.qwen2 import Qwen2Config
+
+    return build_dataclass(LMConfig, d, qwen=Qwen2Config)
+
+
+def build_flow_config(d: Optional[Dict[str, Any]] = None):
+    from cosyvoice_tpu_torch.models.flow import FlowConfig
+    from cosyvoice_tpu_torch.models.flow_decoder import EstimatorConfig
+    from cosyvoice_tpu_torch.models.flow_matching import CFMConfig
+
+    return build_dataclass(FlowConfig, d, estimator=EstimatorConfig, cfm=CFMConfig)
+
+
+def build_hift_config(d: Optional[Dict[str, Any]] = None):
+    from cosyvoice_tpu_torch.models.hift import HiFTConfig
+
+    return build_dataclass(HiFTConfig, d)
+
+
+def build_s3_config(d: Optional[Dict[str, Any]] = None):
+    """config.json "frontend": {"s3": {...}} -> S3TokenizerConfig."""
+    from cosyvoice_tpu_torch.models.speech_tokenizer import S3TokenizerConfig
+
+    return build_dataclass(S3TokenizerConfig, d)

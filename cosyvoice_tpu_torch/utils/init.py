@@ -10,8 +10,9 @@ from torch import nn
 def init_random_(module: nn.Module, seed: int) -> nn.Module:
     """Refill every parameter from one torch.Generator seeded with `seed`:
     embedding tables N(0, 1); matrices and conv kernels U(+-1/sqrt(fan_in));
-    biases 0; other vectors (norm weights, weight-norm gains, snake alphas) 1.
-    Returns the module."""
+    biases and batch-norm running means 0; other vectors (norm weights and
+    running variances, weight-norm gains, snake alphas) 1. Returns the
+    module."""
     gens = {}
     embeddings = {id(m.weight) for m in module.modules() if isinstance(m, nn.Embedding)}
     for name, p in module.named_parameters():
@@ -24,7 +25,7 @@ def init_random_(module: nn.Module, seed: int) -> nn.Module:
         elif p.dim() >= 2:
             bound = 1.0 / math.sqrt(p[0].numel())
             p.copy_(torch.rand(p.shape, generator=g, device=dev) * (2 * bound) - bound)
-        elif name.endswith("bias"):
+        elif name.endswith(("bias", "mean")):
             p.zero_()
         else:
             p.fill_(1.0)

@@ -1,7 +1,8 @@
 """Rules of the PyTorch port, plus the tiny configs its parity tests share.
 
 - no module of cosyvoice_tpu_torch (nor chip_smoke.py) imports jax, flax or
-  cosyvoice_tpu, checked by AST scan;
+  cosyvoice_tpu, nor scipy, transformers or msgpack (absent on the card's
+  machine), checked by AST scan;
 - the entry points run on the card unless the caller asks for the CPU, and
   raise when there is no card.
 """
@@ -26,7 +27,7 @@ from cosyvoice_tpu.models.qwen2 import Qwen2Config as JQwen2Config
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "cosyvoice_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "cosyvoice_tpu", "scipy", "transformers", "msgpack")
 
 # ---------------------------------------------------------------- tiny configs
 
@@ -117,29 +118,38 @@ def _entry_points():
     from cosyvoice_tpu_torch.models.flow import CausalFlow, FlowConfig
     from cosyvoice_tpu_torch.models.hift import HiFTConfig, HiFTGenerator
     from cosyvoice_tpu_torch.models.llm import LMConfig, Qwen2LM
+    from cosyvoice_tpu_torch.runtime.api import AutoModel, CosyVoice2
     from cosyvoice_tpu_torch.runtime.engine import build_random_engine
 
     lm = to_port_cfg(jax_lm_cfg(), LMConfig)
     flow = to_port_cfg(jax_flow_cfg(), FlowConfig)
     hift = to_port_cfg(jax_hift_cfg(), HiFTConfig)
+    cfgs = dict(lm_cfg=lm, flow_cfg=flow, hift_cfg=hift)
     return {
         "Qwen2LM": lambda **kw: Qwen2LM(lm, **kw),
         "CausalFlow": lambda **kw: CausalFlow(flow, **kw),
         "HiFTGenerator": lambda **kw: HiFTGenerator(hift, **kw),
-        "build_random_engine": lambda **kw: build_random_engine(0, lm_cfg=lm, flow_cfg=flow, hift_cfg=hift, **kw),
+        "build_random_engine": lambda **kw: build_random_engine(0, **cfgs, **kw),
+        "CosyVoice2": lambda **kw: CosyVoice2(**cfgs, **kw),
+        "AutoModel": lambda **kw: AutoModel("", **cfgs, **kw),
     }
 
 
-@pytest.mark.parametrize("name", ["Qwen2LM", "CausalFlow", "HiFTGenerator", "build_random_engine"])
+ENTRY_POINTS = ["Qwen2LM", "CausalFlow", "HiFTGenerator", "build_random_engine", "CosyVoice2", "AutoModel"]
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
 def test_entry_points_default_to_cuda_and_raise_without_it(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _entry_points()[name]()
 
 
-@pytest.mark.parametrize("name", ["Qwen2LM", "CausalFlow", "HiFTGenerator", "build_random_engine"])
+@pytest.mark.parametrize("name", ENTRY_POINTS)
 def test_entry_points_run_on_cpu_when_asked(name):
     obj = _entry_points()[name](device="cpu")
-    mod = getattr(obj, "module", None) or getattr(obj, "lm", None) or obj
-    mod = getattr(mod, "module", mod)
-    assert next(mod.parameters()).device.type == "cpu"
+    mods = [getattr(obj, "module", None) or getattr(obj, "lm", None) or obj]
+    mods[0] = getattr(mods[0], "module", mods[0])
+    if hasattr(obj, "frontend"):  # the API's speech tokenizer and speaker model
+        mods += [obj.frontend.speech_tokenizer, obj.frontend.campplus]
+    assert all(next(m.parameters()).device.type == "cpu" for m in mods)
