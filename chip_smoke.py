@@ -143,10 +143,26 @@ text that splits into two segments; every wav finite and as long as its
 tokens give. api_int4p does the zero-shot hold through
 `CosyVoice2(quant_lm="int4p")`, every decode step through K7.
 
+Then ckpt: save_pretrained of the bf16 `CosyVoice2(seed=0)` into a
+temporary dir (removed at the end and on error), each file's size and the
+write and read seconds; `CosyVoice2(dir)` reloaded, every parameter
+bit-equal to the saved API's, and its first zero-shot request (seconds from
+the constructor) bit-equal to the saved API's on the same prompt and
+generator; on the reloaded LM a 320-token request on CUDA graphs and
+eagerly under the default sampling and under set_sampling(top_p=0.95,
+top_k=50, temperature=0.8, repetition_penalty=1.1) (identical tokens, wavs
+and generator state; LM ms per token of each; 24 K1 and 24 K2 per step;
+every graph's kernel nodes equal to its counted launches);
+`CosyVoice2(dir, quant_lm="int4p")`, whose request takes K7 and K2 on
+every step and gives the api_int4p phase's tokens; a synthetic Qwen2
+tokenizer.json at full size (151,643 byte-level ids) through
+get_tokenizer, the api texts encoded (ids below 151,936) and decoded back,
+with the load time and the encode time per character.
+
 The line before the last is {"kernels": [...]}, with each kernel's launches
 summed over the runs of phases 4, 6 and 8, the two bistream slices, the
-three stream phases and the two api phases (each counted from 0, replays
-included); the last line is {"ok": true, "device": {...}}. Without a card
+three stream phases, the two api phases and ckpt (each counted from 0,
+replays included); the last line is {"ok": true, "device": {...}}. Without a card
 it exits 2 and prints no result.
 """
 
@@ -195,15 +211,16 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16
 L2_BYTES = 50e6  # H100 L2 cache
 
-# Each phase's watchdog budget, about 1.4-3x its time on the slowest card
-# host measured (670 s of phases there, 432-479 s on others; PERF.md §5;
-# the api phases 2.7-3.7x their first run's); the budgets sum to 1122 s,
-# inside the run's 1200 s limit with room to start up.
-PHASE_BUDGET_S = {"device": 5, "build": 40, "kernels": 85, "slice": 25, "check": 12, "graphs": 45, "stream": 55,
-                  "slice_int4p": 35, "check_int4p": 25, "slice_bistream_int4p": 10, "check_bistream_int4p": 20,
-                  "graphs_int4p": 25, "stream_int4p": 20, "slice_int4p_bf16": 35, "check_int4p_bf16": 20,
+# Each phase's watchdog budget, 1.5-3x its time on the card host of the
+# run that set it (653.0 s of phases, measured on one H100; card hosts have
+# differed by up to 1.5x: 670 s of phases on the slowest, before the api
+# and ckpt phases existed); the budgets sum to 1121 s, inside the run's
+# 1200 s limit with room to start up.
+PHASE_BUDGET_S = {"device": 5, "build": 32, "kernels": 85, "slice": 20, "check": 12, "graphs": 40, "stream": 50,
+                  "slice_int4p": 28, "check_int4p": 25, "slice_bistream_int4p": 5, "check_bistream_int4p": 17,
+                  "graphs_int4p": 25, "stream_int4p": 15, "slice_int4p_bf16": 30, "check_int4p_bf16": 17,
                   "slice_bistream_int4p_bf16": 70, "check_bistream_int4p_bf16": 100, "graphs_int4p_bf16": 35,
-                  "stream_int4p_bf16": 50, "idle": 300, "api": 75, "api_int4p": 35}
+                  "stream_int4p_bf16": 50, "idle": 300, "api": 50, "api_int4p": 20, "ckpt": 90}
 PHASE_SECONDS = {}  # each phase's measured seconds in this run
 
 
@@ -1867,7 +1884,7 @@ def replay_cost(lm):
     from cosyvoice_tpu_torch.utils.profiling import enqueue_cost
 
     s, seen = lm.decoder.state, set()
-    for (fused, T, bistream), (graph, _) in sorted(lm.decoder.graphs.items()):
+    for (fused, T, bistream, _), (graph, _) in sorted(lm.decoder.graphs.items()):
         route = "K7" if fused else "per-layer"
         if route in seen:
             continue
@@ -1927,7 +1944,7 @@ def hold_graph_nodes(lm):
             warnings.simplefilter("ignore")  # debug_dump warns that it is a debugging call
             graph.debug_dump(str(path.resolve()))
         nodes = graph_kernels(path.read_text())
-        print(f"decode graph {key} (K7?, arena rows, bistream mask?): kernel nodes {nodes}, counted at capture "
+        print(f"decode graph {key} (K7?, arena rows, bistream mask?, sampling): kernel nodes {nodes}, counted at capture "
               f"{counted}")
         if nodes != counted or not any(nodes.values()):
             raise AssertionError(f"decode graph {key}: its kernel nodes are not the launches its replays count")
@@ -1939,7 +1956,7 @@ def phase_graphs(eng, runs):
     cost of a replay."""
     lm = eng.lm
     print(f"static KV arenas: {sorted(n for _, n in lm.arenas.buffers)} rows, {lm.arenas.nbytes() / 1e6:.1f} MB; "
-          f"{len(lm.decoder.graphs)} decode graphs (K7?, arena rows, bistream mask?): "
+          f"{len(lm.decoder.graphs)} decode graphs (K7?, arena rows, bistream mask?, sampling): "
           f"{sorted(lm.decoder.graphs)}")
     for label, run, want in runs:
         hold_graphs(eng, label, run, want)
@@ -2553,7 +2570,7 @@ def phase_api_int4p(api, per_step):
     """One zero-shot request through CosyVoice2(quant_lm="int4p"): every
     decode step through K7 (the arena stays within 2048 rows), the tokens
     and wav those of engine.tts on its frontend's outputs. Returns the
-    launches."""
+    launches and the tokens."""
     import torch
 
     cudnn = torch.backends.cudnn
@@ -2562,13 +2579,245 @@ def phase_api_int4p(api, per_step):
         prompt = synthetic_voice(1, 3.0)
         api.frontend.frontend_zero_shot("", api.frontend.text_normalize(API_PROMPT_TEXT, split=False), prompt)
         counters = _zero_counts(api.engine)
-        hold_api_against_engine(api, "int4p", prompt)
+        toks, _, _ = hold_api_against_engine(api, "int4p", prompt)
         lm = api.lm
         if lm.decode_steps == 0 or lm.fused_steps != lm.decode_steps:
             raise AssertionError(f"api int4p: {lm.fused_steps} of {lm.decode_steps} decode steps through K7")
-        return _check_launches(api.engine, counters, per_step)
+        return _check_launches(api.engine, counters, per_step), toks
     finally:
         cudnn.deterministic = saved
+
+
+# ---------------------------------------------------------------- checkpoints
+
+# the reference's Triton consumer's sampling (CosyVoice2.set_sampling)
+TRITON_SAMPLING = dict(top_p=0.95, top_k=50, temperature=0.8, repetition_penalty=1.1)
+QWEN2_VOCAB = 151643  # Qwen2's byte-level BPE ids; its added tokens follow
+QWEN2_ADDED = ("<|endoftext|>", "<|im_start|>", "<|im_end|>")
+QWEN2_EMBED_ROWS = 151936  # the LM's text embedding rows at full width
+
+
+def synthetic_qwen_tokenizer(path, n_vocab=QWEN2_VOCAB, seed=0):
+    """Write a Qwen2-structured tokenizer.json to dir `path`: the 256 byte
+    characters and n_vocab - 256 merges made from `seed` (each joins a
+    token made so far, half of the time one of the last 4096, to a byte
+    character, three times in four an ASCII letter or the space's), the
+    NFC normaliser, the Qwen2 Split pre-tokenizer + ByteLevel, the
+    ByteLevel decoder and the Qwen2 added tokens. Returns the file's
+    bytes."""
+    import json
+    import os
+
+    import numpy as np
+
+    from cosyvoice_tpu_torch.frontend.bpe import QWEN2_PATTERN, bytes_to_unicode
+
+    byte_chars = list(bytes_to_unicode().values())
+    common = [bytes_to_unicode()[b] for b in b"abcdefghijklmnopqrstuvwxyz "]
+    rng = np.random.default_rng(seed)
+    tokens, merges, seen = list(byte_chars), [], set(byte_chars)
+    while len(tokens) < n_vocab:
+        r = rng.random(3)
+        pool = len(tokens) if r[0] < 0.5 else min(len(tokens), 4096)
+        a = tokens[len(tokens) - 1 - int(rng.integers(pool))] if pool else tokens[0]
+        b = common[int(rng.integers(len(common)))] if r[1] < 0.75 else byte_chars[int(rng.integers(256))]
+        if r[2] < 0.5:
+            a, b = b, a
+        if a + b not in seen:
+            seen.add(a + b)
+            tokens.append(a + b)
+            merges.append([a, b])
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": n_vocab + i, "content": t, "single_word": False, "lstrip": False, "rstrip": False,
+                          "normalized": False, "special": True} for i, t in enumerate(QWEN2_ADDED)],
+        "normalizer": {"type": "NFC"},
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": QWEN2_PATTERN}, "behavior": "Isolated", "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": False, "use_regex": False}]},
+        "post_processor": None,
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None, "continuing_subword_prefix": "",
+                  "end_of_word_suffix": "", "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                  "vocab": {t: i for i, t in enumerate(tokens)}, "merges": merges},
+    }
+    os.makedirs(path, exist_ok=True)
+    data = json.dumps(spec, ensure_ascii=False).encode("utf-8")
+    with open(os.path.join(path, "tokenizer.json"), "wb") as f:
+        f.write(data)
+    return data
+
+
+def _smi():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=30)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+def _api_modules(api):
+    fe = api.frontend
+    return {"lm": api.lm.module, "flow": api.flow, "hift": api.hift, "speech_tokenizer": fe.speech_tokenizer,
+            "campplus": fe.campplus}
+
+
+def _zero_shot(api, prompt):
+    """One offline zero-shot request: (tokens, wav, wall s)."""
+    sync = _sync_fn(api.frontend.device)
+    sync()
+    t = time.perf_counter()
+    (out,) = list(api.inference_zero_shot(API_TEXT, API_PROMPT_TEXT, prompt))
+    sync()
+    return out["speech_tokens"], out["tts_speech"], time.perf_counter() - t
+
+
+def hold_sampling_on_graphs(api):
+    """The bf16 LM's decode on CUDA graphs against its eager path under the
+    default sampling and under TRITON_SAMPLING (set_sampling), one
+    320-token request each (hold_graphs: identical tokens, wavs and
+    generator state; LM ms per token of each); every decode step through
+    K1 and K2 (24 each); every captured graph's kernel nodes equal to its
+    counted launches. Returns the launches."""
+    import numpy as np
+
+    eng = api.engine
+    full = _prompt(eng)[0]
+    text = np.random.default_rng(5).integers(0, eng.lm.cfg.qwen.vocab_size, 16)
+    counters = _zero_counts(eng)
+    hold_graphs(eng, "default sampling, offline text=16", _offline_run(eng, full, text))
+    default_keys = set(eng.lm.decoder.graphs)
+    cfg = api.set_sampling(**TRITON_SAMPLING)
+    print(f"set_sampling: top_p {cfg.top_p}, top_k {cfg.top_k}, temperature {cfg.temperature}, repetition_penalty "
+          f"{cfg.repetition_penalty}")
+    hold_graphs(eng, "Triton sampling, offline text=16", _offline_run(eng, full, text))
+    new = sorted(set(eng.lm.decoder.graphs) - default_keys)
+    if not new or any(k[3][-1] != cfg.repetition_penalty for k in new):
+        raise AssertionError(f"no decode graph was captured under the new sampling config: {new}")
+    # graph and eager runs alike: 24 K1 and 24 K2 per decode step
+    lm = eng.lm
+    launches = {key: fn.launches for key, fn in counters.items()}
+    want = {k: PER_STEP["bf16"][k] * lm.decode_steps for k in launches}
+    print(f"sampling holds: {lm.decode_steps} decode steps ({lm.graph_replays} replayed), launches {launches} "
+          f"(want {want})")
+    if lm.decode_steps == 0 or launches != want:
+        raise AssertionError("a decode step under set_sampling did not go through K1 and K2")
+    hold_graph_nodes(lm)
+    api.set_sampling(top_p=0.8, top_k=25, temperature=1.0, repetition_penalty=1.0)
+    return launches
+
+
+def phase_ckpt(int4p_tokens):
+    """Checkpoints at full width, in a temporary dir removed at the end (and
+    on error): save_pretrained of the bf16 CosyVoice2(seed=0), the five
+    files' sizes and write / read seconds; CosyVoice2(dir) reloaded, every
+    parameter bit-equal to the saved module's, its first zero-shot request
+    (seconds from the constructor to it) bit-equal to the saved API's;
+    sampling on graphs (hold_sampling_on_graphs); CosyVoice2(dir,
+    quant_lm="int4p") whose request takes K7 and K2 on every step and gives
+    `int4p_tokens` (the api_int4p phase's, from the same fp weights); a
+    full-size synthetic Qwen2 tokenizer.json loaded through get_tokenizer,
+    the api phases' texts encoded (ids below QWEN2_EMBED_ROWS) and decoded
+    back. Returns the launches."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cosyvoice_tpu_torch.frontend.tokenizer import get_tokenizer
+    from cosyvoice_tpu_torch.runtime.api import CHECKPOINTS, CosyVoice2
+    from cosyvoice_tpu_torch.utils import msgpack_io
+
+    cudnn = torch.backends.cudnn
+    saved_det, cudnn.deterministic = cudnn.deterministic, True
+    tmp = tempfile.mkdtemp(prefix="cosyvoice_ckpt_")
+    prompt = synthetic_voice(1, 3.0)
+    try:
+        api = build_api()
+        toks, wav, _ = _zero_shot(api, prompt)
+        t = time.perf_counter()
+        api.save_pretrained(tmp)
+        save_s = time.perf_counter() - t
+        sizes = {n: os.path.getsize(os.path.join(tmp, f"{n}.msgpack")) for n in CHECKPOINTS}
+        reads = {}
+        for n in CHECKPOINTS:
+            t = time.perf_counter()
+            msgpack_io.read(os.path.join(tmp, f"{n}.msgpack"))
+            reads[n] = time.perf_counter() - t
+        total = sum(sizes.values())
+        print(f"save_pretrained: {total / 1e6:.1f} MB in {save_s:.2f} s ({total / 1e6 / save_s:.0f} MB/s); files "
+              + ", ".join(f"{n}.msgpack {sizes[n] / 1e6:.1f} MB read in {reads[n]:.3f} s "
+                          f"({sizes[n] / 1e6 / reads[n]:.0f} MB/s)" for n in CHECKPOINTS))
+        sync = _sync_fn(api.frontend.device)
+        sync()
+        t = time.perf_counter()
+        again = CosyVoice2(tmp, seed=0)
+        sync()
+        build_s = time.perf_counter() - t
+        toks2, wav2, req_s = _zero_shot(again, prompt)
+        print(f"CosyVoice2(dir) to its first chunk: {build_s + req_s:.2f} s (constructor {build_s:.2f} s, the "
+              f"zero-shot request {req_s:.2f} s)")
+        differ = [f"{m}.{n}" for m, mod in _api_modules(api).items()
+                  for (n, a), (_, b) in zip(mod.named_parameters(), _api_modules(again)[m].named_parameters())
+                  if a.dtype != b.dtype or not torch.equal(a, b)]
+        n_params = sum(p.numel() for mod in _api_modules(again).values() for p in mod.parameters())
+        same = np.array_equal(toks, toks2), np.array_equal(wav, wav2)
+        print(f"reloaded: {n_params / 1e6:.1f}M parameters, {len(differ)} differ from the saved API's; zero-shot "
+              f"tokens equal {same[0]} ({len(toks2)}), wav equal {same[1]}")
+        if differ or not all(same):
+            raise AssertionError(f"the reloaded API differs from the saved one: {differ[:5]}, request {same}")
+        del api
+        launches = hold_sampling_on_graphs(again)
+        del again
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        quant = CosyVoice2(tmp, seed=0, quant_lm="int4p")
+        sync()
+        build_s = time.perf_counter() - t
+        counters = _zero_counts(quant.engine)
+        toks3, _, req_s = _zero_shot(quant, prompt)
+        lm = quant.lm
+        print(f"CosyVoice2(dir, quant_lm='int4p') in {build_s:.2f} s (LM quantised on the host); zero-shot "
+              f"{req_s:.2f} s, {len(toks3)} tokens, equal to the api_int4p phase's {np.array_equal(toks3, int4p_tokens)}")
+        if lm.decode_steps == 0 or lm.fused_steps != lm.decode_steps or not np.array_equal(toks3, int4p_tokens):
+            raise AssertionError(f"int4p from the checkpoint: {lm.fused_steps} of {lm.decode_steps} steps through "
+                                 "K7, or tokens unlike the in-memory int4p API's")
+        for key, n in _check_launches(quant.engine, counters, PER_STEP["int4p_bf16"]).items():
+            launches[key] += n
+        del quant
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        size = len(synthetic_qwen_tokenizer(os.path.join(tmp, "tokenizer")))
+        write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        tok = get_tokenizer(os.path.join(tmp, "tokenizer"))
+        load_s = time.perf_counter() - t
+        texts = [API_TEXT, API_PROMPT_TEXT, API_INSTRUCT, API_TWO_SEGMENTS]
+        t = time.perf_counter()
+        ids = [tok.encode(x) for x in texts]
+        enc_s = time.perf_counter() - t
+        long_text = " ".join([API_TWO_SEGMENTS] * 20)
+        t = time.perf_counter()
+        long_ids = tok.encode(long_text)
+        long_s = time.perf_counter() - t
+        back = [tok.decode(i) for i in ids + [long_ids]]
+        n_chars = sum(len(x) for x in texts)
+        top = max(max(i) for i in ids + [long_ids])
+        print(f"tokenizer: synthetic Qwen2 tokenizer.json, {tok.vocab_size} ids ({QWEN2_VOCAB} byte-level + "
+              f"{tok.vocab_size - QWEN2_VOCAB} added), {size / 1e6:.1f} MB written in {write_s:.2f} s; get_tokenizer "
+              f"{load_s:.2f} s; encode {n_chars} chars of the api texts into {sum(map(len, ids))} ids in "
+              f"{enc_s * 1e3:.2f} ms ({enc_s / n_chars * 1e6:.1f} us per char, cold cache), {len(long_text)} chars in "
+              f"{long_s * 1e3:.2f} ms ({long_s / len(long_text) * 1e6:.1f} us per char); largest id {top}; decode "
+              f"round trip {back == texts + [long_text]}")
+        if top >= QWEN2_EMBED_ROWS or back != texts + [long_text]:
+            raise AssertionError("the full-size tokenizer's ids pass the embedding or do not decode back")
+        print(f"ckpt measured on: {_smi()}")
+        return launches
+    finally:
+        cudnn.deterministic = saved_det
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main(argv):
@@ -2662,11 +2911,17 @@ def main(argv):
                                                               PER_STEP["int4p_bf16"])):
         with Phase("api" + suffix):
             api = build_api(**kw)
-            counts = (phase_api_int4p if suffix else phase_api)(api, per_step)
+            if suffix:
+                counts, int4p_tokens = phase_api_int4p(api, per_step)
+            else:
+                counts = phase_api(api, per_step)
             for key, n in counts.items():
                 launches[key] += n
             del api
             torch.cuda.empty_cache()
+    with Phase("ckpt"):
+        for key, n in phase_ckpt(int4p_tokens).items():
+            launches[key] += n
     for key, n in launches.items():
         kernels[key]["launches"] = n
     if not all(launches.values()):

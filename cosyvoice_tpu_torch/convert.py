@@ -22,19 +22,29 @@ S3Tokenizer and CamPPEmbedding):
 It raises if a leaf has no parameter, a shape differs, or a parameter is left
 unset. Values are cast to each parameter's dtype (bf16 LM layers on the card).
 
-`export_lm_params(module)` is the inverse for the LM's modules: the port's
-Qwen2LMModule as a JAX param tree, e.g. to quantise random weights made on
-the card with `ops/quant.quantize_lm_params`.
+`export_params(module)` is the inverse for the five module families: the
+module's parameters as the JAX module's variable dict (`{"params": ...}`;
+the flow's per sub-model), in the JAX layouts and dtypes. It is what
+`save_pretrained` writes, what quantises random weights made on the card
+(`ops/quant.quantize_lm_params`), and, run on a module built on the meta
+device, the Flax paths and shapes the converters fill.
+
+Leaves may be read-only or unaligned views of a checkpoint file's buffer
+(utils/msgpack_io.py), bfloat16 ones included: `load_jax_params` copies
+them straight into the parameters.
 """
 
 import re
+from typing import NamedTuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from cosyvoice_tpu_torch.models.flow import CausalFlow
 from cosyvoice_tpu_torch.models.qwen2 import Int4PWeights, QuantDense, RMSNorm
-from cosyvoice_tpu_torch.nn.conv import WNConvTranspose1d
+from cosyvoice_tpu_torch.nn.conv import Conv1d, WNConvTranspose1d
+from cosyvoice_tpu_torch.utils.msgpack_io import to_torch
 
 _LISTS = (
     "layers|encoders|up_encoders|condnet|resblocks|source_resblocks|source_downs|ups|act1|act2|convs1|convs2"
@@ -90,12 +100,12 @@ def load_jax_params(module: torch.nn.Module, tree) -> torch.nn.Module:
         if name not in params:
             raise KeyError(f"JAX leaf {'/'.join(path)} has no port parameter (looked for {name})")
         owner = module.get_submodule(name.rsplit(".", 1)[0]) if "." in name else module
-        value = np.ascontiguousarray(_port_layout(path[-1], arr, owner))
+        value = _port_layout(path[-1], arr, owner)
         p = params[name]
         if tuple(value.shape) != tuple(p.shape):
             raise ValueError(f"{'/'.join(path)}: JAX shape {arr.shape} -> {value.shape}, port {name} has {tuple(p.shape)}")
         with torch.no_grad():
-            p.copy_(torch.tensor(value))
+            p.copy_(to_torch(value))
         done.add(name)
     unset = sorted(set(params) - done)
     if unset:
@@ -104,29 +114,74 @@ def load_jax_params(module: torch.nn.Module, tree) -> torch.nn.Module:
 
 
 _LIST_INDEX = re.compile(r"\.(\d+)")
+# the Flax leaf behind a port parameter named `weight`, by its owner's type
+# (any other owner of a `weight` holds a Dense or conv kernel)
+_WEIGHT_LEAF = ((nn.Embedding, "embedding"), (nn.LayerNorm, "scale"), (RMSNorm, "weight"))
+# the inverse of _port_layout: port layout -> JAX layout
+_PERM = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}
 
 
-def export_lm_params(module: nn.Module) -> dict:
-    """The LM module's parameters as a JAX param tree (nested dicts of float32
-    or int8 numpy arrays on the host), the inverse of load_jax_params for the
-    module types of the LM: Linear, Embedding, RMSNorm, QuantDense and the
-    int4p holders. Raises on any other owner."""
+class LeafSpec(NamedTuple):
+    """Shape and dtype of one JAX leaf, without its values."""
+
+    shape: tuple
+    dtype: np.dtype
+
+
+def _jax_leaf(name: str, p: torch.Tensor, owner):
+    """(Flax leaf name, the function from the port's layout to the JAX
+    layout) of port parameter `name` held by `owner`."""
+    leaf = name.rsplit(".", 1)[-1]
+    if isinstance(owner, QuantDense) and leaf != "bias":
+        return leaf, (lambda a: a.T) if leaf == "kernel_q" else (lambda a: a[None])
+    if isinstance(owner, WNConvTranspose1d) and leaf == "v":
+        return leaf, lambda a: a.transpose(2, 0, 1)
+    if leaf == "v":
+        return leaf, lambda a: a.transpose(2, 1, 0)
+    if leaf != "weight" or isinstance(owner, (QuantDense, Int4PWeights)):
+        return leaf, lambda a: a
+    for cls, jax_name in _WEIGHT_LEAF:
+        if isinstance(owner, cls):
+            return jax_name, lambda a: a
+    if not isinstance(owner, (nn.Linear, Conv1d, nn.Conv2d)) or p.dim() not in _PERM:
+        raise TypeError(f"export_params: no JAX layout for {name} of {type(owner).__name__}")
+    return "kernel", lambda a: a.transpose(_PERM[p.dim()])
+
+
+def _collections(module: nn.Module, tree: dict) -> dict:
+    """The JAX module's variable dict around `tree`: {"params": tree}, or
+    per sub-model for the flow ({"encoder": {"params": ...}, "estimator":
+    {"params": ...}}, as CausalFlow.init returns it)."""
+    if isinstance(module, CausalFlow):
+        return {k: {"params": v} for k, v in tree.items()}
+    return {"params": tree}
+
+
+def export_params(module: nn.Module) -> dict:
+    """The JAX param tree of `module` (Qwen2LMModule, fp or int4p;
+    CausalFlow; HiFTGenerator; S3Tokenizer; CamPPEmbedding), the inverse of
+    load_jax_params: nested dicts as the JAX module's `init` returns them,
+    each leaf a host numpy array in the JAX layout and the JAX dtype
+    (float32 for floating parameters, so a bf16 LM exports bf16-exact
+    values; the quantised int8 leaves as they are). On a module built on
+    torch.device("meta") the leaves are LeafSpecs: the Flax paths, shapes
+    and dtypes the converters fill (tools/convert_checkpoint.py)."""
     tree = {}
-    for name, p in module.named_parameters():
-        owner_name, leaf = name.rsplit(".", 1) if "." in name else ("", name)
-        owner = module.get_submodule(owner_name)
-        arr = p.detach().cpu()
-        arr = (arr if arr.dtype == torch.int8 else arr.float()).numpy()
-        if isinstance(owner, nn.Linear) and leaf == "weight":
-            leaf, arr = "kernel", arr.T
-        elif isinstance(owner, nn.Embedding):
-            leaf = "embedding"
-        elif isinstance(owner, QuantDense) and leaf != "bias":
-            arr = arr.T if leaf == "kernel_q" else arr[None]
-        elif not isinstance(owner, (nn.Linear, RMSNorm, Int4PWeights, QuantDense)):
-            raise TypeError(f"export_lm_params: no JAX layout for {name} of {type(owner).__name__}")
+    params = dict(module.named_parameters())
+    for name, p in params.items():
+        owner_name = name.rsplit(".", 1)[0] if "." in name else ""
+        leaf, layout = _jax_leaf(name, p, module.get_submodule(owner_name))
+        path = tuple(_LIST_INDEX.sub(r"_\1", owner_name).split(".")) if owner_name else ()
+        if port_name(path + (leaf,), params) != name:
+            raise AssertionError(f"export_params: {name} -> {'/'.join(path + (leaf,))} does not load back")
+        dtype = np.dtype(np.float32) if p.is_floating_point() else np.dtype(str(p.dtype).split(".")[1])
+        if p.is_meta:
+            value = LeafSpec(layout(np.broadcast_to(np.zeros((), dtype), tuple(p.shape))).shape, dtype)
+        else:
+            t = p.detach().to("cpu", torch.float32 if p.is_floating_point() else p.dtype)
+            value = np.ascontiguousarray(layout(t.numpy()))
         node = tree
-        for seg in _LIST_INDEX.sub(r"_\1", owner_name).split(".") if owner_name else []:
+        for seg in path:
             node = node.setdefault(seg, {})
-        node[leaf] = np.ascontiguousarray(arr)
-    return tree
+        node[leaf] = value
+    return _collections(module, tree)

@@ -1,21 +1,24 @@
 """Text tokenizers.
 
 Counterpart of cosyvoice_tpu/frontend/tokenizer.py: the CosyVoice2/3
-special-token lists, `ByteFallbackTokenizer` (UTF-8 bytes, then the special
-tokens; what the JAX package uses when a model dir ships no tokenizer
-assets), `find_tokenizer_assets` and `get_tokenizer`.
+special-token lists, `QwenTokenizer` (the Qwen2 byte-level BPE of a model
+dir's tokenizer assets plus the special tokens, frontend/bpe.py; the JAX
+package builds it with `transformers`, which the port does not import),
+`ByteFallbackTokenizer` (UTF-8 bytes, then the special tokens; what both
+packages use when a model dir ships no tokenizer assets),
+`find_tokenizer_assets` and `get_tokenizer`.
 
-The JAX package's Qwen tokenizer needs `transformers`, which the port does
-not import. Where the JAX `get_tokenizer` would load it, the port raises
-NotImplementedError (ROADMAP A6b: a host BPE over `tokenizer.json`) rather
-than fall back to byte ids, which do not match a Qwen-trained LM. The v1
-`.tiktoken` route waits for A10.
+Where the JAX `get_tokenizer` logs a Qwen tokenizer that fails to load and
+falls back to byte ids, the port raises: byte ids do not match a
+Qwen-trained LM. The v1 `.tiktoken` route waits for ROADMAP A10.
 """
 
 import glob
 import os
 import re
 from typing import List, Optional
+
+from cosyvoice_tpu_torch.frontend.bpe import ByteLevelBPE
 
 # exact paralinguistic special-token inventory (reference tokenizer.py:244-256)
 V2_SPECIAL_TOKENS = [
@@ -85,6 +88,28 @@ class ByteFallbackTokenizer:
         return "".join(out)
 
 
+class QwenTokenizer:
+    """The Qwen2 BPE of `token_path` (tokenizer.json, or vocab.json +
+    merges.txt + tokenizer_config.json) plus the version's special tokens,
+    added as the JAX package's QwenTokenizer adds them."""
+
+    def __init__(self, token_path: str, skip_special_tokens: bool = True, version: int = 2):
+        special = V2_SPECIAL_TOKENS + (V3_EXTRA_SPECIAL_TOKENS if version >= 3 else [])
+        self.tokenizer = ByteLevelBPE.from_dir(token_path)
+        self.tokenizer.add_special_tokens(special)
+        self.skip_special_tokens = skip_special_tokens
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self.tokenizer)
+
+    def encode(self, text: str, allowed_special: str = "all") -> List[int]:
+        return self.tokenizer.encode(text)
+
+    def decode(self, ids: List[int]) -> str:
+        return self.tokenizer.decode(ids, skip_special_tokens=self.skip_special_tokens)
+
+
 def find_tokenizer_assets(model_dir: Optional[str]) -> Optional[str]:
     """Tokenizer assets inside a released model dir, probed in the JAX
     package's order: a 'tokenizer/' subdir, the HF Qwen pretrain dir the
@@ -106,11 +131,11 @@ def find_tokenizer_assets(model_dir: Optional[str]) -> Optional[str]:
 
 
 def get_tokenizer(token_path: Optional[str] = None, version: int = 2):
-    """The byte tokenizer with the version's special tokens when there are no
-    assets (`token_path` empty); raises NotImplementedError for assets."""
+    """The Qwen tokenizer of the assets at `token_path` (a dir), or the byte
+    tokenizer with the version's special tokens when there are none. A v1
+    `.tiktoken` vocab raises NotImplementedError (ROADMAP A10)."""
+    if token_path and token_path.endswith(".tiktoken"):
+        raise NotImplementedError(f"{token_path}: the v1 tiktoken tokenizer is not ported yet (ROADMAP A10)")
     if token_path:
-        raise NotImplementedError(
-            f"tokenizer assets at {token_path}: the port has no BPE tokenizer yet (ROADMAP A6b; the v1 .tiktoken "
-            "route is A10), and byte ids do not match a Qwen-trained LM"
-        )
+        return QwenTokenizer(token_path, version=version)
     return ByteFallbackTokenizer(V2_SPECIAL_TOKENS + (V3_EXTRA_SPECIAL_TOKENS if version >= 3 else []))

@@ -8,16 +8,23 @@ spans).
 - `DecodeState`: one B=1 decode's state in buffers that never move: the
   logits the next token is sampled from, the write position `cur`, the RAS
   window `recent`, the decoded count `n_dec`, `min_len`, the stop flag
-  `fin`, and the tokens of the current block with the device-side slot that
-  the next token is written at.
-- `step`: one token slot on that state: sample, stop bookkeeping, the decode
-  step (per layer, or K7's `decode_step_fused`), `cur` advance, the token
-  at its slot. The eager path and the graphs run this same function, so the
-  CPU tests exercise what the card captures.
+  `fin`, the tokens of the current block with the device-side slot that
+  the next token is written at, and, once a request has decoded with a
+  repetition penalty, the presence set `seen` ([1, head_size] bool: the
+  prompt's speech tokens and every token sampled since, fills included).
+- `step`: one token slot on that state: sample (temperature and penalty
+  first where the LM's config sets them), stop bookkeeping, the presence
+  set's update, the decode step (per layer, or K7's `decode_step_fused`),
+  `cur` advance, the token at its slot. The eager path and the graphs run
+  this same function, so the CPU tests exercise what the card captures. At
+  the default sampling (temperature and penalty 1.0) the step has neither
+  op nor the presence set.
 - `DecodeGraphs`: runs a block of slots, eagerly (`Qwen2LM(graphs=False)`,
   and always on CPU) or by replaying one captured step per slot. One graph
   per key (route: K7 or the per-layer kernels; arena length; stop mask: the
-  v2 min_len mask or the bistream mask), captured lazily after one eager
+  v2 min_len mask or the bistream mask; the sampling config, whose values
+  a graph bakes in, so that `set_sampling` never replays a graph of
+  another config), captured lazily after one eager
   step at that key, so that the kernels are built, their plan tables are on
   the card and K7's tensor maps are encoded before capture. A graph of a
   whole 28-step block saved no time on the card: a one-step replay's host
@@ -56,6 +63,7 @@ spent capturing and enqueueing replays.
 import threading
 import time
 
+import numpy as np
 import torch
 
 from cosyvoice_tpu_torch.ops import decode_attention
@@ -86,6 +94,17 @@ class DecodeState:
         self.fin = zeros(1, dtype=torch.bool)
         self.tokens = zeros(1, capacity)
         self.slot = zeros(1, dtype=torch.int64)
+        self.head_size = cfg.head_size
+        self.seen = None  # made by the first seed_seen and kept: graphs read it
+
+    def seed_seen(self, tokens):
+        """The presence set of a request with a repetition penalty: its
+        prompt speech tokens below head_size (np int array)."""
+        if self.seen is None:
+            self.seen = torch.zeros((1, self.head_size), dtype=torch.bool, device=self.tokens.device)
+        self.seen.zero_()
+        ids = torch.as_tensor(tokens[tokens < self.head_size].astype(np.int64), device=self.seen.device)
+        self.seen[0, ids] = True
 
     def load(self, logits, cur, recent, n_dec, min_len, fin):
         """Copy a block's inputs in (a copy of a buffer onto itself does
@@ -101,11 +120,16 @@ def step(lm, s: DecodeState, cache, generator, stacked, bistream: bool):
     is given; `bistream` applies the bistream stop mask. A row that stopped
     keeps emitting eos and stops advancing."""
     c = lm.cfg
-    tok = lm._sample(generator, s.logits, s.n_dec, s.recent, s.min_len, bistream)
+    penalty = c.repetition_penalty != 1.0
+    tok = lm._sample(generator, s.logits, s.n_dec, s.recent, s.min_len, bistream, s.seen if penalty else None)
     stop_now = tok >= c.speech_token_size
     tok_out = torch.where(s.fin, torch.full_like(tok, c.eos_token), tok)
     s.recent.copy_(torch.where(s.fin[:, None], s.recent, torch.cat([s.recent[:, 1:], tok[:, None]], dim=1)))
     s.n_dec.copy_(torch.where(s.fin, s.n_dec, s.n_dec + 1))
+    if penalty:
+        # a row that has not stopped marks the token it sampled
+        at = tok[:, None].long()
+        s.seen.scatter_(1, at, s.seen.gather(1, at) | ~s.fin[:, None])
     if stacked is not None:
         logits, _ = lm.module.decode_step_fused(tok_out, s.cur, cache, stacked)
         lm.fused_steps += 1
@@ -147,7 +171,11 @@ class DecodeGraphs:
         """`steps` token slots on `self.state` (loaded) over `cache`.
         Returns the tokens [1, steps] int32."""
         s, lm = self.state, self.lm
-        key = (stacked is not None, cache[0].shape[2], bistream)
+        c = lm.cfg
+        sampling = (c.top_p, c.top_k, c.win_size, c.tau_r, c.temperature, c.repetition_penalty)
+        key = (stacked is not None, cache[0].shape[2], bistream, sampling)
+        if c.repetition_penalty != 1.0 and s.seen is None:
+            raise ValueError("a repetition penalty needs the request's presence set (DecodeState.seed_seen)")
         if steps > s.tokens.shape[1]:
             raise ValueError(f"a block of {steps} slots is longer than the decoder's {s.tokens.shape[1]}")
         if self.enabled and cache is not lm.arenas.buffers.get((1, key[1])):

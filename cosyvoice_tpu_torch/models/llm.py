@@ -23,9 +23,11 @@ LM configurations of `Qwen2Config`: bf16 weights and arena; `quant="int4p"`
 (int4p body, int8 head) with a bf16 arena, whose B=1 decode step runs the
 whole-step kernel K7 (`decode_step_fused`) while the arena holds at most
 ops/int4_block.MAX_FUSED_ARENA rows, and the per-layer kernels past that;
-and `kv_quant=True` (int8 arena), with int4p or bf16 weights. Not ported
-yet: the v3 layout, temperature and repetition penalty, continuous
-batching, and the int8 and int4 weight modes.
+and `kv_quant=True` (int8 arena), with int4p or bf16 weights; the
+sampling config's temperature and repetition penalty (the presence set
+seeded from the prompt's speech tokens, models/decode_graph.py). Not
+ported yet: the v3 layout, continuous batching, and the int8 and int4
+weight modes.
 """
 
 import contextlib
@@ -42,7 +44,7 @@ from cosyvoice_tpu_torch.models.qwen2 import QuantDense, Qwen2Config, Qwen2Model
 from cosyvoice_tpu_torch.ops import int4_block
 from cosyvoice_tpu_torch.ops.decode_attention import kv_arena_write_kv
 from cosyvoice_tpu_torch.ops.int4_block import int4_decode_layers, stack_decode_params
-from cosyvoice_tpu_torch.ops.sampling import NEG_INF, ras_sampling_batch
+from cosyvoice_tpu_torch.ops.sampling import NEG_INF, apply_repetition_penalty, ras_sampling_batch
 from cosyvoice_tpu_torch.utils.devices import resolve_device
 
 TYPE_TEXT = 0
@@ -59,6 +61,11 @@ class LMConfig:
     top_k: int = 25
     win_size: int = 10
     tau_r: float = 0.1
+    # the reference's Triton consumer decodes with temperature 0.8 and
+    # repetition_penalty 1.1 (CosyVoice2.set_sampling); 1.0 is no-op: the
+    # step then has neither op and no presence set
+    temperature: float = 1.0
+    repetition_penalty: float = 1.0
     block_size: int = 28  # tokens decoded per host fetch (= chunk 25 + lookahead 3)
     qwen: Qwen2Config = field(default_factory=Qwen2Config)
 
@@ -240,9 +247,18 @@ class Qwen2LM:
             self.decoder.drop_fused()  # K7's graphs read the old stack
         return self._pack[1]
 
-    def _sample(self, generator, logits, n_dec, recent, min_len, bistream=False):
+    def _sample(self, generator, logits, n_dec, recent, min_len, bistream=False, seen=None):
+        """The next token of every row from `logits`: divided by the
+        temperature, the repetition penalty over the presence set `seen`
+        ([B, head_size] bool, None with no penalty), log-softmax, the stop
+        mask, RAS (the JAX LM's `sample`)."""
         c = self.cfg
-        logp = torch.log_softmax(logits.float(), dim=-1)
+        logits = logits.float()
+        if c.temperature != 1.0:
+            logits = logits / c.temperature
+        if seen is not None and c.repetition_penalty != 1.0:
+            logits = apply_repetition_penalty(logits, seen, c.repetition_penalty)
+        logp = torch.log_softmax(logits, dim=-1)
         if bistream:
             # bistream spans: the fill token is the one legal stop, every
             # other stop id is suppressed
@@ -305,6 +321,9 @@ class Qwen2LM:
         ids = torch.as_tensor(np.asarray(prompt_ids, np.int64)[None], device=dev)
         types = torch.as_tensor(np.asarray(prompt_types, np.int64)[None], device=dev)
         logits, cache = self.module.prefill(ids, types, torch.tensor([T], device=dev), cache)
+        if c.repetition_penalty != 1.0:
+            # the presence set starts with the prompt's speech tokens
+            self.decoder.state.seed_seen(np.asarray(prompt_ids)[np.asarray(prompt_types) == TYPE_SPEECH])
         cur = torch.tensor([T], dtype=torch.int32, device=dev)
         recent = torch.full((1, c.win_size), -1, dtype=torch.int32, device=dev)
         n_dec = torch.zeros((1,), dtype=torch.int32, device=dev)
@@ -359,6 +378,8 @@ class Qwen2LM:
         cap = c.qwen.max_cache_len
 
         cache = self.arenas.first(1, self.ARENA_BUCKET)
+        if c.repetition_penalty != 1.0:
+            self.decoder.state.seed_seen(np.asarray(prompt_speech, np.int64))
         cur_host = 0  # the arena's write position, as the host knows it
         logits = None
         recent = torch.full((1, c.win_size), -1, dtype=torch.int32, device=dev)

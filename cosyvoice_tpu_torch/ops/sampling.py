@@ -34,6 +34,14 @@ def nucleus_sampling(logp: torch.Tensor, generator: torch.Generator, top_p: floa
     return torch.gather(top_idx, -1, pick[..., None])[..., 0]
 
 
+def apply_repetition_penalty(logits: torch.Tensor, seen: torch.Tensor, penalty: float) -> torch.Tensor:
+    """The CTRL / TRT-LLM repetition penalty (the reference's Triton
+    consumer passes repetition_penalty 1.1): for every id marked in `seen`,
+    a positive logit is divided by `penalty` and a negative one multiplied.
+    logits [..., V]; seen [..., V] bool (the ids in the sequence so far)."""
+    return torch.where(seen, torch.where(logits > 0, logits / penalty, logits * penalty), logits)
+
+
 def ras_sampling_batch(
     logp: torch.Tensor,
     recent_tokens: torch.Tensor,

@@ -9,14 +9,23 @@ are generators of {'tts_speech': np.ndarray [1, n], 'speech_tokens': ...}
 chunks, offline or streamed; `add_zero_shot_spk` / `save_spkinfo` keep the
 speaker cache. `AutoModel` picks the class from the model dir.
 
-The weights are random, made on the device from `seed` (engine: seed,
-seed + 1, seed + 2; frontend: seed + 3, seed + 4); a model dir supplies
-config.json (architectures, `engine.hop_policy`) and spk2info.pkl. Not
-ported yet, and raising NotImplementedError rather than serving random
-weights or byte ids in their place: checkpoint files and tokenizer assets
-in the model dir, `save_pretrained` and `set_sampling` (ROADMAP A6b),
-`enable_continuous_batching` (A7), `quant_lm` True / "int8" / "int4" (A8),
-and the CosyVoice3 (A9) and CosyVoice (v1, A10) models.
+A model dir supplies config.json (architectures, `engine.hop_policy`,
+`frontend.s3`), spk2info.pkl, the Qwen tokenizer's assets
+(frontend/tokenizer.py) and the checkpoints: `lm`, `flow`, `hift`,
+`speech_tokenizer` and `campplus.msgpack`, flax msgpack files of JAX param
+trees (utils/msgpack_io.py), as the JAX package's `save_pretrained` and
+the converter CLI (tools/convert_checkpoint.py) write them. Each one
+present is read on the host and loaded through convert.load_jax_params (a
+tree that does not match its module raises); each one absent stays random,
+made on the device from `seed` (engine: seed, seed + 1, seed + 2;
+frontend: seed + 3, seed + 4), with the JAX package's warning for the
+engine's three. With `quant_lm="int4p"` the fp LM tree is quantised on the
+host (ops/quant.quantize_lm_params) before it is loaded. `save_pretrained`
+writes all five files; `set_sampling` changes the LM's sampling config in
+place (the weights, the static KV arenas and the decode graphs of other
+configs stay). Not ported yet, and raising NotImplementedError:
+`enable_continuous_batching` (ROADMAP A7), `quant_lm` True / "int8" /
+"int4" (A8), and the CosyVoice3 (A9) and CosyVoice (v1, A10) models.
 """
 
 import dataclasses
@@ -28,12 +37,14 @@ from typing import Optional
 
 import numpy as np
 
+from cosyvoice_tpu_torch.convert import export_params, load_jax_params
 from cosyvoice_tpu_torch.frontend.frontend import CosyVoiceFrontEnd
 from cosyvoice_tpu_torch.frontend.tokenizer import find_tokenizer_assets
 from cosyvoice_tpu_torch.models.flow import FlowConfig
 from cosyvoice_tpu_torch.models.hift import HiFTConfig
 from cosyvoice_tpu_torch.models.llm import LMConfig
 from cosyvoice_tpu_torch.runtime.engine import build_random_engine
+from cosyvoice_tpu_torch.utils import msgpack_io
 from cosyvoice_tpu_torch.utils.config import build_flow_config, build_hift_config, build_lm_config, build_s3_config
 
 CHECKPOINTS = ("lm", "flow", "hift", "speech_tokenizer", "campplus")  # <name>.msgpack in a model dir
@@ -47,25 +58,25 @@ def _read_dir_config(model_dir: str) -> dict:
     return {}
 
 
-def _refuse_checkpoints(model_dir: str):
-    found = [f"{name}.msgpack" for name in CHECKPOINTS
-             if model_dir and os.path.exists(os.path.join(model_dir, f"{name}.msgpack"))]
-    if found:
-        raise NotImplementedError(
-            f"{model_dir} holds checkpoints {found}: the port cannot load them yet (ROADMAP A6b) and does not "
-            "serve random weights in their place"
-        )
+def _checkpoint(model_dir: str, name: str):
+    """The JAX param tree in <model_dir>/<name>.msgpack, or None."""
+    path = os.path.join(model_dir, f"{name}.msgpack") if model_dir else ""
+    if not (path and os.path.exists(path)):
+        return None
+    tree = msgpack_io.read(path)
+    logging.info("loaded %s", path)
+    return tree
 
 
 def load_frontend(model_dir: str = "", sample_rate: int = 24000, version: int = 2, seed: int = 0,
                   device="cuda") -> CosyVoiceFrontEnd:
     """A CosyVoiceFrontEnd for a model dir: the S3 architecture from
-    config.json "frontend": {"s3": ...}, the speakers of spk2info.pkl, random
-    S3 and CAM++ weights from `seed`. Raises NotImplementedError on
-    speech_tokenizer.msgpack / campplus.msgpack or tokenizer assets."""
-    _refuse_checkpoints(model_dir)
+    config.json "frontend": {"s3": ...}, the tokenizer from its assets, the
+    speakers of spk2info.pkl, the S3 and CAM++ weights of
+    speech_tokenizer.msgpack and campplus.msgpack where present, else
+    random from `seed`."""
     s3 = _read_dir_config(model_dir).get("frontend", {}).get("s3")
-    return CosyVoiceFrontEnd(
+    fe = CosyVoiceFrontEnd(
         token_path=find_tokenizer_assets(model_dir),
         sample_rate=sample_rate,
         spk2info_path=os.path.join(model_dir, "spk2info.pkl") if model_dir else "",
@@ -74,6 +85,11 @@ def load_frontend(model_dir: str = "", sample_rate: int = 24000, version: int = 
         version=version,
         device=device,
     )
+    for name in ("speech_tokenizer", "campplus"):
+        tree = _checkpoint(model_dir, name)
+        if tree is not None:
+            load_jax_params(getattr(fe, name), tree)
+    return fe
 
 
 def _require_v2(version: int):
@@ -112,9 +128,15 @@ class CosyVoice2:
         flow_cfg = flow_cfg or (build_flow_config(file_cfg["flow"]) if "flow" in file_cfg else FlowConfig())
         hift_cfg = hift_cfg or (build_hift_config(file_cfg["hift"]) if "hift" in file_cfg else HiFTConfig())
         self.frontend = load_frontend(model_dir, self.sample_rate, seed=seed + 3, device=device)
+        trees = {}
+        for name in ("lm", "flow", "hift"):
+            trees[name] = _checkpoint(model_dir, name)
+            if trees[name] is None:
+                logging.warning("no checkpoint for %s — using random init", name)
         self.engine = build_random_engine(
             seed, device, lm_cfg, flow_cfg, hift_cfg,
             hop_policy=hop_policy or file_cfg.get("engine", {}).get("hop_policy", "doubling"),
+            trees={k: v for k, v in trees.items() if v is not None},
         )
         self.lm, self.flow, self.hift = self.engine.lm, self.engine.flow, self.engine.hift
 
@@ -130,15 +152,39 @@ class CosyVoice2:
     def save_spkinfo(self):
         self.frontend.save_spkinfo(os.path.join(self.model_dir or ".", "spk2info.pkl"))
 
-    # ---------------- not ported yet ----------------
     def set_sampling(self, top_p=None, top_k=None, temperature=None, repetition_penalty=None):
-        raise NotImplementedError("set_sampling is not ported yet (ROADMAP A6b)")
+        """Set the LM's decode sampling (the reference's Triton consumer
+        decodes with top_p 0.95 / top_k 50 / temperature 0.8 /
+        repetition_penalty 1.1; the default is RAS with top_p 0.8 / top_k 25
+        and neither temperature nor penalty). Arguments left None keep their
+        value. The LM keeps its weights, static KV arenas and decode graphs
+        (a graph is keyed by the sampling config it was captured with).
+        Returns the LM's config."""
+        kw = {}
+        if top_p is not None:
+            kw["top_p"] = float(top_p)
+        if top_k is not None:
+            kw["top_k"] = int(top_k)
+        if temperature is not None:
+            kw["temperature"] = float(temperature)
+        if repetition_penalty is not None:
+            kw["repetition_penalty"] = float(repetition_penalty)
+        if kw:
+            self.lm.cfg = dataclasses.replace(self.lm.cfg, **kw)
+        return self.lm.cfg
 
     def enable_continuous_batching(self, max_batch: int = 4, block_size=None):
         raise NotImplementedError("continuous batching is not ported yet (ROADMAP A7)")
 
+    # ---------------- checkpoint save ----------------
     def save_pretrained(self, out_dir: str):
-        raise NotImplementedError("save_pretrained is not ported yet (ROADMAP A6b)")
+        """Write lm, flow, hift, speech_tokenizer and campplus.msgpack: each
+        module's JAX param tree (convert.export_params; the int4p LM's
+        quantised tree, as the JAX API saves its LM's params)."""
+        os.makedirs(out_dir, exist_ok=True)
+        fe = self.frontend
+        for name, module in zip(CHECKPOINTS, (self.lm.module, self.flow, self.hift, fe.speech_tokenizer, fe.campplus)):
+            msgpack_io.write(os.path.join(out_dir, f"{name}.msgpack"), export_params(module))
 
     # ---------------- inference modes ----------------
     def _run(self, model_input: dict, stream: bool, speed: float):

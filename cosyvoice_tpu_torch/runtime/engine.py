@@ -61,7 +61,7 @@ from typing import Generator, Optional
 import numpy as np
 import torch
 
-from cosyvoice_tpu_torch.convert import export_lm_params, load_jax_params
+from cosyvoice_tpu_torch.convert import export_params, load_jax_params
 from cosyvoice_tpu_torch.models.flow import CausalFlow, FlowConfig
 from cosyvoice_tpu_torch.models.hift import HiFTConfig, HiFTGenerator
 from cosyvoice_tpu_torch.models.llm import TYPE_SPECIAL, TYPE_SPEECH, TYPE_TEXT, LMConfig, Qwen2LM, Qwen2LMModule
@@ -648,24 +648,30 @@ class CosyVoice2Engine:
             lm.close()
 
 
-def random_lm(seed: int = 0, device="cuda", lm_cfg: LMConfig = LMConfig()):
-    """A Qwen2LM with random weights made on `device` from `seed`, and the
-    host seconds its quantisation took (None unquantised). With
-    `lm_cfg.qwen.quant` set, the LM's fp weights are made as for the
-    unquantised LM, quantised on the host by `quantize_lm_params` (as the
-    JAX API quantises a checkpoint) and loaded."""
+def random_lm(seed: int = 0, device="cuda", lm_cfg: LMConfig = LMConfig(), tree=None):
+    """A Qwen2LM with random weights made on `device` from `seed`, or the
+    weights of `tree` (the fp LM's JAX param tree, e.g. a checkpoint's), and
+    the host seconds its quantisation took (None unquantised). With
+    `lm_cfg.qwen.quant` set, the fp weights (`tree`, or made as for the
+    unquantised LM) are quantised on the host by `quantize_lm_params`, as
+    the JAX API quantises a checkpoint, and loaded."""
     dev = resolve_device(device)
     lm = Qwen2LM(lm_cfg, device=dev)
     if not lm_cfg.qwen.quant:
-        init_random_(lm.module, seed)
+        if tree is None:
+            init_random_(lm.module, seed)
+        else:
+            load_jax_params(lm.module, tree)
         return lm, None
-    fp_qwen = dataclasses.replace(lm_cfg.qwen, quant=False, kv_quant=False)
-    with torch.device(dev):
-        fp = init_random_(Qwen2LMModule(dataclasses.replace(lm_cfg, qwen=fp_qwen)), seed)
     t0 = time.perf_counter()
-    tree = quantize_lm_params(export_lm_params(fp), lm_cfg.qwen.quant)
-    del fp
-    load_jax_params(lm.module, tree)
+    if tree is None:
+        fp_qwen = dataclasses.replace(lm_cfg.qwen, quant=False, kv_quant=False)
+        with torch.device(dev):
+            fp = init_random_(Qwen2LMModule(dataclasses.replace(lm_cfg, qwen=fp_qwen)), seed)
+        t0 = time.perf_counter()
+        tree = export_params(fp)
+        del fp
+    load_jax_params(lm.module, quantize_lm_params(tree, lm_cfg.qwen.quant))
     return lm, time.perf_counter() - t0
 
 
@@ -676,16 +682,23 @@ def build_random_engine(
     flow_cfg: FlowConfig = FlowConfig(),
     hift_cfg: HiFTConfig = HiFTConfig(),
     hop_policy: str = "doubling",
+    trees: Optional[dict] = None,
 ) -> CosyVoice2Engine:
     """An engine with random weights made on `device` from `seed` (default
-    configs: full-width CosyVoice2-0.5B), its LM from `random_lm`; the
-    engine's timer records the host time of a quantisation as stage
-    "quantize"."""
-    lm, quantize_s = random_lm(seed, device, lm_cfg)
+    configs: full-width CosyVoice2-0.5B), its LM from `random_lm`; a module
+    named in `trees` ("lm", "flow", "hift": JAX param trees, e.g. read from
+    checkpoints) takes that tree's weights instead (the LM's fp tree is
+    quantised as random_lm says). The engine's timer records the host time
+    of a quantisation as stage "quantize"."""
+    trees = trees or {}
+    lm, quantize_s = random_lm(seed, device, lm_cfg, trees.get("lm"))
     flow = CausalFlow(flow_cfg, device=lm.device)
     hift = HiFTGenerator(hift_cfg, device=lm.device)
-    init_random_(flow, seed + 1)
-    init_random_(hift, seed + 2)
+    for module, name, offset in ((flow, "flow", 1), (hift, "hift", 2)):
+        if name in trees:
+            load_jax_params(module, trees[name])
+        else:
+            init_random_(module, seed + offset)
     engine = CosyVoice2Engine(lm, flow, hift, hop_policy=hop_policy)
     if quantize_s is not None:
         engine.timer.add("quantize", quantize_s)

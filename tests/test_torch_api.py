@@ -19,7 +19,9 @@ frontend's CAM++ is built at a tiny config (its name patched in the JAX
 frontend module while the JAX API is built; nothing in the JAX package
 changes): the full one takes ~30 s to initialise on the CPU. Also: the
 prompt LRU, AutoModel's version detection, and every NotImplementedError
-the API raises in place of serving random weights or byte ids."""
+the API still raises. Checkpoints, tokenizer assets, save_pretrained and
+set_sampling are held by tests/test_torch_checkpoint_api.py,
+tests/test_torch_bpe.py and tests/test_torch_sampling.py."""
 
 import json
 import os
@@ -37,7 +39,7 @@ from cosyvoice_tpu.models.campplus import CamPPEmbedding as JCamPPEmbedding
 from cosyvoice_tpu.runtime.api import CosyVoice2 as JCosyVoice2
 from cosyvoice_tpu_torch.convert import load_jax_params
 from cosyvoice_tpu_torch.models.campplus import CamPPConfig, CamPPEmbedding
-from cosyvoice_tpu_torch.runtime.api import CHECKPOINTS, AutoModel, CosyVoice2, detect_model_version
+from cosyvoice_tpu_torch.runtime.api import AutoModel, CosyVoice2, detect_model_version
 from tests.test_torch_common import np_tree
 
 torch.set_num_threads(1)
@@ -272,23 +274,7 @@ def test_automodel_builds_cosyvoice2_from_config_json(tmp_path):
     assert type(api) is CosyVoice2 and api.lm.cfg.qwen.hidden_size == 32
 
 
-@pytest.mark.parametrize("name", list(CHECKPOINTS))
-def test_checkpoint_in_model_dir_raises(tmp_path, name):
-    (tmp_path / f"{name}.msgpack").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="A6b"):
-        CosyVoice2(_write_dir(tmp_path), device="cpu")
-
-
-def test_tokenizer_assets_in_model_dir_raise(tmp_path):
-    (tmp_path / "tokenizer").mkdir()
-    (tmp_path / "tokenizer" / "tokenizer.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="A6b"):
-        CosyVoice2(_write_dir(tmp_path), device="cpu")
-
-
 @pytest.mark.parametrize("call,item", [
-    (lambda api: api.save_pretrained("out"), "A6b"),
-    (lambda api: api.set_sampling(top_p=0.9), "A6b"),
     (lambda api: api.enable_continuous_batching(), "A7"),
 ])
 def test_methods_not_ported_raise(apis, call, item):

@@ -1,6 +1,6 @@
 """The port's host frontend and feature ops against the JAX package's, CPU:
 text normalisation (English, Chinese, mixed, numbers, brackets, SSML,
-punctuation only), the byte tokenizer, the Matcha mel, the whisper log-mel
+punctuation only), the byte tokenizer, the tokenizer routing, the Matcha mel, the whisper log-mel
 and the kaldi fbank (atol 1e-4 on the log values, noise and a chirp at three
 lengths), `resample_poly` against scipy (max abs error 1e-5 on
 unit-amplitude input) and the wav IO round trip.
@@ -86,14 +86,22 @@ def test_byte_tokenizer_matches_jax(version):
         assert tok.decode(ids) == text
 
 
-def test_tokenizer_assets_raise_not_implemented(tmp_path):
+def test_tokenizer_assets_load_the_bpe(tmp_path):
+    """get_tokenizer on a model dir's tokenizer assets loads the Qwen BPE
+    (its ids against transformers': tests/test_torch_bpe.py); a v1
+    .tiktoken vocab raises naming ROADMAP A10."""
+    from tests.test_torch_bpe import write_tokenizer
+
     assert find_tokenizer_assets("") is None
-    (tmp_path / "CosyVoice-BlankEN").mkdir()
-    (tmp_path / "CosyVoice-BlankEN" / "tokenizer.json").write_text("{}")
+    write_tokenizer(tmp_path / "CosyVoice-BlankEN", n_merges=20)
     path = find_tokenizer_assets(str(tmp_path))
     assert path == str(tmp_path / "CosyVoice-BlankEN")
-    with pytest.raises(NotImplementedError, match="A6b"):
-        get_tokenizer(path)
+    tok = get_tokenizer(path)
+    assert type(tok).__name__ == "QwenTokenizer" and tok.decode(tok.encode("Hi [breath] there")) == "Hi  there"
+    (tmp_path / "v1").mkdir()
+    (tmp_path / "v1" / "vocab.tiktoken").write_text("")
+    with pytest.raises(NotImplementedError, match="A10"):
+        get_tokenizer(find_tokenizer_assets(str(tmp_path / "v1")))
 
 
 def _signals(sr):

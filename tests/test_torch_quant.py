@@ -10,7 +10,7 @@ import torch
 
 from cosyvoice_tpu.models.llm import Qwen2LM as JQwen2LM
 from cosyvoice_tpu.ops import decode_attention as jda, int4_fused as jint4, quant as jquant
-from cosyvoice_tpu_torch.convert import export_lm_params, load_jax_params
+from cosyvoice_tpu_torch.convert import export_params, load_jax_params
 from cosyvoice_tpu_torch.models.llm import LMConfig, Qwen2LMModule
 from cosyvoice_tpu_torch.ops import decode_attention as tda, int4_fused as tint4, quant as tquant
 from tests.test_torch_common import jax_lm_cfg_quant, np_tree, to_port_cfg
@@ -78,13 +78,13 @@ def test_quantize_lm_params_int4p_is_bit_identical(fp_tree):
 def test_quantized_tree_round_trips_through_the_converter(fp_tree):
     """load_jax_params carries the quantised leaves under their own names
     (kernel_q4b, scale4 as they are; the head's kernel_q/scale into the
-    QuantDense layout) and export_lm_params gives back the same tree."""
+    QuantDense layout) and export_params gives back the same tree."""
     tree = jquant.quantize_lm_params(fp_tree, "int4p")
     m = Qwen2LMModule(to_port_cfg(jax_lm_cfg_quant(), LMConfig))
     load_jax_params(m, tree)
     assert m.llm_decoder.kernel_q.shape == tree["llm_decoder"]["kernel_q"].shape[::-1]
     assert m.llm_decoder.scale.shape == (tree["llm_decoder"]["scale"].shape[1],)
-    _assert_trees_identical(export_lm_params(m), tree)
+    _assert_trees_identical(export_params(m)["params"], tree)
 
 
 def test_converter_rejects_extra_and_missing_quantized_leaves(fp_tree):
@@ -102,7 +102,7 @@ def test_converter_rejects_extra_and_missing_quantized_leaves(fp_tree):
 def test_fp_tree_round_trips_through_the_converter(fp_tree):
     m = Qwen2LMModule(to_port_cfg(jax_lm_cfg_quant(False, False), LMConfig))
     load_jax_params(m, fp_tree)
-    _assert_trees_identical(export_lm_params(m), fp_tree)
+    _assert_trees_identical(export_params(m)["params"], fp_tree)
 
 
 def test_quantize_kv_rows_matches_jax_exactly():
