@@ -18,9 +18,10 @@ exceeded, a kernel disagrees with its plain version, or anything raises):
    K, V and over the int8 arena both scales in one launch) exactly, in bf16
    and int8 with scales, at B=1, ragged B=4 and over the 24-layer stacked
    arena of the fused step, and the single-arena write; K4 (int4 GEMV) at 1, 2, 5, 15 and 16 rows at the qkv
-   and o_proj shapes, with x one-hot in each scale block in turn and a
-   weight whose scale blocks add distinct multiples; K6 (fused int4 layer
-   tail) at B=1 and 16, timed at B=1 beside the bf16 product route over its
+   and o_proj shapes (and 4, the batched step's), with x one-hot in each
+   scale block in turn and a weight whose scale blocks add distinct
+   multiples; K6 (fused int4 layer tail) at B=1, 4 and 16, timed at B=1
+   beside the bf16 product route over its
    dequantised weights (o matmul, residual, RMSNorm, gate|up matmul,
    silu * up, down matmul, residual); K5 (fused int4 MLP) at 1, 5, 15 and 16
    rows, the row counts of the bistream extends, timed at 5 and 16 rows
@@ -33,8 +34,10 @@ exceeded, a kernel disagrees with its plain version, or anything raises):
    CUDA graph that rotates over enough distinct input sets to exceed twice
    the L2 cache, at least one per layer) and eager host rates, and the bound
    from the bytes and operations of each call; K1 and K3 also at cur_len
-   127 in a 512-row arena and at 4095, K4 also at o_proj B=1 and qkv B=5
-   and 16.
+   127 in a 512-row arena, at 4095, and at B=4 rows of cur_len 100 / 400 /
+   700 / 1000 in a 1024-row arena (the batched decode's spread), K4 also
+   at o_proj B=1, qkv and o_proj B=4 and qkv B=5 and 16, K6 also at B=4
+   (the batched step's route: the multi-row kernel) with its bound.
 4. slice: the full-width CosyVoice2-0.5B offline engine, random weights from
    seed 0, serves 3 `tts(stream=False)` requests; wavs must be finite and
    n_tokens * 2 * 480 long, and the launch counters must show that every
@@ -93,15 +96,17 @@ time apart), the host time of the LM's replay loop per replay, and the host
 cost of one replay against its device time, and requires every captured
 graph's K1..K7 kernel nodes (CUDAGraph.debug_dump) to equal the launches
 its capture counted, which each replay adds to the counters. After every
-LM's phases, idle takes the device's idle share (torch.profiler traces)
+other phase, idle takes the device's idle share (torch.profiler traces)
 over the LM stage and the flow+HiFT stage of each LM's text-16 offline
-request (320 tokens; graphs and eager), the bf16 LM's 960-token request,
-the route-switch request and the bistream requests (graphs), and requires
+request (320 tokens), the route-switch request and the bistream requests,
+on graphs (the eager traces and the bf16 960-token trace of earlier runs
+are left out to make room for the batch phases), and requires
 the K1..K7 kernels the LM stage's traces show to be at most the launches
 counted and at most TRACE_LOSS fewer (the profiler drops some records). It
 runs last because a profiler session multiplies the host cost of every
 later graph replay in the process (scripts/decode_graph_block.py: 5-7x
-per-layer).
+per-layer; the serve phase's token->wav, eager, slowed with it); the
+three engines stay alive until then.
 
 After each LM's graphs phase, stream (stream_int4p, stream_int4p_bf16)
 serves `tts(stream=True)` requests (STREAM): the bf16 LM's text-16
@@ -125,7 +130,7 @@ chunk and requires the LM's thread gone and the LM free. The decode steps
 and extends of every stream and its offline request are counted and
 checked as in phase 4.
 
-Last, once every engine above is freed, api builds the public API,
+After the LMs' phases, api builds the public API,
 `CosyVoice2(model_dir="", seed=0)` (runtime/api.py: frontend + the bf16
 engine; S3 1280-d, 6 layers, FSQ 6561; CAM++ at its default config), and
 on a seeded 3 s synthetic 16 kHz voice prompt (no file read) holds the
@@ -159,11 +164,51 @@ tokenizer.json at full size (151,643 byte-level ids) through
 get_tokenizer, the api texts encoded (ids below 151,936) and decoded back,
 with the load time and the encode time per character.
 
+Then continuous batching (runtime/batch_scheduler.py), at full width with
+random weights from seed 0:
+batch: the bf16 LM serves 6 requests (text 16 / 32 / 48 ids with a
+50- and a 400-token voice prompt; 4 submitted at once, 2 more after the
+first session ends, into freed slots) through
+LMBatchScheduler(max_batch=4) on CUDA graphs keyed by the batch: every
+batched step through 24 K1 + 24 K2 and never K7, the B-slot arena grown
+(512 -> 1024 -> 1536 rows), each graph's kernel nodes equal to its
+counted launches; the same requests (max_len 3 x text) on graphs against
+eager under the default sampling and under set_sampling(0.95, 50, 0.8,
+1.1): identical tokens and scheduler generator state; the batched step's
+logits against the B=1 step's on 28 teacher-forced tokens within
+LOGIT_TOL; greedy streams (max_len 6 x text) at max_batch 1, 2 and 4
+against each request alone through Qwen2LM.generate: equal, or the first
+difference at a near tie of the B=1 logits (position and gap printed);
+aggregate tokens/s of each and of one-at-a-time generate, the device ms
+of a batched step against a B=1 step, the B-slot arenas' bytes.
+batch_int4p: the same for the int4p LMs over an int8 arena (K4 + K3 + K2
++ K6 per step) and over a bf16 arena (K4 + K1 + K2 + K6, never K7) at
+text 4 / 8 / 12 (max_batch 4 alone in the greedy hold), then one bistream
+request on the second LM while a scheduler serves batch's six requests on
+its thread: the tokens it gives alone, its steps through K7.
+serve: CosyVoice2(seed=0) with enable_continuous_batching(4) (every
+decode graph of the scheduler and of the B=1 decoder captured up front,
+the count and the seconds printed) behind make_stdlib_server on
+127.0.0.1 (a free port): one request's PCM equal to
+_pcm of the API's own output (the scheduler's generator reseeded before
+each); tools/bench_client.py's sweep at concurrency 1, 2 and 4 with 8
+zero-shot requests each ("Hi.", 60 tokens), offline then streamed:
+every response n_tokens * 2 * 480 samples, all of them the scheduler's
+tokens x 960, every decode step through K1 + K2, no graph captured
+while serving, first-chunk, latency and
+request-RTF p50 / p90 and audio seconds per wall second printed;
+/metrics counting the 48 requests and /metrics/reset clearing them; a
+text of two segments under greedy sampling, serially and through the
+scheduler (both segments at once): chunks in segment order, each
+segment's tokens held as in batch's greedy hold.
+
 The line before the last is {"kernels": [...]}, with each kernel's launches
 summed over the runs of phases 4, 6 and 8, the two bistream slices, the
-three stream phases, the two api phases and ckpt (each counted from 0,
-replays included); the last line is {"ok": true, "device": {...}}. Without a card
-it exits 2 and prints no result.
+three stream phases, the two api phases, ckpt, and the main runs of batch
+and batch_int4p (with the bistream request beside the scheduler) and
+serve's sweep (each counted from 0, replays included); the last line is
+{"ok": true, "device": {...}}. Without a card it exits 2 and prints no
+result.
 """
 
 import collections
@@ -211,16 +256,17 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16
 L2_BYTES = 50e6  # H100 L2 cache
 
-# Each phase's watchdog budget, 1.5-3x its time on the card host of the
-# run that set it (653.0 s of phases, measured on one H100; card hosts have
-# differed by up to 1.5x: 670 s of phases on the slowest, before the api
-# and ckpt phases existed); the budgets sum to 1121 s, inside the run's
-# 1200 s limit with room to start up.
-PHASE_BUDGET_S = {"device": 5, "build": 32, "kernels": 85, "slice": 20, "check": 12, "graphs": 40, "stream": 50,
-                  "slice_int4p": 28, "check_int4p": 25, "slice_bistream_int4p": 5, "check_bistream_int4p": 17,
-                  "graphs_int4p": 25, "stream_int4p": 15, "slice_int4p_bf16": 30, "check_int4p_bf16": 17,
-                  "slice_bistream_int4p_bf16": 70, "check_bistream_int4p_bf16": 100, "graphs_int4p_bf16": 35,
-                  "stream_int4p_bf16": 50, "idle": 300, "api": 50, "api_int4p": 20, "ckpt": 90}
+# Each phase's watchdog budget, 1.5-3x the longest of its times on the card
+# in the runs that set it (six runs of 651-690 s of phases on one H100,
+# idle last; the kernels phase alone has taken 50-79 s across card hosts);
+# the budgets sum to 1119 s, inside the run's 1200 s limit with room to
+# start up.
+PHASE_BUDGET_S = {"device": 5, "build": 25, "kernels": 126, "slice": 18, "check": 9, "graphs": 48, "stream": 49,
+                  "slice_int4p": 26, "check_int4p": 22, "slice_bistream_int4p": 4, "check_bistream_int4p": 6,
+                  "graphs_int4p": 24, "stream_int4p": 14, "slice_int4p_bf16": 28, "check_int4p_bf16": 18,
+                  "slice_bistream_int4p_bf16": 68, "check_bistream_int4p_bf16": 18, "graphs_int4p_bf16": 30,
+                  "stream_int4p_bf16": 54, "api": 40, "api_int4p": 15, "ckpt": 79, "batch": 64, "batch_int4p": 73,
+                  "serve": 132, "idle": 124}
 PHASE_SECONDS = {}  # each phase's measured seconds in this run
 
 
@@ -396,9 +442,10 @@ def _quant_arena_case(torch, B, T, Hq, Hkv, d, cur, gen, dead):
 UNEVEN = (1, 15, 16, 17, 63, 64, 65, 1023, 2047)
 CASES = [[c] for c in (0, 27, 511, 512, 513, 4095)] + [[0, 27, 513, 4095], [511, 512, 4095, 27]] + [[c] for c in UNEVEN]
 CUR_T = 1023  # timed decode position, mid-utterance
-# further timed (cur_len, arena rows) of K1 / K3: the first arena bucket, and
-# a full 4096-row arena
-DECODE_SUB = {"cur127_T512": (127, 512), "cur4095": (4095, 4096)}
+# further timed (cur_len, arena rows) of K1 / K3: the first arena bucket, a
+# full 4096-row arena, and the batched decode's B=4 rows at a spread of
+# lengths in a 1024-row arena (the batch phases' slots)
+DECODE_SUB = {"cur127_T512": (127, 512), "cur4095": (4095, 4096), "B4_ragged_T1024": ((100, 400, 700, 1000), 1024)}
 # Peaked decode cases: every query head of KV group g is PEAK_GAIN * u_g (u_g
 # a random +-1 vector over d), and two live keys per group, the first key of
 # split s and the last of split s+1, are u_g with values of scale PEAK_V
@@ -491,19 +538,22 @@ def _peaked_decode(name, da, qc, gen, quant):
 
 def _time_decode(da, qc, gen, cur_t, T, quant):
     """Device ms of K1 (quant False) or K3, their plain version and SDPA
-    (over the dequantised bf16 arena for K3) at B=1, cur_len cur_t in a
-    T-row arena, and the bound. Returns (dev, host, n, (bound_ms, by))."""
+    (over the dequantised bf16 arena for K3) at cur_len cur_t (B=1) or one
+    row per entry of a tuple, in a T-row arena, and the bound. Returns
+    (dev, host, n, (bound_ms, by))."""
     import torch
 
     Hq, Hkv, d = qc.num_heads, qc.num_kv_heads, qc.head_dim
-    cur = torch.tensor([cur_t], device="cuda", dtype=torch.int32)
-    live = cur_t + 1
+    curs = (cur_t,) if isinstance(cur_t, int) else tuple(cur_t)
+    B = len(curs)
+    cur = torch.tensor(curs, device="cuda", dtype=torch.int32)
+    live = sum(c + 1 for c in curs)
     if quant:
-        nbytes = 2 * Hq * d * 4 + 2 * live * (Hkv * d + 4) + 4
+        nbytes = 2 * B * Hq * d * 4 + 2 * live * (Hkv * d + 4) + 4 * B
     else:
-        nbytes = 2 * Hq * d * 2 + 2 * live * Hkv * d * 2 + 4
+        nbytes = 2 * B * Hq * d * 2 + 2 * live * Hkv * d * 2 + 4 * B
     n = n_sets(nbytes)
-    mask = (torch.arange(T, device="cuda") <= cur_t)[None, None, None, :]
+    mask = (torch.arange(T, device="cuda")[None, :] <= cur[:, None])[:, None, None, :]
 
     def sdpa(q, k, v):
         return torch.nn.functional.scaled_dot_product_attention(
@@ -511,13 +561,13 @@ def _time_decode(da, qc, gen, cur_t, T, quant):
         )
 
     if quant:
-        sets = [_quant_arena_case(torch, 1, T, Hq, Hkv, d, cur, gen, dead=0.0) + (cur,) for _ in range(n)]
+        sets = [_quant_arena_case(torch, B, T, Hq, Hkv, d, cur, gen, dead=0.0) + (cur,) for _ in range(n)]
         deq = [(q.to(torch.bfloat16), da.dequantize_kv_arena(k, ks, torch.bfloat16),
                 da.dequantize_kv_arena(v, vs, torch.bfloat16)) for q, k, v, ks, vs, _ in sets]
         fns = {"kernel": rotate(sets, da.gqa_decode_attention_quant),
                "plain": rotate(sets, da.gqa_decode_attention_quant_plain), "library": rotate(deq, sdpa)}
     else:
-        sets = [_arena_case(torch, 1, T, Hq, Hkv, d, cur, gen, dead=0.0) + (cur,) for _ in range(n)]
+        sets = [_arena_case(torch, B, T, Hq, Hkv, d, cur, gen, dead=0.0) + (cur,) for _ in range(n)]
         fns = {"kernel": rotate(sets, da.gqa_decode_attention), "plain": rotate(sets, da.gqa_decode_attention_plain),
                "library": rotate([s[:3] for s in sets], sdpa)}
     dev, host = time_fns(fns, n)
@@ -693,9 +743,10 @@ def _nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-K4_ROWS = (1, 2, 5, 15, 16)  # decode steps (1), the bistream extends' row counts (2..16)
+K4_ROWS = (1, 2, 4, 5, 15, 16)  # decode steps (1; 4 batched), the bistream extends' row counts (2..16)
 # timed K4 sub-entries beside the row (qkv at B=1): (rows, projection)
-K4_SUB = {"o_proj_B1": (1, "o_proj"), "qkv_B5": (5, "qkv"), "qkv_B16": (16, "qkv")}
+K4_SUB = {"o_proj_B1": (1, "o_proj"), "qkv_B4": (4, "qkv"), "o_proj_B4": (4, "o_proj"), "qkv_B5": (5, "qkv"),
+          "qkv_B16": (16, "qkv")}
 
 
 def _hold_k4(int4, x, p, s, label):
@@ -804,8 +855,12 @@ def _k6_inputs(torch, H, gen, B=1):
     return attn, x, nw
 
 
+K6_ROWS = (1, 4, 16)  # the B=1 decode step (its own kernel), the batched step at B=4, the limit
+
+
 def hold_k6(int4, qc, gen, ws=None):
-    """K6 at full width, B=1 (the decode step's shape) and B=16: attn [B, 896]
+    """K6 at full width at K6_ROWS rows (B=1: the B=1 decode step's kernel;
+    B > 1: the batched steps'): attn [B, 896]
     f32 (K3's output), x [B, 896] bf16, within twice a floor of one bf16 ulp
     at max |ref| of its plain version, the same bits twice, with a call on
     other weights in between (so that nothing the first call leaves in
@@ -818,7 +873,7 @@ def hold_k6(int4, qc, gen, ws=None):
     ws = ws or _tail_weights(torch, int4, H, inter, gen)
     other = _tail_weights(torch, int4, H, inter, gen)
     err_max = 0.0
-    for B in (1, 16):
+    for B in K6_ROWS:
         attn, x, nw = _k6_inputs(torch, H, gen, B)
         out = int4.int4_o_mlp(attn, x, nw, *ws)
         int4.int4_o_mlp(attn, x, nw, *other)
@@ -847,7 +902,8 @@ def hold_k6(int4, qc, gen, ws=None):
 
 def check_k6(int4, qc, gen):
     """hold_k6, then K6 timed at B=1 beside the bf16 product route over its
-    dequantised weights."""
+    dequantised weights, and at B=4 (the batched steps' route, the
+    multi-row kernel) with its bound."""
     import torch
 
     H, inter = qc.hidden_size, qc.intermediate_size
@@ -879,18 +935,25 @@ def check_k6(int4, qc, gen):
         g, u = (torch.nn.functional.pad(h2, (0, gu.shape[0] - H)) @ gu).chunk(2, dim=-1)
         return (x2 + ((torch.nn.functional.silu(g) * u) @ wd).float()).to(torch.bfloat16)
 
-    attn, x, nw = inputs()
-    k6_bytes = _nbytes(attn, x, nw, *ws) + H * 2
-    n = n_sets(k6_bytes)
-    sets = [inputs() + _tail_weights(torch, int4, H, inter, gen) for _ in range(n)]
-    dense_sets = [s[:3] + dense(*s[3:]) for s in sets]
-    dev, host = time_fns({"kernel": rotate(sets, int4.int4_o_mlp), "plain": rotate(sets, int4.int4_o_mlp_plain),
-                          "bf16_route": rotate(dense_sets, bf16_route)}, n)
-    del dense_sets
-    flops = 2 * H * H + 2 * H * 2 * inter + 2 * inter * H
+    def timed(B):
+        attn, x, nw = _k6_inputs(torch, H, gen, B)
+        k6_bytes = _nbytes(attn, x, nw, *ws) + B * H * 2
+        n = n_sets(k6_bytes)
+        sets = [_k6_inputs(torch, H, gen, B) + _tail_weights(torch, int4, H, inter, gen) for _ in range(n)]
+        dense_sets = [s[:3] + dense(*s[3:]) for s in sets]
+        dev, host = time_fns({"kernel": rotate(sets, int4.int4_o_mlp), "plain": rotate(sets, int4.int4_o_mlp_plain),
+                              "bf16_route": rotate(dense_sets, bf16_route)}, n)
+        flops = B * (2 * H * H + 2 * H * 2 * inter + 2 * inter * H)
+        return dev, host, n, bound(k6_bytes, flops)
+
+    dev, host, n, (b_ms, b_by) = timed(1)
     row = kernel_row("int4_o_mlp", "cosyvoice_tpu_torch/csrc/int4_fused.cu", "cosyvoice_tpu/ops/int4_fused.py:519",
-                     err_max, dev, *bound(k6_bytes, flops))
+                     err_max, dev, b_ms, b_by)
     row["bf16_route_ms"] = dev["bf16_route"]
+    torch.cuda.empty_cache()
+    d4, h4, _, (b4, by4) = timed(4)
+    row["b4"] = {"ms": d4["kernel"], "plain_ms": d4["plain"], "bf16_route_ms": d4["bf16_route"], "bound_ms": b4,
+                 "bound_by": by4, "host_ms": h4["kernel"]}
     return row, {k: v for k, v in host.items() if k != "bf16_route"}, n
 
 
@@ -1222,6 +1285,12 @@ def phase_kernels(cfg):
             print(f"{key} beside the bf16 product route over the dequantised weights (o matmul, residual, RMSNorm, "
                   f"gate|up matmul, silu * up, down matmul, residual): {bf * 1e3:.2f} us (kernel {row['ms'] * 1e3:.2f} "
                   f"us, {row['ms'] / bf:.2f}x)")
+        if "b4" in row:
+            b4 = row.pop("b4")
+            print(f"{key} at B=4 (the batched decode step's route, the multi-row kernel): device {b4['ms'] * 1e3:.2f} "
+                  f"us, plain {b4['plain_ms'] * 1e3:.2f} us, bf16 product route {b4['bf16_route_ms'] * 1e3:.2f} us, "
+                  f"bound {b4['bound_ms'] * 1e3:.4f} us ({b4['bound_by']}; {b4['ms'] / b4['bound_ms']:.1f}x), eager "
+                  f"host rate {b4['host_ms'] * 1e3:.2f} us")
         if "rows16" in row:
             r16, bf = row.pop("rows16"), row.pop("bf16_route_ms")
             print(f"{key} beside the bf16 product route over the dequantised weights (gate|up matmul, silu * up, "
@@ -1536,7 +1605,8 @@ def _replay_bistream(lm, feeds, toks, arena):
     """One bistream request teacher-forced: every recorded extend, then its
     tokens fed one per step at the positions up to the next extend's start,
     through the route the LM takes for `arena` rows. Returns the logits after
-    every extend."""
+    every extend. (The tokens after the last extend change none of them, so
+    they are counted, not fed.)"""
     import torch
 
     m, dev = lm.module, lm.device
@@ -1548,6 +1618,10 @@ def _replay_bistream(lm, feeds, toks, arena):
         seen.append(logits)
         pos = start + len(ids)
         end = feeds[i + 1][0] if i + 1 < len(feeds) else pos + len(toks) - k
+        if i + 1 == len(feeds):
+            if end < pos:
+                raise AssertionError(f"the replay's extends took {k} tokens, more than the {len(toks)} decoded")
+            break
         for p in range(pos, end):
             tok, cur = torch.tensor([int(toks[k])], device=dev), torch.tensor([p], dtype=torch.int32, device=dev)
             k += 1
@@ -1555,8 +1629,6 @@ def _replay_bistream(lm, feeds, toks, arena):
                 logits, cache = m.decode_step(tok, cur, cache)
             else:
                 logits, cache = m.decode_step_fused(tok, cur, cache, stacked)
-    if k != len(toks):
-        raise AssertionError(f"the replay fed {k} of {len(toks)} tokens")
     return seen
 
 
@@ -1821,7 +1893,7 @@ def _on(eng, graphs, run):
     lm = eng.lm
     made, make = [], eng._generator
     before = (lm.graph_captures, lm.graph_capture_s, lm.graph_replays, lm.graph_replay_s)
-    eng._generator = lambda: made.append(make()) or made[-1]
+    eng._generator = lambda *seed: made.append(make(*seed)) or made[-1]
     secs = {}
     try:
         with _graphs(lm, graphs), _timed(lm.module, "prefill", secs, eng._sync), \
@@ -1875,18 +1947,21 @@ def hold_graphs(eng, label, run, want=None):
         raise AssertionError(f"{label}: the graph path's tokens differ from the same request's in the slice phase")
 
 
-def replay_cost(lm):
+def replay_cost(lm, decoder=None, rows=None):
     """Host us to enqueue one replay of a captured decode-step graph per
     route against its device ms (utils/profiling.py:enqueue_cost, as
     scripts/decode_graph_block.py times it): whether one step per graph
     leaves the host ahead of the device. Replays from row T/4 of the
-    graph's arena."""
+    graph's arena (`rows`: the graph of that arena length). `decoder`:
+    the LM's own by default, or a batch scheduler's. Returns {(route,
+    batch, arena rows): device ms}."""
     from cosyvoice_tpu_torch.utils.profiling import enqueue_cost
 
-    s, seen = lm.decoder.state, set()
-    for (fused, T, bistream, _), (graph, _) in sorted(lm.decoder.graphs.items()):
+    decoder = decoder or lm.decoder
+    s, seen, out = decoder.state, set(), {}
+    for (fused, B, T, bistream, _), (graph, _) in sorted(decoder.graphs.items()):
         route = "K7" if fused else "per-layer"
-        if route in seen:
+        if route in seen or (rows is not None and T != rows):
             continue
         seen.add(route)
 
@@ -1896,9 +1971,11 @@ def replay_cost(lm):
             s.slot.zero_()
 
         host_us, dev_ms, host = enqueue_cost(graph.replay, reset)
-        print(f"replay of one {route} decode step (arena {T} rows, {'bistream' if bistream else 'v2'} mask): host "
-              f"{host_us:.1f} us to enqueue (median of 5 x 4; all {[round(h, 1) for h in host]}), device "
+        out[(route, B, T)] = dev_ms
+        print(f"replay of one {route} decode step (B={B}, arena {T} rows, {'bistream' if bistream else 'v2'} mask): "
+              f"host {host_us:.1f} us to enqueue (median of 5 x 4; all {[round(h, 1) for h in host]}), device "
               f"{dev_ms:.4f} ms: host/device {host_us / (dev_ms * 1e3):.3f}")
+    return out
 
 
 # K1..K7 by the identifiers in the mangled names of their kernel functions
@@ -1923,10 +2000,11 @@ def graph_kernels(dot):
     return out
 
 
-def hold_graph_nodes(lm):
-    """Every decode graph the LM holds: its K1..K7 kernel nodes (listed by
-    `CUDAGraph.debug_dump`) must equal the launches its capture counted,
-    which each replay adds to the counters."""
+def hold_graph_nodes(lm, decoder=None):
+    """Every decode graph the LM's decoder (or a batch scheduler's) holds:
+    its K1..K7 kernel nodes (listed by `CUDAGraph.debug_dump`) must equal
+    the launches its capture counted, which each replay adds to the
+    counters."""
     import warnings
     from pathlib import Path
 
@@ -1935,17 +2013,18 @@ def hold_graph_nodes(lm):
     out = Path("build") / "decode_graphs"
     out.mkdir(parents=True, exist_ok=True)
     wrappers = dict(_counters())
-    for i, (key, (graph, deltas)) in enumerate(sorted(lm.decoder.graphs.items())):
-        delta = {obj: d for (obj, _), d in zip(lm.decoder.counters(), deltas)}
+    decoder = decoder or lm.decoder
+    for i, (key, (graph, deltas)) in enumerate(sorted(decoder.graphs.items())):
+        delta = {obj: d for (obj, _), d in zip(decoder.counters(), deltas)}
         counted = {k: delta[fn] for k, fn in wrappers.items()}
         counted["K2"] += delta[kv_arena_write]
-        path = out / f"graph_{i}.dot"
+        path = out / f"graph_b{decoder.batch}_{i}.dot"
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")  # debug_dump warns that it is a debugging call
             graph.debug_dump(str(path.resolve()))
         nodes = graph_kernels(path.read_text())
-        print(f"decode graph {key} (K7?, arena rows, bistream mask?, sampling): kernel nodes {nodes}, counted at capture "
-              f"{counted}")
+        print(f"decode graph {key} (K7?, batch, arena rows, bistream mask?, sampling): kernel nodes {nodes}, counted "
+              f"at capture {counted}")
         if nodes != counted or not any(nodes.values()):
             raise AssertionError(f"decode graph {key}: its kernel nodes are not the launches its replays count")
 
@@ -1956,7 +2035,7 @@ def phase_graphs(eng, runs):
     cost of a replay."""
     lm = eng.lm
     print(f"static KV arenas: {sorted(n for _, n in lm.arenas.buffers)} rows, {lm.arenas.nbytes() / 1e6:.1f} MB; "
-          f"{len(lm.decoder.graphs)} decode graphs (K7?, arena rows, bistream mask?, sampling): "
+          f"{len(lm.decoder.graphs)} decode graphs (K7?, batch, arena rows, bistream mask?, sampling): "
           f"{sorted(lm.decoder.graphs)}")
     for label, run, want in runs:
         hold_graphs(eng, label, run, want)
@@ -2304,15 +2383,16 @@ def idle_share(eng, label, stages, modes):
 
 
 def phase_idle(held):
-    """idle_share over the requests each LM held in its graphs phase: the
-    text-16 offline request (320 tokens) eager and on graphs, the others
-    (the bf16 LM's 960-token request, the route switch, the bistream
-    requests) on graphs. Runs after every timed phase: a profiler session
+    """idle_share over the requests each LM held in its graphs phase, on
+    graphs: the text-16 offline request (320 tokens), the route switch, the
+    bistream requests. (The eager traces and the bf16 LM's 960-token trace
+    of earlier runs are left out to make room for the batch phases: PERF.md
+    §5 keeps their shares.) Runs after every timed phase: a profiler session
     multiplies the host cost of every later graph replay in the process
     (scripts/decode_graph_block.py)."""
     for suffix, eng, reqs in held:
-        for i, (label, stages) in enumerate(reqs):
-            idle_share(eng, f"LM{suffix or '_bf16'} {label}", stages, (True, False) if i == 0 else (True,))
+        for label, stages in reqs:
+            idle_share(eng, f"LM{suffix or '_bf16'} {label}", stages, (True,))
 
 
 # ---------------------------------------------------------------- the public API
@@ -2690,7 +2770,7 @@ def hold_sampling_on_graphs(api):
           f"{cfg.repetition_penalty}")
     hold_graphs(eng, "Triton sampling, offline text=16", _offline_run(eng, full, text))
     new = sorted(set(eng.lm.decoder.graphs) - default_keys)
-    if not new or any(k[3][-1] != cfg.repetition_penalty for k in new):
+    if not new or any(k[-1][-1] != cfg.repetition_penalty for k in new):
         raise AssertionError(f"no decode graph was captured under the new sampling config: {new}")
     # graph and eager runs alike: 24 K1 and 24 K2 per decode step
     lm = eng.lm
@@ -2820,6 +2900,544 @@ def phase_ckpt(int4p_tokens):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- continuous batching
+
+# the batch phases' requests: each text length (ids) with a short and a long
+# voice prompt (BATCH_PROMPTS LM prompt speech tokens; the long one pads the
+# prompt to 512 rows, so its slot arena has 1024), in this order; the first
+# WAVE are submitted at once, the rest after the step in which the first
+# session ends, into freed slots
+BATCH_TEXTS = {"": (16, 32, 48), "_int4p": (4, 8, 12), "_int4p_bf16": (4, 8, 12)}
+BATCH_PROMPTS = (50, 400)
+WAVE = 4
+MAX_BATCH = 4
+EAGER_CAP = 3  # max_len of the graph-against-eager holds, x text ids (the eager step is ~20 ms)
+GREEDY_CAP = 6  # max_len of the greedy holds and the max_batch sweep, x text ids
+GREEDY = dict(top_k=1, tau_r=2.0)  # argmax, and RAS never resamples
+LOGIT_STEPS = 28  # teacher-forced steps of the batched-against-B=1 logits hold
+SWEEP_BATCH = (1, 2, 4)  # the bf16 LM's max_batch sweep
+BESIDE_BISTREAM = (16, 64)  # the bistream request beside the int4p + bf16-arena scheduler: (text ids, max_len)
+
+
+def batch_requests(cfg, texts, seed=0):
+    """[(label, ids, types, min_len, max_len)]: each text length with each
+    prompt, random ids from `seed`, as engine.tts builds its LM prompt."""
+    import numpy as np
+
+    from cosyvoice_tpu_torch.runtime.engine import lm_prompt
+
+    rng = np.random.default_rng(seed)
+    prompts = [(rng.integers(0, cfg.qwen.vocab_size, 10), rng.integers(0, cfg.speech_token_size, n))
+               for n in BATCH_PROMPTS]
+    reqs = []
+    for n in texts:
+        for (prompt_text, prompt_speech), n_ps in zip(prompts, BATCH_PROMPTS):
+            text = rng.integers(0, cfg.qwen.vocab_size, n)
+            reqs.append((f"text {n}, prompt {n_ps}",) + lm_prompt(cfg, text, prompt_text, prompt_speech))
+    return reqs
+
+
+def _capped(reqs, cap):
+    """The requests with max_len cap x their text ids (min_len at most that)."""
+    out = []
+    for label, ids, types, min_len, max_len in reqs:
+        m = max_len // 20 * cap
+        out.append((label, ids, types, min(min_len, m), m))
+    return out
+
+
+def drive_waves(sched, reqs):
+    """Submit the first WAVE requests, step the scheduler on this thread and
+    submit the rest after the step in which the first session ended; run
+    to the end. Returns (each session's tokens, wall seconds)."""
+    t = time.perf_counter()
+    handles = [sched.submit(*r[1:]) for r in reqs[:WAVE]]
+    while True:
+        worked = sched.step()
+        if len(handles) < len(reqs) and sched.n_active + sched.pending.qsize() < len(handles):
+            handles += [sched.submit(*r[1:]) for r in reqs[len(handles):]]
+        elif not worked and not sched.n_active and sched.pending.empty():
+            break
+    wall = time.perf_counter() - t
+    return [_cat(list(h)) for h in handles], wall
+
+
+def _lm_ns(lm):
+    """The engine-shaped holder _zero_counts and _check_launches read."""
+    import types
+
+    return types.SimpleNamespace(lm=lm)
+
+
+def hold_batch_graphs(lm, reqs, label):
+    """The capped requests through a MAX_BATCH scheduler on CUDA graphs and
+    eagerly (graphs=False): identical tokens per session and the same
+    scheduler generator state at the end."""
+    import numpy as np
+    import torch
+
+    from cosyvoice_tpu_torch.runtime.batch_scheduler import LMBatchScheduler
+
+    runs = {}
+    for graphs in (True, False):
+        with _graphs(lm, graphs):
+            sched = LMBatchScheduler(lm, max_batch=MAX_BATCH)
+            toks, wall = drive_waves(sched, reqs)
+            runs[graphs] = toks, sched.generator.get_state(), wall
+    (g, gs, gw), (e, es, ew) = runs[True], runs[False]
+    n = sum(len(t) for t in g)
+    same = all(np.array_equal(a, b) for a, b in zip(g, e)) and torch.equal(gs, es)
+    print(f"batch {label}: {len(reqs)} sessions, {n} tokens ({[len(t) for t in g]}) at max_batch {MAX_BATCH}; graphs "
+          f"{n / gw:.1f} tokens/s, eager {n / ew:.1f} tokens/s; identical tokens and generator state: {same}")
+    if not same or n == 0:
+        raise AssertionError(f"batch {label}: the graph path disagrees with the eager path")
+
+
+def hold_batched_logits(lm, reqs, tol):
+    """The batched step against the B=1 step: the first MAX_BATCH requests'
+    prompts (different lengths) prefilled alone, spliced into the rows of
+    a MAX_BATCH arena, then LOGIT_STEPS teacher-forced random speech tokens
+    through decode_step at B=MAX_BATCH and at B=1 per row (the same
+    function: K1 / K3, K2, K4, K6 at each batch). Each row's relative L2
+    within `tol`. Returns the largest absolute logit difference."""
+    import numpy as np
+    import torch
+
+    rows = reqs[:MAX_BATCH]
+    dev = lm.device
+    lens = [len(r[1]) for r in rows]
+    A = lm.arena_bucket(max(lens) + LOGIT_STEPS + 1)
+    toks = np.random.default_rng(1).integers(0, lm.cfg.speech_token_size, (LOGIT_STEPS, len(rows)))
+    rel_max = abs_max = 0.0
+    with torch.inference_mode():
+        batched = lm.init_cache(len(rows), A)
+        alone = [lm.init_cache(1, A) for _ in rows]
+        for b, (_, ids, types, _, _) in enumerate(rows):
+            lm.module.prefill(torch.as_tensor(ids[None].astype(np.int64), device=dev),
+                              torch.as_tensor(types[None].astype(np.int64), device=dev),
+                              torch.tensor([lens[b]], device=dev), alone[b])
+            for dst, src in zip(batched, alone[b]):
+                dst[:, b : b + 1].copy_(src)
+        for s in range(LOGIT_STEPS):
+            tok = torch.as_tensor(toks[s].astype(np.int32), device=dev)
+            cur = torch.tensor([n + s for n in lens], dtype=torch.int32, device=dev)
+            lb, _ = lm.module.decode_step(tok, cur, batched)
+            for b in range(len(rows)):
+                l1, _ = lm.module.decode_step(tok[b : b + 1], cur[b : b + 1], alone[b])
+                rel_max = max(rel_max, ((lb[b] - l1[0]).norm() / l1[0].norm()).item())
+                abs_max = max(abs_max, (lb[b] - l1[0]).abs().max().item())
+    print(f"batched step against B=1, {len(rows)} rows at lengths {lens}, {LOGIT_STEPS} teacher-forced steps: "
+          f"relative L2 of the logits at most {rel_max:.3e} (limit {tol}), max abs difference {abs_max:.3e}")
+    if not rel_max <= tol:
+        raise AssertionError(f"the batched step's logits are {rel_max} from the B=1 step's (limit {tol})")
+    return abs_max
+
+
+def _first_difference(want, got):
+    """The first position where `got` leaves `want` (a stream that ended
+    sooner counts at its end), or None if they are equal."""
+    import numpy as np
+
+    n = min(len(want), len(got))
+    diff = np.nonzero(want[:n] != got[:n])[0]
+    if len(diff) == 0 and len(want) == len(got):
+        return None
+    return int(diff[0]) if len(diff) else n
+
+
+def _b1_gaps(lm, ids, types, want, positions):
+    """{position: (top-2 gap, largest |logit|)} of the B=1 logits at each of
+    `positions`, by `want` teacher-forced through prefill and decode_step."""
+    import numpy as np
+    import torch
+
+    dev, out, last = lm.device, {}, max(positions)
+    with torch.inference_mode():
+        cache = lm.init_cache(1, lm.arena_bucket(len(ids) + last + 1))
+        logits, _ = lm.module.prefill(torch.as_tensor(ids[None].astype(np.int64), device=dev),
+                                      torch.as_tensor(types[None].astype(np.int64), device=dev),
+                                      torch.tensor([len(ids)], device=dev), cache)
+        for k in range(last + 1):
+            if k in positions:
+                top = logits[0].float().topk(2).values
+                out[k] = (top[0] - top[1]).item(), logits[0].float().abs().max().item()
+            if k < last:
+                logits, _ = lm.module.decode_step(torch.tensor([int(want[k])], dtype=torch.int32, device=dev),
+                                                  torch.tensor([len(ids) + k], dtype=torch.int32, device=dev), cache)
+    return out
+
+
+def hold_greedy(lm, reqs, want, runs, tol):
+    """Greedy streams of each run ({label: [tokens per request]}) against
+    `want` (each request alone): equal, or the first difference at a near
+    tie of the B=1 logits (a top-2 gap at most tol x the largest |logit|
+    there; each request teacher-forced once, to its last such position)."""
+    for r, (name, ids, types, _, _) in enumerate(reqs):
+        firsts = {label: _first_difference(want[r], got[r]) for label, got in runs.items()}
+        needed = {i for i in firsts.values() if i is not None}
+        gaps = _b1_gaps(lm, ids, types, want[r], needed) if needed else {}
+        for label, i in firsts.items():
+            if i is None:
+                continue
+            gap, top = gaps[i]
+            print(f"greedy {label}, {name}: first difference at token {i} of {len(want[r])} (alone) / "
+                  f"{len(runs[label][r])}, B=1 top-2 gap {gap:.4e} against the near-tie limit {tol * top:.4e} "
+                  f"({tol} x max |logit| {top:.3f})")
+            if not gap <= tol * top:
+                raise AssertionError(f"greedy {label}, {name}: the streams part at token {i}, not at a near tie")
+    for label, got in runs.items():
+        same = sum(_first_difference(w, g) is None for w, g in zip(want, got))
+        print(f"greedy {label}: {same} of {len(reqs)} sessions equal to their requests alone")
+
+
+def phase_batch(lm, suffix, per_step, tol, sweep=(MAX_BATCH,)):
+    """Continuous batching at full width over `lm`, random weights from seed
+    0 (see the module docstring): BATCH_TEXTS[suffix] x BATCH_PROMPTS
+    requests in two waves through LMBatchScheduler(max_batch=MAX_BATCH) on
+    CUDA graphs, every step through `per_step` (the per-layer kernels;
+    never K7), the B-slot arena grown, each graph's kernel nodes equal to
+    its counted launches, the device ms of a batched step against a B=1
+    step; graph against eager under the default and the Triton sampling;
+    the batched step's logits against B=1; greedy streams at each max_batch
+    of `sweep` against each request alone through Qwen2LM.generate, with
+    the tokens/s of each. Returns the launches of the main run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from cosyvoice_tpu_torch.runtime.batch_scheduler import LMBatchScheduler
+
+    name = f"LM{suffix or '_bf16'}"
+    reqs = batch_requests(lm.cfg, BATCH_TEXTS[suffix])
+    ns = _lm_ns(lm)
+    counters = _zero_counts(ns)
+    sched = LMBatchScheduler(lm, max_batch=MAX_BATCH)
+    toks, wall = drive_waves(sched, reqs)
+    n = sum(len(t) for t in toks)
+    print(f"{name} batch: {len(reqs)} sessions ({', '.join(r[0] for r in reqs)}), {n} tokens "
+          f"({[len(t) for t in toks]}) in {wall:.2f} s at max_batch {MAX_BATCH}: {n / wall:.1f} tokens/s; "
+          f"B-slot arenas {sorted(k[1] for k in sched.arenas.buffers)} rows, {sched.arenas.nbytes() / 1e6:.1f} MB "
+          f"({sched.arenas.nbytes() / sum(k[1] for k in sched.arenas.buffers):.0f} B per row)")
+    for (label, _, _, min_len, max_len), t in zip(reqs, toks):
+        if not 0 < len(t) <= max_len or (t >= lm.cfg.speech_token_size).any():
+            raise AssertionError(f"{name} batch, {label}: {len(t)} tokens (max_len {max_len})")
+    launches = _check_launches(ns, counters, per_step)
+    if lm.fused_steps or len(sched.arenas.buffers) < 2:
+        raise AssertionError(f"{name} batch: {lm.fused_steps} steps through K7, arenas {list(sched.arenas.buffers)}")
+    hold_graph_nodes(lm, sched.decoder)
+    rows = 1024  # both a batched and a B=1 graph hold this arena (the long prompt's first)
+    step_ms = replay_cost(lm, sched.decoder, rows=rows)
+    del sched
+    hold_batch_graphs(lm, _capped(reqs, EAGER_CAP), f"{name} default sampling, max_len {EAGER_CAP} x text")
+    saved = lm.cfg
+    try:
+        lm.cfg = dataclasses.replace(saved, **TRITON_SAMPLING)
+        hold_batch_graphs(lm, _capped(reqs, EAGER_CAP), f"{name} Triton sampling, max_len {EAGER_CAP} x text")
+        lm.cfg = saved
+        hold_batched_logits(lm, reqs, tol)
+        lm.cfg = dataclasses.replace(saved, **GREEDY)
+        greedy = _capped(reqs, GREEDY_CAP)
+
+        def rate(run):
+            """run()'s tokens and its tokens per second, graph captures apart."""
+            c0, t = lm.graph_capture_s, time.perf_counter()
+            out = run()
+            return out, sum(len(o) for o in out) / (time.perf_counter() - t - (lm.graph_capture_s - c0))
+
+        alone, rates = rate(lambda: [_cat(list(lm.generate(ids, types, torch.Generator(device=lm.device).manual_seed(0),
+                                                           mn, mx))) for _, ids, types, mn, mx in greedy])
+        rates, runs = {"one at a time (generate)": rates}, {}
+        for mb in sweep:
+            runs[f"{name} max_batch {mb}"], rates[f"max_batch {mb}"] = rate(
+                lambda: drive_waves(LMBatchScheduler(lm, max_batch=mb), greedy)[0])
+        hold_greedy(lm, greedy, alone, runs, tol)
+        b1_ms = replay_cost(lm, rows=rows)
+    finally:
+        lm.cfg = saved
+    print(f"{name} greedy, max_len {GREEDY_CAP} x text, {sum(len(a) for a in alone)} tokens, aggregate (graph "
+          f"captures apart): " + ", ".join(f"{k} {v:.1f} tokens/s" for k, v in rates.items()))
+    (b4_key, b4), (b1_key, b1) = next(iter(step_ms.items())), next(iter(b1_ms.items()))
+    print(f"{name} device ms per decode step, arena {rows} rows: B={b4_key[1]} ({b4_key[0]}) {b4:.4f} ms "
+          f"({b4 / b4_key[1]:.4f} ms per row), B=1 ({b1_key[0]}) {b1:.4f} ms; the batched step costs {b4 / b1:.2f}x "
+          f"the B=1 step for {b4_key[1]} rows")
+    return launches
+
+
+def int4p_lms(cfg, device="cuda"):
+    """The int4p LMs over an int8 and over a bf16 arena, from one fp tree
+    made on `device` from seed 0 and quantised once on the host (the
+    weights random_lm gives either)."""
+    import dataclasses
+
+    import torch
+
+    from cosyvoice_tpu_torch.convert import export_params, load_jax_params
+    from cosyvoice_tpu_torch.models.llm import Qwen2LM, Qwen2LMModule
+    from cosyvoice_tpu_torch.ops.quant import quantize_lm_params
+    from cosyvoice_tpu_torch.utils.init import init_random_
+
+    t0 = time.perf_counter()
+    with torch.device(device):
+        fp = init_random_(Qwen2LMModule(cfg), 0)
+    tree = quantize_lm_params(export_params(fp), "int4p")
+    del fp
+    lms = {}
+    for suffix, kv_quant in (("_int4p", True), ("_int4p_bf16", False)):
+        lm = Qwen2LM(dataclasses.replace(cfg, qwen=dataclasses.replace(cfg.qwen, quant="int4p", kv_quant=kv_quant)),
+                     device=device)
+        load_jax_params(lm.module, tree)
+        lms[suffix] = lm
+    print(f"int4p LMs (int8 and bf16 arenas) from seed 0, quantised once on the host, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return lms
+
+
+def hold_bistream_beside(lm):
+    """One bistream request (BESIDE_BISTREAM) alone, then again while a
+    MAX_BATCH scheduler on the same LM serves the bf16 phase's six
+    requests on its thread: the same tokens, its steps through K7 (every
+    K7 launch one of its steps), and the scheduler still busy when it
+    ends. Returns the launches of the run beside."""
+    import numpy as np
+    import torch
+
+    from cosyvoice_tpu_torch.ops.int4_block import int4_decode_layers
+    from cosyvoice_tpu_torch.runtime.batch_scheduler import LMBatchScheduler
+    from cosyvoice_tpu_torch.runtime.engine import SEED
+
+    c = lm.cfg
+    n_text, max_len = BESIDE_BISTREAM
+    rng = np.random.default_rng(3)
+    text, prompt_text = rng.integers(0, c.qwen.vocab_size, n_text), rng.integers(0, c.qwen.vocab_size, 10)
+    prompt_speech = rng.integers(0, c.speech_token_size, 50)
+
+    def bistream():
+        gen = torch.Generator(device=lm.device).manual_seed(SEED)
+        return _cat(list(lm.generate_bistream(iter(_bistream_chunks(text)), prompt_text, prompt_speech, gen,
+                                              max_len=max_len)))
+
+    alone = bistream()
+    counters = _zero_counts(_lm_ns(lm))
+    sched = LMBatchScheduler(lm, max_batch=MAX_BATCH)
+    reqs = batch_requests(c, BATCH_TEXTS[""])
+    sched.start()
+    try:
+        handles = [sched.submit(*r[1:]) for r in reqs]
+        t = time.perf_counter()
+        beside = bistream()
+        secs, busy = time.perf_counter() - t, sched.n_active
+        sessions = [_cat(list(h)) for h in handles]
+    finally:
+        sched.stop()
+    launches = {key: fn.launches for key, fn in counters.items()}
+    print(f"bistream text={n_text}, max_len {max_len}, beside the scheduler ({busy} sessions live at its end): "
+          f"{len(beside)} tokens in {secs:.2f} s, equal to alone: {np.array_equal(beside, alone)}; K7 steps "
+          f"{lm.fused_steps} (K7 launches {int4_decode_layers.launches}), batched + B=1 steps {lm.decode_steps}; "
+          f"sessions {[len(s) for s in sessions]}")
+    if not np.array_equal(beside, alone) or not busy or not 0 < lm.fused_steps == launches["K7"]:
+        raise AssertionError("the bistream request beside the scheduler did not give its tokens alone through K7")
+    if any(not 0 < len(s) <= r[4] for s, r in zip(sessions, reqs)):
+        raise AssertionError("a scheduler session beside the bistream request did not end well")
+    return launches
+
+
+def phase_batch_int4p(cfg, device="cuda"):
+    """phase_batch for the int4p LMs (over an int8 arena: K4 + K3 + K2 + K6
+    per step; over a bf16 arena: K4 + K1 + K2 + K6, never K7) at the
+    shorter BATCH_TEXTS, then hold_bistream_beside on the second. Returns
+    the launches."""
+    lms = int4p_lms(cfg, device)
+    counts = dict.fromkeys(_counters(), 0)
+    for suffix, per_step, tol in (("_int4p", PER_STEP["int4p"], LOGIT_TOL_INT4P),
+                                  ("_int4p_bf16", PER_STEP["int4p_bf16"], LOGIT_TOL_INT4P_BF16)):
+        for key, n in phase_batch(lms[suffix], suffix, per_step, tol).items():
+            counts[key] += n
+    for key, n in hold_bistream_beside(lms["_int4p_bf16"]).items():
+        counts[key] += n
+    return counts
+
+
+# the serve phase: a short zero-shot text (byte ids; the random LM draws 20 x
+# them), SERVE_REQUESTS at each concurrency of SERVE_LEVELS, offline then
+# streamed
+SERVE_TEXT = "Hi."
+SERVE_LEVELS = (1, 2, 4)
+SERVE_REQUESTS = 8
+
+
+def _http(port, method, path, body=None):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request(method, path, body)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def hold_two_segments(api, wav, tol):
+    """API_TWO_SEGMENTS offline under greedy sampling, serially (no
+    scheduler) and through a MAX_BATCH scheduler (the segments at once):
+    two chunks in segment order, each segment's tokens equal or parted at a
+    near tie (hold_greedy), every wav n_tokens * 2 * 480 long and finite."""
+    import dataclasses
+
+    import numpy as np
+
+    from cosyvoice_tpu_torch.runtime.engine import lm_prompt
+
+    saved = api.lm.cfg
+    api.lm.cfg = dataclasses.replace(saved, **GREEDY)
+    try:
+        t = time.perf_counter()
+        serial = list(api.inference_zero_shot(API_TWO_SEGMENTS, API_PROMPT_TEXT, wav))
+        serial_s = time.perf_counter() - t
+        sched = api.enable_continuous_batching(MAX_BATCH)
+        try:
+            t = time.perf_counter()
+            batched = list(api.inference_zero_shot(API_TWO_SEGMENTS, API_PROMPT_TEXT, wav))
+            batched_s = time.perf_counter() - t
+        finally:
+            sched.stop()
+            api.engine.scheduler = None
+        fe = api.frontend
+        prompt_text = fe.text_normalize(API_PROMPT_TEXT, split=False)
+        reqs = []
+        for seg in api._segments(API_TWO_SEGMENTS, True):
+            mi = fe.frontend_zero_shot(seg, prompt_text, wav, "")
+            reqs.append((f"segment of {len(mi['text_tokens'])} ids",)
+                        + lm_prompt(api.lm.cfg, mi["text_tokens"], mi["prompt_text_tokens"],
+                                    mi["llm_prompt_speech_token"]))
+        if len(serial) != 2 or len(batched) != 2 or len(reqs) != 2:
+            raise AssertionError(f"two segments: {len(serial)} serial chunks, {len(batched)} batched, {len(reqs)} "
+                                 "segments")
+        for o in serial + batched:
+            if o["tts_speech"].shape != (1, len(o["speech_tokens"]) * 2 * 480) or not np.isfinite(o["tts_speech"]).all():
+                raise AssertionError("two segments: a wav is not finite or not as long as its tokens")
+        print(f"two segments, greedy: serial {serial_s:.2f} s, concurrent through the scheduler {batched_s:.2f} s; "
+              f"tokens {[len(o['speech_tokens']) for o in serial]} / {[len(o['speech_tokens']) for o in batched]}")
+        hold_greedy(api.lm, reqs, [o["speech_tokens"] for o in serial],
+                    {"two segments": [o["speech_tokens"] for o in batched]}, tol)
+    finally:
+        api.lm.cfg = saved
+
+
+def phase_serve():
+    """CosyVoice2(seed=0) with enable_continuous_batching(MAX_BATCH) behind
+    make_stdlib_server on 127.0.0.1 (a free port): one request's PCM equal
+    to _pcm of the API's own output (the scheduler's generator reseeded
+    before each); tools/bench_client.py's sweep at SERVE_LEVELS, offline
+    then streamed, every response n_tokens * 2 * 480 samples and the
+    samples of all of them the scheduler's tokens x 960, every decode step
+    through K1 + K2 and no decode graph captured (enable_continuous_batching
+    captured them all up front); /metrics counting the requests and /metrics/reset
+    clearing them; hold_two_segments. Returns the sweep's launches."""
+    import base64
+    import threading
+
+    import numpy as np
+    import torch
+
+    from cosyvoice_tpu_torch.runtime.engine import SEED
+    from cosyvoice_tpu_torch.serving.http_server import _pcm, _wav_from_b64, make_stdlib_server
+    from cosyvoice_tpu_torch.serving.http_client import request
+    from cosyvoice_tpu_torch.tools import bench_client
+
+    api = build_api()
+    t, captures = time.perf_counter(), api.lm.graph_captures
+    sched = api.enable_continuous_batching(MAX_BATCH)
+    captures = api.lm.graph_captures - captures
+    print(f"serve: enable_continuous_batching({MAX_BATCH}) captured {captures} decode graphs up front "
+          f"(the scheduler's and the B=1 decoder's) in {time.perf_counter() - t:.2f} s")
+    srv = make_stdlib_server(api, host="127.0.0.1", port=0)
+    port = srv.server_address[1]
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        wav = synthetic_voice(0, 3.0)
+        b64 = base64.b64encode((np.clip(wav[0], -1, 1) * 32767).astype(np.int16).tobytes()).decode()
+        body = {"tts_text": SERVE_TEXT, "prompt_text": API_PROMPT_TEXT, "prompt_audio_b64": b64}
+        request("127.0.0.1", port, "inference_zero_shot", body)  # warm-up: the frontend's first call, captures
+        # the vocoder's transposed convolutions may take a cuDNN algorithm
+        # that sums in a varying order; deterministic ones for this comparison
+        cudnn = torch.backends.cudnn
+        saved, cudnn.deterministic = cudnn.deterministic, True
+        try:
+            sched.generator.manual_seed(SEED)
+            pcm = request("127.0.0.1", port, "inference_zero_shot", body)
+            sched.generator.manual_seed(SEED)
+            outs = list(api.inference_zero_shot(SERVE_TEXT, API_PROMPT_TEXT, _wav_from_b64(b64)))
+        finally:
+            cudnn.deterministic = saved
+        want = b"".join(_pcm(o["tts_speech"]) for o in outs)
+        n_tok = sum(len(o["speech_tokens"]) for o in outs)
+        print(f"serve: one request over HTTP, {len(pcm)} samples ({n_tok} tokens): equal to _pcm of the API's own "
+              f"output {pcm.tobytes() == want}")
+        if pcm.tobytes() != want or len(pcm) != n_tok * 960 or n_tok == 0:
+            raise AssertionError("serve: the server's PCM is not the API's output")
+
+        produced = []  # every scheduler session's tokens during the sweep
+        submit = sched.submit
+
+        def counted(*args):
+            handle, n = submit(*args), [0]
+            produced.append(n)
+
+            def blocks():
+                for block in handle:
+                    n[0] += len(block)
+                    yield block
+            return blocks()
+
+        sched.submit = counted
+        counters = _zero_counts(_lm_ns(api.lm))
+        if _http(port, "POST", "/metrics/reset", "") != (200, b'{"ok": true}'):
+            raise AssertionError("serve: /metrics/reset failed")
+        samples = 0
+        for stream in (False, True):
+            lines = bench_client.sweep("127.0.0.1", port, "inference_zero_shot", {**body, "stream": stream},
+                                       SERVE_LEVELS, SERVE_REQUESTS, quiet=True)
+            for ln in lines:
+                print(f"serve {'streamed' if stream else 'offline'}, concurrency {ln['concurrency']}: "
+                      f"{ln['n_requests']} requests, {ln['errors']} errors; first chunk p50 {ln['first_chunk_s']['p50']:.4f} "
+                      f"/ p90 {ln['first_chunk_s']['p90']:.4f} s; latency p50 {ln['latency_s']['p50']:.4f} / p90 "
+                      f"{ln['latency_s']['p90']:.4f} s; request RTF p50 {ln['request_rtf']['p50']:.4f} / p90 "
+                      f"{ln['request_rtf']['p90']:.4f}; {ln['audio_s_total']:.2f} audio s in {ln['wall_s']:.2f} s = "
+                      f"{ln['throughput_audio_s_per_s']:.3f} audio s per wall s (RTF {ln['rtf']:.4f})")
+                per = [round(a * 24000) for _, _, a in ln["per_request"]]
+                if ln["errors"] or ln["n_requests"] != SERVE_REQUESTS or any(s <= 0 or s % 960 for s in per):
+                    raise AssertionError(f"serve: a response failed or is not n_tokens * 960 samples: {ln}")
+                samples += sum(per)
+            stages = lines[-1].get("server_stages", {})
+            print(f"serve {'streamed' if stream else 'offline'}: server stages {json.dumps(stages)}")
+        sched.submit = submit
+        if api.lm.graph_captures:
+            raise AssertionError(f"serve: {api.lm.graph_captures} decode graphs captured while serving")
+        tokens = sum(n[0] for n in produced)
+        launches = _check_launches(_lm_ns(api.lm), counters, PER_STEP["bf16"])
+        m = json.loads(_http(port, "GET", "/metrics")[1])
+        n_req = 2 * len(SERVE_LEVELS) * SERVE_REQUESTS
+        print(f"serve: {len(produced)} sessions, {tokens} tokens, {samples} samples served ({tokens * 960} for the "
+              f"tokens); /metrics: {m['requests']}, {m['audio_seconds']:.2f} audio s")
+        if samples != tokens * 960 or len(produced) != n_req or m["requests"] != {"inference_zero_shot": n_req}:
+            raise AssertionError("serve: the samples, sessions or counted requests are not the sweep's")
+        _http(port, "POST", "/metrics/reset")
+        if json.loads(_http(port, "GET", "/metrics")[1])["requests"]:
+            raise AssertionError("serve: /metrics/reset did not clear the counts")
+        sched.stop()
+        api.engine.scheduler = None
+        hold_two_segments(api, wav, LOGIT_TOL)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        if api.engine.scheduler is not None:
+            api.engine.scheduler.stop()
+    return launches
+
+
 def main(argv):
     import numpy as np
     import torch
@@ -2878,11 +3496,8 @@ def main(argv):
             text = reqs[2 if suffix == "" else 0][0]
             runs = [(f"offline text={len(text)}", _offline_run(eng, full, text), reqs[2 if suffix == "" else 0][1])]
             # the idle phase's requests: the text-16 offline request (320
-            # tokens), the bf16 LM's 960-token one, the route switch, the
-            # bistream requests
+            # tokens), the route switch, the bistream requests
             idle = [(f"offline text={len(reqs[0][0])}", _offline_stages(eng, full, reqs[0][0]))]
-            if suffix == "":
-                idle.append((f"offline text={len(text)}", _offline_stages(eng, full, text)))
             if suffix == "_int4p_bf16":
                 label = f"offline text={len(cross_text)}, {CROSS_PROMPT}-token LM prompt (route switch)"
                 cross_prompt = _prompt(eng, CROSS_PROMPT - 12 - len(cross_text))[0]
@@ -2902,11 +3517,7 @@ def main(argv):
             launches[key] += n
         held.append((suffix, eng, idle))
         del eng
-    with Phase("idle"):
-        phase_idle(held)
-    del held
-    torch.cuda.empty_cache()
-    # the public API from text and a prompt wav, once the engines above are freed
+    # the public API from text and a prompt wav, beside the engines idle traces last
     for suffix, kw, per_step in (("", {}, PER_STEP["bf16"]), ("_int4p", {"quant_lm": "int4p"},
                                                               PER_STEP["int4p_bf16"])):
         with Phase("api" + suffix):
@@ -2922,6 +3533,27 @@ def main(argv):
     with Phase("ckpt"):
         for key, n in phase_ckpt(int4p_tokens).items():
             launches[key] += n
+    torch.cuda.empty_cache()
+    # continuous batching and the HTTP server
+    with Phase("batch"):
+        from cosyvoice_tpu_torch.runtime.engine import random_lm
+
+        lm, _ = random_lm(0, "cuda", bf16_cfg)
+        for key, n in phase_batch(lm, "", PER_STEP["bf16"], LOGIT_TOL, sweep=SWEEP_BATCH).items():
+            launches[key] += n
+        del lm
+        torch.cuda.empty_cache()
+    with Phase("batch_int4p"):
+        for key, n in phase_batch_int4p(bf16_cfg).items():
+            launches[key] += n
+        torch.cuda.empty_cache()
+    with Phase("serve"):
+        for key, n in phase_serve().items():
+            launches[key] += n
+    # last: a profiler session multiplies the host cost of every later launch and replay
+    with Phase("idle"):
+        phase_idle(held)
+    del held
     for key, n in launches.items():
         kernels[key]["launches"] = n
     if not all(launches.values()):

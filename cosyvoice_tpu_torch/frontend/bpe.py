@@ -297,6 +297,12 @@ class ByteLevelBPE:
         return [s for s, a in zip(syms, alive) if a]
 
     def encode(self, text: str) -> List[int]:
+        """Ids of `text`; ValueError for text that UTF-8 cannot encode (a
+        lone surrogate), which the tokenizers library refuses too."""
+        try:
+            text.encode("utf-8")
+        except UnicodeEncodeError as e:
+            raise ValueError(f"text is not valid Unicode: lone surrogate at position {e.start}") from e
         ids: List[int] = []
         for piece, i in _split_added(text, self._index):
             if i is not None:

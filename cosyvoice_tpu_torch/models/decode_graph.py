@@ -5,13 +5,15 @@ Counterpart of the JAX LM's one compiled program per decode block
 a `lax.scan` of the step; one program per span length in the bistream
 spans).
 
-- `DecodeState`: one B=1 decode's state in buffers that never move: the
-  logits the next token is sampled from, the write position `cur`, the RAS
-  window `recent`, the decoded count `n_dec`, `min_len`, the stop flag
-  `fin`, the tokens of the current block with the device-side slot that
-  the next token is written at, and, once a request has decoded with a
-  repetition penalty, the presence set `seen` ([1, head_size] bool: the
-  prompt's speech tokens and every token sampled since, fills included).
+- `DecodeState`: the state of B decode rows in buffers that never move:
+  the logits the next token is sampled from, the write positions `cur`,
+  the RAS windows `recent`, the decoded counts `n_dec`, `min_len`, the
+  stop flags `fin`, the tokens of the current block with the device-side
+  slot that the next token is written at, and, once a row has decoded with
+  a repetition penalty, the presence sets `seen` ([B, head_size] bool: each
+  row's prompt speech tokens and every token it sampled since, fills
+  included). The LM's own decoder holds one row (`generate`,
+  `generate_bistream`); runtime/batch_scheduler.py's holds `max_batch`.
 - `step`: one token slot on that state: sample (temperature and penalty
   first where the LM's config sets them), stop bookkeeping, the presence
   set's update, the decode step (per layer, or K7's `decode_step_fused`),
@@ -21,26 +23,33 @@ spans).
   op nor the presence set.
 - `DecodeGraphs`: runs a block of slots, eagerly (`Qwen2LM(graphs=False)`,
   and always on CPU) or by replaying one captured step per slot. One graph
-  per key (route: K7 or the per-layer kernels; arena length; stop mask: the
-  v2 min_len mask or the bistream mask; the sampling config, whose values
-  a graph bakes in, so that `set_sampling` never replays a graph of
-  another config), captured lazily after one eager
+  per key (route: K7 or the per-layer kernels; batch rows; arena length;
+  stop mask: the v2 min_len mask or the bistream mask; the sampling
+  config, whose values a graph bakes in, so that `set_sampling` never
+  replays a graph of another config), captured lazily after one eager
   step at that key, so that the kernels are built, their plan tables are on
   the card and K7's tensor maps are encoded before capture. A graph of a
   whole 28-step block saved no time on the card: a one-step replay's host
   cost is 1-3 % of the step's device time (scripts/decode_graph_block.py,
-  PERF.md §6). The graphs run over the LM's `StaticArenas`
-  (models/qwen2.py), whose buffers never move.
+  PERF.md §6). The graphs run over a `StaticArenas` (models/qwen2.py)
+  whose buffers never move: the LM's, or the batch scheduler's own.
   A failed capture or replay raises; nothing falls back to eager. Replays
   run on the current stream, one at a time: the kernels' ticket and barrier
   counters (ops/decode_attention.py:_counters, never replaced once a graph
-  is captured) and each graph's scratch are shared.
+  is captured) and each graph's scratch are shared, so the LM's decoders
+  take turns (`Qwen2LM.device_turn`).
 
 Captures can happen mid-request while another thread works on the card: a
 streaming `tts` decodes on a thread of its own while its own thread turns
-tokens into wav. A capture therefore holds `capture_lock`, which that work
-takes too, and captures in "thread_local" mode, so that only the capturing
-thread's own unsafe calls could invalidate it.
+tokens into wav, and a batch scheduler decodes on its thread while its
+sessions' threads turn theirs into wav. A capture therefore holds
+`capture_lock` (one per LM, shared by its decoders), which that work takes
+too, and captures in "thread_local" mode, so that only the capturing
+thread's own unsafe calls could invalidate it. A server's threads work on
+the card's default stream at any time, which would invalidate a capture,
+so with continuous batching both decoders capture every key up front
+(`capture_ahead`, through LMBatchScheduler.capture_graphs) and serving
+captures none.
 
 Sampling: the graphs draw from one generator of their own, registered with
 every graph (`CUDAGraph.register_generator_state`), so that each replay
@@ -81,30 +90,30 @@ KERNEL_WRAPPERS = (gqa_decode_attention, gqa_decode_attention_quant, kv_arena_wr
 
 
 class DecodeState:
-    """Static buffers of one B=1 decode on `device`; `tokens` holds the
+    """Static buffers of `batch` decode rows on `device`; `tokens` holds the
     `capacity` slots of the longest block."""
 
-    def __init__(self, cfg, device, capacity: int):
+    def __init__(self, cfg, device, capacity: int, batch: int = 1):
         def zeros(*shape, dtype=torch.int32):
             return torch.zeros(shape, dtype=dtype, device=device)
 
-        self.logits = zeros(1, cfg.head_size, dtype=torch.float32)
-        self.cur, self.n_dec, self.min_len = zeros(1), zeros(1), zeros(1)
-        self.recent = zeros(1, cfg.win_size)
-        self.fin = zeros(1, dtype=torch.bool)
-        self.tokens = zeros(1, capacity)
+        self.logits = zeros(batch, cfg.head_size, dtype=torch.float32)
+        self.cur, self.n_dec, self.min_len = zeros(batch), zeros(batch), zeros(batch)
+        self.recent = zeros(batch, cfg.win_size)
+        self.fin = zeros(batch, dtype=torch.bool)
+        self.tokens = zeros(batch, capacity)
         self.slot = zeros(1, dtype=torch.int64)
         self.head_size = cfg.head_size
         self.seen = None  # made by the first seed_seen and kept: graphs read it
 
-    def seed_seen(self, tokens):
-        """The presence set of a request with a repetition penalty: its
+    def seed_seen(self, tokens, row: int = 0):
+        """The presence set of row `row` with a repetition penalty: its
         prompt speech tokens below head_size (np int array)."""
         if self.seen is None:
-            self.seen = torch.zeros((1, self.head_size), dtype=torch.bool, device=self.tokens.device)
-        self.seen.zero_()
+            self.seen = torch.zeros((self.fin.shape[0], self.head_size), dtype=torch.bool, device=self.tokens.device)
+        self.seen[row].zero_()
         ids = torch.as_tensor(tokens[tokens < self.head_size].astype(np.int64), device=self.seen.device)
-        self.seen[0, ids] = True
+        self.seen[row, ids] = True
 
     def load(self, logits, cur, recent, n_dec, min_len, fin):
         """Copy a block's inputs in (a copy of a buffer onto itself does
@@ -144,18 +153,28 @@ def step(lm, s: DecodeState, cache, generator, stacked, bistream: bool):
 
 
 class DecodeGraphs:
-    """The LM's decode blocks, eager or on CUDA graphs (see the module
-    docstring)."""
+    """Decode blocks of `batch` rows over `arenas`, eager or on CUDA graphs
+    (see the module docstring). The LM's own decoder: one row, the LM's
+    arenas, blocks of up to max(block_size, mix_ratio[1] + 1) slots (a
+    bistream span). A batch scheduler's: `batch` rows, arenas of its own,
+    its block size, the LM's capture_lock. Every decoder of an LM follows
+    its `graphs` switch."""
 
-    def __init__(self, lm):
+    def __init__(self, lm, batch: int = 1, capacity: int = None, arenas=None, capture_lock=None):
         self.lm = lm
-        self.enabled = False  # Qwen2LM.graphs sets it
-        # the longest block: generate's, or a bistream span of up to mix_ratio[1] + 1 slots
-        self.state = DecodeState(lm.cfg, lm.device, max(lm.cfg.block_size, lm.cfg.mix_ratio[1] + 1))
+        self.batch = batch
+        self.arenas = arenas if arenas is not None else lm.arenas
+        self.state = DecodeState(lm.cfg, lm.device, capacity or max(lm.cfg.block_size, lm.cfg.mix_ratio[1] + 1),
+                                 batch)
         self.graphs = {}  # key -> (CUDAGraph, [counter deltas])
         self.warm = set()  # keys with an eager step behind them
         self.generator = torch.Generator(device=lm.device) if lm.device.type == "cuda" else None
-        self.capture_lock = threading.Lock()  # held while a graph is captured (see the module docstring)
+        # held while a graph is captured (see the module docstring)
+        self.capture_lock = capture_lock if capture_lock is not None else threading.Lock()
+
+    @property
+    def enabled(self) -> bool:
+        return self.lm.graphs
 
     def counters(self):
         return [(fn, "launches") for fn in KERNEL_WRAPPERS] + [(self.lm, "decode_steps"), (self.lm, "fused_steps")]
@@ -169,17 +188,18 @@ class DecodeGraphs:
 
     def run(self, generator, cache, stacked, steps: int, bistream: bool):
         """`steps` token slots on `self.state` (loaded) over `cache`.
-        Returns the tokens [1, steps] int32."""
+        Returns the tokens [batch, steps] int32."""
         s, lm = self.state, self.lm
         c = lm.cfg
-        sampling = (c.top_p, c.top_k, c.win_size, c.tau_r, c.temperature, c.repetition_penalty)
-        key = (stacked is not None, cache[0].shape[2], bistream, sampling)
+        key = self._key(cache, stacked, bistream)
         if c.repetition_penalty != 1.0 and s.seen is None:
             raise ValueError("a repetition penalty needs the request's presence set (DecodeState.seed_seen)")
         if steps > s.tokens.shape[1]:
             raise ValueError(f"a block of {steps} slots is longer than the decoder's {s.tokens.shape[1]}")
-        if self.enabled and cache is not lm.arenas.buffers.get((1, key[1])):
-            raise ValueError("graph decode runs over the LM's static arenas (Qwen2LM.arenas), not this cache")
+        if cache[0].shape[1] != self.batch:
+            raise ValueError(f"an arena of {cache[0].shape[1]} rows for a decoder of {self.batch}")
+        if self.enabled and cache is not self.arenas.buffers.get((self.batch, key[2])):
+            raise ValueError("graph decode runs over the decoder's static arenas (StaticArenas), not this cache")
         done = 0
         if not self.enabled or key not in self.warm:
             # eager: the reference path, and the first step at a key
@@ -201,6 +221,38 @@ class DecodeGraphs:
             lm.graph_replays += steps - done
             generator.set_state(self.generator.get_state())
         return s.tokens[:, :steps].clone()
+
+    def _key(self, cache, stacked, bistream: bool):
+        c = self.lm.cfg
+        sampling = (c.top_p, c.top_k, c.win_size, c.tau_r, c.temperature, c.repetition_penalty)
+        return (stacked is not None, self.batch, cache[0].shape[2], bistream, sampling)
+
+    def capture_ahead(self, pack, bistream=(False,)):
+        """Capture now, under the current sampling, the graph of every key
+        this decoder can meet: each arena bucket up to max_cache_len, with
+        `pack(cache)` as its `stacked` and each stop mask of `bistream`
+        (one eager step, the capture and one replay each, from a throwaway
+        generator). Later blocks then capture nothing while other threads
+        work on the card. The rows and arenas hold nothing of use after it:
+        a request loads its rows and zeroes its first arena. Nothing to do
+        when the graphs are off."""
+        if not self.enabled:
+            return
+        s, lm = self.state, self.lm
+        c = lm.cfg
+        gen = torch.Generator(device=lm.device).manual_seed(0)
+        if c.repetition_penalty != 1.0 and s.seen is None:
+            s.seed_seen(np.zeros(0, np.int64))
+        b = lm.ARENA_BUCKET
+        for length in sorted({lm.arena_bucket(n) for n in range(b, c.qwen.max_cache_len + b, b)}):
+            cache = self.arenas.first(self.batch, length)
+            stacked = pack(cache)
+            for mask in bistream:
+                if self._key(cache, stacked, mask) not in self.graphs:
+                    for buf, v in ((s.logits, 0), (s.cur, 0), (s.recent, -1), (s.n_dec, 0), (s.min_len, 0),
+                                   (s.fin, False), (s.slot, 0)):
+                        buf.fill_(v)
+                    self.run(gen, cache, stacked, 2, mask)
 
     def _capture(self, key, cache, stacked, bistream):
         """Capture one step at `key` (after its eager step); the counters

@@ -25,13 +25,17 @@ whole-step kernel K7 (`decode_step_fused`) while the arena holds at most
 ops/int4_block.MAX_FUSED_ARENA rows, and the per-layer kernels past that;
 and `kv_quant=True` (int8 arena), with int4p or bf16 weights; the
 sampling config's temperature and repetition penalty (the presence set
-seeded from the prompt's speech tokens, models/decode_graph.py). Not
-ported yet: the v3 layout, continuous batching, and the int8 and int4
-weight modes.
+seeded from the prompt's speech tokens, models/decode_graph.py).
+Continuous batching decodes concurrent requests over B-slot arenas through
+runtime/batch_scheduler.py:LMBatchScheduler, which shares this LM's weights
+and, once attached, takes turns with its B=1 requests (`device_turn`). Not
+ported yet: the v3 layout and the int8 and int4 weight modes.
 """
 
 import contextlib
 import logging
+import threading
+import weakref
 from dataclasses import dataclass, field
 from typing import Tuple
 
@@ -166,11 +170,15 @@ class Qwen2LM:
     reference the graphs are held against); True on the CPU raises. The
     `graphs` attribute is the same switch on a built LM.
 
-    One request at a time: `generate` and `generate_bistream` decode over
-    the LM's one set of static arenas and decoder state, so a second
+    One B=1 request at a time: `generate` and `generate_bistream` decode
+    over the LM's one set of static arenas and decoder state, so a second
     request started while another one's generator is still open raises
-    RuntimeError (close or exhaust the first; a server that interleaves
-    requests needs one LM per request in flight)."""
+    RuntimeError (close or exhaust the first; runtime/api.py queues its
+    requests instead). Concurrent requests share a
+    runtime/batch_scheduler.py:LMBatchScheduler: it decodes its B slots
+    over a decoder and arenas of its own, beside one B=1 request (e.g. a
+    bistream one). While a scheduler is attached both take turns on the
+    card (`device_turn`): the kernels' counters and scratch are shared."""
 
     ARENA_BUCKET = 512  # KV arena lengths are multiples of this
 
@@ -185,31 +193,79 @@ class Qwen2LM:
         self.graph_warmups = 0  # eager decode steps on the graph path: the first at each key, before its capture
         self.graph_capture_s = self.graph_replay_s = 0.0  # host seconds capturing graphs / enqueueing replays
         self._pack = None  # (key of the layer parameters, stacked K7 weights)
-        self._busy = False  # a request's generator is open
+        self._request = threading.Lock()  # held while a request's generator is open
+        self._turn = threading.Lock()  # device_turn
+        self._schedulers = weakref.WeakSet()  # attached batch schedulers (device_turn)
         self.arenas = StaticArenas(self.module.llm)  # the decode's KV arenas, one per length bucket
-        self.decoder = DecodeGraphs(self)
         self.graphs = self.device.type == "cuda" if graphs is None else graphs
+        self.decoder = DecodeGraphs(self)
 
     @property
     def graphs(self) -> bool:
-        return self.decoder.enabled
+        return self._graphs
 
     @graphs.setter
     def graphs(self, on: bool):
         if on and self.device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, got {self.device}; pass graphs=None or False")
-        self.decoder.enabled = bool(on)
+        self._graphs = bool(on)
+
+    @contextlib.contextmanager
+    def device_turn(self):
+        """One turn of this LM's work on the card: a B=1 request's prefill,
+        extend or decode block, or a batch scheduler's step. Turns never
+        overlap. While a scheduler is attached, each turn on the card also
+        ends once its work on the current stream has finished: the
+        decoders' kernels share their ticket counters and scratch
+        (ops/decode_attention.py:_counters), which two streams in flight at
+        once would race on. With none, a B=1 request's turns queue on its
+        stream unsynchronised."""
+        with self._turn:
+            yield
+            if self._schedulers and self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+
+    def attach_scheduler(self, scheduler):
+        """From now on every turn ends in a stream sync (`device_turn`); the
+        card first finishes what earlier turns left queued."""
+        with self._turn:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._schedulers.add(scheduler)
+
+    def detach_scheduler(self, scheduler):
+        with self._turn:
+            self._schedulers.discard(scheduler)
+
+    @property
+    def _busy(self) -> bool:
+        """A request's generator is open."""
+        return self._request.locked()
 
     @contextlib.contextmanager
     def _one_request(self):
-        if self._busy:
+        if not self._request.acquire(blocking=False):
             raise RuntimeError("Qwen2LM decodes one request at a time: another generate / generate_bistream "
                                "generator is still open (exhaust or close it first)")
-        self._busy = True
         try:
             yield
         finally:
-            self._busy = False
+            self._request.release()
+
+    def clamp_to_arena(self, min_len: int, max_len: int, pad_T: int, block_size: int):
+        """(min_len, max_len) with max_len cut to the whole blocks that fit
+        in max_cache_len after a prompt padded to pad_T rows, with a
+        warning; min_len at most max_len."""
+        c = self.cfg
+        capacity = ((c.qwen.max_cache_len - pad_T - 1) // block_size) * block_size
+        if max_len > capacity:
+            logging.warning(
+                "max_len %d exceeds KV arena capacity (max_cache_len=%d, prompt pad %d); clamping to %d",
+                max_len, c.qwen.max_cache_len, pad_T, capacity,
+            )
+            max_len = max(capacity, 0)
+            min_len = min(min_len, max_len)
+        return min_len, max_len
 
     def init_cache(self, batch: int = 1, length: int = None):
         return self.module.llm.init_cache(batch, length)
@@ -308,38 +364,33 @@ class Qwen2LM:
         # and the arena grows alike
         bucket = min(128, max(c.qwen.max_cache_len // 4, 8))
         pad_T = ((T + bucket - 1) // bucket) * bucket
-        capacity = ((c.qwen.max_cache_len - pad_T - 1) // c.block_size) * c.block_size
-        if max_len > capacity:
-            logging.warning(
-                "max_len %d exceeds KV arena capacity (max_cache_len=%d, prompt pad %d); clamping to %d",
-                max_len, c.qwen.max_cache_len, pad_T, capacity,
-            )
-            max_len = max(capacity, 0)
-            min_len = min(min_len, max_len)
+        min_len, max_len = self.clamp_to_arena(min_len, max_len, pad_T, c.block_size)
 
-        cache = self.arenas.first(1, self.arena_bucket(pad_T + c.block_size + 1))
-        ids = torch.as_tensor(np.asarray(prompt_ids, np.int64)[None], device=dev)
-        types = torch.as_tensor(np.asarray(prompt_types, np.int64)[None], device=dev)
-        logits, cache = self.module.prefill(ids, types, torch.tensor([T], device=dev), cache)
-        if c.repetition_penalty != 1.0:
-            # the presence set starts with the prompt's speech tokens
-            self.decoder.state.seed_seen(np.asarray(prompt_ids)[np.asarray(prompt_types) == TYPE_SPEECH])
-        cur = torch.tensor([T], dtype=torch.int32, device=dev)
-        recent = torch.full((1, c.win_size), -1, dtype=torch.int32, device=dev)
-        n_dec = torch.zeros((1,), dtype=torch.int32, device=dev)
-        fin = torch.zeros((1,), dtype=torch.bool, device=dev)
-        min_l = torch.tensor([min_len], dtype=torch.int32, device=dev)
+        with self.device_turn():
+            cache = self.arenas.first(1, self.arena_bucket(pad_T + c.block_size + 1))
+            ids = torch.as_tensor(np.asarray(prompt_ids, np.int64)[None], device=dev)
+            types = torch.as_tensor(np.asarray(prompt_types, np.int64)[None], device=dev)
+            logits, cache = self.module.prefill(ids, types, torch.tensor([T], device=dev), cache)
+            if c.repetition_penalty != 1.0:
+                # the presence set starts with the prompt's speech tokens
+                self.decoder.state.seed_seen(np.asarray(prompt_ids)[np.asarray(prompt_types) == TYPE_SPEECH])
+            cur = torch.tensor([T], dtype=torch.int32, device=dev)
+            recent = torch.full((1, c.win_size), -1, dtype=torch.int32, device=dev)
+            n_dec = torch.zeros((1,), dtype=torch.int32, device=dev)
+            fin = torch.zeros((1,), dtype=torch.bool, device=dev)
+            min_l = torch.tensor([min_len], dtype=torch.int32, device=dev)
 
         produced = 0
         cur_host = T  # host mirror of the worst-case write position
         stop_seen = False
         while produced < max_len and not stop_seen:
-            cache = self.grow_cache(cache, self.arena_bucket(cur_host + c.block_size + 1))
-            tokens, logits, cur, recent, n_dec, fin = self._decode_block(
-                generator, cache, cur, logits, recent, n_dec, min_l, fin, self._decode_pack(cache), c.block_size
-            )
+            with self.device_turn():
+                cache = self.grow_cache(cache, self.arena_bucket(cur_host + c.block_size + 1))
+                tokens, logits, cur, recent, n_dec, fin = self._decode_block(
+                    generator, cache, cur, logits, recent, n_dec, min_l, fin, self._decode_pack(cache), c.block_size
+                )
+                toks = tokens[0].to(torch.int32).cpu().numpy()  # the one host sync per block
             cur_host += c.block_size
-            toks = tokens[0].to(torch.int32).cpu().numpy()  # the one host sync per block
             stop_idx = np.nonzero(toks >= c.speech_token_size)[0]
             if len(stop_idx):
                 toks = toks[: stop_idx[0]]
@@ -377,15 +428,16 @@ class Qwen2LM:
         mt, ms = c.mix_ratio
         cap = c.qwen.max_cache_len
 
-        cache = self.arenas.first(1, self.ARENA_BUCKET)
-        if c.repetition_penalty != 1.0:
-            self.decoder.state.seed_seen(np.asarray(prompt_speech, np.int64))
+        with self.device_turn():
+            cache = self.arenas.first(1, self.ARENA_BUCKET)
+            if c.repetition_penalty != 1.0:
+                self.decoder.state.seed_seen(np.asarray(prompt_speech, np.int64))
+            recent = torch.full((1, c.win_size), -1, dtype=torch.int32, device=dev)
+            n_dec = torch.zeros((1,), dtype=torch.int32, device=dev)
+            no_min = torch.zeros((1,), dtype=torch.int32, device=dev)
+            not_fin = torch.zeros((1,), dtype=torch.bool, device=dev)
         cur_host = 0  # the arena's write position, as the host knows it
         logits = None
-        recent = torch.full((1, c.win_size), -1, dtype=torch.int32, device=dev)
-        n_dec = torch.zeros((1,), dtype=torch.int32, device=dev)
-        no_min = torch.zeros((1,), dtype=torch.int32, device=dev)
-        not_fin = torch.zeros((1,), dtype=torch.bool, device=dev)
         out_count = 0  # decoded tokens, fills included
         produced = 0  # yielded speech tokens
         # forced-fill cadence: the out index at which a fill is due
@@ -407,11 +459,12 @@ class Qwen2LM:
             S = len(ids)
             if full or room(S, "feed") < S:
                 return
-            cache = self.grow_cache(cache, self.arena_bucket(cur_host + S + 1))
-            logits, cache = self.module.extend_mixed(
-                torch.as_tensor(np.asarray(ids, np.int64)[None], device=dev),
-                torch.as_tensor(np.asarray(types, np.int64)[None], device=dev), cur_host, cache,
-            )
+            with self.device_turn():
+                cache = self.grow_cache(cache, self.arena_bucket(cur_host + S + 1))
+                logits, cache = self.module.extend_mixed(
+                    torch.as_tensor(np.asarray(ids, np.int64)[None], device=dev),
+                    torch.as_tensor(np.asarray(types, np.int64)[None], device=dev), cur_host, cache,
+                )
             cur_host += S
 
         def decode(steps, bistream):
@@ -421,12 +474,14 @@ class Qwen2LM:
             n = room(steps, "decode span" if bistream else "final decode block")
             if n <= 0:
                 return np.zeros(0, np.int32)
-            cache = self.grow_cache(cache, self.arena_bucket(cur_host + steps + 1))
-            cur = torch.tensor([cur_host], dtype=torch.int32, device=dev)
-            tokens, logits, _, recent, n_dec, _ = self._decode_block(
-                generator, cache, cur, logits, recent, n_dec, no_min, not_fin, self._decode_pack(cache), n, bistream
-            )
-            return tokens[0].to(torch.int32).cpu().numpy()
+            with self.device_turn():
+                cache = self.grow_cache(cache, self.arena_bucket(cur_host + steps + 1))
+                cur = torch.tensor([cur_host], dtype=torch.int32, device=dev)
+                tokens, logits, _, recent, n_dec, _ = self._decode_block(
+                    generator, cache, cur, logits, recent, n_dec, no_min, not_fin, self._decode_pack(cache), n,
+                    bistream,
+                )
+                return tokens[0].to(torch.int32).cpu().numpy()
 
         def decode_span():
             """Decode until the next fill (sampled or forced); yields arrays

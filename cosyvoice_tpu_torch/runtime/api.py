@@ -23,16 +23,25 @@ engine's three. With `quant_lm="int4p"` the fp LM tree is quantised on the
 host (ops/quant.quantize_lm_params) before it is loaded. `save_pretrained`
 writes all five files; `set_sampling` changes the LM's sampling config in
 place (the weights, the static KV arenas and the decode graphs of other
-configs stay). Not ported yet, and raising NotImplementedError:
-`enable_continuous_batching` (ROADMAP A7), `quant_lm` True / "int8" /
-"int4" (A8), and the CosyVoice3 (A9) and CosyVoice (v1, A10) models.
+configs stay). Without continuous batching, `inference_*` calls from
+several threads run one at a time, each in turn, frontend included.
+`enable_continuous_batching(max_batch)` captures every decode graph and
+starts an LMBatchScheduler (runtime/batch_scheduler.py) that every later
+`inference_*` call, from any thread, shares; an offline request whose text
+splits into several segments then runs its segments concurrently through
+it and yields them in order. Not ported yet, and raising
+NotImplementedError: `quant_lm` True / "int8" / "int4" (A8), and the
+CosyVoice3 (A9) and CosyVoice (v1, A10) models.
 """
 
 import dataclasses
 import json
 import logging
 import os
+import queue
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -43,6 +52,7 @@ from cosyvoice_tpu_torch.frontend.tokenizer import find_tokenizer_assets
 from cosyvoice_tpu_torch.models.flow import FlowConfig
 from cosyvoice_tpu_torch.models.hift import HiFTConfig
 from cosyvoice_tpu_torch.models.llm import LMConfig
+from cosyvoice_tpu_torch.runtime.batch_scheduler import LMBatchScheduler
 from cosyvoice_tpu_torch.runtime.engine import build_random_engine
 from cosyvoice_tpu_torch.utils import msgpack_io
 from cosyvoice_tpu_torch.utils.config import build_flow_config, build_hift_config, build_lm_config, build_s3_config
@@ -139,6 +149,8 @@ class CosyVoice2:
             trees={k: v for k, v in trees.items() if v is not None},
         )
         self.lm, self.flow, self.hift = self.engine.lm, self.engine.flow, self.engine.hift
+        self._seg_ex, self._seg_ex_width = None, 0  # the concurrent segments' threads (_segment_executor)
+        self._serial = threading.Lock()  # held by the request that runs (_in_turn)
 
     # ---------------- speaker cache ----------------
     def list_available_spks(self):
@@ -159,7 +171,9 @@ class CosyVoice2:
         and neither temperature nor penalty). Arguments left None keep their
         value. The LM keeps its weights, static KV arenas and decode graphs
         (a graph is keyed by the sampling config it was captured with).
-        Returns the LM's config."""
+        Call it before enable_continuous_batching. Returns the LM's config."""
+        if self.engine.scheduler is not None:
+            raise RuntimeError("set_sampling must be called before enable_continuous_batching")
         kw = {}
         if top_p is not None:
             kw["top_p"] = float(top_p)
@@ -174,7 +188,25 @@ class CosyVoice2:
         return self.lm.cfg
 
     def enable_continuous_batching(self, max_batch: int = 4, block_size=None):
-        raise NotImplementedError("continuous batching is not ported yet (ROADMAP A7)")
+        """Serve concurrent requests through one batched LM decode loop: an
+        LMBatchScheduler of `max_batch` slots over this API's LM, started on
+        a thread of its own, after it has captured every decode graph that
+        it and the LM's B=1 decoder can replay (`capture_graphs`), once the
+        request running (if any) has ended. Call once; inference_* calls
+        from any thread then share it. Returns the scheduler (its `stop()`
+        ends it)."""
+        with self._serial:
+            if self.engine.scheduler is not None:
+                raise RuntimeError("continuous batching is already enabled")
+            sched = LMBatchScheduler(self.lm, max_batch=max_batch, block_size=block_size)
+            try:
+                sched.capture_graphs()
+            except BaseException:
+                sched.stop()
+                raise
+            sched.start()
+            self.engine.scheduler = sched
+        return sched
 
     # ---------------- checkpoint save ----------------
     def save_pretrained(self, out_dir: str):
@@ -205,11 +237,69 @@ class CosyVoice2:
             yield out
             start = time.time()
 
+    def _in_turn(self, chunks, text=None):
+        """`chunks`, a request's generator, run while no other request that
+        takes turns runs. Without a scheduler every request takes turns,
+        frontend included: the LM decodes one request at a time, and it may
+        capture a decode graph mid-request, which another thread's work on
+        the card would invalidate. With one, only a request whose `text` is
+        a generator does (its bistream decode takes the LM's B=1 path); the
+        scheduler captured every graph when it was enabled."""
+        if self.engine.scheduler is not None and not hasattr(text, "__next__"):
+            yield from chunks
+            return
+        with self._serial:
+            yield from chunks
+
     def _run_segments(self, inputs, stream: bool, speed: float):
-        """`inputs` lazily yields each text segment's model input: the
-        segments run one after another, each one's frontend as reached."""
-        for mi in inputs:
-            yield from self._run(mi, stream, speed)
+        """`inputs` lazily yields each text segment's model input. Offline
+        with continuous batching, two or more segments run concurrently
+        through the shared decode loop (each on a thread of
+        `_segment_executor`), and their chunks are yielded in segment order,
+        each as soon as it and those before it exist. Streaming and
+        scheduler-less requests run the segments one after another, each
+        one's frontend as reached."""
+        scheduler = self.engine.scheduler
+        if stream or scheduler is None:
+            for mi in inputs:
+                yield from self._run(mi, stream, speed)
+            return
+        jobs = list(inputs)
+        if len(jobs) <= 1:
+            for mi in jobs:
+                yield from self._run(mi, stream, speed)
+            return
+        ex = self._segment_executor(scheduler.B)
+        queues = [queue.Queue() for _ in jobs]
+
+        def worker(mi, q):
+            try:
+                for out in self._run(mi, False, speed):
+                    q.put(out)
+                q.put(None)
+            except BaseException as e:  # raised again on the consumer's thread
+                q.put(e)
+
+        for mi, q in zip(jobs, queues):
+            ex.submit(worker, mi, q)
+        for q in queues:
+            while True:
+                item = q.get()
+                if item is None:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+
+    def _segment_executor(self, width: int) -> ThreadPoolExecutor:
+        """The threads of concurrent offline segments, kept across requests
+        (a pool per call would start and end threads under serving load)."""
+        if self._seg_ex is None or self._seg_ex_width < width:
+            if self._seg_ex is not None:
+                self._seg_ex.shutdown(wait=False)
+            self._seg_ex = ThreadPoolExecutor(max_workers=width, thread_name_prefix="cosy-seg")
+            self._seg_ex_width = width
+        return self._seg_ex
 
     def _segments(self, tts_text, text_frontend: bool):
         return self.frontend.text_normalize(tts_text, split=True) if text_frontend else [tts_text]
@@ -225,7 +315,7 @@ class CosyVoice2:
                     logging.warning("synthesis text %s too short compared to prompt text %s", seg, prompt_text)
                 yield self.frontend.frontend_zero_shot(seg, prompt_texts, prompt_wav, zero_shot_spk_id)
 
-        yield from self._run_segments(jobs(), stream, speed)
+        yield from self._in_turn(self._run_segments(jobs(), stream, speed), tts_text)
 
     def inference_cross_lingual(self, tts_text, prompt_wav, zero_shot_spk_id="", stream=False, speed=1.0,
                                 text_frontend=True):
@@ -233,7 +323,7 @@ class CosyVoice2:
             for seg in self._segments(tts_text, text_frontend):
                 yield self.frontend.frontend_cross_lingual(seg, prompt_wav, zero_shot_spk_id)
 
-        yield from self._run_segments(jobs(), stream, speed)
+        yield from self._in_turn(self._run_segments(jobs(), stream, speed), tts_text)
 
     def inference_instruct2(self, tts_text, instruct_text, prompt_wav, zero_shot_spk_id="", stream=False, speed=1.0,
                             text_frontend=True):
@@ -241,10 +331,13 @@ class CosyVoice2:
             for seg in self._segments(tts_text, text_frontend):
                 yield self.frontend.frontend_instruct2(seg, instruct_text, prompt_wav, zero_shot_spk_id)
 
-        yield from self._run_segments(jobs(), stream, speed)
+        yield from self._in_turn(self._run_segments(jobs(), stream, speed), tts_text)
 
     def inference_vc(self, source_speech_16k, prompt_wav, stream=False, speed=1.0):
-        yield from self._run(self.frontend.frontend_vc(source_speech_16k, prompt_wav), stream, speed)
+        def run():
+            yield from self._run(self.frontend.frontend_vc(source_speech_16k, prompt_wav), stream, speed)
+
+        yield from self._in_turn(run())
 
     def inference_sft(self, tts_text, spk_id, stream=False, speed=1.0, text_frontend=True):
         """A pre-enrolled speaker, no prompt wav: an add_zero_shot_spk entry
@@ -260,7 +353,7 @@ class CosyVoice2:
                 mi["text_tokens"] = self.frontend._extract_text_token(seg)
                 yield mi
 
-        yield from self._run_segments(jobs(), stream, speed)
+        yield from self._in_turn(self._run_segments(jobs(), stream, speed), tts_text)
 
 
 def detect_model_version(model_dir: str) -> int:

@@ -43,10 +43,26 @@ It takes ids and features (runtime/api.py's frontend makes them from text
 and a prompt wav). `tts(source_speech_token=...)` (vc) takes the source's
 speech tokens as the token stream, with no LM call; `tts(speed=...)`
 stretches the offline mel by linear interpolation before the vocoder (the
-generic finalize), and raises when streaming. Not ported: the JAX engine's
-speculative fused first chunk (its chunks equal the standard path's),
-per-request seeds, external token generators and continuous batching, and
-the v3 and v1 engines.
+generic finalize), and raises when streaming; `tts(rng_seed=s)` seeds the
+LM's sampling generator (the vocoder's source keeps SEED);
+`tts(token_generator=...)` takes an external stream of token blocks.
+
+Without a scheduler the engine serves one request at a time (runtime/
+api.py queues them): its LM decodes one B=1 request at a time.
+Continuous batching: with `engine.scheduler` set (an
+runtime/batch_scheduler.py:LMBatchScheduler over this engine's LM whose
+`capture_graphs()` has run, as CosyVoice2.enable_continuous_batching
+does), a text request's LM prompt goes to `scheduler.submit`, and
+concurrent `tts` calls (from several threads) share its one batched
+decode loop; bistream requests still decode on the LM's B=1 path beside
+it. Each streaming session keeps its chunk log (`stream_log` reads the
+calling thread's last). Token->wav, offline or streamed, holds the decode
+graphs' capture lock: no capture runs beside it (a streaming request's LM
+thread may capture one), and the token->wav work of concurrent sessions
+runs one at a time, which serves more audio per second than running it in
+several threads at once (PERF.md §6, chip_smoke.py's serve phase). Not
+ported: the JAX engine's speculative fused first chunk (its chunks equal
+the standard path's), and the v3 and v1 engines.
 """
 
 import contextlib
@@ -102,6 +118,19 @@ class SessionState:
     flow_state: Optional[dict] = None
     flow_pos: int = 0
     flow_arena: int = 0
+    log: list = dataclasses.field(default_factory=list)  # token2wav's record of each chunk
+
+
+def lm_prompt(cfg: LMConfig, text_tokens, prompt_text_tokens, prompt_speech):
+    """A text request's LM prompt [sos, prompt_text, text, task,
+    prompt_speech] as (ids, types, min_len, max_len): 2 and 20 tokens per
+    text id."""
+    text = np.concatenate([prompt_text_tokens, text_tokens]).astype(np.int32)
+    ids = np.concatenate([[cfg.sos_id], text, [cfg.task_id], prompt_speech]).astype(np.int32)
+    types = np.concatenate(
+        [[TYPE_SPECIAL], np.full(len(text), TYPE_TEXT), [TYPE_SPECIAL], np.full(len(prompt_speech), TYPE_SPEECH)]
+    ).astype(np.int32)
+    return ids, types, int(len(text_tokens) * 2), int(len(text_tokens) * 20)
 
 
 class _Prefetcher:
@@ -226,12 +255,19 @@ class CosyVoice2Engine:
         # take free SMs before the LM's (which runs far ahead of real time)
         self._lm_stream = torch.cuda.Stream(self.device) if cuda else None
         self._t2w_stream = torch.cuda.Stream(self.device, priority=-1) if cuda else None
-        self.stream_log = []  # per chunk of the last streaming request: path, tokens, wall and device ms
+        self._local = threading.local()  # the calling thread's last streaming session's chunk log
         self.flow_state_max_bytes = 0  # the incremental flow state's largest footprint, growth copies included
         self.timer = StageTimer()
+        self.scheduler = None  # an LMBatchScheduler over self.lm: continuous batching
 
-    def _generator(self) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(SEED)
+    @property
+    def stream_log(self) -> list:
+        """Per chunk of the calling thread's last streaming request: path,
+        tokens, wall and device ms."""
+        return getattr(self._local, "log", [])
+
+    def _generator(self, seed: Optional[int] = None) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(SEED if seed is None else seed)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -421,7 +457,7 @@ class CosyVoice2Engine:
         prompt_token [Lp], prompt_feat [1, pm, 80], embedding [1, 192],
         token_offset the tokens already emitted. Returns the chunk's wav
         [1, n] on the host and logs its path, tokens and times in
-        `stream_log`. The incremental flow needs pm == 2 * Lp; a session
+        the session's log (`stream_log`). The incremental flow needs pm == 2 * Lp; a session
         takes it once prompt + body reach flow_incr_min_tok and keeps it
         while they stay within flow_arena_max - 16."""
         t0 = time.perf_counter()
@@ -461,8 +497,8 @@ class CosyVoice2Engine:
         out = wav.float().cpu().numpy()
         wall = time.perf_counter() - t0
         self.timer.add("stream_chunk", wall)
-        self.stream_log.append({"path": path, "tokens": n_tok, "wall_ms": wall * 1e3,
-                                "device_ms": ev[0].elapsed_time(ev[1]) if timed else None})
+        state.log.append({"path": path, "tokens": n_tok, "wall_ms": wall * 1e3,
+                          "device_ms": ev[0].elapsed_time(ev[1]) if timed else None})
         return out
 
     def synthesize_offline(self, tokens, prompt_token, prompt_feat, embedding, speed: float = 1.0):
@@ -474,12 +510,13 @@ class CosyVoice2Engine:
         the flow over prompt and tokens, mel rows from pm on (stretched to
         int(rows / speed)) padded with LOG_SILENCE to the vocoder's bucket
         (`mel_bucket`); with no tokens an odd prompt (pm < 2*Lp) gives
-        (2*Lp - pm) * 480 samples and an even one an empty wav."""
+        (2*Lp - pm) * 480 samples and an even one an empty wav. It holds
+        the decode graphs' capture lock (see the module docstring)."""
         t0 = time.perf_counter()
         r, pm = self.token_mel_ratio, prompt_feat.shape[1]
         all_tokens = np.concatenate([prompt_token, tokens]).astype(np.int64)
         L = len(all_tokens)
-        with torch.inference_mode():
+        with self.lm.decoder.capture_lock, torch.inference_mode():
             if len(tokens) == 0 or speed != 1.0:
                 wav = self._finalize_generic(SessionState(), all_tokens, prompt_feat, embedding, 0, streaming=False,
                                              speed=speed)
@@ -524,8 +561,9 @@ class CosyVoice2Engine:
     @contextlib.contextmanager
     def _on_t2w(self):
         """Token->wav work of a streaming request: on the engine's own CUDA
-        stream, and never while the LM's thread captures a decode graph
-        (which would see this thread's allocations and syncs)."""
+        stream, never while the LM's thread captures a decode graph (which
+        would see this thread's allocations and syncs), and one session at
+        a time (see the module docstring)."""
         with self.lm.decoder.capture_lock:
             if self._t2w_stream is None:
                 yield
@@ -545,6 +583,8 @@ class CosyVoice2Engine:
         stream: bool = False,
         speed: float = 1.0,
         source_speech_token: Optional[np.ndarray] = None,
+        rng_seed: Optional[int] = None,
+        token_generator=None,
     ) -> Generator[dict, None, None]:
         """Yields {'tts_speech': np.ndarray [1, n], 'speech_tokens': [n_tok]}:
         offline one dict with every token, streaming one per chunk with the
@@ -552,8 +592,12 @@ class CosyVoice2Engine:
 
         `text_tokens` is an id array, or an iterator of id chunks for
         bi-streaming text input (`Qwen2LM.generate_bistream`). With
-        `source_speech_token` (vc) those tokens are the token stream and the
-        LM is not called. `speed` != 1 is offline only."""
+        `token_generator` (an iterable of token blocks, e.g. an
+        LMBatchScheduler handle) or `source_speech_token` (vc) those tokens
+        are the token stream and the LM is not called; otherwise a text
+        request goes to `self.scheduler` when one is set. `rng_seed` seeds
+        the LM's generator (default SEED; the scheduler draws from its own).
+        `speed` != 1 is offline only."""
         c = self.lm.cfg
         if stream and speed != 1.0:
             raise ValueError("speed change only supports non-stream mode")
@@ -569,20 +613,21 @@ class CosyVoice2Engine:
                 )
         prompt_speech = np.asarray(llm_prompt_speech_token, np.int32)
         t0 = time.perf_counter()
-        gen = self._generator()
-        if source_speech_token is not None:
+        if token_generator is not None:
+            blocks = iter(token_generator)
+        elif source_speech_token is not None:
             blocks = iter([np.asarray(source_speech_token, np.int32)])
         elif hasattr(text_tokens, "__next__"):
             # bi-streaming text input: no length bounds from the text
-            blocks = self.lm.generate_bistream(text_tokens, np.asarray(prompt_text_tokens, np.int32), prompt_speech, gen)
+            blocks = self.lm.generate_bistream(text_tokens, np.asarray(prompt_text_tokens, np.int32), prompt_speech,
+                                               self._generator(rng_seed))
         else:
-            text = np.concatenate([prompt_text_tokens, text_tokens]).astype(np.int32)
-            ids = np.concatenate([[c.sos_id], text, [c.task_id], prompt_speech]).astype(np.int32)
-            types = np.concatenate(
-                [[TYPE_SPECIAL], np.full(len(text), TYPE_TEXT), [TYPE_SPECIAL], np.full(len(prompt_speech), TYPE_SPEECH)]
-            ).astype(np.int32)
-            min_len, max_len = int(len(text_tokens) * 2), int(len(text_tokens) * 20)
-            blocks = self.lm.generate(ids, types, gen, min_len, max_len)
+            ids, types, min_len, max_len = lm_prompt(c, text_tokens, prompt_text_tokens, prompt_speech)
+            if self.scheduler is not None:
+                # continuous batching: the shared loop decodes this prompt beside the other sessions
+                blocks = iter(self.scheduler.submit(ids, types, min_len, max_len))
+            else:
+                blocks = self.lm.generate(ids, types, self._generator(rng_seed), min_len, max_len)
         prompt_token = np.asarray(flow_prompt_speech_token, np.int32)
         if stream:
             yield from self._stream(blocks, t0, prompt_token, prompt_speech_feat, flow_embedding)
@@ -590,7 +635,9 @@ class CosyVoice2Engine:
         produced = []
         for block in blocks:
             produced.extend(block.tolist())
-        self._sync()
+        if self.scheduler is None:
+            # (beside the scheduler a device-wide sync would wait on its steps too)
+            self._sync()
         self.timer.add("lm", time.perf_counter() - t0)
         tokens = np.asarray(produced, np.int32)
         wav = self.synthesize_offline(tokens, prompt_token, prompt_speech_feat, flow_embedding, speed)
@@ -609,7 +656,7 @@ class CosyVoice2Engine:
         state = SessionState()
         produced, token_offset, chunk_index = [], 0, 0
         gen_done = first_emitted = False
-        self.stream_log = []
+        self._local.log = state.log
         lm = _Prefetcher(blocks, stream=self._lm_stream)
         try:
             while True:

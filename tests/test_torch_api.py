@@ -278,8 +278,21 @@ def test_automodel_builds_cosyvoice2_from_config_json(tmp_path):
     (lambda api: api.enable_continuous_batching(), "A7"),
 ])
 def test_methods_not_ported_raise(apis, call, item):
-    with pytest.raises(NotImplementedError, match=item):
-        call(apis[1])
+    """Each JAX API method the port lacked raised NotImplementedError naming
+    its ROADMAP item. A7 (continuous batching) is ported now: the call
+    starts a scheduler, and a second call, or set_sampling after it, raises
+    RuntimeError (tests/test_torch_batch_scheduler.py serves through it)."""
+    api = apis[1]
+    sched = call(api)
+    try:
+        assert item == "A7" and api.engine.scheduler is sched and sched._thread.is_alive()
+        with pytest.raises(RuntimeError, match="already enabled"):
+            call(api)
+        with pytest.raises(RuntimeError, match="before enable_continuous_batching"):
+            api.set_sampling(top_k=5)
+    finally:
+        sched.stop()
+        api.engine.scheduler = None
 
 
 @pytest.mark.parametrize("quant_lm", [True, "int8", "int4"])

@@ -105,6 +105,10 @@ def _imports(path: Path):
 def test_port_imports_no_jax_flax_or_jax_package():
     files = sorted((REPO / "cosyvoice_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
+    scanned = {f.relative_to(REPO).as_posix() for f in files}
+    for served in ("serving/http_server.py", "serving/http_client.py", "serving/web_page.py",
+                   "tools/bench_client.py", "runtime/batch_scheduler.py"):
+        assert f"cosyvoice_tpu_torch/{served}" in scanned
     bad = [
         f"{f.relative_to(REPO)}: {mod}"
         for f in files

@@ -292,7 +292,7 @@ def test_graph_decode_with_penalty_matches_eager_on_the_card():
     default_keys = set(lm.decoder.graphs)
     lm.cfg = dataclasses.replace(lm.cfg, **TRITON)
     graph_out, graph_state = run()
-    assert set(lm.decoder.graphs) - default_keys and all(k[3][-1] == 1.1 for k in set(lm.decoder.graphs) - default_keys)
+    assert set(lm.decoder.graphs) - default_keys and all(k[-1][-1] == 1.1 for k in set(lm.decoder.graphs) - default_keys)
     lm.graphs = False
     eager_out, eager_state = run()
     for g, e in zip(graph_out, eager_out):
