@@ -20,14 +20,14 @@ exceeded, a kernel disagrees with its plain version, or anything raises):
    arena of the fused step, and the single-arena write; K4 (int4 GEMV) at 1, 2, 5, 15 and 16 rows at the qkv
    and o_proj shapes (and 4, the batched step's), with x one-hot in each
    scale block in turn and a weight whose scale blocks add distinct
-   multiples; K6 (fused int4 layer tail) at B=1, 4 and 16, timed at B=1
-   beside the bf16 product route over its
+   multiples; K6 (fused int4 layer tail) at B=1, 2, 4, 8, 9 and 16, timed
+   at B=1, 2, 4, 8 and 16 beside the bf16 product route over its
    dequantised weights (o matmul, residual, RMSNorm, gate|up matmul,
    silu * up, down matmul, residual); K5 (fused int4 MLP) at 1, 5, 15 and 16
    rows, the row counts of the bistream extends, timed at 5 and 16 rows
    beside the bf16 product route over the dequantised weights. K1, K3, K4,
    K5, K6 and K7 must repeat bit for bit. The grid and the dynamic shared
-   memory per block of K5, K6 (B=1) and K7 are printed, and the SMs each
+   memory per block of K5, K6 (B=1, 4 and 16) and K7 are printed, and the SMs each
    phase of K5 occupies; beside K2, an empty kernel's launch in the same
    harness (the floor a launch sets).
    Kernel, plain and library device times (CUDA events around a replayed
@@ -36,8 +36,9 @@ exceeded, a kernel disagrees with its plain version, or anything raises):
    from the bytes and operations of each call; K1 and K3 also at cur_len
    127 in a 512-row arena, at 4095, and at B=4 rows of cur_len 100 / 400 /
    700 / 1000 in a 1024-row arena (the batched decode's spread), K4 also
-   at o_proj B=1, qkv and o_proj B=4 and qkv B=5 and 16, K6 also at B=4
-   (the batched step's route: the multi-row kernel) with its bound.
+   at o_proj B=1, qkv and o_proj B=4 and qkv B=5 and 16, K6 also at B=2, 4,
+   8 and 16 (the batched steps' route, int4_o_mlp_rows_kernel) with its
+   bound.
 4. slice: the full-width CosyVoice2-0.5B offline engine, random weights from
    seed 0, serves 3 `tts(stream=False)` requests; wavs must be finite and
    n_tokens * 2 * 480 long, and the launch counters must show that every
@@ -855,13 +856,17 @@ def _k6_inputs(torch, H, gen, B=1):
     return attn, x, nw
 
 
-K6_ROWS = (1, 4, 16)  # the B=1 decode step (its own kernel), the batched step at B=4, the limit
+# the B=1 decode step (int4_o_mlp_resident_kernel); the batched steps' rows
+# (int4_o_mlp_rows_kernel), one tensor-core product per weight fragment up
+# to 8 and two from 9, up to the limit
+K6_ROWS = (1, 2, 4, 8, 9, 16)
+K6_TIMED = (2, 4, 8, 16)  # rows check_k6 times beside B=1
 
 
 def hold_k6(int4, qc, gen, ws=None):
     """K6 at full width at K6_ROWS rows (B=1: the B=1 decode step's kernel;
-    B > 1: the batched steps'): attn [B, 896]
-    f32 (K3's output), x [B, 896] bf16, within twice a floor of one bf16 ulp
+    B > 1: the batched steps' kernel): attn [B, 896] f32 (K3's output) and
+    bf16 (K1's), x [B, 896] bf16, each within twice a floor of one bf16 ulp
     at max |ref| of its plain version, the same bits twice, with a call on
     other weights in between (so that nothing the first call leaves in
     shared memory or scratch can stand in for what the second must load or
@@ -873,8 +878,9 @@ def hold_k6(int4, qc, gen, ws=None):
     ws = ws or _tail_weights(torch, int4, H, inter, gen)
     other = _tail_weights(torch, int4, H, inter, gen)
     err_max = 0.0
-    for B in K6_ROWS:
+    for B, attn_dtype in ((B, dt) for B in K6_ROWS for dt in (torch.float32, torch.bfloat16)):
         attn, x, nw = _k6_inputs(torch, H, gen, B)
+        attn = attn.to(attn_dtype)
         out = int4.int4_o_mlp(attn, x, nw, *ws)
         int4.int4_o_mlp(attn, x, nw, *other)
         again = int4.int4_o_mlp(attn, x, nw, *ws)
@@ -889,36 +895,37 @@ def hold_k6(int4, qc, gen, ws=None):
         floor = K1_TOL_REL / 2 * ref.float().abs().max().item()
         rounding = (ref.float() - exact).abs().max().item()
         err_max = max(err_max, err)
-        print(f"K6 B={B} H={H} inter={inter}: max_abs_err {err:.3e} (tol {2 * floor:.3e} = 2 x floor {floor:.3e}, "
-              f"one bf16 ulp at max |ref|); the bf16 roundings themselves move the result by {rounding:.3e} (plain "
-              f"in bf16 vs in f32 throughout); repeats bit for bit: {torch.equal(out, again)}")
+        print(f"K6 B={B} H={H} inter={inter} attn {str(attn_dtype)[6:]}: max_abs_err {err:.3e} (tol "
+              f"{2 * floor:.3e} = 2 x floor {floor:.3e}, one bf16 ulp at max |ref|); the bf16 roundings themselves "
+              f"move the result by {rounding:.3e} (plain in bf16 vs in f32 throughout); repeats bit for bit: "
+              f"{torch.equal(out, again)}")
         if not torch.equal(out, again):
-            raise AssertionError(f"K6 does not repeat bit for bit at B={B}")
+            raise AssertionError(f"K6 does not repeat bit for bit at B={B}, attn {attn_dtype}")
         if not err <= 2 * floor:
-            raise AssertionError(f"K6 disagrees with its plain version at B={B}: {err} > 2 x {floor} "
-                                 f"({err / (2 * floor):.1f}x the limit)")
+            raise AssertionError(f"K6 disagrees with its plain version at B={B}, attn {attn_dtype}: {err} > "
+                                 f"2 x {floor} ({err / (2 * floor):.1f}x the limit)")
     return err_max
 
 
 def check_k6(int4, qc, gen):
-    """hold_k6, then K6 timed at B=1 beside the bf16 product route over its
-    dequantised weights, and at B=4 (the batched steps' route, the
-    multi-row kernel) with its bound."""
+    """hold_k6, then K6 timed at B=1 and at K6_TIMED rows (the batched
+    steps' kernel) beside the bf16 product route over its dequantised
+    weights, with its bound."""
     import torch
 
     H, inter = qc.hidden_size, qc.intermediate_size
     ws = _tail_weights(torch, int4, H, inter, gen)
     err_max = hold_k6(int4, qc, gen, ws)
 
-    def inputs():
-        return _k6_inputs(torch, H, gen)
-
     grid = int4.grid_of(torch.device("cuda"))
     o_p, o_s, gu_p, gu_s, d_p, d_s = ws
-    plan = int4.o_mlp_plan(grid, H, *o_p.shape[:2], *gu_p.shape[1:], *d_p.shape[:2])
-    print(f"K6 at B=1: grid {grid} blocks (one per SM), {plan['xs_bytes'] + plan['img_bytes']} B of "
-          f"dynamic shared memory per block (largest block's weight images {plan['img_bytes']} B), splits o/down "
-          f"{plan['ko']}/{plan['kd']}")
+    for B in (1, 4, 16):
+        plan = int4.o_mlp_plan(grid, H, *o_p.shape[:2], *gu_p.shape[1:], *d_p.shape[:2], B)
+        red = plan.get("red_bytes", 0)
+        print(f"K6 at B={B}: grid {grid} blocks (one per SM), {plan['xs_bytes'] + red + plan['img_bytes']} B of "
+              f"dynamic shared memory per block (largest block's weight images {plan['img_bytes']} B, staged "
+              f"activations {plan['xs_bytes']} B, items' sums {red} B), splits o/down {plan['ko']}/{plan['kd']}, "
+              f"items per (plane, scale block) {plan['parts']}")
 
     def dense(o_p, o_s, gu_p, gu_s, d_p, d_s):
         """The dequantised bf16 weights: o [K_o, H], gate|up [K_in, 2 * inter_p], down [inter_p, H]."""
@@ -950,10 +957,12 @@ def check_k6(int4, qc, gen):
     row = kernel_row("int4_o_mlp", "cosyvoice_tpu_torch/csrc/int4_fused.cu", "cosyvoice_tpu/ops/int4_fused.py:519",
                      err_max, dev, b_ms, b_by)
     row["bf16_route_ms"] = dev["bf16_route"]
-    torch.cuda.empty_cache()
-    d4, h4, _, (b4, by4) = timed(4)
-    row["b4"] = {"ms": d4["kernel"], "plain_ms": d4["plain"], "bf16_route_ms": d4["bf16_route"], "bound_ms": b4,
-                 "bound_by": by4, "host_ms": h4["kernel"]}
+    row["rows"] = {}
+    for B in K6_TIMED:
+        torch.cuda.empty_cache()
+        dB, hB, _, (bB, byB) = timed(B)
+        row["rows"][B] = {"ms": dB["kernel"], "plain_ms": dB["plain"], "bf16_route_ms": dB["bf16_route"],
+                          "bound_ms": bB, "bound_by": byB, "host_ms": hB["kernel"]}
     return row, {k: v for k, v in host.items() if k != "bf16_route"}, n
 
 
@@ -1285,12 +1294,12 @@ def phase_kernels(cfg):
             print(f"{key} beside the bf16 product route over the dequantised weights (o matmul, residual, RMSNorm, "
                   f"gate|up matmul, silu * up, down matmul, residual): {bf * 1e3:.2f} us (kernel {row['ms'] * 1e3:.2f} "
                   f"us, {row['ms'] / bf:.2f}x)")
-        if "b4" in row:
-            b4 = row.pop("b4")
-            print(f"{key} at B=4 (the batched decode step's route, the multi-row kernel): device {b4['ms'] * 1e3:.2f} "
-                  f"us, plain {b4['plain_ms'] * 1e3:.2f} us, bf16 product route {b4['bf16_route_ms'] * 1e3:.2f} us, "
-                  f"bound {b4['bound_ms'] * 1e3:.4f} us ({b4['bound_by']}; {b4['ms'] / b4['bound_ms']:.1f}x), eager "
-                  f"host rate {b4['host_ms'] * 1e3:.2f} us")
+        for B, rb in row.pop("rows", {}).items():
+            print(f"{key} at B={B} (the batched decode steps' route, int4_o_mlp_rows_kernel): device "
+                  f"{rb['ms'] * 1e3:.2f} us, plain {rb['plain_ms'] * 1e3:.2f} us, bf16 product route "
+                  f"{rb['bf16_route_ms'] * 1e3:.2f} us ({rb['ms'] / rb['bf16_route_ms']:.2f}x), bound "
+                  f"{rb['bound_ms'] * 1e3:.4f} us ({rb['bound_by']}; {rb['ms'] / rb['bound_ms']:.1f}x), eager host "
+                  f"rate {rb['host_ms'] * 1e3:.2f} us")
         if "rows16" in row:
             r16, bf = row.pop("rows16"), row.pop("bf16_route_ms")
             print(f"{key} beside the bf16 product route over the dequantised weights (gate|up matmul, silu * up, "
@@ -1981,9 +1990,9 @@ def replay_cost(lm, decoder=None, rows=None):
 # K1..K7 by the identifiers in the mangled names of their kernel functions
 # (K1 and K3 are one template, its bool argument Lb0 / Lb1)
 GRAPH_KERNELS = re.compile(r"(\d+)(gqa_decode_kernelILi\d+ELb[01]|kv_write_kernel|int4_gemv_kernel|int4_mlp_kernel|"
-                           r"int4_o_mlp_kernel|int4_o_mlp_resident_kernel|int4_decode_layers_kernel)")
-GRAPH_KEYS = {"kv_write_kernel": "K2", "int4_gemv_kernel": "K4", "int4_mlp_kernel": "K5", "int4_o_mlp_kernel": "K6",
-              "int4_o_mlp_resident_kernel": "K6", "int4_decode_layers_kernel": "K7"}
+                           r"int4_o_mlp_rows_kernel|int4_o_mlp_resident_kernel|int4_decode_layers_kernel)")
+GRAPH_KEYS = {"kv_write_kernel": "K2", "int4_gemv_kernel": "K4", "int4_mlp_kernel": "K5",
+              "int4_o_mlp_rows_kernel": "K6", "int4_o_mlp_resident_kernel": "K6", "int4_decode_layers_kernel": "K7"}
 
 
 def graph_kernels(dot):
@@ -2302,7 +2311,7 @@ PER_TRACE = 1  # blocks or spans per profiler trace: ~34,000 device events of a 
 TRACE_LOSS = 0.1
 # K1..K7 by the kernel function names a CUDA trace shows (K1 and K3 are one template)
 TRACE_KERNELS = {"kv_write_kernel": "K2", "int4_gemv_kernel": "K4", "int4_mlp_kernel": "K5",
-                 "int4_o_mlp_kernel": "K6", "int4_o_mlp_resident_kernel": "K6", "int4_decode_layers_kernel": "K7"}
+                 "int4_o_mlp_rows_kernel": "K6", "int4_o_mlp_resident_kernel": "K6", "int4_decode_layers_kernel": "K7"}
 
 
 def _trace_launches(names):

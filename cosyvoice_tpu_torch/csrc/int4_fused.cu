@@ -5,12 +5,11 @@
 // stream it is given and returns the launch's error code; the Python
 // wrappers raise if it is not 0.
 //
-// K6 at B > 1 is built from one work item, gemv_tile (int4_gemv_tile.cuh,
-// which also describes the weight layout); K4 has its own device code over
-// the same layout; K6 at B = 1 and K5 read unit images resident in shared
-// memory (int4_resident.cuh). Input rows past the activation's length are
-// zero padding: the activation slice in shared memory is zero-filled there,
-// so they add nothing.
+// K4 has its own device code over the layout of int4_layout.cuh; K5 and
+// K6 (at every B) read unit images resident in shared memory
+// (int4_resident.cuh). Input rows past the activation's length are zero
+// padding: the activation slice in shared memory is zero-filled there, so
+// they add nothing.
 //
 // ---------------------------------------------------------------------------
 // K4  int4_gemv_kernel  (int4 GEMV, <= 16 rows, one cluster launch)
@@ -48,32 +47,46 @@
 //   rank order and rounds once to bf16. No second launch, no atomics: a call
 //   repeats bit for bit.
 //
-// K6  int4_o_mlp_resident_kernel (B=1) / int4_o_mlp_kernel (B > 1)  (fused int4 layer tail, one cooperative launch)
+// K6  int4_o_mlp_resident_kernel (B=1) / int4_o_mlp_rows_kernel (B = 2..16)  (fused int4 layer tail, one
+//     cooperative launch)
 //
 // Replaces: cosyvoice_tpu/ops/int4_fused.py:int4_o_mlp (pallas_call at :519,
 //   body _o_mlp_kernel :451).
 // Computes: x2 = x + attn @ Wo (f32); h2 = bf16(rmsnorm(x2) * w);
 //   act = bf16(silu(h2 @ Wg) * (h2 @ Wu)); out = bf16(x2 + act @ Wd).
 //   attn is rounded to bf16 on entry, as the Pallas kernel does.
-// Bound on the H100: bytes. At B=1, Qwen2-0.5B: packed o 0.46 MB + gate|up
-//   5.24 MB + down 2.29 MB + ~0.21 MB of scales ~ 8.2 MB: ~2.45 us.
-// Design at B=1 (the decode step's shape): the tail's phases depend on each
-//   other globally (the norm needs all of x2, gate/up all of h2, down all of
-//   act), so it is one cooperative launch, one block per SM. Every unit of
-//   every phase (int4_resident.cuh: 64 columns of one weight over a split of
-//   its input's scale blocks) is fixed per block on the host
-//   (ops/int4_fused.py:resident_plan), and right after reading attn every
-//   block has the TMA engine copy all its units' weights (~60-100 KB) into
-//   shared memory, one stage per phase on an mbarrier, so the weights stream
-//   in while the phases before them run. Three phases, two grid barriers:
+// Bound on the H100: bytes, whatever B is (every weight byte serves all
+//   rows). Qwen2-0.5B: packed o 0.46 MB + gate|up 5.24 MB + down 2.29 MB +
+//   ~0.21 MB of scales ~ 8.2 MB: ~2.45 us at 3.35 TB/s; at 16 rows the
+//   ~0.44 GFLOP take ~0.45 us at the bf16 tensor-core rate.
+// Design (both kernels): the tail's phases depend on each other globally
+//   (the norm needs all of x2, gate/up all of h2, down all of act), so it is
+//   one cooperative launch, one block per SM. Every unit of every phase
+//   (int4_resident.cuh: 64 columns of one weight over a split of its input's
+//   scale blocks) is fixed per block on the host (ops/int4_fused.py:
+//   resident_plan, o_mlp_plan), and at entry every block has the TMA engine
+//   copy all its units' weights (~60-110 KB) into shared memory, one stage
+//   per phase on an mbarrier, so the weights stream in while the phases
+//   before them run. Three phases, two grid barriers:
 //   1. o_proj units (one scale block each) write f32 partials;
-//   2. every block sums x2 = x + the o partials, computes the norm and stages
-//      h2; gate|up units (both planes, whole input) write act in bf16;
+//   2. every block sums x2 = x + the o partials in split order, computes the
+//      norm and stages h2; gate|up units (both planes, whole input) write act
+//      in bf16;
 //   3. down units (a split of the scale blocks) write f32 partials; the last
 //      unit of each 64-column tile (a ticket counter, returned to 0) writes
 //      out = bf16(x2 + the tile's partials in split order).
-//   No float atomics, so runs repeat bit for bit. B > 1 keeps the first
-//   design: gemv_tile items, partials per scale block, three barriers.
+//   No float atomics, so runs repeat bit for bit. At B=1 a warp's items run
+//   on the FMA pipes (int4_resident.cuh: unit_items). At B = 2..16 the units
+//   are K5's: tensor-core products (mma_items below) with the weights as the
+//   A operand and the rows, padded to 8 (two products past 8), as B, so each
+//   weight is decoded once for all rows; phase 1 stages each o unit's split
+//   of attn for all rows, phase 2 keeps x2 [B, H] in f32 in the items' sum
+//   buffer until the gate|up units need it, and the last down unit of a
+//   tile sums x2 again from the o partials, in the same order (the same
+//   bits). The first multi-row design, which this replaced, had four phases and
+//   three barriers, loaded each phase's weights only after the barrier
+//   before it, summed per-scale-block o partials in every block and ran its
+//   products as FMAs per 4-row tile: 26x its bound at B=4 on an H100.
 //
 // K5  int4_mlp_kernel  (fused int4 SwiGLU MLP, <= 16 rows, one cooperative launch)
 //
@@ -120,7 +133,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "int4_gemv_tile.cuh"
+#include "int4_layout.cuh"
 #include "int4_resident.cuh"
 
 namespace cg = cooperative_groups;
@@ -128,9 +141,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kMaxRows = 16;
-constexpr int kXElems = 16 * 1024;  // bf16 activations staged in shared memory
 
-// ---- K4: its own device code (gemv_tile stays K6's at B > 1) ----
+// ---- K4: its own device code ----
 //
 // FMA, not mma.sync: at 16 rows a block's products are ~2 k FMAs per thread,
 // well under a microsecond of the SM's f32 rate, and an mma B fragment would
@@ -338,151 +350,6 @@ int launch_gemv(const __nv_bfloat16* x, const int8_t* packed, const float* scale
 
 // Rows of x padded to the kernel's row bucket (gemv_rows in ops/int4_fused.py).
 inline int gemv_rows(int B) { return B == 1 ? 1 : B == 2 ? 2 : B <= 4 ? 4 : B <= 8 ? 8 : 16; }
-
-// The MLP phases of K6 at B > 1. Scratch written and read inside a
-// launch (part_o, x2g, act, part_d) is accessed with plain loads, never
-// through the read-only cache.
-
-// gate|up work items, one per 64-column tile of the intermediate dim over both
-// planes: act[r, c] = bf16(silu(g) * u) for the B rows staged in xs (row
-// stride K_in, zero past the activation's length).
-template <int BT>
-__device__ void gate_up_items(const int8_t* __restrict__ gu_p, const float* __restrict__ gu_s, int nb_in,
-                              int half_in, int I, const __nv_bfloat16* xs, int K_in, int B, __nv_bfloat16* act,
-                              float* red, float* res_g, float* res_u) {
-  const int tiles_i = (I + kTileCols - 1) / kTileCols;
-  const size_t plane = (size_t)nb_in * half_in * I;
-  for (int tile = blockIdx.x; tile < tiles_i; tile += gridDim.x) {
-    for (int r0 = 0; r0 < B; r0 += BT) {
-      const int nr = min(BT, B - r0);
-      gemv_tile<BT>(gu_p, gu_s, half_in, I, 0, nb_in, xs, K_in, r0, nr, tile * kTileCols, red, res_g);
-      gemv_tile<BT>(gu_p + plane, gu_s + (size_t)nb_in * I, half_in, I, 0, nb_in, xs, K_in, r0, nr,
-                    tile * kTileCols, red, res_u);
-      for (int idx = threadIdx.x; idx < nr * kTileCols; idx += kThreads) {
-        const int c = tile * kTileCols + idx % kTileCols;
-        if (c < I) {
-          const float g = res_g[idx], u = res_u[idx];
-          act[(size_t)(r0 + idx / kTileCols) * I + c] = __float2bfloat16(g / (1.f + expf(-g)) * u);
-        }
-      }
-    }
-  }
-}
-
-// down work items, one per (64-column tile of O, 512-row scale block c):
-// part_d[c, r, :] = act[r, c-th block] . Wd[c-th block, :] in f32. xs is the
-// block's staging buffer (B * 2 * half_d bf16).
-template <int BT>
-__device__ void down_items(const int8_t* __restrict__ d_p, const float* __restrict__ d_s, int half_d, int O,
-                           int nd, int I, const __nv_bfloat16* act, float* part_d, int B, __nv_bfloat16* xs,
-                           float* red, float* res) {
-  const int tiles_o = (O + kTileCols - 1) / kTileCols;
-  const int gd = 2 * half_d;
-  for (int item = blockIdx.x; item < tiles_o * nd; item += gridDim.x) {
-    const int tile = item % tiles_o, c = item / tiles_o;
-    for (int idx = threadIdx.x; idx < B * gd; idx += kThreads)
-      xs[idx] = act[(size_t)(idx / gd) * I + c * gd + idx % gd];
-    __syncthreads();
-    for (int r0 = 0; r0 < B; r0 += BT) {
-      const int nr = min(BT, B - r0);
-      gemv_tile<BT>(d_p, d_s, half_d, O, c, c + 1, xs, gd, r0, nr, tile * kTileCols, red, res);
-      for (int idx = threadIdx.x; idx < nr * kTileCols; idx += kThreads) {
-        const int col = tile * kTileCols + idx % kTileCols;
-        if (col < O) part_d[((size_t)c * B + r0 + idx / kTileCols) * O + col] = res[idx];
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <int BT>
-__global__ void __launch_bounds__(kThreads) int4_o_mlp_kernel(
-    const void* __restrict__ attn, int attn_bf16,  // [B, n_attn] f32 or bf16
-    const __nv_bfloat16* __restrict__ x,           // [B, H] residual
-    const float* __restrict__ norm_w,              // [H]
-    const int8_t* __restrict__ o_p, const float* __restrict__ o_s,    // [nb_o, half_o, H]
-    const int8_t* __restrict__ gu_p, const float* __restrict__ gu_s,  // [2, nb_in, half_in, I]
-    const int8_t* __restrict__ d_p, const float* __restrict__ d_s,    // [nd, half_d, H]
-    float* part_o,        // [nb_o, B, H]
-    float* x2g,           // [B, H]
-    __nv_bfloat16* act,   // [B, I]
-    float* part_d,        // [nd, B, H]
-    __nv_bfloat16* __restrict__ out,  // [B, H]
-    int B, int n_attn, int H, int nb_o, int half_o, int nb_in, int half_in, int I, int nd, int half_d,
-    float eps) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ __nv_bfloat16 xs[kXElems];
-  __shared__ float red[kWarps * BT * kTileCols];
-  __shared__ float res_g[BT * kTileCols];
-  __shared__ float res_u[BT * kTileCols];
-  __shared__ float sm_sum[kWarps];
-  const int tiles_h = (H + kTileCols - 1) / kTileCols;
-
-  // phase 1: o_proj partials, one item per (column tile, scale block)
-  const int go = 2 * half_o;
-  for (int item = blockIdx.x; item < tiles_h * nb_o; item += gridDim.x) {
-    const int tile = item % tiles_h, b = item / tiles_h;
-    for (int idx = threadIdx.x; idx < B * go; idx += kThreads) {
-      const int r = idx / go, k = b * go + idx % go;
-      float v = 0.f;
-      if (k < n_attn) {
-        const size_t a = (size_t)r * n_attn + k;
-        v = attn_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(attn)[a])
-                      : static_cast<const float*>(attn)[a];
-      }
-      xs[idx] = __float2bfloat16(v);
-    }
-    __syncthreads();
-    for (int r0 = 0; r0 < B; r0 += BT) {
-      const int nr = min(BT, B - r0);
-      gemv_tile<BT>(o_p, o_s, half_o, H, b, b + 1, xs, go, r0, nr, tile * kTileCols, red, res_g);
-      for (int idx = threadIdx.x; idx < nr * kTileCols; idx += kThreads) {
-        const int c = tile * kTileCols + idx % kTileCols;
-        if (c < H) part_o[((size_t)b * B + r0 + idx / kTileCols) * H + c] = res_g[idx];
-      }
-    }
-    __syncthreads();
-  }
-  grid.sync();
-
-  // phase 2: x2, the norm and h2 in every block; then gate|up -> act
-  const int K_in = nb_in * 2 * half_in;
-  for (int r = 0; r < B; ++r) {
-    float ss = 0.f;
-    for (int k = threadIdx.x; k < H; k += kThreads) {
-      float o = 0.f;
-      for (int b = 0; b < nb_o; ++b) o += part_o[((size_t)b * B + r) * H + k];
-      const float v = __bfloat162float(x[(size_t)r * H + k]) + o;
-      ss += v * v;
-    }
-    const float inv = rsqrtf(block_sum(ss, sm_sum) / H + eps);
-    for (int k = threadIdx.x; k < K_in; k += kThreads) {
-      float h = 0.f;
-      if (k < H) {
-        float o = 0.f;
-        for (int b = 0; b < nb_o; ++b) o += part_o[((size_t)b * B + r) * H + k];
-        const float v = __bfloat162float(x[(size_t)r * H + k]) + o;
-        if (blockIdx.x == 0) x2g[(size_t)r * H + k] = v;
-        h = v * inv * norm_w[k];
-      }
-      xs[(size_t)r * K_in + k] = __float2bfloat16(h);
-    }
-  }
-  __syncthreads();
-  gate_up_items<BT>(gu_p, gu_s, nb_in, half_in, I, xs, K_in, B, act, red, res_g, res_u);
-  grid.sync();
-
-  // phase 3: down partials, one item per (column tile, scale block)
-  down_items<BT>(d_p, d_s, half_d, H, nd, I, act, part_d, B, xs, red, res_g);
-  grid.sync();
-
-  // phase 4: out = x2 + sum of the down partials, in order
-  for (int idx = blockIdx.x * kThreads + threadIdx.x; idx < B * H; idx += gridDim.x * kThreads) {
-    float d = 0.f;
-    for (int c = 0; c < nd; ++c) d += part_d[(size_t)c * B * H + idx];
-    out[idx] = __float2bfloat16(x2g[idx] + d);
-  }
-}
 
 // ---- K6 at B=1: every unit's weights stream into shared memory at launch (int4_resident.cuh)
 struct TailParams {
@@ -730,11 +597,26 @@ __device__ void run_mma_units(const uint8_t* img, const UnitShape& u, int n, con
   }
 }
 
-// xs[r * sx + c] = src[r * ld + c] for r < live, c < n (a multiple of 8, 16-byte aligned rows), zero up to K
-// columns and `rows` rows. kL2: src was written by other blocks of this launch (read through L2).
+// 8 values of src (16-byte aligned) as bf16: bf16 as it is, f32 rounded to the nearest even. kL2: src was
+// written by other blocks of this launch (read through L2).
 template <bool kL2>
-__device__ void stage_rows(__nv_bfloat16* xs, const __nv_bfloat16* src, int live, int rows, int n, int K, size_t ld,
-                           int sx) {
+__device__ __forceinline__ uint4 load8_bf16(const __nv_bfloat16* src) {
+  const uint4* p = reinterpret_cast<const uint4*>(src);
+  return kL2 ? __ldcg(p) : __ldg(p);
+}
+template <bool kL2>
+__device__ __forceinline__ uint4 load8_bf16(const float* src) {
+  const float4* p = reinterpret_cast<const float4*>(src);
+  const float4 a = kL2 ? __ldcg(p) : __ldg(p), b = kL2 ? __ldcg(p + 1) : __ldg(p + 1);
+  __nv_bfloat162 h[4] = {__floats2bfloat162_rn(a.x, a.y), __floats2bfloat162_rn(a.z, a.w),
+                         __floats2bfloat162_rn(b.x, b.y), __floats2bfloat162_rn(b.z, b.w)};
+  return *reinterpret_cast<const uint4*>(h);
+}
+
+// xs[r * sx + c] = bf16(src[r * ld + c]) for r < live, c < n (a multiple of 8, 16-byte aligned rows), zero up to
+// K columns and `rows` rows.
+template <bool kL2, typename T>
+__device__ void stage_rows(__nv_bfloat16* xs, const T* src, int live, int rows, int n, int K, size_t ld, int sx) {
   constexpr int kBatch = 4;  // loads in flight per thread before their stores
   const int per = K / 8, total = rows * per;
   for (int q0 = threadIdx.x; q0 < total; q0 += kBatch * kResThreads) {
@@ -743,10 +625,7 @@ __device__ void stage_rows(__nv_bfloat16* xs, const __nv_bfloat16* src, int live
     for (int i = 0; i < kBatch; ++i) {
       const int q = q0 + i * kResThreads, r = q / per, c = q % per * 8;
       v[i] = make_uint4(0, 0, 0, 0);
-      if (q < total && r < live && c < n) {
-        const uint4* p = reinterpret_cast<const uint4*>(src + r * ld + c);
-        v[i] = kL2 ? __ldcg(p) : __ldg(p);
-      }
+      if (q < total && r < live && c < n) v[i] = load8_bf16<kL2>(src + r * ld + c);
     }
 #pragma unroll
     for (int i = 0; i < kBatch; ++i) {
@@ -844,46 +723,184 @@ __global__ void __launch_bounds__(kResThreads, 1) int4_mlp_kernel(const __grid_c
   grid_exit(p.bar);
 }
 
-// The grid of a cooperative launch of `kernel` with `work` items: at most the
-// blocks that fit on the device at once (queried once per kernel into
-// *max_blocks). Returns 0 or a CUDA error code.
-int cooperative_grid(const void* kernel, int work, int* max_blocks, int* grid) {
-  if (*max_blocks == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-    if (e != cudaSuccess) return (int)e;
-    if (sms * per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-    *max_blocks = sms * per_sm;
+// ---- K6 at B = 2..16: K6's units and phases (as at B=1), K5's tensor-core products (every decoded weight
+// serving all rows)
+struct TailRowsParams {
+  const void* attn;        // [B, n_attn] f32 or bf16
+  const __nv_bfloat16* x;  // [B, H] residual
+  const float* norm_w;     // [H]
+  WeightMaps mo, mg, md;   // tensor maps: o [nb_o, half_o, H], gate|up [2, nb_in, half_in, I], down [nd, half_d, H]
+  float* part_o;           // [ko, B, H] scratch
+  float* part_d;           // [kd, B, H] scratch
+  __nv_bfloat16* act;      // [B, I] scratch
+  __nv_bfloat16* out;      // [B, H]
+  unsigned* bar;           // [2] grid barrier, then [H / 64] down tickets; 0 between launches
+  const int* plan;         // [grid, 3, 1 + maxu]: count, unit ids (o, gate|up, down)
+  int attn_bf16, B, n_attn, H, nb_o, half_o, nb_in, half_in, I, nd, half_d, ko, kd, maxu, parts_o, parts_g, parts_d;
+  int xs_bytes, red_bytes;
+  float eps;
+};
+
+// x2[r, c..c+3] = x + the o_proj partials of row r summed in split order, in f32: the same bits in every block
+// and in the last down unit of a tile. Every load goes out before the first add.
+__device__ __forceinline__ float4 x2_quad(const TailRowsParams& p, int r, int c) {
+  float4 v[kMaxSplits];
+#pragma unroll
+  for (int s = 0; s < kMaxSplits; ++s)
+    v[s] = s < p.ko ? __ldcg(reinterpret_cast<const float4*>(p.part_o + ((size_t)s * p.B + r) * p.H + c))
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+  const uint2 xr = __ldg(reinterpret_cast<const uint2*>(p.x + (size_t)r * p.H + c));
+  float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int s = 0; s < kMaxSplits; ++s) {
+    o.x += v[s].x;
+    o.y += v[s].y;
+    o.z += v[s].z;
+    o.w += v[s].w;
   }
-  *grid = work < *max_blocks ? work : *max_blocks;
-  return 0;
+  const float2 x01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xr.x));
+  const float2 x23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xr.y));
+  return make_float4(x01.x + o.x, x01.y + o.y, x23.x + o.z, x23.y + o.w);
 }
 
-template <int BT>
-int launch_o_mlp(const void* attn, int attn_bf16, const __nv_bfloat16* x, const float* norm_w,
-                 const int8_t* o_p, const float* o_s, const int8_t* gu_p, const float* gu_s,
-                 const int8_t* d_p, const float* d_s, float* part_o, float* x2g, __nv_bfloat16* act,
-                 float* part_d, __nv_bfloat16* out, int B, int n_attn, int H, int nb_o, int half_o,
-                 int nb_in, int half_in, int I, int nd, int half_d, float eps, cudaStream_t stream) {
-  static int max_blocks = 0;
-  const void* kernel = reinterpret_cast<const void*>(int4_o_mlp_kernel<BT>);
-  const int tiles_h = (H + kTileCols - 1) / kTileCols;
-  const int tiles_i = (I + kTileCols - 1) / kTileCols;
-  int work = tiles_h * nb_o;
-  if (tiles_i > work) work = tiles_i;
-  if (tiles_h * nd > work) work = tiles_h * nd;
-  int grid = 0;
-  const int rc = cooperative_grid(kernel, work, &max_blocks, &grid);
-  if (rc != 0) return rc;
-  void* args[] = {&attn, &attn_bf16, &x,      &norm_w, &o_p,   &o_s,     &gu_p,    &gu_s,
-                  &d_p,  &d_s,       &part_o, &x2g,    &act,   &part_d,  &out,     &B,
-                  &n_attn, &H,       &nb_o,   &half_o, &nb_in, &half_in, &I,       &nd,
-                  &half_d, &eps};
-  const cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args, 0, stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+template <int NH>
+__global__ void __launch_bounds__(kResThreads, 1) int4_o_mlp_rows_kernel(const __grid_constant__ TailRowsParams p) {
+  constexpr int kRows = 8 * NH;
+  extern __shared__ __align__(128) uint8_t dyn[];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(dyn);  // the phase's bf16 activations, kRows rows
+  float* red = reinterpret_cast<float*>(dyn + p.xs_bytes);    // the items' sums; x2 [B, H] in phase 2
+  uint8_t* img = dyn + p.xs_bytes + p.red_bytes;              // o images, norm weight, gate|up, down images
+  __shared__ float inv[kRows];                                // each row's 1 / rms(x2)
+  __shared__ int last_flag;
+  __shared__ __align__(8) uint64_t mbar[3];  // o, norm weight + gate|up, down: their copies have landed
+  const int H = p.H, tiles = H / kUnitCols, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int* mine = p.plan + (size_t)blockIdx.x * 3 * (1 + p.maxu);
+  const int n_o = mine[0], n_g = mine[1 + p.maxu], n_d = mine[2 * (1 + p.maxu)];
+  const int *ids_o = mine + 1, *ids_g = mine + 2 + p.maxu, *ids_d = mine + 3 + 2 * p.maxu;
+  const UnitShape uo = {1, p.nb_o / p.ko, p.half_o, H, p.parts_o}, ug = {2, p.nb_in, p.half_in, p.I, p.parts_g},
+                  ud = {1, p.nd / p.kd, p.half_d, H, p.parts_d};
+  uint8_t* img_g = img + n_o * uo.bytes() + H * 4;
+  uint8_t* img_d = img_g + n_g * ug.bytes();
+
+  // every copy of the launch goes out first: o, then the norm weight and gate|up, then down
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 3; ++s) mbar_init(mbar + s);
+    mbar_fence_init();
+    mbar_expect(mbar, n_o * uo.bytes());
+    for (int k = 0; k < n_o; ++k)
+      copy_unit(img + k * uo.bytes(), uo, p.mo, 0, 0, 0, 0, (ids_o[k] / tiles) * uo.nb, (ids_o[k] % tiles) * kUnitCols,
+                mbar);
+    mbar_expect(mbar + 1, H * 4 + n_g * ug.bytes());
+    bulk_copy(img_g - H * 4, p.norm_w, H * 4, mbar + 1);
+    for (int k = 0; k < n_g; ++k)
+      copy_unit(img_g + k * ug.bytes(), ug, p.mg, 0, p.nb_in * p.half_in, 0, p.nb_in, 0, ids_g[k] * kUnitCols, mbar + 1);
+    mbar_expect(mbar + 2, n_d * ud.bytes());
+    for (int k = 0; k < n_d; ++k)
+      copy_unit(img_d + k * ud.bytes(), ud, p.md, 0, 0, 0, 0, (ids_d[k] / tiles) * ud.nb, (ids_d[k] % tiles) * kUnitCols,
+                mbar + 2);
+  }
+
+  // phase 1: each o unit's split of attn staged in bf16 (zero past n_attn and past B); o_proj units -> f32
+  // partials per split of the input
+  const int Ko = uo.nb * 2 * p.half_o, so = Ko + 8;  // 16 bytes of padding: lanes' rows on other banks
+  for (int k = 0; k < n_o; ++k) {
+    const int c0 = (ids_o[k] / tiles) * Ko;
+    __nv_bfloat16* dst = xs + (size_t)k * kRows * so;
+    const int live = p.n_attn - c0;
+    if (p.attn_bf16)
+      stage_rows<false>(dst, static_cast<const __nv_bfloat16*>(p.attn) + c0, p.B, kRows, live, Ko, p.n_attn, so);
+    else
+      stage_rows<false>(dst, static_cast<const float*>(p.attn) + c0, p.B, kRows, live, Ko, p.n_attn, so);
+  }
+  __syncthreads();  // also orders the mbarriers' initialisation before any wait on them
+  mbar_wait(mbar, 0);
+  run_mma_units<NH>(img, uo, n_o, xs, (size_t)kRows * so, so, red, [&](int k, int r, int j, float s, float) {
+    if (r < p.B) p.part_o[((size_t)(ids_o[k] / tiles) * p.B + r) * H + (ids_o[k] % tiles) * kUnitCols + j] = s;
+  });
+  grid_arrive(p.bar);
+  grid_wait(p.bar, gridDim.x);
+
+  // phase 2 (blocks with gate|up units): x2 in f32 and each row's norm, the same bits in every block; h2 staged;
+  // gate|up units -> act
+  mbar_wait(mbar + 1, 0);
+  if (n_g > 0) {
+    const int Kin = p.nb_in * 2 * p.half_in, sx = Kin + 8;
+    float* x2s = red;  // free until the gate|up units' first items
+    for (int q = threadIdx.x; q < p.B * (H / 4); q += kResThreads) {
+      const int r = q / (H / 4), c = q % (H / 4) * 4;
+      *reinterpret_cast<float4*>(x2s + (size_t)r * H + c) = x2_quad(p, r, c);
+    }
+    __syncthreads();
+    if (warp < p.B) {  // warp r sums row r's squares in a fixed order
+      float ss = 0.f;
+      for (int k = lane; k < H; k += 32) ss += x2s[(size_t)warp * H + k] * x2s[(size_t)warp * H + k];
+      ss = warp_sum(ss);
+      if (lane == 0) inv[warp] = rsqrtf(ss / H + p.eps);
+    }
+    __syncthreads();
+    const float* nw = reinterpret_cast<const float*>(img_g) - H;
+    for (int q = threadIdx.x; q < kRows * (Kin / 2); q += kResThreads) {
+      const int r = q / (Kin / 2), k = q % (Kin / 2) * 2;
+      float a = 0.f, b = 0.f;
+      if (r < p.B && k < H) {  // H is even
+        a = x2s[(size_t)r * H + k] * inv[r] * nw[k];
+        b = x2s[(size_t)r * H + k + 1] * inv[r] * nw[k + 1];
+      }
+      *reinterpret_cast<__nv_bfloat162*>(xs + (size_t)r * sx + k) = __floats2bfloat162_rn(a, b);
+    }
+    __syncthreads();
+    run_mma_units<NH>(img_g, ug, n_g, xs, 0, sx, red, [&](int k, int r, int j, float g, float u) {
+      if (r < p.B) p.act[(size_t)r * p.I + ids_g[k] * kUnitCols + j] = __float2bfloat16(g / (1.f + expf(-g)) * u);
+    });
+  }
+  grid_arrive(p.bar);
+  grid_wait(p.bar, 2 * gridDim.x);
+
+  // phase 3: down units over their split of act -> f32 partials; the last unit of a column tile (a ticket,
+  // returned to 0) writes out = bf16(x2 + the tile's partials summed in split order)
+  mbar_wait(mbar + 2, 0);
+  if (n_d > 0) {
+    const int Kd = ud.nb * 2 * p.half_d, sd = Kd + 8;
+    for (int k = 0; k < n_d; ++k)
+      stage_rows<true>(xs + (size_t)k * kRows * sd, p.act + (size_t)(ids_d[k] / tiles) * Kd, p.B, kRows, Kd, Kd, p.I,
+                       sd);
+    __syncthreads();
+    run_mma_units<NH>(img_d, ud, n_d, xs, (size_t)kRows * sd, sd, red, [&](int k, int r, int j, float s, float) {
+      if (r < p.B) p.part_d[((size_t)(ids_d[k] / tiles) * p.B + r) * H + (ids_d[k] % tiles) * kUnitCols + j] = s;
+    });
+    for (int k = 0; k < n_d; ++k) {
+      const int tile = ids_d[k] % tiles;
+      if (threadIdx.x == 0) last_flag = ticket_add(p.bar + 2 + tile) == (unsigned)(p.kd - 1);
+      __syncthreads();
+      if (last_flag) {
+        for (int q = threadIdx.x; q < p.B * (kUnitCols / 4); q += kResThreads) {
+          const int r = q / (kUnitCols / 4), c = tile * kUnitCols + q % (kUnitCols / 4) * 4;
+          const size_t o = (size_t)r * H + c;
+          float4 d[kMaxSplits];
+#pragma unroll
+          for (int s = 0; s < kMaxSplits; ++s)
+            d[s] = s < p.kd ? __ldcg(reinterpret_cast<const float4*>(p.part_d + (size_t)s * p.B * H + o))
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+          float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+          for (int s = 0; s < kMaxSplits; ++s) {
+            sum.x += d[s].x;
+            sum.y += d[s].y;
+            sum.z += d[s].z;
+            sum.w += d[s].w;
+          }
+          const float4 x2 = x2_quad(p, r, c);
+          const __nv_bfloat162 lo = __floats2bfloat162_rn(x2.x + sum.x, x2.y + sum.y);
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(x2.z + sum.z, x2.w + sum.w);
+          *reinterpret_cast<uint2*>(p.out + o) =
+              make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+        }
+        if (threadIdx.x == 0) p.bar[2 + tile] = 0;
+      }
+      __syncthreads();
+    }
+  }
+  grid_exit(p.bar);
 }
 
 }  // namespace
@@ -909,29 +926,6 @@ int cvt_int4_gemv(const void* x, const void* packed, const float* scale, void* y
     case 8: return launch_gemv<8>(xb, pb, scale, yb, B, n_in, nb, half, O, tiles, cluster, x_vec, s);
     default: return launch_gemv<16>(xb, pb, scale, yb, B, n_in, nb, half, O, tiles, cluster, x_vec, s);
   }
-}
-
-// B > 1 (B = 1 takes cvt_int4_o_mlp_resident).
-int cvt_int4_o_mlp(const void* attn, int attn_bf16, const void* x, const float* norm_w, const void* o_p,
-                   const float* o_s, const void* gu_p, const float* gu_s, const void* d_p, const float* d_s,
-                   float* part_o, float* x2g, void* act, float* part_d, void* out, int B, int n_attn, int H,
-                   int nb_o, int half_o, int nb_in, int half_in, int I, int nd, int half_d, float eps,
-                   void* stream) {
-  if (B < 1 || B > kMaxRows || H % kColsPerThread != 0 || I % kColsPerThread != 0 ||
-      n_attn > nb_o * 2 * half_o || H > nb_in * 2 * half_in || nd * 2 * half_d != I ||
-      B * 2 * half_o > kXElems || B * nb_in * 2 * half_in > kXElems || B * 2 * half_d > kXElems ||
-      !aligned16(o_p) || !aligned16(o_s) || !aligned16(gu_p) || !aligned16(gu_s) || !aligned16(d_p) ||
-      !aligned16(d_s))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* op = static_cast<const int8_t*>(o_p);
-  const auto* gp = static_cast<const int8_t*>(gu_p);
-  const auto* dp = static_cast<const int8_t*>(d_p);
-  auto* ab = static_cast<__nv_bfloat16*>(act);
-  auto* ob = static_cast<__nv_bfloat16*>(out);
-  return launch_o_mlp<4>(attn, attn_bf16, xb, norm_w, op, o_s, gp, gu_s, dp, d_s, part_o, x2g, ab, part_d,
-                         ob, B, n_attn, H, nb_o, half_o, nb_in, half_in, I, nd, half_d, eps, s);
 }
 
 // K6 at B=1. plan, the splits ko and kd, maxu, parts_*, xs_bytes, img_bytes and grid come from
@@ -993,6 +987,84 @@ int cvt_int4_o_mlp_resident(const void* attn, int attn_bf16, const void* x, cons
   p.parts_g = parts_g;
   p.parts_d = parts_d;
   p.xs_bytes = xs_bytes;
+  p.eps = eps;
+  void* args[] = {&p};
+  const cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kResThreads), args, dyn,
+                                                    static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// K6 at B = 2..16. plan, the splits ko and kd, maxu, parts_*, xs_bytes, red_bytes, img_bytes and grid come from
+// ops/int4_fused.py:o_mlp_plan(..., B); work holds the o partials [ko, B, H] f32, the down partials [kd, B, H]
+// f32, then act [B, I] bf16; counters 2 + H / 64 ints, 0 on entry.
+int cvt_int4_o_mlp_rows(const void* attn, int attn_bf16, const void* x, const float* norm_w, const void* o_p,
+                        const float* o_s, const void* gu_p, const float* gu_s, const void* d_p, const float* d_s,
+                        float* work, void* out, void* counters, const int* plan, int B, int n_attn, int H, int nb_o,
+                        int half_o, int nb_in, int half_in, int I, int nd, int half_d, int ko, int kd, int maxu,
+                        int parts_o, int parts_g, int parts_d, int xs_bytes, int red_bytes, int img_bytes, int grid,
+                        float eps, void* stream) {
+  const int NH = B <= 8 ? 1 : 2, rows = 8 * NH, Kin = nb_in * 2 * half_in;
+  const bool splits_ok = ko >= 1 && kd >= 1 && ko <= kMaxSplits && kd <= kMaxSplits && nb_o % ko == 0 && nd % kd == 0;
+  const bool halves_ok = parts_o >= 1 && parts_g >= 1 && parts_d >= 1 && half_o % (8 * parts_o) == 0 &&
+                         half_in % (8 * parts_g) == 0 && half_d % (8 * parts_d) == 0 && half_o <= 256 &&
+                         half_in <= 256 && half_d <= 256;
+  const bool items_ok = nb_o / ko * parts_o <= kMlpMaxItems && 2 * nb_in * parts_g <= kMlpMaxItems &&
+                        nd / kd * parts_d <= kMlpMaxItems;
+  const bool aligned = aligned16(attn) && aligned16(x) && aligned16(norm_w) && aligned16(o_p) && aligned16(o_s) &&
+                       aligned16(gu_p) && aligned16(gu_s) && aligned16(d_p) && aligned16(d_s) && aligned16(work) &&
+                       aligned16(out);
+  const int stage = maxu * rows * (nb_o / ko * 2 * half_o + 8) > rows * (Kin + 8)
+                        ? maxu * rows * (nb_o / ko * 2 * half_o + 8)
+                        : rows * (Kin + 8);
+  const bool smem_ok = xs_bytes >= 2 * stage && xs_bytes >= 2 * maxu * rows * (nd / kd * 2 * half_d + 8) &&
+                       red_bytes >= kMlpMaxItems * 16 * NH * 32 * 4 && red_bytes >= B * H * 4 && xs_bytes % 128 == 0 &&
+                       red_bytes % 128 == 0 && img_bytes % 16 == 0;
+  if (B < 1 || B > kMaxRows || !splits_ok || !halves_ok || !items_ok || !aligned || !smem_ok || n_attn < 8 ||
+      n_attn % 8 != 0 || n_attn > nb_o * 2 * half_o || H % kUnitCols != 0 || I % kUnitCols != 0 || H > Kin ||
+      nd * 2 * half_d != I || maxu < 1 || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  const void* kernel = NH == 1 ? reinterpret_cast<const void*>(int4_o_mlp_rows_kernel<1>)
+                               : reinterpret_cast<const void*>(int4_o_mlp_rows_kernel<2>);
+  const int dyn = xs_bytes + red_bytes + img_bytes;
+  int sms = 0, per_sm = 0;
+  const int rc = resident_blocks(kernel, dyn, &sms, &per_sm);
+  if (rc != 0) return rc;
+  if (per_sm < 1 || grid > sms * per_sm) return (int)cudaErrorCooperativeLaunchTooLarge;
+  TailRowsParams p;
+  p.attn = attn;
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.norm_w = norm_w;
+  int rc_map = weight_maps(&p.mo, o_p, o_s, H, (uint64_t)nb_o * half_o, half_o, nb_o, nb_o / ko);
+  if (rc_map == 0)
+    rc_map = weight_maps(&p.mg, gu_p, gu_s, I, (uint64_t)2 * nb_in * half_in, half_in, 2 * nb_in, nb_in);
+  if (rc_map == 0) rc_map = weight_maps(&p.md, d_p, d_s, H, (uint64_t)nd * half_d, half_d, nd, nd / kd);
+  if (rc_map != 0) return rc_map;
+  p.part_o = work;
+  p.part_d = work + (size_t)ko * B * H;
+  p.act = reinterpret_cast<__nv_bfloat16*>(work + (size_t)(ko + kd) * B * H);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.bar = static_cast<unsigned*>(counters);
+  p.plan = plan;
+  p.attn_bf16 = attn_bf16;
+  p.B = B;
+  p.n_attn = n_attn;
+  p.H = H;
+  p.nb_o = nb_o;
+  p.half_o = half_o;
+  p.nb_in = nb_in;
+  p.half_in = half_in;
+  p.I = I;
+  p.nd = nd;
+  p.half_d = half_d;
+  p.ko = ko;
+  p.kd = kd;
+  p.maxu = maxu;
+  p.parts_o = parts_o;
+  p.parts_g = parts_g;
+  p.parts_d = parts_d;
+  p.xs_bytes = xs_bytes;
+  p.red_bytes = red_bytes;
   p.eps = eps;
   void* args[] = {&p};
   const cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kResThreads), args, dyn,

@@ -1,9 +1,9 @@
-// Device code shared by the B=1 int4 decode kernels whose weights stream into shared memory ahead of use
-// (csrc/int4_fused.cu: K6 at B=1; csrc/int4_block.cu: K7): TMA copies through tensor maps, completing on
+// Device code shared by the int4 decode kernels whose weights stream into shared memory ahead of use
+// (csrc/int4_fused.cu: K5, K6; csrc/int4_block.cu: K7): TMA copies through tensor maps, completing on
 // mbarriers; a grid barrier that a launch returns to 0; the unit of work over a weight image resident in
 // shared memory.
 //
-// Weight layout: the blocked half-split int4 layout of int4_gemv_tile.cuh, packed [nb, half, O] int8 and
+// Weight layout: the blocked half-split int4 layout of int4_layout.cuh, packed [nb, half, O] int8 and
 // scale [nb, O] f32 (a plane; gate|up has two).
 //
 // A unit is 64 output columns of one weight over a range of its scale blocks (ops/int4_fused.py:
@@ -15,7 +15,8 @@
 // first: ~1600 copies per block to issue, and K6 took 60 us at B=1 on an H100; so was cp.async, 16 bytes a
 // thread, which delayed each phase's reads.)
 //
-// Reading a unit: its rows are cut into items (plane, scale block, part of the block's rows); a warp takes
+// Reading a unit at one row (K6 at B=1, K7; K5 and K6 at B > 1 take the tensor cores, csrc/int4_fused.cu:
+// mma_items): its rows are cut into items (plane, scale block, part of the block's rows); a warp takes
 // one item at a time, four lanes a row (16 columns each) and eight rows at a time. Nibbles are decoded
 // without integer-to-float conversions: a nibble at bits [4m, 4m+4) of a 32-bit word (m <= 4) is masked
 // into the mantissa of 2^23 (one LOP3, the sign bit of the high nibble flipped on the way, which makes it
@@ -35,7 +36,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "int4_gemv_tile.cuh"
+#include "int4_layout.cuh"
 
 namespace {
 

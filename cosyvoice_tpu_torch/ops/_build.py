@@ -45,7 +45,7 @@ _SIGNATURES = {
     "cvt_empty_kernel": [_c_void_p],
     "cvt_int4_gemv": [_c_void_p] * 4 + [_c_int] * 7 + [_c_void_p],
     "cvt_int4_mlp": [_c_void_p] * 9 + [_c_int] * 16 + [_c_void_p],
-    "cvt_int4_o_mlp": [_c_void_p, _c_int] + [_c_void_p] * 13 + [_c_int] * 10 + [_c_float, _c_void_p],
+    "cvt_int4_o_mlp_rows": [_c_void_p, _c_int] + [_c_void_p] * 12 + [_c_int] * 20 + [_c_float, _c_void_p],
     "cvt_int4_o_mlp_resident": [_c_void_p, _c_int] + [_c_void_p] * 12 + [_c_int] * 18 + [_c_float, _c_void_p],
     "cvt_int4_decode_layers": [_c_void_p] * 23 + [_c_int] * 28 + [_c_float, _c_void_p],
 }

@@ -26,10 +26,11 @@ its plain version:
   rows on the tensor cores. Replaces the Pallas `_mlp_kernel`.
 - K6 `int4_o_mlp`: the layer's whole post-attention tail, o_proj + residual
   + RMSNorm + SwiGLU MLP + residual, in one cooperative launch
-  (csrc/int4_fused.cu). Replaces the Pallas `_o_mlp_kernel`. At B=1 one
-  block per SM, each with a fixed share of the units of every phase
+  (csrc/int4_fused.cu). Replaces the Pallas `_o_mlp_kernel`. One block
+  per SM, each with a fixed share of the units of every phase
   (`resident_plan`, `o_mlp_plan`), whose weights it copies into shared
-  memory at launch.
+  memory at launch; at 2..16 rows the units run on the tensor cores as
+  K5's do, every decoded weight serving all rows.
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors it
 launches the kernel or raises. `int4_gemv.launches`, `int4_mlp.launches` and
@@ -49,7 +50,6 @@ NB = 8  # default block count of quantize_tensor_int4_blocked
 MLP_INTER_ALIGN = 512
 GEMV_IN_ALIGN = 256
 MAX_ROWS = 16  # rows the decode kernels take (the JAX package's Pallas route: <= 16)
-GEMV_X_ELEMS = 16 * 1024  # bf16 activations K6 (B > 1) stages in shared memory
 K4_X_ELEMS = 16 * 256  # bf16 inputs a K4 block stages: row bucket * 2 * half
 K4_COLS = 32  # output columns of a K4 tile
 K4_MAX_CLUSTER = 8  # portable thread-block cluster size
@@ -241,8 +241,8 @@ def gemv_scale_blocks(rank: int, cluster: int, nb: int) -> range:
 
 
 # ---------------------------------------------------------------------------
-# plans of the kernels whose weights stream into shared memory (K5, K6 at B=1,
-# K7; csrc/int4_resident.cuh)
+# plans of the kernels whose weights stream into shared memory (K5, K6, K7;
+# csrc/int4_resident.cuh)
 # ---------------------------------------------------------------------------
 
 UNIT_COLS = 64  # output columns of a unit
@@ -328,14 +328,22 @@ def _round(n: int, align: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def o_mlp_plan(grid: int, H: int, nb_o: int, half_o: int, nb_in: int, half_in: int, inter: int, nd: int,
-               half_d: int) -> dict:
-    """K6's geometry at B=1 on `grid` blocks: units of 64 columns of o_proj
-    (ko splits of its scale blocks), gate|up (both planes, whole input) and
-    down (kd splits), unit id = split * tiles + tile, placed by
-    resident_plan. Returns {"plan" (per phase, per block unit ids), "table",
-    "maxu", "ko", "kd", "parts" (o, gate|up, down), "xs_bytes" (the staged
-    activations), "img_bytes" (the largest block's images and norm
-    weight)}."""
+               half_d: int, B: int = 1) -> dict:
+    """K6's geometry on `grid` blocks for B rows: units of 64 columns of
+    o_proj (ko splits of its scale blocks), gate|up (both planes, whole
+    input) and down (kd splits), unit id = split * tiles + tile, placed by
+    resident_plan; the units are the same at every B. Returns {"plan" (per
+    phase, per block unit ids), "table", "maxu", "ko", "kd", "parts" (o,
+    gate|up, down), "xs_bytes" (the staged activations), "img_bytes" (the
+    largest block's images and norm weight)}; at B > 1 also "rows" (B padded
+    to 8 or 16, as K5's) and "red_bytes" (the items' sums, and x2 [B, H] in
+    f32 before them).
+
+    At B=1 (int4_o_mlp_resident_kernel) xs holds one phase's activation
+    vector. At B > 1 (int4_o_mlp_rows_kernel) it holds, per phase, each o
+    unit's split of attn, h2, or each down unit's split of act, all rows
+    (each row 16 bytes longer than its inputs), and a unit's items are at
+    most MLP_MAX_ITEMS, as K5's."""
     tiles_h, tiles_i = H // UNIT_COLS, inter // UNIT_COLS
     ko, kd = input_splits(nb_o, tiles_h, grid), input_splits(nd, tiles_h, grid)
     shapes = ((1, nb_o // ko, half_o), (2, nb_in, half_in), (1, nd // kd, half_d))
@@ -344,9 +352,16 @@ def o_mlp_plan(grid: int, H: int, nb_o: int, half_o: int, nb_in: int, half_in: i
     maxu = [max(len(ids) for ids in ph) for ph in plan]
     img = max(len(plan[0][b]) * sizes[0] + H * 4 + len(plan[1][b]) * sizes[1] + len(plan[2][b]) * sizes[2]
               for b in range(grid))
-    return {"plan": plan, "table": plan_table(plan), "maxu": max(maxu), "ko": ko, "kd": kd,
-            "parts": tuple(item_parts(m, *s) for m, s in zip(maxu, shapes)),
-            "xs_bytes": _round(2 * max(nb_o * 2 * half_o, nb_in * 2 * half_in, inter), 128), "img_bytes": img}
+    out = {"plan": plan, "table": plan_table(plan), "maxu": max(maxu), "ko": ko, "kd": kd, "img_bytes": img}
+    if B == 1:
+        return {**out, "parts": tuple(item_parts(m, *s) for m, s in zip(maxu, shapes)),
+                "xs_bytes": _round(2 * max(nb_o * 2 * half_o, nb_in * 2 * half_in, inter), 128)}
+    rows = mlp_rows(B)
+    stage = max(max(maxu) * rows * (k * 2 * half + 8) for k, half in ((nb_o // ko, half_o), (nd // kd, half_d)))
+    return {**out, "rows": rows,
+            "parts": tuple(item_parts(m, *s, max_items=MLP_MAX_ITEMS) for m, s in zip(maxu, shapes)),
+            "xs_bytes": _round(2 * max(stage, rows * (nb_in * 2 * half_in + 8)), 128),
+            "red_bytes": _round(max(MLP_MAX_ITEMS * 2 * rows * 32 * 4, rows * H * 4), 128)}
 
 
 def mlp_rows(B: int) -> int:
@@ -384,11 +399,13 @@ def mlp_plan(grid: int, H: int, nb_in: int, half_in: int, inter: int, nd: int, h
 
 # static shared memory of the kernels beside their dynamic share (csrc), plus
 # 128 bytes for alignment: K5 (a flag, 2 mbarriers), K6 at B=1 (x2, the
-# items' sums, a block sum, a flag, 3 mbarriers) and K7 (the residual, x2,
+# items' sums, a block sum, a flag, 3 mbarriers), K6 at B > 1 (each row's
+# norm, a flag, 3 mbarriers) and K7 (the residual, x2,
 # the items' sums, a block sum, the attention item's q/k/v, the merge
 # weights, rope, 5 mbarriers)
 K5_STATIC_SMEM = 4 + 2 * 8 + 128
 K6_STATIC_SMEM = RES_MAX_HIDDEN * 4 + RES_MAX_ITEMS * UNIT_COLS * 4 + RES_WARPS * 4 + 4 + 3 * 8 + 128
+K6_ROWS_STATIC_SMEM = MAX_ROWS * 4 + 4 + 3 * 8 + 128
 K7_STATIC_SMEM = (2 * RES_MAX_HIDDEN * 4 + RES_MAX_ITEMS * UNIT_COLS * 4 + RES_WARPS * 4 + 10 * 64 * 4
                   + RES_WARPS * 32 * 4 + 64 * 4 + 5 * 8 + 128)
 
@@ -561,31 +578,10 @@ def int4_o_mlp(attn, x, norm_w, o_packed, o_scale, gu_packed, gu_scale, down_pac
     _check_cuda("norm_w", norm_w, torch.float32, x.device)
     for name, p, s in (("o", o_packed, o_scale), ("gate_up", gu_packed, gu_scale), ("down", down_packed, down_scale)):
         _check_weights(name, p, s, x.device)
-    if not 1 <= B <= MAX_ROWS or B * nb_in * 2 * half_in > GEMV_X_ELEMS or B * 2 * half_d > GEMV_X_ELEMS:
-        raise ValueError(f"kernel takes 1..{MAX_ROWS} rows with rows * padded hidden <= {GEMV_X_ELEMS}, got B={B}")
-    from cosyvoice_tpu_torch.ops._build import load_library
-
-    if B == 1:
-        out = _o_mlp_resident(attn, x, norm_w, o_packed, o_scale, gu_packed, gu_scale, down_packed, down_scale, eps)
-        int4_o_mlp.launches += 1
-        return out
-    # one f32 workspace: o partials [nb_o, B, H], x2 [B, H], down partials
-    # [n_down, B, H], then act [B, inter_p] bf16 (every piece 16-byte aligned)
-    n_f32 = (nb_o + 1 + n_down) * B * H
-    work = torch.empty(n_f32 + (B * inter_p + 1) // 2, device=x.device, dtype=torch.float32)
-    part_o = work.data_ptr()
-    x2 = part_o + nb_o * B * H * 4
-    part_d = x2 + B * H * 4
-    act = part_d + n_down * B * H * 4
-    out = torch.empty_like(x)
-    rc = load_library().cvt_int4_o_mlp(
-        attn.data_ptr(), int(attn.dtype == torch.bfloat16), x.data_ptr(), norm_w.data_ptr(),
-        o_packed.data_ptr(), o_scale.data_ptr(), gu_packed.data_ptr(), gu_scale.data_ptr(),
-        down_packed.data_ptr(), down_scale.data_ptr(), part_o, x2, act, part_d, out.data_ptr(),
-        B, n_attn, H, nb_o, half_o, nb_in, half_in, inter_p, n_down, half_d, float(eps),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _raise_on(rc, "int4_o_mlp")
+    if not 1 <= B <= MAX_ROWS:
+        raise ValueError(f"kernel takes 1..{MAX_ROWS} rows, got B={B}")
+    tail = _o_mlp_resident if B == 1 else _o_mlp_rows
+    out = tail(attn, x, norm_w, o_packed, o_scale, gu_packed, gu_scale, down_packed, down_scale, eps)
     int4_o_mlp.launches += 1
     return out
 
@@ -621,6 +617,44 @@ def _o_mlp_resident(attn, x, norm_w, o_packed, o_scale, gu_packed, gu_scale, dow
         _plan_on(dev, key, plan["table"]).data_ptr(), attn.shape[1], H, nb_o, half_o, nb_in, half_in, inter_p,
         n_down, half_d, plan["ko"], plan["kd"], plan["maxu"], *plan["parts"], plan["xs_bytes"], plan["img_bytes"],
         grid, float(eps), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, "int4_o_mlp")
+    return out
+
+
+def _o_mlp_rows(attn, x, norm_w, o_packed, o_scale, gu_packed, gu_scale, down_packed, down_scale, eps):
+    """K6 at B = 2..16 (int4_o_mlp_rows_kernel): one block per SM, the plan
+    of o_mlp_plan(..., B), tensor-core products over all rows."""
+    from cosyvoice_tpu_torch.ops._build import load_library
+
+    (B, n_attn), H, dev = attn.shape, x.shape[-1], x.device
+    nb_o, half_o, _ = o_packed.shape
+    _, nb_in, half_in, inter_p = gu_packed.shape
+    n_down, half_d, _ = down_packed.shape
+    if (
+        H % UNIT_COLS or inter_p % UNIT_COLS or n_attn % 8 or max(half_o, half_in, half_d) > 256
+        or min(half_o, half_in, half_d) % 8 or any(t.data_ptr() % 16 for t in (attn, x, norm_w))
+    ):
+        raise ValueError(
+            f"kernel takes widths that are multiples of {UNIT_COLS}, a multiple of 8 attention inputs, scale blocks "
+            f"of 16..512 rows and 16-byte aligned attn, x and norm weight at B > 1, got H={H}, inter={inter_p}, "
+            f"n_attn={n_attn}, half {half_o}/{half_in}/{half_d}"
+        )
+    grid = grid_of(dev)
+    key = ("o_mlp_rows", grid, H, nb_o, half_o, nb_in, half_in, inter_p, n_down, half_d, B)
+    plan = o_mlp_plan(*key[1:])
+    check_shared_memory("int4_o_mlp", plan["xs_bytes"] + plan["red_bytes"] + plan["img_bytes"], K6_ROWS_STATIC_SMEM,
+                        smem_limit(dev))
+    # one f32 workspace: o partials [ko, B, H], down partials [kd, B, H], then act [B, inter_p] bf16
+    work = torch.empty((plan["ko"] + plan["kd"]) * B * H + B * inter_p // 2, device=dev, dtype=torch.float32)
+    out = torch.empty_like(x)
+    rc = load_library().cvt_int4_o_mlp_rows(
+        attn.data_ptr(), int(attn.dtype == torch.bfloat16), x.data_ptr(), norm_w.data_ptr(), o_packed.data_ptr(),
+        o_scale.data_ptr(), gu_packed.data_ptr(), gu_scale.data_ptr(), down_packed.data_ptr(), down_scale.data_ptr(),
+        work.data_ptr(), out.data_ptr(), _counters(dev, 2 + H // UNIT_COLS).data_ptr(),
+        _plan_on(dev, key, plan["table"]).data_ptr(), B, n_attn, H, nb_o, half_o, nb_in, half_in, inter_p, n_down,
+        half_d, plan["ko"], plan["kd"], plan["maxu"], *plan["parts"], plan["xs_bytes"], plan["red_bytes"],
+        plan["img_bytes"], grid, float(eps), torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, "int4_o_mlp")
     return out

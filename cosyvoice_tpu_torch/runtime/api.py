@@ -116,6 +116,7 @@ class CosyVoice2:
     def __init__(
         self,
         model_dir: str = "",
+        fp16: bool = False,  # accepted and unused, as in the JAX API
         seed: int = 1986,
         lm_cfg: Optional[LMConfig] = None,
         flow_cfg: Optional[FlowConfig] = None,

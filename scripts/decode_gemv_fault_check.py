@@ -1,7 +1,7 @@
 """Fault check of chip_smoke.py's K1, K3, K4, K5 and K6 comparisons; needs one CUDA card.
 
 Builds `cosyvoice_tpu_torch/csrc/decode_attention.cu` (K1, K3) and
-`int4_fused.cu` (K4, K5, and K6 at B=1) as they are and once per planted
+`int4_fused.cu` (K4, K5, and K6 at B=1 and B > 1) as they are and once per planted
 fault (MUTANTS), each into a library of its own under
 `build/decode_gemv_faults/`, and runs chip_smoke's holding checks (`hold_k1`,
 `hold_k3` for the attention source, `hold_k4`, `hold_k5` and `hold_k6` for the
@@ -92,13 +92,27 @@ MUTANTS = {
         "k5_high_nibbles_unsigned": [("nib_pair(ax4, bx4, sel, 0x43084308u), nib_pair(ay4, by4, sel, 0x43084308u)",
                                       "nib_pair(ax4, bx4, sel, 0x43004300u), nib_pair(ay4, by4, sel, 0x43004300u)")],
         # K5: the grid barrier's counters are not returned to 0, so the next launch passes its barrier early
-        "k5_barrier_not_reset": [("  grid_exit(p.bar);\n}\n\n// The grid of a cooperative launch",
-                                  "  __syncthreads();\n}\n\n// The grid of a cooperative launch")],
+        "k5_barrier_not_reset": [("  grid_exit(p.bar);\n}\n\n// ---- K6 at B = 2..16",
+                                  "  __syncthreads();\n}\n\n// ---- K6 at B = 2..16")],
+        # K6 at B > 1: x2 leaves out the last split of the o_proj partials
+        "k6rows_x2_drops_last_o_split": [("v[s] = s < p.ko ? __ldcg(", "v[s] = s < p.ko - 1 ? __ldcg(")],
+        # K6 at B > 1: the last unit of a tile leaves out the last split of the down partials
+        "k6rows_tile_sum_drops_last_split": [("d[s] = s < p.kd ? __ldcg(", "d[s] = s < p.kd - 1 ? __ldcg(")],
+        # K6 at B > 1: every row's h2 takes row 0's norm
+        "k6rows_norm_of_row_0": [("a = x2s[(size_t)r * H + k] * inv[r] * nw[k];",
+                                  "a = x2s[(size_t)r * H + k] * inv[0] * nw[k];")],
+        # K6 at B > 1: f32 attention rows past the first 8 are not staged (two products a fragment)
+        "k6rows_attn_rows_past_8_unstaged": [("static_cast<const float*>(p.attn) + c0, p.B, kRows,",
+                                              "static_cast<const float*>(p.attn) + c0, p.B, 8,")],
+        # K6 at B > 1: the down tickets are not returned to 0, so the next launch never writes out
+        "k6rows_ticket_not_reset": [(
+            "*reinterpret_cast<const uint32_t*>(&hi));\n        }\n        if (threadIdx.x == 0) p.bar[2 + tile] = 0;\n",
+            "*reinterpret_cast<const uint32_t*>(&hi));\n        }\n")],
     },
 }
 HOLDS = {"decode_attention.cu": ("hold_k1", "hold_k3"), "int4_fused.cu": ("hold_k4", "hold_k5", "hold_k6")}
 ENTRIES = {"decode_attention.cu": ("cvt_gqa_decode_attention", "cvt_gqa_decode_attention_quant"),
-           "int4_fused.cu": ("cvt_int4_gemv", "cvt_int4_mlp", "cvt_int4_o_mlp", "cvt_int4_o_mlp_resident")}
+           "int4_fused.cu": ("cvt_int4_gemv", "cvt_int4_mlp", "cvt_int4_o_mlp_rows", "cvt_int4_o_mlp_resident")}
 
 
 def main():

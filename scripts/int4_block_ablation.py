@@ -1,10 +1,10 @@
-"""Where the time of K7 (whole int4p decode step), K6 (fused int4 layer tail, B=1) and K5 (fused int4 MLP of the
-bistream extends) goes, by ablation; needs one CUDA card.
+"""Where the time of K7 (whole int4p decode step), K6 (fused int4 layer tail, B=1 and the batched steps' B > 1) and
+K5 (fused int4 MLP of the bistream extends) goes, by ablation; needs one CUDA card.
 
 Builds `csrc/int4_block.cu` and `csrc/int4_fused.cu` as they are and cut short at successive points (CUTS, per
 kernel), each into a library of its own under `build/int4_block_ablation/`, and times each through the real wrappers
-at chip_smoke.py's phase-3 shapes: K7 over a 2048-row arena at pos 0 (no arena key read) and at pos 1023, K6 at B=1,
-K5 at 5 and 16 rows (CUDA events around a replayed graph over rotating input sets that exceed twice the L2). The
+at chip_smoke.py's phase-3 shapes: K7 over a 2048-row arena at pos 0 (no arena key read) and at pos 1023, K6 at B=1
+and ("K6 rows", int4_o_mlp_rows_kernel) at 4 and 16 rows, K5 at 5 and 16 rows (CUDA events around a replayed graph over rotating input sets that exceed twice the L2). The
 difference between two successive cuts is the time of the stage between them; "as is without copies" is the kernel
 with no weight or arena copy issued (it computes on whatever shared memory holds), K5's "as is without k-steps" the
 kernel with its tensor-core loop left out. The cut kernels compute nothing useful: only their times are read.
@@ -66,6 +66,14 @@ K6_COPIES = [("    mbar_expect(mbar, n_o * uo.bytes());\n    for (int k = 0; k <
               "    mbar_expect(mbar + 1, 0);\n    if (threadIdx.x >= 100000)\n    for (int k = 0; k < n_g; ++k)\n"),
              ("    mbar_expect(mbar + 2, n_d * ud.bytes());\n    for (int k = 0; k < n_d; ++k)\n",
               "    mbar_expect(mbar + 2, 0);\n    if (threadIdx.x >= 100000)\n    for (int k = 0; k < n_d; ++k)\n")]
+
+# points of K6 at B > 1 (int4_o_mlp_rows_kernel) that its cuts start from
+K6R_COPIES_OUT = "  // every copy of the launch goes out first: o, then the norm weight and gate|up, then down\n"
+K6R_PHASE_1 = "  // phase 1: each o unit's split of attn staged in bf16"
+K6R_H2 = "    const float* nw = reinterpret_cast<const float*>(img_g) - H;\n"
+K6R_PHASE_2 = "  // phase 2 (blocks with gate|up units)"
+K6R_GATE_UP = "    __syncthreads();\n    run_mma_units<NH>(img_g, ug,"
+K6R_PHASE_3 = "  // phase 3: down units over their split of act -> f32 partials"
 
 # K5's copies, and the no-copy stand-ins that keep its mbarriers' accounting
 K5_COPIES = [("    mbar_expect(mbar, n_g * ug.bytes());\n    for (int k = 0; k < n_g; ++k)\n",
@@ -137,6 +145,23 @@ CUTS = {
                             + "\n  // phase 4: out = x2")],
         }),
     }),
+    "K6 rows": ("int4_fused.cu", {
+        "resident": ("int4_o_mlp_rows_kernel", {
+            "launch only": [(K6R_COPIES_OUT, "  " + RETURN + K6R_COPIES_OUT)],
+            "barriers alone": [(K6R_COPIES_OUT, "  " + _skip(K6_BARRIERS + " grid_exit(p.bar); return;") + K6R_COPIES_OUT)],
+            "+ weight copies": [(K6R_PHASE_1, "  " + _skip("__syncthreads(); mbar_wait(mbar, 0); mbar_wait(mbar + 1, 0); "
+                                                          "mbar_wait(mbar + 2, 0); " + K6_BARRIERS
+                                                          + " grid_exit(p.bar); return;") + K6R_PHASE_1)],
+            "+ 1 (attn staging, o_proj)": [(K6R_PHASE_2, "  " + _skip(
+                "mbar_wait(mbar + 1, 0); mbar_wait(mbar + 2, 0); grid_arrive(p.bar); grid_wait(p.bar, 2 * gridDim.x); "
+                "grid_exit(p.bar); return;") + K6R_PHASE_2)],
+            "+ x2, norm, h2": [(K6R_GATE_UP, "    __syncthreads();\n    if (threadIdx.x >= 100000) run_mma_units<NH>(img_g, ug,"),
+                               (K6R_PHASE_3, "  " + _skip("mbar_wait(mbar + 2, 0); grid_exit(p.bar); return;") + K6R_PHASE_3)],
+            "+ 2 (gate|up)": [(K6R_PHASE_3, "  " + _skip("mbar_wait(mbar + 2, 0); grid_exit(p.bar); return;")
+                               + K6R_PHASE_3)],
+            "as is without copies": K6_COPIES,
+        }),
+    }),
     "K5": ("int4_fused.cu", {
         "resident": ("int4_mlp_kernel<1>", {
             "launch only": [("  // every copy of the launch goes out first: gate|up, then down\n",
@@ -203,6 +228,24 @@ TIMELINE = {
                        ("  grid_exit(p.bar);\n}\n\n", "  TR(8);\n  grid_exit(p.bar);\n}\n\n")],
                       ["start", "copies issued", "o landed", "o units done", "barrier 1 passed", "x2 summed",
                        "gate|up units done", "barrier 2 passed", "down units and tickets done"]),
+    "K6 rows": ([_TRACE_HDR,
+                 ("  uint8_t* img_d = img_g + n_g * ug.bytes();\n", "  uint8_t* img_d = img_g + n_g * ug.bytes();\n  TR(0);\n"),
+                 (K6R_PHASE_1, "  TR(1);\n" + K6R_PHASE_1),
+                 ("  mbar_wait(mbar, 0);\n  run_mma_units<NH>(img, uo,", "  mbar_wait(mbar, 0);\n  TR(2);\n  run_mma_units<NH>(img, uo,"),
+                 ("  grid_arrive(p.bar);\n  grid_wait(p.bar, gridDim.x);\n",
+                  "  TR(3);\n  grid_arrive(p.bar);\n  grid_wait(p.bar, gridDim.x);\n  TR(4);\n"),
+                 (K6R_H2, "    TR(5);\n" + K6R_H2),
+                 (K6R_GATE_UP, "    TR(6);\n    run_mma_units<NH>(img_g, ug,"),
+                 ("  grid_arrive(p.bar);\n  grid_wait(p.bar, 2 * gridDim.x);\n",
+                  "  TR(7);\n  grid_arrive(p.bar);\n  grid_wait(p.bar, 2 * gridDim.x);\n  TR(8);\n"),
+                 ("    __syncthreads();\n    run_mma_units<NH>(img_d, ud, n_d, xs, (size_t)kRows * sd, sd, red, [&](int k, int r, "
+                  "int j, float s, float) {\n      if (r < p.B) p.part_d[",
+                  "    TR(9);\n    run_mma_units<NH>(img_d, ud, n_d, xs, (size_t)kRows * sd, sd, red, [&](int k, int r, "
+                  "int j, float s, float) {\n      if (r < p.B) p.part_d["),
+                 ("  grid_exit(p.bar);\n}\n\n}  // namespace", "  TR(10);\n  grid_exit(p.bar);\n}\n\n}  // namespace")],
+                ["start", "copies issued", "attn staged, o landed", "o units done", "barrier 1 passed",
+                 "gate|up landed, x2 and norm done", "h2 staged", "gate|up units done", "barrier 2 passed", "act staged, down landed",
+                 "down units and tile sums done"]),
     "K5": ([_TRACE_HDR,
             ("  uint8_t* img_d = img + n_g * ug.bytes();\n", "  uint8_t* img_d = img + n_g * ug.bytes();\n  TR(0);\n"),
             ("  // phase 1: x staged (zero past n_in and past B)", "  TR(1);\n  // phase 1: x staged (zero past n_in and past B)"),
@@ -212,14 +255,14 @@ TIMELINE = {
             ("    __syncthreads();\n    run_mma_units<NH>(img_d", "    __syncthreads();\n    TR(5);\n    run_mma_units<NH>(img_d"),
             ("                      });\n    for (int k = 0; k < n_d; ++k) {\n      const int tile = ids_d[k] % tiles;",
              "                      });\n    TR(6);\n    for (int k = 0; k < n_d; ++k) {\n      const int tile = ids_d[k] % tiles;"),
-            ("  grid_exit(p.bar);\n}\n\n// The grid of a cooperative launch",
-             "  TR(7);\n  grid_exit(p.bar);\n}\n\n// The grid of a cooperative launch")],
+            ("  grid_exit(p.bar);\n}\n\n// ---- K6 at B = 2..16",
+             "  TR(7);\n  grid_exit(p.bar);\n}\n\n// ---- K6 at B = 2..16")],
            ["start", "copies issued", "x staged, gate|up landed", "gate|up units done", "barrier passed",
             "act staged, down landed", "down units done", "tile sums done"]),
 }
 
 ENTRIES = {"int4_block.cu": ("cvt_int4_decode_layers",),
-           "int4_fused.cu": ("cvt_int4_mlp", "cvt_int4_o_mlp", "cvt_int4_o_mlp_resident")}
+           "int4_fused.cu": ("cvt_int4_mlp", "cvt_int4_o_mlp", "cvt_int4_o_mlp_rows", "cvt_int4_o_mlp_resident")}
 
 
 def design_of(kernel, text):
@@ -247,6 +290,8 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     libs, order = {}, {}
     for kernel, (source, _) in CUTS.items():
+        if kernel == "K6 rows" and "int4_o_mlp_rows_kernel" not in (_build.CSRC_DIR / source).read_text():
+            continue  # a checkout from before K6's B > 1 redesign
         design, cuts = design_of(kernel, (_build.CSRC_DIR / source).read_text())
         variants = {**cuts, "timeline": TIMELINE[kernel][0]} if design == "resident" and kernel in TIMELINE else cuts
         paths = build_variants(REPO / "build" / "int4_block_ablation" / kernel, source, variants)
@@ -310,7 +355,16 @@ def main():
         print(f"K6 ({design}) B=1, us per call: {cuts}")
         if design == "resident":
             timeline("K6", "K6 B=1", int4.int4_o_mlp, (sets[0], {}))
-        del sets
+        weights = [s[3:] for s in sets]
+        if "K6 rows" in order:
+            design, names = order["K6 rows"]
+            for B in (4, 16):
+                sets = [(torch.randn((B, H), generator=gen, device="cuda"),
+                         torch.randn((B, H), generator=gen, device="cuda").to(torch.bfloat16), nw) + w for w in weights]
+                cuts = ", ".join(f"{name} {timed('K6 rows', name, sets, int4.int4_o_mlp, n):.2f}" for name in names)
+                print(f"K6 ({design}) B={B}, us per call: {cuts}")
+                timeline("K6 rows", f"K6 B={B}", int4.int4_o_mlp, (sets[0], {}))
+        del sets, weights
         torch.cuda.empty_cache()
         design, names = order["K5"]
         n = cs.n_sets(7.74e6)

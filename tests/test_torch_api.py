@@ -23,6 +23,7 @@ the API still raises. Checkpoints, tokenizer assets, save_pretrained and
 set_sampling are held by tests/test_torch_checkpoint_api.py,
 tests/test_torch_bpe.py and tests/test_torch_sampling.py."""
 
+import inspect
 import json
 import os
 import pickle
@@ -272,6 +273,32 @@ def test_detect_model_version(tmp_path, files, version):
 def test_automodel_builds_cosyvoice2_from_config_json(tmp_path):
     api = AutoModel(_write_dir(tmp_path), device="cpu")
     assert type(api) is CosyVoice2 and api.lm.cfg.qwen.hidden_size == 32
+
+
+def test_constructor_signature_matches_jax_api():
+    """The port's CosyVoice2.__init__ takes the JAX one's parameters in the
+    same order with the same defaults (fp16 second, accepted and unused),
+    and one more at the end: device."""
+    def params(cls):
+        return [(p.name, p.kind, p.default) for p in inspect.signature(cls.__init__).parameters.values()]
+
+    port, jax_api = params(CosyVoice2)[1:], params(JCosyVoice2)[1:]  # self apart
+    assert port[:-1] == jax_api and port[1] == ("fp16", inspect.Parameter.POSITIONAL_OR_KEYWORD, False)
+    assert port[-1][0] == "device"
+
+
+def test_fp16_is_accepted_by_keyword_and_by_position(tmp_path):
+    """CosyVoice2(dir, fp16=False) and AutoModel(dir, fp16=False) construct;
+    a positional False lands on fp16, not on seed."""
+    model_dir = _write_dir(tmp_path)
+    api = AutoModel(model_dir, fp16=False, device="cpu")
+    assert type(api) is CosyVoice2
+    cfgs = dict(lm_cfg=api.lm.cfg, flow_cfg=api.flow.cfg, hift_cfg=api.hift.cfg)
+    assert type(AutoModel("", fp16=False, device="cpu", **cfgs)) is CosyVoice2
+    positional = CosyVoice2(model_dir, False, 7, device="cpu")
+    by_name = CosyVoice2(model_dir, fp16=False, seed=7, device="cpu")
+    for a, b in zip(positional.lm.module.state_dict().values(), by_name.lm.module.state_dict().values()):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("call,item", [

@@ -18,6 +18,9 @@ pytestmark = pytest.mark.cuda
 # two bf16 ulps at the largest |reference|: kernel and plain version each
 # round one f32 result to bf16
 TWO_ULPS = 2**-6
+# K6's rows: the B=1 decode step's kernel, then the batched steps' (one
+# tensor-core product per weight fragment up to 8 rows, two from 9)
+K6_ROWS = (1, 2, 4, 8, 9, 16)
 
 
 def _need_card():
@@ -105,11 +108,13 @@ def test_cuda_kernels_match_plain():
         for p, s in (wq[:2], wq[2:4]):
             out, ref = tint4.int4_gemv(x, p, s), tint4.int4_gemv_plain(x, p, s)
             assert _err(out, ref) <= TWO_ULPS * ref.float().abs().max().item(), (B, tuple(p.shape))
-    attn, x = torch.randn(1, 896, device="cuda"), torch.randn(1, 896, device="cuda").bfloat16()
     nw = torch.ones(896, device="cuda")
-    out, ref = tint4.int4_o_mlp(attn, x, nw, *wq_tail), tint4.int4_o_mlp_plain(attn, x, nw, *wq_tail)
-    torch.cuda.synchronize()
-    assert _err(out, ref) <= 2**-5 * ref.float().abs().max().item()
+    for B in K6_ROWS:  # B=1's kernel, then the batched steps' (8 rows a product, two from 9)
+        attn, x = torch.randn(B, 896, device="cuda"), torch.randn(B, 896, device="cuda").bfloat16()
+        for a in (attn, attn.bfloat16()):  # K3's f32 output, K1's bf16
+            out, ref = tint4.int4_o_mlp(a, x, nw, *wq_tail), tint4.int4_o_mlp_plain(a, x, nw, *wq_tail)
+            torch.cuda.synchronize()
+            assert _err(out, ref) <= 2**-5 * ref.float().abs().max().item(), (B, a.dtype)
 
 
 def _repeat_case(kernel, B):
@@ -253,13 +258,13 @@ def test_cuda_k7_matches_plain(pos):
         assert _err(o, r) <= 2 * floor, (what, _err(o, r), floor)
 
 
-@pytest.mark.parametrize("kernel", ["K6", "K7"])
-def test_cuda_resident_kernels_repeat_and_zero_their_counters(kernel):
-    """K6 at B=1 and K7 (one block per SM, weights streamed into shared
-    memory, grid barriers and tickets on a persistent counter buffer): the
-    same call three times gives the same bits, and every counter is back at
-    0 after each call, so the next launch or a graph replay finds them
-    zeroed."""
+@pytest.mark.parametrize("kernel,B", [*(("K6", B) for B in K6_ROWS), ("K7", 1)])
+def test_cuda_resident_kernels_repeat_and_zero_their_counters(kernel, B):
+    """K6 at K6_ROWS rows and K7 (one block per SM, weights streamed into
+    shared memory, grid barriers and tickets on a persistent counter
+    buffer): the same call three times gives the same bits, and every
+    counter is back at 0 after each call, so the next launch or a graph
+    replay finds them zeroed."""
     _need_card()
     if kernel == "K6":
         rng = np.random.default_rng(70)
@@ -267,7 +272,7 @@ def test_cuda_resident_kernels_repeat_and_zero_their_counters(kernel):
         wq = [torch.from_numpy(a).cuda() for a in (*tint4.pack_gemv_int4(w(896, 896)),
                                                    *tint4.pack_gate_up_int4(w(896, 2 * 4864)),
                                                    *tint4.pack_down_int4(w(4864, 896)))]
-        args = (torch.randn(1, 896, device="cuda"), torch.randn(1, 896, device="cuda").bfloat16(),
+        args = (torch.randn(B, 896, device="cuda"), torch.randn(B, 896, device="cuda").bfloat16(),
                 torch.ones(896, device="cuda"), *wq)
         outs = [tint4.int4_o_mlp(*args) for _ in range(3)]
     else:

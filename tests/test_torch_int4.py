@@ -78,7 +78,11 @@ def test_gemv_plain_matches_pallas_interpret(B, n_in, n_out):
     assert (np.abs(got - want) <= limit).all(), np.max(np.abs(got - want) / limit)
 
 
-@pytest.mark.parametrize("B", [1, 3])
+# K6's rows: the B=1 decode step, an odd count, the batched step (4), the limit
+O_MLP_ROWS = [1, 3, 4, 16]
+
+
+@pytest.mark.parametrize("B", O_MLP_ROWS)
 def test_o_mlp_plain_matches_xla_reference(B):
     args = _tail_case(2, B)
     want = np.asarray(jint4.int4_o_mlp_reference(*_j(args), eps=1e-6, dtype=jnp.float32))
@@ -92,7 +96,7 @@ def test_o_mlp_plain_matches_xla_reference(B):
     np.testing.assert_allclose(got, unfused.numpy(), rtol=0, atol=ATOL_F32)
 
 
-@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("B", O_MLP_ROWS)
 def test_o_mlp_plain_matches_pallas_interpret(B):
     """Against the Pallas kernel (interpret mode, block_inter 512), which
     rounds the attention input, h2 and silu(g)*u to bf16 and uses the fold
@@ -214,9 +218,9 @@ def test_gemv_plan_at_the_lm_shapes():
     assert tint4.gemv_plan(4, 896) == (28, 4)
 
 
-# K6 at B=1 (int4_o_mlp_resident_kernel): (H, nb_o, half_o, nb_in, half_in,
-# inter_p, nd, half_d) at full width and at these tests' widths (hidden 384,
-# intermediate 448 -> 512)
+# K6 (int4_o_mlp_resident_kernel at B=1, int4_o_mlp_rows_kernel at B > 1):
+# (H, nb_o, half_o, nb_in, half_in, inter_p, nd, half_d) at full width and at
+# these tests' widths (hidden 384, intermediate 448 -> 512)
 O_MLP_SHAPES = {"full": (896, 4, 128, 4, 128, 5120, 10, 256), "tiny": (384, 2, 128, 2, 128, 512, 1, 256)}
 H100_SMEM_OPTIN = 232448  # bytes of shared memory one block may use on an H100
 
@@ -292,6 +296,137 @@ def test_o_mlp_units_compute_the_tail_products():
                 parts[sp, cols] = tint4.int4_matmul_blocked(xs, p[rows, :, cols], s[rows, cols], torch.float32)[0]
         np.testing.assert_allclose(parts.sum(0).numpy(), tint4.int4_matmul_blocked(xin, p, s, torch.float32)[0].numpy(),
                                    rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("B", [2, 4, 8, 9, 16])
+@pytest.mark.parametrize("width,grid", [("full", 132), ("full", 114), ("tiny", 16), ("tiny", 4)])
+def test_o_mlp_rows_plan_covers_every_unit_once(width, grid, B):
+    """K6's plan at B > 1 (int4_o_mlp_rows_kernel): the same units as at
+    B=1, every unit of every phase on exactly one block, every (column
+    tile, scale block) of o_proj and down once; the table the kernel reads
+    says the same; each unit's items fit K5's item buffer; the staged rows
+    (each o unit's split of attn, h2, each down unit's split of act) fit
+    xs; the items' sums and x2 [B, H] in f32 fit red."""
+    H, nb_o, half_o, nb_in, half_in, inter, nd, half_d = O_MLP_SHAPES[width]
+    plan = tint4.o_mlp_plan(grid, *O_MLP_SHAPES[width], B)
+    one = tint4.o_mlp_plan(grid, *O_MLP_SHAPES[width])
+    assert plan["plan"] == one["plan"] and (plan["ko"], plan["kd"], plan["img_bytes"]) == (one["ko"], one["kd"],
+                                                                                          one["img_bytes"])
+    tiles, ko, kd, rows = H // 64, plan["ko"], plan["kd"], plan["rows"]
+    assert rows == (8 if B <= 8 else 16) and rows >= B
+    counts = (tiles * ko, inter // 64, tiles * kd)
+    _check_resident_plan(plan["plan"], counts, grid, every_block=width == "full" or grid <= sum(counts))
+    assert (_cover_splits(plan["plan"][0], tiles, nb_o, ko) == 1).all()
+    assert (_cover_splits(plan["plan"][2], tiles, nd, kd) == 1).all()
+    table = plan["table"]
+    for k, ph in enumerate(plan["plan"]):
+        for b, ids in enumerate(ph):
+            assert table[b, k, 0] == len(ids) and list(table[b, k, 1 : 1 + len(ids)]) == ids
+    shapes = ((1, nb_o // ko, half_o), (2, nb_in, half_in), (1, nd // kd, half_d))
+    for (planes, nb, half), parts in zip(shapes, plan["parts"]):
+        assert (half // parts) % 8 == 0 and planes * nb * parts <= tint4.MLP_MAX_ITEMS
+    maxu = plan["maxu"]
+    need = max(maxu * rows * (nb_o // ko * 2 * half_o + 8), rows * (nb_in * 2 * half_in + 8),
+               maxu * rows * (nd // kd * 2 * half_d + 8)) * 2
+    assert plan["xs_bytes"] >= need and plan["xs_bytes"] % 128 == 0
+    assert plan["red_bytes"] >= max(tint4.MLP_MAX_ITEMS * 2 * rows * 32 * 4, B * H * 4) and plan["red_bytes"] % 128 == 0
+
+
+def test_o_mlp_rows_plan_fits_an_h100_block_at_16_rows():
+    """At full width on 132 SMs, 16 rows: o_proj in 4 splits (56 units of
+    one scale block, 16 items of 8 rows), gate|up 80 units, down in 5 splits
+    (70 units), at most one unit of each phase per block; the block's
+    dynamic and static shared memory fit an H100 block, and a size the card
+    cannot give is refused."""
+    plan = tint4.o_mlp_plan(132, *O_MLP_SHAPES["full"], 16)
+    assert (plan["ko"], plan["kd"], plan["maxu"], plan["parts"]) == (4, 5, 1, (16, 2, 8))
+    assert [sum(1 for ids in ph if ids) for ph in plan["plan"]] == [56, 80, 70]
+    need = plan["xs_bytes"] + plan["red_bytes"] + plan["img_bytes"]
+    tint4.check_shared_memory("int4_o_mlp", need, tint4.K6_ROWS_STATIC_SMEM, H100_SMEM_OPTIN)
+    with pytest.raises(ValueError, match="shared memory"):
+        tint4.check_shared_memory("int4_o_mlp", need, tint4.K6_ROWS_STATIC_SMEM, need)
+
+
+def _units_product(xs, p, s, blocks, half, parts, cols):
+    """One plane of a unit as int4_o_mlp_rows_kernel sums it: items (scale
+    block, part of its rows), each times the block's scales, in item order;
+    xs [B, len(blocks) * 2 * half]."""
+    out, rows = 0, half // parts
+    for b in blocks:
+        for part in range(parts):
+            r = slice(part * rows, (part + 1) * rows)
+            xb = xs[:, (b - blocks[0]) * 2 * half :]
+            y = xb[:, r] @ ((p[b, r, cols] & 15) - 8).float() + xb[:, half:][:, r] @ (p[b, r, cols] >> 4).float()
+            out = out + y * s[b, cols]
+    return out
+
+
+def _o_mlp_by_units(attn, x, nw, op, osc, gup, gus, dp, ds, grid=16, eps=1e-6):
+    """K6's unit decomposition at B > 1 on the host, as the kernel computes
+    it: o units write f32 partials per split; x2 = x + the partials summed
+    in split order; h2 = bf16(rmsnorm(x2) * w); gate|up units give act =
+    bf16(silu(g) * u); down units write partials per split; out = bf16(x2 +
+    the partials summed in split order). Returns (out, (the o product, the
+    gate and up products, the down product) as the units sum them)."""
+    B, H = x.shape
+    nb_o, half_o, _ = op.shape
+    _, nb_in, half_in, inter = gup.shape
+    nd, half_d, _ = dp.shape
+    plan = tint4.o_mlp_plan(grid, H, nb_o, half_o, nb_in, half_in, inter, nd, half_d, B)
+    ko, kd, (parts_o, parts_g, parts_d), tiles = plan["ko"], plan["kd"], plan["parts"], H // 64
+
+    def splits(ph, p, s, xin, k, parts, half):
+        nbu, part = p.shape[0] // k, torch.zeros(k, B, H)
+        for blk in ph:
+            for uid in blk:
+                sp, tile = divmod(uid, tiles)
+                cols = slice(64 * tile, 64 * tile + 64)
+                xs = xin[:, sp * nbu * 2 * half : (sp + 1) * nbu * 2 * half]
+                part[sp, :, cols] = _units_product(xs, p, s, range(sp * nbu, (sp + 1) * nbu), half, parts, cols)
+        total = part[0]
+        for sp in range(1, k):
+            total = total + part[sp]
+        return total
+
+    a = torch.nn.functional.pad(attn.to(torch.bfloat16).float(), (0, nb_o * 2 * half_o - attn.shape[1]))
+    o = splits(plan["plan"][0], op, osc, a, ko, parts_o, half_o)
+    x2 = x.float() + o
+    h2 = (x2 * torch.rsqrt(x2.square().mean(-1, keepdim=True) + eps) * nw).to(torch.bfloat16).float()
+    h2 = torch.nn.functional.pad(h2, (0, nb_in * 2 * half_in - H))
+    gate, up = torch.zeros(B, inter), torch.zeros(B, inter)
+    for blk in plan["plan"][1]:
+        for tile in blk:
+            cols = slice(64 * tile, 64 * tile + 64)
+            gate[:, cols], up[:, cols] = (_units_product(h2, gup[pl], gus[pl], range(nb_in), half_in, parts_g, cols)
+                                          for pl in (0, 1))
+    act = (torch.nn.functional.silu(gate) * up).to(torch.bfloat16).float()
+    down = splits(plan["plan"][2], dp, ds, act, kd, parts_d, half_d)
+    return (x2 + down).to(torch.bfloat16), (o, gate, up, down)
+
+
+@pytest.mark.parametrize("B", [4, 16])
+def test_o_mlp_rows_units_compute_the_tail(B):
+    """The plan's units at B > 1 (64 columns over a split of the scale
+    blocks, items of K5's size summed in item order, splits in split order)
+    give K6's three products within 1e-5 of int4_matmul_blocked on the same
+    inputs, and the tail with the kernel's rounding points within two bf16
+    ulps at the largest |reference| of int4_o_mlp_plain."""
+    attn, x, nw, op, osc, gup, gus, dp, ds = _t(_tail_case(13, B))
+    xb = x.to(torch.bfloat16)
+    out, (o, gate, up, down) = _o_mlp_by_units(attn, xb, nw, op, osc, gup, gus, dp, ds)
+    a = attn.to(torch.bfloat16).float()
+    np.testing.assert_allclose(o.numpy(), tint4.int4_matmul_blocked(a, op, osc, torch.float32).numpy(), rtol=0,
+                               atol=1e-5)
+    x2 = xb.float() + o
+    h2 = (x2 * torch.rsqrt(x2.square().mean(-1, keepdim=True) + 1e-6) * nw).to(torch.bfloat16).float()
+    for got, pl in ((gate, 0), (up, 1)):
+        want = tint4.int4_matmul_blocked(h2, gup[pl], gus[pl], torch.float32)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5)
+    act = (torch.nn.functional.silu(gate) * up).to(torch.bfloat16).float()
+    np.testing.assert_allclose(down.numpy(), tint4.int4_matmul_blocked(act, dp, ds, torch.float32).numpy(), rtol=0,
+                               atol=1e-5)
+    plain = tint4.int4_o_mlp_plain(attn, xb, nw, op, osc, gup, gus, dp, ds).float()
+    np.testing.assert_allclose(out.float().numpy(), plain.numpy(), rtol=0, atol=2**-6 * plain.abs().max().item())
 
 
 def test_item_parts_and_shared_memory_limit():
