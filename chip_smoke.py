@@ -131,7 +131,28 @@ chunk and requires the LM's thread gone and the LM free. The decode steps
 and extends of every stream and its offline request are counted and
 checked as in phase 4.
 
-After the LMs' phases, api builds the public API,
+After the LMs' phases, the Fun-CosyVoice3-0.5B phases
+(runtime/engine.py:build_random_engine_v3: the v3 LM layout over the bf16
+Qwen2-0.5B with a 6761-row bias-less head, the DiT flow, the causal HiFT;
+random weights from seed 0): slice_v3 serves 2 offline requests (text 16
+and 32 ids; random v3 weights stop soon after min_len, 2 x text, at one of
+the 200 stop rows), every decode step through K1 + K2 on graphs keyed by
+the v3 stop mask, the wavs n_tokens * 2 * 480 long, the squelch's counts
+printed, then phase 5's logit hold; stream_v3 streams the text-16 request
+and a text-160 one (min_len 320: prompt + body cross flow_incr_min_tok,
+so the session takes the incremental DiT flow after one catch-up chunk),
+each held by the stream phases' checks and against the same tokens
+synthesised in one pass under the streaming masks (V3_WHOLE_TOL), the
+DiT flow state's peak bytes printed. api_v3 (after api_int4p):
+`CosyVoice3(seed=0)` zero-shot from text and the seeded 3 s voice (equal
+to engine.tts on its frontend's outputs), streamed (the doubling schedule,
+the offline tokens, the first chunk), instruct2 and its refusal of a stray
+<|endofprompt|>, then one request through enable_continuous_batching(2),
+whose batched graphs are keyed by the v3 stop mask; then
+`CosyVoice3(seed=0, quant_lm="int4p")`, one zero-shot request with every
+decode step through K7, and its logits held to LOGIT_TOL_INT4P_BF16.
+
+Then api builds the public API,
 `CosyVoice2(model_dir="", seed=0)` (runtime/api.py: frontend + the bf16
 engine; S3 1280-d, 6 layers, FSQ 6561; CAM++ at its default config), and
 on a seeded 3 s synthetic 16 kHz voice prompt (no file read) holds the
@@ -192,20 +213,21 @@ decode graph of the scheduler and of the B=1 decoder captured up front,
 the count and the seconds printed) behind make_stdlib_server on
 127.0.0.1 (a free port): one request's PCM equal to
 _pcm of the API's own output (the scheduler's generator reseeded before
-each); tools/bench_client.py's sweep at concurrency 1, 2 and 4 with 8
+each); tools/bench_client.py's sweep at concurrency 1, 2 and 4 with 4
 zero-shot requests each ("Hi.", 60 tokens), offline then streamed:
 every response n_tokens * 2 * 480 samples, all of them the scheduler's
 tokens x 960, every decode step through K1 + K2, no graph captured
 while serving, first-chunk, latency and
 request-RTF p50 / p90 and audio seconds per wall second printed;
-/metrics counting the 48 requests and /metrics/reset clearing them; a
+/metrics counting the 24 requests and /metrics/reset clearing them; a
 text of two segments under greedy sampling, serially and through the
 scheduler (both segments at once): chunks in segment order, each
 segment's tokens held as in batch's greedy hold.
 
 The line before the last is {"kernels": [...]}, with each kernel's launches
 summed over the runs of phases 4, 6 and 8, the two bistream slices, the
-three stream phases, the two api phases, ckpt, and the main runs of batch
+three stream phases, slice_v3 and stream_v3, the three api phases, ckpt,
+and the main runs of batch
 and batch_int4p (with the bistream request beside the scheduler) and
 serve's sweep (each counted from 0, replays included); the last line is
 {"ok": true, "device": {...}}. Without a card it exits 2 and prints no
@@ -257,17 +279,18 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16
 L2_BYTES = 50e6  # H100 L2 cache
 
-# Each phase's watchdog budget, 1.5-3x the longest of its times on the card
-# in the runs that set it (six runs of 651-690 s of phases on one H100,
-# idle last; the kernels phase alone has taken 50-79 s across card hosts);
-# the budgets sum to 1119 s, inside the run's 1200 s limit with room to
-# start up.
-PHASE_BUDGET_S = {"device": 5, "build": 25, "kernels": 126, "slice": 18, "check": 9, "graphs": 48, "stream": 49,
-                  "slice_int4p": 26, "check_int4p": 22, "slice_bistream_int4p": 4, "check_bistream_int4p": 6,
-                  "graphs_int4p": 24, "stream_int4p": 14, "slice_int4p_bf16": 28, "check_int4p_bf16": 18,
-                  "slice_bistream_int4p_bf16": 68, "check_bistream_int4p_bf16": 18, "graphs_int4p_bf16": 30,
-                  "stream_int4p_bf16": 54, "api": 40, "api_int4p": 15, "ckpt": 79, "batch": 64, "batch_int4p": 73,
-                  "serve": 132, "idle": 124}
+# Each phase's watchdog budget, at least 1.5x the longest of its times on
+# the card in the runs that set it (the kernels phase has taken 50-88 s
+# across card hosts; the v3 phases at most 7.9 / 8.7 / 20.4 s; the serve
+# phase's sweep was cut from 8 to 4 requests per level to make room for
+# them); the budgets sum to 1102 s, inside the run's 1200 s limit with room
+# to start up.
+PHASE_BUDGET_S = {"device": 5, "build": 25, "kernels": 137, "slice": 17, "check": 9, "graphs": 40, "stream": 44,
+                  "slice_int4p": 25, "check_int4p": 20, "slice_bistream_int4p": 4, "check_bistream_int4p": 5,
+                  "graphs_int4p": 20, "stream_int4p": 11, "slice_int4p_bf16": 26, "check_int4p_bf16": 14,
+                  "slice_bistream_int4p_bf16": 65, "check_bistream_int4p_bf16": 11, "graphs_int4p_bf16": 28,
+                  "stream_int4p_bf16": 51, "slice_v3": 13, "stream_v3": 15, "api": 40, "api_int4p": 14, "api_v3": 33,
+                  "ckpt": 80, "batch": 68, "batch_int4p": 67, "serve": 85, "idle": 130}
 PHASE_SECONDS = {}  # each phase's measured seconds in this run
 
 
@@ -1968,7 +1991,7 @@ def replay_cost(lm, decoder=None, rows=None):
 
     decoder = decoder or lm.decoder
     s, seen, out = decoder.state, set(), {}
-    for (fused, B, T, bistream, _), (graph, _) in sorted(decoder.graphs.items()):
+    for (fused, B, T, mask, _), (graph, _) in sorted(decoder.graphs.items()):
         route = "K7" if fused else "per-layer"
         if route in seen or (rows is not None and T != rows):
             continue
@@ -1981,7 +2004,7 @@ def replay_cost(lm, decoder=None, rows=None):
 
         host_us, dev_ms, host = enqueue_cost(graph.replay, reset)
         out[(route, B, T)] = dev_ms
-        print(f"replay of one {route} decode step (B={B}, arena {T} rows, {'bistream' if bistream else 'v2'} mask): "
+        print(f"replay of one {route} decode step (B={B}, arena {T} rows, {mask} mask): "
               f"host {host_us:.1f} us to enqueue (median of 5 x 4; all {[round(h, 1) for h in host]}), device "
               f"{dev_ms:.4f} ms: host/device {host_us / (dev_ms * 1e3):.3f}")
     return out
@@ -2032,7 +2055,7 @@ def hold_graph_nodes(lm, decoder=None):
             warnings.simplefilter("ignore")  # debug_dump warns that it is a debugging call
             graph.debug_dump(str(path.resolve()))
         nodes = graph_kernels(path.read_text())
-        print(f"decode graph {key} (K7?, batch, arena rows, bistream mask?, sampling): kernel nodes {nodes}, counted "
+        print(f"decode graph {key} (K7?, batch, arena rows, stop mask, sampling): kernel nodes {nodes}, counted "
               f"at capture {counted}")
         if nodes != counted or not any(nodes.values()):
             raise AssertionError(f"decode graph {key}: its kernel nodes are not the launches its replays count")
@@ -2044,7 +2067,7 @@ def phase_graphs(eng, runs):
     cost of a replay."""
     lm = eng.lm
     print(f"static KV arenas: {sorted(n for _, n in lm.arenas.buffers)} rows, {lm.arenas.nbytes() / 1e6:.1f} MB; "
-          f"{len(lm.decoder.graphs)} decode graphs (K7?, batch, arena rows, bistream mask?, sampling): "
+          f"{len(lm.decoder.graphs)} decode graphs (K7?, batch, arena rows, stop mask, sampling): "
           f"{sorted(lm.decoder.graphs)}")
     for label, run, want in runs:
         hold_graphs(eng, label, run, want)
@@ -2110,6 +2133,34 @@ def _stream_once(eng, prompt, text, bistream):
             "lm_s": eng.timer.records["lm"][-1], "log": list(eng.stream_log)}
 
 
+def hold_whole_v3(eng, label, prompt, toks, chunks):
+    """A CosyVoice3 stream's chunks, concatenated, against the same tokens
+    synthesised in one pass under the streaming masks (token2wav at the
+    finalize over every token): the cumulative causal re-vocode emits what
+    one vocode of the whole mel does, within V3_WHOLE_TOL. The offline
+    request's wav differs (its flow attends with no chunk mask): the
+    largest difference is printed beside it."""
+    import numpy as np
+
+    from cosyvoice_tpu_torch.runtime.engine import SessionState
+
+    prompt_text, prompt_speech, prompt_mel, emb = prompt
+    wav = np.concatenate([c["tts_speech"] for c in chunks], axis=1)
+    saved = eng.flow_incr_min_tok, eng.flow_state_max_bytes
+    eng.flow_incr_min_tok = RECOMPUTE_ONLY  # the one pass recomputes the prefix under the chunk masks
+    try:
+        whole = eng.token2wav(SessionState(), np.asarray(toks, np.int32), np.asarray(prompt_speech, np.int32),
+                              prompt_mel, emb, 0, finalize=True, stream=True)
+    finally:
+        eng.flow_incr_min_tok, eng.flow_state_max_bytes = saved
+    d = float(np.abs(wav - whole).max()) if wav.shape == whole.shape else float("inf")
+    print(f"{label}: the stream's {wav.shape[1]} samples against one pass over its {len(toks)} tokens under the "
+          f"streaming masks: max |diff| {d:.3e} (tol {V3_WHOLE_TOL}; rms of the wav {float(np.sqrt((whole ** 2).mean())):.3e})")
+    if not d <= V3_WHOLE_TOL:
+        raise AssertionError(f"{label}: the stream's chunks differ from one pass over its tokens by {d:.3e}")
+    return wav
+
+
 def hold_stream(eng, label, prompt, text, want=None, bistream=None):
     """One request streamed, streamed again on the recompute path alone
     (flow_incr_min_tok RECOMPUTE_ONLY), then offline, the decode on graphs,
@@ -2124,6 +2175,8 @@ def hold_stream(eng, label, prompt, text, want=None, bistream=None):
     state bytes."""
     import numpy as np
     import torch
+
+    from cosyvoice_tpu_torch.runtime.engine import CosyVoice3Engine
 
     prompt_text, prompt_speech, prompt_mel, emb = prompt
     cudnn = torch.backends.cudnn
@@ -2165,6 +2218,10 @@ def hold_stream(eng, label, prompt, text, want=None, bistream=None):
             raise AssertionError(f"{label}, {name}: wav {wav.shape} (finite: {np.isfinite(wav).all()}) for {n} tokens")
         if sizes != _doubling_schedule(eng, n, len(prompt_speech)):
             raise AssertionError(f"{label}, {name}: chunk tokens {sizes}, not the doubling schedule")
+    if isinstance(eng, CosyVoice3Engine):  # the cumulative re-vocode against one pass
+        wav = hold_whole_v3(eng, label, prompt, toks, run["chunks"])
+        print(f"{label}: the stream against the offline request (no chunk mask in its flow): max |diff| "
+              f"{float(np.abs(wav - off['tts_speech']).max()):.3e}, not held")
     paths = [c["path"] for c in run["log"]]
     cross = next((i for i, p in enumerate(paths) if p in ("catch-up", "incremental", "finalize-incremental")),
                  len(paths))
@@ -2438,19 +2495,20 @@ def synthetic_voice(seed, seconds, sr=16000):
     return wav.astype(np.float32)[None]
 
 
-def build_api(**kw):
+def build_api(v3=False, **kw):
     import torch
 
-    from cosyvoice_tpu_torch.runtime.api import CosyVoice2
+    from cosyvoice_tpu_torch.runtime.api import CosyVoice2, CosyVoice3
 
+    cls = CosyVoice3 if v3 else CosyVoice2
     t0 = time.perf_counter()
-    api = CosyVoice2(seed=0, **kw)
+    api = cls(seed=0, **kw)
     if api.frontend.device.type == "cuda":
         torch.cuda.synchronize()
     fe = api.frontend
     n = {name: sum(p.numel() for p in m.parameters()) / 1e6
          for name, m in (("LM", api.lm.module), ("S3", fe.speech_tokenizer), ("CAM++", fe.campplus))}
-    print(f"CosyVoice2(model_dir='', seed=0{''.join(f', {k}={v!r}' for k, v in kw.items())}) in "
+    print(f"{cls.__name__}(model_dir='', seed=0{''.join(f', {k}={v!r}' for k, v in kw.items())}) in "
           f"{time.perf_counter() - t0:.1f} s: " + ", ".join(f"{k} {v:.1f}M params" for k, v in n.items())
           + f"; S3 {fe.speech_tokenizer.cfg}")
     return api
@@ -2655,7 +2713,7 @@ def phase_api(api, per_step):
     return launches
 
 
-def phase_api_int4p(api, per_step):
+def phase_api_int4p(api, per_step, label="int4p"):
     """One zero-shot request through CosyVoice2(quant_lm="int4p"): every
     decode step through K7 (the arena stays within 2048 rows), the tokens
     and wav those of engine.tts on its frontend's outputs. Returns the
@@ -2668,13 +2726,172 @@ def phase_api_int4p(api, per_step):
         prompt = synthetic_voice(1, 3.0)
         api.frontend.frontend_zero_shot("", api.frontend.text_normalize(API_PROMPT_TEXT, split=False), prompt)
         counters = _zero_counts(api.engine)
-        toks, _, _ = hold_api_against_engine(api, "int4p", prompt)
+        toks, _, _ = hold_api_against_engine(api, label, prompt)
         lm = api.lm
         if lm.decode_steps == 0 or lm.fused_steps != lm.decode_steps:
-            raise AssertionError(f"api int4p: {lm.fused_steps} of {lm.decode_steps} decode steps through K7")
+            raise AssertionError(f"api {label}: {lm.fused_steps} of {lm.decode_steps} decode steps through K7")
         return _check_launches(api.engine, counters, per_step), toks
     finally:
         cudnn.deterministic = saved
+
+
+# ---------------------------------------------------------------- CosyVoice3
+
+V3_TEXTS = (16, 32)  # slice_v3's offline requests, text ids (min_len 2 x, max_len 20 x)
+# stream_v3's long request: min_len 320 tokens, so that prompt + body pass
+# flow_incr_min_tok (320) and the session takes the incremental DiT flow
+V3_LONG_TEXT = 160
+# a CosyVoice3 stream's chunks against one pass over its tokens under the
+# streaming masks (float32, TF32 off, cuDNN deterministic); the CPU test
+# tests/test_torch_engine_v3.py holds the same to 1e-3
+V3_WHOLE_TOL = 1e-3
+V3_BATCH = 2  # api_v3's continuous batching: max_batch
+
+
+def build_engine_v3(quant=False):
+    """The full-width Fun-CosyVoice3-0.5B engine (build_random_engine_v3),
+    random weights from seed 0, its sizes printed: the DiT flow state per
+    mel frame is K and V of every block for the CFG pair at every Euler
+    step, float32."""
+    import torch
+
+    from cosyvoice_tpu_torch.runtime.engine import build_random_engine_v3
+    from cosyvoice_tpu_torch.utils.config import cosyvoice3_configs
+
+    t0 = time.perf_counter()
+    eng = build_random_engine_v3(0, "cuda", lm_cfg=cosyvoice3_configs(quant)[0])
+    torch.cuda.synchronize()
+    size = {name: (sum(p.numel() for p in m.parameters()) / 1e6,
+                   sum(p.numel() * p.element_size() for p in m.parameters()) / 1e6)
+            for name, m in (("LM", eng.lm.module), ("DiT flow", eng.flow), ("causal HiFT", eng.hift))}
+    d = eng.flow.estimator.cfg
+    per_frame = 2 * 2 * d.depth * d.heads * d.dim_head * 4 * eng.flow.cfg.cfm.n_timesteps
+    print(f"full-width CosyVoice3 engine (LM quant={eng.lm.cfg.qwen.quant}, head {eng.lm.cfg.head_size} rows, "
+          f"bias {eng.lm.module.llm_decoder.bias is not None}) from seed 0 in {time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{k} {n:.1f}M params ({mb:.0f} MB)" for k, (n, mb) in size.items())
+          + f"; DiT flow state {per_frame / 1e6:.3f} MB per mel frame ({per_frame * 2 * eng.flow_arena0 / 1e9:.3f} GB "
+          f"at the first {eng.flow_arena0}-token arena)")
+    return eng
+
+
+def phase_slice_v3(eng):
+    """slice for CosyVoice3 (V3_TEXTS), every decode step through K1 + K2 on
+    graphs under the v3 stop mask, the squelch counted; then check's logit
+    hold (LOGIT_TOL). Returns (prompt, requests, launches)."""
+    prompt, reqs, launches = phase_slice(eng, PER_STEP["bf16"], text_lens=V3_TEXTS)
+    keys = sorted({k[3] for k in eng.lm.decoder.graphs})
+    silent = sum(int(t in eng.silent_tokens) for _, toks in reqs for t in toks)
+    print(f"v3 decode graphs' stop masks {keys}; squelch: {eng.squelched} silent tokens dropped (runs over "
+          f"{eng.max_silent}) since the engine was built, {silent} kept in these requests' tokens")
+    if eng.lm.graphs and keys != ["v3 min_len"]:
+        raise AssertionError(f"the v3 LM's offline decode graphs are keyed {keys}, not by the v3 stop mask")
+    phase_check(eng, prompt, reqs, LOGIT_TOL)
+    return prompt, reqs, launches
+
+
+def phase_stream_v3(eng, reqs):
+    """The CosyVoice3 engine streamed: slice_v3's text-16 request (its
+    prefix recomputed for every chunk), then a V3_LONG_TEXT request whose
+    session takes the incremental DiT flow once prompt + body reach
+    flow_incr_min_tok; each held by hold_stream (against the recompute-only
+    stream, the offline tokens, and one pass under the streaming masks).
+    Returns the launches."""
+    import numpy as np
+
+    prompt = _prompt(eng)[0]
+    counters = _zero_counts(eng)
+    text, toks = reqs[0]
+    firsts, _ = hold_stream(eng, f"stream LM_v3 text={len(text)}", prompt, text, toks)
+    long_text = np.random.default_rng(11).integers(0, eng.lm.cfg.qwen.vocab_size, V3_LONG_TEXT)
+    first, state_bytes = hold_stream(eng, f"stream LM_v3 text={V3_LONG_TEXT}", prompt, long_text)
+    if not state_bytes:
+        raise AssertionError("the long CosyVoice3 stream never took the incremental DiT flow")
+    launches = _check_launches(eng, counters, PER_STEP["bf16"])
+    firsts += first
+    print(f"stream LM_v3: first-chunk latency p50 {np.percentile(firsts, 50):.1f} ms over {len(firsts)} streams "
+          f"({', '.join(f'{x:.1f}' for x in firsts)} ms); DiT flow state at most {state_bytes / 1e9:.3f} GB "
+          f"(flow_state_max_bytes, growth copies included)")
+    return launches
+
+
+def _zero_shot_inputs(api, prompt):
+    """The frontend's inputs of API_TEXT with API_PROMPT_TEXT and `prompt`."""
+    fe = api.frontend
+    (seg,) = fe.text_normalize(API_TEXT)
+    return fe.frontend_zero_shot(seg, fe.text_normalize(API_PROMPT_TEXT, split=False), prompt)
+
+
+def phase_api_v3(api, per_step):
+    """CosyVoice3(seed=0) at full width from text and the seeded 3 s voice:
+    counted, a zero-shot request equal to engine.tts on its frontend's
+    outputs, the same request streamed (the doubling schedule, the offline
+    tokens, the first chunk), instruct2 (and its refusal of a stray
+    <|endofprompt|>), then one short request through
+    enable_continuous_batching(V3_BATCH), whose batched graphs are keyed by
+    the v3 stop mask; every decode step through K1 + K2. Returns the
+    launches."""
+    import numpy as np
+    import torch
+
+    fe, eng = api.frontend, api.engine
+    sync = _sync_fn(fe.device)
+    prompt = synthetic_voice(1, 3.0)
+    cudnn = torch.backends.cudnn
+    saved, cudnn.deterministic = cudnn.deterministic, True
+    try:
+        _api_call("v3 zero-shot warm-up", sync, api.inference_zero_shot(API_TEXT, API_PROMPT_TEXT, prompt))
+        counters = _zero_counts(eng)
+        toks, api_rtf, eng_rtf = hold_api_against_engine(api, "v3", prompt)
+        n_prompt = len(_zero_shot_inputs(api, prompt)["flow_prompt_speech_token"])
+        outs, stoks, swall, first, saudio = _api_call("v3 zero-shot stream", sync, api.inference_zero_shot(
+            API_TEXT, API_PROMPT_TEXT, prompt, stream=True), stream=True)
+        sched = [len(o["speech_tokens"]) for o in outs]
+        want = _doubling_schedule(eng, len(stoks), n_prompt)
+        print(f"api v3 zero-shot stream: first chunk {first:.1f} ms, streaming RTF {swall / saudio:.4f}, chunks of "
+              f"{sched} tokens (doubling: {want}), tokens equal offline {np.array_equal(stoks, toks)}; chunk log: "
+              + "; ".join(f"{c['path']} {c['tokens']} tok {c['wall_ms']:.1f} ms" for c in eng.stream_log))
+        if sched != want or not np.array_equal(stoks, toks):
+            raise AssertionError("api v3 stream: not the doubling schedule, or not the offline tokens")
+        _api_call("v3 instruct2", sync, api.inference_instruct2(API_TEXT, API_INSTRUCT, prompt))
+        try:
+            list(api.inference_instruct2(API_TEXT, API_INSTRUCT + "<|endofprompt|>", prompt))
+        except ValueError as e:
+            print(f"api v3 instruct2 with a stray <|endofprompt|>: refused ({e})")
+        else:
+            raise AssertionError("api v3 instruct2 took an instruct text with <|endofprompt|>")
+        t, captures = time.perf_counter(), api.lm.graph_captures
+        sched = api.enable_continuous_batching(V3_BATCH)
+        try:
+            print(f"api v3: enable_continuous_batching({V3_BATCH}) captured {api.lm.graph_captures - captures} "
+                  f"decode graphs in {time.perf_counter() - t:.2f} s; the scheduler's keys "
+                  f"{sorted({(k[1], k[3]) for k in sched.decoder.graphs})} (batch, stop mask)")
+            if sched.decoder.enabled and {k[3] for k in sched.decoder.graphs} != {"v3 min_len"}:
+                raise AssertionError("the batched v3 step's graphs are not keyed by the v3 stop mask")
+            steps = sched.decoder.lm.decode_steps
+            _api_call("v3 zero-shot through the scheduler", sync,
+                      api.inference_zero_shot(API_TEXT, API_PROMPT_TEXT, prompt))
+            if api.lm.decode_steps == steps:
+                raise AssertionError("api v3: the scheduler decoded no step")
+        finally:
+            sched.stop()
+            api.engine.scheduler = None
+        launches = _check_launches(eng, counters, per_step)
+    finally:
+        cudnn.deterministic = saved
+    print(f"api v3 RTF: {api_rtf:.4f} against the engine's {eng_rtf:.4f} on the same ids")
+    return launches
+
+
+def phase_api_v3_int4p(api):
+    """One zero-shot request through CosyVoice3(quant_lm="int4p"): every
+    decode step through K7 (phase_api_int4p's hold against engine.tts),
+    then check's logit hold (LOGIT_TOL_INT4P_BF16) on its tokens. Returns
+    the launches."""
+    launches, toks = phase_api_int4p(api, PER_STEP["int4p_bf16"], "v3 int4p")
+    mi = _zero_shot_inputs(api, synthetic_voice(1, 3.0))
+    phase_check(api.engine, (mi["prompt_text_tokens"], mi["llm_prompt_speech_token"]), [(mi["text_tokens"], toks)],
+                LOGIT_TOL_INT4P_BF16)
+    return launches
 
 
 # ---------------------------------------------------------------- checkpoints
@@ -3272,7 +3489,7 @@ def phase_batch_int4p(cfg, device="cuda"):
 # streamed
 SERVE_TEXT = "Hi."
 SERVE_LEVELS = (1, 2, 4)
-SERVE_REQUESTS = 8
+SERVE_REQUESTS = 4
 
 
 def _http(port, method, path, body=None):
@@ -3526,6 +3743,17 @@ def main(argv):
             launches[key] += n
         held.append((suffix, eng, idle))
         del eng
+    # Fun-CosyVoice3-0.5B at full width: the engine offline and streamed
+    with Phase("slice_v3"):
+        eng = build_engine_v3()
+        _, reqs, counts = phase_slice_v3(eng)
+    with Phase("stream_v3"):
+        for key, n in phase_stream_v3(eng, reqs).items():
+            counts[key] += n
+    for key, n in counts.items():
+        launches[key] += n
+    del eng
+    torch.cuda.empty_cache()
     # the public API from text and a prompt wav, beside the engines idle traces last
     for suffix, kw, per_step in (("", {}, PER_STEP["bf16"]), ("_int4p", {"quant_lm": "int4p"},
                                                               PER_STEP["int4p_bf16"])):
@@ -3539,6 +3767,18 @@ def main(argv):
                 launches[key] += n
             del api
             torch.cuda.empty_cache()
+    with Phase("api_v3"):
+        api = build_api(v3=True)
+        counts = phase_api_v3(api, PER_STEP["bf16"])
+        del api
+        torch.cuda.empty_cache()
+        api = build_api(v3=True, quant_lm="int4p")
+        for key, n in phase_api_v3_int4p(api).items():
+            counts[key] += n
+        del api
+        torch.cuda.empty_cache()
+    for key, n in counts.items():
+        launches[key] += n
     with Phase("ckpt"):
         for key, n in phase_ckpt(int4p_tokens).items():
             launches[key] += n

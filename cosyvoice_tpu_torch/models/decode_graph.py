@@ -24,7 +24,8 @@ spans).
 - `DecodeGraphs`: runs a block of slots, eagerly (`Qwen2LM(graphs=False)`,
   and always on CPU) or by replaying one captured step per slot. One graph
   per key (route: K7 or the per-layer kernels; batch rows; arena length;
-  stop mask: the v2 min_len mask or the bistream mask; the sampling
+  stop mask (`stop_mask`): the v2 min_len mask, the v3 one over the whole
+  special range, or the bistream mask; the sampling
   config, whose values a graph bakes in, so that `set_sampling` never
   replays a graph of another config), captured lazily after one eager
   step at that key, so that the kernels are built, their plan tables are on
@@ -122,6 +123,15 @@ class DecodeState:
                          (self.min_len, min_len), (self.fin, fin)):
             dst.copy_(src)
         self.slot.zero_()
+
+
+def stop_mask(cfg, bistream: bool) -> str:
+    """The stop mask a step applies: "bistream" (the fill token is the one
+    legal stop), "v3 min_len" (the whole special range before min_len) or
+    "v2 min_len" (eos alone before min_len)."""
+    if bistream:
+        return "bistream"
+    return "v3 min_len" if cfg.special_in_speech_table else "v2 min_len"
 
 
 def step(lm, s: DecodeState, cache, generator, stacked, bistream: bool):
@@ -225,7 +235,7 @@ class DecodeGraphs:
     def _key(self, cache, stacked, bistream: bool):
         c = self.lm.cfg
         sampling = (c.top_p, c.top_k, c.win_size, c.tau_r, c.temperature, c.repetition_penalty)
-        return (stacked is not None, self.batch, cache[0].shape[2], bistream, sampling)
+        return (stacked is not None, self.batch, cache[0].shape[2], stop_mask(c, bistream), sampling)
 
     def capture_ahead(self, pack, bistream=(False,)):
         """Capture now, under the current sampling, the graph of every key

@@ -1,20 +1,32 @@
-"""Flow acoustic model: speech tokens -> mel (upsample conformer + CFM).
+"""Flow acoustic model: speech tokens -> mel (encoder + CFM).
 
-Counterpart of cosyvoice_tpu/models/flow.py:CausalFlow for the CosyVoice2
-layout (upsample-conformer encoder, causal U-Net estimator): `inference`
-over a full prefix, offline or streaming (chunk masks, lookahead context),
-and the incremental chunk (`stream_state`, `grow_stream_state`,
-`inference_chunk`) over carried KV arenas and conv caches. The v3 DiT
-variant is not ported yet.
+Counterpart of cosyvoice_tpu/models/flow.py:CausalFlow, in both of its
+layouts:
+
+- CosyVoice2 (`encoder_type="upsample_conformer"`, `estimator_type="unet"`):
+  the upsample-conformer `FlowEncoder` and the causal U-Net estimator;
+- CosyVoice3 (`encoder_type="dit_prelookahead"`, `estimator_type="dit"`):
+  `DiTFlowEncoder` (an 80-d token embedding, the lookahead conv of
+  `dit_lookahead_channels`, no conformer, each token repeated
+  token_mel_ratio times) and the DiT estimator (models/dit.py).
+
+`inference` runs over a full prefix, offline or streaming (chunk masks,
+lookahead context); the incremental chunk (`stream_state`,
+`grow_stream_state`, `inference_chunk`) runs over carried KV arenas and
+conv caches: the encoder's and the U-Net's (v2), or only the DiT's, with the
+lookahead conv's cache (v3).
 """
 
 from dataclasses import dataclass, field
 import torch
 from torch import nn
 
+from typing import Optional
+
+from cosyvoice_tpu_torch.models.dit import DiTConfig, DiTEstimator, dit_stream_state
 from cosyvoice_tpu_torch.models.flow_decoder import ConditionalDecoder, EstimatorConfig, estimator_stream_state
 from cosyvoice_tpu_torch.models.flow_matching import CFMConfig, fixed_noise_buffer, solve_euler, solve_euler_chunk
-from cosyvoice_tpu_torch.nn.conformer import UpsampleConformerEncoder, upsample_encoder_stream_state
+from cosyvoice_tpu_torch.nn.conformer import PreLookaheadLayer, UpsampleConformerEncoder, upsample_encoder_stream_state
 from cosyvoice_tpu_torch.ops.masks import make_non_pad_mask
 from cosyvoice_tpu_torch.utils.devices import resolve_device
 
@@ -32,12 +44,17 @@ class FlowConfig:
     linear_units: int = 2048
     num_blocks: int = 6
     num_up_blocks: int = 4
+    # v3 DiT variant
+    encoder_type: str = "upsample_conformer"  # or "dit_prelookahead"
+    estimator_type: str = "unet"  # or "dit"
+    dit_lookahead_channels: int = 1024
     estimator: EstimatorConfig = field(default_factory=EstimatorConfig)
+    dit: Optional[DiTConfig] = None  # the DiT estimator's; default DiTConfig(static_chunk_size=chunk_size * r)
     cfm: CFMConfig = field(default_factory=CFMConfig)
 
 
 class FlowEncoder(nn.Module):
-    """Token embedding + speaker projection + upsample conformer + mel projection."""
+    """Token embedding + speaker projection + upsample conformer + mel projection (v2)."""
 
     def __init__(self, cfg: FlowConfig):
         super().__init__()
@@ -84,15 +101,73 @@ class FlowEncoder(nn.Module):
         return self.encoder_proj(h), enc_state
 
 
+class DiTFlowEncoder(nn.Module):
+    """CosyVoice3 flow front end: 80-d token embedding -> PreLookaheadLayer
+    (80 -> dit_lookahead_channels -> 80, residual) -> each token repeated
+    token_mel_ratio times. No conformer, no output projection."""
+
+    def __init__(self, cfg: FlowConfig):
+        super().__init__()
+        c = self.cfg = cfg
+        self.input_embedding = nn.Embedding(c.vocab_size, c.input_size)
+        self.spk_embed_affine_layer = nn.Linear(c.spk_embed_dim, c.output_size)
+        self.pre_lookahead_layer = PreLookaheadLayer(c.input_size, c.dit_lookahead_channels, c.pre_lookahead_len)
+
+    project_spk = FlowEncoder.project_spk
+
+    def forward(self, token, token_len, context_token=None, streaming=False):
+        """token [B, L] body tokens (tail-padded, true length token_len);
+        context_token [B, la] the lookahead tokens, written into each row at
+        its own length (clamped to L - la, as JAX's dynamic_update_slice),
+        or None (finalize). Returns (mu [B, L*r, 80], mel non-pad mask)."""
+        c = self.cfg
+        L = token.shape[1]
+        mask = make_non_pad_mask(token_len, L)
+        emb = self.input_embedding(token.clamp_min(0)) * mask[..., None]
+        if context_token is not None:
+            ctx = self.input_embedding(context_token.clamp_min(0)).to(emb.dtype)
+            la = ctx.shape[1]
+            emb = emb.clone()
+            for b, n in enumerate(token_len.tolist()):
+                start = min(max(int(n), 0), L - la)
+                emb[b, start : start + la] = ctx[b]
+        h = self.pre_lookahead_layer(emb)
+        r = c.token_mel_ratio
+        return torch.repeat_interleave(h, r, dim=1), torch.repeat_interleave(mask, r, dim=1)
+
+    def forward_chunk(self, token, context_token, enc_state, pos: int, real_n: int):
+        """Incremental encoder chunk: only the lookahead conv's cache
+        ("pre_conv2", [B, 2, dit_lookahead_channels]) carries between
+        chunks. Returns (mu [B, n*r, 80], enc_state)."""
+        valid = torch.arange(token.shape[1], device=token.device)[None, :] < real_n
+        emb = self.input_embedding(token.clamp_min(0)) * valid[..., None]
+        ctx = None if context_token is None else self.input_embedding(context_token.clamp_min(0))
+        st = dict(enc_state)
+        h, st["pre_conv2"] = self.pre_lookahead_layer(emb, ctx, st["pre_conv2"], real_n)
+        return torch.repeat_interleave(h, self.cfg.token_mel_ratio, dim=1), st
+
+
+def _is_arena(part: str, key: str) -> bool:
+    """A KV arena of a stream state: the conformer's ("enc_*", "up_enc_*")
+    in "enc", the U-Net's ("*_tf_*") or the DiT's ("blocks_*") in "est"."""
+    if part == "enc":
+        return "enc_" in key
+    return "_tf_" in key or key.startswith("blocks_")
+
+
 class CausalFlow(nn.Module):
-    """CosyVoice2 causal flow: FlowEncoder + ConditionalDecoder + Euler solver."""
+    """CosyVoice2 / CosyVoice3 causal flow: encoder + estimator + Euler solver."""
 
     def __init__(self, cfg: FlowConfig = FlowConfig(), device="cuda"):
         super().__init__()
         self.cfg = cfg
         with torch.device(resolve_device(device)):
-            self.encoder = FlowEncoder(cfg)
-            self.estimator = ConditionalDecoder(cfg.estimator)
+            self.encoder = DiTFlowEncoder(cfg) if cfg.encoder_type == "dit_prelookahead" else FlowEncoder(cfg)
+            if cfg.estimator_type == "dit":
+                self.estimator = DiTEstimator(
+                    cfg.dit or DiTConfig(static_chunk_size=cfg.chunk_size * cfg.token_mel_ratio))
+            else:
+                self.estimator = ConditionalDecoder(cfg.estimator)
         self.eval()
 
     @torch.inference_mode()
@@ -114,14 +189,19 @@ class CausalFlow(nn.Module):
     def stream_state(self, B: int = 1, arena_tok: int = 256) -> dict:
         """Zero state of the incremental chunk: the encoder's float32 KV
         arenas (arena_tok token rows, arena_tok*r mel rows) and conv caches
-        ("enc"), and one estimator state per Euler step ("est", a list),
-        each with KV arenas of arena_tok*r rows for the CFG pair. The arenas
-        are views of one buffer (one allocation, not ~1100)."""
-        mel = arena_tok * self.cfg.token_mel_ratio
-        meta = {"enc": upsample_encoder_stream_state(self.encoder.encoder, B, arena_tok, mel, "meta"),
-                "est": [estimator_stream_state(self.cfg.estimator, 2 * B, mel, "meta")
-                        for _ in range(self.cfg.cfm.n_timesteps)]}
-        return self._place_arenas(meta, arena_tok)
+        ("enc"; the DiT layout: the lookahead conv's cache alone), and one
+        estimator state per Euler step ("est", a list), each with KV arenas
+        of arena_tok*r rows for the CFG pair. The arenas are views of one
+        buffer (one allocation, not ~1100)."""
+        c = self.cfg
+        mel = arena_tok * c.token_mel_ratio
+        if c.estimator_type == "dit":
+            enc = {"pre_conv2": torch.zeros((B, 2, c.dit_lookahead_channels), device="meta")}
+            est = [dit_stream_state(self.estimator.cfg, 2 * B, mel, "meta") for _ in range(c.cfm.n_timesteps)]
+        else:
+            enc = upsample_encoder_stream_state(self.encoder.encoder, B, arena_tok, mel, "meta")
+            est = [estimator_stream_state(c.estimator, 2 * B, mel, "meta") for _ in range(c.cfm.n_timesteps)]
+        return self._place_arenas({"enc": enc, "est": est}, arena_tok)
 
     @staticmethod
     def stream_state_nbytes(state: dict) -> int:
@@ -148,7 +228,7 @@ class CausalFlow(nn.Module):
         arenas = []  # (state part, key, rows)
         for part, st in [("enc", state["enc"])] + [("est", st) for st in state["est"]]:
             for k, v in st.items():
-                if ("enc_" in k) if part == "enc" else ("_tf_" in k):
+                if _is_arena(part, k):
                     arenas.append((st, k, arena_tok if k.startswith("enc_") else arena_tok * r))
                 elif isinstance(v, tuple):
                     st[k] = tuple(torch.zeros(a.shape, device=dev) if a.is_meta else a for a in v)
@@ -169,13 +249,19 @@ class CausalFlow(nn.Module):
             st[k] = tuple(views)
         return state
 
+    def stream_arena_tok(self, state: dict) -> int:
+        """The token rows a stream state's arenas hold."""
+        if "enc_0" in state["enc"]:
+            return state["enc"]["enc_0"][0].shape[1]
+        return state["est"][0]["blocks_0"][0].shape[1] // self.cfg.token_mel_ratio
+
     @torch.inference_mode()
     def grow_stream_state(self, state: dict, new_arena_tok: int) -> dict:
         """A state whose KV arenas hold new_arena_tok token rows, the old rows
         copied and zeros past them (the mask hides rows past the frontier,
         so growth changes no value); the old and new arenas coexist while it
         runs. `state` if it is as long."""
-        if new_arena_tok <= state["enc"]["enc_0"][0].shape[1]:
+        if new_arena_tok <= self.stream_arena_tok(state):
             return state
         return self._place_arenas({"enc": dict(state["enc"]), "est": [dict(st) for st in state["est"]]},
                                   new_arena_tok)

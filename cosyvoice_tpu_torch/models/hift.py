@@ -1,15 +1,31 @@
-"""HiFT vocoder (NSF source + iSTFT HiFi-GAN), 24 kHz, non-causal.
+"""HiFT vocoder (NSF source + iSTFT HiFi-GAN), 24 kHz: non-causal (v2) and
+causal (v3).
 
-Counterpart of cosyvoice_tpu/models/hift.py:HiFTGenerator for CosyVoice2:
+Counterpart of cosyvoice_tpu/models/hift.py:HiFTGenerator:
 
   mel [B, T, 80] --f0 predictor--> f0 [B, T]
       --x480 upsample + SineGen2 harmonic source--> s [B, T*480]
       --STFT(16/4)--> 18-ch source spectrum, added into the
-      ConvTranspose/ResBlock(Snake) upsampling stack (8, 5, 3)
+      upsampling/ResBlock(Snake) stack (8, 5, 3)
       --conv_post--> magnitude/phase --iSTFT--> wav [B, T*480]
 
-Randomness (harmonic initial phases, source noise) comes from an explicit
-torch.Generator. The causal (v3) and SineGen1 (v1) variants are not ported.
+`HiFTConfig(causal=True)` (CosyVoice3) makes every conv one-sided: the f0
+predictor's first conv and `conv_pre` are right-causal (k = 4 and
+conv_pre_look_right + 1: they read lookahead frames), the upsampling convs
+are nearest-upsampled left-causal convs, and the ResBlocks, source convs
+and conv_post are left-causal. `inference(mel, finalize=False)` treats the
+last frames as lookahead: the f0 predictor consumes 3 and drops them, then
+conv_pre consumes conv_pre_look_right more, and the last 480 samples are
+cut; finalize=True pads with zeros instead. The causal source draws its
+phase by nearest-neighbour upsampling and its noise from a fixed uniform
+buffer indexed by sample position (`causal_noise_buffer`), so the
+re-vocode of a growing mel emits the same prefix. The buffer is the port's
+own, drawn once per device from a seeded torch.Generator: the JAX
+package's is a threefry draw (ROADMAP C4). The causal f0 predictor stays in
+float32, as in the JAX package.
+
+Randomness of the non-causal source (harmonic initial phases, noise) comes
+from an explicit torch.Generator. The SineGen1 (v1) variant is not ported.
 """
 
 from dataclasses import dataclass
@@ -21,7 +37,14 @@ from torch import nn
 from torch.nn import functional as F
 
 from cosyvoice_tpu_torch.nn.activation import Snake
-from cosyvoice_tpu_torch.nn.conv import Conv1d, WNConv1d, WNConvTranspose1d
+from cosyvoice_tpu_torch.nn.conv import (
+    CausalConv1d,
+    CausalConv1dDownSample,
+    CausalConv1dUpsample,
+    Conv1d,
+    WNConv1d,
+    WNConvTranspose1d,
+)
 from cosyvoice_tpu_torch.ops.resample import interpolate_linear, repeat_interleave_time
 from cosyvoice_tpu_torch.ops.stft import hann_window, istft, stft
 from cosyvoice_tpu_torch.utils.devices import resolve_device
@@ -46,6 +69,8 @@ class HiFTConfig:
     source_resblock_dilations: Tuple[Tuple[int, ...], ...] = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
     lrelu_slope: float = 0.1
     audio_limit: float = 0.99
+    causal: bool = False
+    conv_pre_look_right: int = 4  # causal variant only
 
     @property
     def hop_total(self) -> int:
@@ -69,9 +94,57 @@ class ConvRNNF0Predictor(nn.Module):
         return torch.abs(self.classifier(x)[..., 0])
 
 
-def sine_source(f0_up: torch.Tensor, cfg: HiFTConfig, generator: torch.Generator):
-    """SineGen2 harmonic source (non-causal). f0_up [B, L] at the sample rate
-    (L = T*480). Returns (sine_waves [B, L, H+1], uv [B, L, 1])."""
+class CausalConvRNNF0Predictor(nn.Module):
+    """Causal variant: a right-causal k=4 first conv, then 4 left-causal
+    k=3, all weight-normed. finalize=False takes the last 3 frames as the
+    first conv's lookahead, so f0 has 3 frames fewer."""
+
+    def __init__(self, in_channels: int = 80, cond_channels: int = 512):
+        super().__init__()
+        self.condnet = nn.ModuleList(
+            [CausalConv1d(in_channels, cond_channels, 4, causal_type="right", weight_norm=True)]
+            + [CausalConv1d(cond_channels, cond_channels, 3, weight_norm=True) for _ in range(4)]
+        )
+        self.classifier = nn.Linear(cond_channels, 1)
+
+    def forward(self, mel, finalize: bool = True):
+        first = self.condnet[0]
+        if finalize:
+            x = first(mel)
+        else:
+            pad = first.causal_padding
+            x = first(mel[:, :-pad], cache=mel[:, -pad:])
+        x = F.elu(x)
+        for conv in self.condnet[1:]:
+            x = F.elu(conv(x))
+        return torch.abs(self.classifier(x)[..., 0])
+
+
+# the causal source's noise buffer: 80 s at 24 kHz covers the longest
+# segment (<= 80 text tokens x 20 tokens each); positions wrap beyond
+CAUSAL_NOISE_SAMPLES = 80 * 24000
+CAUSAL_NOISE_SEED = 7
+_NOISE = {}
+
+
+def causal_noise_buffer(n_harmonics: int, device) -> torch.Tensor:
+    """The causal source's fixed uniform [0, 1) buffer [CAUSAL_NOISE_SAMPLES,
+    n_harmonics] float32: drawn once on the host from a torch.Generator
+    seeded with CAUSAL_NOISE_SEED and kept once per device, so that every
+    device holds the same values."""
+    dev = torch.device(device)
+    key = (n_harmonics, dev)
+    if key not in _NOISE:
+        gen = torch.Generator().manual_seed(CAUSAL_NOISE_SEED)
+        _NOISE[key] = torch.rand((CAUSAL_NOISE_SAMPLES, n_harmonics), generator=gen).to(dev)
+    return _NOISE[key]
+
+
+def sine_source(f0_up: torch.Tensor, cfg: HiFTConfig, generator: torch.Generator, noise_buffer=None):
+    """SineGen2 harmonic source. f0_up [B, L] at the sample rate (L = T*480).
+    Returns (sine_waves [B, L, H+1], uv [B, L, 1]). Causal: the phase is
+    upsampled nearest-neighbour and the noise is `noise_buffer` [N, H+1]
+    (default causal_noise_buffer) at the samples' positions mod N."""
     H = cfg.nb_harmonics + 1
     B, L = f0_up.shape
     dev = f0_up.device
@@ -84,11 +157,19 @@ def sine_source(f0_up: torch.Tensor, cfg: HiFTConfig, generator: torch.Generator
     scale = cfg.hop_total
     rad_lo = interpolate_linear(rad.transpose(1, 2), L // scale)  # [B, H, L/480]
     phase_lo = torch.cumsum(rad_lo, dim=-1) * (2.0 * np.pi)
-    phase = interpolate_linear(phase_lo * scale, L)  # [B, H, L]
+    if cfg.causal:
+        phase = repeat_interleave_time(phase_lo * scale, scale, axis=-1)
+    else:
+        phase = interpolate_linear(phase_lo * scale, L)  # [B, H, L]
     sines = torch.sin(phase.transpose(1, 2))
     uv = (f0_up > cfg.nsf_voiced_threshold).to(f0_up.dtype)[..., None]
     noise_amp = uv * cfg.nsf_sigma + (1.0 - uv) * cfg.nsf_alpha / 3.0
-    noise = noise_amp * torch.randn(sines.shape, generator=generator, device=dev, dtype=sines.dtype)
+    if cfg.causal:
+        buf = causal_noise_buffer(H, dev) if noise_buffer is None else noise_buffer.to(dev)
+        idx = torch.arange(L, device=dev) % buf.shape[0]
+        noise = noise_amp * buf[idx].to(sines.dtype)[None]
+    else:
+        noise = noise_amp * torch.randn(sines.shape, generator=generator, device=dev, dtype=sines.dtype)
     return cfg.nsf_alpha * sines * uv + noise, uv
 
 
@@ -100,18 +181,27 @@ class SourceModuleHnNSF(nn.Module):
         self.cfg = cfg
         self.l_linear = nn.Linear(cfg.nb_harmonics + 1, 1)
 
-    def forward(self, f0_up, generator):
-        sine_waves, _ = sine_source(f0_up, self.cfg, generator)
+    def forward(self, f0_up, generator, noise_buffer=None):
+        sine_waves, _ = sine_source(f0_up, self.cfg, generator, noise_buffer)
         return torch.tanh(self.l_linear(sine_waves))[..., 0]
 
 
 class ResBlock(nn.Module):
-    """HiFi-GAN residual block with Snake activations (non-causal)."""
+    """HiFi-GAN residual block with Snake activations; `causal`: left-causal
+    convs."""
 
-    def __init__(self, channels: int, kernel_size: int, dilations):
+    def __init__(self, channels: int, kernel_size: int, dilations, causal: bool = False):
         super().__init__()
         self.act1 = nn.ModuleList(Snake(channels) for _ in dilations)
         self.act2 = nn.ModuleList(Snake(channels) for _ in dilations)
+        if causal:
+            self.convs1 = nn.ModuleList(
+                CausalConv1d(channels, channels, kernel_size, dilation=d, weight_norm=True) for d in dilations
+            )
+            self.convs2 = nn.ModuleList(
+                CausalConv1d(channels, channels, kernel_size, weight_norm=True) for _ in dilations
+            )
+            return
         self.convs1 = nn.ModuleList(
             WNConv1d(channels, channels, kernel_size, padding=(kernel_size * d - d) // 2, dilation=d) for d in dilations
         )
@@ -129,6 +219,8 @@ class HiFTGenerator(nn.Module):
     def __init__(self, cfg: HiFTConfig = HiFTConfig(), device="cuda"):
         super().__init__()
         self.cfg = cfg
+        # the causal source's noise [N, H+1]; None: causal_noise_buffer (tests hand in another)
+        self.noise_buffer = None
         with torch.device(resolve_device(device)):
             self._build(cfg)
         self.eval()
@@ -136,13 +228,22 @@ class HiFTGenerator(nn.Module):
     def _build(self, cfg: HiFTConfig):
         base = cfg.base_channels
         n_src = cfg.istft_n_fft + 2
-        self.f0_predictor = ConvRNNF0Predictor(cfg.in_channels, base)
+        causal = cfg.causal
+        self.f0_predictor = (CausalConvRNNF0Predictor if causal else ConvRNNF0Predictor)(cfg.in_channels, base)
         self.m_source = SourceModuleHnNSF(cfg)
-        self.conv_pre = WNConv1d(cfg.in_channels, base, 7, padding=3)
-        self.ups = nn.ModuleList(
-            WNConvTranspose1d(base // 2**i, base // 2 ** (i + 1), k, u, padding=(k - u) // 2)
-            for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes))
-        )
+        if causal:
+            self.conv_pre = CausalConv1d(cfg.in_channels, base, cfg.conv_pre_look_right + 1, causal_type="right",
+                                         weight_norm=True)
+            self.ups = nn.ModuleList(
+                CausalConv1dUpsample(base // 2**i, base // 2 ** (i + 1), k, u)
+                for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes))
+            )
+        else:
+            self.conv_pre = WNConv1d(cfg.in_channels, base, 7, padding=3)
+            self.ups = nn.ModuleList(
+                WNConvTranspose1d(base // 2**i, base // 2 ** (i + 1), k, u, padding=(k - u) // 2)
+                for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes))
+            )
         downsample_cum = np.cumprod([1] + list(cfg.upsample_rates[::-1][:-1]))[::-1]
         self.source_downs = nn.ModuleList()
         self.source_resblocks = nn.ModuleList()
@@ -150,24 +251,39 @@ class HiFTGenerator(nn.Module):
             zip(downsample_cum, cfg.source_resblock_kernel_sizes, cfg.source_resblock_dilations)
         ):
             ch, u = base // 2 ** (i + 1), int(u)
-            self.source_downs.append(
-                Conv1d(n_src, ch, 1) if u == 1 else Conv1d(n_src, ch, u * 2, stride=u, padding=u // 2)
-            )
-            self.source_resblocks.append(ResBlock(ch, k, d))
+            if causal:
+                down = (CausalConv1d(n_src, ch, 1) if u == 1
+                        else CausalConv1dDownSample(n_src, ch, u * 2, u, weight_norm=False))
+            else:
+                down = Conv1d(n_src, ch, 1) if u == 1 else Conv1d(n_src, ch, u * 2, stride=u, padding=u // 2)
+            self.source_downs.append(down)
+            self.source_resblocks.append(ResBlock(ch, k, d, causal))
         self.resblocks = nn.ModuleList(
-            ResBlock(base // 2 ** (i + 1), k, d)
+            ResBlock(base // 2 ** (i + 1), k, d, causal)
             for i in range(len(cfg.upsample_rates))
             for k, d in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilations)
         )
-        self.conv_post = WNConv1d(base // 2 ** len(cfg.upsample_rates), n_src, 7, padding=3)
+        last = base // 2 ** len(cfg.upsample_rates)
+        self.conv_post = (CausalConv1d(last, n_src, 7, weight_norm=True) if causal
+                          else WNConv1d(last, n_src, 7, padding=3))
 
-    def decode(self, mel, s):
-        """mel [B, T, 80]; s [B, T*480] source. Returns wav [B, T*480]."""
+    def decode(self, mel, s, finalize: bool = True):
+        """mel [B, T, 80]; s [B, T*480] source. Returns wav [B, T*480].
+        Causal with finalize=False: the last conv_pre_look_right frames are
+        conv_pre's lookahead, and the wav is (T - look_right - 1) * 480
+        samples."""
         cfg = self.cfg
         window = hann_window(cfg.istft_n_fft, device=mel.device)
         spec = stft(s, cfg.istft_n_fft, cfg.istft_hop, window)
-        s_stft = torch.cat([spec.real, spec.imag], dim=1).transpose(1, 2)  # [B, Ts, 18]
-        x = self.conv_pre(mel)
+        sr, si = spec.real, spec.imag
+        if cfg.causal and not finalize:
+            la = cfg.conv_pre_look_right
+            x = self.conv_pre(mel[:, :-la], cache=mel[:, -la:])
+            trim = int(np.prod(cfg.upsample_rates)) * la
+            sr, si = sr[:, :, :-trim], si[:, :, :-trim]
+        else:
+            x = self.conv_pre(mel)
+        s_stft = torch.cat([sr, si], dim=1).transpose(1, 2)  # [B, Ts, 18]
         nk = len(cfg.resblock_kernel_sizes)
         for i, up in enumerate(self.ups):
             x = up(F.leaky_relu(x, cfg.lrelu_slope))
@@ -185,23 +301,32 @@ class HiFTGenerator(nn.Module):
         phase = torch.sin(x[:, n_half:])
         spec = torch.complex(magnitude * torch.cos(phase), magnitude * torch.sin(phase))
         wav = istft(spec, cfg.istft_n_fft, cfg.istft_hop, window)
+        if cfg.causal and not finalize:
+            wav = wav[:, : -int(np.prod(cfg.upsample_rates)) * cfg.istft_hop]
         return wav.clamp(-cfg.audio_limit, cfg.audio_limit)
 
-    def predict_f0(self, mel):
+    def predict_f0(self, mel, finalize: bool = True):
+        if self.cfg.causal:
+            return self.f0_predictor(mel, finalize)
         return self.f0_predictor(mel)
 
     def source_from_f0(self, f0, generator):
         """f0 [B, T] at the mel rate -> source [B, T*480]."""
-        return self.m_source(repeat_interleave_time(f0, self.cfg.hop_total, axis=-1), generator)
+        return self.m_source(repeat_interleave_time(f0, self.cfg.hop_total, axis=-1), generator, self.noise_buffer)
 
     @torch.inference_mode()
     def inference(self, mel, generator: torch.Generator, cache_source: Optional[torch.Tensor] = None,
-                  source: Optional[torch.Tensor] = None):
+                  source: Optional[torch.Tensor] = None, finalize: bool = True):
         """mel [B, T, 80] -> (wav [B, T*480], source [B, T*480]).
         cache_source [B, Lc], a streaming chunk's source cache, overwrites
         the head of the generated source (no phase glitch across chunks).
-        `source`, when given, replaces the generated excitation (for tests)."""
-        s = self.source_from_f0(self.predict_f0(mel), generator) if source is None else source
+        `source`, when given, replaces the generated excitation (for tests).
+        Causal with finalize=False: the last 3 frames are the f0
+        predictor's lookahead (source (T-3)*480) and decode sees the mel
+        without them."""
+        s = self.source_from_f0(self.predict_f0(mel, finalize), generator) if source is None else source
         if cache_source is not None and cache_source.shape[1] > 0:
             s = torch.cat([cache_source.to(s.dtype), s[:, cache_source.shape[1] :]], dim=1)
-        return self.decode(mel, s), s
+        if self.cfg.causal and not finalize:
+            mel = mel[:, :-3]
+        return self.decode(mel, s, finalize), s

@@ -1,4 +1,4 @@
-"""CosyVoice2 speech-token LM (Qwen2LM) in PyTorch.
+"""CosyVoice2 / CosyVoice3 speech-token LM (Qwen2LM) in PyTorch.
 
 Counterpart of cosyvoice_tpu/models/llm.py. The LM consumes the mixed
 sequence [sos][text tokens][task_id][prompt speech tokens] and emits speech
@@ -11,8 +11,12 @@ over static state and static per-bucket KV arenas (models/decode_graph.py,
 `Qwen2LM(graphs=...)`): the counterpart of the JAX LM's one compiled
 program per block. The prompt prefill and the bistream extends run eagerly.
 
-Ported: the v2 layout (sos/task in `llm_embedding`), `generate` with the
-min_len eos suppression, max_len and stop ids, the arena growth of the JAX
+Ported: the v2 layout (sos/task in `llm_embedding`, a head with bias) and
+the v3 layout (`special_in_speech_table`: no `llm_embedding`, sos / task /
+fill are rows 6561, 6563 and 6564 of `speech_embedding`, 200 stop rows, a
+bias-less head, fp or int8), `generate` with the min_len suppression (v2:
+eos alone; v3: the whole special range, as the JAX LM does), max_len and
+stop ids, the arena growth of the JAX
 LM (it starts at `arena_bucket(pad_T + block_size + 1)` rows and grows in
 ARENA_BUCKET steps before each block, into the LM's StaticArenas),
 `generate_bistream` (bi-streaming text input: exact-shape `extend_mixed`
@@ -29,7 +33,7 @@ seeded from the prompt's speech tokens, models/decode_graph.py).
 Continuous batching decodes concurrent requests over B-slot arenas through
 runtime/batch_scheduler.py:LMBatchScheduler, which shares this LM's weights
 and, once attached, takes turns with its B=1 requests (`device_turn`). Not
-ported yet: the v3 layout and the int8 and int4 weight modes.
+ported yet: the int8 and int4 weight modes.
 """
 
 import contextlib
@@ -53,13 +57,13 @@ from cosyvoice_tpu_torch.utils.devices import resolve_device
 
 TYPE_TEXT = 0
 TYPE_SPEECH = 1
-TYPE_SPECIAL = 2  # llm_embedding rows: 0 = sos, 1 = task_id
+TYPE_SPECIAL = 2  # llm_embedding rows 0 = sos, 1 = task_id (v3: speech_embedding rows sos_id, task_id)
 
 
 @dataclass(frozen=True)
 class LMConfig:
     speech_token_size: int = 6561
-    num_special_head: int = 3  # eos / unused / fill
+    num_special_head: int = 3  # eos / unused / fill  (v3: 200)
     mix_ratio: Tuple[int, int] = (5, 15)  # bistream: text tokens, then speech tokens per segment
     top_p: float = 0.8
     top_k: int = 25
@@ -72,6 +76,8 @@ class LMConfig:
     repetition_penalty: float = 1.0
     block_size: int = 28  # tokens decoded per host fetch (= chunk 25 + lookahead 3)
     qwen: Qwen2Config = field(default_factory=Qwen2Config)
+    # v3 layout: sos / eos / task / fill live inside the speech table
+    special_in_speech_table: bool = False
 
     @property
     def head_size(self) -> int:
@@ -83,15 +89,15 @@ class LMConfig:
 
     @property
     def fill_token(self) -> int:
-        return self.speech_token_size + 2
+        return self.speech_token_size + (3 if self.special_in_speech_table else 2)
 
     @property
     def sos_id(self) -> int:
-        return 0
+        return self.speech_token_size if self.special_in_speech_table else 0
 
     @property
     def task_id(self) -> int:
-        return 1
+        return self.speech_token_size + 2 if self.special_in_speech_table else 1
 
 
 class Qwen2LMModule(nn.Module):
@@ -100,21 +106,27 @@ class Qwen2LMModule(nn.Module):
         self.cfg = cfg
         dim = cfg.qwen.hidden_size
         self.llm = Qwen2Model(cfg.qwen)
-        self.llm_embedding = nn.Embedding(2, dim)
+        if not cfg.special_in_speech_table:
+            self.llm_embedding = nn.Embedding(2, dim)
         self.speech_embedding = nn.Embedding(cfg.head_size, dim)
+        bias = not cfg.special_in_speech_table  # the v3 head has no bias
         if cfg.qwen.quant:
             # the head stays int8 weight-only in int4p mode, as in the JAX package
-            self.llm_decoder = QuantDense(dim, cfg.head_size, cfg.qwen.dtype)
+            self.llm_decoder = QuantDense(dim, cfg.head_size, cfg.qwen.dtype, bias=bias)
         else:
-            self.llm_decoder = nn.Linear(dim, cfg.head_size)
+            self.llm_decoder = nn.Linear(dim, cfg.head_size, bias=bias)
 
     def embed_input(self, ids, types):
         """ids/types [B, T] -> [B, T, C] float32."""
         safe = ids.clamp_min(0)
         zero = torch.zeros_like(safe)
         text = self.llm.embed_tokens(torch.where(types == TYPE_TEXT, safe, zero)).float()
-        speech = self.speech_embedding(torch.where(types == TYPE_SPEECH, safe.clamp_max(self.cfg.head_size - 1), zero))
-        special = self.llm_embedding(torch.where(types == TYPE_SPECIAL, safe.clamp_max(1), zero))
+        last = self.cfg.head_size - 1
+        speech = self.speech_embedding(torch.where(types == TYPE_SPEECH, safe.clamp_max(last), zero))
+        if self.cfg.special_in_speech_table:
+            special = self.speech_embedding(torch.where(types == TYPE_SPECIAL, safe.clamp_max(last), zero))
+        else:
+            special = self.llm_embedding(torch.where(types == TYPE_SPECIAL, safe.clamp_max(1), zero))
         return torch.where(
             (types == TYPE_TEXT)[..., None], text, torch.where((types == TYPE_SPEECH)[..., None], speech, special)
         )
@@ -322,6 +334,12 @@ class Qwen2LM:
                 torch.arange(c.speech_token_size, c.head_size, device=logp.device) == c.fill_token,
                 logp[:, c.speech_token_size :], NEG_INF,
             )
+        elif c.special_in_speech_table:
+            # v3: the whole special range is suppressed before min_len (the
+            # JAX LM's departure from the reference, whose mask hits the sos
+            # row of the v3 table)
+            suppress = (n_dec < min_len)[:, None]
+            logp[:, c.speech_token_size :] = torch.where(suppress, NEG_INF, logp[:, c.speech_token_size :])
         else:
             # v2 semantics: only eos is suppressed before min_len; the other
             # stop ids stay samplable and end generation

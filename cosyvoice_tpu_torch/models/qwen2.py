@@ -157,19 +157,21 @@ def _frozen(shape, dtype, fill=0):
 
 class QuantDense(nn.Module):
     """int8 weight-only Dense (the head in int4p mode): kernel_q [out, in]
-    int8, per-output-channel scale [out] f32, bias [out]. Computes in
-    `dtype`, as the JAX QuantDense: (x @ Wq) * scale + bias."""
+    int8, per-output-channel scale [out] f32, bias [out] (none with
+    bias=False: the v3 head). Computes in `dtype`, as the JAX QuantDense:
+    (x @ Wq) * scale + bias."""
 
-    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype):
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype, bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.kernel_q = _frozen((out_features, in_features), torch.int8)
         self.scale = _frozen((out_features,), torch.float32, 1)
-        self.bias = nn.Parameter(torch.zeros(out_features, dtype=torch.float32))
+        self.bias = nn.Parameter(torch.zeros(out_features, dtype=torch.float32)) if bias else None
 
     def forward(self, x):
         dt = self.dtype
-        return (x.to(dt) @ self.kernel_q.to(dt).T) * self.scale.to(dt) + self.bias.to(dt)
+        y = (x.to(dt) @ self.kernel_q.to(dt).T) * self.scale.to(dt)
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class Int4PWeights(nn.Module):

@@ -3,7 +3,9 @@
 Counterpart of cosyvoice_tpu/nn/conv.py. Weights use PyTorch's layout
 ([out, in/groups, k]; ConvTranspose [in, out, k]); each call transposes to
 [B, C, T] for torch's conv and back. Weight-normalized convs keep v and g and
-fold them on every call, as the JAX modules do.
+fold them on every call, as the JAX modules do. The causal family (left- or
+right-causal, strided down, nearest-upsampled) is causal HiFT's and the
+flow's.
 """
 
 import torch
@@ -34,9 +36,9 @@ class Conv1d(nn.Module):
 class WNConv1d(nn.Module):
     """Weight-normalized conv (torch weight_norm dim=0): w = g * v / ||v||_(in,k)."""
 
-    def __init__(self, in_channels, out_channels, kernel_size, padding=0, dilation=1):
+    def __init__(self, in_channels, out_channels, kernel_size, padding=0, dilation=1, stride=1):
         super().__init__()
-        self.padding, self.dilation = padding, dilation
+        self.padding, self.dilation, self.stride = padding, dilation, stride
         self.v = nn.Parameter(torch.randn(out_channels, in_channels, kernel_size) * 0.01)
         self.g = nn.Parameter(torch.ones(out_channels))
         self.bias = nn.Parameter(torch.zeros(out_channels))
@@ -47,7 +49,7 @@ class WNConv1d(nn.Module):
 
     def forward(self, x):
         w = self.folded_weight()
-        return _cl(lambda t: F.conv1d(t, w, self.bias, 1, self.padding, self.dilation), x)
+        return _cl(lambda t: F.conv1d(t, w, self.bias, self.stride, self.padding, self.dilation), x)
 
 
 class WNConvTranspose1d(nn.Module):
@@ -77,22 +79,59 @@ def roll_cache(cache: torch.Tensor, x: torch.Tensor, real_n: int) -> torch.Tenso
 
 
 class CausalConv1d(nn.Module):
-    """Left-causal conv: k-1 frames on the left, zeros or, in a streaming
-    chunk, `cache` [B, k-1, C], the frames left of the chunk (the
-    right-causal and weight-normed variants of causal HiFT are not ported
-    yet)."""
+    """One-sided conv: (k-1)*d frames of zeros on the left (causal_type
+    "left") or on the right ("right"), or, in a streaming chunk or at the
+    right-causal lookahead, `cache` [B, (k-1)*d, C], the frames on that side.
+    weight_norm: the inner conv is a WNConv1d (causal HiFT). The inner conv
+    is `conv`, as the JAX module's."""
 
-    def __init__(self, in_channels, out_channels, kernel_size):
+    def __init__(self, in_channels, out_channels, kernel_size, dilation=1, causal_type="left", weight_norm=False):
         super().__init__()
-        self.conv = Conv1d(in_channels, out_channels, kernel_size)
-        self.causal_padding = kernel_size - 1
+        if causal_type not in ("left", "right"):
+            raise ValueError(f"causal_type {causal_type!r}: left or right")
+        cls = WNConv1d if weight_norm else Conv1d
+        self.conv = cls(in_channels, out_channels, kernel_size, dilation=dilation)
+        self.causal_padding = (kernel_size - 1) * dilation
+        self.causal_type = causal_type
 
     def forward(self, x, cache=None):
+        pad = self.causal_padding
         if cache is None:
-            return self.conv(F.pad(x, (0, 0, self.causal_padding, 0)))
-        if cache.shape[1] != self.causal_padding:
-            raise ValueError(f"cache must hold {self.causal_padding} frames, not {cache.shape[1]}")
-        return self.conv(torch.cat([cache, x], dim=1))
+            return self.conv(F.pad(x, (0, 0, pad, 0) if self.causal_type == "left" else (0, 0, 0, pad)))
+        if cache.shape[1] != pad:
+            raise ValueError(f"cache must hold {pad} frames, not {cache.shape[1]}")
+        return self.conv(torch.cat([cache, x] if self.causal_type == "left" else [x, cache], dim=1))
+
+
+class CausalConv1dDownSample(nn.Module):
+    """Strided causal conv: stride-1 frames of zeros on the left;
+    kernel_size % stride == 0, so out_len = in_len // stride."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride, weight_norm=True):
+        super().__init__()
+        if kernel_size % stride:
+            raise ValueError(f"kernel_size {kernel_size} is not a multiple of stride {stride}")
+        cls = WNConv1d if weight_norm else Conv1d
+        self.conv = cls(in_channels, out_channels, kernel_size, stride=stride)
+        self.causal_padding = stride - 1
+
+    def forward(self, x):
+        return self.conv(F.pad(x, (0, 0, self.causal_padding, 0)))
+
+
+class CausalConv1dUpsample(nn.Module):
+    """Nearest upsampling by `stride`, then a left-causal conv (k-1 frames of
+    zeros on the left): causal HiFT's replacement for the transposed conv."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride, weight_norm=True):
+        super().__init__()
+        cls = WNConv1d if weight_norm else Conv1d
+        self.conv = cls(in_channels, out_channels, kernel_size)
+        self.stride = stride
+        self.causal_padding = kernel_size - 1
+
+    def forward(self, x):
+        return self.conv(F.pad(torch.repeat_interleave(x, self.stride, dim=1), (0, 0, self.causal_padding, 0)))
 
 
 class ConvolutionModule(nn.Module):

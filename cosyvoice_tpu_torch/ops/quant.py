@@ -3,7 +3,8 @@
 Counterpart of `cosyvoice_tpu/ops/quant.py`, for the mode the port serves:
 "int4p", where qkv, o, gate|up and down take the blocked half-split int4
 layouts of `ops/int4_fused.py` (served by kernels K4 and K6) and the
-`llm_decoder` head stays int8 weight-only (per-output-channel absmax). The
+`llm_decoder` head stays int8 weight-only (per-output-channel absmax; the
+CosyVoice3 head has no bias, and none is made for it). The
 functions take and return nested dicts of numpy arrays in the JAX package's
 names and layouts ([in, out] kernels), and give bit-identical output on the
 same input. Modes "int8" and "int4" are not ported.

@@ -29,9 +29,18 @@ several threads run one at a time, each in turn, frontend included.
 starts an LMBatchScheduler (runtime/batch_scheduler.py) that every later
 `inference_*` call, from any thread, shares; an offline request whose text
 splits into several segments then runs its segments concurrently through
-it and yields them in order. Not ported yet, and raising
-NotImplementedError: `quant_lm` True / "int8" / "int4" (A8), and the
-CosyVoice3 (A9) and CosyVoice (v1, A10) models.
+it and yields them in order.
+
+`CosyVoice3` serves Fun-CosyVoice3-0.5B in every mode of CosyVoice2: the
+v3 LM layout, the DiT flow and the causal HiFT (utils/config.py:
+cosyvoice3_configs, unless config.json has the section or the caller
+passes the config) through runtime/engine.py:CosyVoice3Engine, with the
+version-3 frontend (its tokenizer knows the v3 special tokens);
+`inference_instruct2` refuses an instruct text that holds the
+<|endofprompt|> delimiter the frontend appends. `AutoModel` returns it for
+a version-3 dir. Not ported yet, and raising NotImplementedError:
+`quant_lm` True / "int8" / "int4" (A8), and the CosyVoice (v1, A10)
+model.
 """
 
 import dataclasses
@@ -53,9 +62,15 @@ from cosyvoice_tpu_torch.models.flow import FlowConfig
 from cosyvoice_tpu_torch.models.hift import HiFTConfig
 from cosyvoice_tpu_torch.models.llm import LMConfig
 from cosyvoice_tpu_torch.runtime.batch_scheduler import LMBatchScheduler
-from cosyvoice_tpu_torch.runtime.engine import build_random_engine
+from cosyvoice_tpu_torch.runtime.engine import CosyVoice2Engine, CosyVoice3Engine, build_random_engine
 from cosyvoice_tpu_torch.utils import msgpack_io
-from cosyvoice_tpu_torch.utils.config import build_flow_config, build_hift_config, build_lm_config, build_s3_config
+from cosyvoice_tpu_torch.utils.config import (
+    build_flow_config,
+    build_hift_config,
+    build_lm_config,
+    build_s3_config,
+    cosyvoice3_configs,
+)
 
 CHECKPOINTS = ("lm", "flow", "hift", "speech_tokenizer", "campplus")  # <name>.msgpack in a model dir
 
@@ -102,16 +117,18 @@ def load_frontend(model_dir: str = "", sample_rate: int = 24000, version: int = 
     return fe
 
 
-def _require_v2(version: int):
-    if version != 2:
-        item = {1: "A10", 3: "A9"}.get(version)
-        if item is None:
-            raise ValueError(f"unsupported model version {version}")
-        raise NotImplementedError(f"CosyVoice version {version} is not ported yet (ROADMAP {item})")
+def _require_ported(version: int):
+    """Raise unless the port serves model `version` (2 and 3)."""
+    if version == 1:
+        raise NotImplementedError("CosyVoice version 1 is not ported yet (ROADMAP A10)")
+    if version not in (2, 3):
+        raise ValueError(f"unsupported model version {version}")
 
 
 class CosyVoice2:
     sample_rate = 24000
+    version = 2  # the frontend's (its tokenizer's special tokens)
+    engine_cls = CosyVoice2Engine
 
     def __init__(
         self,
@@ -128,7 +145,7 @@ class CosyVoice2:
     ):
         self.model_dir = model_dir
         file_cfg = _read_dir_config(model_dir)
-        _require_v2(int(file_cfg.get("version", 2)))
+        _require_ported(int(file_cfg.get("version", 2)))
         if quant_lm not in (False, "int4p"):
             raise NotImplementedError(f"quant_lm={quant_lm!r}: only 'int4p' is ported (the others: ROADMAP A8)")
         lm_cfg = lm_cfg or (build_lm_config(file_cfg["llm"]) if "llm" in file_cfg else LMConfig())
@@ -138,7 +155,7 @@ class CosyVoice2:
             lm_cfg = dataclasses.replace(lm_cfg, qwen=qwen)
         flow_cfg = flow_cfg or (build_flow_config(file_cfg["flow"]) if "flow" in file_cfg else FlowConfig())
         hift_cfg = hift_cfg or (build_hift_config(file_cfg["hift"]) if "hift" in file_cfg else HiFTConfig())
-        self.frontend = load_frontend(model_dir, self.sample_rate, seed=seed + 3, device=device)
+        self.frontend = load_frontend(model_dir, self.sample_rate, self.version, seed=seed + 3, device=device)
         trees = {}
         for name in ("lm", "flow", "hift"):
             trees[name] = _checkpoint(model_dir, name)
@@ -148,6 +165,7 @@ class CosyVoice2:
             seed, device, lm_cfg, flow_cfg, hift_cfg,
             hop_policy=hop_policy or file_cfg.get("engine", {}).get("hop_policy", "doubling"),
             trees={k: v for k, v in trees.items() if v is not None},
+            engine_cls=self.engine_cls,
         )
         self.lm, self.flow, self.hift = self.engine.lm, self.engine.flow, self.engine.hift
         self._seg_ex, self._seg_ex_width = None, 0  # the concurrent segments' threads (_segment_executor)
@@ -357,6 +375,46 @@ class CosyVoice2:
         yield from self._in_turn(self._run_segments(jobs(), stream, speed), tts_text)
 
 
+class CosyVoice3(CosyVoice2):
+    """Fun-CosyVoice3-0.5B (the JAX api.py:CosyVoice3): the FSQ-6561 codec
+    with 200 special rows in the speech table, the DiT flow, the causal
+    vocoder, through CosyVoice3Engine. The arguments are CosyVoice2's; a
+    config left None takes the v3 default (cosyvoice3_configs) unless
+    config.json has its section."""
+
+    version = 3
+    engine_cls = CosyVoice3Engine
+
+    def __init__(
+        self,
+        model_dir: str = "",
+        fp16: bool = False,
+        seed: int = 1986,
+        lm_cfg: Optional[LMConfig] = None,
+        flow_cfg: Optional[FlowConfig] = None,
+        hift_cfg: Optional[HiFTConfig] = None,
+        quant_lm=False,
+        kv_quant: bool = False,
+        hop_policy: str = "",
+        device="cuda",
+    ):
+        file_cfg = _read_dir_config(model_dir)
+        lm0, flow0, hift0 = cosyvoice3_configs()
+        lm_cfg = lm_cfg or (None if "llm" in file_cfg else lm0)
+        flow_cfg = flow_cfg or (None if "flow" in file_cfg else flow0)
+        hift_cfg = hift_cfg or (None if "hift" in file_cfg else hift0)
+        super().__init__(model_dir, fp16, seed, lm_cfg, flow_cfg, hift_cfg, quant_lm, kv_quant, hop_policy, device)
+
+    def inference_instruct2(self, tts_text, instruct_text, prompt_wav, zero_shot_spk_id="", stream=False, speed=1.0,
+                            text_frontend=True):
+        # the frontend appends <|endofprompt|> itself; a stray one inside
+        # instruct_text would split the prompt at the wrong place
+        if "<|endofprompt|>" in instruct_text:
+            raise ValueError("instruct_text must not contain <|endofprompt|>")
+        yield from super().inference_instruct2(tts_text, instruct_text, prompt_wav, zero_shot_spk_id, stream, speed,
+                                               text_frontend)
+
+
 def detect_model_version(model_dir: str) -> int:
     """config.json's 'version', else the reference's yaml name
     (cosyvoice{,2,3}.yaml), else 2."""
@@ -375,5 +433,6 @@ class AutoModel:
     """The model class the model dir names (reference cosyvoice.py:228-238)."""
 
     def __new__(cls, model_dir: str = "", **kwargs):
-        _require_v2(detect_model_version(model_dir))
-        return CosyVoice2(model_dir, **kwargs)
+        version = detect_model_version(model_dir)
+        _require_ported(version)
+        return (CosyVoice3 if version == 3 else CosyVoice2)(model_dir, **kwargs)

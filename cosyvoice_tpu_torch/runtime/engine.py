@@ -60,9 +60,18 @@ calling thread's last). Token->wav, offline or streamed, holds the decode
 graphs' capture lock: no capture runs beside it (a streaming request's LM
 thread may capture one), and the token->wav work of concurrent sessions
 runs one at a time, which serves more audio per second than running it in
-several threads at once (PERF.md §6, chip_smoke.py's serve phase). Not
-ported: the JAX engine's speculative fused first chunk (its chunks equal
-the standard path's), and the v3 and v1 engines.
+several threads at once (PERF.md §6, chip_smoke.py's serve phase).
+
+`CosyVoice3Engine` (the JAX engine.py:CosyVoice3Engine) serves
+Fun-CosyVoice3-0.5B (the v3 LM layout, the DiT flow, the causal HiFT;
+`build_random_engine_v3`): the same LM routes and chunk schedule, but each
+streaming chunk re-vocodes the session's cumulative mel with the causal
+vocoder (bucketed and padded with LOG_SILENCE below the finalize, whose
+emitted samples do not change) and emits the samples past the ones already
+sent: no source or speech caches, no cross-fade. Runs of more than 5
+silent / breath tokens are dropped from the LM's stream (`_squelch`, not
+in vc). Not ported: the JAX engine's speculative fused first chunk (its
+chunks equal the standard path's), and the v1 engine.
 """
 
 import contextlib
@@ -83,6 +92,7 @@ from cosyvoice_tpu_torch.models.hift import HiFTConfig, HiFTGenerator
 from cosyvoice_tpu_torch.models.llm import TYPE_SPECIAL, TYPE_SPEECH, TYPE_TEXT, LMConfig, Qwen2LM, Qwen2LMModule
 from cosyvoice_tpu_torch.ops.quant import quantize_lm_params
 from cosyvoice_tpu_torch.ops.resample import interpolate_linear
+from cosyvoice_tpu_torch.utils.config import cosyvoice3_configs
 from cosyvoice_tpu_torch.utils.devices import resolve_device
 from cosyvoice_tpu_torch.utils.init import init_random_
 from cosyvoice_tpu_torch.utils.profiling import StageTimer
@@ -108,13 +118,17 @@ def _bucket_geo(n: int, b: int) -> int:
 @dataclass
 class SessionState:
     """One streaming request's caches, on the engine's device: the HiFT mel
-    cache [1, 8, 80], source and speech caches [1, 8*480], and the
-    incremental flow's state (`CausalFlow.stream_state`) with the prompt +
+    cache [1, 8, 80], source and speech caches [1, 8*480] (v3: the
+    cumulative mel and the emitted samples instead), and the incremental
+    flow's state (`CausalFlow.stream_state`) with the prompt +
     body tokens it has consumed and its arena length in tokens."""
 
     hift_mel_cache: Optional[torch.Tensor] = None
     hift_source_cache: Optional[torch.Tensor] = None
     hift_speech_cache: Optional[torch.Tensor] = None
+    # v3: the mel of every chunk so far and the samples already emitted
+    mel_cumulative: Optional[torch.Tensor] = None
+    speech_offset: int = 0
     flow_state: Optional[dict] = None
     flow_pos: int = 0
     flow_arena: int = 0
@@ -165,7 +179,9 @@ class _Prefetcher:
                         if item is self._END or not self._put(item):
                             break
                 finally:
-                    gen.close()
+                    close = getattr(gen, "close", None)  # a vc source's blocks are a plain iterator
+                    if close is not None:
+                        close()
         except BaseException as e:  # re-raised on the consumer's thread
             self._exc = e
         finally:
@@ -214,6 +230,10 @@ class _Prefetcher:
 
 
 class CosyVoice2Engine:
+    # tokens dropped from the LM's stream in runs longer than max_silent
+    # (v3's silent / breath tokens; v2 has none)
+    silent_tokens: tuple = ()
+    max_silent = 5
     # the incremental streaming flow: a session takes it once prompt + body
     # reach flow_incr_min_tok tokens (below, a chunk that recomputes the
     # whole prefix costs less), starts with arenas of flow_arena0 tokens,
@@ -259,12 +279,43 @@ class CosyVoice2Engine:
         self.flow_state_max_bytes = 0  # the incremental flow state's largest footprint, growth copies included
         self.timer = StageTimer()
         self.scheduler = None  # an LMBatchScheduler over self.lm: continuous batching
+        self.squelched = 0  # tokens `_squelch` dropped
 
     @property
     def stream_log(self) -> list:
         """Per chunk of the calling thread's last streaming request: path,
         tokens, wall and device ms."""
         return getattr(self._local, "log", [])
+
+    def _squelch(self, blocks):
+        """The token blocks of `blocks` without the silent tokens past the
+        max_silent-th of each run (the run carries across blocks); blocks
+        left empty are not yielded. `blocks` itself with no silent tokens."""
+        if not self.silent_tokens:
+            return blocks
+        return self._squelched(iter(blocks))
+
+    def _squelched(self, blocks):
+        silent = set(self.silent_tokens)
+        run = 0
+        try:
+            for block in blocks:
+                out = []
+                for t in block.tolist():
+                    if t in silent:
+                        run += 1
+                        if run > self.max_silent:
+                            self.squelched += 1
+                            continue
+                    else:
+                        run = 0
+                    out.append(t)
+                if out:
+                    yield np.asarray(out, np.int32)
+        finally:
+            close = getattr(blocks, "close", None)
+            if close is not None:
+                close()  # free the LM's request
 
     def _generator(self, seed: Optional[int] = None) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(SEED if seed is None else seed)
@@ -460,15 +511,11 @@ class CosyVoice2Engine:
         the session's log (`stream_log`). The incremental flow needs pm == 2 * Lp; a session
         takes it once prompt + body reach flow_incr_min_tok and keeps it
         while they stay within flow_arena_max - 16."""
-        t0 = time.perf_counter()
+        t0, ev = self._chunk_start()
         all_tokens = np.concatenate([prompt_token, tokens]).astype(np.int64)
         even = prompt_feat.shape[1] == len(prompt_token) * self.token_mel_ratio
         incr = (even and len(all_tokens) + 16 <= self.flow_arena_max
                 and (state.flow_state is not None or len(all_tokens) >= self.flow_incr_min_tok))
-        timed = self.device.type == "cuda"
-        if timed:
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
         if not finalize:
             this_hop = len(tokens) - token_offset - self.pre_lookahead_len
             if this_hop <= 0 and state.hift_mel_cache is None:
@@ -492,13 +539,27 @@ class CosyVoice2Engine:
             else:
                 path = "finalize-generic"
                 wav = self._finalize_generic(state, all_tokens, prompt_feat, embedding, token_offset)
-        if timed:
+        return self._chunk_end(state, t0, ev, path, n_tok, wav)
+
+    def _chunk_start(self):
+        """(host clock, CUDA events with the first recorded, or None on CPU)
+        of a chunk's token->wav work."""
+        ev = None
+        if self.device.type == "cuda":
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        return time.perf_counter(), ev
+
+    def _chunk_end(self, state, t0, ev, path, n_tok, wav, stage="stream_chunk"):
+        """The chunk's wav on the host, its wall and device ms logged in the
+        session's log and the timer's `stage`."""
+        if ev is not None:
             ev[1].record()
         out = wav.float().cpu().numpy()
         wall = time.perf_counter() - t0
-        self.timer.add("stream_chunk", wall)
+        self.timer.add(stage, wall)
         state.log.append({"path": path, "tokens": n_tok, "wall_ms": wall * 1e3,
-                          "device_ms": ev[0].elapsed_time(ev[1]) if timed else None})
+                          "device_ms": ev[0].elapsed_time(ev[1]) if ev is not None else None})
         return out
 
     def synthesize_offline(self, tokens, prompt_token, prompt_feat, embedding, speed: float = 1.0):
@@ -614,20 +675,20 @@ class CosyVoice2Engine:
         prompt_speech = np.asarray(llm_prompt_speech_token, np.int32)
         t0 = time.perf_counter()
         if token_generator is not None:
-            blocks = iter(token_generator)
+            blocks = self._squelch(iter(token_generator))
         elif source_speech_token is not None:
             blocks = iter([np.asarray(source_speech_token, np.int32)])
         elif hasattr(text_tokens, "__next__"):
             # bi-streaming text input: no length bounds from the text
-            blocks = self.lm.generate_bistream(text_tokens, np.asarray(prompt_text_tokens, np.int32), prompt_speech,
-                                               self._generator(rng_seed))
+            blocks = self._squelch(self.lm.generate_bistream(
+                text_tokens, np.asarray(prompt_text_tokens, np.int32), prompt_speech, self._generator(rng_seed)))
         else:
             ids, types, min_len, max_len = lm_prompt(c, text_tokens, prompt_text_tokens, prompt_speech)
             if self.scheduler is not None:
                 # continuous batching: the shared loop decodes this prompt beside the other sessions
-                blocks = iter(self.scheduler.submit(ids, types, min_len, max_len))
+                blocks = self._squelch(iter(self.scheduler.submit(ids, types, min_len, max_len)))
             else:
-                blocks = self.lm.generate(ids, types, self._generator(rng_seed), min_len, max_len)
+                blocks = self._squelch(self.lm.generate(ids, types, self._generator(rng_seed), min_len, max_len))
         prompt_token = np.asarray(flow_prompt_speech_token, np.int32)
         if stream:
             yield from self._stream(blocks, t0, prompt_token, prompt_speech_feat, flow_embedding)
@@ -695,6 +756,104 @@ class CosyVoice2Engine:
             lm.close()
 
 
+class CosyVoice3Engine(CosyVoice2Engine):
+    """The CosyVoice3 engine (see the module docstring): the chunk schedule
+    and LM routes of CosyVoice2Engine, the DiT flow's incremental path over
+    its own arenas, the causal vocoder re-vocoding the cumulative mel, the
+    FSQ silent / breath tokens squelched."""
+
+    silent_tokens = (1, 2, 28, 29, 55, 248, 494, 2241, 2242, 2322, 2323)
+
+    def _flow_mel_incr(self, state, body_tokens, ctx, prompt_feat, embedding):
+        """The incremental flow over the tokens of `body_tokens` (prompt +
+        generated body, no lookahead) that the session's flow state has not
+        consumed; ctx [1, la] the lookahead tokens or None (finalize).
+        Returns their mel [1, n*r, 80] and advances state.flow_pos."""
+        consumed = state.flow_pos
+        n_real = len(body_tokens) - consumed
+        if n_real <= 0:
+            return torch.zeros((1, 0, 80), device=self.device)
+        chunk, conds = self._incr_chunk_inputs(state, body_tokens, prompt_feat, n_real)
+        mel, state.flow_state = self.flow.inference_chunk(chunk, ctx, conds, self._tensor(embedding), state.flow_state,
+                                                          consumed, n_real)
+        state.flow_pos = consumed + n_real
+        return mel[:, : n_real * self.token_mel_ratio]
+
+    def _revocode(self, state, mel, finalize: bool):
+        """The causal vocoder over the cumulative mel [1, T, 80]: below the
+        finalize padded with LOG_SILENCE to the `mel_bucket` bucket and cut
+        back to the exact length's samples (the emitted samples are
+        prefix-stable, so the pad changes none of them); the finalize at
+        the exact length. Returns the samples past state.speech_offset and
+        advances it."""
+        if mel.shape[1] == 0:
+            return torch.zeros((1, 0), device=self.device)
+        if finalize:
+            wav, _ = self.hift.inference(mel, self._generator(), finalize=True)
+        else:
+            T = mel.shape[1]
+            Tb = _bucket_geo(T, self.mel_bucket)
+            mel_p = torch.full((1, Tb, 80), LOG_SILENCE, device=self.device)
+            mel_p[:, :T] = mel
+            wav, _ = self.hift.inference(mel_p, self._generator(), finalize=False)
+            wav = wav[:, : max(0, wav.shape[1] - (Tb - T) * self.wav_hop)]
+        wav = wav[:, state.speech_offset :]
+        state.speech_offset += wav.shape[1]
+        return wav
+
+    @torch.inference_mode()
+    def token2wav(self, state: SessionState, tokens, prompt_token, prompt_feat, embedding, token_offset: int,
+                  finalize: bool = False, stream: bool = True, speed: float = 1.0) -> np.ndarray:
+        """One chunk (the JAX CosyVoice3Engine.token2wav): tokens [L]
+        generated so far (with the 3 lookahead tokens unless finalize). The
+        chunk's new mel (the incremental DiT flow over the session's arenas
+        once prompt + body reach flow_incr_min_tok, when streaming with an
+        even prompt; else the prefix recomputed, chunk-masked when
+        `stream`) joins the cumulative mel, which is re-vocoded; returns the
+        new samples [1, n] on the host and logs the chunk (`stream_log`).
+        `speed` (offline finalize only) stretches the mel."""
+        t0, ev = self._chunk_start()
+        r, la, pm = self.token_mel_ratio, self.pre_lookahead_len, prompt_feat.shape[1]
+        all_tokens = np.concatenate([prompt_token, tokens]).astype(np.int64)
+        incr = (stream and pm == len(prompt_token) * r and len(all_tokens) + 16 <= self.flow_arena_max
+                and (state.flow_state is not None or len(all_tokens) >= self.flow_incr_min_tok))
+        if incr:
+            path = "incremental" if state.flow_state is not None or token_offset == 0 else "catch-up"
+            prev = state.flow_pos
+            ctx = None if finalize else self._tensor(all_tokens[None, -la:], torch.long)
+            mel = self._flow_mel_incr(state, all_tokens if finalize else all_tokens[:-la], ctx, prompt_feat,
+                                      embedding)
+            mel = mel[:, max(pm + token_offset * r - prev * r, 0) :]
+        else:
+            path = "recompute" if stream else "offline"
+            mel, n = self._flow_prefix(all_tokens, prompt_feat, embedding, streaming=stream, finalize=finalize)
+            mel = mel[:, pm + token_offset * r : n * r]
+        if finalize:
+            path = "finalize-" + path
+        if state.mel_cumulative is not None:
+            mel = torch.cat([state.mel_cumulative, mel], dim=1)
+        state.mel_cumulative = mel
+        if speed != 1.0:
+            if token_offset != 0 or not finalize:
+                raise ValueError("speed change only supports non-stream mode")
+            mel = interpolate_linear(mel.transpose(1, 2), int(mel.shape[1] / speed)).transpose(1, 2)
+        wav = self._revocode(state, mel, finalize)
+        n_tok = len(tokens) - token_offset - (0 if finalize else la)
+        return self._chunk_end(state, t0, ev, path, n_tok, wav, "stream_chunk" if stream else "t2w")
+
+    def synthesize_offline(self, tokens, prompt_token, prompt_feat, embedding, speed: float = 1.0):
+        """As CosyVoice2Engine's (the causal vocoder at the finalize over
+        the mel past the prompt, its padded tail LOG_SILENCE); with no
+        tokens or a speed change, the JAX v3 engine's token2wav: the flow
+        under offline masks, the mel past the prompt (stretched), vocoded
+        at its exact length."""
+        if len(tokens) and speed == 1.0:
+            return super().synthesize_offline(tokens, prompt_token, prompt_feat, embedding)
+        with self.lm.decoder.capture_lock:
+            return self.token2wav(SessionState(), np.asarray(tokens, np.int32), prompt_token, prompt_feat, embedding,
+                                  0, finalize=True, stream=False, speed=speed)
+
+
 def random_lm(seed: int = 0, device="cuda", lm_cfg: LMConfig = LMConfig(), tree=None):
     """A Qwen2LM with random weights made on `device` from `seed`, or the
     weights of `tree` (the fp LM's JAX param tree, e.g. a checkpoint's), and
@@ -730,6 +889,7 @@ def build_random_engine(
     hift_cfg: HiFTConfig = HiFTConfig(),
     hop_policy: str = "doubling",
     trees: Optional[dict] = None,
+    engine_cls=CosyVoice2Engine,
 ) -> CosyVoice2Engine:
     """An engine with random weights made on `device` from `seed` (default
     configs: full-width CosyVoice2-0.5B), its LM from `random_lm`; a module
@@ -746,7 +906,18 @@ def build_random_engine(
             load_jax_params(module, trees[name])
         else:
             init_random_(module, seed + offset)
-    engine = CosyVoice2Engine(lm, flow, hift, hop_policy=hop_policy)
+    engine = engine_cls(lm, flow, hift, hop_policy=hop_policy)
     if quantize_s is not None:
         engine.timer.add("quantize", quantize_s)
     return engine
+
+
+def build_random_engine_v3(seed: int = 0, device="cuda", lm_cfg: Optional[LMConfig] = None,
+                           flow_cfg: Optional[FlowConfig] = None, hift_cfg: Optional[HiFTConfig] = None,
+                           hop_policy: str = "doubling", trees: Optional[dict] = None) -> CosyVoice3Engine:
+    """build_random_engine for CosyVoice3: a CosyVoice3Engine, by default at
+    full width (`cosyvoice3_configs`), random from `seed` where `trees`
+    names no checkpoint."""
+    lm0, flow0, hift0 = cosyvoice3_configs()
+    return build_random_engine(seed, device, lm_cfg or lm0, flow_cfg or flow0, hift_cfg or hift0, hop_policy, trees,
+                               engine_cls=CosyVoice3Engine)

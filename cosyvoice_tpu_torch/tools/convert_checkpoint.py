@@ -1,8 +1,8 @@
 """Convert reference torch checkpoints (llm.pt / flow.pt / hift.pt) and
 ONNX graphs (speech_tokenizer_v*.onnx, campplus.onnx) into JAX param trees
-for CosyVoice2 (v2), written as flax msgpack files.
+for CosyVoice2 (v2) and Fun-CosyVoice3 (v3), written as flax msgpack files.
 
-Counterpart of the v2 half of cosyvoice_tpu/tools/convert_checkpoint.py,
+Counterpart of the v2 and v3 halves of cosyvoice_tpu/tools/convert_checkpoint.py,
 over plain nested dicts of numpy arrays: the converters are the JAX
 file's, and the trees they fill come from `convert.export_params` of the
 port's modules built on the meta device (the Flax paths, shapes and dtypes
@@ -26,8 +26,13 @@ filled with matching shapes, so a mapping drift fails loudly.
 writes OUT/lm.msgpack, flow.msgpack and hift.msgpack (from the llm.pt,
 flow.pt and hift.pt present), speech_tokenizer.msgpack and
 campplus.msgpack, which `runtime/api.py:CosyVoice2(OUT)` and the JAX
-package's CosyVoice2 load. The v1 (`--version 1`) and v3 (`--version 3`)
-converters are not ported (ROADMAP A10, A9).
+package's CosyVoice2 load. `--version 3` converts a Fun-CosyVoice3 dir
+(`convert_llm_v3`: the same Qwen2 body, sos / task in the speech table, no
+head bias; `convert_flow_v3`: the DiT flow; `convert_hift` with the causal
+layout) at the full v3 widths, for `runtime/api.py:CosyVoice3(OUT)` (add a
+config.json with "version": 3, or the cosyvoice3.yaml the reference dir
+ships, so that AutoModel picks it). The v1 converters (`--version 1`) are
+not ported (ROADMAP A10).
 """
 
 import argparse
@@ -46,6 +51,7 @@ from cosyvoice_tpu_torch.models.llm import LMConfig, Qwen2LMModule
 from cosyvoice_tpu_torch.models.speech_tokenizer import S3Tokenizer, S3TokenizerConfig
 from cosyvoice_tpu_torch.tools.onnx_reader import read_onnx_weights
 from cosyvoice_tpu_torch.utils import msgpack_io
+from cosyvoice_tpu_torch.utils.config import cosyvoice3_configs
 
 # ---------------------------------------------------------------------------
 # helpers
@@ -221,32 +227,107 @@ def convert_llm_v2(sd: Dict[str, np.ndarray], template: dict) -> dict:
     tf.put(f"{p}/llm/norm/weight", sd[f"{q}.norm.weight"]); used.add(f"{q}.norm.weight")
     n_layers = len({m.group(1) for k in sd if (m := re.match(rf"{re.escape(q)}\.layers\.(\d+)\.", k))})
     for i in range(n_layers):
-        t = f"{q}.layers.{i}"
-        f = f"{p}/llm/layers_{i}"
-        qw, kw, vw = sd[f"{t}.self_attn.q_proj.weight"], sd[f"{t}.self_attn.k_proj.weight"], sd[f"{t}.self_attn.v_proj.weight"]
-        qb, kb, vb = sd[f"{t}.self_attn.q_proj.bias"], sd[f"{t}.self_attn.k_proj.bias"], sd[f"{t}.self_attn.v_proj.bias"]
-        tf.put(f"{f}/self_attn/qkv_proj/kernel", _lin(np.concatenate([qw, kw, vw], axis=0)))
-        tf.put(f"{f}/self_attn/qkv_proj/bias", np.concatenate([qb, kb, vb]))
-        tf.put(f"{f}/self_attn/o_proj/kernel", _lin(sd[f"{t}.self_attn.o_proj.weight"]))
-        gw, uw = sd[f"{t}.mlp.gate_proj.weight"], sd[f"{t}.mlp.up_proj.weight"]
-        tf.put(f"{f}/mlp/gate_up_proj/kernel", _lin(np.concatenate([gw, uw], axis=0)))
-        tf.put(f"{f}/mlp/down_proj/kernel", _lin(sd[f"{t}.mlp.down_proj.weight"]))
-        tf.put(f"{f}/input_layernorm/weight", sd[f"{t}.input_layernorm.weight"])
-        tf.put(f"{f}/post_attention_layernorm/weight", sd[f"{t}.post_attention_layernorm.weight"])
-        used.update(
-            {
-                f"{t}.self_attn.q_proj.weight", f"{t}.self_attn.k_proj.weight", f"{t}.self_attn.v_proj.weight",
-                f"{t}.self_attn.q_proj.bias", f"{t}.self_attn.k_proj.bias", f"{t}.self_attn.v_proj.bias",
-                f"{t}.self_attn.o_proj.weight", f"{t}.mlp.gate_proj.weight", f"{t}.mlp.up_proj.weight",
-                f"{t}.mlp.down_proj.weight", f"{t}.input_layernorm.weight", f"{t}.post_attention_layernorm.weight",
-            }
-        )
+        _qwen2_layer(sd, used, tf, f"{q}.layers.{i}", f"{p}/llm/layers_{i}")
     leftover = {
         k for k in set(sd) - used
         if "rotary_emb" not in k and not k.startswith("llm.model.lm_head") and "criterion" not in k
     }
     assert not leftover, f"unconsumed torch keys: {sorted(leftover)[:10]}"
     return tf.build()
+
+
+# ---------------------------------------------------------------------------
+# LLM v3 (CosyVoice3LM): the Qwen2 body; sos / task in the speech table, no
+# llm_embedding, a bias-less llm_decoder
+# ---------------------------------------------------------------------------
+
+def convert_llm_v3(sd: Dict[str, np.ndarray], template: dict) -> dict:
+    sd = dict(sd)
+    sd.setdefault("llm_decoder.bias", None)
+    tf = TreeFiller(template)
+    used = set()
+    p = "params"
+    tf.put(f"{p}/speech_embedding/embedding", sd["speech_embedding.weight"]); used.add("speech_embedding.weight")
+    tf.put(f"{p}/llm_decoder/kernel", _lin(sd["llm_decoder.weight"])); used.add("llm_decoder.weight")
+    q = "llm.model.model"
+    tf.put(f"{p}/llm/embed_tokens/embedding", sd[f"{q}.embed_tokens.weight"]); used.add(f"{q}.embed_tokens.weight")
+    tf.put(f"{p}/llm/norm/weight", sd[f"{q}.norm.weight"]); used.add(f"{q}.norm.weight")
+    n_layers = len({m.group(1) for k in sd if (m := re.match(rf"{re.escape(q)}\.layers\.(\d+)\.", k))})
+    for i in range(n_layers):
+        _qwen2_layer(sd, used, tf, f"{q}.layers.{i}", f"{p}/llm/layers_{i}")
+    leftover = {
+        k for k in set(sd) - used
+        if "rotary_emb" not in k and not k.startswith("llm.model.lm_head") and "criterion" not in k
+        and sd.get(k) is not None
+    }
+    assert not leftover, f"unconsumed torch keys: {sorted(leftover)[:10]}"
+    return tf.build()
+
+
+def _qwen2_layer(sd, used, tf, t, f):
+    """One HF Qwen2 decoder layer `t` into the fused layout at flax path `f`."""
+    qw, kw, vw = sd[f"{t}.self_attn.q_proj.weight"], sd[f"{t}.self_attn.k_proj.weight"], sd[f"{t}.self_attn.v_proj.weight"]
+    qb, kb, vb = sd[f"{t}.self_attn.q_proj.bias"], sd[f"{t}.self_attn.k_proj.bias"], sd[f"{t}.self_attn.v_proj.bias"]
+    tf.put(f"{f}/self_attn/qkv_proj/kernel", _lin(np.concatenate([qw, kw, vw], axis=0)))
+    tf.put(f"{f}/self_attn/qkv_proj/bias", np.concatenate([qb, kb, vb]))
+    tf.put(f"{f}/self_attn/o_proj/kernel", _lin(sd[f"{t}.self_attn.o_proj.weight"]))
+    gw, uw = sd[f"{t}.mlp.gate_proj.weight"], sd[f"{t}.mlp.up_proj.weight"]
+    tf.put(f"{f}/mlp/gate_up_proj/kernel", _lin(np.concatenate([gw, uw], axis=0)))
+    tf.put(f"{f}/mlp/down_proj/kernel", _lin(sd[f"{t}.mlp.down_proj.weight"]))
+    tf.put(f"{f}/input_layernorm/weight", sd[f"{t}.input_layernorm.weight"])
+    tf.put(f"{f}/post_attention_layernorm/weight", sd[f"{t}.post_attention_layernorm.weight"])
+    used.update({
+        f"{t}.self_attn.q_proj.weight", f"{t}.self_attn.k_proj.weight", f"{t}.self_attn.v_proj.weight",
+        f"{t}.self_attn.q_proj.bias", f"{t}.self_attn.k_proj.bias", f"{t}.self_attn.v_proj.bias",
+        f"{t}.self_attn.o_proj.weight", f"{t}.mlp.gate_proj.weight", f"{t}.mlp.up_proj.weight",
+        f"{t}.mlp.down_proj.weight", f"{t}.input_layernorm.weight", f"{t}.post_attention_layernorm.weight",
+    })
+
+
+# ---------------------------------------------------------------------------
+# Flow v3 (CausalMaskedDiffWithDiT, flow.pt) -> {"encoder": ..., "estimator": ...}
+# ---------------------------------------------------------------------------
+
+def convert_flow_v3(sd: Dict[str, np.ndarray], template: dict) -> dict:
+    enc = TreeFiller(template["encoder"])
+    est = TreeFiller(template["estimator"])
+    used = set()
+    p = "params"
+
+    def lin(t, f, filler):
+        filler.put(f"{f}/kernel", _lin(sd[f"{t}.weight"])); used.add(f"{t}.weight")
+        filler.put(f"{f}/bias", sd[f"{t}.bias"]); used.add(f"{t}.bias")
+
+    def conv(t, f, filler):
+        filler.put(f"{f}/kernel", _conv(sd[f"{t}.weight"])); used.add(f"{t}.weight")
+        filler.put(f"{f}/bias", sd[f"{t}.bias"]); used.add(f"{t}.bias")
+
+    # encoder side: embedding + speaker affine + the lookahead conv
+    enc.put(f"{p}/input_embedding/embedding", sd["input_embedding.weight"]); used.add("input_embedding.weight")
+    lin("spk_embed_affine_layer", f"{p}/spk_embed_affine_layer", enc)
+    conv("pre_lookahead_layer.conv1", f"{p}/pre_lookahead_layer/conv1", enc)
+    conv("pre_lookahead_layer.conv2", f"{p}/pre_lookahead_layer/conv2", enc)
+    # the DiT estimator
+    d = "decoder.estimator"
+    lin(f"{d}.time_embed.time_mlp.0", f"{p}/time_embed/mlp1", est)
+    lin(f"{d}.time_embed.time_mlp.2", f"{p}/time_embed/mlp2", est)
+    lin(f"{d}.input_embed.proj", f"{p}/input_proj", est)
+    conv(f"{d}.input_embed.conv_pos_embed.conv1.0", f"{p}/conv_pos/conv1", est)
+    conv(f"{d}.input_embed.conv_pos_embed.conv2.0", f"{p}/conv_pos/conv2", est)
+    n_blocks = len({m.group(1) for k in sd if (m := re.match(rf"{re.escape(d)}\.transformer_blocks\.(\d+)\.", k))})
+    for i in range(n_blocks):
+        t, f = f"{d}.transformer_blocks.{i}", f"{p}/blocks_{i}"
+        lin(f"{t}.attn_norm.linear", f"{f}/adaln", est)
+        for name in ("to_q", "to_k", "to_v"):
+            lin(f"{t}.attn.{name}", f"{f}/{name}", est)
+        lin(f"{t}.attn.to_out.0", f"{f}/to_out", est)
+        lin(f"{t}.ff.ff.0.0", f"{f}/ff_in", est)
+        lin(f"{t}.ff.ff.2", f"{f}/ff_out", est)
+    lin(f"{d}.norm_out.linear", f"{p}/final_adaln", est)
+    lin(f"{d}.proj_out", f"{p}/proj_out", est)
+    leftover = {k for k in set(sd) - used if "rand_noise" not in k and "rotary" not in k}
+    assert not leftover, f"unconsumed torch keys: {sorted(leftover)[:12]}"
+    return {"encoder": enc.build(), "estimator": est.build()}
 
 
 # ---------------------------------------------------------------------------
@@ -652,19 +733,24 @@ def main(argv=None):
     parser.add_argument("--s3_onnx", default="", help="speech_tokenizer_v*.onnx to convert (optional)")
     parser.add_argument("--campplus_onnx", default="", help="campplus.onnx to convert (optional)")
     args = parser.parse_args(argv)
-    if args.version != 2:
-        item = {1: "A10: convert_llm_v1, convert_flow_v1", 3: "A9: convert_llm_v3, convert_flow_v3"}.get(args.version)
-        if item is None:
-            raise ValueError(f"unsupported model version {args.version}")
-        raise NotImplementedError(f"--version {args.version} is not ported yet (ROADMAP {item})")
+    if args.version == 1:
+        raise NotImplementedError("--version 1 is not ported yet (ROADMAP A10: convert_llm_v1, convert_flow_v1)")
+    if args.version not in (2, 3):
+        raise ValueError(f"unsupported model version {args.version}")
+    if args.version == 3:
+        lm_cfg, flow_cfg, hift_cfg = cosyvoice3_configs()
+        lm_conv, flow_conv = convert_llm_v3, convert_flow_v3
+    else:
+        lm_cfg, flow_cfg, hift_cfg = LMConfig(), FlowConfig(), HiFTConfig()
+        lm_conv, flow_conv = convert_llm_v2, convert_flow_v2
 
     os.makedirs(args.out_dir, exist_ok=True)
     # templates are built per converted file: converting only --s3_onnx
     # builds no other module
     for name, conv_fn, module_fn in (
-        ("llm", convert_llm_v2, lambda: Qwen2LMModule(LMConfig())),
-        ("flow", convert_flow_v2, lambda: CausalFlow(FlowConfig(), device="meta")),
-        ("hift", convert_hift, lambda: HiFTGenerator(HiFTConfig(), device="meta")),
+        ("llm", lm_conv, lambda: Qwen2LMModule(lm_cfg)),
+        ("flow", flow_conv, lambda: CausalFlow(flow_cfg, device="meta")),
+        ("hift", convert_hift, lambda: HiFTGenerator(hift_cfg, device="meta")),
     ):
         src = os.path.join(args.model_dir, f"{name}.pt")
         if not os.path.exists(src):

@@ -3,7 +3,7 @@
 Counterpart of cosyvoice_tpu/utils/config.py: a model dir's config.json has
 sections {"llm": {...}, "flow": {...}, "hift": {...}, "frontend": {"s3":
 {...}}} whose keys are dataclass fields; nested dataclasses (qwen,
-estimator, cfm) nest as dicts, dtypes are strings ("bfloat16"), lists
+estimator, dit, cfm) nest as dicts, dtypes are strings ("bfloat16"), lists
 become tuples. An unknown key raises. The v1 builders wait for ROADMAP A10.
 """
 
@@ -55,17 +55,43 @@ def build_lm_config(d: Optional[Dict[str, Any]] = None):
 
 
 def build_flow_config(d: Optional[Dict[str, Any]] = None):
+    """The flow's config; a "dit" sub-dict builds the DiT estimator's
+    (CosyVoice3: with encoder_type "dit_prelookahead", estimator_type
+    "dit")."""
+    from cosyvoice_tpu_torch.models.dit import DiTConfig
     from cosyvoice_tpu_torch.models.flow import FlowConfig
     from cosyvoice_tpu_torch.models.flow_decoder import EstimatorConfig
     from cosyvoice_tpu_torch.models.flow_matching import CFMConfig
 
-    return build_dataclass(FlowConfig, d, estimator=EstimatorConfig, cfm=CFMConfig)
+    return build_dataclass(FlowConfig, d, estimator=EstimatorConfig, cfm=CFMConfig, dit=DiTConfig)
 
 
 def build_hift_config(d: Optional[Dict[str, Any]] = None):
+    """The vocoder's config ("causal": true for CosyVoice3's)."""
     from cosyvoice_tpu_torch.models.hift import HiFTConfig
 
     return build_dataclass(HiFTConfig, d)
+
+
+def cosyvoice3_configs(quant=False, kv_quant: bool = False):
+    """(lm_cfg, flow_cfg, hift_cfg) of Fun-CosyVoice3-0.5B, the JAX API's v3
+    defaults: the v3 LM layout over Qwen2-0.5B (speech tokens 6561 + 200
+    special rows in the speech table, a bias-less head; `quant` /
+    `kv_quant` as Qwen2Config's), the DiT flow (dim 1024, depth 22, 16
+    heads x 64, lookahead channels 1024, 10 CFG Euler steps) and the causal
+    HiFT at 24 kHz."""
+    import dataclasses
+
+    from cosyvoice_tpu_torch.models.dit import DiTConfig
+    from cosyvoice_tpu_torch.models.flow import FlowConfig
+    from cosyvoice_tpu_torch.models.hift import HiFTConfig
+    from cosyvoice_tpu_torch.models.llm import LMConfig
+
+    lm = LMConfig(speech_token_size=6561, num_special_head=200, special_in_speech_table=True)
+    if quant or kv_quant:
+        lm = dataclasses.replace(lm, qwen=dataclasses.replace(lm.qwen, quant=quant, kv_quant=kv_quant))
+    flow = FlowConfig(input_size=80, encoder_type="dit_prelookahead", estimator_type="dit", dit=DiTConfig())
+    return lm, flow, HiFTConfig(causal=True)
 
 
 def build_s3_config(d: Optional[Dict[str, Any]] = None):

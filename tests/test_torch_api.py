@@ -265,9 +265,21 @@ def test_detect_model_version(tmp_path, files, version):
     for name, content in files.items():
         (tmp_path / name).write_text(json.dumps(content) if name.endswith(".json") else content)
     assert detect_model_version(str(tmp_path)) == jdetect(str(tmp_path)) == version
-    if version != 2:
-        with pytest.raises(NotImplementedError, match={1: "A10", 3: "A9"}[version]):
+    if version == 1:
+        with pytest.raises(NotImplementedError, match="A10"):
             AutoModel(str(tmp_path), device="cpu")
+    elif version == 3:
+        # CosyVoice3 (A9, ported), at the tiny v3 widths
+        from cosyvoice_tpu_torch.models.flow import FlowConfig
+        from cosyvoice_tpu_torch.models.hift import HiFTConfig
+        from cosyvoice_tpu_torch.models.llm import LMConfig
+        from cosyvoice_tpu_torch.runtime.api import CosyVoice3
+        from tests.test_torch_common import jax_dit_flow_cfg, jax_hift_cfg_v3, jax_lm_cfg_v3, to_port_cfg
+
+        api = AutoModel(str(tmp_path), device="cpu", lm_cfg=to_port_cfg(jax_lm_cfg_v3(), LMConfig),
+                        flow_cfg=to_port_cfg(jax_dit_flow_cfg(), FlowConfig),
+                        hift_cfg=to_port_cfg(jax_hift_cfg_v3(), HiFTConfig))
+        assert type(api) is CosyVoice3 and api.lm.cfg.special_in_speech_table and api.hift.cfg.causal
 
 
 def test_automodel_builds_cosyvoice2_from_config_json(tmp_path):

@@ -311,6 +311,46 @@ def test_converter_cli_matches_jax(tmp_path, monkeypatch, reference_states):
 
 
 @pytest.mark.parametrize("version,item", [(1, "A10"), (3, "A9")])
-def test_converter_cli_v1_and_v3_raise(tmp_path, version, item):
-    with pytest.raises(NotImplementedError, match=item):
-        pcc.main(["--model_dir", str(tmp_path), "--out_dir", str(tmp_path / "o"), "--version", str(version)])
+def test_converter_cli_v1_and_v3_raise(tmp_path, monkeypatch, version, item):
+    """`--version 1` still raises, naming ROADMAP A10. `--version 3` (A9,
+    ported) converts a synthetic Fun-CosyVoice3 reference dir (llm.pt,
+    flow.pt, hift.pt, the v3 configs set to the tiny ones): the files it
+    writes equal the JAX v3 converters' trees, and CosyVoice3 reads them
+    from the dir with a config.json of version 3."""
+    if version == 1:
+        with pytest.raises(NotImplementedError, match=item):
+            pcc.main(["--model_dir", str(tmp_path), "--out_dir", str(tmp_path / "o"), "--version", str(version)])
+        return
+    import json
+
+    from cosyvoice_tpu_torch.runtime.api import AutoModel, CosyVoice3
+    from tests.test_torch_common import jax_dit_flow_cfg, jax_hift_cfg_v3, jax_lm_cfg_v3
+    from tests.test_torch_convert_v3 import reference_states_v3, templates
+
+    jcc = _jcc()
+    tmpl = templates()
+    states = reference_states_v3(tmpl)
+    ref, out = tmp_path / "ref", tmp_path / "out"
+    ref.mkdir()
+    for name in ("llm", "flow", "hift"):
+        prefix = "generator." if name == "hift" else ""
+        torch.save({prefix + k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in states[name][0].items()},
+                   ref / f"{name}.pt")
+    cfgs = (to_port_cfg(jax_lm_cfg_v3(), LMConfig), to_port_cfg(jax_dit_flow_cfg(), FlowConfig),
+            to_port_cfg(jax_hift_cfg_v3(), HiFTConfig))
+    monkeypatch.setattr(pcc, "cosyvoice3_configs", lambda: cfgs)
+    pcc.main(["--model_dir", str(ref), "--out_dir", str(out), "--version", "3"])
+    assert sorted(p.name for p in out.iterdir()) == ["flow.msgpack", "hift.msgpack", "lm.msgpack"]
+    want = {"lm": jcc.convert_llm_v3(jcc.load_torch_state(str(ref / "llm.pt")), tmpl["llm"][0]),
+            "flow": jcc.convert_flow_v3(jcc.load_torch_state(str(ref / "flow.pt")), tmpl["flow"][0]),
+            "hift": jcc.convert_hift(jcc.load_torch_state(str(ref / "hift.pt")), tmpl["hift"][0])}
+    for name, tree in want.items():
+        got = ser.from_bytes(np_tree(tree), (out / f"{name}.msgpack").read_bytes())
+        assert_same_tree(np_tree(got), np_tree(tree))
+    (out / "config.json").write_text(json.dumps({"version": 3}))
+    api = AutoModel(str(out), device="cpu", lm_cfg=cfgs[0], flow_cfg=cfgs[1], hift_cfg=cfgs[2])
+    assert type(api) is CosyVoice3
+    np.testing.assert_array_equal(api.flow.estimator.proj_out.bias.detach().numpy(),
+                                  want["flow"]["estimator"]["params"]["proj_out"]["bias"])
+    np.testing.assert_array_equal(api.lm.module.speech_embedding.weight.detach().numpy(),
+                                  want["lm"]["params"]["speech_embedding"]["embedding"])

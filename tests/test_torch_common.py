@@ -9,6 +9,7 @@
 
 import ast
 import dataclasses
+import typing
 from pathlib import Path
 
 import jax
@@ -71,6 +72,54 @@ def jax_hift_cfg(**kw):
     })
 
 
+def jax_lm_cfg_v3(**kw):
+    """The tiny LM in the v3 layout (tests/test_engine_v3.py's): 200 special
+    rows in the speech table, a bias-less head."""
+    return jax_lm_cfg(**{"num_special_head": 200, "special_in_speech_table": True, **kw})
+
+
+def jax_lm_cfg_quant_v3(quant="int4p", kv_quant=True, **kw):
+    return jax_lm_cfg_quant(quant, kv_quant, **{"num_special_head": 200, "special_in_speech_table": True, **kw})
+
+
+def jax_dit_flow_cfg(depth=2, n_timesteps=2, chunk=5):
+    """The tiny v3 flow (tests/test_engine_v3.py's, two DiT blocks)."""
+    from cosyvoice_tpu.models.dit import DiTConfig as JDiTConfig
+
+    return JFlowConfig(
+        input_size=80, vocab_size=50, chunk_size=chunk,
+        encoder_type="dit_prelookahead", estimator_type="dit", dit_lookahead_channels=32,
+        dit=JDiTConfig(dim=32, depth=depth, heads=2, dim_head=8, static_chunk_size=chunk * 2, freq_embed_dim=16),
+        cfm=JCFMConfig(n_timesteps=n_timesteps),
+    )
+
+
+def jax_hift_cfg_v3(**kw):
+    """The tiny causal HiFT (tests/test_engine_v3.py's)."""
+    return JHiFTConfig(**{
+        "base_channels": 32, "causal": True, "resblock_kernel_sizes": (3,), "resblock_dilations": ((1,),),
+        "source_resblock_kernel_sizes": (7, 7, 11), "source_resblock_dilations": ((1,), (1,), (1,)), **kw,
+    })
+
+
+def jax_causal_noise():
+    """The JAX causal source's noise buffer (models/hift.py:sine_source)."""
+    from cosyvoice_tpu.models.hift import _FIXED_NOISE_SAMPLES
+
+    return torch.from_numpy(np.array(jax.random.uniform(jax.random.PRNGKey(7), (_FIXED_NOISE_SAMPLES, 9))))
+
+
+def _port_field_class(port_cls, f):
+    """The dataclass type of port config field `f` (a default factory's, or
+    an Optional[...] annotation's)."""
+    if f.default_factory is not dataclasses.MISSING:
+        return type(f.default_factory())
+    if f.default is not None:
+        return type(f.default)
+    hint = typing.get_type_hints(port_cls)[f.name]
+    return next(a for a in typing.get_args(hint) if dataclasses.is_dataclass(a))
+
+
 def to_port_cfg(jcfg, port_cls):
     """The port's config dataclass with the JAX config's values (fields the
     port has; nested configs converted; jnp dtypes -> torch dtypes)."""
@@ -78,7 +127,7 @@ def to_port_cfg(jcfg, port_cls):
     for f in dataclasses.fields(port_cls):
         val = getattr(jcfg, f.name)
         if dataclasses.is_dataclass(val):
-            val = to_port_cfg(val, type(f.default_factory()) if f.default_factory is not dataclasses.MISSING else type(f.default))
+            val = to_port_cfg(val, _port_field_class(port_cls, f))
         elif f.name == "dtype":
             val = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}[val]
         kw[f.name] = val
@@ -122,13 +171,15 @@ def _entry_points():
     from cosyvoice_tpu_torch.models.flow import CausalFlow, FlowConfig
     from cosyvoice_tpu_torch.models.hift import HiFTConfig, HiFTGenerator
     from cosyvoice_tpu_torch.models.llm import LMConfig, Qwen2LM
-    from cosyvoice_tpu_torch.runtime.api import AutoModel, CosyVoice2
-    from cosyvoice_tpu_torch.runtime.engine import build_random_engine
+    from cosyvoice_tpu_torch.runtime.api import AutoModel, CosyVoice2, CosyVoice3
+    from cosyvoice_tpu_torch.runtime.engine import build_random_engine, build_random_engine_v3
 
     lm = to_port_cfg(jax_lm_cfg(), LMConfig)
     flow = to_port_cfg(jax_flow_cfg(), FlowConfig)
     hift = to_port_cfg(jax_hift_cfg(), HiFTConfig)
     cfgs = dict(lm_cfg=lm, flow_cfg=flow, hift_cfg=hift)
+    cfgs3 = dict(lm_cfg=to_port_cfg(jax_lm_cfg_v3(), LMConfig), flow_cfg=to_port_cfg(jax_dit_flow_cfg(), FlowConfig),
+                 hift_cfg=to_port_cfg(jax_hift_cfg_v3(), HiFTConfig))
     return {
         "Qwen2LM": lambda **kw: Qwen2LM(lm, **kw),
         "CausalFlow": lambda **kw: CausalFlow(flow, **kw),
@@ -136,10 +187,13 @@ def _entry_points():
         "build_random_engine": lambda **kw: build_random_engine(0, **cfgs, **kw),
         "CosyVoice2": lambda **kw: CosyVoice2(**cfgs, **kw),
         "AutoModel": lambda **kw: AutoModel("", **cfgs, **kw),
+        "build_random_engine_v3": lambda **kw: build_random_engine_v3(0, **cfgs3, **kw),
+        "CosyVoice3": lambda **kw: CosyVoice3(**cfgs3, **kw),
     }
 
 
-ENTRY_POINTS = ["Qwen2LM", "CausalFlow", "HiFTGenerator", "build_random_engine", "CosyVoice2", "AutoModel"]
+ENTRY_POINTS = ["Qwen2LM", "CausalFlow", "HiFTGenerator", "build_random_engine", "CosyVoice2", "AutoModel",
+                "build_random_engine_v3", "CosyVoice3"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
