@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py            # every phase, one card
 
-Phases, each under a hard time budget (the process exits non-zero if one is
-exceeded, a kernel disagrees with its plain version, or anything raises):
+Phases, each under a hard time budget (the process exits non-zero if the
+run falls behind the sum of the budgets of the phases so far, a kernel
+disagrees with its plain version, or anything raises):
 
 1. device: the card's name and power limit; TF32 off for matmuls and convs.
 2. build: every CUDA kernel, one `nvcc -c` per source, all started
@@ -40,7 +41,8 @@ exceeded, a kernel disagrees with its plain version, or anything raises):
    8 and 16 (the batched steps' route, int4_o_mlp_rows_kernel) with its
    bound.
 4. slice: the full-width CosyVoice2-0.5B offline engine, random weights from
-   seed 0, serves 3 `tts(stream=False)` requests; wavs must be finite and
+   seed 0, serves 3 `tts(stream=False)` requests (text 16, 32 and 48
+   ids); wavs must be finite and
    n_tokens * 2 * 480 long, and the launch counters must show that every
    decode step went through K1 and K2 (24 each per step).
 5. check: the LM's kernel decode path against the same decode with the
@@ -91,8 +93,8 @@ graphs and then eagerly (`graphs=False`, the reference) and requires
 identical sampled tokens (seed 1986), wavs and LM generator state: the bf16
 LM's 960-token request (the arena grows 512 -> 1024 -> 1536), the int4p LMs'
 text-16 request, the long-prompt request across the 2048-row route switch,
-and one bistream request per int4p LM (text 16 with max_len 64; text 32
-with max_len 640). It prints LM tokens/s and ms per token of both (capture
+and one bistream request per int4p LM (text 16 with max_len 64 and with
+max_len 320). It prints LM tokens/s and ms per token of both (capture
 time apart), the host time of the LM's replay loop per replay, and the host
 cost of one replay against its device time, and requires every captured
 graph's K1..K7 kernel nodes (CUDAGraph.debug_dump) to equal the launches
@@ -100,8 +102,8 @@ its capture counted, which each replay adds to the counters. After every
 other phase, idle takes the device's idle share (torch.profiler traces)
 over the LM stage and the flow+HiFT stage of each LM's text-16 offline
 request (320 tokens), the route-switch request and the bistream requests,
-on graphs (the eager traces and the bf16 960-token trace of earlier runs
-are left out to make room for the batch phases), and requires
+on graphs (no eager trace and no bf16 960-token trace, to keep the run
+inside its limit), and requires
 the K1..K7 kernels the LM stage's traces show to be at most the launches
 counted and at most TRACE_LOSS fewer (the profiler drops some records). It
 runs last because a profiler session multiplies the host cost of every
@@ -115,8 +117,9 @@ request (320 tokens) on a fresh LM with the same weights and no decode
 graph captured (its graphs are captured mid-stream, with token->wav on
 another thread), then its text-48 request (960 tokens; it crosses
 flow_incr_min_tok and grows the flow arena 256 -> 512 -> 1024 tokens); the
-int4p + int8 LM's text-16 request; the K7 LM's text-16
-and text-48 requests and a bistream request through `tts(<iterator>,
+int4p + int8 LM's text-16 request; the K7 LM's text-16 request (no
+text-48 one: the bf16 LM's crosses the same flow paths) and a bistream
+request through `tts(<iterator>,
 stream=True)` (text 32, the LM's max_len 640). Each is streamed, streamed
 again on the recompute path alone and served offline (cuDNN
 deterministic): the streamed tokens must equal the offline ones (and the
@@ -175,7 +178,7 @@ temporary dir (removed at the end and on error), each file's size and the
 write and read seconds; `CosyVoice2(dir)` reloaded, every parameter
 bit-equal to the saved API's, and its first zero-shot request (seconds from
 the constructor) bit-equal to the saved API's on the same prompt and
-generator; on the reloaded LM a 320-token request on CUDA graphs and
+generator; on the reloaded LM a 160-token request on CUDA graphs and
 eagerly under the default sampling and under set_sampling(top_p=0.95,
 top_k=50, temperature=0.8, repetition_penalty=1.1) (identical tokens, wavs
 and generator state; LM ms per token of each; 24 K1 and 24 K2 per step;
@@ -188,9 +191,9 @@ with the load time and the encode time per character.
 
 Then continuous batching (runtime/batch_scheduler.py), at full width with
 random weights from seed 0:
-batch: the bf16 LM serves 6 requests (text 16 / 32 / 48 ids with a
-50- and a 400-token voice prompt; 4 submitted at once, 2 more after the
-first session ends, into freed slots) through
+batch: the bf16 LM serves 4 requests (text 16 / 32 ids with a
+50- and a 400-token voice prompt; 3 submitted at once, the fourth after
+the first session ends, into a freed slot) through
 LMBatchScheduler(max_batch=4) on CUDA graphs keyed by the batch: every
 batched step through 24 K1 + 24 K2 and never K7, the B-slot arena grown
 (512 -> 1024 -> 1536 rows), each graph's kernel nodes equal to its
@@ -205,33 +208,59 @@ aggregate tokens/s of each and of one-at-a-time generate, the device ms
 of a batched step against a B=1 step, the B-slot arenas' bytes.
 batch_int4p: the same for the int4p LMs over an int8 arena (K4 + K3 + K2
 + K6 per step) and over a bf16 arena (K4 + K1 + K2 + K6, never K7) at
-text 4 / 8 / 12 (max_batch 4 alone in the greedy hold), then one bistream
-request on the second LM while a scheduler serves batch's six requests on
-its thread: the tokens it gives alone, its steps through K7.
+text 4 / 8 (max_batch 4 alone in the greedy
+hold), then one bistream request on the second LM while a scheduler serves
+batch's four requests on its thread: the tokens it gives alone, its steps through K7.
 serve: CosyVoice2(seed=0) with enable_continuous_batching(4) (every
 decode graph of the scheduler and of the B=1 decoder captured up front,
 the count and the seconds printed) behind make_stdlib_server on
 127.0.0.1 (a free port): one request's PCM equal to
 _pcm of the API's own output (the scheduler's generator reseeded before
-each); tools/bench_client.py's sweep at concurrency 1, 2 and 4 with 4
+each); tools/bench_client.py's sweep at concurrency 1 and 4 with 4
 zero-shot requests each ("Hi.", 60 tokens), offline then streamed:
 every response n_tokens * 2 * 480 samples, all of them the scheduler's
 tokens x 960, every decode step through K1 + K2, no graph captured
 while serving, first-chunk, latency and
 request-RTF p50 / p90 and audio seconds per wall second printed;
-/metrics counting the 24 requests and /metrics/reset clearing them; a
+/metrics counting the 16 requests and /metrics/reset clearing them; a
 text of two segments under greedy sampling, serially and through the
 scheduler (both segments at once): chunks in segment order, each
 segment's tokens held as in batch's greedy hold.
 
+The int8 and int4 weight modes, after the three LMs' phases:
+slice_int8 builds the engine with `Qwen2Config(quant="int8")` over a bf16
+arena, slice_int4 with `quant="int4", kv_quant=True` (fp weights from
+seed 0, quantised on the host; LM MB printed); each serves the text-16
+request (320 tokens) on graphs, every decode step through 24 K1 + 24 K2
+(int8) or 24 K3 + 24 K2 (int4 over the int8 arena), holds its logits
+over 96 steps against the plain versions and one prefill (LOGIT_TOL_QUANT,
+twice the floor), prints the device ms of a replayed step beside the bf16
+LM's at the same arena, and serves a wave of two requests through
+LMBatchScheduler(max_batch=2) on graphs. api_int8 builds
+`CosyVoice2(seed=0, quant_lm=True)` (the JAX API's int8 mode) and holds a
+zero-shot request against engine.tts on its frontend's outputs.
+
+CosyVoice-300M, after the v3 phases, at full width from seed 0
+(build_random_engine_v1; no kernel of the port on its path, as the JAX v1
+LM runs no Pallas kernel): slice_v1 serves text 16 and 32 offline (LM
+tokens/s of the eager decode, flow+HiFT ms, RTF; wavs finite and
+mel_len(n_tokens) * 256 long); stream_v1 streams them (the offline tokens,
+hops 100 then 200, first chunk, streaming RTF, the chunk log) and holds
+two windows' token2wav on the card against a host copy with the same
+injected noise (V1_T2W_TOL); api_v1 (after api_int8) runs AutoModel on a
+temporary version-1 dir with a synthetic .tiktoken vocab: zero-shot
+offline and streamed, sft after add_zero_shot_spk, instruct.
+
 The line before the last is {"kernels": [...]}, with each kernel's launches
 summed over the runs of phases 4, 6 and 8, the two bistream slices, the
-three stream phases, slice_v3 and stream_v3, the three api phases, ckpt,
+three stream phases, slice_int8 and slice_int4 (their requests and
+waves), slice_v3 and stream_v3, the api phases, ckpt,
 and the main runs of batch
 and batch_int4p (with the bistream request beside the scheduler) and
 serve's sweep (each counted from 0, replays included); the last line is
 {"ok": true, "device": {...}}. Without a card it exits 2 and prints no
-result.
+result. An earlier line prints the int8 / int4 LMs' K1 / K2 / K3
+launches apart.
 """
 
 import collections
@@ -279,33 +308,53 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16
 L2_BYTES = 50e6  # H100 L2 cache
 
-# Each phase's watchdog budget, at least 1.5x the longest of its times on
-# the card in the runs that set it (the kernels phase has taken 50-88 s
-# across card hosts; the v3 phases at most 7.9 / 8.7 / 20.4 s; the serve
-# phase's sweep was cut from 8 to 4 requests per level to make room for
-# them); the budgets sum to 1102 s, inside the run's 1200 s limit with room
-# to start up.
-PHASE_BUDGET_S = {"device": 5, "build": 25, "kernels": 137, "slice": 17, "check": 9, "graphs": 40, "stream": 44,
-                  "slice_int4p": 25, "check_int4p": 20, "slice_bistream_int4p": 4, "check_bistream_int4p": 5,
-                  "graphs_int4p": 20, "stream_int4p": 11, "slice_int4p_bf16": 26, "check_int4p_bf16": 14,
-                  "slice_bistream_int4p_bf16": 65, "check_bistream_int4p_bf16": 11, "graphs_int4p_bf16": 28,
-                  "stream_int4p_bf16": 51, "slice_v3": 13, "stream_v3": 15, "api": 40, "api_int4p": 14, "api_v3": 33,
-                  "ckpt": 80, "batch": 68, "batch_int4p": 67, "serve": 85, "idle": 130}
+# Each phase's budget: about 1.22x the longest of its times on the card in
+# the runs that set it (NVIDIA H100 80GB HBM3 hosts, whose eager,
+# host-bound phases differ up to ~1.3x; the kernels phase has taken 50-112
+# s). The budgets sum to 1174 s, inside the run's 1200 s limit with room to
+# start up, and the slowest host seen needs ~950 s of phases, so no phase
+# can have more. A phase's watchdog fires when the run has used the
+# budgets of every phase up to and including it (Phase), so a phase that
+# runs long on a host may spend what the phases before it left: the run
+# fails on time only once it is behind the sum of the budgets so far.
+# To fit the int8 / int4 and CosyVoice-300M phases, earlier paths were cut
+# in size, no check: the int4p LMs' graphs phases hold their text-16
+# request and the K7 LM's bistream hold is text 16 with max_len 320 (not
+# 32 / 640), the K7 LM streams text 16 alone, ckpt's sampling holds serve
+# 160 tokens (not 320), batch / batch_int4p serve 4 requests of text 16 /
+# 32 and 4 / 8 (not 6 of 16 / 32 / 48 and 4 / 8 / 12), serve's sweep runs
+# concurrency 1 and 4 (not 1, 2 and 4), and a host rate over an eager call
+# of 0.5 ms or more averages 10 calls (not 100).
+PHASE_BUDGET_S = {"device": 4, "build": 22, "kernels": 122, "slice": 16, "check": 10, "graphs": 46, "stream": 44,
+                  "slice_int4p": 26, "check_int4p": 23, "slice_bistream_int4p": 4, "check_bistream_int4p": 5,
+                  "graphs_int4p": 24, "stream_int4p": 13, "slice_int4p_bf16": 27, "check_int4p_bf16": 15,
+                  "slice_bistream_int4p_bf16": 57, "check_bistream_int4p_bf16": 13, "graphs_int4p_bf16": 25,
+                  "stream_int4p_bf16": 27, "slice_int8": 30, "slice_int4": 50, "slice_v3": 10, "stream_v3": 13,
+                  "slice_v1": 23, "stream_v1": 43, "api": 35, "api_int4p": 14, "api_v3": 29, "api_int8": 22,
+                  "api_v1": 24, "ckpt": 64, "batch": 47, "batch_int4p": 53, "serve": 79, "idle": 115}
 PHASE_SECONDS = {}  # each phase's measured seconds in this run
+PHASE_CLOCK = {}  # the first phase's start and the sum of the budgets of the phases entered so far
 
 
 class Phase:
     """Hard time budget for one phase: faulthandler's watchdog thread dumps
-    the stacks and exits the process if the phase overruns, even inside a
-    CUDA call that never returns to the interpreter."""
+    the stacks and exits the process if the run passes the sum of the
+    budgets of every phase so far (counted from the first phase's start),
+    even inside a CUDA call that never returns to the interpreter."""
 
     def __init__(self, name):
         self.name = name
 
     def __enter__(self):
         self.t0 = time.perf_counter()
-        faulthandler.dump_traceback_later(PHASE_BUDGET_S[self.name], exit=True)
-        print(f"== phase {self.name} (budget {PHASE_BUDGET_S[self.name]} s)", flush=True)
+        start = PHASE_CLOCK.setdefault("start", self.t0)
+        PHASE_CLOCK["budget"] = PHASE_CLOCK.get("budget", 0) + PHASE_BUDGET_S[self.name]
+        left = PHASE_CLOCK["budget"] - (self.t0 - start)
+        if left <= 0:
+            raise TimeoutError(f"phase {self.name}: the run is {-left:.1f} s behind the budgets so far")
+        faulthandler.dump_traceback_later(left, exit=True)
+        print(f"== phase {self.name} (budget {PHASE_BUDGET_S[self.name]} s; {left:.1f} s with what earlier phases "
+              f"left)", flush=True)
         return self
 
     def __exit__(self, *exc):
@@ -405,9 +454,12 @@ def n_sets(bytes_per_call, calls_per_step=24):
 
 def time_fns(fns, calls):
     """Device ms per call (a graph of `calls` calls, which visits every
-    rotating input set once) and the eager host rate, of each fn."""
+    rotating input set once) and the eager host rate, of each fn (over 10
+    calls where one takes half a millisecond of device time or more: the
+    plain K7 takes ~0.14 s a call eagerly)."""
     dev = {name: graph_ms(fn, calls=calls) for name, fn in fns.items()}
-    host = {name: cuda_ms(fn) for name, fn in fns.items()}
+    host = {name: cuda_ms(fn, iters=100 if ms < 0.5 else 10, warmup=5 if ms < 0.5 else 2)
+            for (name, fn), ms in zip(fns.items(), dev.values())}
     return dev, host
 
 
@@ -1355,7 +1407,8 @@ def _counters():
 PER_STEP = {"bf16": {"K1": 24, "K2": 24, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0},
             "int4p": {"K1": 0, "K2": 24, "K3": 24, "K4": 24, "K5": 0, "K6": 24, "K7": 0},
             "int4p_bf16": {"K1": 24, "K2": 24, "K3": 0, "K4": 24, "K5": 0, "K6": 24, "K7": 0},
-            "fused": {"K1": 0, "K2": 1, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 1}}
+            "fused": {"K1": 0, "K2": 1, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 1},
+            "kv8": {"K1": 0, "K2": 24, "K3": 24, "K4": 0, "K5": 0, "K6": 0, "K7": 0}}
 PER_EXTEND = {"K1": 0, "K2": 0, "K3": 0, "K4": 48, "K5": 24, "K6": 0, "K7": 0}
 # the bistream slices, in the lifetimes of the int4p engines: one short
 # request over the int8 arena (its decode steps are host-bound); four over
@@ -1364,7 +1417,7 @@ PER_EXTEND = {"K1": 0, "K2": 0, "K3": 0, "K4": 48, "K5": 24, "K6": 0, "K7": 0}
 # stop id) and its spans, if they run to the cadence, the arena's end
 BISTREAM = {"_int4p": {"text_lens": (16,), "max_len": 64}, "_int4p_bf16": {"text_lens": (16, 32, 48, 2100)}}
 # the bistream request of each int4p LM's `graphs` phase: (text ids, max_len)
-GRAPH_BISTREAM = {"_int4p": (16, 64), "_int4p_bf16": (32, 640)}
+GRAPH_BISTREAM = {"_int4p": (16, 64), "_int4p_bf16": (16, 320)}
 CROSS_PROMPT = 1920  # LM prompt tokens of phase_cross's requests: the arena starts at 2048 rows
 
 
@@ -2081,7 +2134,7 @@ def phase_graphs(eng, runs):
 # whether the first of them runs on a fresh LM with no graph captured yet
 # (instead of this LM)
 STREAM = {"": {"texts": (16, 48), "fresh": True}, "_int4p": {"texts": (16,)},
-          "_int4p_bf16": {"texts": (16, 48), "bistream": (32, 640)}}
+          "_int4p_bf16": {"texts": (16,), "bistream": (32, 640)}}
 RECOMPUTE_ONLY = 10**9  # flow_incr_min_tok of the reference streams: every chunk recomputes the prefix
 STREAM_TOL = 1e-3  # chunks after the crossover against the recompute path: tests/test_torch_stream.py's ATOL
 
@@ -2451,9 +2504,8 @@ def idle_share(eng, label, stages, modes):
 def phase_idle(held):
     """idle_share over the requests each LM held in its graphs phase, on
     graphs: the text-16 offline request (320 tokens), the route switch, the
-    bistream requests. (The eager traces and the bf16 LM's 960-token trace
-    of earlier runs are left out to make room for the batch phases: PERF.md
-    §5 keeps their shares.) Runs after every timed phase: a profiler session
+    bistream requests. (No eager trace and no trace of the bf16 LM's
+    960-token request, to keep the run inside its limit.) Runs after every timed phase: a profiler session
     multiplies the host cost of every later graph replay in the process
     (scripts/decode_graph_block.py)."""
     for suffix, eng, reqs in held:
@@ -2894,6 +2946,335 @@ def phase_api_v3_int4p(api):
     return launches
 
 
+# ---------------------------------------------------------------- int8 / int4 weights
+
+# the int8 and int4 weight modes of the Qwen2 LM (Qwen2Config(quant=...)):
+# phase suffix -> the Qwen2Config fields; their decode step is the bf16
+# LM's per-layer step (the products dequantise their weights in PyTorch)
+QUANT_LMS = {"_int8": dict(quant="int8"), "_int4": dict(quant="int4", kv_quant=True)}
+# the check phases' logit hold for them: twice the floor, plain decode
+# against one prefill, which is 1.08e-2 / 1.11e-2 (int8) and 1.33e-2 /
+# 1.37e-2 (int4 over the int8 arena) after 1 / 96 steps on an H100 at full
+# width (the prefill's products of M=T rows round otherwise than M=1)
+LOGIT_TOL_QUANT = {"_int8": 0.023, "_int4": 0.028}
+QUANT_TEXTS = (16,)  # the offline request (320 tokens)
+QUANT_WAVE = 8  # text ids of the wave through LMBatchScheduler(max_batch=2): one request with each BATCH_PROMPTS prompt
+
+
+def phase_slice_quant(eng, suffix, per_step, bf16_lm):
+    """An int8 / int4 LM at full width: slice's offline request
+    (QUANT_TEXTS), check's logit hold over 96 steps (LOGIT_TOL_QUANT), the
+    device ms of one replayed decode step beside the bf16 LM's at the same
+    arena, then one wave of two requests through LMBatchScheduler(
+    max_batch=2) on graphs (every batched step through per_step, never K7).
+    Returns the launches of the offline request and the wave."""
+    from cosyvoice_tpu_torch.runtime.batch_scheduler import LMBatchScheduler
+
+    prompt, reqs, counts = phase_slice(eng, per_step, text_lens=QUANT_TEXTS)
+    phase_check(eng, prompt, reqs, LOGIT_TOL_QUANT[suffix])
+    lm = eng.lm
+    mb = sum(p.numel() * p.element_size() for p in lm.module.parameters()) / 1e6
+    rows = 512
+    step = replay_cost(lm, rows=rows)
+    base = replay_cost(bf16_lm, rows=rows)
+    (k, ms), (bk, bms) = next(iter(step.items())), next(iter(base.items()))
+    print(f"LM{suffix} ({lm.cfg.qwen.quant}, kv_quant={lm.cfg.qwen.kv_quant}): {mb:.0f} MB of LM parameters; device "
+          f"ms per decode step (arena {rows} rows, {k[0]}) {ms:.4f} against the bf16 LM's {bms:.4f} ({ms / bms:.2f}x)")
+    wave = batch_requests(lm.cfg, (QUANT_WAVE,))
+    ns = _lm_ns(lm)
+    counters = _zero_counts(ns)
+    sched = LMBatchScheduler(lm, max_batch=2)
+    toks, wall = drive_waves(sched, wave)
+    n = sum(len(t) for t in toks)
+    print(f"LM{suffix} wave through LMBatchScheduler(max_batch=2): {[r[0] for r in wave]}, {n} tokens "
+          f"({[len(t) for t in toks]}) in {wall:.2f} s: {n / wall:.1f} tokens/s")
+    for (label, _, _, _, max_len), t in zip(wave, toks):
+        if not 0 < len(t) <= max_len or (t >= lm.cfg.speech_token_size).any():
+            raise AssertionError(f"LM{suffix} wave, {label}: {len(t)} tokens (max_len {max_len})")
+    wave_counts = _check_launches(ns, counters, per_step)
+    if lm.fused_steps:
+        raise AssertionError(f"LM{suffix}: {lm.fused_steps} steps through K7")
+    hold_graph_nodes(lm, sched.decoder)
+    del sched
+    return {key: counts[key] + wave_counts[key] for key in counts}
+
+
+def phase_api_int8(api, per_step):
+    """CosyVoice2(seed=0, quant_lm=True): the JAX API's int8 mode (True is
+    "int8"); one zero-shot request held against engine.tts on its
+    frontend's outputs, every decode step through per_step. Returns the
+    launches."""
+    import torch
+
+    if api.lm.cfg.qwen.quant != "int8":
+        raise AssertionError(f"quant_lm=True built an LM of quant {api.lm.cfg.qwen.quant!r}")
+    cudnn = torch.backends.cudnn
+    saved, cudnn.deterministic = cudnn.deterministic, True
+    try:
+        prompt = synthetic_voice(1, 3.0)
+        counters = _zero_counts(api.engine)
+        hold_api_against_engine(api, "int8", prompt)
+        return _check_launches(api.engine, counters, per_step)
+    finally:
+        cudnn.deterministic = saved
+
+
+# ---------------------------------------------------------------- CosyVoice-300M
+
+V1_TEXTS = (16, 32)  # slice_v1's offline requests, text ids (max_len 20 x)
+V1_PROMPT = (50, 86)  # the v1 voice prompt: speech tokens, mel rows (22.05 kHz / 256 hop: 1.72 rows a token)
+# one streamed chunk's token2wav (two windows: caches, fades) on the card
+# against the same calls on the host, fp32 with TF32 off and the same
+# injected flow noise and HiFT draws
+# (5.7e-6 measured on an H100: the float32 paths differ in summation order only)
+V1_T2W_TOL = 1e-4
+V1_T2W_WINDOWS = (36, 40)  # tokens of the two windows (62 and 68 mel rows: each past the 34-row overlap + 20-row cache)
+
+
+def build_engine_v1():
+    """The full-width CosyVoice-300M engine (build_random_engine_v1: the
+    TransformerLM with its 6 x 1024 text encoder and 14 x 1024 rel-pos LM,
+    the MaskedDiffFlow with its 6-block conformer and (256, 256) U-Net, the
+    22.05 kHz HiFT), random weights from seed 0, its sizes printed."""
+    import torch
+
+    from cosyvoice_tpu_torch.runtime.engine import build_random_engine_v1
+
+    t0 = time.perf_counter()
+    eng = build_random_engine_v1(0, "cuda")
+    torch.cuda.synchronize()
+    size = {name: (sum(p.numel() for p in m.parameters()) / 1e6,
+                   sum(p.numel() * p.element_size() for p in m.parameters()) / 1e6)
+            for name, m in (("LM", eng.lm.module), ("flow", eng.flow), ("HiFT", eng.hift))}
+    c = eng.lm.cfg
+    arena = 2 * c.lm_blocks * c.max_cache_len * c.llm_output_size * 4
+    print(f"full-width CosyVoice-300M engine from seed 0 in {time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{k} {n:.1f}M params ({mb:.0f} MB)" for k, (n, mb) in size.items())
+          + f"; LM KV arena {arena / 1e6:.0f} MB ({c.max_cache_len} rows, float32)")
+    return eng
+
+
+def _v1_prompt(eng):
+    """A fixed v1 voice prompt from seed 0: (prompt_text, prompt_speech,
+    prompt_mel, emb), and the generator that draws request texts."""
+    import numpy as np
+
+    c = eng.lm.cfg
+    rng = np.random.default_rng(0)
+    prompt_text = rng.integers(0, c.text_token_size, 10)
+    prompt_speech = rng.integers(0, c.speech_token_size, V1_PROMPT[0])
+    prompt_mel = (rng.standard_normal((1, V1_PROMPT[1], 80)) - 5.0).astype(np.float32)
+    emb = rng.standard_normal((1, 192)).astype(np.float32)
+    return (prompt_text, prompt_speech, prompt_mel, emb), rng
+
+
+def _v1_samples(eng, n_tokens):
+    return eng.flow.cfg.mel_len(n_tokens) * eng.wav_hop
+
+
+def phase_slice_v1(eng):
+    """CosyVoice-300M offline at full width: V1_TEXTS requests, each wav
+    finite and mel_len(n_tokens) * 256 samples long, the tokens below the
+    4096-token vocab; LM tokens/s (eager decode), flow+HiFT ms and RTF
+    printed. Returns [(text, tokens)]."""
+    import numpy as np
+
+    (prompt_text, prompt_speech, prompt_mel, emb), rng = _v1_prompt(eng)
+    c = eng.lm.cfg
+
+    def request(text):
+        eng.timer.reset()
+        t = time.perf_counter()
+        (out,) = list(eng.tts(text, prompt_text, prompt_speech, prompt_speech, prompt_mel, emb))
+        return out, time.perf_counter() - t
+
+    request(rng.integers(0, c.text_token_size, 4))  # warm-up: cuDNN's algorithm choices; not counted
+    reqs = []
+    for n_text in V1_TEXTS:
+        text = rng.integers(0, c.text_token_size, n_text)
+        steps = eng.lm.decode_steps
+        out, wall = request(text)
+        wav, toks = out["tts_speech"], out["speech_tokens"]
+        if not np.isfinite(wav).all() or wav.shape != (1, _v1_samples(eng, len(toks))) or not len(toks):
+            raise AssertionError(f"v1 text={n_text}: wav {wav.shape} for {len(toks)} tokens")
+        if (toks >= c.speech_token_size).any() or not 2 * n_text <= len(toks) <= 20 * n_text:
+            raise AssertionError(f"v1 text={n_text}: {len(toks)} tokens outside [2, 20] x text or the vocab")
+        lm_s, t2w_s = eng.timer.records["lm"][-1], eng.timer.records["t2w"][-1]
+        audio = wav.shape[1] / eng.hift.cfg.sampling_rate
+        print(f"v1 request text={n_text}: {len(toks)} tokens ({eng.lm.decode_steps - steps} eager decode steps), "
+              f"LM {len(toks) / lm_s:.1f} tok/s ({lm_s / len(toks) * 1e3:.2f} ms per token), flow+HiFT "
+              f"{t2w_s * 1e3:.1f} ms, audio {audio:.2f} s, wall {wall * 1e3:.0f} ms, RTF {wall / audio:.4f}")
+        reqs.append((text, toks))
+    return reqs
+
+
+def hold_v1_chunk(eng):
+    """Two streamed windows' token2wav (the second after the first's mel,
+    flow and HiFT caches: its cross-fades and pinned (z, mu)) on the card
+    against the same calls on a host copy of the flow and HiFT, with the
+    same injected flow noise and HiFT draws: within V1_T2W_TOL."""
+    import copy
+    import types
+
+    import numpy as np
+    import torch
+
+    from cosyvoice_tpu_torch.runtime.engine import CosyVoiceV1Engine, V1SessionState
+
+    (_, prompt_speech, prompt_mel, emb), _ = _v1_prompt(eng)
+    rng = np.random.default_rng(5)
+    windows = [rng.integers(0, eng.lm.cfg.speech_token_size, n) for n in V1_T2W_WINDOWS]
+    H = eng.hift.cfg.nb_harmonics + 1
+
+    def noise(i, T):
+        return torch.randn((1, T, 80), generator=torch.Generator().manual_seed(100 + i))
+
+    def draws(L):
+        g = torch.Generator().manual_seed(7)
+        phase = (torch.rand((1, 1, H), generator=g) * 2 - 1) * np.pi
+        phase[:, :, 0] = 0.0
+        return phase, torch.randn((1, L, H), generator=g)
+
+    host = CosyVoiceV1Engine(types.SimpleNamespace(device=torch.device("cpu"), cfg=eng.lm.cfg),
+                             copy.deepcopy(eng.flow).cpu(), copy.deepcopy(eng.hift).cpu())
+    out = {}
+    saved = eng.hift.source_draws
+    try:
+        for label, e in (("card", eng), ("host", host)):
+            e.flow_noise, e.hift.source_draws = noise, draws
+            state = V1SessionState()
+            t = time.perf_counter()
+            out[label] = [e.token2wav(state, w, prompt_speech, prompt_mel, emb) for w in windows]
+            print(f"v1 token2wav of windows {V1_T2W_WINDOWS} on the {label}: {(time.perf_counter() - t) * 1e3:.0f} ms, "
+                  f"chunks of {[o.shape[1] for o in out[label]]} samples")
+    finally:
+        eng.flow_noise, eng.hift.source_draws = None, saved
+    err = max(np.abs(a - b).max() for a, b in zip(out["card"], out["host"]))
+    print(f"v1 streamed chunk's token2wav, card against host: max abs error {err:.3e} (tol {V1_T2W_TOL})")
+    if not err <= V1_T2W_TOL or [o.shape for o in out["card"]] != [o.shape for o in out["host"]]:
+        raise AssertionError("v1 token2wav on the card disagrees with the host")
+
+
+def phase_stream_v1(eng, reqs):
+    """CosyVoice-300M streamed at full width: slice_v1's requests through
+    tts(stream=True): the chunks' tokens the offline request's (the LM's
+    generator seeded alike), the hops 100 then 200 tokens, every chunk
+    finite and non-empty; first chunk, streaming RTF and the chunk log
+    printed; then hold_v1_chunk."""
+    import numpy as np
+
+    (prompt_text, prompt_speech, prompt_mel, emb), _ = _v1_prompt(eng)
+    firsts = []
+    for text, toks in reqs:
+        eng.timer.reset()
+        t = time.perf_counter()
+        outs = list(eng.tts(text, prompt_text, prompt_speech, prompt_speech, prompt_mel, emb, stream=True))
+        wall = time.perf_counter() - t
+        stoks = np.concatenate([o["speech_tokens"] for o in outs])
+        hops = [len(o["speech_tokens"]) for o in outs[:-1]]
+        want = [min(eng.token_min_hop_len * 2**i, eng.token_max_hop_len) for i in range(len(hops))]
+        audio = sum(o["tts_speech"].shape[1] for o in outs) / eng.hift.cfg.sampling_rate
+        first = eng.timer.records["first_chunk"][-1] * 1e3
+        firsts.append(first)
+        print(f"v1 stream text={len(text)}: {len(outs)} chunks, hops {hops} (want {want}), {len(stoks)} tokens equal "
+              f"offline {np.array_equal(stoks, toks)}; first chunk {first:.1f} ms, audio {audio:.2f} s, wall "
+              f"{wall * 1e3:.0f} ms, streaming RTF {wall / audio:.4f}; chunk log: "
+              + "; ".join(f"{c['path']} {c['tokens']} tok {c['wall_ms']:.1f} ms (device "
+                          f"{c['device_ms'] if c['device_ms'] is None else round(c['device_ms'], 1)})"
+                          for c in eng.stream_log))
+        if not np.array_equal(stoks, toks) or hops != want:
+            raise AssertionError(f"v1 stream text={len(text)}: other tokens than offline, or not the hop schedule")
+        if not all(o["tts_speech"].size and np.isfinite(o["tts_speech"]).all() for o in outs):
+            raise AssertionError(f"v1 stream text={len(text)}: an empty or non-finite chunk")
+    print(f"v1 stream: first-chunk latency p50 {np.percentile(firsts, 50):.1f} ms over {len(firsts)} streams")
+    hold_v1_chunk(eng)
+
+
+def write_v1_dir(path, n_merges=2000, seed=0):
+    """A CosyVoice-300M model dir with no checkpoint: config.json of version
+    1 (the full-width defaults) and a synthetic .tiktoken vocab (the 256
+    bytes, then merges of random lower-case byte pairs and their joins)."""
+    import base64
+    import os
+
+    import numpy as np
+
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"version": 1}, f)
+    rng = np.random.default_rng(seed)
+    toks = [bytes([b]) for b in range(256)]
+    seen = set(toks)
+    letters = [bytes([b]) for b in range(ord("a"), ord("z") + 1)] + [b" "]
+    while len(toks) < 256 + n_merges:
+        a = toks[rng.integers(0, len(toks))] if rng.random() < 0.5 and len(toks) > 256 else letters[rng.integers(0, 27)]
+        b = letters[rng.integers(0, 27)]
+        if a + b not in seen and len(a + b) <= 8:
+            seen.add(a + b)
+            toks.append(a + b)
+    with open(os.path.join(path, "vocab.tiktoken"), "w") as f:
+        f.write("".join(f"{base64.b64encode(t).decode()} {i}\n" for i, t in enumerate(toks)))
+    return path
+
+
+def phase_api_v1():
+    """AutoModel on a CosyVoice-300M dir (write_v1_dir: config.json version
+    1, a synthetic .tiktoken vocab) at full width, random weights from the
+    default seed: the tokenizer is the v1 tiktoken one, the text's ids below
+    the LM's 51,866; zero-shot from the seeded synthetic voice, offline and
+    streamed (API RTF, first chunk), sft with a speaker added by
+    add_zero_shot_spk, and instruct; every wav finite and non-empty."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from cosyvoice_tpu_torch.runtime.api import AutoModel, CosyVoice
+
+    tmp = tempfile.mkdtemp(prefix="v1_model_")
+    try:
+        t0 = time.perf_counter()
+        api = AutoModel(write_v1_dir(tmp), device="cuda")
+        sync = _sync_fn(api.frontend.device)
+        sync()
+        tok = api.frontend.tokenizer
+        ids = api.frontend._extract_text_token(API_TEXT)
+        print(f"AutoModel(v1 dir) -> {type(api).__name__} in {time.perf_counter() - t0:.1f} s; tokenizer "
+              f"{type(tok).__name__} ({tok.vocab_size} ids); API_TEXT -> {len(ids)} ids (max {int(ids.max())}), "
+              f"decoded back equal {tok.decode(ids.tolist()) == API_TEXT}")
+        if type(api) is not CosyVoice or type(tok).__name__ != "TiktokenBPE" or ids.max() >= api.lm.cfg.text_token_size:
+            raise AssertionError("AutoModel on a v1 dir did not build CosyVoice with the v1 tokenizer")
+        prompt = synthetic_voice(1, 3.0)
+        sr = api.sample_rate
+
+        def call(label, gen):
+            sync()
+            t = time.perf_counter()
+            outs, first = [], None
+            for o in gen:
+                outs.append(o)
+                if first is None and o["tts_speech"].size:
+                    first = (time.perf_counter() - t) * 1e3
+            sync()
+            wall = time.perf_counter() - t
+            audio = sum(o["tts_speech"].shape[1] for o in outs) / sr
+            if not audio or not all(np.isfinite(o["tts_speech"]).all() for o in outs):
+                raise AssertionError(f"api v1 {label}: empty or non-finite wav")
+            print(f"api v1 {label}: {len(outs)} output(s), audio {audio:.2f} s, wall {wall * 1e3:.0f} ms, RTF "
+                  f"{wall / audio:.4f}, first chunk {first:.1f} ms")
+            return outs
+
+        call("zero-shot warm-up", api.inference_zero_shot(API_TEXT, API_PROMPT_TEXT, prompt))
+        call("zero-shot", api.inference_zero_shot(API_TEXT, API_PROMPT_TEXT, prompt))
+        call("zero-shot stream", api.inference_zero_shot(API_TEXT, API_PROMPT_TEXT, prompt, stream=True))
+        api.add_zero_shot_spk(API_PROMPT_TEXT, prompt, "spk0")
+        call("sft (add_zero_shot_spk)", api.inference_sft(API_TEXT, "spk0"))
+        call("instruct", api.inference_instruct(API_TEXT, "spk0", API_INSTRUCT))
+        del api
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # ---------------------------------------------------------------- checkpoints
 
 # the reference's Triton consumer's sampling (CosyVoice2.set_sampling)
@@ -2976,10 +3357,13 @@ def _zero_shot(api, prompt):
     return out["speech_tokens"], out["tts_speech"], time.perf_counter() - t
 
 
+SAMPLING_TEXT = 8  # text ids of the sampling holds' request (160 tokens)
+
+
 def hold_sampling_on_graphs(api):
     """The bf16 LM's decode on CUDA graphs against its eager path under the
     default sampling and under TRITON_SAMPLING (set_sampling), one
-    320-token request each (hold_graphs: identical tokens, wavs and
+    160-token request each (hold_graphs: identical tokens, wavs and
     generator state; LM ms per token of each); every decode step through
     K1 and K2 (24 each); every captured graph's kernel nodes equal to its
     counted launches. Returns the launches."""
@@ -2987,14 +3371,14 @@ def hold_sampling_on_graphs(api):
 
     eng = api.engine
     full = _prompt(eng)[0]
-    text = np.random.default_rng(5).integers(0, eng.lm.cfg.qwen.vocab_size, 16)
+    text = np.random.default_rng(5).integers(0, eng.lm.cfg.qwen.vocab_size, SAMPLING_TEXT)
     counters = _zero_counts(eng)
-    hold_graphs(eng, "default sampling, offline text=16", _offline_run(eng, full, text))
+    hold_graphs(eng, f"default sampling, offline text={SAMPLING_TEXT}", _offline_run(eng, full, text))
     default_keys = set(eng.lm.decoder.graphs)
     cfg = api.set_sampling(**TRITON_SAMPLING)
     print(f"set_sampling: top_p {cfg.top_p}, top_k {cfg.top_k}, temperature {cfg.temperature}, repetition_penalty "
           f"{cfg.repetition_penalty}")
-    hold_graphs(eng, "Triton sampling, offline text=16", _offline_run(eng, full, text))
+    hold_graphs(eng, f"Triton sampling, offline text={SAMPLING_TEXT}", _offline_run(eng, full, text))
     new = sorted(set(eng.lm.decoder.graphs) - default_keys)
     if not new or any(k[-1][-1] != cfg.repetition_penalty for k in new):
         raise AssertionError(f"no decode graph was captured under the new sampling config: {new}")
@@ -3133,9 +3517,9 @@ def phase_ckpt(int4p_tokens):
 # prompt to 512 rows, so its slot arena has 1024), in this order; the first
 # WAVE are submitted at once, the rest after the step in which the first
 # session ends, into freed slots
-BATCH_TEXTS = {"": (16, 32, 48), "_int4p": (4, 8, 12), "_int4p_bf16": (4, 8, 12)}
+BATCH_TEXTS = {"": (16, 32), "_int4p": (4, 8), "_int4p_bf16": (4, 8)}
 BATCH_PROMPTS = (50, 400)
-WAVE = 4
+WAVE = 3  # requests submitted at once; the rest after the first session ends
 MAX_BATCH = 4
 EAGER_CAP = 3  # max_len of the graph-against-eager holds, x text ids (the eager step is ~20 ms)
 GREEDY_CAP = 6  # max_len of the greedy holds and the max_batch sweep, x text ids
@@ -3488,7 +3872,7 @@ def phase_batch_int4p(cfg, device="cuda"):
 # them), SERVE_REQUESTS at each concurrency of SERVE_LEVELS, offline then
 # streamed
 SERVE_TEXT = "Hi."
-SERVE_LEVELS = (1, 2, 4)
+SERVE_LEVELS = (1, 4)
 SERVE_REQUESTS = 4
 
 
@@ -3719,8 +4103,8 @@ def main(argv):
             # twice), the long-prompt request across the 2048-row route
             # switch, one bistream request per int4p LM
             full = _prompt(eng)[0]
-            text = reqs[2 if suffix == "" else 0][0]
-            runs = [(f"offline text={len(text)}", _offline_run(eng, full, text), reqs[2 if suffix == "" else 0][1])]
+            text, toks = reqs[-1 if suffix == "" else 0]
+            runs = [(f"offline text={len(text)}", _offline_run(eng, full, text), toks)]
             # the idle phase's requests: the text-16 offline request (320
             # tokens), the route switch, the bistream requests
             idle = [(f"offline text={len(reqs[0][0])}", _offline_stages(eng, full, reqs[0][0]))]
@@ -3743,6 +4127,17 @@ def main(argv):
             launches[key] += n
         held.append((suffix, eng, idle))
         del eng
+    # the int8 and int4 weight modes at full width, beside the bf16 LM
+    new_lms = {}
+    for suffix, qwen in QUANT_LMS.items():
+        with Phase("slice" + suffix):
+            eng = build_engine(lm_cfg(**qwen))
+            per_step = PER_STEP["kv8" if qwen.get("kv_quant") else "bf16"]
+            new_lms[suffix] = phase_slice_quant(eng, suffix, per_step, held[0][1].lm)
+            for key, n in new_lms[suffix].items():
+                launches[key] += n
+            del eng
+            torch.cuda.empty_cache()
     # Fun-CosyVoice3-0.5B at full width: the engine offline and streamed
     with Phase("slice_v3"):
         eng = build_engine_v3()
@@ -3752,6 +4147,14 @@ def main(argv):
             counts[key] += n
     for key, n in counts.items():
         launches[key] += n
+    del eng
+    torch.cuda.empty_cache()
+    # CosyVoice-300M at full width: the engine offline and streamed (no kernel of the port on its path)
+    with Phase("slice_v1"):
+        eng = build_engine_v1()
+        v1_reqs = phase_slice_v1(eng)
+    with Phase("stream_v1"):
+        phase_stream_v1(eng, v1_reqs)
     del eng
     torch.cuda.empty_cache()
     # the public API from text and a prompt wav, beside the engines idle traces last
@@ -3779,6 +4182,16 @@ def main(argv):
         torch.cuda.empty_cache()
     for key, n in counts.items():
         launches[key] += n
+    with Phase("api_int8"):
+        api = build_api(quant_lm=True)
+        new_lms["_api_int8"] = phase_api_int8(api, PER_STEP["bf16"])
+        for key, n in new_lms["_api_int8"].items():
+            launches[key] += n
+        del api
+        torch.cuda.empty_cache()
+    with Phase("api_v1"):
+        phase_api_v1()
+        torch.cuda.empty_cache()
     with Phase("ckpt"):
         for key, n in phase_ckpt(int4p_tokens).items():
             launches[key] += n
@@ -3803,6 +4216,8 @@ def main(argv):
     with Phase("idle"):
         phase_idle(held)
     del held
+    print("launches of the int8 / int4 LMs (counted in the kernels line too): "
+          + "; ".join(f"LM{k}: " + ", ".join(f"{key} {n}" for key, n in v.items() if n) for k, v in new_lms.items()))
     for key, n in launches.items():
         kernels[key]["launches"] = n
     if not all(launches.values()):

@@ -1,30 +1,32 @@
 """Carry the JAX package's parameters into the port's modules.
 
 `load_jax_params(module, tree)` takes a param tree of the JAX package
-(`Qwen2LM.init`, `CausalFlow.init`, `HiFTGenerator.init`, as nested dicts of
-numpy arrays) and copies every leaf into the matching parameter of the port's
-module (Qwen2LMModule, CausalFlow, HiFTGenerator, and the frontend's
-S3Tokenizer and CamPPEmbedding):
+(`Qwen2LM.init`, `CausalFlow.init`, `HiFTGenerator.init`, the v1
+`TransformerLM.init` and `MaskedDiffFlow.init`, as nested dicts of numpy
+arrays) and copies every leaf into the matching parameter of the port's
+module (Qwen2LMModule, CausalFlow, HiFTGenerator, TransformerLMModule,
+MaskedDiffFlow, and the frontend's S3Tokenizer and CamPPEmbedding):
 
 - names: "/"-joined Flax paths become "."-joined PyTorch names, with the
   Flax list suffixes (`layers_3`, `mid_tf_2_1`) as ModuleList indices
   (`layers.3`, `mid_tf.2.1`, `blocks.0`) and `kernel`/`embedding`/`scale`
   as `weight`, unless the port's module has a parameter of the leaf's own
-  name: the quantised leaves (`kernel_q4b`, `scale4`, and the int8 head's
-  `kernel_q` and `scale`) and CAM++'s batch norms (`mean`, `var`, `scale`,
+  name: the quantised leaves (`kernel_q4b`, `kernel_q4`, `scale4`, and the
+  int8 layers' `kernel_q` and `scale`) and CAM++'s batch norms (`mean`, `var`, `scale`,
   `bias`) keep their names;
 - layouts: Dense [in, out] -> Linear [out, in]; conv [k, in, out] ->
   [out, in, k]; 2-D conv [kF, kT, in, out] -> [out, in, kF, kT];
   weight-normed ConvTranspose v [k, in, out] -> [in, out, k];
-  the int8 head's kernel_q [in, out] -> [out, in] and scale [1, out] ->
-  [out]; the int4p layouts (`kernel_q4b`, `scale4`) as they are.
+  the int8 layers' kernel_q [in, out] -> [out, in] and scale [1, out] ->
+  [out]; the int4 and int4p layouts (`kernel_q4`, `kernel_q4b`, `scale4`)
+  as they are.
 
 It raises if a leaf has no parameter, a shape differs, or a parameter is left
 unset. Values are cast to each parameter's dtype (bf16 LM layers on the card).
 
-`export_params(module)` is the inverse for the five module families: the
+`export_params(module)` is the inverse for these module families: the
 module's parameters as the JAX module's variable dict (`{"params": ...}`;
-the flow's per sub-model), in the JAX layouts and dtypes. It is what
+the flows' per sub-model), in the JAX layouts and dtypes. It is what
 `save_pretrained` writes, what quantises random weights made on the card
 (`ops/quant.quantize_lm_params`), and, run on a module built on the meta
 device, the Flax paths and shapes the converters fill.
@@ -42,12 +44,13 @@ import torch
 from torch import nn
 
 from cosyvoice_tpu_torch.models.flow import CausalFlow
+from cosyvoice_tpu_torch.models.flow_v1 import MaskedDiffFlow
 from cosyvoice_tpu_torch.models.qwen2 import Int4PWeights, QuantDense, RMSNorm
 from cosyvoice_tpu_torch.nn.conv import Conv1d, WNConvTranspose1d
 from cosyvoice_tpu_torch.utils.msgpack_io import to_torch
 
 _LISTS = (
-    "layers|encoders|up_encoders|condnet|resblocks|source_resblocks|source_downs|ups|act1|act2|convs1|convs2"
+    "layers|lm_layers|encoders|up_encoders|condnet|resblocks|source_resblocks|source_downs|ups|act1|act2|convs1|convs2"
     "|down_resnet|mid_resnet|up_resnet|down_post|up_post|down_tf|mid_tf|up_tf|blocks"
 )
 _LIST_SEGMENT = re.compile(rf"^({_LISTS})((?:_\d+)+)$")
@@ -116,7 +119,7 @@ def load_jax_params(module: torch.nn.Module, tree) -> torch.nn.Module:
 _LIST_INDEX = re.compile(r"\.(\d+)")
 # the Flax leaf behind a port parameter named `weight`, by its owner's type
 # (any other owner of a `weight` holds a Dense or conv kernel)
-_WEIGHT_LEAF = ((nn.Embedding, "embedding"), (nn.LayerNorm, "scale"), (RMSNorm, "weight"))
+_WEIGHT_LEAF = ((nn.Embedding, "embedding"), (nn.LayerNorm, "scale"), (nn.GroupNorm, "scale"), (RMSNorm, "weight"))
 # the inverse of _port_layout: port layout -> JAX layout
 _PERM = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}
 
@@ -152,14 +155,15 @@ def _collections(module: nn.Module, tree: dict) -> dict:
     """The JAX module's variable dict around `tree`: {"params": tree}, or
     per sub-model for the flow ({"encoder": {"params": ...}, "estimator":
     {"params": ...}}, as CausalFlow.init returns it)."""
-    if isinstance(module, CausalFlow):
+    if isinstance(module, (CausalFlow, MaskedDiffFlow)):
         return {k: {"params": v} for k, v in tree.items()}
     return {"params": tree}
 
 
 def export_params(module: nn.Module) -> dict:
-    """The JAX param tree of `module` (Qwen2LMModule, fp or int4p;
-    CausalFlow; HiFTGenerator; S3Tokenizer; CamPPEmbedding), the inverse of
+    """The JAX param tree of `module` (Qwen2LMModule, fp, int8, int4 or
+    int4p; CausalFlow; HiFTGenerator; TransformerLMModule; MaskedDiffFlow;
+    S3Tokenizer; CamPPEmbedding), the inverse of
     load_jax_params: nested dicts as the JAX module's `init` returns them,
     each leaf a host numpy array in the JAX layout and the JAX dtype
     (float32 for floating parameters, so a bf16 LM exports bf16-exact

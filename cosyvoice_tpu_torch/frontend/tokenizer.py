@@ -5,12 +5,15 @@ special-token lists, `QwenTokenizer` (the Qwen2 byte-level BPE of a model
 dir's tokenizer assets plus the special tokens, frontend/bpe.py; the JAX
 package builds it with `transformers`, which the port does not import),
 `ByteFallbackTokenizer` (UTF-8 bytes, then the special tokens; what both
-packages use when a model dir ships no tokenizer assets),
-`find_tokenizer_assets` and `get_tokenizer`.
+packages use when a model dir ships no tokenizer assets), the
+CosyVoice-300M (v1) whisper constants (`whisper_v1_specials`,
+WHISPER_PAT_STR) with its `.tiktoken` vocab's tokenizer
+(frontend/tiktoken_bpe.py, where the JAX package runs a C++ BPE and the
+`regex` module), `find_tokenizer_assets` and `get_tokenizer`.
 
 Where the JAX `get_tokenizer` logs a Qwen tokenizer that fails to load and
 falls back to byte ids, the port raises: byte ids do not match a
-Qwen-trained LM. The v1 `.tiktoken` route waits for ROADMAP A10.
+Qwen-trained LM.
 """
 
 import glob
@@ -19,6 +22,7 @@ import re
 from typing import List, Optional
 
 from cosyvoice_tpu_torch.frontend.bpe import ByteLevelBPE
+from cosyvoice_tpu_torch.frontend.tiktoken_bpe import WHISPER_PAT_STR, TiktokenBPE  # noqa: F401 (re-exported)
 
 # exact paralinguistic special-token inventory (reference tokenizer.py:244-256)
 V2_SPECIAL_TOKENS = [
@@ -47,6 +51,44 @@ _PINYIN = (
     "ōu ū ūn ǎ ǎi ǎn ǎng ǎo ǐ ǐn ǐng ǒ ǒng ǒu ǔ ǔn ǘ ǚ ǜ"
 ).split()
 V3_EXTRA_SPECIAL_TOKENS = ["<|endofsystem|>"] + [f"[{p}]" for p in _CMU] + [f"[{p}]" for p in _PINYIN]
+
+
+# v1 whisper-style tokenizer (reference tokenizer.py:11-206): the tiktoken
+# vocab asset "multilingual_zh_ja_yue_char_del.tiktoken" plus this special
+# inventory, whose order gives the ids after the vocab's lines
+_WHISPER_LANGS = (
+    "en zh de es ru ko fr ja pt tr pl ca nl ar sv it id hi fi vi he uk el ms cs ro da hu ta no th ur "
+    "hr bg lt la mi ml cy sk te fa lv bn sr az sl kn et mk br eu is hy ne mn bs kk sq sw gl mr pa si "
+    "km sn yo so af oc ka be tg sd gu am yi lo uz fo ht ps tk nn mt sa lb my bo tl mg as tt haw ln ha "
+    "ba jw su yue minnan wuyu dialect zh/en en/zh"
+).split()
+_AUDIO_EVENTS = ["ASR", "AED", "SER", "Speech", "/Speech", "BGM", "/BGM",
+                 "Laughter", "/Laughter", "Applause", "/Applause"]
+_EMOTIONS = ["HAPPY", "SAD", "ANGRY", "NEUTRAL"]
+_TTS_VOCAL = ["TTS/B", "TTS/O", "TTS/Q", "TTS/A", "TTS/CO", "TTS/CL", "TTS/H"] + [
+    f"TTS/SP{i:02d}" for i in range(1, 14)
+]
+
+
+def whisper_v1_specials(num_languages: int = 99) -> List[str]:
+    """The v1 tokenizer's special tokens in id order (reference
+    tokenizer.py:179-197)."""
+    return [
+        "<|endoftext|>",
+        "<|startoftranscript|>",
+        *[f"<|{lang}|>" for lang in _WHISPER_LANGS[:num_languages]],
+        *[f"<|{e}|>" for e in _AUDIO_EVENTS],
+        *[f"<|{e}|>" for e in _EMOTIONS],
+        "<|translate|>",
+        "<|transcribe|>",
+        "<|startoflm|>",
+        "<|startofprev|>",
+        "<|nospeech|>",
+        "<|notimestamps|>",
+        *[f"<|SPECIAL_TOKEN_{i}|>" for i in range(1, 31)],
+        *[f"<|{t}|>" for t in _TTS_VOCAL],
+        *[f"<|{i * 0.02:.2f}|>" for i in range(1501)],
+    ]
 
 
 class ByteFallbackTokenizer:
@@ -131,11 +173,12 @@ def find_tokenizer_assets(model_dir: Optional[str]) -> Optional[str]:
 
 
 def get_tokenizer(token_path: Optional[str] = None, version: int = 2):
-    """The Qwen tokenizer of the assets at `token_path` (a dir), or the byte
-    tokenizer with the version's special tokens when there are none. A v1
-    `.tiktoken` vocab raises NotImplementedError (ROADMAP A10)."""
+    """The v1 tokenizer of a `.tiktoken` vocab (the whisper pre-tokenizer
+    and special tokens), the Qwen tokenizer of the assets at `token_path`
+    (a dir), or the byte tokenizer with the version's special tokens when
+    there are none."""
     if token_path and token_path.endswith(".tiktoken"):
-        raise NotImplementedError(f"{token_path}: the v1 tiktoken tokenizer is not ported yet (ROADMAP A10)")
+        return TiktokenBPE.from_file(token_path, whisper_v1_specials())
     if token_path:
         return QwenTokenizer(token_path, version=version)
     return ByteFallbackTokenizer(V2_SPECIAL_TOKENS + (V3_EXTRA_SPECIAL_TOKENS if version >= 3 else []))

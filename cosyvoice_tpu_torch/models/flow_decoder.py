@@ -1,12 +1,16 @@
-"""Flow-matching estimator: the causal Matcha-style 1D U-Net of CosyVoice2.
+"""Flow-matching estimator: the Matcha-style 1D U-Net, causal and not.
 
-Counterpart of cosyvoice_tpu/models/flow_decoder.py:ConditionalDecoder for
-the shipped causal single-level config (channels=(256,)). Maps (x_t, mu,
-spks, cond, t) to the vector field, over a full sequence (offline masks, or
-with `streaming` the chunk masks of `static_chunk_size` mel frames) or, with
-`stream=(state, pos, real_n)`, over one incremental chunk with the per-step
-KV arenas and conv caches of `estimator_stream_state`. Non-causal and
-multi-level configs are not ported yet.
+Counterpart of cosyvoice_tpu/models/flow_decoder.py:ConditionalDecoder. Maps
+(x_t, mu, spks, cond, t) to the vector field over a full sequence (offline
+masks, or with `streaming` the chunk masks of `static_chunk_size` mel
+frames). The CosyVoice2 config is causal and single-level (channels (256,));
+with `stream=(state, pos, real_n)` it also runs one incremental chunk over
+the per-step KV arenas and conv caches of `estimator_stream_state`. The
+CosyVoice-300M config is non-causal and multi-level (channels (256, 256)):
+Block1D / GroupNorm resnets, a strided-conv Downsample1D after every level
+but the last, an Upsample1DTranspose on the way up, the skip of each level
+concatenated (cut to its length), the mask halved per level; it has no
+incremental-chunk form (v1 streams token windows).
 """
 
 from dataclasses import dataclass
@@ -17,7 +21,15 @@ from torch import nn
 
 from cosyvoice_tpu_torch.nn.conv import CausalConv1d, Conv1d
 from cosyvoice_tpu_torch.nn.embedding import SinusoidalPosEmb
-from cosyvoice_tpu_torch.nn.unet import BasicTransformerBlock, CausalBlock1D, ResnetBlock1D, TimestepEmbedding
+from cosyvoice_tpu_torch.nn.unet import (
+    BasicTransformerBlock,
+    Block1D,
+    CausalBlock1D,
+    Downsample1D,
+    ResnetBlock1D,
+    TimestepEmbedding,
+    Upsample1DTranspose,
+)
 from cosyvoice_tpu_torch.nn.conv import roll_cache
 from cosyvoice_tpu_torch.ops.masks import add_optional_chunk_mask, chunk_attn_bias, mask_to_bias
 
@@ -71,64 +83,87 @@ def estimator_stream_state(cfg: EstimatorConfig, B2: int, arena: int, device=Non
 class ConditionalDecoder(nn.Module):
     def __init__(self, cfg: EstimatorConfig = EstimatorConfig()):
         super().__init__()
-        if len(cfg.channels) != 1 or not cfg.causal:
-            raise NotImplementedError("only the causal single-level estimator (CosyVoice2) is ported")
         self.cfg = cfg
-        ch = cfg.channels[0]
-        t_dim = ch * 4
+        chans, causal = cfg.channels, cfg.causal
+        t_dim = chans[0] * 4
+        last = len(chans) - 1
 
-        def tblocks():
+        def tblocks(ch):
             return nn.ModuleList(
                 BasicTransformerBlock(ch, cfg.num_heads, cfg.attention_head_dim) for _ in range(cfg.n_blocks)
             )
 
+        def post(ch):
+            return CausalConv1d(ch, ch, 3) if causal else Conv1d(ch, ch, 3, padding=1)
+
         self.time_emb = SinusoidalPosEmb(cfg.in_channels)
         self.time_mlp = TimestepEmbedding(cfg.in_channels, t_dim)
-        self.down_resnet = nn.ModuleList([ResnetBlock1D(cfg.in_channels, ch, t_dim)])
-        self.down_tf = nn.ModuleList([tblocks()])
-        self.down_post = nn.ModuleList([CausalConv1d(ch, ch, 3)])
-        self.mid_resnet = nn.ModuleList(ResnetBlock1D(ch, ch, t_dim) for _ in range(cfg.num_mid_blocks))
-        self.mid_tf = nn.ModuleList(tblocks() for _ in range(cfg.num_mid_blocks))
-        self.up_resnet = nn.ModuleList([ResnetBlock1D(2 * ch, ch, t_dim)])
-        self.up_tf = nn.ModuleList([tblocks()])
-        self.up_post = nn.ModuleList([CausalConv1d(ch, ch, 3)])
-        self.final_block = CausalBlock1D(ch, ch)
-        self.final_proj = Conv1d(ch, cfg.out_channels, 1)
+        ins = (cfg.in_channels,) + tuple(chans[:-1])
+        self.down_resnet = nn.ModuleList(ResnetBlock1D(i, o, t_dim, causal) for i, o in zip(ins, chans))
+        self.down_tf = nn.ModuleList(tblocks(ch) for ch in chans)
+        for i, ch in enumerate(chans[:-1]):
+            self.add_module(f"downsample_{i}", Downsample1D(ch))
+        self.down_post = nn.ModuleDict({str(last): post(chans[-1])})  # JAX down_post_<last level>
+        ch = chans[-1]
+        self.mid_resnet = nn.ModuleList(ResnetBlock1D(ch, ch, t_dim, causal) for _ in range(cfg.num_mid_blocks))
+        self.mid_tf = nn.ModuleList(tblocks(ch) for _ in range(cfg.num_mid_blocks))
+        up = tuple(chans[::-1]) + (chans[0],)
+        self.up_resnet = nn.ModuleList(ResnetBlock1D(2 * up[i], up[i + 1], t_dim, causal) for i in range(len(chans)))
+        self.up_tf = nn.ModuleList(tblocks(up[i + 1]) for i in range(len(chans)))
+        for i in range(last):
+            self.add_module(f"upsample_{i}", Upsample1DTranspose(up[i + 1]))
+        self.up_post = nn.ModuleDict({str(last): post(up[-1])})
+        self.final_block = CausalBlock1D(up[-1], up[-1]) if causal else Block1D(up[-1], up[-1])
+        self.final_proj = Conv1d(up[-1], cfg.out_channels, 1)
 
     def forward(self, x, mask, mu, t, spks, cond, streaming: bool = False, stream=None):
         """x/mu/cond [B, T, 80]; mask [B, T] float; t [B]; spks [B, 80].
         Returns the vector field [B, T, 80].
 
-        stream=(state, pos, real_n): incremental-chunk mode. x/mu/cond are
-        the new chunk only (T its padded length, real_n true frames; `mask`
-        is not read), `state` one Euler step's estimator_stream_state
-        (arenas written in place, caches replaced by entry) and `pos` the
-        mel frames already in the arenas. Returns (field, state), equal to
-        the streaming recompute's rows under chunk-causal masks."""
+        stream=(state, pos, real_n): incremental-chunk mode (the causal
+        single-level config). x/mu/cond are the new chunk only (T its padded
+        length, real_n true frames; `mask` is not read), `state` one Euler
+        step's estimator_stream_state (arenas written in place, caches
+        replaced by entry) and `pos` the mel frames already in the arenas.
+        Returns (field, state), equal to the streaming recompute's rows
+        under chunk-causal masks."""
         t_emb = self.time_mlp(self.time_emb(t))
         h = torch.cat([x, mu, spks[:, None, :].expand(-1, x.shape[1], -1), cond], dim=-1)
         if stream is not None:
+            if not self.cfg.causal or len(self.cfg.channels) != 1:
+                raise NotImplementedError("the chunked estimator is the causal single-level config only")
             return self._forward_chunk(h, t_emb, *stream)
-        m = mask
-        mm = m[..., None]
-        bias = _attn_bias(m, streaming, self.cfg.static_chunk_size)
-
-        h = self.down_resnet[0](h, m, t_emb)
-        for blk in self.down_tf[0]:
-            h = blk(h, bias)
-        skip = h
-        h = self.down_post[0](h * mm)
+        chunk = self.cfg.static_chunk_size
+        last = len(self.cfg.channels) - 1
+        skips, masks = [], [mask]
+        for i, (resnet, tblk) in enumerate(zip(self.down_resnet, self.down_tf)):
+            m = masks[-1]
+            bias = _attn_bias(m, streaming, chunk)
+            h = resnet(h, m, t_emb)
+            for blk in tblk:
+                h = blk(h, bias)
+            skips.append(h)
+            hm = h * m[..., None]
+            h = self.down_post[str(last)](hm) if i == last else getattr(self, f"downsample_{i}")(hm)
+            masks.append(m if i == last else m[:, ::2])
+        m = masks[-2]
+        bias = _attn_bias(m, streaming, chunk)
         for resnet, tblk in zip(self.mid_resnet, self.mid_tf):
             h = resnet(h, m, t_emb)
             for blk in tblk:
                 h = blk(h, bias)
-        h = torch.cat([h[:, : skip.shape[1]], skip], dim=-1)
-        h = self.up_resnet[0](h, m, t_emb)
-        for blk in self.up_tf[0]:
-            h = blk(h, bias)
-        h = self.up_post[0](h * mm)
+        for i, (resnet, tblk) in enumerate(zip(self.up_resnet, self.up_tf)):
+            m = masks[last - i]
+            bias = _attn_bias(m, streaming, chunk)
+            skip = skips[last - i]
+            h = resnet(torch.cat([h[:, : skip.shape[1]], skip], dim=-1), m, t_emb)
+            for blk in tblk:
+                h = blk(h, bias)
+            hm = h * m[..., None]
+            h = self.up_post[str(last)](hm) if i == last else getattr(self, f"upsample_{i}")(hm)
         h = self.final_block(h, m)
-        return self.final_proj(h * mm) * mm
+        mm = m[..., None]
+        return self.final_proj(h * mm) * mask[..., None]
 
     def _forward_chunk(self, h, t_emb, st: dict, pos: int, real_n: int):
         B, n, _ = h.shape
@@ -151,13 +186,13 @@ class ConditionalDecoder(nn.Module):
         h, st["down_resnet_0"] = self.down_resnet[0](h, m, t_emb, st["down_resnet_0"], real_n)
         tblocks(self.down_tf[0], "down_tf_0")
         skip = h
-        h = causal3(self.down_post[0], "down_post_0")
+        h = causal3(self.down_post["0"], "down_post_0")
         for i, (resnet, tblk) in enumerate(zip(self.mid_resnet, self.mid_tf)):
             h, st[f"mid_resnet_{i}"] = resnet(h, m, t_emb, st[f"mid_resnet_{i}"], real_n)
             tblocks(tblk, f"mid_tf_{i}")
         h = torch.cat([h, skip], dim=-1)
         h, st["up_resnet_0"] = self.up_resnet[0](h, m, t_emb, st["up_resnet_0"], real_n)
         tblocks(self.up_tf[0], "up_tf_0")
-        h = causal3(self.up_post[0], "up_post_0")
+        h = causal3(self.up_post["0"], "up_post_0")
         h, st["final_block"] = self.final_block(h, m, st["final_block"], real_n)
         return self.final_proj(h * mm) * mm, st

@@ -1,5 +1,5 @@
-"""HiFT vocoder (NSF source + iSTFT HiFi-GAN), 24 kHz: non-causal (v2) and
-causal (v3).
+"""HiFT vocoder (NSF source + iSTFT HiFi-GAN): 24 kHz non-causal (v2) and
+causal (v3), and 22.05 kHz non-causal (v1).
 
 Counterpart of cosyvoice_tpu/models/hift.py:HiFTGenerator:
 
@@ -24,8 +24,17 @@ own, drawn once per device from a seeded torch.Generator: the JAX
 package's is a threefry draw (ROADMAP C4). The causal f0 predictor stays in
 float32, as in the JAX package.
 
-Randomness of the non-causal source (harmonic initial phases, noise) comes
-from an explicit torch.Generator. The SineGen1 (v1) variant is not ported.
+At 22.05 kHz (CosyVoice-300M: upsampling (8, 8), hop 256) the source is
+SineGen1 (`sine_source_v1`, chosen by `HiFTConfig.sinegen_type`): each
+harmonic's phase accumulates at the sample rate, modulo 1, in float64 (the
+JAX package takes the sum modulo 1 inside an associative scan; a plain
+float32 cumulative sum would detune the high harmonics over long audio),
+plus a uniform(-pi, pi) initial phase per harmonic, 0 for the fundamental.
+
+Randomness of the non-causal sources (harmonic initial phases, noise) comes
+from an explicit torch.Generator; `HiFTGenerator.source_draws`, when set,
+hands the v1 source fixed (phase, noise) draws instead (the tests hand it
+JAX's).
 """
 
 from dataclasses import dataclass
@@ -74,7 +83,21 @@ class HiFTConfig:
 
     @property
     def hop_total(self) -> int:
-        return int(np.prod(self.upsample_rates)) * self.istft_hop  # 480 at 24 kHz
+        return int(np.prod(self.upsample_rates)) * self.istft_hop  # 480 at 24 kHz, 256 at 22.05 kHz
+
+    @property
+    def sinegen_type(self) -> str:
+        """'1' (SineGen1) at 22.05 kHz, the v1 vocoder; '2' otherwise."""
+        return "1" if self.sampling_rate == 22050 else "2"
+
+
+def v1_hift_config(**kw) -> "HiFTConfig":
+    """The CosyVoice-300M vocoder: 22.05 kHz, upsampling (8, 8) with kernels
+    (16, 16), source resblocks (7, 11), hop 256 (the JAX API's v1 config)."""
+    return HiFTConfig(**{
+        "sampling_rate": 22050, "upsample_rates": (8, 8), "upsample_kernel_sizes": (16, 16),
+        "source_resblock_kernel_sizes": (7, 11), "source_resblock_dilations": ((1, 3, 5), (1, 3, 5)), **kw,
+    })
 
 
 class ConvRNNF0Predictor(nn.Module):
@@ -140,6 +163,28 @@ def causal_noise_buffer(n_harmonics: int, device) -> torch.Tensor:
     return _NOISE[key]
 
 
+def sine_source_v1(f0_up: torch.Tensor, cfg: HiFTConfig, generator: torch.Generator, phase=None, noise=None):
+    """SineGen1 harmonic source. f0_up [B, L] at the sample rate. Returns
+    (sine_waves [B, L, H+1], uv [B, L, 1]). The phases accumulate modulo 1
+    in float64; `phase` [B, 1, H+1] (initial phases, the fundamental's 0)
+    and `noise` [B, L, H+1] (standard normal) are drawn from `generator`
+    unless given."""
+    H = cfg.nb_harmonics + 1
+    B, L = f0_up.shape
+    dev, dt = f0_up.device, f0_up.dtype
+    fn = f0_up[..., None] * torch.arange(1, H + 1, dtype=dt, device=dev) / cfg.sampling_rate  # [B, L, H]
+    cum = torch.remainder(torch.cumsum(torch.remainder(fn, 1.0).double(), dim=1), 1.0).to(dt)
+    if phase is None:
+        phase = (torch.rand((B, 1, H), generator=generator, device=dev, dtype=dt) * 2.0 - 1.0) * np.pi
+        phase[:, :, 0] = 0.0
+    sines = cfg.nsf_alpha * torch.sin(2.0 * np.pi * cum + phase.to(dev, dt))
+    uv = (f0_up > cfg.nsf_voiced_threshold).to(dt)[..., None]
+    noise_amp = uv * cfg.nsf_sigma + (1.0 - uv) * cfg.nsf_alpha / 3.0
+    if noise is None:
+        noise = torch.randn(sines.shape, generator=generator, device=dev, dtype=dt)
+    return sines * uv + noise_amp * noise.to(dev, dt), uv
+
+
 def sine_source(f0_up: torch.Tensor, cfg: HiFTConfig, generator: torch.Generator, noise_buffer=None):
     """SineGen2 harmonic source. f0_up [B, L] at the sample rate (L = T*480).
     Returns (sine_waves [B, L, H+1], uv [B, L, 1]). Causal: the phase is
@@ -181,8 +226,12 @@ class SourceModuleHnNSF(nn.Module):
         self.cfg = cfg
         self.l_linear = nn.Linear(cfg.nb_harmonics + 1, 1)
 
-    def forward(self, f0_up, generator, noise_buffer=None):
-        sine_waves, _ = sine_source(f0_up, self.cfg, generator, noise_buffer)
+    def forward(self, f0_up, generator, noise_buffer=None, draws=None):
+        """draws: the v1 source's (phase, noise), or None (from `generator`)."""
+        if self.cfg.sinegen_type == "1":
+            sine_waves, _ = sine_source_v1(f0_up, self.cfg, generator, *(draws or (None, None)))
+        else:
+            sine_waves, _ = sine_source(f0_up, self.cfg, generator, noise_buffer)
         return torch.tanh(self.l_linear(sine_waves))[..., 0]
 
 
@@ -221,6 +270,9 @@ class HiFTGenerator(nn.Module):
         self.cfg = cfg
         # the causal source's noise [N, H+1]; None: causal_noise_buffer (tests hand in another)
         self.noise_buffer = None
+        # the v1 source's draws: None, or a function of the source length L
+        # giving (phase [1, 1, H+1], noise [1, L, H+1]) (tests hand in JAX's)
+        self.source_draws = None
         with torch.device(resolve_device(device)):
             self._build(cfg)
         self.eval()
@@ -312,7 +364,9 @@ class HiFTGenerator(nn.Module):
 
     def source_from_f0(self, f0, generator):
         """f0 [B, T] at the mel rate -> source [B, T*480]."""
-        return self.m_source(repeat_interleave_time(f0, self.cfg.hop_total, axis=-1), generator, self.noise_buffer)
+        f0_up = repeat_interleave_time(f0, self.cfg.hop_total, axis=-1)
+        draws = None if self.source_draws is None else self.source_draws(f0_up.shape[1])
+        return self.m_source(f0_up, generator, self.noise_buffer, draws)
 
     @torch.inference_mode()
     def inference(self, mel, generator: torch.Generator, cache_source: Optional[torch.Tensor] = None,

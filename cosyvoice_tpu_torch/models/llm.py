@@ -32,8 +32,11 @@ sampling config's temperature and repetition penalty (the presence set
 seeded from the prompt's speech tokens, models/decode_graph.py).
 Continuous batching decodes concurrent requests over B-slot arenas through
 runtime/batch_scheduler.py:LMBatchScheduler, which shares this LM's weights
-and, once attached, takes turns with its B=1 requests (`device_turn`). Not
-ported yet: the int8 and int4 weight modes.
+and, once attached, takes turns with its B=1 requests (`device_turn`). The
+int8 and int4 weight modes (`Qwen2Config(quant=True | "int8" | "int4")`,
+the head int8) decode through the bf16 LM's per-layer step, K2 and K1, or
+K2 and K3 over the int8 arena, on the same graphs and in the scheduler.
+CosyVoice-300M's LM is models/llm_v1.py.
 """
 
 import contextlib
@@ -111,7 +114,7 @@ class Qwen2LMModule(nn.Module):
         self.speech_embedding = nn.Embedding(cfg.head_size, dim)
         bias = not cfg.special_in_speech_table  # the v3 head has no bias
         if cfg.qwen.quant:
-            # the head stays int8 weight-only in int4p mode, as in the JAX package
+            # the head is int8 weight-only in every quantised mode, as in the JAX package
             self.llm_decoder = QuantDense(dim, cfg.head_size, cfg.qwen.dtype, bias=bias)
         else:
             self.llm_decoder = nn.Linear(dim, cfg.head_size, bias=bias)

@@ -1,8 +1,13 @@
 """Qwen2 transformer backbone (GQA + RoPE + SwiGLU + RMSNorm) in PyTorch.
 
 Counterpart of cosyvoice_tpu/models/qwen2.py for bf16/fp32 weights and for
-the int4p weight-only layouts (`Qwen2Config(quant="int4p")`), each with a
-bf16 or an int8 KV arena (`kv_quant`):
+the three weight-only modes, each with a bf16 or an int8 KV arena
+(`kv_quant`): `Qwen2Config(quant=True | "int8")`, int8 kernels with
+per-output-channel scales (`QuantDense`); `quant="int4"`, half-split
+nibble-packed int4 with 8 input-blockwise scales (`QuantDense4`); and
+`quant="int4p"`, the blocked int4 layouts of the fused decode kernels. The
+int8 and int4 products are plain dequantise-then-matmul, as the JAX package
+computes them in XLA; their decode step is the bf16 LM's (K2, then K1 or K3):
 
 - fused qkv projection with bias, fused gate|up projection;
 - a KV arena [L, B, T, Hkv, d] per K and V, updated in place
@@ -66,6 +71,7 @@ from cosyvoice_tpu_torch.ops.int4_fused import (
     int4_mlp_reference,
     int4_o_mlp,
 )
+from cosyvoice_tpu_torch.ops.quant import INT4_BLOCKS, int4_matmul, quant_mode
 
 NEG_INF = -1e30
 
@@ -83,7 +89,7 @@ class Qwen2Config:
     rope_theta: float = 1e6
     max_cache_len: int = 4096
     dtype: torch.dtype = torch.bfloat16
-    quant: object = False  # weight-only quantisation: False | "int4p"
+    quant: object = False  # weight-only quantisation: False | True / "int8" | "int4" | "int4p"
     kv_quant: bool = False  # int8 KV arena with per-token f32 scales
 
 
@@ -174,6 +180,35 @@ class QuantDense(nn.Module):
         return y if self.bias is None else y + self.bias.to(dt)
 
 
+class QuantDense4(nn.Module):
+    """int4 weight-only Dense in the JAX layout: kernel_q4 [in/2, out] int8
+    (two half-split nibbles a byte, ops/quant.quantize_tensor_int4), scale4
+    [8, out] f32, bias [out] (none with bias=False). Computes in `dtype` the
+    dot summed per scale block, as the JAX QuantDense4 (ops/quant.int4_matmul)."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype, bias: bool = True):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel_q4 = _frozen((in_features // 2, out_features), torch.int8)
+        self.scale4 = _frozen((INT4_BLOCKS, out_features), torch.float32, 1)
+        self.bias = nn.Parameter(torch.zeros(out_features, dtype=torch.float32)) if bias else None
+
+    def forward(self, x):
+        y = int4_matmul(x, self.kernel_q4, self.scale4, self.dtype)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
+
+
+def dense(cfg: "Qwen2Config", in_features: int, out_features: int, bias: bool) -> nn.Module:
+    """A decode-path matmul of the unfused layouts by cfg.quant (the JAX
+    dense_cls): nn.Linear in cfg.dtype unquantised, QuantDense for True /
+    "int8", QuantDense4 for "int4"."""
+    if not cfg.quant:
+        return nn.Linear(in_features, out_features, bias=bias, dtype=cfg.dtype)
+    if quant_mode(cfg.quant) == "int4":
+        return QuantDense4(in_features, out_features, cfg.dtype, bias=bias)
+    return QuantDense(in_features, out_features, cfg.dtype, bias=bias)
+
+
 class Int4PWeights(nn.Module):
     """Holder of one weight in a blocked half-split int4 layout
     (ops/int4_fused.py): kernel_q4b int8 and scale4 f32, handed to the
@@ -214,8 +249,8 @@ class Qwen2Attention(nn.Module):
             self.qkv_proj = QuantDense4P(cfg.hidden_size, nq + 2 * nkv, cfg.dtype)
             self.o_proj = Int4PWeights((nb_o, GEMV_IN_ALIGN // 2, cfg.hidden_size), (nb_o, cfg.hidden_size))
         else:
-            self.qkv_proj = nn.Linear(cfg.hidden_size, nq + 2 * nkv, bias=True, dtype=cfg.dtype)
-            self.o_proj = nn.Linear(nq, cfg.hidden_size, bias=False, dtype=cfg.dtype)
+            self.qkv_proj = dense(cfg, cfg.hidden_size, nq + 2 * nkv, bias=True)
+            self.o_proj = dense(cfg, nq, cfg.hidden_size, bias=False)
 
     def _qkv(self, x, cos, sin):
         """q, k rope'd (float32, as apply_rope returns) and v in cfg.dtype."""
@@ -303,8 +338,8 @@ class Qwen2MLP(nn.Module):
             self.gate_up_proj = Int4PWeights((2, nb_in, half_in, inter_p), (2, nb_in, inter_p))
             self.down_proj = Int4PWeights((n_down, MLP_INTER_ALIGN // 2, cfg.hidden_size), (n_down, cfg.hidden_size))
         else:
-            self.gate_up_proj = nn.Linear(cfg.hidden_size, 2 * cfg.intermediate_size, bias=False, dtype=cfg.dtype)
-            self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size, bias=False, dtype=cfg.dtype)
+            self.gate_up_proj = dense(cfg, cfg.hidden_size, 2 * cfg.intermediate_size, bias=False)
+            self.down_proj = dense(cfg, cfg.intermediate_size, cfg.hidden_size, bias=False)
 
     def forward(self, x):
         """The MLP of x [..., H]: int4p through K5 for at most 16 rows, the
@@ -357,8 +392,8 @@ class Qwen2Model(nn.Module):
 
     def __init__(self, cfg: Qwen2Config):
         super().__init__()
-        if cfg.quant not in (False, "int4p"):
-            raise NotImplementedError(f"Qwen2Config.quant={cfg.quant!r}: the port serves False and 'int4p'")
+        if cfg.quant:
+            quant_mode(cfg.quant)  # raises on an unknown mode
         self.cfg = cfg
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, dtype=cfg.dtype)
         self.layers = nn.ModuleList(Qwen2Layer(cfg) for _ in range(cfg.num_layers))

@@ -1,9 +1,13 @@
-"""Upsample-conformer encoder of the CosyVoice2 flow.
+"""Conformer encoders: the WeNet encoder of CosyVoice-300M and the
+upsample-conformer encoder of the CosyVoice2 flow.
 
-Counterpart of the parts of cosyvoice_tpu/nn/conformer.py that the flow-v2
-encoder uses: PositionwiseFeedForward, ConformerEncoderLayer (rel-pos
-attention, no macaron, no conv module), LinearInputLayer, PreLookaheadLayer,
-Upsample1DConv and UpsampleConformerEncoder. Channel-last [B, T, C]. Three
+Counterpart of the parts of cosyvoice_tpu/nn/conformer.py that the shipped
+configs use: PositionwiseFeedForward, ConformerEncoderLayer (rel-pos
+attention, no macaron, no conv module), LinearInputLayer, ConformerEncoder
+(the v1 LM's text encoder and the v1 flow's encoder: linear input layer,
+espnet rel-pos encoding, full or static-chunk masks), PreLookaheadLayer,
+Upsample1DConv and UpsampleConformerEncoder. Channel-last [B, T, C]. The
+upsample encoder has three
 modes: offline (full attention); streaming recompute (the lookahead tokens
 scattered at the body's end, static chunk masks at `static_chunk_size`
 tokens and `static_chunk_size * up_stride` mel frames); and the incremental
@@ -65,6 +69,33 @@ class LinearInputLayer(nn.Module):
 
     def forward(self, x):
         return self.out_norm(self.out_dense(x))
+
+
+class ConformerEncoder(nn.Module):
+    """WeNet encoder over full sequences: LinearInputLayer, the espnet
+    rel-pos encoding (x * sqrt(d)), `num_blocks` rel-pos layers, LayerNorm.
+    With `streaming` the attention mask is the static chunk mask of
+    `static_chunk_size` frames (1: causal, the v1 LM's text encoder)."""
+
+    def __init__(self, input_size: int, output_size: int = 512, attention_heads: int = 8, linear_units: int = 2048,
+                 num_blocks: int = 6, static_chunk_size: int = 0):
+        super().__init__()
+        self.static_chunk_size = static_chunk_size
+        self.embed = LinearInputLayer(input_size, output_size)
+        self.pos_enc = EspnetRelPositionalEncoding(output_size)
+        self.encoders = nn.ModuleList(
+            ConformerEncoderLayer(output_size, attention_heads, linear_units) for _ in range(num_blocks)
+        )
+        self.after_norm = nn.LayerNorm(output_size, eps=1e-5)
+
+    def forward(self, xs, xs_lens, streaming: bool = False):
+        """xs [B, T, input_size], xs_lens [B] -> ([B, T, output_size], non-pad mask [B, T])."""
+        pad_mask = make_non_pad_mask(xs_lens, xs.shape[1])
+        xs, pos_emb = self.pos_enc(self.embed(xs))
+        att_mask = add_optional_chunk_mask(pad_mask[:, None, :], self.static_chunk_size if streaming else 0)
+        for layer in self.encoders:
+            xs = layer(xs, att_mask, pos_emb)
+        return self.after_norm(xs), pad_mask
 
 
 class PreLookaheadLayer(nn.Module):

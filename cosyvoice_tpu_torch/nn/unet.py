@@ -1,12 +1,15 @@
-"""Matcha-style 1D U-Net blocks of the causal flow estimator.
+"""Matcha-style 1D U-Net blocks of the flow estimators.
 
-Counterpart of cosyvoice_tpu/nn/unet.py for the causal blocks the CosyVoice2
-estimator uses (CausalBlock1D, causal ResnetBlock1D, TimestepEmbedding,
-BasicTransformerBlock), with the incremental-chunk forms of the streaming
-flow: the conv blocks take left-context caches, the transformer blocks a KV
-arena. x [B, T, C]; mask [B, T] float; t_emb [B, time_dim]. The non-causal
-GroupNorm blocks and the down/up-sampling of multi-level configs are not
-ported yet.
+Counterpart of cosyvoice_tpu/nn/unet.py: the causal blocks of the
+CosyVoice2 estimator (CausalBlock1D, causal ResnetBlock1D), with the
+incremental-chunk forms of the streaming flow (the conv blocks take
+left-context caches, the transformer blocks a KV arena); the non-causal
+blocks of the CosyVoice-300M estimator (Block1D: conv, GroupNorm, Mish;
+the non-causal ResnetBlock1D; Downsample1D and Upsample1DTranspose of its
+multi-level U-Net); TimestepEmbedding and BasicTransformerBlock. x [B, T,
+C]; mask [B, T] float; t_emb [B, time_dim]. Block1D's GroupNorm reduces
+over every frame of its masked input, padded ones included, as the JAX
+block computes it (ROADMAP C4).
 """
 
 import math
@@ -16,7 +19,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from cosyvoice_tpu_torch.nn.activation import mish
-from cosyvoice_tpu_torch.nn.conv import CausalConv1d, Conv1d, roll_cache
+from cosyvoice_tpu_torch.nn.conv import CausalConv1d, Conv1d, WNConvTranspose1d, roll_cache
 
 
 class CausalBlock1D(nn.Module):
@@ -37,14 +40,53 @@ class CausalBlock1D(nn.Module):
         return y if cache is None else (y, roll_cache(cache, xm, real_n))
 
 
-class ResnetBlock1D(nn.Module):
-    """Causal resnet block: block1, + mlp(mish(t_emb)), block2, + res_conv(x)."""
+class Block1D(nn.Module):
+    """Conv k=3 (zero pad 1) of the masked input, GroupNorm of `groups`
+    groups, Mish, masked."""
 
-    def __init__(self, dim_in: int, dim_out: int, time_emb_dim: int):
+    def __init__(self, dim_in: int, dim_out: int, groups: int = 8):
         super().__init__()
-        self.block1 = CausalBlock1D(dim_in, dim_out)
+        self.conv = Conv1d(dim_in, dim_out, 3, padding=1)
+        self.norm = nn.GroupNorm(groups, dim_out, eps=1e-5)
+
+    def forward(self, x, mask):
+        m = mask[..., None]
+        h = self.conv(x * m).transpose(1, 2)
+        return mish(self.norm(h).transpose(1, 2)) * m
+
+
+class Downsample1D(nn.Module):
+    """Strided conv k=3, stride 2, pad 1: ceil(T / 2) frames."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.conv = Conv1d(dim, dim, 3, stride=2, padding=1)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class Upsample1DTranspose(nn.Module):
+    """Weight-normed ConvTranspose1d k=4, stride 2, pad 1: 2T frames."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.conv = WNConvTranspose1d(dim, dim, 4, 2, padding=1)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class ResnetBlock1D(nn.Module):
+    """Resnet block: block1, + mlp(mish(t_emb)), block2, + res_conv(x);
+    causal (CausalBlock1D) or not (Block1D)."""
+
+    def __init__(self, dim_in: int, dim_out: int, time_emb_dim: int, causal: bool = True):
+        super().__init__()
+        block = CausalBlock1D if causal else Block1D
+        self.block1 = block(dim_in, dim_out)
         self.mlp = nn.Linear(time_emb_dim, dim_out)
-        self.block2 = CausalBlock1D(dim_out, dim_out)
+        self.block2 = block(dim_out, dim_out)
         self.res_conv = Conv1d(dim_in, dim_out, 1)
 
     def forward(self, x, mask, t_emb, caches=None, real_n=None):

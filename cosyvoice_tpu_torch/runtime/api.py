@@ -19,8 +19,11 @@ present is read on the host and loaded through convert.load_jax_params (a
 tree that does not match its module raises); each one absent stays random,
 made on the device from `seed` (engine: seed, seed + 1, seed + 2;
 frontend: seed + 3, seed + 4), with the JAX package's warning for the
-engine's three. With `quant_lm="int4p"` the fp LM tree is quantised on the
-host (ops/quant.quantize_lm_params) before it is loaded. `save_pretrained`
+engine's three. With `quant_lm` True / "int8", "int4" or "int4p" (True is
+"int8", as in the JAX API; `kv_quant` combines with each) the fp LM tree is
+quantised on the host (ops/quant.quantize_lm_params) before it is loaded;
+a tree that is already quantised in that mode (save_pretrained's) loads as
+it is. `save_pretrained`
 writes all five files; `set_sampling` changes the LM's sampling config in
 place (the weights, the static KV arenas and the decode graphs of other
 configs stay). Without continuous batching, `inference_*` calls from
@@ -38,9 +41,17 @@ passes the config) through runtime/engine.py:CosyVoice3Engine, with the
 version-3 frontend (its tokenizer knows the v3 special tokens);
 `inference_instruct2` refuses an instruct text that holds the
 <|endofprompt|> delimiter the frontend appends. `AutoModel` returns it for
-a version-3 dir. Not ported yet, and raising NotImplementedError:
-`quant_lm` True / "int8" / "int4" (A8), and the CosyVoice (v1, A10)
-model.
+a version-3 dir.
+
+`CosyVoice` serves CosyVoice-300M (the JAX api.py:CosyVoice): the
+TransformerLM, the MaskedDiffFlow and the 22.05 kHz HiFT through
+runtime/engine.py:CosyVoiceV1Engine, with the version-1 frontend (a model
+dir's `.tiktoken` vocab, frontend/tiktoken_bpe.py): zero-shot,
+cross-lingual, vc, sft (a released spk2info entry's x-vector conditions the
+LM and the flow) and `inference_instruct` (the LM's prompt is the
+instruction + "<endofprompt>", with the zero speaker row). `AutoModel`
+returns it for a version-1 dir (config.json, or the reference's
+cosyvoice.yaml).
 """
 
 import dataclasses
@@ -59,15 +70,25 @@ from cosyvoice_tpu_torch.convert import export_params, load_jax_params
 from cosyvoice_tpu_torch.frontend.frontend import CosyVoiceFrontEnd
 from cosyvoice_tpu_torch.frontend.tokenizer import find_tokenizer_assets
 from cosyvoice_tpu_torch.models.flow import FlowConfig
-from cosyvoice_tpu_torch.models.hift import HiFTConfig
+from cosyvoice_tpu_torch.models.flow_v1 import FlowV1Config
+from cosyvoice_tpu_torch.models.hift import HiFTConfig, v1_hift_config
 from cosyvoice_tpu_torch.models.llm import LMConfig
+from cosyvoice_tpu_torch.models.llm_v1 import LMv1Config
+from cosyvoice_tpu_torch.ops.quant import quant_mode
 from cosyvoice_tpu_torch.runtime.batch_scheduler import LMBatchScheduler
-from cosyvoice_tpu_torch.runtime.engine import CosyVoice2Engine, CosyVoice3Engine, build_random_engine
+from cosyvoice_tpu_torch.runtime.engine import (
+    CosyVoice2Engine,
+    CosyVoice3Engine,
+    build_random_engine,
+    build_random_engine_v1,
+)
 from cosyvoice_tpu_torch.utils import msgpack_io
 from cosyvoice_tpu_torch.utils.config import (
     build_flow_config,
+    build_flow_v1_config,
     build_hift_config,
     build_lm_config,
+    build_lm_v1_config,
     build_s3_config,
     cosyvoice3_configs,
 )
@@ -118,10 +139,8 @@ def load_frontend(model_dir: str = "", sample_rate: int = 24000, version: int = 
 
 
 def _require_ported(version: int):
-    """Raise unless the port serves model `version` (2 and 3)."""
-    if version == 1:
-        raise NotImplementedError("CosyVoice version 1 is not ported yet (ROADMAP A10)")
-    if version not in (2, 3):
+    """Raise unless the port serves model `version` (1, 2 and 3)."""
+    if version not in (1, 2, 3):
         raise ValueError(f"unsupported model version {version}")
 
 
@@ -138,7 +157,7 @@ class CosyVoice2:
         lm_cfg: Optional[LMConfig] = None,
         flow_cfg: Optional[FlowConfig] = None,
         hift_cfg: Optional[HiFTConfig] = None,
-        quant_lm=False,  # False, or "int4p": int4 weights on the fused decode kernels (K4..K7)
+        quant_lm=False,  # False, True / "int8", "int4", or "int4p" (int4 on the fused decode kernels K4..K7)
         kv_quant: bool = False,  # int8 KV arena with per-row scales (K3)
         hop_policy: str = "",  # doubling | exponential | time_based; "" = config.json's engine.hop_policy, else doubling
         device="cuda",
@@ -146,11 +165,10 @@ class CosyVoice2:
         self.model_dir = model_dir
         file_cfg = _read_dir_config(model_dir)
         _require_ported(int(file_cfg.get("version", 2)))
-        if quant_lm not in (False, "int4p"):
-            raise NotImplementedError(f"quant_lm={quant_lm!r}: only 'int4p' is ported (the others: ROADMAP A8)")
         lm_cfg = lm_cfg or (build_lm_config(file_cfg["llm"]) if "llm" in file_cfg else LMConfig())
         if quant_lm or kv_quant:
-            qwen = dataclasses.replace(lm_cfg.qwen, quant=quant_lm or lm_cfg.qwen.quant,
+            # True means "int8", as in the JAX API
+            qwen = dataclasses.replace(lm_cfg.qwen, quant=quant_mode(quant_lm) if quant_lm else lm_cfg.qwen.quant,
                                        kv_quant=kv_quant or lm_cfg.qwen.kv_quant)
             lm_cfg = dataclasses.replace(lm_cfg, qwen=qwen)
         flow_cfg = flow_cfg or (build_flow_config(file_cfg["flow"]) if "flow" in file_cfg else FlowConfig())
@@ -240,7 +258,12 @@ class CosyVoice2:
     # ---------------- inference modes ----------------
     def _run(self, model_input: dict, stream: bool, speed: float):
         start = time.time()
+        extra = {}
+        if model_input.get("llm_embedding") is not None:
+            # v1 conditions its LM on a speaker vector of its own; the v2/v3 engines take none
+            extra["llm_embedding"] = model_input["llm_embedding"]
         for out in self.engine.tts(
+            **extra,
             text_tokens=model_input.get("text_tokens", np.zeros(0, np.int32)),
             prompt_text_tokens=model_input.get("prompt_text_tokens", np.zeros(0, np.int32)),
             llm_prompt_speech_token=model_input.get("llm_prompt_speech_token", np.zeros(0, np.int32)),
@@ -415,6 +438,89 @@ class CosyVoice3(CosyVoice2):
                                                text_frontend)
 
 
+class CosyVoice(CosyVoice2):
+    """CosyVoice-300M (the JAX api.py:CosyVoice): the TransformerLM, the
+    MaskedDiffFlow and the 22.05 kHz HiFT through CosyVoiceV1Engine, with
+    the version-1 frontend (the `.tiktoken` tokenizer of a model dir, 22.05
+    kHz prompt mels). Every mode of CosyVoice2 but instruct2, plus
+    `inference_instruct`; configs left None take config.json's section,
+    else the full-width defaults (LMv1Config, FlowV1Config,
+    v1_hift_config)."""
+
+    sample_rate = 22050
+    version = 1
+
+    def __init__(
+        self,
+        model_dir: str = "",
+        fp16: bool = False,  # accepted and unused, as in the JAX API
+        seed: int = 1986,
+        lm_cfg: Optional[LMv1Config] = None,
+        flow_cfg: Optional[FlowV1Config] = None,
+        hift_cfg: Optional[HiFTConfig] = None,
+        device="cuda",
+    ):
+        self.model_dir = model_dir
+        file_cfg = _read_dir_config(model_dir)
+        lm_cfg = lm_cfg or (build_lm_v1_config(file_cfg["llm"]) if "llm" in file_cfg else LMv1Config())
+        flow_cfg = flow_cfg or (build_flow_v1_config(file_cfg["flow"]) if "flow" in file_cfg else FlowV1Config())
+        hift_cfg = hift_cfg or (build_hift_config(file_cfg["hift"]) if "hift" in file_cfg else v1_hift_config())
+        self.frontend = load_frontend(model_dir, self.sample_rate, self.version, seed=seed + 3, device=device)
+        trees = {name: _checkpoint(model_dir, name) for name in ("lm", "flow", "hift")}
+        self.engine = build_random_engine_v1(seed, device, lm_cfg, flow_cfg, hift_cfg,
+                                             trees={k: v for k, v in trees.items() if v is not None})
+        self.lm, self.flow, self.hift = self.engine.lm, self.engine.flow, self.engine.hift
+        self._seg_ex, self._seg_ex_width = None, 0
+        self._serial = threading.Lock()
+
+    def set_sampling(self, *args, **kw):
+        raise NotImplementedError("set_sampling is the Qwen2 LM's (CosyVoice2 / CosyVoice3)")
+
+    def enable_continuous_batching(self, *args, **kw):
+        raise NotImplementedError("continuous batching is the Qwen2 LM's (CosyVoice2 / CosyVoice3)")
+
+    def inference_instruct2(self, *args, **kw):
+        raise NotImplementedError("CosyVoice-300M has inference_instruct, not inference_instruct2")
+
+    def inference_sft(self, tts_text, spk_id, stream=False, speed=1.0, text_frontend=True):
+        """A pre-enrolled speaker: an add_zero_shot_spk entry (its prompt
+        and x-vector), or a released entry (an 'embedding' x-vector for the
+        LM and the flow, as the reference's frontend_sft gives)."""
+        info = self.frontend.spk2info[spk_id]
+
+        def jobs():
+            for seg in self._segments(tts_text, text_frontend):
+                if "embedding" in info:
+                    emb = np.asarray(info["embedding"], np.float32).reshape(1, -1)
+                    mi = {"llm_embedding": emb, "flow_embedding": emb}
+                else:
+                    mi = dict(info)
+                mi["text_tokens"] = self.frontend._extract_text_token(seg)
+                yield mi
+
+        yield from self._in_turn(self._run_segments(jobs(), stream, speed), tts_text)
+
+    def inference_instruct(self, tts_text, spk_id, instruct_text, stream=False, speed=1.0, text_frontend=True):
+        """A pre-enrolled speaker read with an instruction: the LM's prompt
+        text is instruct_text + "<endofprompt>", with no prompt speech and
+        no speaker (the zero x-vector row, as the reference drops the LM's
+        speaker embedding); the flow keeps the speaker's prompt and
+        x-vector."""
+        info = self.frontend.spk2info[spk_id]
+
+        def jobs():
+            for seg in self._segments(tts_text, text_frontend):
+                mi = ({"flow_embedding": np.asarray(info["embedding"], np.float32).reshape(1, -1)}
+                      if "embedding" in info else dict(info))
+                mi["text_tokens"] = self.frontend._extract_text_token(seg)
+                mi["prompt_text_tokens"] = self.frontend._extract_text_token(instruct_text + "<endofprompt>")
+                mi["llm_prompt_speech_token"] = np.zeros(0, np.int32)
+                mi["llm_embedding"] = np.zeros((1, self.lm.cfg.spk_embed_dim), np.float32)
+                yield mi
+
+        yield from self._in_turn(self._run_segments(jobs(), stream, speed), tts_text)
+
+
 def detect_model_version(model_dir: str) -> int:
     """config.json's 'version', else the reference's yaml name
     (cosyvoice{,2,3}.yaml), else 2."""
@@ -435,4 +541,4 @@ class AutoModel:
     def __new__(cls, model_dir: str = "", **kwargs):
         version = detect_model_version(model_dir)
         _require_ported(version)
-        return (CosyVoice3 if version == 3 else CosyVoice2)(model_dir, **kwargs)
+        return {1: CosyVoice, 2: CosyVoice2, 3: CosyVoice3}[version](model_dir, **kwargs)

@@ -35,9 +35,10 @@ Counterpart of cosyvoice_tpu/runtime/engine.py:CosyVoice2Engine:
    prompt tokens) finalizes through the generic recompute path, which the
    JAX default engine skips (ROADMAP C4).
 
-The engine serves each LM configuration of models/llm.py: bf16, int4p over
-an int8 arena, and int4p over a bf16 arena (whose decode steps run the
-whole-step kernel K7 while the arena holds at most 2048 rows), e.g.
+The engine serves each LM configuration of models/llm.py: bf16, int8 or
+int4 weights (over a bf16 or an int8 arena), int4p over an int8 arena, and
+int4p over a bf16 arena (whose decode steps run the whole-step kernel K7
+while the arena holds at most 2048 rows), e.g.
 `build_random_engine(seed, "cuda", LMConfig(qwen=Qwen2Config(quant="int4p")))`.
 It takes ids and features (runtime/api.py's frontend makes them from text
 and a prompt wav). `tts(source_speech_token=...)` (vc) takes the source's
@@ -71,7 +72,13 @@ emitted samples do not change) and emits the samples past the ones already
 sent: no source or speech caches, no cross-fade. Runs of more than 5
 silent / breath tokens are dropped from the LM's stream (`_squelch`, not
 in vc). Not ported: the JAX engine's speculative fused first chunk (its
-chunks equal the standard path's), and the v1 engine.
+chunks equal the standard path's).
+
+`CosyVoiceV1Engine` (the JAX engine.py:CosyVoiceV1Engine) serves
+CosyVoice-300M (`build_random_engine_v1`): the TransformerLM decoding
+eagerly, the MaskedDiffFlow over windows of hop + 20 overlap tokens pinned
+by its (z, mu) cache, the 22.05 kHz HiFT with mel, source and speech
+caches (see its docstring).
 """
 
 import contextlib
@@ -88,8 +95,10 @@ import torch
 
 from cosyvoice_tpu_torch.convert import export_params, load_jax_params
 from cosyvoice_tpu_torch.models.flow import CausalFlow, FlowConfig
-from cosyvoice_tpu_torch.models.hift import HiFTConfig, HiFTGenerator
+from cosyvoice_tpu_torch.models.flow_v1 import FlowV1Config, MaskedDiffFlow
+from cosyvoice_tpu_torch.models.hift import HiFTConfig, HiFTGenerator, v1_hift_config
 from cosyvoice_tpu_torch.models.llm import TYPE_SPECIAL, TYPE_SPEECH, TYPE_TEXT, LMConfig, Qwen2LM, Qwen2LMModule
+from cosyvoice_tpu_torch.models.llm_v1 import LMv1Config, TransformerLM
 from cosyvoice_tpu_torch.ops.quant import quantize_lm_params
 from cosyvoice_tpu_torch.ops.resample import interpolate_linear
 from cosyvoice_tpu_torch.utils.config import cosyvoice3_configs
@@ -854,6 +863,247 @@ class CosyVoice3Engine(CosyVoice2Engine):
                                   0, finalize=True, stream=False, speed=speed)
 
 
+@dataclass
+class V1SessionState:
+    """One CosyVoice-300M request's caches, on the engine's device: the mel
+    held back for the next window's cross-fade [1, 34, 80], the flow's
+    (z, mu) cache, the HiFT mel cache [1, 20, 80], source and speech caches
+    [1, 20*256], the windows the flow has run, and token2wav's chunk log."""
+
+    mel_overlap: Optional[torch.Tensor] = None
+    flow_cache: Optional[tuple] = None
+    hift_mel_cache: Optional[torch.Tensor] = None
+    hift_source_cache: Optional[torch.Tensor] = None
+    hift_speech_cache: Optional[torch.Tensor] = None
+    chunk_idx: int = 0
+    log: list = dataclasses.field(default_factory=list)
+
+
+class CosyVoiceV1Engine:
+    """The CosyVoice-300M engine (the JAX engine.py:CosyVoiceV1Engine, after
+    the reference cli/model.py:29-242): TransformerLM tokens -> the
+    MaskedDiffFlow mel of token windows -> the 22.05 kHz HiFT wav.
+
+    Offline, the flow runs once over every token and HiFT vocodes the whole
+    mel (`speed` stretches it first). Streamed, the LM decodes on a thread
+    of its own (`_Prefetcher`) while this thread emits a chunk for every
+    window of hop + 20 overlap tokens, the hop growing 100 -> 200; each
+    window's flow call is pinned to the previous one by the (z, mu) cache,
+    its mel's head cross-faded (Hamming) with the 34 mel rows held back
+    from the window before, and its last 34 rows held back in turn; HiFT
+    vocodes the 20-row mel cache + the new mel with the source cache
+    overwriting the source's head, and the last 20 * 256 samples are held
+    back and cross-faded into the next chunk. A finalize with no new token
+    emits the held-back mel. `source_speech_token` (vc) replaces the LM's
+    tokens; `llm_embedding` conditions the LM on its own speaker vector
+    (default the flow's).
+
+    The flow's noise of window i is drawn from a torch.Generator seeded with
+    `flow_seed(i)`, unless `flow_noise` (a function (window index, rows) ->
+    [1, rows, 80]) gives it: the JAX engine draws
+    jax.random.normal(fold_in(PRNGKey(seed), i)) (ROADMAP C4). HiFT's
+    source draws from a generator seeded with SEED on every call, as the
+    JAX engine hands HiFT the same key every chunk. The LM decodes eagerly
+    (models/llm_v1.py) and runs no kernel of the port."""
+
+    def __init__(self, lm, flow, hift: HiFTGenerator, seed: int = SEED):
+        self.lm, self.flow, self.hift = lm, flow, hift
+        self.device = lm.device
+        for name, m in (("flow", flow), ("hift", hift)):
+            dev = next(m.parameters()).device
+            if dev != self.device:
+                raise ValueError(f"{name} is on {dev}, the LM on {self.device}")
+        self.seed = seed
+        fr = flow.cfg.input_frame_rate
+        self.token_min_hop_len = 2 * fr
+        self.token_max_hop_len = 4 * fr
+        self.stream_scale_factor = 2  # hop growth per chunk (reference cli/model.py:50, 209)
+        self.token_overlap_len = flow.cfg.token_overlap_len
+        self.mel_overlap_len = flow.cfg.overlap_mel
+        self.wav_hop = hift.cfg.hop_total  # 256 at 22.05 kHz
+        self.mel_cache_len = 20
+        self.source_cache_len = self.mel_cache_len * self.wav_hop
+        self.flow_noise = None  # None, or (window index, rows) -> z [1, rows, 80]
+        cuda = self.device.type == "cuda"
+        self._lm_stream = torch.cuda.Stream(self.device) if cuda else None
+        self._local = threading.local()
+        self.timer = StageTimer()
+        self.scheduler = None  # the v1 LM has no batch scheduler
+
+    @property
+    def stream_log(self) -> list:
+        """Per chunk of the calling thread's last request: path, tokens,
+        wall and device ms."""
+        return getattr(self._local, "log", [])
+
+    def _window(self, n: int) -> torch.Tensor:
+        return torch.as_tensor(np.hamming(n), dtype=torch.float32, device=self.device)
+
+    _generator = CosyVoice2Engine._generator
+    _tensor = CosyVoice2Engine._tensor
+    _chunk_start = CosyVoice2Engine._chunk_start
+    _chunk_end = CosyVoice2Engine._chunk_end
+
+    def flow_seed(self, window: int) -> int:
+        """The seed of window `window`'s flow noise generator."""
+        return self.seed * 100_003 + window
+
+    def _fade(self, wav, prev_tail):
+        """Hamming cross-fade of wav's head with the last chunk's held-back tail."""
+        n, w = self.source_cache_len, self._window(2 * self.source_cache_len)
+        return torch.cat([wav[:, :n] * w[n:] + prev_tail * w[:n], wav[:, n:]], dim=1)
+
+    def _flow(self, state, tokens, prompt_token, prompt_feat, embedding):
+        """The flow over prompt + window tokens, pinned by the session's (z,
+        mu) cache; the window's mel, its head cross-faded with the held-back
+        overlap mel."""
+        all_tok = self._tensor(np.concatenate([prompt_token, tokens])[None], torch.long)
+        pf = self._tensor(prompt_feat)
+        T = pf.shape[1] + self.flow.cfg.mel_len(len(tokens))
+        noise = None if self.flow_noise is None else self.flow_noise(state.chunk_idx, T)
+        mel, state.flow_cache = self.flow.inference(
+            all_tok, len(prompt_token), pf, self._tensor(embedding),
+            self._generator(self.flow_seed(state.chunk_idx)), cache=state.flow_cache, noise=noise)
+        state.chunk_idx += 1
+        if state.mel_overlap is not None:
+            ov = self.mel_overlap_len
+            n = min(ov, mel.shape[1])
+            w = self._window(2 * ov)
+            head = mel[:, :n] * w[:n, None] + state.mel_overlap[:, :n] * w[ov : ov + n, None]
+            mel = torch.cat([head, mel[:, n:]], dim=1)
+        return mel
+
+    def _vocode(self, mel, cache_source):
+        return self.hift.inference(mel, self._generator(), cache_source)
+
+    @torch.inference_mode()
+    def token2wav(self, state: V1SessionState, tokens, prompt_token, prompt_feat, embedding, finalize: bool = False,
+                  speed: float = 1.0) -> np.ndarray:
+        """One chunk: tokens [Lw], the window (hop + overlap, or the rest at
+        the finalize); prompt_token [Lp]; prompt_feat [1, pm, 80]; embedding
+        [1, 192]. Returns its wav [1, n] on the host and logs it."""
+        t0, ev = self._chunk_start()
+        tokens = np.asarray(tokens, np.int64)
+        if len(tokens) == 0:
+            # a finalize with no new token: the held-back overlap mel
+            mel = state.mel_overlap if state.mel_overlap is not None else torch.zeros((1, 0, 80), device=self.device)
+            state.mel_overlap = None
+            if mel.shape[1] == 0 and state.hift_mel_cache is None:
+                return self._chunk_end(state, t0, ev, "finalize-empty", 0, torch.zeros((1, 0), device=self.device))
+        else:
+            mel = self._flow(state, tokens, np.asarray(prompt_token, np.int64), prompt_feat, embedding)
+        cache_source = None
+        if state.hift_mel_cache is not None:
+            mel = torch.cat([state.hift_mel_cache, mel], dim=1)
+            cache_source = state.hift_source_cache
+        if not finalize:
+            state.mel_overlap = mel[:, -self.mel_overlap_len :]
+            mel = mel[:, : -self.mel_overlap_len]
+            wav, src = self._vocode(mel, cache_source)
+            if state.hift_speech_cache is not None:
+                wav = self._fade(wav, state.hift_speech_cache)
+            n = self.source_cache_len
+            state.hift_mel_cache = mel[:, -self.mel_cache_len :]
+            state.hift_source_cache, state.hift_speech_cache = src[:, -n:], wav[:, -n:]
+            return self._chunk_end(state, t0, ev, "window", len(tokens), wav[:, :-n])
+        if speed != 1.0:
+            if state.hift_mel_cache is not None:
+                raise ValueError("speed change only supports non-stream mode")
+            mel = interpolate_linear(mel.transpose(1, 2), int(mel.shape[1] / speed)).transpose(1, 2)
+        wav, _ = self._vocode(mel, cache_source)
+        if state.hift_speech_cache is not None:
+            wav = self._fade(wav, state.hift_speech_cache)
+        return self._chunk_end(state, t0, ev, "finalize", len(tokens), wav)
+
+    def tts(
+        self,
+        text_tokens: np.ndarray,
+        prompt_text_tokens: np.ndarray,
+        llm_prompt_speech_token: np.ndarray,
+        flow_prompt_speech_token: np.ndarray,
+        prompt_speech_feat: np.ndarray,
+        flow_embedding: np.ndarray,
+        llm_embedding: Optional[np.ndarray] = None,
+        stream: bool = False,
+        speed: float = 1.0,
+        source_speech_token: Optional[np.ndarray] = None,
+        rng_seed: Optional[int] = None,
+    ) -> Generator[dict, None, None]:
+        """Yields {'tts_speech': np.ndarray [1, n], 'speech_tokens': ...}:
+        offline one dict, streamed one per window and the finalize.
+        `rng_seed` seeds the LM's sampling (default SEED); `speed` != 1 is
+        offline only."""
+        if stream and speed != 1.0:
+            raise ValueError("speed change only supports non-stream mode")
+        for name, arr, vocab in (
+            ("llm_prompt_speech_token", llm_prompt_speech_token, self.lm.cfg.speech_token_size),
+            ("flow_prompt_speech_token", flow_prompt_speech_token, self.flow.cfg.vocab_size),
+            ("source_speech_token", source_speech_token, self.flow.cfg.vocab_size),
+        ):
+            if arr is not None and np.asarray(arr).size and int(np.max(arr)) >= vocab:
+                raise ValueError(
+                    f"{name} has id {int(np.max(arr))} >= codec vocab {vocab}: the model config "
+                    "does not match the speech tokenizer that produced these tokens"
+                )
+        t0 = time.perf_counter()
+        if source_speech_token is None:
+            text = np.concatenate([prompt_text_tokens, text_tokens]).astype(np.int64)
+            emb = llm_embedding if llm_embedding is not None else flow_embedding
+            blocks = self.lm.generate(text, np.asarray(emb, np.float32).reshape(1, -1),
+                                      np.asarray(llm_prompt_speech_token, np.int64), self._generator(rng_seed),
+                                      int(len(text_tokens) * 2), int(len(text_tokens) * 20))
+        else:
+            blocks = iter([np.asarray(source_speech_token, np.int32)])
+        prompt_token = np.asarray(flow_prompt_speech_token, np.int32)
+        state = V1SessionState()
+        self._local.log = state.log
+        if stream:
+            yield from self._stream(state, blocks, t0, prompt_token, prompt_speech_feat, flow_embedding)
+            return
+        tokens = np.concatenate([np.zeros(0, np.int32)] + [np.asarray(b, np.int32) for b in blocks])
+        self.timer.add("lm", time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        wav = self.token2wav(state, tokens, prompt_token, prompt_speech_feat, flow_embedding, finalize=True,
+                             speed=speed)
+        self.timer.add("t2w", time.perf_counter() - t1)
+        yield {"tts_speech": wav, "speech_tokens": tokens}
+
+    def _stream(self, state, blocks, t_req, prompt_token, prompt_feat, embedding):
+        """The JAX engine's streaming loop: windows of hop + overlap tokens,
+        the hop doubling from token_min_hop_len to token_max_hop_len, then
+        the finalize over the rest."""
+        pending: list = []
+        hop, ov = self.token_min_hop_len, self.token_overlap_len
+        gen_done = first_emitted = False
+        lm = _Prefetcher(blocks, stream=self._lm_stream)
+        try:
+            while True:
+                while not gen_done and len(pending) < hop + ov:
+                    try:
+                        pending.extend(next(lm).tolist())
+                    except StopIteration:
+                        gen_done = True
+                if len(pending) >= hop + ov:
+                    window = np.asarray(pending[: hop + ov], np.int32)
+                    wav = self.token2wav(state, window, prompt_token, prompt_feat, embedding)
+                    pending = pending[hop:]
+                    hop = min(self.token_max_hop_len, int(hop * self.stream_scale_factor))
+                    if not first_emitted and wav.size:
+                        self.timer.add("first_chunk", time.perf_counter() - t_req)
+                        first_emitted = True
+                    yield {"tts_speech": wav, "speech_tokens": window[: len(window) - ov]}
+                if gen_done and len(pending) < hop + ov:
+                    break
+            self.timer.add("lm", lm.busy_s)
+            wav = self.token2wav(state, np.asarray(pending, np.int32), prompt_token, prompt_feat, embedding,
+                                 finalize=True)
+            if not first_emitted and wav.size:
+                self.timer.add("first_chunk", time.perf_counter() - t_req)
+            yield {"tts_speech": wav, "speech_tokens": np.asarray(pending, np.int32)}
+        finally:
+            lm.close()
+
+
 def random_lm(seed: int = 0, device="cuda", lm_cfg: LMConfig = LMConfig(), tree=None):
     """A Qwen2LM with random weights made on `device` from `seed`, or the
     weights of `tree` (the fp LM's JAX param tree, e.g. a checkpoint's), and
@@ -921,3 +1171,24 @@ def build_random_engine_v3(seed: int = 0, device="cuda", lm_cfg: Optional[LMConf
     lm0, flow0, hift0 = cosyvoice3_configs()
     return build_random_engine(seed, device, lm_cfg or lm0, flow_cfg or flow0, hift_cfg or hift0, hop_policy, trees,
                                engine_cls=CosyVoice3Engine)
+
+
+def build_random_engine_v1(seed: int = 0, device="cuda", lm_cfg: Optional[LMv1Config] = None,
+                           flow_cfg: Optional[FlowV1Config] = None, hift_cfg: Optional[HiFTConfig] = None,
+                           trees: Optional[dict] = None) -> CosyVoiceV1Engine:
+    """A CosyVoiceV1Engine with random weights made on `device` from `seed`
+    (LM seed, flow seed + 1, HiFT seed + 2), by default at the full width
+    of CosyVoice-300M (LMv1Config, FlowV1Config, the 22.05 kHz HiFT); a
+    module named in `trees` ("lm", "flow", "hift": JAX param trees) takes
+    that tree's weights instead."""
+    trees = trees or {}
+    dev = resolve_device(device)
+    lm = TransformerLM(lm_cfg or LMv1Config(), device=dev)
+    flow = MaskedDiffFlow(flow_cfg or FlowV1Config(), device=dev)
+    hift = HiFTGenerator(hift_cfg or v1_hift_config(), device=dev)
+    for module, name, offset in ((lm.module, "lm", 0), (flow, "flow", 1), (hift, "hift", 2)):
+        if name in trees:
+            load_jax_params(module, trees[name])
+        else:
+            init_random_(module, seed + offset)
+    return CosyVoiceV1Engine(lm, flow, hift)

@@ -1,8 +1,9 @@
 """Convert reference torch checkpoints (llm.pt / flow.pt / hift.pt) and
 ONNX graphs (speech_tokenizer_v*.onnx, campplus.onnx) into JAX param trees
-for CosyVoice2 (v2) and Fun-CosyVoice3 (v3), written as flax msgpack files.
+for CosyVoice-300M (v1), CosyVoice2 (v2) and Fun-CosyVoice3 (v3), written
+as flax msgpack files.
 
-Counterpart of the v2 and v3 halves of cosyvoice_tpu/tools/convert_checkpoint.py,
+Counterpart of cosyvoice_tpu/tools/convert_checkpoint.py,
 over plain nested dicts of numpy arrays: the converters are the JAX
 file's, and the trees they fill come from `convert.export_params` of the
 port's modules built on the meta device (the Flax paths, shapes and dtypes
@@ -31,8 +32,12 @@ package's CosyVoice2 load. `--version 3` converts a Fun-CosyVoice3 dir
 head bias; `convert_flow_v3`: the DiT flow; `convert_hift` with the causal
 layout) at the full v3 widths, for `runtime/api.py:CosyVoice3(OUT)` (add a
 config.json with "version": 3, or the cosyvoice3.yaml the reference dir
-ships, so that AutoModel picks it). The v1 converters (`--version 1`) are
-not ported (ROADMAP A10).
+ships, so that AutoModel picks it). `--version 1` converts a
+CosyVoice-300M dir (`convert_llm_v1`: the WeNet text encoder and the
+rel-pos LM; `convert_flow_v1`: the conformer, the length regulator and the
+non-causal two-level U-Net; `convert_hift` at 22.05 kHz) at the full v1
+widths, for `runtime/api.py:CosyVoice(OUT)` (with a config.json of
+"version": 1 or the reference's cosyvoice.yaml, and its .tiktoken vocab).
 """
 
 import argparse
@@ -46,8 +51,10 @@ import torch
 from cosyvoice_tpu_torch.convert import export_params
 from cosyvoice_tpu_torch.models.campplus import CamPPConfig, CamPPEmbedding
 from cosyvoice_tpu_torch.models.flow import CausalFlow, FlowConfig
-from cosyvoice_tpu_torch.models.hift import HiFTConfig, HiFTGenerator
+from cosyvoice_tpu_torch.models.flow_v1 import FlowV1Config, MaskedDiffFlow
+from cosyvoice_tpu_torch.models.hift import HiFTConfig, HiFTGenerator, v1_hift_config
 from cosyvoice_tpu_torch.models.llm import LMConfig, Qwen2LMModule
+from cosyvoice_tpu_torch.models.llm_v1 import LMv1Config, TransformerLMModule
 from cosyvoice_tpu_torch.models.speech_tokenizer import S3Tokenizer, S3TokenizerConfig
 from cosyvoice_tpu_torch.tools.onnx_reader import read_onnx_weights
 from cosyvoice_tpu_torch.utils import msgpack_io
@@ -718,6 +725,191 @@ def convert_campplus(weights: Dict[str, np.ndarray], template: dict) -> dict:
     return tf.build()
 
 
+# ---------------------------------------------------------------------------
+# CosyVoice-300M (v1): the WeNet conformer layers, TransformerLM (llm.pt)
+# and MaskedDiffWithXvec (flow.pt)
+# ---------------------------------------------------------------------------
+
+def _conformer_layer(sd, used, filler, t, f, flat_attn=False):
+    """Map one WeNet encoder layer. flat_attn=True targets the v1 LM's
+    RelPosDecoderLayer, whose attention linears, FFN and position biases
+    sit at the layer level."""
+
+    def lin(tt, ff, bias=True):
+        filler.put(f"{ff}/kernel", _lin(sd[f"{tt}.weight"])); used.add(f"{tt}.weight")
+        if bias:
+            filler.put(f"{ff}/bias", sd[f"{tt}.bias"]); used.add(f"{tt}.bias")
+
+    def ln(tt, ff):
+        filler.put(f"{ff}/scale", sd[f"{tt}.weight"]); used.add(f"{tt}.weight")
+        filler.put(f"{ff}/bias", sd[f"{tt}.bias"]); used.add(f"{tt}.bias")
+
+    attn = f if flat_attn else f"{f}/self_attn"
+    for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
+        lin(f"{t}.self_attn.{name}", f"{attn}/{name}")
+    lin(f"{t}.self_attn.linear_pos", f"{attn}/linear_pos", bias=False)
+    for name in ("pos_bias_u", "pos_bias_v"):
+        filler.put(f"{attn}/{name}", sd[f"{t}.self_attn.{name}"]); used.add(f"{t}.self_attn.{name}")
+    if flat_attn:
+        lin(f"{t}.feed_forward.w_1", f"{f}/ff_w1")
+        lin(f"{t}.feed_forward.w_2", f"{f}/ff_w2")
+    else:
+        lin(f"{t}.feed_forward.w_1", f"{f}/feed_forward/w_1")
+        lin(f"{t}.feed_forward.w_2", f"{f}/feed_forward/w_2")
+    # the reference ConformerEncoderLayer's norm_mha / norm_ff; TransformerEncoderLayer's norm1 / norm2
+    ln(f"{t}.norm_mha" if f"{t}.norm_mha.weight" in sd else f"{t}.norm1", f"{f}/norm_mha")
+    ln(f"{t}.norm_ff" if f"{t}.norm_ff.weight" in sd else f"{t}.norm2", f"{f}/norm_ff")
+
+
+def _wenet_encoder(sd, used, filler, t_prefix, f_prefix, layer_list_name="encoders"):
+    """Map a WeNet encoder: the linear input layer, every layer, the final norm."""
+
+    def lin(tt, ff):
+        filler.put(f"{ff}/kernel", _lin(sd[f"{tt}.weight"])); used.add(f"{tt}.weight")
+        filler.put(f"{ff}/bias", sd[f"{tt}.bias"]); used.add(f"{tt}.bias")
+
+    def ln(tt, ff):
+        filler.put(f"{ff}/scale", sd[f"{tt}.weight"]); used.add(f"{tt}.weight")
+        filler.put(f"{ff}/bias", sd[f"{tt}.bias"]); used.add(f"{tt}.bias")
+
+    lin(f"{t_prefix}.embed.out.0", f"{f_prefix}/embed/out_dense")
+    ln(f"{t_prefix}.embed.out.1", f"{f_prefix}/embed/out_norm")
+    n = len({m.group(1) for k in sd if (m := re.match(rf"{re.escape(t_prefix)}\.encoders\.(\d+)\.", k))})
+    for i in range(n):
+        _conformer_layer(sd, used, filler, f"{t_prefix}.encoders.{i}", f"{f_prefix}/{layer_list_name}_{i}")
+    ln(f"{t_prefix}.after_norm", f"{f_prefix}/after_norm")
+
+
+def convert_llm_v1(sd: Dict[str, np.ndarray], template: dict) -> dict:
+    """llm.pt of CosyVoice-300M -> the TransformerLMModule tree: the text
+    encoder and the LM body (`llm.encoders.<i>` -> lm_layers_<i>); the
+    position-encoding buffers and the loss's keys are not weights."""
+    tf = TreeFiller(template)
+    used = set()
+    p = "params"
+
+    def lin(t, f):
+        tf.put(f"{f}/kernel", _lin(sd[f"{t}.weight"])); used.add(f"{t}.weight")
+        tf.put(f"{f}/bias", sd[f"{t}.bias"]); used.add(f"{t}.bias")
+
+    def ln(t, f):
+        tf.put(f"{f}/scale", sd[f"{t}.weight"]); used.add(f"{t}.weight")
+        tf.put(f"{f}/bias", sd[f"{t}.bias"]); used.add(f"{t}.bias")
+
+    for name in ("text_embedding", "llm_embedding", "speech_embedding"):
+        tf.put(f"{p}/{name}/embedding", sd[f"{name}.weight"]); used.add(f"{name}.weight")
+    for name in ("text_encoder_affine_layer", "spk_embed_affine_layer", "llm_decoder"):
+        lin(name, f"{p}/{name}")
+    _wenet_encoder(sd, used, tf, "text_encoder", f"{p}/text_encoder")
+    lin("llm.embed.out.0", f"{p}/lm_embed/out_dense")
+    ln("llm.embed.out.1", f"{p}/lm_embed/out_norm")
+    n = len({m.group(1) for k in sd if (m := re.match(r"llm\.encoders\.(\d+)\.", k))})
+    for i in range(n):
+        _conformer_layer(sd, used, tf, f"llm.encoders.{i}", f"{p}/lm_layers_{i}", flat_attn=True)
+    ln("llm.after_norm", f"{p}/lm_after_norm")
+    leftover = {k for k in set(sd) - used if "criterion" not in k and "pe" not in k.split(".")[-1]}
+    assert not leftover, f"unconsumed torch keys: {sorted(leftover)[:10]}"
+    return tf.build()
+
+
+def convert_flow_v1(sd: Dict[str, np.ndarray], template: dict) -> dict:
+    """flow.pt of CosyVoice-300M -> {"encoder", "estimator"} trees: the
+    conformer encoder, the length regulator's conv stack (a Sequential of
+    [conv, GroupNorm, Mish] x n + a 1x1 conv) and the non-causal
+    multi-level U-Net (matcha Block1D: conv .0, GroupNorm .1; plain
+    ConvTranspose1d upsampling, carried onto the weight-normed layout as
+    v = w, g = the per-input-channel norm of w)."""
+    enc = TreeFiller(template["encoder"])
+    est = TreeFiller(template["estimator"])
+    used = set()
+    p = "params"
+
+    def lin(t, f, filler, bias=True):
+        filler.put(f"{f}/kernel", _lin(sd[f"{t}.weight"])); used.add(f"{t}.weight")
+        if bias:
+            filler.put(f"{f}/bias", sd[f"{t}.bias"]); used.add(f"{t}.bias")
+
+    def ln(t, f, filler):  # LayerNorm and GroupNorm alike
+        filler.put(f"{f}/scale", sd[f"{t}.weight"]); used.add(f"{t}.weight")
+        filler.put(f"{f}/bias", sd[f"{t}.bias"]); used.add(f"{t}.bias")
+
+    def conv(t, f, filler):
+        filler.put(f"{f}/kernel", _conv(sd[f"{t}.weight"])); used.add(f"{t}.weight")
+        filler.put(f"{f}/bias", sd[f"{t}.bias"]); used.add(f"{t}.bias")
+
+    enc.put(f"{p}/input_embedding/embedding", sd["input_embedding.weight"]); used.add("input_embedding.weight")
+    lin("spk_embed_affine_layer", f"{p}/spk_embed_affine_layer", enc)
+    lin("encoder_proj", f"{p}/encoder_proj", enc)
+    _wenet_encoder(sd, used, enc, "encoder", f"{p}/encoder")
+    i = idx = 0
+    while (f"length_regulator.model.{idx}.weight" in sd and sd[f"length_regulator.model.{idx}.weight"].ndim == 3
+           and f"length_regulator.model.{idx + 1}.weight" in sd):
+        conv(f"length_regulator.model.{idx}", f"{p}/regulator/conv_{i}", enc)
+        ln(f"length_regulator.model.{idx + 1}", f"{p}/regulator/norm_{i}", enc)
+        i += 1
+        idx += 3
+    conv(f"length_regulator.model.{idx}", f"{p}/regulator/proj", enc)
+
+    d = "decoder.estimator"
+    lin(f"{d}.time_mlp.linear_1", f"{p}/time_mlp/linear_1", est)
+    lin(f"{d}.time_mlp.linear_2", f"{p}/time_mlp/linear_2", est)
+
+    def block(t, f):
+        conv(f"{t}.block.0", f"{f}/conv", est)
+        ln(f"{t}.block.1", f"{f}/norm", est)
+
+    def resnet(t, f):
+        block(f"{t}.block1", f"{f}/block1")
+        block(f"{t}.block2", f"{f}/block2")
+        lin(f"{t}.mlp.1", f"{f}/mlp", est)
+        conv(f"{t}.res_conv", f"{f}/res_conv", est)
+
+    def tblock(t, f):
+        ln(f"{t}.norm1", f"{f}/norm1", est)
+        ln(f"{t}.norm3", f"{f}/norm3", est)
+        for n in ("to_q", "to_k", "to_v"):
+            lin(f"{t}.attn1.{n}", f"{f}/attn1/{n}", est, bias=False)
+        lin(f"{t}.attn1.to_out.0", f"{f}/attn1/to_out", est)
+        lin(f"{t}.ff.net.0.proj", f"{f}/ff_in", est)
+        lin(f"{t}.ff.net.2", f"{f}/ff_out", est)
+
+    def conv_t_plain(t, f):
+        w = _convT(sd[f"{t}.weight"])  # [k, in, out]
+        est.put(f"{f}/v", w)
+        est.put(f"{f}/g", np.sqrt((w.astype(np.float64) ** 2).sum(axis=(0, 2))).astype(np.float32))
+        est.put(f"{f}/bias", sd[f"{t}.bias"])
+        used.update({f"{t}.weight", f"{t}.bias"})
+
+    n_levels = len({m.group(1) for k in sd if (m := re.match(rf"{re.escape(d)}\.down_blocks\.(\d+)\.", k))})
+    n_tf = len({m.group(1) for k in sd if (m := re.match(rf"{re.escape(d)}\.down_blocks\.0\.1\.(\d+)\.", k))})
+    for lv in range(n_levels):
+        resnet(f"{d}.down_blocks.{lv}.0", f"{p}/down_resnet_{lv}")
+        for j in range(n_tf):
+            tblock(f"{d}.down_blocks.{lv}.1.{j}", f"{p}/down_tf_{lv}_{j}")
+        if lv < n_levels - 1:
+            conv(f"{d}.down_blocks.{lv}.2.conv", f"{p}/downsample_{lv}/conv", est)
+        else:
+            conv(f"{d}.down_blocks.{lv}.2", f"{p}/down_post_{lv}", est)
+    n_mid = len({m.group(1) for k in sd if (m := re.match(rf"{re.escape(d)}\.mid_blocks\.(\d+)\.", k))})
+    for i in range(n_mid):
+        resnet(f"{d}.mid_blocks.{i}.0", f"{p}/mid_resnet_{i}")
+        for j in range(n_tf):
+            tblock(f"{d}.mid_blocks.{i}.1.{j}", f"{p}/mid_tf_{i}_{j}")
+    for lv in range(n_levels):
+        resnet(f"{d}.up_blocks.{lv}.0", f"{p}/up_resnet_{lv}")
+        for j in range(n_tf):
+            tblock(f"{d}.up_blocks.{lv}.1.{j}", f"{p}/up_tf_{lv}_{j}")
+        if lv < n_levels - 1:
+            conv_t_plain(f"{d}.up_blocks.{lv}.2.conv", f"{p}/upsample_{lv}/conv")
+        else:
+            conv(f"{d}.up_blocks.{lv}.2", f"{p}/up_post_{lv}", est)
+    block(f"{d}.final_block", f"{p}/final_block")
+    conv(f"{d}.final_proj", f"{p}/final_proj", est)
+    leftover = {k for k in set(sd) - used if "rand_noise" not in k}
+    assert not leftover, f"unconsumed torch keys: {sorted(leftover)[:12]}"
+    return {"encoder": enc.build(), "estimator": est.build()}
+
+
 def template(module_fn) -> dict:
     """The JAX param tree's LeafSpecs for the module `module_fn` builds,
     built on the meta device (no weights made)."""
@@ -733,11 +925,14 @@ def main(argv=None):
     parser.add_argument("--s3_onnx", default="", help="speech_tokenizer_v*.onnx to convert (optional)")
     parser.add_argument("--campplus_onnx", default="", help="campplus.onnx to convert (optional)")
     args = parser.parse_args(argv)
-    if args.version == 1:
-        raise NotImplementedError("--version 1 is not ported yet (ROADMAP A10: convert_llm_v1, convert_flow_v1)")
-    if args.version not in (2, 3):
+    if args.version not in (1, 2, 3):
         raise ValueError(f"unsupported model version {args.version}")
-    if args.version == 3:
+    lm_module, flow_module = Qwen2LMModule, CausalFlow
+    if args.version == 1:
+        lm_cfg, flow_cfg, hift_cfg = LMv1Config(), FlowV1Config(), v1_hift_config()
+        lm_conv, flow_conv = convert_llm_v1, convert_flow_v1
+        lm_module, flow_module = TransformerLMModule, MaskedDiffFlow
+    elif args.version == 3:
         lm_cfg, flow_cfg, hift_cfg = cosyvoice3_configs()
         lm_conv, flow_conv = convert_llm_v3, convert_flow_v3
     else:
@@ -748,8 +943,8 @@ def main(argv=None):
     # templates are built per converted file: converting only --s3_onnx
     # builds no other module
     for name, conv_fn, module_fn in (
-        ("llm", lm_conv, lambda: Qwen2LMModule(lm_cfg)),
-        ("flow", flow_conv, lambda: CausalFlow(flow_cfg, device="meta")),
+        ("llm", lm_conv, lambda: lm_module(lm_cfg)),
+        ("flow", flow_conv, lambda: flow_module(flow_cfg, device="meta")),
         ("hift", convert_hift, lambda: HiFTGenerator(hift_cfg, device="meta")),
     ):
         src = os.path.join(args.model_dir, f"{name}.pt")

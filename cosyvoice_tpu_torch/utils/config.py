@@ -4,10 +4,14 @@ Counterpart of cosyvoice_tpu/utils/config.py: a model dir's config.json has
 sections {"llm": {...}, "flow": {...}, "hift": {...}, "frontend": {"s3":
 {...}}} whose keys are dataclass fields; nested dataclasses (qwen,
 estimator, dit, cfm) nest as dicts, dtypes are strings ("bfloat16"), lists
-become tuples. An unknown key raises. The v1 builders wait for ROADMAP A10.
+become tuples. An unknown key raises. `build_model_configs` builds the
+three configs of the generation that "version" names (1: CosyVoice-300M's
+LMv1Config and FlowV1Config; 2 and 3: LMConfig and FlowConfig; the HiFT's
+HiFTConfig for all).
 """
 
 import dataclasses
+import json
 from typing import Any, Dict, Optional
 
 import torch
@@ -99,3 +103,35 @@ def build_s3_config(d: Optional[Dict[str, Any]] = None):
     from cosyvoice_tpu_torch.models.speech_tokenizer import S3TokenizerConfig
 
     return build_dataclass(S3TokenizerConfig, d)
+
+
+def build_lm_v1_config(d: Optional[Dict[str, Any]] = None):
+    """The CosyVoice-300M LM's config (LMv1Config)."""
+    from cosyvoice_tpu_torch.models.llm_v1 import LMv1Config
+
+    return build_dataclass(LMv1Config, d)
+
+
+def build_flow_v1_config(d: Optional[Dict[str, Any]] = None):
+    """The CosyVoice-300M flow's config (FlowV1Config; "estimator" and "cfm"
+    sub-dicts)."""
+    from cosyvoice_tpu_torch.models.flow_decoder import EstimatorConfig
+    from cosyvoice_tpu_torch.models.flow_matching import CFMConfig
+    from cosyvoice_tpu_torch.models.flow_v1 import FlowV1Config
+
+    return build_dataclass(FlowV1Config, d, estimator=EstimatorConfig, cfm=CFMConfig)
+
+
+def load_config(path: str) -> Dict[str, Any]:
+    with open(path) as f:
+        return json.load(f)
+
+
+def build_model_configs(cfg: Dict[str, Any]):
+    """A config.json dict -> (lm_cfg, flow_cfg, hift_cfg) of the generation
+    cfg["version"] names (1, 2 or 3; default 2); absent sections take the
+    config classes' defaults."""
+    version = int(cfg.get("version", 2))
+    if version == 1:
+        return build_lm_v1_config(cfg.get("llm")), build_flow_v1_config(cfg.get("flow")), build_hift_config(cfg.get("hift"))
+    return build_lm_config(cfg.get("llm")), build_flow_config(cfg.get("flow")), build_hift_config(cfg.get("hift"))

@@ -18,8 +18,8 @@ port's chunks against the JAX engine with it on). The JAX
 frontend's CAM++ is built at a tiny config (its name patched in the JAX
 frontend module while the JAX API is built; nothing in the JAX package
 changes): the full one takes ~30 s to initialise on the CPU. Also: the
-prompt LRU, AutoModel's version detection, and every NotImplementedError
-the API still raises. Checkpoints, tokenizer assets, save_pretrained and
+prompt LRU, AutoModel's version detection (version 1: tests/test_torch_api_v1.py),
+and the quantised LMs' API. Checkpoints, tokenizer assets, save_pretrained and
 set_sampling are held by tests/test_torch_checkpoint_api.py,
 tests/test_torch_bpe.py and tests/test_torch_sampling.py."""
 
@@ -266,8 +266,17 @@ def test_detect_model_version(tmp_path, files, version):
         (tmp_path / name).write_text(json.dumps(content) if name.endswith(".json") else content)
     assert detect_model_version(str(tmp_path)) == jdetect(str(tmp_path)) == version
     if version == 1:
-        with pytest.raises(NotImplementedError, match="A10"):
-            AutoModel(str(tmp_path), device="cpu")
+        # CosyVoice-300M (A10, ported; it once raised naming A10), at the tiny v1 widths
+        from cosyvoice_tpu_torch.models.flow_v1 import FlowV1Config
+        from cosyvoice_tpu_torch.models.hift import HiFTConfig
+        from cosyvoice_tpu_torch.models.llm_v1 import LMv1Config
+        from cosyvoice_tpu_torch.runtime.api import CosyVoice
+        from tests.test_torch_common import jax_flow_v1_cfg, jax_hift_v1_cfg, jax_lm_v1_cfg, to_port_cfg
+
+        api = AutoModel(str(tmp_path), device="cpu", lm_cfg=to_port_cfg(jax_lm_v1_cfg(), LMv1Config),
+                        flow_cfg=to_port_cfg(jax_flow_v1_cfg(), FlowV1Config),
+                        hift_cfg=to_port_cfg(jax_hift_v1_cfg(), HiFTConfig))
+        assert type(api) is CosyVoice and api.sample_rate == 22050 and api.hift.cfg.sinegen_type == "1"
     elif version == 3:
         # CosyVoice3 (A9, ported), at the tiny v3 widths
         from cosyvoice_tpu_torch.models.flow import FlowConfig
@@ -336,8 +345,23 @@ def test_methods_not_ported_raise(apis, call, item):
 
 @pytest.mark.parametrize("quant_lm", [True, "int8", "int4"])
 def test_quant_lm_not_ported_raises(tmp_path, quant_lm):
-    with pytest.raises(NotImplementedError, match="A8"):
-        CosyVoice2(_write_dir(tmp_path), quant_lm=quant_lm, device="cpu")
+    """The weight modes that once raised NotImplementedError (ROADMAP A8)
+    are ported: the API builds the mode's LM (True is "int8", as in the JAX
+    API) from the fp tree and synthesises; an unknown mode raises
+    ValueError. tests/test_torch_quant_modes.py and
+    tests/test_torch_api_v1.py hold these LMs against the JAX package."""
+    from cosyvoice_tpu_torch.models.qwen2 import QuantDense, QuantDense4
+
+    model_dir = _write_dir(tmp_path)
+    api = CosyVoice2(model_dir, quant_lm=quant_lm, device="cpu")
+    mode = "int8" if quant_lm is True else quant_lm
+    assert api.lm.cfg.qwen.quant == mode
+    cls = QuantDense4 if mode == "int4" else QuantDense
+    assert isinstance(api.lm.module.llm.layers[0].self_attn.qkv_proj, cls)
+    (out,) = api.inference_cross_lingual("Hi.", _wav(1, 1.0), text_frontend=False)
+    assert out["tts_speech"].shape[1] > 0 and np.isfinite(out["tts_speech"]).all()
+    with pytest.raises(ValueError, match="int2"):
+        CosyVoice2(model_dir, quant_lm="int2", device="cpu")
 
 
 def test_int4p_api_matches_jax_api(tmp_path, monkeypatch):

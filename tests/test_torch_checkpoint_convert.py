@@ -312,14 +312,20 @@ def test_converter_cli_matches_jax(tmp_path, monkeypatch, reference_states):
 
 @pytest.mark.parametrize("version,item", [(1, "A10"), (3, "A9")])
 def test_converter_cli_v1_and_v3_raise(tmp_path, monkeypatch, version, item):
-    """`--version 1` still raises, naming ROADMAP A10. `--version 3` (A9,
-    ported) converts a synthetic Fun-CosyVoice3 reference dir (llm.pt,
-    flow.pt, hift.pt, the v3 configs set to the tiny ones): the files it
-    writes equal the JAX v3 converters' trees, and CosyVoice3 reads them
-    from the dir with a config.json of version 3."""
+    """`--version 1` (A10) and `--version 3` (A9), which once raised naming
+    their ROADMAP items, are ported. Version 1 on a dir with no checkpoint
+    writes nothing (tests/test_torch_convert_v1.py converts a synthetic v1
+    dir), and an unknown version raises. `--version 3` converts a synthetic
+    Fun-CosyVoice3 reference dir (llm.pt, flow.pt, hift.pt, the v3 configs
+    set to the tiny ones): the files it writes equal the JAX v3 converters'
+    trees, and CosyVoice3 reads them from the dir with a config.json of
+    version 3."""
     if version == 1:
-        with pytest.raises(NotImplementedError, match=item):
-            pcc.main(["--model_dir", str(tmp_path), "--out_dir", str(tmp_path / "o"), "--version", str(version)])
+        assert item == "A10"
+        pcc.main(["--model_dir", str(tmp_path), "--out_dir", str(tmp_path / "o"), "--version", "1"])
+        assert list((tmp_path / "o").iterdir()) == []
+        with pytest.raises(ValueError, match="unsupported model version"):
+            pcc.main(["--model_dir", str(tmp_path), "--out_dir", str(tmp_path / "o"), "--version", "4"])
         return
     import json
 

@@ -1,8 +1,8 @@
 """Rules of the PyTorch port, plus the tiny configs its parity tests share.
 
 - no module of cosyvoice_tpu_torch (nor chip_smoke.py) imports jax, flax or
-  cosyvoice_tpu, nor scipy, transformers or msgpack (absent on the card's
-  machine), checked by AST scan;
+  cosyvoice_tpu, nor scipy, transformers, msgpack or regex (absent on the
+  card's machine), checked by AST scan;
 - the entry points run on the card unless the caller asks for the CPU, and
   raise when there is no card.
 """
@@ -28,7 +28,7 @@ from cosyvoice_tpu.models.qwen2 import Qwen2Config as JQwen2Config
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "cosyvoice_tpu", "scipy", "transformers", "msgpack")
+FORBIDDEN = ("jax", "jaxlib", "flax", "cosyvoice_tpu", "scipy", "transformers", "msgpack", "regex")
 
 # ---------------------------------------------------------------- tiny configs
 
@@ -99,6 +99,40 @@ def jax_hift_cfg_v3(**kw):
     return JHiFTConfig(**{
         "base_channels": 32, "causal": True, "resblock_kernel_sizes": (3,), "resblock_dilations": ((1,),),
         "source_resblock_kernel_sizes": (7, 7, 11), "source_resblock_dilations": ((1,), (1,), (1,)), **kw,
+    })
+
+
+def jax_lm_v1_cfg(**kw):
+    """The tiny CosyVoice-300M LM (tests/test_v1.py's)."""
+    from cosyvoice_tpu.models.llm_v1 import LMv1Config as JLMv1Config
+
+    return JLMv1Config(**{
+        "text_encoder_input_size": 16, "llm_input_size": 32, "llm_output_size": 32, "text_token_size": 100,
+        "speech_token_size": 30, "te_heads": 2, "te_linear_units": 32, "te_blocks": 1, "lm_heads": 2,
+        "lm_linear_units": 32, "lm_blocks": 2, "max_cache_len": 256, "block_size": 8, **kw,
+    })
+
+
+def jax_flow_v1_cfg(channels=(16, 16), n_timesteps=2, **kw):
+    """The tiny CosyVoice-300M flow (tests/test_v1.py's): a two-level
+    non-causal U-Net."""
+    from cosyvoice_tpu.models.flow_v1 import FlowV1Config as JFlowV1Config
+
+    return JFlowV1Config(**{
+        "input_size": 16, "vocab_size": 30, "attention_heads": 2, "linear_units": 32, "num_blocks": 1,
+        "regulator_ratios": (1,),
+        "estimator": JEstimatorConfig(channels=channels, attention_head_dim=8, n_blocks=1, num_mid_blocks=1,
+                                      num_heads=2, causal=False),
+        "cfm": JCFMConfig(n_timesteps=n_timesteps), **kw,
+    })
+
+
+def jax_hift_v1_cfg(**kw):
+    """The tiny 22.05 kHz HiFT (SineGen1; tests/test_v1.py's)."""
+    return JHiFTConfig(**{
+        "base_channels": 32, "sampling_rate": 22050, "upsample_rates": (8, 8), "upsample_kernel_sizes": (16, 16),
+        "resblock_kernel_sizes": (3,), "resblock_dilations": ((1,),), "source_resblock_kernel_sizes": (7, 11),
+        "source_resblock_dilations": ((1,), (1,)), **kw,
     })
 
 
@@ -180,7 +214,18 @@ def _entry_points():
     cfgs = dict(lm_cfg=lm, flow_cfg=flow, hift_cfg=hift)
     cfgs3 = dict(lm_cfg=to_port_cfg(jax_lm_cfg_v3(), LMConfig), flow_cfg=to_port_cfg(jax_dit_flow_cfg(), FlowConfig),
                  hift_cfg=to_port_cfg(jax_hift_cfg_v3(), HiFTConfig))
+    from cosyvoice_tpu_torch.models.flow_v1 import FlowV1Config, MaskedDiffFlow
+    from cosyvoice_tpu_torch.models.llm_v1 import LMv1Config, TransformerLM
+    from cosyvoice_tpu_torch.runtime.api import CosyVoice
+    from cosyvoice_tpu_torch.runtime.engine import build_random_engine_v1
+
+    cfgs1 = dict(lm_cfg=to_port_cfg(jax_lm_v1_cfg(), LMv1Config), flow_cfg=to_port_cfg(jax_flow_v1_cfg(), FlowV1Config),
+                 hift_cfg=to_port_cfg(jax_hift_v1_cfg(), HiFTConfig))
     return {
+        "TransformerLM": lambda **kw: TransformerLM(cfgs1["lm_cfg"], **kw),
+        "MaskedDiffFlow": lambda **kw: MaskedDiffFlow(cfgs1["flow_cfg"], **kw),
+        "build_random_engine_v1": lambda **kw: build_random_engine_v1(0, **cfgs1, **kw),
+        "CosyVoice": lambda **kw: CosyVoice(**cfgs1, **kw),
         "Qwen2LM": lambda **kw: Qwen2LM(lm, **kw),
         "CausalFlow": lambda **kw: CausalFlow(flow, **kw),
         "HiFTGenerator": lambda **kw: HiFTGenerator(hift, **kw),
@@ -193,7 +238,8 @@ def _entry_points():
 
 
 ENTRY_POINTS = ["Qwen2LM", "CausalFlow", "HiFTGenerator", "build_random_engine", "CosyVoice2", "AutoModel",
-                "build_random_engine_v3", "CosyVoice3"]
+                "build_random_engine_v3", "CosyVoice3", "TransformerLM", "MaskedDiffFlow", "build_random_engine_v1",
+                "CosyVoice"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

@@ -89,7 +89,8 @@ def test_byte_tokenizer_matches_jax(version):
 def test_tokenizer_assets_load_the_bpe(tmp_path):
     """get_tokenizer on a model dir's tokenizer assets loads the Qwen BPE
     (its ids against transformers': tests/test_torch_bpe.py); a v1
-    .tiktoken vocab raises naming ROADMAP A10."""
+    .tiktoken vocab loads the v1 tokenizer (its ids against the JAX one's:
+    tests/test_torch_tiktoken.py; it once raised, naming ROADMAP A10)."""
     from tests.test_torch_bpe import write_tokenizer
 
     assert find_tokenizer_assets("") is None
@@ -99,9 +100,12 @@ def test_tokenizer_assets_load_the_bpe(tmp_path):
     tok = get_tokenizer(path)
     assert type(tok).__name__ == "QwenTokenizer" and tok.decode(tok.encode("Hi [breath] there")) == "Hi  there"
     (tmp_path / "v1").mkdir()
-    (tmp_path / "v1" / "vocab.tiktoken").write_text("")
-    with pytest.raises(NotImplementedError, match="A10"):
-        get_tokenizer(find_tokenizer_assets(str(tmp_path / "v1")))
+    import base64
+
+    (tmp_path / "v1" / "vocab.tiktoken").write_text("".join(f"{base64.b64encode(bytes([b])).decode()} {b}\n"
+                                                             for b in range(256)))
+    tok = get_tokenizer(find_tokenizer_assets(str(tmp_path / "v1")))
+    assert type(tok).__name__ == "TiktokenBPE" and tok.encode("Hi<|endoftext|>") == [72, 105, 256]
 
 
 def _signals(sr):

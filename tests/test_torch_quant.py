@@ -1,5 +1,6 @@
 """The port's host-side quantisers against the JAX package, bit for bit: the
-int4p packers, `quantize_lm_params("int4p")` on an fp LM tree, and the int8
+int4p packers, `quantize_lm_params("int4p")` on an fp LM tree (modes "int8"
+and "int4": tests/test_torch_quant_modes.py), and the int8
 KV-row quantiser; and the converter carrying a quantised tree both ways."""
 
 import jax
@@ -71,8 +72,8 @@ def test_quantize_lm_params_int4p_is_bit_identical(fp_tree):
     _assert_trees_identical(got, want)
     assert set(got["llm_decoder"]) == {"kernel_q", "scale", "bias"}
     assert set(got["llm"]["layers_0"]["mlp"]["gate_up_proj"]) == {"kernel_q4b", "scale4"}
-    with pytest.raises(NotImplementedError):
-        tquant.quantize_lm_params(fp_tree, "int8")
+    with pytest.raises(ValueError):  # "int8" and "int4" are ported too (tests/test_torch_quant_modes.py)
+        tquant.quantize_lm_params(fp_tree, "int2")
 
 
 def test_quantized_tree_round_trips_through_the_converter(fp_tree):
