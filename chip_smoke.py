@@ -100,8 +100,9 @@ cost of one replay against its device time, and requires every captured
 graph's K1..K7 kernel nodes (CUDAGraph.debug_dump) to equal the launches
 its capture counted, which each replay adds to the counters. After every
 other phase, idle takes the device's idle share (torch.profiler traces)
-over the LM stage and the flow+HiFT stage of each LM's text-16 offline
-request (320 tokens), the route-switch request and the bistream requests,
+over the LM stage and the flow+HiFT stage of each LM's offline request
+(the first 8 of the text-16 ids: 160 tokens), the route-switch request and
+the bistream requests (the K7 LM's at max_len 160),
 on graphs (no eager trace and no bf16 960-token trace, to keep the run
 inside its limit), and requires
 the K1..K7 kernels the LM stage's traces show to be at most the launches
@@ -115,12 +116,12 @@ After each LM's graphs phase, stream (stream_int4p, stream_int4p_bf16)
 serves `tts(stream=True)` requests (STREAM): the bf16 LM's text-16
 request (320 tokens) on a fresh LM with the same weights and no decode
 graph captured (its graphs are captured mid-stream, with token->wav on
-another thread), then its text-48 request (960 tokens; it crosses
+another thread), then its text-32 request (640 tokens; it crosses
 flow_incr_min_tok and grows the flow arena 256 -> 512 -> 1024 tokens); the
 int4p + int8 LM's text-16 request; the K7 LM's text-16 request (no
-text-48 one: the bf16 LM's crosses the same flow paths) and a bistream
+text-32 one: the bf16 LM's crosses the same flow paths) and a bistream
 request through `tts(<iterator>,
-stream=True)` (text 32, the LM's max_len 640). Each is streamed, streamed
+stream=True)` (text 32, the LM's max_len 320). Each is streamed, streamed
 again on the recompute path alone and served offline (cuDNN
 deterministic): the streamed tokens must equal the offline ones (and the
 slice phase's), the wav be n_tokens * 2 * 480 long and finite, the chunks
@@ -251,8 +252,28 @@ injected noise (V1_T2W_TOL); api_v1 (after api_int8) runs AutoModel on a
 temporary version-1 dir with a synthetic .tiktoken vocab: zero-shot
 offline and streamed, sft after add_zero_shot_spk, instruct.
 
+Training (A11a), right after phase 3 and before any serving engine:
+train_lm builds bin/train.py's LM branch at full CosyVoice2-0.5B width (24
+layers, float32 master weights, gradients and Adam, bf16 products) and
+feeds it the fixed input TRAIN_ROWS rows of 10 s make through the
+processor chain after parquet_opener (--batch_type dynamic
+--max_frames_in_batch 2000: two batches of 4 x 500 mel frames, 250 speech
+tokens, ~40 text tokens; --accum_grad 2 takes both in one step): 8 steps
+at a constant 1e-4, the loss falling to TRAIN_FALL of the first step's,
+steps/s, tokens/s and peak memory printed; a step whose head output is NaN
+moves no weight, Adam moment or count; the first step of the 2-layer LM
+against float32 on the host (LM_STEP_TOL). train_flow does the same for
+the U-Net flow (112.5M, float32) and the DiT flow at 2 blocks, steps
+alternating offline and streaming, the loss at fixed draws before and
+after; a NaN in the target mel is skipped; the first step, offline and
+streaming, against the host (FLOW_STEP_TOL; the U-Net at cut depth).
+train_e2e runs both through Executor (two steps, CV and a checkpoint
+after each), bin/average_model, a fresh Executor's resume, then frees
+them and loads the averaged LM and flow into CosyVoice2Engine, which
+serves one offline request (every decode step through K1 + K2).
+
 The line before the last is {"kernels": [...]}, with each kernel's launches
-summed over the runs of phases 4, 6 and 8, the two bistream slices, the
+summed over the runs of train_e2e, phases 4, 6 and 8, the two bistream slices, the
 three stream phases, slice_int8 and slice_int4 (their requests and
 waves), slice_v3 and stream_v3, the api phases, ckpt,
 and the main runs of batch
@@ -270,6 +291,7 @@ import faulthandler
 import json
 import logging
 import math
+import os
 import re
 import subprocess
 import sys
@@ -311,9 +333,10 @@ L2_BYTES = 50e6  # H100 L2 cache
 # Each phase's budget: about 1.22x the longest of its times on the card in
 # the runs that set it (NVIDIA H100 80GB HBM3 hosts, whose eager,
 # host-bound phases differ up to ~1.3x; the kernels phase has taken 50-112
-# s). The budgets sum to 1174 s, inside the run's 1200 s limit with room to
-# start up, and the slowest host seen needs ~950 s of phases, so no phase
-# can have more. A phase's watchdog fires when the run has used the
+# s; the training phases, device, disk, import and host-CPU bound, 17-34
+# s each on five hosts). The budgets sum to 1180 s, inside the run's
+# 1200 s limit with room to start up, and the slowest host seen needs ~950
+# s of phases, so no phase can have more. A phase's watchdog fires when the run has used the
 # budgets of every phase up to and including it (Phase), so a phase that
 # runs long on a host may spend what the phases before it left: the run
 # fails on time only once it is behind the sum of the budgets so far.
@@ -324,14 +347,20 @@ L2_BYTES = 50e6  # H100 L2 cache
 # 160 tokens (not 320), batch / batch_int4p serve 4 requests of text 16 /
 # 32 and 4 / 8 (not 6 of 16 / 32 / 48 and 4 / 8 / 12), serve's sweep runs
 # concurrency 1 and 4 (not 1, 2 and 4), and a host rate over an eager call
-# of 0.5 ms or more averages 10 calls (not 100).
-PHASE_BUDGET_S = {"device": 4, "build": 22, "kernels": 122, "slice": 16, "check": 10, "graphs": 46, "stream": 44,
+# of 0.5 ms or more averages 10 calls (not 100). To fit the training
+# phases, in size again, no check: idle traces each LM's offline request at
+# 160 tokens (not 320) and the K7 LM's bistream request at max_len 160 (not
+# 320); the bf16 LM streams text 32 (640 tokens, not text 48's 960) and the
+# K7 LM's streamed bistream request runs to max_len 320 (not 640);
+# slice_v1 / stream_v1 serve text 8 / 16 (not 16 / 32).
+PHASE_BUDGET_S = {"device": 4, "build": 22, "kernels": 122, "slice": 16, "check": 10, "graphs": 46, "stream": 35,
                   "slice_int4p": 26, "check_int4p": 23, "slice_bistream_int4p": 4, "check_bistream_int4p": 5,
                   "graphs_int4p": 24, "stream_int4p": 13, "slice_int4p_bf16": 27, "check_int4p_bf16": 15,
                   "slice_bistream_int4p_bf16": 57, "check_bistream_int4p_bf16": 13, "graphs_int4p_bf16": 25,
-                  "stream_int4p_bf16": 27, "slice_int8": 30, "slice_int4": 50, "slice_v3": 10, "stream_v3": 13,
-                  "slice_v1": 23, "stream_v1": 43, "api": 35, "api_int4p": 14, "api_v3": 29, "api_int8": 22,
-                  "api_v1": 24, "ckpt": 64, "batch": 47, "batch_int4p": 53, "serve": 79, "idle": 115}
+                  "stream_int4p_bf16": 17, "slice_int8": 30, "slice_int4": 50, "slice_v3": 10, "stream_v3": 13,
+                  "slice_v1": 13, "stream_v1": 25, "api": 35, "api_int4p": 14, "api_v3": 29, "api_int8": 22,
+                  "api_v1": 24, "ckpt": 64, "batch": 47, "batch_int4p": 53, "serve": 79, "idle": 66,
+                  "train_lm": 31, "train_flow": 29, "train_e2e": 42}
 PHASE_SECONDS = {}  # each phase's measured seconds in this run
 PHASE_CLOCK = {}  # the first phase's start and the sum of the budgets of the phases entered so far
 
@@ -2133,8 +2162,8 @@ def phase_graphs(eng, runs):
 # through tts(<iterator>, stream=True) (text ids, the LM's max_len), and
 # whether the first of them runs on a fresh LM with no graph captured yet
 # (instead of this LM)
-STREAM = {"": {"texts": (16, 48), "fresh": True}, "_int4p": {"texts": (16,)},
-          "_int4p_bf16": {"texts": (16,), "bistream": (32, 640)}}
+STREAM = {"": {"texts": (16, 32), "fresh": True}, "_int4p": {"texts": (16,)},
+          "_int4p_bf16": {"texts": (16,), "bistream": (32, 320)}}
 RECOMPUTE_ONLY = 10**9  # flow_incr_min_tok of the reference streams: every chunk recomputes the prefix
 STREAM_TOL = 1e-3  # chunks after the crossover against the recompute path: tests/test_torch_stream.py's ATOL
 
@@ -2415,6 +2444,12 @@ def _bistream_stages(eng, prompt, text, max_len):
 
 
 PER_TRACE = 1  # blocks or spans per profiler trace: ~34,000 device events of a per-layer LM's block
+# the idle phase's requests, cut in size to make room for the training
+# phases: each LM's offline request traces the first IDLE_TEXT of
+# the slice's text-16 ids (160 tokens, not 320), the K7 LM's bistream
+# request at most IDLE_BISTREAM_CAP tokens (not 320)
+IDLE_TEXT = 8
+IDLE_BISTREAM_CAP = 160
 # the share of a kernel's records the traces of a request may lack: the
 # profiler dropped up to 3.9 % of them (int4p bistream request, 64 tokens;
 # NVIDIA H100 80GB HBM3, torch 2.11)
@@ -2503,8 +2538,9 @@ def idle_share(eng, label, stages, modes):
 
 def phase_idle(held):
     """idle_share over the requests each LM held in its graphs phase, on
-    graphs: the text-16 offline request (320 tokens), the route switch, the
-    bistream requests. (No eager trace and no trace of the bf16 LM's
+    graphs: the offline request of IDLE_TEXT ids (160 tokens), the route
+    switch, the bistream requests (at most IDLE_BISTREAM_CAP tokens). (No
+    eager trace and no trace of the bf16 LM's
     960-token request, to keep the run inside its limit.) Runs after every timed phase: a profiler session
     multiplies the host cost of every later graph replay in the process
     (scripts/decode_graph_block.py)."""
@@ -3021,7 +3057,7 @@ def phase_api_int8(api, per_step):
 
 # ---------------------------------------------------------------- CosyVoice-300M
 
-V1_TEXTS = (16, 32)  # slice_v1's offline requests, text ids (max_len 20 x)
+V1_TEXTS = (8, 16)  # slice_v1's offline requests, text ids (max_len 20 x; cut from 16 / 32)
 V1_PROMPT = (50, 86)  # the v1 voice prompt: speech tokens, mel rows (22.05 kHz / 256 hop: 1.72 rows a token)
 # one streamed chunk's token2wav (two windows: caches, fades) on the card
 # against the same calls on the host, fp32 with TF32 off and the same
@@ -4048,6 +4084,369 @@ def phase_serve():
     return launches
 
 
+# ---------------------------------------------------------------- training (A11a)
+
+# The fixed training input: 8 synthetic 10 s utterances at 24 kHz (500 mel
+# frames, 250 random speech tokens, a 40-character text: ~40 byte tokens),
+# the rows parquet_opener yields, through bin/train.py's processor chain
+# after the opener: --batch_type dynamic --max_frames_in_batch 2000 packs
+# them four at a time, and --accum_grad 2 takes both batches in one step.
+TRAIN_ROWS = 8
+TRAIN_SECONDS = 10.0
+TRAIN_TEXT = "Training batch sentence number {i:02d} here."
+TRAIN_STEPS = 8  # optimizer steps on the fixed input per model
+TRAIN_FLAGS = ["--accum_grad", "2", "--batch_type", "dynamic", "--max_frames_in_batch", "2000",
+               "--scheduler", "constantlr", "--lr", "1e-4"]
+# the loss after TRAIN_STEPS steps at most this fraction of the first step's
+# (the LM's step loss; the flows' loss at fixed draws before and after)
+TRAIN_FALL = 0.9
+# The config sections of the trained LM (full CosyVoice2-0.5B width) and
+# of the LM whose first step is held against the host (2 layers, full width)
+TRAIN_LM = {}
+LM_CUT = {"qwen": {"num_layers": 2}}
+# First step of LM_CUT on HOST_ROWS rows of each microbatch, card (bf16
+# products, float32 weights and Adam) against the same step in float32 on
+# the host: relative error of the loss and of the gradient norm, and
+# relative L2 of the weight update over every parameter (Adam's first
+# update is +-lr where |g| >> eps, so a bf16-level gradient difference
+# flips the sign of the smallest gradients' updates). On an NVIDIA H100
+# 80GB HBM3 (700 W) the step on two rows read 1.2e-5, 2.2e-4 and 7.8e-2.
+# The loss and gradient-norm bounds do the fine checking; the update's
+# bound only guards against gross faults (a missing or doubled update).
+LM_STEP_TOL = {"loss": 1e-4, "grad_norm": 1.5e-3, "update": 0.2}
+# The same for the flows, float32 on both (TF32 off): that run measured at
+# most 1.7e-7, 1.1e-5 and 1.2e-4.
+FLOW_STEP_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "update": 1e-3}
+HOST_ROWS = 2  # rows of each microbatch in the LM's card-against-host step
+FLOW_HOST_ROWS = 1  # in the flows' (their float32 host steps take seconds a row)
+# the flows' configs: the card-against-host step of the U-Net flow cuts its
+# depth (conformer 2 + 2 blocks, 2 mid blocks; widths full), the DiT flow
+# trains at 2 blocks
+FLOW_CUT = {"num_blocks": 2, "num_up_blocks": 2, "estimator": {"num_mid_blocks": 2}}
+DIT_FLOW = {"input_size": 80, "encoder_type": "dit_prelookahead", "estimator_type": "dit", "dit": {"depth": 2}}
+# (label, config section, section of the flow held against the host)
+TRAIN_FLOWS = (("U-Net flow", {}, FLOW_CUT), ("DiT flow, 2 blocks", DIT_FLOW, DIT_FLOW))
+
+
+def train_args(model, *flags):
+    from cosyvoice_tpu_torch.bin import train
+
+    args, _ = train.parse_args(["--model", model, "--train_data", "", "--model_dir", "build/train_e2e",
+                                *TRAIN_FLAGS, *flags])
+    return args
+
+
+def train_batches(args, seed=0):
+    """The processor chain of bin/train.py after parquet_opener, over
+    TRAIN_ROWS rows as the opener yields them: two padded batches of 4."""
+    import numpy as np
+
+    from cosyvoice_tpu_torch.bin import train
+    from cosyvoice_tpu_torch.frontend.tokenizer import get_tokenizer
+
+    rng = np.random.default_rng(seed)
+    rows = [{"utt": f"utt{i}", "text": TRAIN_TEXT.format(i=i), "sample_rate": 24000,
+             "audio": synthetic_voice(seed + i, TRAIN_SECONDS, sr=24000)[0],
+             "utt_embedding": rng.standard_normal(192).astype(np.float32),
+             "speech_token": rng.integers(0, 6561, int(TRAIN_SECONDS * 25)).tolist()} for i in range(TRAIN_ROWS)]
+    it = iter(rows)
+    for fn in train.build_pipeline(args, get_tokenizer(None))[1:]:
+        it = fn(it)
+    batches = list(it)
+    shapes = [(b["speech_feat"].shape, b["speech_token"].shape, int(b["text_token_len"].max())) for b in batches]
+    print(f"training input: {TRAIN_ROWS} rows -> {len(batches)} batches (mel, speech tokens, longest text): {shapes}")
+    if len(batches) != 2 or any(b["speech_feat"].shape != (4, 500, 80) for b in batches):
+        raise AssertionError(f"the dynamic batcher did not pack 4 x 500 frames per batch: {shapes}")
+    return batches
+
+
+def _snapshot(branch):
+    """Copies of every weight, Adam's state and the schedule count."""
+    import torch
+
+    opt = branch.optimizer
+    state = {id(p): {k: v.clone() for k, v in opt.adam.state[p].items()} for p in opt.params if p in opt.adam.state}
+    return [p.detach().clone() for p in opt.params], state, opt.count
+
+
+def hold_nan_skipped(branch, label, step_nan):
+    """A step whose gradient norm is NaN (step_nan() runs it) moves no
+    weight, no Adam moment, no Adam step and not the schedule count."""
+    import torch
+
+    params, state, count = _snapshot(branch)
+    m = step_nan()
+    opt = branch.optimizer
+    moved = [i for i, (p, q) in enumerate(zip(opt.params, params)) if not torch.equal(p.detach(), q)]
+    moved_state = [k for p in opt.params for k, v in opt.adam.state.get(p, {}).items()
+                   if not torch.equal(v, state[id(p)][k])]
+    gnorm = float(m["grad_norm"])
+    print(f"{label}: a NaN step (grad_norm {gnorm}) moved {len(moved)} of {len(params)} weights, "
+          f"{len(moved_state)} Adam state tensors, schedule count {count} -> {opt.count}")
+    if math.isfinite(gnorm) or moved or moved_state or opt.count != count:
+        raise AssertionError(f"{label}: the non-finite step was not skipped with nothing moved")
+
+
+def _rel_err(a, b):
+    return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+
+def hold_step_on_host(label, card, host, run, tol):
+    """One step of `card` (a branch on the card) against the same step of
+    `host` (its float32 copy on the CPU): run(branch) -> metrics. Relative
+    error of the loss and the gradient norm, relative L2 of the weight
+    update over every parameter, each within tol."""
+    import torch
+
+    from cosyvoice_tpu_torch.convert import export_params, load_jax_params
+
+    load_jax_params(host.module, export_params(card.module))
+    w0 = [p.detach().cpu().clone() for p in host.optimizer.params]
+    sync = _sync_fn(next(card.module.parameters()).device)
+    t0 = time.perf_counter()
+    mc = run(card)
+    sync()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mh = run(host)
+    t_host = time.perf_counter() - t0
+    num = den = 0.0
+    for p_c, p_h, w in zip(card.optimizer.params, host.optimizer.params, w0):
+        d_c, d_h = p_c.detach().cpu().double() - w.double(), p_h.detach().double() - w.double()
+        num += float((d_c - d_h).square().sum())
+        den += float(d_h.square().sum())
+    err = {"loss": _rel_err(mc["loss"], mh["loss"]), "grad_norm": _rel_err(mc["grad_norm"], mh["grad_norm"]),
+           "update": math.sqrt(num / max(den, 1e-30))}
+    print(f"{label}: first step on the card ({t_card:.2f} s) against float32 on the host ({t_host:.2f} s): "
+          f"loss {float(mc['loss']):.6f} / {float(mh['loss']):.6f}, grad_norm {float(mc['grad_norm']):.6f} / "
+          f"{float(mh['grad_norm']):.6f}; relative errors " + ", ".join(f"{k} {v:.3e} (tol {tol[k]})"
+                                                                         for k, v in err.items()))
+    if any(not v <= tol[k] for k, v in err.items()):
+        raise AssertionError(f"{label}: the card's step disagrees with the host's")
+
+
+def _peak_gb(device):
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else float("nan")
+
+
+def phase_train_lm(device="cuda"):
+    """bin/train.py's LM branch at full CosyVoice2-0.5B width (TRAIN_LM:
+    24 layers, float32 master weights and Adam, bf16 products),
+    --accum_grad 2: TRAIN_STEPS steps on the fixed input, the loss falling
+    by TRAIN_FALL; a NaN step skipped with nothing moved; the first step of
+    the 2-layer LM (LM_CUT) against float32 on the host (LM_STEP_TOL).
+    Returns the branch and the input."""
+    import torch
+
+    from cosyvoice_tpu_torch.bin import train
+
+    args = train_args("llm")
+    batches = train_batches(args)
+    dev = torch.device(device)
+    sync = _sync_fn(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    branch = train.build_lm(args, {"llm": TRAIN_LM}, dev)
+    sync()
+    n = sum(p.numel() for p in branch.module.parameters())
+    print(f"LM to train: {n / 1e6:.1f}M params (float32 weights, gradients and Adam; bf16 products), built "
+          f"from seed {args.seed} in {time.perf_counter() - t0:.1f} s")
+    mb = branch.collate(batches)
+    tokens = int(mb["lengths"].sum())
+    losses, t_steps = [], []
+    for i in range(TRAIN_STEPS):
+        sync()
+        t = time.perf_counter()
+        m = branch.step(mb, i)
+        losses.append(float(m["loss"]))
+        t_steps.append(time.perf_counter() - t)
+    steady = sum(t_steps[1:]) / (len(t_steps) - 1)
+    print(f"LM: {TRAIN_STEPS} steps of {tokens} tokens ({mb['ids'].shape[0]} x {tuple(mb['ids'].shape[1:])}): "
+          f"loss {' '.join(f'{x:.4f}' for x in losses)}, acc {float(m['acc']):.4f}, grad_norm "
+          f"{float(m['grad_norm']):.4f}; {1 / steady:.3f} steps/s, {tokens / steady:.0f} tokens/s after the first "
+          f"step ({t_steps[0]:.2f} s), peak {_peak_gb(dev):.2f} GB allocated ({_smi()})")
+    if not losses[-1] <= TRAIN_FALL * losses[0]:
+        raise AssertionError(f"LM: the loss did not fall to {TRAIN_FALL} of the first step's on a fixed batch")
+
+    def nan_step():
+        hook = branch.module.llm_decoder.register_forward_hook(lambda mod, inp, out: out * float("nan"))
+        try:
+            return branch.step(mb, TRAIN_STEPS)
+        finally:
+            hook.remove()
+
+    hold_nan_skipped(branch, "LM", nan_step)
+    card = train.build_lm(args, {"llm": LM_CUT}, dev)
+    host_cut = {**LM_CUT, "qwen": {**LM_CUT.get("qwen", {}), "dtype": "float32"}}
+    host = train.build_lm(args, {"llm": host_cut}, torch.device("cpu"))
+    # one collate (its uni/bistream coins are drawn once), HOST_ROWS rows
+    batch = {k: v[:, :HOST_ROWS] for k, v in card.collate(batches).items()}
+    hold_step_on_host("LM, 2 layers", card, host,
+                      lambda b: b.step({k: v.to(next(b.module.parameters()).device) for k, v in batch.items()}, 0),
+                      LM_STEP_TOL)
+    del card, host
+    return branch, batches
+
+
+def phase_train_flow(device="cuda"):
+    """bin/train.py's flow branch: the full-width CosyVoice2 U-Net flow
+    (float32) and the DiT flow at 2 blocks, --accum_grad 2: TRAIN_STEPS
+    steps on the fixed input, streaming and offline in turn, the loss at
+    fixed draws (offline and streaming) falling by TRAIN_FALL; a NaN step
+    skipped; the first step against float32 on the host (FLOW_STEP_TOL; the
+    U-Net flow at cut depth). TRAIN_FLOWS names the flows. Returns the
+    U-Net branch and the input."""
+    import torch
+
+    from cosyvoice_tpu_torch.bin import train
+    from cosyvoice_tpu_torch.models.flow_matching import loss_draws
+    from cosyvoice_tpu_torch.train.trainer import make_flow_train_step
+
+    args = train_args("flow")
+    batches = train_batches(args)
+    dev = torch.device(device)
+    sync = _sync_fn(dev)
+    held = None
+    for label, cfg, cut in TRAIN_FLOWS:
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        branch = train.build_flow(args, {"flow": cfg}, dev)
+        flow = branch.module
+        n = sum(p.numel() for p in flow.parameters())
+        mb = branch.collate(batches)
+        frames = int(mb["feat_len"].sum())
+        gen = torch.Generator(device="cpu").manual_seed(7)
+        fixed = [loss_draws(gen, *mb["feat"].shape[1:3], 80, flow.cfg.cfm, "cpu") for _ in range(2)]
+        fixed = [{k: v.to(dev) for k, v in d.items()} for d in fixed]
+
+        def eval_loss(streaming):
+            with torch.no_grad():
+                return sum(float(flow.loss(*(mb[k][a] for k in ("token", "token_len", "feat", "feat_len",
+                                                                "embedding")), streaming, draws=fixed[a]))
+                           for a in range(2)) / 2
+
+        before = (eval_loss(False), eval_loss(True))
+        flow_step = make_flow_train_step(flow, branch.optimizer, accum_steps=branch.accum)
+        gen_train = torch.Generator(device=dev).manual_seed(args.seed)
+        losses, t_steps = [], []
+        for i in range(TRAIN_STEPS):
+            sync()
+            t = time.perf_counter()
+            m = flow_step(mb, gen_train, streaming=bool(i % 2))
+            losses.append(float(m["loss"]))
+            t_steps.append(time.perf_counter() - t)
+        after = (eval_loss(False), eval_loss(True))
+        steady = sum(t_steps[1:]) / (len(t_steps) - 1)
+        print(f"{label}: {n / 1e6:.1f}M float32 params; {TRAIN_STEPS} steps (offline, streaming in turn) of "
+              f"{frames} mel frames: step loss {' '.join(f'{x:.4f}' for x in losses)}; loss at fixed draws "
+              f"offline {before[0]:.4f} -> {after[0]:.4f}, streaming {before[1]:.4f} -> {after[1]:.4f}; "
+              f"{1 / steady:.3f} steps/s, {frames / steady:.0f} mel frames/s after the first step "
+              f"({t_steps[0]:.2f} s), peak {_peak_gb(dev):.2f} GB allocated ({_smi()})")
+        if not all(a <= TRAIN_FALL * b for a, b in zip(after, before)):
+            raise AssertionError(f"{label}: the loss at fixed draws did not fall to {TRAIN_FALL} of its start")
+        bad = {k: v.clone() for k, v in mb.items()}
+        bad["feat"][0, 0, 0, 0] = float("nan")
+        hold_nan_skipped(branch, label, lambda: flow_step(bad, gen_train, streaming=False))
+        draws = [loss_draws(gen, FLOW_HOST_ROWS, mb["feat"].shape[2], 80, flow.cfg.cfm, "cpu") for _ in range(2)]
+        host_mb = {k: v[:, :FLOW_HOST_ROWS].cpu() for k, v in mb.items()}
+        for streaming in (False, True):
+            def run(b, streaming=streaming):
+                step = make_flow_train_step(b.module, b.optimizer, accum_steps=b.accum)
+                if next(b.module.parameters()).is_cuda:
+                    return step({k: v.to(dev) for k, v in host_mb.items()}, None, streaming,
+                                [{k: v.to(dev) for k, v in d.items()} for d in draws])
+                return step(host_mb, None, streaming, draws)
+
+            cut_label = "" if cut == cfg else " cut to " + json.dumps(cut)
+            hold_step_on_host(f"{label}{cut_label}, {'streaming' if streaming else 'offline'}",
+                              train.build_flow(args, {"flow": cut}, dev),
+                              train.build_flow(args, {"flow": cut}, torch.device("cpu")), run, FLOW_STEP_TOL)
+        if held is None:
+            held = branch
+        del branch, flow
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return held, batches
+
+
+def phase_train_e2e(trained, device="cuda"):
+    """Train -> synthesize. For the LM and the U-Net flow of the earlier
+    phases (trained: {"llm": (branch, batches), "flow": ...}, emptied here):
+    Executor runs two steps, each followed by a CV pass and a checkpoint
+    (save_per_step 1); bin/average_model averages the two. On the flow's
+    (450 MB, not the LM's 2023 MB: the code is the same), a leaf of the
+    average equals the mean of both files and a fresh Executor's resume
+    restores the step and epoch. The branches are freed, then the averaged
+    LM and flow load into CosyVoice2Engine (bf16 LM, random HiFT), which
+    synthesizes one offline request: a finite wav of n_tokens * 960
+    samples, every decode step through K1 + K2. Returns the launches."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from cosyvoice_tpu_torch.bin import average_model
+    from cosyvoice_tpu_torch.runtime.engine import build_random_engine
+    from cosyvoice_tpu_torch.train.executor import Executor
+    from cosyvoice_tpu_torch.utils import msgpack_io
+
+    out = "build/train_e2e"
+    shutil.rmtree(out, ignore_errors=True)
+    for name in ("llm", "flow"):
+        branch, batches = trained.pop(name)
+        ex = Executor(branch.step, out, model_name=name, log_interval=1, save_per_step=1, tensorboard=False)
+        t0 = time.perf_counter()
+        ex.train_one_epoch(branch.module, iter([batches, batches]), branch.collate, cv_fn=branch.cv_fn,
+                           cv_iter=lambda: iter(batches[:1]))
+        t_train = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        paths = average_model.main(["--src_dir", out, "--model_name", name, "--num", "2", "--dst_model",
+                                    f"{out}/{name}.msgpack", "--device", device])
+        sides = [json.load(open(p.replace(".msgpack", ".json"))) for p in paths]
+        print(f"train_e2e {name}: Executor ran steps 1-2 with CV in {t_train:.1f} s, checkpoints "
+              f"{[os.path.basename(p) for p in paths]} ({os.path.getsize(paths[0]) / 1e6:.0f} MB each; cv_loss "
+              f"{[round(x['cv_loss'], 4) for x in sides]}); average_model {time.perf_counter() - t0:.1f} s")
+        if name == "llm":
+            del branch, batches, ex
+            continue
+        leaf = ("estimator", "params", "final_proj", "kernel")
+        want = sum(np.asarray(_leaf(msgpack_io.read(p), leaf), np.float64) for p in paths) / len(paths)
+        if not np.array_equal(_leaf(msgpack_io.read(f"{out}/flow.msgpack"), leaf), want.astype(np.float32)):
+            raise AssertionError(f"flow: the averaged {'/'.join(leaf)} is not the mean of the checkpoints")
+        again = Executor(branch.step, out, model_name=name, tensorboard=False)
+        again.resume(branch.module, max(paths, key=lambda p: int(p.rsplit("step", 1)[1].split(".")[0])))
+        print(f"train_e2e flow: the average's {'/'.join(leaf)} is the mean of both files; resume -> epoch "
+              f"{again.epoch} step {again.step}")
+        if (again.step, again.epoch) != (2, 0):
+            raise AssertionError(f"flow: resume restored epoch {again.epoch} step {again.step}, not 0 / 2")
+        del branch, batches, ex, again
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    trees = {key: msgpack_io.read(f"{out}/{name}.msgpack") for key, name in (("lm", "llm"), ("flow", "flow"))}
+    eng = build_random_engine(seed=0, device=device, trees=trees)
+    head = eng.lm.module.llm_decoder.weight.detach().cpu().numpy().T
+    if not np.array_equal(head, _leaf(trees["lm"], ("params", "llm_decoder", "kernel"))):
+        raise AssertionError("the engine's LM head is not the averaged checkpoint's")
+    prompt, request = _requester(eng)
+    counters = _zero_counts(eng)
+    _serve(eng, request, 16)
+    launches = _check_launches(eng, counters, PER_STEP["bf16"])
+    del eng
+    shutil.rmtree(out, ignore_errors=True)
+    return launches
+
+
+def _leaf(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
 def main(argv):
     import numpy as np
     import torch
@@ -4066,6 +4465,16 @@ def main(argv):
     with Phase("kernels"):
         kernels = phase_kernels(LMConfig())
     launches = dict.fromkeys(kernels, 0)
+    # training (bin/train.py's branches, Executor, average_model), then the
+    # averaged checkpoints synthesizing, before any serving engine is built
+    trained = {}
+    with Phase("train_lm"):
+        trained["llm"] = phase_train_lm()
+    with Phase("train_flow"):
+        trained["flow"] = phase_train_flow()
+    with Phase("train_e2e"):
+        for key, n in phase_train_e2e(trained).items():
+            launches[key] += n
     bf16_cfg = LMConfig()
     held = []  # (suffix, engine, [(label, (LM stage, flow+HiFT stage))]) for the idle phase
 
@@ -4105,9 +4514,10 @@ def main(argv):
             full = _prompt(eng)[0]
             text, toks = reqs[-1 if suffix == "" else 0]
             runs = [(f"offline text={len(text)}", _offline_run(eng, full, text), toks)]
-            # the idle phase's requests: the text-16 offline request (320
-            # tokens), the route switch, the bistream requests
-            idle = [(f"offline text={len(reqs[0][0])}", _offline_stages(eng, full, reqs[0][0]))]
+            # the idle phase's requests: an offline request (the first
+            # IDLE_TEXT text-16 ids), the route switch, the bistream requests
+            idle_text = reqs[0][0][:IDLE_TEXT]
+            idle = [(f"offline text={len(idle_text)}", _offline_stages(eng, full, idle_text))]
             if suffix == "_int4p_bf16":
                 label = f"offline text={len(cross_text)}, {CROSS_PROMPT}-token LM prompt (route switch)"
                 cross_prompt = _prompt(eng, CROSS_PROMPT - 12 - len(cross_text))[0]
@@ -4118,7 +4528,8 @@ def main(argv):
                 bs_text = np.random.default_rng(7).integers(0, cfg.qwen.vocab_size, n_bs)
                 label = f"bistream text={n_bs}, max_len {cap}"
                 runs.append((label, _bistream_run(eng, full, bs_text, cap), None))
-                idle.append((label, _bistream_stages(eng, full, bs_text, cap)))
+                idle_cap = min(cap, IDLE_BISTREAM_CAP)
+                idle.append((f"bistream text={n_bs}, max_len {idle_cap}", _bistream_stages(eng, full, bs_text, idle_cap)))
             phase_graphs(eng, runs)
         with Phase("stream" + suffix):
             for key, n in phase_stream(eng, suffix, reqs, per_step, cfg).items():

@@ -14,7 +14,8 @@ layouts:
 lookahead context); the incremental chunk (`stream_state`,
 `grow_stream_state`, `inference_chunk`) runs over carried KV arenas and
 conv caches: the encoder's and the U-Net's (v2), or only the DiT's, with the
-lookahead conv's cache (v3).
+lookahead conv's cache (v3). `loss` is the unified streaming/offline training loss
+of both layouts.
 """
 
 from dataclasses import dataclass, field
@@ -25,7 +26,14 @@ from typing import Optional
 
 from cosyvoice_tpu_torch.models.dit import DiTConfig, DiTEstimator, dit_stream_state
 from cosyvoice_tpu_torch.models.flow_decoder import ConditionalDecoder, EstimatorConfig, estimator_stream_state
-from cosyvoice_tpu_torch.models.flow_matching import CFMConfig, fixed_noise_buffer, solve_euler, solve_euler_chunk
+from cosyvoice_tpu_torch.models.flow_matching import (
+    CFMConfig,
+    cfm_loss,
+    fixed_noise_buffer,
+    loss_draws,
+    solve_euler,
+    solve_euler_chunk,
+)
 from cosyvoice_tpu_torch.nn.conformer import PreLookaheadLayer, UpsampleConformerEncoder, upsample_encoder_stream_state
 from cosyvoice_tpu_torch.ops.masks import make_non_pad_mask
 from cosyvoice_tpu_torch.utils.devices import resolve_device
@@ -286,3 +294,22 @@ class CausalFlow(nn.Module):
         mel = solve_euler_chunk(self.estimator, z, mu, spks, conds_chunk, self.cfg.cfm, state["est"], pos_tok * r,
                                 real_n * r)
         return mel, state
+
+    # ---------------- training ----------------
+    def loss(self, token, token_len, feat, feat_len, embedding, streaming: bool, generator=None, draws=None):
+        """The unified streaming/offline CFM training loss (JAX
+        `CausalFlow.loss`): token [B, L] and token_len [B]; feat [B, Tmel,
+        80] the target mel, feat_len [B]; embedding [B, 192]; streaming: the
+        chunk masks. A random conditioning prefix of the target mel (0-30%
+        of feat_len, half of the rows) is the prompt. The draws come from
+        `generator` (models/flow_matching.loss_draws) unless `draws` gives
+        them. Returns the float32 scalar loss."""
+        mu, _ = self.encoder(token, token_len, streaming=streaming)
+        spks = self.encoder.project_spk(embedding)
+        B, Tmel, n_mels = feat.shape
+        d = draws if draws is not None else loss_draws(generator, B, Tmel, n_mels, self.cfg.cfm, feat.device)
+        idx = torch.where(d["coin"] < 0.5, (d["frac"] * 0.3 * feat_len.float()).int(), 0)
+        cond_mask = (torch.arange(Tmel, device=feat.device)[None, :] < idx[:, None]).to(feat.dtype)
+        mask_f = make_non_pad_mask(feat_len, Tmel).to(feat.dtype)
+        return cfm_loss(self.estimator, feat, mask_f, mu[:, :Tmel], spks, feat * cond_mask[..., None], self.cfg.cfm,
+                        streaming, d)

@@ -1,11 +1,13 @@
-"""Conditional flow matching: the 10-step CFG Euler solver.
+"""Conditional flow matching: the 10-step CFG Euler solver and the loss.
 
-Counterpart of cosyvoice_tpu/models/flow_matching.py (inference): the
+Counterpart of cosyvoice_tpu/models/flow_matching.py: the
 solver over a full sequence (`solve_euler`, offline or with streaming chunk
 masks) and over one incremental chunk (`solve_euler_chunk`, one estimator
 state per Euler step, where the JAX version scans over them stacked). The
 noise comes from the same fixed seeded buffer, np.random.RandomState(0), so
-the port's z equals the JAX package's bit for bit.
+the port's z equals the JAX package's bit for bit. `cfm_loss` is the
+training loss; its random draws (`loss_draws`) come from a torch.Generator,
+or from the caller (the parity tests hand in the JAX package's).
 """
 
 from dataclasses import dataclass
@@ -17,6 +19,8 @@ import torch
 
 @dataclass(frozen=True)
 class CFMConfig:
+    sigma_min: float = 1e-6
+    training_cfg_rate: float = 0.2
     inference_cfg_rate: float = 0.7
     n_timesteps: int = 10
 
@@ -78,3 +82,37 @@ def solve_euler_chunk(estimator, z, mu, spks, cond, cfg: CFMConfig, caches, pos:
         out, _ = estimator(torch.cat([x, x], dim=0), ones, mu2, t2, spks2, cond2, stream=(cache, pos, real_n))
         x = x + dt * ((1.0 + r) * out[:B] - r * out[B:])
     return x
+
+
+def loss_draws(generator: torch.Generator, B: int, T: int, n_mels: int, cfg: CFMConfig, device) -> dict:
+    """The random draws of one flow loss (CausalFlow.loss, cfm_loss), from
+    `generator` on `device`: "t" [B] ~ U[0, 1), the flow time; "z" [B, T,
+    n_mels] ~ N(0, 1), the noise; "keep" [B] bool, the rows that keep their
+    conditioning (U > training_cfg_rate: classifier-free guidance dropout);
+    "coin" and "frac" [B] ~ U[0, 1), the conditioning prefix (a prefix of
+    frac * 0.3 of the row's frames where coin < 0.5)."""
+    def uniform(*shape):
+        return torch.rand(shape, generator=generator, device=device)
+
+    return {"t": uniform(B), "z": torch.randn((B, T, n_mels), generator=generator, device=device),
+            "keep": uniform(B) > cfg.training_cfg_rate, "coin": uniform(B), "frac": uniform(B)}
+
+
+def cfm_loss(estimator, x1, mask, mu, spks, cond, cfg: CFMConfig, streaming: bool, draws: dict):
+    """The training loss: with t and z from `draws` (loss_draws), the OT path
+    y = (1 - (1 - sigma_min) t) z + t x1 and its target u = x1 - (1 -
+    sigma_min) z; the conditioning (mu, spks, cond) of the rows not in
+    draws["keep"] zeroed where training_cfg_rate > 0; the masked MSE of the
+    estimator's field against u. x1/mu/cond [B, T, 80], mask [B, T], spks
+    [B, 80]. t is plain uniform: the cosine schedule warps only the
+    inference time span."""
+    t = draws["t"].to(x1.dtype)[:, None, None]
+    z = draws["z"].to(x1.dtype)
+    y = (1.0 - (1.0 - cfg.sigma_min) * t) * z + t * x1
+    u = x1 - (1.0 - cfg.sigma_min) * z
+    if cfg.training_cfg_rate > 0:
+        keep = draws["keep"].to(x1.dtype)
+        mu, spks, cond = mu * keep[:, None, None], spks * keep[:, None], cond * keep[:, None, None]
+    pred = estimator(y, mask, mu, t[:, 0, 0], spks, cond, streaming)
+    m = mask[..., None]
+    return ((pred - u) * m).square().sum() / (mask.sum() * x1.shape[-1] + 1e-8)

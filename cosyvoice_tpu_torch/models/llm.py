@@ -134,6 +134,14 @@ class Qwen2LMModule(nn.Module):
             (types == TYPE_TEXT)[..., None], text, torch.where((types == TYPE_SPEECH)[..., None], speech, special)
         )
 
+    def forward_logits(self, ids, types, lengths, dtype=None):
+        """The teacher-forced forward of training: ids/types [B, T], lengths
+        [B] (each >= 1) -> float32 logits [B, T, head]. The Qwen2 products
+        compute in `dtype` (default cfg.qwen.dtype; Qwen2Model.forward), the
+        embeddings and the head in float32, as in the JAX module."""
+        valid = torch.arange(ids.shape[1], device=ids.device)[None, :] < lengths[:, None]
+        return self._head(self.llm(self.embed_input(ids, types), valid, dtype))
+
     def _head(self, hidden):
         if self.cfg.qwen.quant:
             return self.llm_decoder(hidden).float()

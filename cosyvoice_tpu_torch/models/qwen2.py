@@ -32,6 +32,12 @@ computes them in XLA; their decode step is the bf16 LM's (K2, then K1 or K3):
   for qkv and o_proj and K5 (int4_mlp) for the MLP, more rows the plain
   blocked matmuls (int4_matmul_blocked, int4_mlp_reference), where the JAX
   package runs XLA;
+- `forward(embeds, valid, dtype)` is the teacher-forced forward of
+  training (JAX `Qwen2Model.__call__`): the causal & valid mask, rope from
+  position 0, no arena, attention through scaled_dot_product_attention
+  (the JAX package computes it in XLA); each product casts its weight to
+  `dtype`, so float32 master weights train with bf16 products, as the JAX
+  module's float32 params with dtype bf16. Quantised layouts do not train;
 - the arena's length is the caller's (`init_cache(batch, length)`);
   `StaticArenas` keeps one arena per length bucket for the LM's decode
   graphs, grown with zeros by `grow_cache` as the JAX LM grows it.
@@ -98,6 +104,16 @@ def _int4p_kernel(cfg, rows: int, n_in: int, n_out: int = 0) -> bool:
     JAX package's `_int4p_use_pallas` without its backend test. At most 16
     rows, input and output widths multiples of 128."""
     return cfg.quant == "int4p" and rows <= MAX_ROWS and n_in % 128 == 0 and n_out % 128 == 0
+
+
+def _linear(layer: nn.Module, x, dtype=None):
+    """`layer(x)`, or with `dtype` an nn.Linear's product in `dtype`: input,
+    weight and bias cast to it (the training forward's float32 master
+    weights, bf16 products)."""
+    if dtype is None:
+        return layer(x)
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
 def grow_cache(cache, out):
@@ -306,6 +322,22 @@ class Qwen2Attention(nn.Module):
         attn = torch.softmax(scores + bias[:, None], dim=-1).to(v_all.dtype)
         return torch.einsum("bgrst,btgd->bsgrd", attn, v_all).reshape(B, S, -1)
 
+    def forward(self, x, cos, sin, keep, dtype):
+        """The teacher-forced attention: x [B, T, C]; cos/sin [T, d/2];
+        keep [B, 1, T, T] bool (query, key). Products in `dtype`. Returns
+        the attention output after o_proj, [B, T, C] in `dtype`."""
+        c = self.cfg
+        B, T, _ = x.shape
+        nq, nkv = c.num_heads * c.head_dim, c.num_kv_heads * c.head_dim
+        qkv = _linear(self.qkv_proj, x, dtype)
+        q = apply_rope(qkv[..., :nq].reshape(B, T, c.num_heads, c.head_dim), cos, sin)
+        k = apply_rope(qkv[..., nq : nq + nkv].reshape(B, T, c.num_kv_heads, c.head_dim), cos, sin)
+        v = qkv[..., nq + nkv :].reshape(B, T, c.num_kv_heads, c.head_dim)
+        rep = c.num_heads // c.num_kv_heads
+        q, k, v = (a.to(dtype).transpose(1, 2) for a in (q, k, v))
+        out = F.scaled_dot_product_attention(q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1), keep)
+        return _linear(self.o_proj, out.transpose(1, 2).reshape(B, T, nq), dtype)
+
     def decode(self, x, cos, sin, cur_len, cache):
         """x [B, 1, C]; cur_len [B] int32 write positions. Writes the K and V
         rows (and their int8 scales) with one K2 launch and attends with K1 (bf16 arena) or K3 (int8 arena). Returns
@@ -341,9 +373,10 @@ class Qwen2MLP(nn.Module):
             self.gate_up_proj = dense(cfg, cfg.hidden_size, 2 * cfg.intermediate_size, bias=False)
             self.down_proj = dense(cfg, cfg.intermediate_size, cfg.hidden_size, bias=False)
 
-    def forward(self, x):
+    def forward(self, x, dtype=None):
         """The MLP of x [..., H]: int4p through K5 for at most 16 rows, the
-        plain blocked matmuls for more."""
+        plain blocked matmuls for more; unquantised with the products in
+        `dtype` where given (the training forward)."""
         c = self.cfg
         if c.quant == "int4p":
             gu, d = self.gate_up_proj, self.down_proj
@@ -352,8 +385,8 @@ class Qwen2MLP(nn.Module):
             if _int4p_kernel(c, rows, c.hidden_size):
                 return int4_mlp(x.reshape(rows, -1).to(c.dtype), *w).reshape(x.shape)
             return int4_mlp_reference(x, *w, c.dtype)
-        gate, up = self.gate_up_proj(x).chunk(2, dim=-1)
-        return self.down_proj(F.silu(gate) * up)
+        gate, up = _linear(self.gate_up_proj, x, dtype).chunk(2, dim=-1)
+        return _linear(self.down_proj, F.silu(gate) * up, dtype)
 
 
 class Qwen2Layer(nn.Module):
@@ -368,6 +401,11 @@ class Qwen2Layer(nn.Module):
     def _tail(self, x, attn_out):
         x = x + attn_out
         return x + self.mlp(self.post_attention_layernorm(x))
+
+    def forward(self, x, cos, sin, keep, dtype):
+        """The teacher-forced layer (Qwen2Attention.forward's arguments)."""
+        x = x + self.self_attn(self.input_layernorm(x), cos, sin, keep, dtype)
+        return x + self.mlp(self.post_attention_layernorm(x), dtype)
 
     def extend(self, x, cos, sin, bias, start: int, cache):
         attn = self.self_attn.extend(self.input_layernorm(x), cos, sin, bias, start, cache)
@@ -416,6 +454,26 @@ class Qwen2Model(nn.Module):
                 torch.zeros(sshape, dtype=torch.float32, device=dev), torch.zeros(sshape, dtype=torch.float32, device=dev),
             )
         return (torch.zeros(shape, dtype=c.dtype, device=dev), torch.zeros(shape, dtype=c.dtype, device=dev))
+
+    def forward(self, embeds, valid, dtype=None):
+        """The teacher-forced forward of training. embeds [B, T, C]; valid
+        [B, T] bool, each row's first position valid (no query row is then
+        fully masked: scaled_dot_product_attention returns NaN on one).
+        Position q attends to the valid keys <= q; rope from position 0.
+        The products compute in `dtype` (default cfg.dtype) with each
+        weight cast to it; norms and softmax in float32. Returns the final
+        hidden [B, T, C] in `dtype`."""
+        if self.cfg.quant:
+            raise NotImplementedError("the teacher-forced forward trains unquantised weights only")
+        dt = dtype or self.cfg.dtype
+        T = embeds.shape[1]
+        pos = torch.arange(T, device=embeds.device)
+        keep = ((pos[None, :] <= pos[:, None])[None] & valid[:, None, :])[:, None]
+        cos, sin = self.rope_cos[:T], self.rope_sin[:T]  # made at construction, outside inference mode
+        x = embeds.to(dt)
+        for layer in self.layers:
+            x = layer(x, cos, sin, keep, dt)
+        return self.norm(x)
 
     def prefill(self, embeds, true_len, cache):
         """Write the prompt into the arena. embeds [B, S, C] (tail-padded ok),

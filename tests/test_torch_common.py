@@ -4,7 +4,11 @@
   cosyvoice_tpu, nor scipy, transformers, msgpack or regex (absent on the
   card's machine), checked by AST scan;
 - the entry points run on the card unless the caller asks for the CPU, and
-  raise when there is no card.
+  raise when there is no card; so do the training and data-prep command
+  lines (bin/train.py, bin/average_model.py, tools/extract_embedding.py,
+  tools/extract_speech_token.py) and the online token extractor;
+- pyarrow is imported only inside data/processor.parquet_opener and
+  tools/make_parquet_list.main (the card's machine has none).
 """
 
 import ast
@@ -190,7 +194,10 @@ def test_port_imports_no_jax_flax_or_jax_package():
     assert len(files) > 20
     scanned = {f.relative_to(REPO).as_posix() for f in files}
     for served in ("serving/http_server.py", "serving/http_client.py", "serving/web_page.py",
-                   "tools/bench_client.py", "runtime/batch_scheduler.py"):
+                   "tools/bench_client.py", "runtime/batch_scheduler.py", "train/losses.py", "train/schedulers.py",
+                   "train/lm_data.py", "train/trainer.py", "train/executor.py", "train/online_features.py",
+                   "data/dataset.py", "data/processor.py", "bin/train.py", "bin/average_model.py",
+                   "tools/extract_embedding.py", "tools/extract_speech_token.py", "tools/make_parquet_list.py"):
         assert f"cosyvoice_tpu_torch/{served}" in scanned
     bad = [
         f"{f.relative_to(REPO)}: {mod}"
@@ -257,3 +264,48 @@ def test_entry_points_run_on_cpu_when_asked(name):
     if hasattr(obj, "frontend"):  # the API's speech tokenizer and speaker model
         mods += [obj.frontend.speech_tokenizer, obj.frontend.campplus]
     assert all(next(m.parameters()).device.type == "cpu" for m in mods)
+
+
+def test_pyarrow_is_imported_only_inside_the_two_parquet_functions():
+    """The port reads parquet in data/processor.parquet_opener and writes it
+    in tools/make_parquet_list.main; pyarrow is imported inside those two
+    function bodies and nowhere else (chip_smoke.py included)."""
+    allowed = {("cosyvoice_tpu_torch/data/processor.py", "parquet_opener"),
+               ("cosyvoice_tpu_torch/tools/make_parquet_list.py", "main")}
+    found = set()
+    for f in sorted((REPO / "cosyvoice_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]:
+        tree = ast.parse(f.read_text(), filename=str(f))
+        funcs = [n for n in ast.walk(tree) if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))]
+        owner = {id(sub): fn.name for fn in funcs for sub in ast.walk(fn)}
+        for node in ast.walk(tree):
+            mods = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                    else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            if any(m.split(".")[0] == "pyarrow" for m in mods):
+                found.add((f.relative_to(REPO).as_posix(), owner.get(id(node))))
+    assert found == allowed
+
+
+def _cli_entry_points(tmp_path):
+    from cosyvoice_tpu_torch.bin import average_model, train
+    from cosyvoice_tpu_torch.tools import extract_embedding, extract_speech_token
+    from cosyvoice_tpu_torch.train.online_features import OnlineSpeechTokenExtractor
+
+    return {
+        "bin.train": lambda: train.main(["--model", "llm", "--train_data", str(tmp_path / "none.list"),
+                                         "--model_dir", str(tmp_path)]),
+        "bin.average_model": lambda: average_model.main(["--src_dir", str(tmp_path), "--dst_model",
+                                                         str(tmp_path / "avg.msgpack")]),
+        "tools.extract_embedding": lambda: extract_embedding.main(["--dir", str(tmp_path)]),
+        "tools.extract_speech_token": lambda: extract_speech_token.main(["--dir", str(tmp_path)]),
+        "OnlineSpeechTokenExtractor": lambda: OnlineSpeechTokenExtractor(),
+    }
+
+
+@pytest.mark.parametrize("name", ["bin.train", "bin.average_model", "tools.extract_embedding",
+                                  "tools.extract_speech_token", "OnlineSpeechTokenExtractor"])
+def test_training_entry_points_default_to_cuda_and_raise_without_it(name, tmp_path, monkeypatch):
+    """Each raises before it reads any input: tests/test_torch_train_cli.py
+    runs them with --device cpu."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _cli_entry_points(tmp_path)[name]()

@@ -213,9 +213,16 @@ def _prefetch_threads():
 def test_closing_early_frees_the_lm(engines, bistream):
     """A consumer that closes the stream after its first chunk: the LM's
     prefetch thread ends and closes the LM's generator, so the LM takes the
-    next request (a second open one would raise)."""
+    next request (a second open one would raise). Each request yields many
+    more token blocks than the first chunk takes plus what the prefetch
+    queue (depth 4) holds twice over (the backlog the stream drains before
+    its first chunk, then the queue refilled), so the prefetch thread is
+    still decoding or blocked on its full queue at the check, whatever the
+    threads' timing: request 0 yields 15 blocks of 8 tokens, bistream
+    request 3 yields 15 blocks (130 tokens, the first block of 11), and the
+    first chunk takes one block of either."""
     _, eng = engines
-    req = _bistream_request(2) if bistream else _request(0)
+    req = _bistream_request(3) if bistream else _request(0)
     if bistream:
         req = {**req, "text_tokens": iter(req["text_tokens"])}
     stream = eng.tts(**req, stream=True)
