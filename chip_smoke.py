@@ -271,11 +271,34 @@ train_e2e runs both through Executor (two steps, CV and a checkpoint
 after each), bin/average_model, a fresh Executor's resume, then frees
 them and loads the averaged LM and flow into CosyVoice2Engine, which
 serves one offline request (every decode step through K1 + K2).
+train_hifigan (A11b) builds bin/train.py's GAN branch at full width (the
+CosyVoice2 24 kHz HiFT, 512 channels, against MPD 32/128/512/1024 over
+periods 2/3/5/7/11 and MRD at (1024, 120), (2048, 240), (512, 50);
+float32) and feeds it GAN_ROWS synthetic 24 kHz voices through the GAN
+chain (a 24480-sample crop, the mel, the native YIN F0; two batches of
+4): GAN_PRETRAIN generator-only pretrain steps, GAN_STEPS timed
+generator + discriminator steps (steps/s, samples/s, peak GB), every
+value finite and both losses moving, then two epochs through an Executor
+(a {"generator", "discriminator"} checkpoint each) averaged by
+bin/average_model --model_name hifigan; the first generator and
+discriminator steps of GAN_CUT (one row; fewer resblocks, periods and
+resolutions, widths full) against float32 on the host (GAN_STEP_TOL).
+train_v1 trains the CosyVoice-300M TransformerLM (310.7M) and
+MaskedDiffFlow at full width, float32, TRAIN_STEPS steps each on a batch
+of 4 synthetic 22.05 kHz rows (the loss falling by TRAIN_FALL; steps/s,
+tokens/s or mel frames/s, peak GB; the LM's NaN step skipped), and holds
+the first step of each at V1_CUT against the host (V1_STEP_TOL). eval,
+right after ckpt (whose model dir, with the full-size synthetic Qwen
+tokenizer, it reuses): that dir's hift.msgpack replaced by the averaged
+GAN generator, tools/eval_quality.py --device cuda over two seeded
+synthetic prompt voices and two texts with references: n 2, every metric
+finite (CER null: no ASR hook), speaker similarity in [-1, 1], the
+synthesis decoding through K1 + K2 alone; the tool's JSON line printed.
 
 The line before the last is {"kernels": [...]}, with each kernel's launches
 summed over the runs of train_e2e, phases 4, 6 and 8, the two bistream slices, the
 three stream phases, slice_int8 and slice_int4 (their requests and
-waves), slice_v3 and stream_v3, the api phases, ckpt,
+waves), slice_v3 and stream_v3, the api phases, ckpt, eval,
 and the main runs of batch
 and batch_int4p (with the bistream request beside the scheduler) and
 serve's sweep (each counted from 0, replays included); the last line is
@@ -334,9 +357,11 @@ L2_BYTES = 50e6  # H100 L2 cache
 # the runs that set it (NVIDIA H100 80GB HBM3 hosts, whose eager,
 # host-bound phases differ up to ~1.3x; the kernels phase has taken 50-112
 # s; the training phases, device, disk, import and host-CPU bound, 17-34
-# s each on five hosts). The budgets sum to 1180 s, inside the run's
-# 1200 s limit with room to start up, and the slowest host seen needs ~950
-# s of phases, so no phase can have more. A phase's watchdog fires when the run has used the
+# s each on five hosts), or less where the last re-derivation (below) cut
+# it to 1.5x one run's time. The budgets sum to 1180 s, inside the run's
+# 1200 s limit with room to start up, and the slowest host seen needed ~950
+# s of phases before the GAN, v1 and eval phases (~45 s more), so no phase
+# can have more. A phase's watchdog fires when the run has used the
 # budgets of every phase up to and including it (Phase), so a phase that
 # runs long on a host may spend what the phases before it left: the run
 # fails on time only once it is behind the sum of the budgets so far.
@@ -352,15 +377,21 @@ L2_BYTES = 50e6  # H100 L2 cache
 # 160 tokens (not 320) and the K7 LM's bistream request at max_len 160 (not
 # 320); the bf16 LM streams text 32 (640 tokens, not text 48's 960) and the
 # K7 LM's streamed bistream request runs to max_len 320 (not 640);
-# slice_v1 / stream_v1 serve text 8 / 16 (not 16 / 32).
-PHASE_BUDGET_S = {"device": 4, "build": 22, "kernels": 122, "slice": 16, "check": 10, "graphs": 46, "stream": 35,
-                  "slice_int4p": 26, "check_int4p": 23, "slice_bistream_int4p": 4, "check_bistream_int4p": 5,
-                  "graphs_int4p": 24, "stream_int4p": 13, "slice_int4p_bf16": 27, "check_int4p_bf16": 15,
-                  "slice_bistream_int4p_bf16": 57, "check_bistream_int4p_bf16": 13, "graphs_int4p_bf16": 25,
-                  "stream_int4p_bf16": 17, "slice_int8": 30, "slice_int4": 50, "slice_v3": 10, "stream_v3": 13,
-                  "slice_v1": 13, "stream_v1": 25, "api": 35, "api_int4p": 14, "api_v3": 29, "api_int8": 22,
-                  "api_v1": 24, "ckpt": 64, "batch": 47, "batch_int4p": 53, "serve": 79, "idle": 66,
-                  "train_lm": 31, "train_flow": 29, "train_e2e": 42}
+# slice_v1 / stream_v1 serve text 8 / 16 (not 16 / 32). The GAN, v1 and
+# eval phases took 16.1, 15.2 and 13.8 s in a full run on an NVIDIA H100
+# 80GB HBM3 (700 W) whose phases all took 796.6 s (train_hifigan 26.7 s
+# when it was the first phase to import torch.optim), so their room came
+# from the budgets' slack, no path cut: every other budget is at most 1.5x
+# that run's time of its phase (kernels kept at 122 for its 50-112 s host
+# spread, device at 4), and the new phases have 1.5x theirs.
+PHASE_BUDGET_S = {"device": 4, "build": 21, "kernels": 122, "slice": 14, "check": 8, "graphs": 43, "stream": 34,
+                  "slice_int4p": 23, "check_int4p": 16, "slice_bistream_int4p": 3, "check_bistream_int4p": 4,
+                  "graphs_int4p": 18, "stream_int4p": 10, "slice_int4p_bf16": 23, "check_int4p_bf16": 12,
+                  "slice_bistream_int4p_bf16": 57, "check_bistream_int4p_bf16": 9, "graphs_int4p_bf16": 25,
+                  "stream_int4p_bf16": 17, "slice_int8": 26, "slice_int4": 45, "slice_v3": 8, "stream_v3": 13,
+                  "slice_v1": 13, "stream_v1": 25, "api": 35, "api_int4p": 14, "api_v3": 26, "api_int8": 18,
+                  "api_v1": 23, "ckpt": 62, "batch": 43, "batch_int4p": 49, "serve": 79, "idle": 66,
+                  "train_lm": 31, "train_flow": 29, "train_e2e": 42, "train_hifigan": 25, "train_v1": 25, "eval": 20}
 PHASE_SECONDS = {}  # each phase's measured seconds in this run
 PHASE_CLOCK = {}  # the first phase's start and the sum of the budgets of the phases entered so far
 
@@ -3431,9 +3462,9 @@ def hold_sampling_on_graphs(api):
     return launches
 
 
-def phase_ckpt(int4p_tokens):
-    """Checkpoints at full width, in a temporary dir removed at the end (and
-    on error): save_pretrained of the bf16 CosyVoice2(seed=0), the five
+def phase_ckpt(int4p_tokens, model_dir):
+    """Checkpoints at full width, in `model_dir` (made anew; the eval phase
+    reuses it, and main removes it after): save_pretrained of the bf16 CosyVoice2(seed=0), the five
     files' sizes and write / read seconds; CosyVoice2(dir) reloaded, every
     parameter bit-equal to the saved module's, its first zero-shot request
     (seconds from the constructor to it) bit-equal to the saved API's;
@@ -3445,7 +3476,6 @@ def phase_ckpt(int4p_tokens):
     back. Returns the launches."""
     import os
     import shutil
-    import tempfile
 
     import numpy as np
     import torch
@@ -3456,19 +3486,20 @@ def phase_ckpt(int4p_tokens):
 
     cudnn = torch.backends.cudnn
     saved_det, cudnn.deterministic = cudnn.deterministic, True
-    tmp = tempfile.mkdtemp(prefix="cosyvoice_ckpt_")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    os.makedirs(model_dir)
     prompt = synthetic_voice(1, 3.0)
     try:
         api = build_api()
         toks, wav, _ = _zero_shot(api, prompt)
         t = time.perf_counter()
-        api.save_pretrained(tmp)
+        api.save_pretrained(model_dir)
         save_s = time.perf_counter() - t
-        sizes = {n: os.path.getsize(os.path.join(tmp, f"{n}.msgpack")) for n in CHECKPOINTS}
+        sizes = {n: os.path.getsize(os.path.join(model_dir, f"{n}.msgpack")) for n in CHECKPOINTS}
         reads = {}
         for n in CHECKPOINTS:
             t = time.perf_counter()
-            msgpack_io.read(os.path.join(tmp, f"{n}.msgpack"))
+            msgpack_io.read(os.path.join(model_dir, f"{n}.msgpack"))
             reads[n] = time.perf_counter() - t
         total = sum(sizes.values())
         print(f"save_pretrained: {total / 1e6:.1f} MB in {save_s:.2f} s ({total / 1e6 / save_s:.0f} MB/s); files "
@@ -3477,7 +3508,7 @@ def phase_ckpt(int4p_tokens):
         sync = _sync_fn(api.frontend.device)
         sync()
         t = time.perf_counter()
-        again = CosyVoice2(tmp, seed=0)
+        again = CosyVoice2(model_dir, seed=0)
         sync()
         build_s = time.perf_counter() - t
         toks2, wav2, req_s = _zero_shot(again, prompt)
@@ -3498,7 +3529,7 @@ def phase_ckpt(int4p_tokens):
         torch.cuda.empty_cache()
 
         t = time.perf_counter()
-        quant = CosyVoice2(tmp, seed=0, quant_lm="int4p")
+        quant = CosyVoice2(model_dir, seed=0, quant_lm="int4p")
         sync()
         build_s = time.perf_counter() - t
         counters = _zero_counts(quant.engine)
@@ -3515,10 +3546,10 @@ def phase_ckpt(int4p_tokens):
         torch.cuda.empty_cache()
 
         t = time.perf_counter()
-        size = len(synthetic_qwen_tokenizer(os.path.join(tmp, "tokenizer")))
+        size = len(synthetic_qwen_tokenizer(os.path.join(model_dir, "tokenizer")))
         write_s = time.perf_counter() - t
         t = time.perf_counter()
-        tok = get_tokenizer(os.path.join(tmp, "tokenizer"))
+        tok = get_tokenizer(os.path.join(model_dir, "tokenizer"))
         load_s = time.perf_counter() - t
         texts = [API_TEXT, API_PROMPT_TEXT, API_INSTRUCT, API_TWO_SEGMENTS]
         t = time.perf_counter()
@@ -3543,7 +3574,6 @@ def phase_ckpt(int4p_tokens):
         return launches
     finally:
         cudnn.deterministic = saved_det
-        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ---------------------------------------------------------------- continuous batching
@@ -4447,6 +4477,407 @@ def _leaf(tree, path):
     return tree
 
 
+# ---------------------------------------------------------------- HiFT GAN and CosyVoice-300M training (A11b)
+
+class FixedBatches:
+    """A Dataset stand-in for bin/train.py's GAN loops: the same padded
+    batches every epoch."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def set_epoch(self, epoch):
+        pass
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+# The GAN's input: GAN_ROWS synthetic voices of GAN_SECONDS at 24 kHz through
+# bin/train.py's GAN chain (a random crop of truncate_length 24480 samples,
+# the mel, the native YIN F0), two static batches of 4
+GAN_ROWS = 8
+GAN_SECONDS = 2.0
+GAN_FLAGS = ["--batch_type", "static", "--batch_size", "4"]
+# bin/train.py's config sections: the CosyVoice2 24 kHz HiFT (512 channels)
+# and the "gan" defaults (MPD 32/128/512/1024 over periods 2/3/5/7/11, MRD
+# (1024, 120), (2048, 240), (512, 50); lr 2e-4), GAN_PRETRAIN generator-only
+# steps at pretrain_lr 1e-3 (warmup 1, cosine to 2e-4)
+GAN_PRETRAIN = 4
+GAN_CFG = {"hift": {}, "gan": {"pretrain_steps": GAN_PRETRAIN}}
+GAN_STEPS = 4  # timed alternating generator / discriminator steps before the Executor's two epochs
+# The step held against float32 on the host: one row, the generator cut to
+# one resblock kernel a stage (3 of the 9 resblocks; the source resblocks
+# and every width full) and the ensemble to the MPD periods 2 and 3 and the
+# first MRD resolution (channels full)
+GAN_CUT = {"hift": {"resblock_kernel_sizes": [3], "resblock_dilations": [[1, 3, 5]]},
+           "gan": {"mpd_periods": [2, 3], "mrd_resolutions": [[1024, 120]]}}
+GAN_HOST_ROWS = 1
+# First generator step and first discriminator step of GAN_CUT, card
+# against host, both float32 (TF32 off, cuDNN deterministic), each on the
+# same weights and inputs: relative error of the loss and of the gradient
+# norm, relative L2 of the weight update. On an NVIDIA H100 80GB HBM3 (700
+# W) they read 0 / 4.5e-5 / 3.9e-2 (generator) and 2.3e-7 / 4.4e-6 /
+# 3.5e-3 (discriminator). The generator's update is the loose one: its
+# gradient norm is ~8e4 at random init (the grad-safe mel's ln(mel + 1e-5)
+# over near-silent bands), Adam's first update is +-lr wherever |g| >> eps,
+# and gradient elements within float noise of zero flip by 2 lr.
+GAN_STEP_TOL = {"gen": {"loss": 1e-5, "grad_norm": 2e-4, "update": 0.1},
+                "disc": {"loss": 1e-5, "grad_norm": 5e-5, "update": 1e-2}}
+
+
+def _gan_batches(args, seed=0):
+    """GAN_ROWS rows (as parquet_opener yields them) through bin/train.py's
+    GAN chain after the opener: two padded batches of 4 x 24480 samples."""
+    import random
+
+    import numpy as np
+
+    from cosyvoice_tpu_torch.bin import train
+    from cosyvoice_tpu_torch.frontend.tokenizer import get_tokenizer
+
+    random.seed(seed)  # the truncate's crops
+    rng = np.random.default_rng(seed)
+    rows = [{"utt": f"gan{i}", "text": TRAIN_TEXT.format(i=i), "sample_rate": 24000,
+             "audio": synthetic_voice(seed + i, GAN_SECONDS, sr=24000)[0],
+             "utt_embedding": rng.standard_normal(192).astype(np.float32)} for i in range(GAN_ROWS)]
+    it = iter(rows)
+    for fn in train.build_pipeline(args, get_tokenizer(None), gan=True,
+                                   truncate_length=24480)[1:]:
+        it = fn(it)
+    t0 = time.perf_counter()
+    batches = list(it)
+    shapes = [(b["speech"].shape, b["speech_feat"].shape, b["pitch_feat"].shape) for b in batches]
+    voiced = float(np.mean([(b["pitch_feat"] > 0).mean() for b in batches]))
+    print(f"GAN input: {GAN_ROWS} rows -> {len(batches)} batches (wav, mel, F0): {shapes} in "
+          f"{time.perf_counter() - t0:.2f} s (crop, mel, native YIN); voiced share of the F0 frames {voiced:.3f}")
+    if len(batches) != 2 or any(sh != ((4, 24480), (4, 51, 80), (4, 51)) for sh in shapes) or voiced < 0.5:
+        raise AssertionError(f"the GAN chain did not give two batches of 4 x 24480 samples with F0: {shapes}")
+    return batches
+
+
+def hold_gan_step_on_host(card, host, batch, draws):
+    """The first generator step, then the first discriminator step, of
+    `card` (build_gan on the card) against `host` (build_gan on the CPU)
+    through hold_step_on_host, on one batch and one set of source draws;
+    before each step the host's other module takes the card's weights (the
+    discriminator step's generator is the one the generator step updated),
+    so each step is held on the same inputs (GAN_STEP_TOL[step]). The
+    card's steps run with cuDNN deterministic: its default float32
+    convolution algorithms moved the generator's gradient norm by 9.5e-4
+    from the host's and 3e-4 between two runs of the same step (one H100),
+    deterministic ones by 4.5e-5."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from cosyvoice_tpu_torch.convert import export_params, load_jax_params
+
+    dev = next(card.hift.parameters()).device
+    inputs = {dev.type: ({k: v.to(dev) for k, v in batch.items()}, tuple(None if x is None else x.to(dev) for x in draws)),
+              "cpu": (batch, draws)}
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        for step, module, other, opt in (("gen", "hift", "disc", "g_opt"), ("disc", "disc", "hift", "d_opt")):
+            load_jax_params(getattr(host, other), export_params(getattr(card, other)))
+            sides = [SimpleNamespace(module=getattr(g, module), optimizer=getattr(g, opt), gan=g) for g in (card, host)]
+
+            def run(side, step=step):
+                return getattr(side.gan, f"{step}_step")(*inputs[next(side.module.parameters()).device.type])
+
+            hold_step_on_host(f"GAN {step} step, cut to {json.dumps(GAN_CUT)}, {GAN_HOST_ROWS} row", *sides, run,
+                              GAN_STEP_TOL[step])
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
+def phase_train_hifigan(device="cuda", out="build/train_gan"):
+    """bin/train.py --model hifigan at full width (GAN_CFG: the CosyVoice2
+    24 kHz HiFT, 512 channels, against MPD + MRD), float32, on the GAN
+    chain's two batches of 4: GAN_PRETRAIN pretrain steps
+    (train.pretrain_generator), GAN_STEPS timed generator / discriminator
+    steps, then train.train_gan's two epochs through an Executor (a
+    {"generator", "discriminator"} checkpoint each) and bin/average_model
+    --model_name hifigan over both; every metric finite and the losses
+    moving; the first steps of GAN_CUT against float32 on the host. Writes
+    the averaged generator to <out>/hift.msgpack and returns its path."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from cosyvoice_tpu_torch.bin import average_model, train
+    from cosyvoice_tpu_torch.models.hift import draw_source
+    from cosyvoice_tpu_torch.train.executor import Executor
+    from cosyvoice_tpu_torch.utils import msgpack_io
+
+    args = train_args("hifigan", *GAN_FLAGS)
+    dev = torch.device(device)
+    sync = _sync_fn(dev)
+    batches = _gan_batches(args)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gan = train.build_gan(args, GAN_CFG, dev)
+    sync()
+    n_g, n_d = (sum(p.numel() for p in m.parameters()) for m in (gan.hift, gan.disc))
+    print(f"GAN to train: HiFT {n_g / 1e6:.2f}M + discriminators {n_d / 1e6:.2f}M float32 params, built from seed "
+          f"{args.seed} in {time.perf_counter() - t0:.1f} s")
+    data = FixedBatches(batches)
+    t0 = time.perf_counter()
+    pm = train.pretrain_generator(args, gan, data)
+    sync()
+    t_pre = time.perf_counter() - t0
+    mb = gan.collate(batches[0])
+    steps, t_steps = [], []
+    for i in range(GAN_STEPS):
+        b = gan.collate(batches[i % 2]) if i else mb
+        d = gan.draws(b)
+        sync()
+        t = time.perf_counter()
+        gm, dm = gan.gen_step(b, d), gan.disc_step(b, d)
+        steps.append((gm, dm))
+        sync()
+        t_steps.append(time.perf_counter() - t)
+    steady = sum(t_steps[1:]) / (len(t_steps) - 1)
+    samples = int(np.prod(mb["speech"].shape))
+    print(f"GAN: {GAN_PRETRAIN} pretrain steps in {t_pre:.2f} s (final mel L1 {float(pm['mel']):.4f}, loss "
+          f"{float(pm['loss']):.4f}); {GAN_STEPS} generator + discriminator steps on {tuple(mb['speech'].shape)} "
+          f"samples: generator loss " + " ".join(f"{float(g['loss']):.4f}" for g, _ in steps)
+          + " (mel " + " ".join(f"{float(g['mel']):.4f}" for g, _ in steps) + "), discriminator loss "
+          + " ".join(f"{float(d['loss']):.4f}" for _, d in steps)
+          + f"; {1 / steady:.3f} steps/s, {samples / steady:.0f} samples/s after the first step ({t_steps[0]:.2f} s), "
+          f"peak {_peak_gb(dev):.2f} GB allocated ({_smi()})")
+    values = [float(v) for g, d in steps for v in (*g.values(), *d.values())] + [float(v) for v in pm.values()]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError("GAN: a non-finite loss or gradient norm")
+    if len({round(float(g["loss"]), 6) for g, _ in steps}) < 2 or len({round(float(d["loss"]), 6) for _, d in steps}) < 2:
+        raise AssertionError("GAN: a loss did not change over the steps")
+    shutil.rmtree(out, ignore_errors=True)
+    ex = Executor(None, out, model_name="hifigan", log_interval=1, tensorboard=False)
+    args.max_epoch = 2
+    t0 = time.perf_counter()
+    train.train_gan(args, gan, data, ex)
+    t_train = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths = average_model.main(["--src_dir", out, "--model_name", "hifigan", "--num", "2", "--dst_model",
+                                f"{out}/hift.msgpack", "--device", device])
+    sides = [json.load(open(p.replace(".msgpack", ".json"))) for p in paths]
+    leaf = ("params", "conv_post", "g")
+    want = sum(np.asarray(_leaf(msgpack_io.read(p)["generator"], leaf), np.float64) for p in paths) / len(paths)
+    avg = msgpack_io.read(f"{out}/hift.msgpack")
+    print(f"train_hifigan: Executor's two epochs ({ex.step} steps) in {t_train:.1f} s, checkpoints "
+          f"{[os.path.basename(p) for p in paths]} ({os.path.getsize(paths[0]) / 1e6:.0f} MB each; cv_loss "
+          f"{[round(x['cv_loss'], 4) for x in sides]}); average_model -> the averaged generator {out}/hift.msgpack "
+          f"in {time.perf_counter() - t0:.1f} s")
+    if ex.step != 4 or len(paths) != 2 or not np.array_equal(_leaf(avg, leaf), want.astype(np.float32)):
+        raise AssertionError(f"GAN: {ex.step} Executor steps, checkpoints {paths}, or the average's "
+                             f"{'/'.join(leaf)} is not the mean of the generators'")
+    del gan, data, ex, avg
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    card = train.build_gan(args, GAN_CUT, dev)
+    host = train.build_gan(args, GAN_CUT, torch.device("cpu"))
+    batch = {k: v[:GAN_HOST_ROWS].cpu() for k, v in card.collate(batches[0]).items()}
+    B, T = batch["speech_feat"].shape[:2]
+    draws = draw_source(host.hift.cfg, B, T * host.hift.cfg.hop_total, torch.Generator().manual_seed(7), "cpu")
+    hold_gan_step_on_host(card, host, batch, draws)
+    del card, host
+    return f"{out}/hift.msgpack"
+
+
+# CosyVoice-300M training: TRAIN_ROWS synthetic 22.05 kHz rows of
+# V1_SECONDS (250 speech tokens at 50 Hz in [0, 4096), ~40 text tokens, 430
+# mel frames of hop 256) through the processor chain: --batch_type dynamic
+# --max_frames_in_batch 2000 packs four a batch, and each step takes one
+# batch (the v1 LM ignores --accum_grad, as the JAX trainer)
+V1_SECONDS = 5.0
+V1_FLAGS = ["--sample_rate", "22050", "--mel_hop", "256"]
+V1_TRAIN = {"llm": {}, "flow": {}}  # the JAX API's v1 defaults: TransformerLM (310.7M), MaskedDiffFlow
+# the steps held against the host: the LM at 2 of 14 rel-pos layers and 2 of
+# 6 text-encoder blocks, the flow at 2 of 6 conformer blocks and 2 of 12
+# mid blocks (widths full)
+V1_CUT = {"llm": {"lm_blocks": 2, "te_blocks": 2}, "flow": {"num_blocks": 2, "estimator": {"num_mid_blocks": 2}}}
+# float32 on both (TF32 off), as FLOW_STEP_TOL; the LM's gradient norm read
+# 8.8e-5 (its text encoder's convolutions run cuDNN's default algorithms),
+# the rest 0 / 1.9e-5 (LM loss, update) and 0 / 7.4e-6 / 1.1e-4 (flow) on
+# an NVIDIA H100 80GB HBM3 (700 W)
+V1_STEP_TOL = {"llm": {"loss": 1e-5, "grad_norm": 3e-4, "update": 1e-3}, "flow": FLOW_STEP_TOL}
+
+
+def _v1_batches(args, seed=0):
+    import numpy as np
+
+    from cosyvoice_tpu_torch.bin import train
+    from cosyvoice_tpu_torch.frontend.tokenizer import get_tokenizer
+
+    rng = np.random.default_rng(seed)
+    rows = [{"utt": f"v1_{i}", "text": TRAIN_TEXT.format(i=i), "sample_rate": 22050,
+             "audio": synthetic_voice(seed + i, V1_SECONDS, sr=22050)[0],
+             "utt_embedding": rng.standard_normal(192).astype(np.float32),
+             "speech_token": rng.integers(0, 4096, int(V1_SECONDS * 50)).tolist()} for i in range(TRAIN_ROWS)]
+    it = iter(rows)
+    for fn in train.build_pipeline(args, get_tokenizer(None, version=1))[1:]:
+        it = fn(it)
+    batches = list(it)
+    shapes = [(b["speech_feat"].shape, b["speech_token"].shape, int(b["text_token_len"].max())) for b in batches]
+    print(f"v1 training input: {TRAIN_ROWS} rows -> {len(batches)} batches (mel, speech tokens, longest text): {shapes}")
+    if len(batches) != 2 or any(b["speech_feat"].shape != (4, 430, 80) for b in batches):
+        raise AssertionError(f"the dynamic batcher did not pack 4 x 430 frames per batch: {shapes}")
+    return batches
+
+
+def phase_train_v1(device="cuda"):
+    """bin/train.py's CosyVoice-300M branches ({"version": 1}) at full width
+    (V1_TRAIN), float32: the TransformerLM and the MaskedDiffFlow each
+    TRAIN_STEPS steps on one fixed batch of 4, the LM's step loss and the
+    flow's loss at fixed draws falling by TRAIN_FALL; the LM's NaN step
+    skipped with nothing moved; the first step of each at V1_CUT against
+    float32 on the host (V1_STEP_TOL, HOST_ROWS LM rows, FLOW_HOST_ROWS flow
+    rows)."""
+    import torch
+
+    from cosyvoice_tpu_torch.bin import train
+    from cosyvoice_tpu_torch.models.flow_matching import loss_draws
+
+    args = train_args("llm", *V1_FLAGS)
+    batches = _v1_batches(args)
+    dev = torch.device(device)
+    sync = _sync_fn(dev)
+    for model in ("llm", "flow"):
+        build = train.build_lm_v1 if model == "llm" else train.build_flow_v1
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        branch = build(args, {model: V1_TRAIN[model]}, dev)
+        sync()
+        n = sum(p.numel() for p in branch.module.parameters())
+        mb = branch.collate(batches[0])
+        if model == "llm":
+            size, unit = int((3 + mb["text_len"] + mb["speech_len"]).sum()), "tokens"
+        else:
+            size, unit = int(mb["feat_len"].sum()), "mel frames"
+            gen = torch.Generator(device="cpu").manual_seed(7)
+            fixed = {k: v.to(dev) for k, v in loss_draws(gen, *mb["feat"].shape[:2], 80, branch.module.cfg.cfm,
+                                                         "cpu").items()}
+            keys = ("token", "token_len", "feat", "feat_len", "embedding")
+
+            def eval_loss():
+                with torch.no_grad():
+                    return float(branch.module.loss(*(mb[k] for k in keys), draws=fixed))
+
+            before = eval_loss()
+        losses, t_steps = [], []
+        for i in range(TRAIN_STEPS):
+            sync()
+            t = time.perf_counter()
+            m = branch.step(mb, i)
+            losses.append(float(m["loss"]))
+            sync()
+            t_steps.append(time.perf_counter() - t)
+        steady = sum(t_steps[1:]) / (len(t_steps) - 1)
+        fall = (losses[0], losses[-1]) if model == "llm" else (before, eval_loss())
+        label = "v1 LM" if model == "llm" else "v1 flow"
+        print(f"{label}: {n / 1e6:.1f}M float32 params, built in {time.perf_counter() - t0 - sum(t_steps):.1f} s; "
+              f"{TRAIN_STEPS} steps of {size} {unit} ({tuple(mb['feat' if model == 'flow' else 'speech'].shape)}): "
+              f"step loss {' '.join(f'{x:.4f}' for x in losses)}"
+              + ("" if model == "llm" else f"; loss at fixed draws {fall[0]:.4f} -> {fall[1]:.4f}")
+              + f"; {1 / steady:.3f} steps/s, {size / steady:.0f} {unit}/s after the first step ({t_steps[0]:.2f} s), "
+              f"peak {_peak_gb(dev):.2f} GB allocated ({_smi()})")
+        if not all(math.isfinite(x) for x in losses) or not fall[1] <= TRAIN_FALL * fall[0]:
+            raise AssertionError(f"{label}: the loss did not fall to {TRAIN_FALL} of its start")
+        if model == "llm":
+            def nan_step():
+                hook = branch.module.llm_decoder.register_forward_hook(lambda mod, inp, out: out * float("nan"))
+                try:
+                    return branch.step(mb, TRAIN_STEPS)
+                finally:
+                    hook.remove()
+
+            hold_nan_skipped(branch, label, nan_step)
+        del branch
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        card = build(args, {model: V1_CUT[model]}, dev)
+        host = build(args, {model: V1_CUT[model]}, torch.device("cpu"))
+        rows = HOST_ROWS if model == "llm" else FLOW_HOST_ROWS
+        batch = {k: v[:rows].cpu() for k, v in card.collate(batches[0]).items()}
+        draws = None
+        if model == "flow":
+            draws = loss_draws(torch.Generator().manual_seed(8), rows, batch["feat"].shape[1], 80,
+                               card.module.cfg.cfm, "cpu")
+
+        def run(b):
+            place = next(b.module.parameters()).device
+            d = None if draws is None else {k: v.to(place) for k, v in draws.items()}
+            extra = {} if d is None else {"draws": d}
+            return b.step({k: v.to(place) for k, v in batch.items()}, 0, **extra)
+
+        hold_step_on_host(f"{label} cut to {json.dumps(V1_CUT[model])}, {rows} row(s)", card, host, run,
+                          V1_STEP_TOL[model])
+        del card, host
+
+
+EVAL_TEXTS = (API_TEXT, API_PROMPT_TEXT)  # tts_text.json: one text for each of the two prompt voices
+EVAL_PROMPT_SECONDS = 3.0
+
+
+def phase_eval(model_dir, hift_path, device="cuda"):
+    """Train -> synthesize -> evaluate: `model_dir` (the ckpt phase's
+    full-width CosyVoice2 dir) with its hift.msgpack replaced by the
+    generator train_hifigan trained and averaged (`hift_path`), scored by
+    tools/eval_quality.py with --device `device` over two seeded synthetic
+    prompt voices, one text each, with references (a third and fourth
+    synthetic voice at 24 kHz) and no ASR: n 2, every metric but CER finite,
+    speaker similarity in [-1, 1], every decode step through K1 + K2 (24
+    each) and no other kernel. Prints the tool's JSON line. Returns the
+    launches."""
+    import shutil
+
+    from cosyvoice_tpu_torch.tools import eval_quality
+    from cosyvoice_tpu_torch.utils.audio_io import save_wav
+
+    shutil.copyfile(hift_path, os.path.join(model_dir, "hift.msgpack"))
+    d = os.path.join(model_dir, "eval")
+    os.makedirs(d, exist_ok=True)
+    scp, text, ref, tts = [], [], [], {}
+    for i, t in enumerate(EVAL_TEXTS):
+        save_wav(os.path.join(d, f"prompt{i}.wav"), synthetic_voice(40 + i, EVAL_PROMPT_SECONDS), 16000)
+        save_wav(os.path.join(d, f"ref{i}.wav"), synthetic_voice(50 + i, 2.0, sr=24000), 24000)
+        scp.append(f"spk{i} {d}/prompt{i}.wav")
+        text.append(f"spk{i} {API_PROMPT_TEXT}")
+        ref.append(f"spk{i}_0 {d}/ref{i}.wav")
+        tts[f"spk{i}"] = [t]
+    for name, lines in (("wav.scp", scp), ("text", text), ("ref.scp", ref)):
+        with open(os.path.join(d, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    with open(os.path.join(d, "tts_text.json"), "w") as f:
+        json.dump(tts, f)
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    result = eval_quality.main(["--model_dir", model_dir, "--tts_text", f"{d}/tts_text.json", "--prompt_scp",
+                                f"{d}/wav.scp", "--prompt_text", f"{d}/text", "--ref_scp", f"{d}/ref.scp",
+                                "--out_dir", f"{d}/wavs", "--device", device])
+    launches = {key: fn.launches for key, fn in counters.items()}
+    print(f"eval_quality on the trained vocoder: {time.perf_counter() - t0:.1f} s (model load, 2 syntheses, "
+          f"x-vectors, S3 tokens, mels); launches " + ", ".join(f"{k} {n}" for k, n in launches.items()))
+    metrics = [result[k] for k in ("speaker_similarity", "token_recovery", "mel_corr")]
+    if result["n"] != len(EVAL_TEXTS) or result["cer"] is not None or not all(
+            isinstance(v, float) and math.isfinite(v) for v in metrics):
+        raise AssertionError(f"eval_quality: {result}")
+    if not -1.0 <= result["speaker_similarity"] <= 1.0:
+        raise AssertionError(f"eval_quality: speaker similarity {result['speaker_similarity']} outside [-1, 1]")
+    k1 = launches["K1"]
+    if device == "cuda" and (k1 == 0 or k1 % 24 or launches["K2"] != k1
+                             or any(n for k, n in launches.items() if k not in ("K1", "K2"))):
+        raise AssertionError(f"eval_quality's synthesis did not decode through K1 + K2 alone: {launches}")
+    return launches
+
+
 def main(argv):
     import numpy as np
     import torch
@@ -4475,6 +4906,11 @@ def main(argv):
     with Phase("train_e2e"):
         for key, n in phase_train_e2e(trained).items():
             launches[key] += n
+    with Phase("train_hifigan"):
+        gan_hift = phase_train_hifigan()
+    with Phase("train_v1"):
+        phase_train_v1()
+    torch.cuda.empty_cache()
     bf16_cfg = LMConfig()
     held = []  # (suffix, engine, [(label, (LM stage, flow+HiFT stage))]) for the idle phase
 
@@ -4603,9 +5039,19 @@ def main(argv):
     with Phase("api_v1"):
         phase_api_v1()
         torch.cuda.empty_cache()
+    eval_dir = "build/train_eval"
     with Phase("ckpt"):
-        for key, n in phase_ckpt(int4p_tokens).items():
+        for key, n in phase_ckpt(int4p_tokens, eval_dir).items():
             launches[key] += n
+    torch.cuda.empty_cache()
+    # train -> synthesize -> evaluate: the ckpt phase's dir with the GAN-trained vocoder
+    with Phase("eval"):
+        import shutil
+
+        for key, n in phase_eval(eval_dir, gan_hift).items():
+            launches[key] += n
+        shutil.rmtree(eval_dir, ignore_errors=True)
+        shutil.rmtree(os.path.dirname(gan_hift), ignore_errors=True)
     torch.cuda.empty_cache()
     # continuous batching and the HTTP server
     with Phase("batch"):

@@ -1,17 +1,25 @@
-"""Training entry point: one sub-model (llm | flow) of CosyVoice2 or
-CosyVoice3 on one device.
+"""Training entry point: one sub-model (llm | flow | hifigan) of
+CosyVoice2, CosyVoice3 or CosyVoice-300M ({"version": 1} configs) on one
+device.
 
-Counterpart of cosyvoice_tpu/bin/train.py. The LM trains float32 master
-weights with its Qwen2 products in the config's dtype (bf16 by default),
-the flow in float32; Adam and the gradients are float32. The data list's
-parquet shards run through the processor chain (`build_pipeline`);
-checkpoints, their sidecars and the CV loss come from train/executor.py.
-`build_lm` and `build_flow` build a branch's module, optimizer, step,
-collate and CV loss, which chip_smoke.py drives as main() does.
+Counterpart of cosyvoice_tpu/bin/train.py. The CosyVoice2/3 LM trains
+float32 master weights with its Qwen2 products in the config's dtype (bf16
+by default); the v1 LM, the flows and the GAN train in float32; Adam and
+the gradients are float32. The data list's parquet shards run through the
+processor chain (`build_pipeline`; the GAN's crops each utterance and adds
+its F0); checkpoints, their sidecars and the CV loss come from
+train/executor.py. `build_lm`, `build_lm_v1`, `build_flow`,
+`build_flow_v1` and `build_gan` build a branch, which chip_smoke.py drives
+as main() does.
 
-Not ported yet (they raise NotImplementedError): the CosyVoice-300M (v1)
-LM and flow branches and `--model hifigan` (ROADMAP A11b), `--multihost`
-(ROADMAP A11c).
+`--model hifigan` trains the config's HiFT (v2, v1 or causal v3) against
+the MPD + MRD discriminators (train/gan.py): an optional generator-only
+pretrain (the config's "gan" section: pretrain_steps, pretrain_lr) on
+optax's warmup-cosine schedule with a plateau restart, then alternating
+generator and discriminator steps, a {"generator", "discriminator"}
+checkpoint each epoch with the epoch's mean generator loss as its
+cv_loss (so bin/average_model.py --model_name hifigan picks the best).
+`--multihost` is not ported yet (ROADMAP A11c).
 
     python -m cosyvoice_tpu_torch.bin.train --model llm --train_data data.list \\
         --model_dir exp/llm [--cv_data cv.list] [--checkpoint ckpt.msgpack] [--config config.json] \\
@@ -25,9 +33,12 @@ schedule.
 import argparse
 import dataclasses
 import logging
+import os
 import random
 from functools import partial
 from types import SimpleNamespace
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -47,22 +58,27 @@ def grouped(it, n: int):
             buf = []
 
 
-def build_pipeline(args, tokenizer):
-    """The processor chain of the LM and flow branches."""
+def build_pipeline(args, tokenizer, gan: bool = False, truncate_length: int = 24480):
+    """The processor chain; `gan`: a random crop of truncate_length samples
+    before the mel, the F0 after it, and "speech" / "pitch_feat" batched."""
     from cosyvoice_tpu_torch.data import processor as P
 
+    crop = [partial(P.truncate, truncate_length=truncate_length)] if gan else []
+    f0 = [partial(P.compute_f0, sample_rate=args.sample_rate, hop_size=args.mel_hop)] if gan else []
     return [
         P.parquet_opener,
         partial(P.tokenize, tokenizer=tokenizer),
         partial(P.filter_samples, max_length=args.max_length, token_max_length=200),
         partial(P.resample, resample_rate=args.sample_rate),
+        *crop,
         partial(P.compute_fbank, sample_rate=args.sample_rate, hop=args.mel_hop),
+        *f0,
         P.parse_embedding,
         partial(P.shuffle, shuffle_size=1000),
         partial(P.sort_by_len, sort_size=500),
         partial(P.batch, batch_type=args.batch_type, batch_size=args.batch_size,
                 max_frames_in_batch=args.max_frames_in_batch),
-        partial(P.padding, dpo=args.dpo),
+        partial(P.padding, gan=gan, dpo=args.dpo),
     ]
 
 
@@ -108,12 +124,27 @@ def parse_args(argv=None):
     return parser.parse_args(argv), cfg
 
 
-def _optimizer(args, module):
+def _optimizer(args, module, skip_nonfinite: bool = True):
     from cosyvoice_tpu_torch.train.trainer import make_optimizer
 
     sched_conf = {k: getattr(args, k) for k in SCHED_KEYS if hasattr(args, k)}
-    return make_optimizer(module.parameters(), lr=args.lr, warmup_steps=args.warmup_steps,
-                          grad_clip=args.grad_clip, scheduler=args.scheduler, **sched_conf)
+    opt = make_optimizer(module.parameters(), lr=args.lr, warmup_steps=args.warmup_steps,
+                         grad_clip=args.grad_clip, scheduler=args.scheduler, **sched_conf)
+    opt.skip_nonfinite = skip_nonfinite
+    return opt
+
+
+def _one(batch_group):
+    """The batch of a group of one (accum 1), or a bare batch (CV)."""
+    if isinstance(batch_group, list):
+        if len(batch_group) != 1:
+            raise ValueError(f"this branch takes one batch per step, not {len(batch_group)}")
+        return batch_group[0]
+    return batch_group
+
+
+def _tensors(arrays: dict, device):
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in arrays.items()}
 
 
 def _stack(mbs, fills, device):
@@ -208,14 +239,221 @@ def build_flow(args, cfg: dict, device):
     return SimpleNamespace(module=flow, optimizer=optimizer, step=step, collate=collate, cv_fn=cv_fn, accum=accum)
 
 
+def build_lm_v1(args, cfg: dict, device):
+    """The CosyVoice-300M LM branch (TransformerLM, float32, random from
+    args.seed), one batch per step (accum_grad > 1 warns and runs
+    without, as the JAX trainer), the non-finite skip kept. Returns the
+    namespace of build_lm."""
+    from cosyvoice_tpu_torch.models.llm_v1 import TransformerLMModule
+    from cosyvoice_tpu_torch.train.losses import lm_ce_loss
+    from cosyvoice_tpu_torch.train.trainer import make_lm_v1_train_step, v1_lm_targets
+    from cosyvoice_tpu_torch.utils.config import build_lm_v1_config
+    from cosyvoice_tpu_torch.utils.init import init_random_
+
+    if args.accum_grad > 1:
+        logging.warning("accum_grad > 1 is not implemented for the v1 LM trainer; running without")
+    with torch.device(device):
+        module = init_random_(TransformerLMModule(build_lm_v1_config(cfg.get("llm"))), args.seed)
+    optimizer = _optimizer(args, module)
+    n_speech = module.cfg.speech_token_size
+    step = make_lm_v1_train_step(module, optimizer, n_speech)
+
+    def collate(batch_group):
+        b = _one(batch_group)
+        return _tensors({"text": b["text_token"].astype(np.int64), "text_len": b["text_token_len"].astype(np.int64),
+                         "spk": b["embedding"].astype(np.float32), "speech": b["speech_token"].astype(np.int64),
+                         "speech_len": b["speech_token_len"].astype(np.int64)}, device)
+
+    @torch.no_grad()
+    def cv_fn(mb):
+        logits, _ = module.forward_logits(mb["text"], mb["text_len"], mb["spk"], mb["speech"], mb["speech_len"])
+        tgt = v1_lm_targets(n_speech, mb["text"].shape[1], mb["text_len"], mb["speech"], mb["speech_len"])
+        return lm_ce_loss(logits, tgt)[0]
+
+    return SimpleNamespace(module=module, optimizer=optimizer, step=step, collate=collate, cv_fn=cv_fn, accum=1)
+
+
+def build_flow_v1(args, cfg: dict, device):
+    """The CosyVoice-300M flow branch (MaskedDiffFlow, float32, random from
+    args.seed), one batch per step, no non-finite skip (the JAX v1 flow
+    step applies optax's chain as it is); the loss's draws from a
+    generator seeded args.seed, CV's from one seeded 0 each pass. Returns
+    the namespace of build_lm."""
+    from cosyvoice_tpu_torch.models.flow_v1 import MaskedDiffFlow
+    from cosyvoice_tpu_torch.utils.config import build_flow_v1_config
+    from cosyvoice_tpu_torch.utils.init import init_random_
+
+    flow = init_random_(MaskedDiffFlow(build_flow_v1_config(cfg.get("flow")), device=device), args.seed)
+    optimizer = _optimizer(args, flow, skip_nonfinite=False)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    keys = ("token", "token_len", "feat", "feat_len", "embedding")
+
+    def step(batch, step_no, draws=None):
+        optimizer.zero_grad()
+        loss = flow.loss(*(batch[k] for k in keys), generator=generator, draws=draws)
+        loss.backward()
+        gnorm, _ = optimizer.step()
+        return {"loss": loss.detach(), "grad_norm": gnorm}
+
+    def collate(batch_group):
+        b = _one(batch_group)
+        return _tensors({"token": b["speech_token"].astype(np.int64), "token_len": b["speech_token_len"],
+                         "feat": b["speech_feat"].astype(np.float32), "feat_len": b["speech_feat_len"],
+                         "embedding": b["embedding"].astype(np.float32)}, device)
+
+    @torch.no_grad()
+    def cv_fn(mb):
+        return flow.loss(*(mb[k] for k in keys), generator=torch.Generator(device=device).manual_seed(0))
+
+    return SimpleNamespace(module=flow, optimizer=optimizer, step=step, collate=collate, cv_fn=cv_fn, accum=1)
+
+
+# the HiFT GAN's defaults, each overridable in the config's "gan" section
+GAN_DEFAULTS = {"truncate_length": 24480, "mpd_periods": (2, 3, 5, 7, 11), "mpd_channels": (32, 128, 512, 1024),
+                "mrd_resolutions": ((1024, 120), (2048, 240), (512, 50)), "lr": 2e-4, "pretrain_steps": 0,
+                "pretrain_lr": 1e-3}
+PLATEAU_MEL = 3.0  # a pretrain attempt whose last three 50-step mel L1 readings all exceed this restarts
+PRETRAIN_ATTEMPTS = 3
+PRETRAIN_EPOCH0 = 10_000  # the pretrain's epochs, apart from the GAN's
+
+
+def build_gan(args, cfg: dict, device):
+    """The HiFT GAN branch: the config's HiFT and MultipleDiscriminator,
+    float32, random from args.seed (the discriminator from args.seed + 1),
+    resumed from args.checkpoint (a {"generator", "discriminator"} tree, or
+    a generator-only one); clip -> Adam at the "gan" section's constant lr
+    for each, no non-finite skip. The "gan" section's batch_size replaces
+    args.batch_size. Returns a namespace of hift, disc, gen_step /
+    disc_step (batch, draws) -> metrics, their optimizers, loss_cfg, conf
+    (the "gan" section over GAN_DEFAULTS), collate(batch) -> tensors and
+    draws(batch) -> the HiFT source's draws from a generator seeded
+    args.seed (one step number's two steps take the same)."""
+    from cosyvoice_tpu_torch.convert import load_gan_params
+    from cosyvoice_tpu_torch.models.discriminator import MultipleDiscriminator
+    from cosyvoice_tpu_torch.models.hift import HiFTGenerator, draw_source
+    from cosyvoice_tpu_torch.train.gan import GanLossConfig, make_gan_train_steps
+    from cosyvoice_tpu_torch.train.trainer import Optimizer
+    from cosyvoice_tpu_torch.utils import msgpack_io
+    from cosyvoice_tpu_torch.utils.config import build_hift_config
+    from cosyvoice_tpu_torch.utils.init import init_random_
+
+    conf = {**GAN_DEFAULTS, **cfg.get("gan", {})}
+    hift = init_random_(HiFTGenerator(build_hift_config(cfg.get("hift")), device=device), args.seed).train()
+    with torch.device(device):
+        disc = MultipleDiscriminator(mpd_periods=tuple(conf["mpd_periods"]), mpd_channels=tuple(conf["mpd_channels"]),
+                                     mrd_resolutions=tuple(tuple(r) for r in conf["mrd_resolutions"]))
+    init_random_(disc, args.seed + 1)
+    if args.checkpoint and os.path.exists(args.checkpoint):
+        both = load_gan_params(hift, disc, msgpack_io.read(args.checkpoint))
+        logging.info("resumed %s checkpoint %s", "GAN" if both else "generator-only", args.checkpoint)
+    elif args.checkpoint:
+        logging.warning("checkpoint %s not found; training hifigan from scratch", args.checkpoint)
+    if "batch_size" in conf:
+        args.batch_size = int(conf["batch_size"])
+    lr = float(conf["lr"])
+    g_opt = Optimizer(hift.parameters(), lambda _: lr, args.grad_clip, skip_nonfinite=False)
+    d_opt = Optimizer(disc.parameters(), lambda _: lr, args.grad_clip, skip_nonfinite=False)
+    loss_cfg = GanLossConfig(sample_rate=args.sample_rate, mel_hop=args.mel_hop)
+    gen_step, disc_step = make_gan_train_steps(hift, disc, g_opt, d_opt, loss_cfg)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+
+    def collate(b):
+        return _tensors({k: b[k].astype(np.float32) for k in ("speech", "speech_feat", "pitch_feat")}, device)
+
+    def draws(batch):
+        B, T = batch["speech_feat"].shape[:2]
+        return draw_source(hift.cfg, B, T * hift.cfg.hop_total, generator, device)
+
+    return SimpleNamespace(hift=hift, disc=disc, gen_step=gen_step, disc_step=disc_step, g_opt=g_opt, d_opt=d_opt,
+                           loss_cfg=loss_cfg, conf=conf, collate=collate, draws=draws)
+
+
+def pretrain_generator(args, gan, dataset) -> Optional[dict]:
+    """The generator-only pretrain of conf["pretrain_steps"] steps (none at
+    0): clip -> Adam on optax's warmup_cosine_decay_schedule(0, lr, min(500,
+    max(1, n // 4)), n, lr / 5). An attempt whose last three 50-step mel L1
+    readings all exceed PLATEAU_MEL at or past the probe step (max(200,
+    min(1200, n // 4))) restarts from a fresh init at half the lr, at most
+    PRETRAIN_ATTEMPTS attempts. Epochs count from PRETRAIN_EPOCH0; an
+    epoch without a batch ends the pretrain. Returns the last step's
+    metrics (with "steps" and "attempt"), or None."""
+    from cosyvoice_tpu_torch.train.gan import make_generator_pretrain_step
+    from cosyvoice_tpu_torch.train.schedulers import warmup_cosine_decay
+    from cosyvoice_tpu_torch.train.trainer import Optimizer
+    from cosyvoice_tpu_torch.utils.init import init_random_
+
+    n = int(gan.conf["pretrain_steps"])
+    if n <= 0:
+        return None
+    probe_at = max(200, min(1200, n // 4))
+    for attempt in range(PRETRAIN_ATTEMPTS):
+        lr = float(gan.conf["pretrain_lr"]) * 0.5**attempt
+        if attempt > 0:
+            init_random_(gan.hift, args.seed + 555_000 + attempt)
+        opt = Optimizer(gan.hift.parameters(), warmup_cosine_decay(0.0, lr, min(500, max(1, n // 4)), n, lr / 5.0),
+                        args.grad_clip, skip_nonfinite=False)
+        p_step = make_generator_pretrain_step(gan.hift, opt, gan.loss_cfg)
+        done, epoch, pm, mel_recent, plateau = 0, 0, None, [], False
+        while done < n and not plateau:
+            dataset.set_epoch(PRETRAIN_EPOCH0 + epoch)
+            epoch += 1
+            had_batches = False
+            for b in iter(dataset):
+                had_batches = True
+                batch = gan.collate(b)
+                pm = p_step(batch, gan.draws(batch))
+                done += 1
+                if done % args.log_interval == 0:
+                    logging.info("gan pretrain step %d loss=%.4f mel=%.4f", done, float(pm["loss"]), float(pm["mel"]))
+                if done % 50 == 0:
+                    mel_recent = (mel_recent + [float(pm["mel"])])[-5:]
+                if (done >= probe_at and attempt < PRETRAIN_ATTEMPTS - 1 and len(mel_recent) >= 3
+                        and min(mel_recent) > PLATEAU_MEL):
+                    logging.warning("gan pretrain attempt %d in the plateau at step %d (recent mel %.2f); restarting "
+                                    "from a fresh init at lr %.2e", attempt, done, float(np.mean(mel_recent)), lr * 0.5)
+                    plateau = True
+                    break
+                if done >= n:
+                    break
+            if not had_batches:
+                logging.warning("gan pretrain: the dataset yielded no batches; stopping at %d steps", done)
+                break
+        if not plateau:
+            break
+    if pm is not None:
+        logging.info("generator pretrain done: %d steps, final mel=%.4f", done, float(pm["mel"]))
+        pm = {**pm, "steps": done, "attempt": attempt}
+    return pm
+
+
+def train_gan(args, gan, dataset, executor):
+    """args.max_epoch epochs of alternating generator and discriminator
+    steps (the same source draws for both), each epoch saved by `executor`
+    as {"generator", "discriminator"} with the epoch's mean generator loss
+    as cv_loss."""
+    for epoch in range(args.max_epoch):
+        dataset.set_epoch(epoch)
+        gen_losses = []
+        for b in iter(dataset):
+            batch = gan.collate(b)
+            d = gan.draws(batch)
+            gm = gan.gen_step(batch, d)
+            dm = gan.disc_step(batch, d)
+            executor.step += 1
+            gen_losses.append(float(gm["loss"]))
+            if executor.step % args.log_interval == 0:
+                logging.info("gan step %d gen=%.4f disc=%.4f", executor.step, gen_losses[-1], float(dm["loss"]))
+        executor.epoch = epoch + 1
+        executor.save({"generator": gan.hift, "discriminator": gan.disc},
+                      {"cv_loss": float(np.mean(gen_losses)) if gen_losses else float("inf")})
+
+
 def main(argv=None):
-    """Train; returns the Executor and the branch (build_lm / build_flow)."""
+    """Train; returns the Executor and the branch (build_lm, build_lm_v1,
+    build_flow, build_flow_v1 or build_gan)."""
     args, cfg = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     version = int(cfg.get("version", 2))
-    if args.model == "hifigan" or version == 1:
-        what = "--model hifigan" if args.model == "hifigan" else f"the CosyVoice-300M (v1) {args.model} branch"
-        raise NotImplementedError(f"{what} is not ported yet (ROADMAP A11b)")
     if args.multihost:
         raise NotImplementedError("--multihost is not ported yet (ROADMAP A11c)")
     from cosyvoice_tpu_torch.data.dataset import Dataset
@@ -227,7 +465,16 @@ def main(argv=None):
     random.seed(args.seed)
     np.random.seed(args.seed)
     tokenizer = get_tokenizer(args.tokenizer_path or None, version=version)
-    branch = (build_lm if args.model == "llm" else build_flow)(args, cfg, device)
+    if args.model == "hifigan":
+        gan = build_gan(args, cfg, device)
+        dataset = Dataset(args.train_data, build_pipeline(args, tokenizer, gan=True,
+                                                          truncate_length=int(gan.conf["truncate_length"])))
+        pretrain_generator(args, gan, dataset)
+        executor = Executor(None, args.model_dir, model_name="hifigan", log_interval=args.log_interval)
+        train_gan(args, gan, dataset, executor)
+        return executor, gan
+    v1_branches = {("llm", 1): build_lm_v1, ("flow", 1): build_flow_v1}
+    branch = v1_branches.get((args.model, version), build_lm if args.model == "llm" else build_flow)(args, cfg, device)
     pipeline = build_pipeline(args, tokenizer)
     dataset = Dataset(args.train_data, pipeline)
     cv_dataset = Dataset(args.cv_data, pipeline) if args.cv_data else None

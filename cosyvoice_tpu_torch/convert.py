@@ -5,7 +5,8 @@
 `TransformerLM.init` and `MaskedDiffFlow.init`, as nested dicts of numpy
 arrays) and copies every leaf into the matching parameter of the port's
 module (Qwen2LMModule, CausalFlow, HiFTGenerator, TransformerLMModule,
-MaskedDiffFlow, and the frontend's S3Tokenizer and CamPPEmbedding):
+MaskedDiffFlow, the GAN's MultipleDiscriminator, and the frontend's
+S3Tokenizer and CamPPEmbedding; `load_gan_params` takes a GAN checkpoint):
 
 - names: "/"-joined Flax paths become "."-joined PyTorch names, with the
   Flax list suffixes (`layers_3`, `mid_tf_2_1`) as ModuleList indices
@@ -24,7 +25,8 @@ MaskedDiffFlow, and the frontend's S3Tokenizer and CamPPEmbedding):
 It raises if a leaf has no parameter, a shape differs, or a parameter is left
 unset. Values are cast to each parameter's dtype (bf16 LM layers on the card).
 
-`export_params(module)` is the inverse for these module families: the
+`export_params(module)` is the inverse for these module families (the
+discriminator's 2-D kernels OIHW -> HWIO): the
 module's parameters as the JAX module's variable dict (`{"params": ...}`;
 the flows' per sub-model), in the JAX layouts and dtypes. It is what
 `save_pretrained` writes, what quantises random weights made on the card
@@ -158,6 +160,19 @@ def _collections(module: nn.Module, tree: dict) -> dict:
     if isinstance(module, (CausalFlow, MaskedDiffFlow)):
         return {k: {"params": v} for k, v in tree.items()}
     return {"params": tree}
+
+
+def load_gan_params(generator: nn.Module, discriminator: nn.Module, tree) -> bool:
+    """A HiFT GAN checkpoint into the modules: {"generator", "discriminator"}
+    (the tree bin/train.py --model hifigan writes in either package) into
+    both, or a generator-only tree (a converted hift.msgpack) into the
+    generator. Returns whether the discriminator was loaded."""
+    if set(tree) == {"generator", "discriminator"}:
+        load_jax_params(generator, tree["generator"])
+        load_jax_params(discriminator, tree["discriminator"])
+        return True
+    load_jax_params(generator, tree)
+    return False
 
 
 def export_params(module: nn.Module) -> dict:

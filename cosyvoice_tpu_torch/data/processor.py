@@ -2,12 +2,12 @@
 
 Counterpart of cosyvoice_tpu/data/processor.py (the reference's
 IterableDataset chain): parquet_opener -> tokenize -> filter -> resample ->
-compute_fbank (+ whisper_fbank / truncate) -> parse_embedding -> shuffle ->
-sort -> dynamic/static batch -> padding. Every processor is a generator
-over sample dicts; `Dataset` (data/dataset.py) composes them. The features
-come from the port's ops (ops/mel.py, ops/resample.py) on the host's CPU,
-so the trainer sees the numerics the models expect. `compute_f0` waits
-with ops/f0.py for the HiFT GAN slice (ROADMAP A11b).
+compute_fbank (+ whisper_fbank; the GAN's truncate before and compute_f0
+after) -> parse_embedding -> shuffle -> sort -> dynamic/static batch ->
+padding. Every processor is a generator over sample dicts; `Dataset`
+(data/dataset.py) composes them. The features come from the port's ops
+(ops/mel.py, ops/resample.py, ops/f0.py) on the host's CPU, so the trainer
+sees the numerics the models expect.
 
 `parquet_opener` imports pyarrow inside its body, the one place the port
 reads parquet (tools/make_parquet_list.py writes it): without pyarrow it
@@ -123,6 +123,16 @@ def compute_whisper_fbank(data, num_frames=0):
             wav16 = _resample(sample["audio"], sample["sample_rate"], 16000)
         mel = whisper_log_mel(torch.from_numpy(np.ascontiguousarray(wav16.reshape(1, -1))))[0]
         sample["whisper_feat"] = mel.T.numpy()
+        yield sample
+
+
+def compute_f0(data, sample_rate=24000, hop_size=480):
+    """"pitch_feat": the native YIN F0 per hop interpolated to the mel's
+    length ([T] float32, the HiFT GAN's F0 target)."""
+    from cosyvoice_tpu_torch.ops.f0 import extract_f0
+
+    for sample in data:
+        sample["pitch_feat"] = extract_f0(sample["audio"], sample_rate, hop_size, sample["speech_feat"].shape[0])
         yield sample
 
 

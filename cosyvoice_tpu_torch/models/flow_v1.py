@@ -15,7 +15,14 @@ pins its first rows to them. The noise z is the port's own draw from an
 explicit torch.Generator: the JAX package draws it with
 jax.random.normal(fold_in(seed, chunk)), a threefry draw the port does not
 reproduce (ROADMAP C4), so `inference` takes an optional `noise` tensor
-(the tests hand it JAX's). Training (`loss`) is not ported.
+(the tests hand it JAX's).
+
+Training (`loss`, the counterpart of the JAX `MaskedDiffFlow.loss`): the
+tokens' encoding interpolated to the target mel's length and refined
+(`regulate_train`, zero past each row's feat_len), then the CFM loss of
+models/flow_matching.py with the prompt condition of CausalFlow.loss (a
+prefix of 0-30 % of feat_len on half of the rows). Its draws come from a
+torch.Generator unless `draws` gives them (the tests hand it JAX's).
 """
 
 from dataclasses import dataclass, field
@@ -25,7 +32,7 @@ import torch
 from torch import nn
 
 from cosyvoice_tpu_torch.models.flow_decoder import ConditionalDecoder, EstimatorConfig
-from cosyvoice_tpu_torch.models.flow_matching import CFMConfig, solve_euler
+from cosyvoice_tpu_torch.models.flow_matching import CFMConfig, cfm_loss, loss_draws, solve_euler
 from cosyvoice_tpu_torch.nn.activation import mish
 from cosyvoice_tpu_torch.nn.conformer import ConformerEncoder
 from cosyvoice_tpu_torch.nn.conv import Conv1d
@@ -116,6 +123,12 @@ class FlowV1Encoder(nn.Module):
         x = torch.cat([interpolate_linear(h1.transpose(1, 2), mel_len1), x2], dim=2) if h1.shape[1] else x2
         return self.regulator(x.transpose(1, 2))
 
+    def regulate_train(self, h, mel_len: int, feat_len):
+        """h [B, L, 80] -> [B, mel_len, 80]: one interpolation to mel_len,
+        the refinement stack, zero past each row's feat_len."""
+        out = self.regulator(interpolate_linear(h.transpose(1, 2), mel_len).transpose(1, 2))
+        return out * make_non_pad_mask(feat_len, mel_len)[..., None].to(out.dtype)
+
 
 class MaskedDiffFlow(nn.Module):
     """v1 flow: encoder, estimator, and the (z, mu)-cached CFM inference."""
@@ -162,3 +175,17 @@ class MaskedDiffFlow(nn.Module):
                      torch.cat([mu[:, :mel_len1], mu[:, T - ov :]], dim=1))
         mel = solve_euler(self.estimator, z, mu, mask, spks, conds, c.cfm)
         return mel[:, mel_len1:], new_cache
+
+    def loss(self, token, token_len, feat, feat_len, embedding, generator=None, draws=None):
+        """The CFM training loss: token [B, L], token_len [B]; feat [B, Tmel,
+        80] the target mel, feat_len [B]; embedding [B, 192]. The draws
+        (models/flow_matching.loss_draws) come from `generator` unless
+        `draws` gives them. Returns the float32 scalar loss."""
+        B, Tmel, n_mels = feat.shape
+        mu = self.encoder.regulate_train(self.encoder.encode(token, token_len), Tmel, feat_len)
+        spks = self.encoder.project_spk(embedding)
+        d = draws if draws is not None else loss_draws(generator, B, Tmel, n_mels, self.cfg.cfm, feat.device)
+        idx = torch.where(d["coin"] < 0.5, (d["frac"] * 0.3 * feat_len.float()).int(), 0)
+        cond_mask = (torch.arange(Tmel, device=feat.device)[None, :] < idx[:, None]).to(feat.dtype)
+        mask = make_non_pad_mask(feat_len, Tmel).to(feat.dtype)
+        return cfm_loss(self.estimator, feat, mask, mu, spks, feat * cond_mask[..., None], self.cfg.cfm, False, d)

@@ -31,10 +31,19 @@ JAX package takes the sum modulo 1 inside an associative scan; a plain
 float32 cumulative sum would detune the high harmonics over long audio),
 plus a uniform(-pi, pi) initial phase per harmonic, 0 for the fundamental.
 
-Randomness of the non-causal sources (harmonic initial phases, noise) comes
-from an explicit torch.Generator; `HiFTGenerator.source_draws`, when set,
-hands the v1 source fixed (phase, noise) draws instead (the tests hand it
-JAX's).
+Randomness of the sources (harmonic initial phases; the non-causal noise)
+comes from an explicit torch.Generator; a source's `draws` (initial phases,
+noise), or `HiFTGenerator.source_draws` when set, hand it fixed draws
+instead (the tests hand it JAX's).
+
+Training (`forward(mel, generator, draws)` -> (wav, f0), the counterpart of
+the JAX generator's `__call__`): the source's sines are detached, so f0
+learns from the F0 loss alone, and the three clips (the log-magnitude at
+ln 100, the magnitude at 100, the wav at audio_limit) are straight-through:
+`ste_clip`, x + (clip(x) - x) detached, whose forward is the clip up to an
+ulp and whose gradient is the identity. The JAX package uses this exact
+form: its GAN pretrain is bistable at its working rate, and a one-ulp
+change of the forward flips a seed into its loud-noise plateau.
 """
 
 from dataclasses import dataclass
@@ -57,6 +66,12 @@ from cosyvoice_tpu_torch.nn.conv import (
 from cosyvoice_tpu_torch.ops.resample import interpolate_linear, repeat_interleave_time
 from cosyvoice_tpu_torch.ops.stft import hann_window, istft, stft
 from cosyvoice_tpu_torch.utils.devices import resolve_device
+
+
+def ste_clip(x: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
+    """Straight-through clip: forward x + (clip(x) - x), the clip up to an
+    ulp; backward the identity."""
+    return x + (x.clamp(lo, hi) - x).detach()
 
 
 @dataclass(frozen=True)
@@ -154,13 +169,32 @@ def causal_noise_buffer(n_harmonics: int, device) -> torch.Tensor:
     """The causal source's fixed uniform [0, 1) buffer [CAUSAL_NOISE_SAMPLES,
     n_harmonics] float32: drawn once on the host from a torch.Generator
     seeded with CAUSAL_NOISE_SEED and kept once per device, so that every
-    device holds the same values."""
+    device holds the same values; never an inference tensor, so that the
+    causal vocoder trains after it has served."""
     dev = torch.device(device)
     key = (n_harmonics, dev)
     if key not in _NOISE:
         gen = torch.Generator().manual_seed(CAUSAL_NOISE_SEED)
-        _NOISE[key] = torch.rand((CAUSAL_NOISE_SAMPLES, n_harmonics), generator=gen).to(dev)
+        with torch.inference_mode(False):
+            _NOISE[key] = torch.rand((CAUSAL_NOISE_SAMPLES, n_harmonics), generator=gen).to(dev)
     return _NOISE[key]
+
+
+def draw_source(cfg: HiFTConfig, B: int, L: int, generator: torch.Generator, device, dtype=torch.float32):
+    """The random draws of one source of B rows and L samples, as
+    SourceModuleHnNSF takes them: SineGen1's initial phases [B, 1, H+1]
+    (U(-pi, pi), the fundamental's 0) or SineGen2's [B, H+1] (U[0, 1)
+    cycles, the fundamental's 0), then the noise [B, L, H+1] ~ N(0, 1)
+    (None for the causal source, whose noise is its fixed buffer)."""
+    H = cfg.nb_harmonics + 1
+    if cfg.sinegen_type == "1":
+        ini = (torch.rand((B, 1, H), generator=generator, device=device, dtype=dtype) * 2.0 - 1.0) * np.pi
+        ini[..., 0] = 0.0
+    else:
+        ini = torch.rand((B, H), generator=generator, device=device, dtype=dtype)
+        ini[:, 0] = 0.0
+    noise = None if cfg.causal else torch.randn((B, L, H), generator=generator, device=device, dtype=dtype)
+    return ini, noise
 
 
 def sine_source_v1(f0_up: torch.Tensor, cfg: HiFTConfig, generator: torch.Generator, phase=None, noise=None):
@@ -175,28 +209,30 @@ def sine_source_v1(f0_up: torch.Tensor, cfg: HiFTConfig, generator: torch.Genera
     fn = f0_up[..., None] * torch.arange(1, H + 1, dtype=dt, device=dev) / cfg.sampling_rate  # [B, L, H]
     cum = torch.remainder(torch.cumsum(torch.remainder(fn, 1.0).double(), dim=1), 1.0).to(dt)
     if phase is None:
-        phase = (torch.rand((B, 1, H), generator=generator, device=dev, dtype=dt) * 2.0 - 1.0) * np.pi
-        phase[:, :, 0] = 0.0
+        phase, noise = draw_source(cfg, B, L, generator, dev, dt)
     sines = cfg.nsf_alpha * torch.sin(2.0 * np.pi * cum + phase.to(dev, dt))
     uv = (f0_up > cfg.nsf_voiced_threshold).to(dt)[..., None]
     noise_amp = uv * cfg.nsf_sigma + (1.0 - uv) * cfg.nsf_alpha / 3.0
-    if noise is None:
-        noise = torch.randn(sines.shape, generator=generator, device=dev, dtype=dt)
     return sines * uv + noise_amp * noise.to(dev, dt), uv
 
 
-def sine_source(f0_up: torch.Tensor, cfg: HiFTConfig, generator: torch.Generator, noise_buffer=None):
+def sine_source(f0_up: torch.Tensor, cfg: HiFTConfig, generator: torch.Generator, noise_buffer=None,
+                rand_ini=None, noise=None):
     """SineGen2 harmonic source. f0_up [B, L] at the sample rate (L = T*480).
     Returns (sine_waves [B, L, H+1], uv [B, L, 1]). Causal: the phase is
     upsampled nearest-neighbour and the noise is `noise_buffer` [N, H+1]
-    (default causal_noise_buffer) at the samples' positions mod N."""
+    (default causal_noise_buffer) at the samples' positions mod N.
+    `rand_ini` [B, H+1] (initial phases in cycles, the fundamental's 0) and,
+    non-causal, `noise` [B, L, H+1] (standard normal) are drawn from
+    `generator` unless given."""
     H = cfg.nb_harmonics + 1
     B, L = f0_up.shape
     dev = f0_up.device
     fn = f0_up[..., None] * torch.arange(1, H + 1, dtype=f0_up.dtype, device=dev)
     rad = torch.remainder(fn / cfg.sampling_rate, 1.0)
-    rand_ini = torch.rand((B, H), generator=generator, device=dev, dtype=f0_up.dtype)
-    rand_ini[:, 0] = 0.0
+    if rand_ini is None:
+        rand_ini, noise = draw_source(cfg, B, L, generator, dev, f0_up.dtype)
+    rand_ini = rand_ini.to(dev, f0_up.dtype)
     rad = torch.cat([rad[:, :1] + rand_ini[:, None], rad[:, 1:]], dim=1)
     # downsample rad to the frame rate (linear), integrate, upsample the phase back
     scale = cfg.hop_total
@@ -214,7 +250,7 @@ def sine_source(f0_up: torch.Tensor, cfg: HiFTConfig, generator: torch.Generator
         idx = torch.arange(L, device=dev) % buf.shape[0]
         noise = noise_amp * buf[idx].to(sines.dtype)[None]
     else:
-        noise = noise_amp * torch.randn(sines.shape, generator=generator, device=dev, dtype=sines.dtype)
+        noise = noise_amp * noise.to(dev, sines.dtype)
     return cfg.nsf_alpha * sines * uv + noise, uv
 
 
@@ -227,12 +263,15 @@ class SourceModuleHnNSF(nn.Module):
         self.l_linear = nn.Linear(cfg.nb_harmonics + 1, 1)
 
     def forward(self, f0_up, generator, noise_buffer=None, draws=None):
-        """draws: the v1 source's (phase, noise), or None (from `generator`)."""
+        """draws: the source's (initial phases, noise) (sine_source_v1's
+        phase and noise, or sine_source's rand_ini and noise), or None (from
+        `generator`). The sines are detached: no gradient reaches f0
+        through the source."""
         if self.cfg.sinegen_type == "1":
             sine_waves, _ = sine_source_v1(f0_up, self.cfg, generator, *(draws or (None, None)))
         else:
-            sine_waves, _ = sine_source(f0_up, self.cfg, generator, noise_buffer)
-        return torch.tanh(self.l_linear(sine_waves))[..., 0]
+            sine_waves, _ = sine_source(f0_up, self.cfg, generator, noise_buffer, *(draws or (None, None)))
+        return torch.tanh(self.l_linear(sine_waves.detach()))[..., 0]
 
 
 class ResBlock(nn.Module):
@@ -270,8 +309,8 @@ class HiFTGenerator(nn.Module):
         self.cfg = cfg
         # the causal source's noise [N, H+1]; None: causal_noise_buffer (tests hand in another)
         self.noise_buffer = None
-        # the v1 source's draws: None, or a function of the source length L
-        # giving (phase [1, 1, H+1], noise [1, L, H+1]) (tests hand in JAX's)
+        # the source's draws: None, or a function of the source length L
+        # giving SourceModuleHnNSF's draws (tests hand in JAX's)
         self.source_draws = None
         with torch.device(resolve_device(device)):
             self._build(cfg)
@@ -348,25 +387,34 @@ class HiFTGenerator(nn.Module):
             x = xs / nk
         x = self.conv_post(F.leaky_relu(x, 0.01)).transpose(1, 2)  # [B, 18, Tt]
         n_half = cfg.istft_n_fft // 2 + 1
-        # clamp before exp: min(e^x, 100) == e^min(x, ln 100)
-        magnitude = torch.exp(x[:, :n_half].clamp_max(4.6052)).clamp_max(1e2)
+        # clip before exp: min(e^x, 100) == e^min(x, ln 100), and exp's
+        # gradient stays bounded
+        magnitude = ste_clip(torch.exp(ste_clip(x[:, :n_half], hi=4.6052)), hi=1e2)
         phase = torch.sin(x[:, n_half:])
         spec = torch.complex(magnitude * torch.cos(phase), magnitude * torch.sin(phase))
         wav = istft(spec, cfg.istft_n_fft, cfg.istft_hop, window)
         if cfg.causal and not finalize:
             wav = wav[:, : -int(np.prod(cfg.upsample_rates)) * cfg.istft_hop]
-        return wav.clamp(-cfg.audio_limit, cfg.audio_limit)
+        return ste_clip(wav, -cfg.audio_limit, cfg.audio_limit)
 
     def predict_f0(self, mel, finalize: bool = True):
         if self.cfg.causal:
             return self.f0_predictor(mel, finalize)
         return self.f0_predictor(mel)
 
-    def source_from_f0(self, f0, generator):
-        """f0 [B, T] at the mel rate -> source [B, T*480]."""
+    def source_from_f0(self, f0, generator, draws=None):
+        """f0 [B, T] at the mel rate -> source [B, T*480]; `draws` as
+        SourceModuleHnNSF's, else from source_draws where it is set."""
         f0_up = repeat_interleave_time(f0, self.cfg.hop_total, axis=-1)
-        draws = None if self.source_draws is None else self.source_draws(f0_up.shape[1])
+        if draws is None and self.source_draws is not None:
+            draws = self.source_draws(f0_up.shape[1])
         return self.m_source(f0_up, generator, self.noise_buffer, draws)
+
+    def forward(self, mel, generator: torch.Generator, draws=None):
+        """Training forward: mel [B, T, 80] -> (wav [B, T*480], f0 [B, T]),
+        with gradients (the source detached, the clips straight-through)."""
+        f0 = self.predict_f0(mel)
+        return self.decode(mel, self.source_from_f0(f0, generator, draws)), f0
 
     @torch.inference_mode()
     def inference(self, mel, generator: torch.Generator, cache_source: Optional[torch.Tensor] = None,

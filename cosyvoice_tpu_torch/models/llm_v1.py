@@ -22,6 +22,12 @@ min_len, as the JAX `generate`, whose prompt padding (text to multiples of
 32, prompt speech to multiples of 32, at least 4) it keeps. No kernel of
 the port is on this path: the JAX LM runs no Pallas kernel either (its
 attention adds a per-key position bias that K1 does not compute).
+
+Training (`forward_logits`, float32 as in the JAX package) runs the layers'
+`full` path over the whole [sos][spk][text][task][speech] sequence, which
+projects the rel-pos table through `linear_pos` inside autograd on every
+call: the cached `pos_tables` carry no gradient, and are rebuilt after an
+optimizer step changes a `linear_pos` weight (its version moves).
 """
 
 import math
@@ -188,13 +194,19 @@ class TransformerLMModule(nn.Module):
             self._tables = (key, tables)
         return self._tables[1]
 
+    def _lm_input(self, lm_input, true_len):
+        """(x, rel-pos embedding, causal and valid mask [B, S, S]) of the
+        tail-padded lm_input [B, S, D]."""
+        S = lm_input.shape[1]
+        x, pos = self.lm_pos(F.relu(self.lm_embed(lm_input)))
+        qpos = torch.arange(S, device=x.device)
+        return x, pos, (qpos[None, :, None] >= qpos[None, None, :]) & (qpos[None, None, :] < true_len[:, None, None])
+
     def lm_prefill(self, lm_input, true_len, k_arena, v_arena):
         """lm_input [B, S, D] tail-padded; writes arena rows [0, S). Returns
         the logits at true_len - 1 [B, V+1]."""
         B, S, _ = lm_input.shape
-        x, pos = self.lm_pos(F.relu(self.lm_embed(lm_input)))
-        qpos = torch.arange(S, device=x.device)
-        att_mask = (qpos[None, :, None] >= qpos[None, None, :]) & (qpos[None, None, :] < true_len[:, None, None])
+        x, pos, att_mask = self._lm_input(lm_input, true_len)
         for i, layer in enumerate(self.lm_layers):
             x, k, v = layer.full(x, att_mask, pos)
             k_arena[i, :, :S] = k
@@ -218,6 +230,19 @@ class TransformerLMModule(nn.Module):
         embeds, total = self.assemble_prompt(self.embed_spk(spk), text_h, text_len, self.embed_speech(prompt_speech),
                                              prompt_len)
         return self.lm_prefill(embeds, total, k_arena, v_arena), total
+
+    def forward_logits(self, text, text_len, spk, speech, speech_len):
+        """Training forward: [sos][spk][text][task][speech] through every
+        layer. text [B, Lt], speech [B, Ls] ids; spk [B, 192]. Returns
+        (logits [B, 3+Lt+Ls, V+1] float32, total_len [B]); the targets are
+        train/trainer.v1_lm_targets."""
+        text_h, _ = self.encode_text(text, text_len)
+        embeds, total = self.assemble_prompt(self.embed_spk(spk), text_h, text_len, self.embed_speech(speech),
+                                             speech_len)
+        x, pos, att_mask = self._lm_input(embeds, total)
+        for layer in self.lm_layers:
+            x, _, _ = layer.full(x, att_mask, pos)
+        return self.llm_decoder(self.lm_after_norm(x)).float(), total
 
 
 class TransformerLM:

@@ -89,10 +89,13 @@ def _povey_window(n: int) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def _constant(kind: str, device: torch.device, *args) -> torch.Tensor:
     """A filterbank or window (float32 values) as a float64 tensor on
-    `device`, built once."""
+    `device`, built once, never as an inference tensor (a first call under
+    torch.inference_mode would otherwise keep one that autograd, as in the
+    GAN's mel loss, refuses to save)."""
     build = {"slaney": mel_filterbank_slaney, "htk": mel_filterbank_htk, "povey": _povey_window,
              "hann": lambda n: hann_window(n).numpy()}[kind]
-    return torch.as_tensor(build(*args), device=device).double()
+    with torch.inference_mode(False):
+        return torch.as_tensor(build(*args), device=device).double()
 
 
 def _reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -106,14 +109,23 @@ def _power(frames: torch.Tensor, n_fft: int) -> torch.Tensor:
 
 
 def mel_spectrogram(x: torch.Tensor, sr: int = 24000, n_fft: int = 1920, hop: int = 480, win: int = 1920,
-                    n_mels: int = 80, fmin: float = 0.0, fmax: float = 8000.0) -> torch.Tensor:
-    """Matcha/HiFi-GAN mel: [..., L] -> [..., n_mels, T], T = 1 + (L - hop) // hop."""
+                    n_mels: int = 80, fmin: float = 0.0, fmax: float = 8000.0, grad_safe: bool = False) -> torch.Tensor:
+    """Matcha/HiFi-GAN mel: [..., L] -> [..., n_mels, T], T = 1 + (L - hop) // hop.
+
+    grad_safe=True (the GAN losses) keeps the forward value exactly but
+    takes the backward pass through ln(mel + 1e-5): below the 1e-5 floor
+    the clamp has no gradient, and a randomly initialised vocoder trained
+    on the clamped mel stays at silence."""
     dtype, x = x.dtype, x.double()
     fb = _constant("slaney", x.device, sr, n_fft, n_mels, fmin, fmax)
     frames = _reflect_pad(x, (n_fft - hop) // 2).unfold(-1, win, hop) * _constant("hann", x.device, win)
     mag = torch.sqrt(_power(frames, n_fft) + 1e-9)
     mel = torch.einsum("...tf,mf->...mt", mag, fb)
-    return torch.log(torch.clamp(mel, min=1e-5)).to(dtype)
+    hard = torch.log(torch.clamp(mel, min=1e-5))
+    if grad_safe:
+        smooth = torch.log(mel + 1e-5)
+        hard = hard.detach() + (smooth - smooth.detach())
+    return hard.to(dtype)
 
 
 def whisper_log_mel(x: torch.Tensor, n_mels: int = 128) -> torch.Tensor:

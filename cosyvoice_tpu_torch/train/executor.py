@@ -91,10 +91,13 @@ class Executor:
 
     def save(self, module, metrics: Optional[dict] = None) -> str:
         """<model_name>_epoch<E>_step<S>.msgpack (the module's JAX param
-        tree) and its .json sidecar. Returns the checkpoint's path."""
+        tree; for a dict of modules, such as the GAN's {"generator",
+        "discriminator"}, the dict of their trees) and its .json sidecar.
+        Returns the checkpoint's path."""
         tag = f"{self.model_name}_epoch{self.epoch}_step{self.step}"
         path = os.path.join(self.out_dir, f"{tag}.msgpack")
-        msgpack_io.write(path, export_params(module))
+        tree = {k: export_params(m) for k, m in module.items()} if isinstance(module, dict) else export_params(module)
+        msgpack_io.write(path, tree)
         side = {"epoch": self.epoch, "step": self.step, "save_time": time.strftime("%Y-%m-%d %H:%M:%S")}
         for k, v in (metrics or {}).items():
             try:

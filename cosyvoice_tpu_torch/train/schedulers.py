@@ -146,6 +146,27 @@ def squareroot_constant(lr: float, constant_steps: int = 0, min_lr: float = 0.0,
     return sched
 
 
+def warmup_cosine_decay(init_value: float, peak_value: float, warmup_steps: int, decay_steps: int,
+                        end_value: float = 0.0):
+    """optax.warmup_cosine_decay_schedule (exponent 1): linear from
+    init_value to peak_value over warmup_steps, then a cosine from
+    peak_value to end_value over decay_steps - warmup_steps, then
+    end_value. The HiFT generator's pretrain schedule (bin/train.py)."""
+    if not decay_steps - warmup_steps > 0:
+        raise ValueError(f"warmup_cosine_decay needs decay_steps > warmup_steps, got {decay_steps}, {warmup_steps}")
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    span = float(decay_steps - warmup_steps)
+
+    def sched(step):
+        if step < warmup_steps:
+            frac = 1.0 - min(max(float(step), 0.0), warmup_steps) / warmup_steps
+            return (init_value - peak_value) * frac + peak_value
+        count = min(float(step - warmup_steps), span)
+        return peak_value * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * count / span)) + alpha)
+
+    return sched
+
+
 SCHEDULERS = {
     "warmuplr": warmup_lr,
     "constantlr": constant_lr,

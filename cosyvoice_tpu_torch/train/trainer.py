@@ -14,7 +14,9 @@ package's mesh sharding waits with parallel/, ROADMAP A11c):
   Adam's step and the schedule count stay as they were;
 - `make_lm_train_step` / `make_flow_train_step`: gradients summed over A
   microbatches and scaled by 1/A; the loss (and the LM's accuracy) the
-  mean of the microbatches' values, each normalised by its own token count.
+  mean of the microbatches' values, each normalised by its own token count;
+- `v1_lm_targets` / `make_lm_v1_train_step`: the CosyVoice-300M LM's CE
+  step (float32, one batch, the non-finite skip kept).
 
 The weights, gradients and Adam state are float32; the LM's products
 compute in the dtype the step is given (Qwen2Model.forward).
@@ -25,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from cosyvoice_tpu_torch.train.losses import lm_ce_loss
+from cosyvoice_tpu_torch.train.losses import IGNORE_ID, lm_ce_loss
 from cosyvoice_tpu_torch.train.schedulers import get_scheduler
 
 
@@ -44,12 +46,15 @@ def skip_nonfinite(gnorm: torch.Tensor) -> bool:
 class Optimizer:
     """Gradient clip by global norm, Adam (b1 0.9, b2 0.999, eps 1e-8) and
     a scheduled rate over `params`. `count` is the updates applied: the
-    schedule's step (resuming sets it to the restored global step)."""
+    schedule's step (resuming sets it to the restored global step).
+    skip_nonfinite=False is optax's plain chain clip -> Adam (the GAN's and
+    the v1 flow's): a non-finite norm is applied like any other."""
 
-    def __init__(self, params, sched, grad_clip: float = 5.0):
+    def __init__(self, params, sched, grad_clip: float = 5.0, skip_nonfinite: bool = True):
         self.params = [p for p in params if p.requires_grad]
         self.sched = sched
         self.grad_clip = grad_clip
+        self.skip_nonfinite = skip_nonfinite
         self.adam = torch.optim.Adam(self.params, lr=sched(0), betas=(0.9, 0.999), eps=1e-8)
         self.count = 0
 
@@ -66,11 +71,11 @@ class Optimizer:
 
     def step(self):
         """Clip, then one Adam update at the scheduled rate unless the
-        gradient norm is not finite. Returns (gradient norm before the clip,
-        whether the update was applied)."""
+        gradient norm is not finite (and skip_nonfinite). Returns (gradient
+        norm before the clip, whether the update was applied)."""
         grads = self.grads()
         gnorm = global_norm(grads)
-        if skip_nonfinite(gnorm):
+        if self.skip_nonfinite and skip_nonfinite(gnorm):
             return gnorm, False
         if float(gnorm) >= self.grad_clip:
             torch._foreach_div_(grads, gnorm)
@@ -112,6 +117,38 @@ def make_lm_train_step(lm_module, optimizer: Optimizer, accum_steps: int = 1, dt
         _scale_grads(optimizer, inv)
         gnorm, _ = optimizer.step()
         return {"loss": loss_sum * inv, "acc": acc_sum * inv, "grad_norm": gnorm, "step": step + 1}
+
+    return step_fn
+
+
+def v1_lm_targets(speech_token_size: int, text_pad_len: int, text_len, speech, speech_len):
+    """The targets of TransformerLMModule.forward_logits [B, 3 + text_pad_len
+    + Ls]: position 2 + text_len (the task slot) predicts speech[0], each
+    speech position the next, position 2 + text_len + speech_len the stop
+    token (speech_token_size); IGNORE_ID elsewhere."""
+    S = 3 + text_pad_len + speech.shape[1]
+    k = torch.arange(S, device=speech.device)[None, :] - (2 + text_len[:, None])  # index into speech
+    in_speech = (k >= 0) & (k < speech_len[:, None])
+    gathered = torch.gather(speech, 1, k.clamp(0, speech.shape[1] - 1))
+    tgt = torch.where(in_speech, gathered, torch.full_like(gathered, IGNORE_ID))
+    return torch.where(k == speech_len[:, None], torch.full_like(tgt, speech_token_size), tgt)
+
+
+def make_lm_v1_train_step(lm_module, optimizer: Optimizer, speech_token_size: int):
+    """Returns step(batch, step) -> metrics ("loss", "acc", "grad_norm",
+    "step"). batch: {"text" [B, Lt], "text_len", "spk" [B, 192], "speech"
+    [B, Ls], "speech_len"} tensors on the module's device."""
+
+    def step_fn(batch, step):
+        optimizer.zero_grad()
+        logits, _ = lm_module.forward_logits(batch["text"], batch["text_len"], batch["spk"], batch["speech"],
+                                             batch["speech_len"])
+        tgt = v1_lm_targets(speech_token_size, batch["text"].shape[1], batch["text_len"], batch["speech"],
+                            batch["speech_len"])
+        loss, acc = lm_ce_loss(logits, tgt)
+        loss.backward()
+        gnorm, _ = optimizer.step()
+        return {"loss": loss.detach(), "acc": acc, "grad_norm": gnorm, "step": step + 1}
 
     return step_fn
 

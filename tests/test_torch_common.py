@@ -197,7 +197,9 @@ def test_port_imports_no_jax_flax_or_jax_package():
                    "tools/bench_client.py", "runtime/batch_scheduler.py", "train/losses.py", "train/schedulers.py",
                    "train/lm_data.py", "train/trainer.py", "train/executor.py", "train/online_features.py",
                    "data/dataset.py", "data/processor.py", "bin/train.py", "bin/average_model.py",
-                   "tools/extract_embedding.py", "tools/extract_speech_token.py", "tools/make_parquet_list.py"):
+                   "tools/extract_embedding.py", "tools/extract_speech_token.py", "tools/make_parquet_list.py",
+                   "ops/f0.py", "models/discriminator.py", "train/gan.py", "tools/eval_quality.py",
+                   "serving/reward_server.py"):
         assert f"cosyvoice_tpu_torch/{served}" in scanned
     bad = [
         f"{f.relative_to(REPO)}: {mod}"
@@ -287,12 +289,23 @@ def test_pyarrow_is_imported_only_inside_the_two_parquet_functions():
 
 def _cli_entry_points(tmp_path):
     from cosyvoice_tpu_torch.bin import average_model, train
-    from cosyvoice_tpu_torch.tools import extract_embedding, extract_speech_token
+    from cosyvoice_tpu_torch.tools import eval_quality, extract_embedding, extract_speech_token
     from cosyvoice_tpu_torch.train.online_features import OnlineSpeechTokenExtractor
 
+    (tmp_path / "v1.json").write_text('{"version": 1}')
+
+    def train_main(model, *flags):
+        return lambda: train.main(["--model", model, "--train_data", str(tmp_path / "none.list"), "--model_dir",
+                                   str(tmp_path), *flags])
+
     return {
-        "bin.train": lambda: train.main(["--model", "llm", "--train_data", str(tmp_path / "none.list"),
-                                         "--model_dir", str(tmp_path)]),
+        "bin.train": train_main("llm"),
+        "bin.train hifigan": train_main("hifigan"),
+        "bin.train v1 llm": train_main("llm", "--config", str(tmp_path / "v1.json")),
+        "bin.train v1 flow": train_main("flow", "--config", str(tmp_path / "v1.json")),
+        "tools.eval_quality": lambda: eval_quality.main(["--tts_text", str(tmp_path / "none.json"), "--prompt_scp",
+                                                         str(tmp_path / "none.scp"), "--prompt_text",
+                                                         str(tmp_path / "none.txt")]),
         "bin.average_model": lambda: average_model.main(["--src_dir", str(tmp_path), "--dst_model",
                                                          str(tmp_path / "avg.msgpack")]),
         "tools.extract_embedding": lambda: extract_embedding.main(["--dir", str(tmp_path)]),
@@ -301,8 +314,9 @@ def _cli_entry_points(tmp_path):
     }
 
 
-@pytest.mark.parametrize("name", ["bin.train", "bin.average_model", "tools.extract_embedding",
-                                  "tools.extract_speech_token", "OnlineSpeechTokenExtractor"])
+@pytest.mark.parametrize("name", ["bin.train", "bin.train hifigan", "bin.train v1 llm", "bin.train v1 flow",
+                                  "bin.average_model", "tools.extract_embedding", "tools.extract_speech_token",
+                                  "tools.eval_quality", "OnlineSpeechTokenExtractor"])
 def test_training_entry_points_default_to_cuda_and_raise_without_it(name, tmp_path, monkeypatch):
     """Each raises before it reads any input: tests/test_torch_train_cli.py
     runs them with --device cpu."""

@@ -1,4 +1,5 @@
-"""chip_smoke.py's training phases (train_lm, train_flow, train_e2e)
+"""chip_smoke.py's training phases (train_lm, train_flow, train_e2e, train_hifigan,
+train_v1) and its train -> synthesize -> evaluate phase (eval)
 rehearsed on the CPU: the code the card runs at full CosyVoice2 width,
 with the config constants patched to tiny widths in float32 and the
 learning rate raised so that tiny models' loss falls within TRAIN_STEPS
@@ -49,3 +50,46 @@ def test_training_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     launches = chip_smoke.phase_train_e2e(trained, "cpu")
     assert trained == {} and set(launches) == set(chip_smoke.PER_STEP["bf16"])
     assert not os.path.exists("build/train_e2e")
+
+
+# the GAN, CosyVoice-300M and train -> synthesize -> evaluate phases' tiny
+# configs: HIFT above, small discriminators, the tiny v1 LM and flow with the
+# full text and speech vocabularies the synthetic rows use
+GAN = {"hift": HIFT, "gan": {"mpd_periods": [2, 3], "mpd_channels": [4, 8, 8, 16], "mrd_resolutions": [[128, 32]],
+                             "pretrain_steps": 2}}
+V1_LM = {"text_encoder_input_size": 16, "llm_input_size": 32, "llm_output_size": 32, "text_token_size": 400,
+         "speech_token_size": 4096, "te_heads": 2, "te_linear_units": 32, "te_blocks": 1, "lm_heads": 2,
+         "lm_linear_units": 32, "lm_blocks": 2, "max_cache_len": 1024}
+V1_FLOW = {"input_size": 16, "vocab_size": 4096, "attention_heads": 2, "linear_units": 32, "num_blocks": 1,
+           "estimator": {"channels": [16, 16], "attention_head_dim": 8, "n_blocks": 1, "num_mid_blocks": 1,
+                         "num_heads": 2, "causal": False}, "cfm": {"n_timesteps": 2}}
+CAM = ((2, 3, 1), (2, 3, 2), (2, 3, 2))  # tiny CAM++ blocks (tests/test_torch_api.py's)
+
+
+def test_gan_v1_and_eval_phases_rehearse_on_cpu(monkeypatch, tmp_path):
+    import json
+
+    from cosyvoice_tpu_torch.frontend import frontend as pfrontend
+    from cosyvoice_tpu_torch.models.campplus import CamPPConfig
+    from cosyvoice_tpu_torch.runtime.api import CosyVoice2
+
+    monkeypatch.chdir(tmp_path)  # the phases write under build/
+    monkeypatch.setattr(chip_smoke, "GAN_CFG", GAN)
+    monkeypatch.setattr(chip_smoke, "GAN_CUT", GAN)
+    monkeypatch.setattr(chip_smoke, "V1_TRAIN", {"llm": V1_LM, "flow": V1_FLOW})
+    monkeypatch.setattr(chip_smoke, "V1_CUT", {"llm": V1_LM, "flow": V1_FLOW})
+    flags = list(chip_smoke.TRAIN_FLAGS)
+    flags[flags.index("--lr") + 1] = "1e-2"
+    monkeypatch.setattr(chip_smoke, "TRAIN_FLAGS", flags)
+    monkeypatch.setattr(chip_smoke, "_smi", lambda: "no card")
+    monkeypatch.setattr(pfrontend, "CamPPConfig", lambda: CamPPConfig(blocks=CAM))
+    hift = chip_smoke.phase_train_hifigan("cpu")
+    chip_smoke.phase_train_v1("cpu")
+    config = {"llm": LLM, "flow": FLOW, "hift": HIFT, "frontend": {"s3": {"d_model": 64, "num_heads": 4,
+                                                                          "num_layers": 2}}}
+    model = tmp_path / "build" / "model"
+    model.mkdir()
+    (model / "config.json").write_text(json.dumps(config))
+    CosyVoice2(str(model), device="cpu").save_pretrained(str(model))
+    launches = chip_smoke.phase_eval(str(model), hift, "cpu")
+    assert set(launches) == set(chip_smoke.PER_STEP["bf16"])
