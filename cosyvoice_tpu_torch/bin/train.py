@@ -128,10 +128,9 @@ def _optimizer(args, module, skip_nonfinite: bool = True):
     from cosyvoice_tpu_torch.train.trainer import make_optimizer
 
     sched_conf = {k: getattr(args, k) for k in SCHED_KEYS if hasattr(args, k)}
-    opt = make_optimizer(module.parameters(), lr=args.lr, warmup_steps=args.warmup_steps,
-                         grad_clip=args.grad_clip, scheduler=args.scheduler, **sched_conf)
-    opt.skip_nonfinite = skip_nonfinite
-    return opt
+    return make_optimizer(module.parameters(), lr=args.lr, warmup_steps=args.warmup_steps,
+                          grad_clip=args.grad_clip, scheduler=args.scheduler, skip_nonfinite=skip_nonfinite,
+                          **sched_conf)
 
 
 def _one(batch_group):
@@ -309,7 +308,7 @@ def build_flow_v1(args, cfg: dict, device):
 
 
 # the HiFT GAN's defaults, each overridable in the config's "gan" section
-GAN_DEFAULTS = {"truncate_length": 24480, "mpd_periods": (2, 3, 5, 7, 11), "mpd_channels": (32, 128, 512, 1024),
+GAN_DEFAULTS = {"truncate_length": 24480, "mpd_channels": (32, 128, 512, 1024),
                 "mrd_resolutions": ((1024, 120), (2048, 240), (512, 50)), "lr": 2e-4, "pretrain_steps": 0,
                 "pretrain_lr": 1e-3}
 PLATEAU_MEL = 3.0  # a pretrain attempt whose last three 50-step mel L1 readings all exceed this restarts
@@ -340,7 +339,7 @@ def build_gan(args, cfg: dict, device):
     conf = {**GAN_DEFAULTS, **cfg.get("gan", {})}
     hift = init_random_(HiFTGenerator(build_hift_config(cfg.get("hift")), device=device), args.seed).train()
     with torch.device(device):
-        disc = MultipleDiscriminator(mpd_periods=tuple(conf["mpd_periods"]), mpd_channels=tuple(conf["mpd_channels"]),
+        disc = MultipleDiscriminator(mpd_channels=tuple(conf["mpd_channels"]),
                                      mrd_resolutions=tuple(tuple(r) for r in conf["mrd_resolutions"]))
     init_random_(disc, args.seed + 1)
     if args.checkpoint and os.path.exists(args.checkpoint):

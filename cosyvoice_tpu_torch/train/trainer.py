@@ -88,8 +88,9 @@ class Optimizer:
 
 
 def make_optimizer(params, lr: float = 1e-4, warmup_steps: int = 2500, grad_clip: float = 5.0,
-                   scheduler: str = "warmuplr", **sched_conf) -> Optimizer:
-    return Optimizer(params, get_scheduler(scheduler, lr, warmup_steps=warmup_steps, **sched_conf), grad_clip)
+                   scheduler: str = "warmuplr", skip_nonfinite: bool = True, **sched_conf) -> Optimizer:
+    return Optimizer(params, get_scheduler(scheduler, lr, warmup_steps=warmup_steps, **sched_conf), grad_clip,
+                     skip_nonfinite)
 
 
 def _scale_grads(optimizer: Optimizer, scale: float):

@@ -55,8 +55,7 @@ def test_training_phases_rehearse_on_cpu(monkeypatch, tmp_path):
 # the GAN, CosyVoice-300M and train -> synthesize -> evaluate phases' tiny
 # configs: HIFT above, small discriminators, the tiny v1 LM and flow with the
 # full text and speech vocabularies the synthetic rows use
-GAN = {"hift": HIFT, "gan": {"mpd_periods": [2, 3], "mpd_channels": [4, 8, 8, 16], "mrd_resolutions": [[128, 32]],
-                             "pretrain_steps": 2}}
+GAN = {"hift": HIFT, "gan": {"mpd_channels": [4, 8, 8, 16], "mrd_resolutions": [[128, 32]], "pretrain_steps": 2}}
 V1_LM = {"text_encoder_input_size": 16, "llm_input_size": 32, "llm_output_size": 32, "text_token_size": 400,
          "speech_token_size": 4096, "te_heads": 2, "te_linear_units": 32, "te_blocks": 1, "lm_heads": 2,
          "lm_linear_units": 32, "lm_blocks": 2, "max_cache_len": 1024}
