@@ -70,8 +70,8 @@ disagrees with its plain version, or anything raises):
 9. check_int4p_bf16: phase 5 for that LM (its decode takes the route the LM
    takes), and K7's step against the K4 + K1 + K6 step for the same token
    at pos ~100 and ~2040.
-   slice_bistream_int4p_bf16: with the same engine, 4 bi-streaming requests
-   (text 16 / 32 / 48 / 2100 ids in uneven chunks, phase 4's prompt): the
+   slice_bistream_int4p_bf16: with the same engine, 3 bi-streaming requests
+   (text 16 / 32 / 2100 ids in uneven chunks, phase 4's prompt): the
    first through `tts(<iterator>, stream=False)`, whose final drain may run
    to the arena's end; the others through `generate_bistream` with max_len
    20 x text and `synthesize_offline`. The last one's extends alone pass
@@ -101,8 +101,8 @@ graph's K1..K7 kernel nodes (CUDAGraph.debug_dump) to equal the launches
 its capture counted, which each replay adds to the counters. After every
 other phase, idle takes the device's idle share (torch.profiler traces)
 over the LM stage and the flow+HiFT stage of each LM's offline request
-(the first 8 of the text-16 ids: 160 tokens), the route-switch request and
-the bistream requests (the K7 LM's at max_len 160),
+(the first 4 of the text-16 ids: 80 tokens), the route-switch request and
+the bistream requests (the K7 LM's at max_len 80),
 on graphs (no eager trace and no bf16 960-token trace, to keep the run
 inside its limit), and requires
 the K1..K7 kernels the LM stage's traces show to be at most the launches
@@ -179,7 +179,7 @@ temporary dir (removed at the end and on error), each file's size and the
 write and read seconds; `CosyVoice2(dir)` reloaded, every parameter
 bit-equal to the saved API's, and its first zero-shot request (seconds from
 the constructor) bit-equal to the saved API's on the same prompt and
-generator; on the reloaded LM a 160-token request on CUDA graphs and
+generator; on the reloaded LM an 80-token request on CUDA graphs and
 eagerly under the default sampling and under set_sampling(top_p=0.95,
 top_k=50, temperature=0.8, repetition_penalty=1.1) (identical tokens, wavs
 and generator state; LM ms per token of each; 24 K1 and 24 K2 per step;
@@ -202,7 +202,7 @@ counted launches; the same requests (max_len 3 x text) on graphs against
 eager under the default sampling and under set_sampling(0.95, 50, 0.8,
 1.1): identical tokens and scheduler generator state; the batched step's
 logits against the B=1 step's on 28 teacher-forced tokens within
-LOGIT_TOL; greedy streams (max_len 6 x text) at max_batch 1, 2 and 4
+LOGIT_TOL; greedy streams (max_len 6 x text) at max_batch 1 and 4
 against each request alone through Qwen2LM.generate: equal, or the first
 difference at a near tie of the B=1 logits (position and gap printed);
 aggregate tokens/s of each and of one-at-a-time generate, the device ms
@@ -217,13 +217,13 @@ decode graph of the scheduler and of the B=1 decoder captured up front,
 the count and the seconds printed) behind make_stdlib_server on
 127.0.0.1 (a free port): one request's PCM equal to
 _pcm of the API's own output (the scheduler's generator reseeded before
-each); tools/bench_client.py's sweep at concurrency 1 and 4 with 4
+each); tools/bench_client.py's sweep at concurrency 4 with 4
 zero-shot requests each ("Hi.", 60 tokens), offline then streamed:
 every response n_tokens * 2 * 480 samples, all of them the scheduler's
 tokens x 960, every decode step through K1 + K2, no graph captured
 while serving, first-chunk, latency and
 request-RTF p50 / p90 and audio seconds per wall second printed;
-/metrics counting the 16 requests and /metrics/reset clearing them; a
+/metrics counting the 8 requests and /metrics/reset clearing them; a
 text of two segments under greedy sampling, serially and through the
 scheduler (both segments at once): chunks in segment order, each
 segment's tokens held as in batch's greedy hold.
@@ -234,7 +234,7 @@ arena, slice_int4 with `quant="int4", kv_quant=True` (fp weights from
 seed 0, quantised on the host; LM MB printed); each serves the text-16
 request (320 tokens) on graphs, every decode step through 24 K1 + 24 K2
 (int8) or 24 K3 + 24 K2 (int4 over the int8 arena), holds its logits
-over 96 steps against the plain versions and one prefill (LOGIT_TOL_QUANT,
+over 64 steps against the plain versions and one prefill (LOGIT_TOL_QUANT,
 twice the floor), prints the device ms of a replayed step beside the bf16
 LM's at the same arena, and serves a wave of two requests through
 LMBatchScheduler(max_batch=2) on graphs. api_int8 builds
@@ -386,15 +386,26 @@ L2_BYTES = 50e6  # H100 L2 cache
 # when it was the first phase to import torch.optim), so their room came
 # from the budgets' slack, no path cut: every other budget is at most 1.5x
 # that run's time of its phase (kernels kept at 122 for its 50-112 s host
-# spread, device at 4), and the new phases have 1.5x theirs.
-PHASE_BUDGET_S = {"device": 4, "build": 21, "kernels": 122, "slice": 14, "check": 8, "graphs": 43, "stream": 34,
-                  "slice_int4p": 23, "check_int4p": 16, "slice_bistream_int4p": 3, "check_bistream_int4p": 4,
-                  "graphs_int4p": 18, "stream_int4p": 10, "slice_int4p_bf16": 23, "check_int4p_bf16": 12,
-                  "slice_bistream_int4p_bf16": 57, "check_bistream_int4p_bf16": 9, "graphs_int4p_bf16": 25,
-                  "stream_int4p_bf16": 17, "slice_int8": 26, "slice_int4": 45, "slice_v3": 8, "stream_v3": 13,
+# spread, device at 4), and the new phases have 1.5x theirs. The decode
+# route, hermetic, microbench, aot_warmup and examples phases took
+# 4.0, 6.4, 10.1, 21.9 and 5.4 s in a full run on an NVIDIA H100 80GB HBM3
+# (700 W) whose phases took ~1000 s (a slow host: kernels 94.6 s); they
+# have 1.5x that. To pay for them, in size again, no check: serve's sweep
+# runs concurrency 4 alone (not 1 and 4), the K7 LM's bistream slice
+# serves text 16 / 32 / 2100 (not 16 / 32 / 48 / 2100), batch's greedy
+# sweep max_batch 1 and 4 (not 1, 2 and 4), the check phases' logit hold
+# 64 decode steps (not 96), idle traces 80 tokens (not 160) and the K7
+# LM's bistream request at max_len 80 (not 160), ckpt's sampling holds
+# serve 80 tokens (not 160); those phases' budgets fell with them.
+PHASE_BUDGET_S = {"device": 4, "build": 21, "kernels": 115, "slice": 14, "check": 7, "graphs": 43, "stream": 34,
+                  "slice_int4p": 23, "check_int4p": 14, "slice_bistream_int4p": 3, "check_bistream_int4p": 4,
+                  "graphs_int4p": 18, "stream_int4p": 10, "slice_int4p_bf16": 23, "check_int4p_bf16": 11,
+                  "slice_bistream_int4p_bf16": 53, "check_bistream_int4p_bf16": 9, "graphs_int4p_bf16": 25,
+                  "stream_int4p_bf16": 17, "slice_int8": 26, "slice_int4": 42, "slice_v3": 8, "stream_v3": 13,
                   "slice_v1": 13, "stream_v1": 25, "api": 35, "api_int4p": 14, "api_v3": 26, "api_int8": 18,
-                  "api_v1": 23, "ckpt": 62, "batch": 43, "batch_int4p": 49, "serve": 79, "idle": 66,
-                  "train_lm": 31, "train_flow": 29, "train_e2e": 42, "train_hifigan": 25, "train_v1": 25, "eval": 20}
+                  "api_v1": 23, "ckpt": 55, "batch": 36, "batch_int4p": 49, "serve": 60, "idle": 45,
+                  "train_lm": 31, "train_flow": 29, "train_e2e": 42, "train_hifigan": 25, "train_v1": 25, "eval": 20,
+                  "route": 6, "hermetic": 10, "microbench": 15, "aot_warmup": 33, "examples": 8}
 PHASE_SECONDS = {}  # each phase's measured seconds in this run
 PHASE_CLOCK = {}  # the first phase's start and the sum of the budgets of the phases entered so far
 
@@ -1474,11 +1485,12 @@ PER_STEP = {"bf16": {"K1": 24, "K2": 24, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7
             "kv8": {"K1": 0, "K2": 24, "K3": 24, "K4": 0, "K5": 0, "K6": 0, "K7": 0}}
 PER_EXTEND = {"K1": 0, "K2": 0, "K3": 0, "K4": 48, "K5": 24, "K6": 0, "K7": 0}
 # the bistream slices, in the lifetimes of the int4p engines: one short
-# request over the int8 arena (its decode steps are host-bound); four over
+# request over the int8 arena (its decode steps are host-bound); three over
 # the bf16 arena, the first through tts, the last with so much text that its
 # extends alone pass K7's 2048 rows (spans end only at fills, never at a
-# stop id) and its spans, if they run to the cadence, the arena's end
-BISTREAM = {"_int4p": {"text_lens": (16,), "max_len": 64}, "_int4p_bf16": {"text_lens": (16, 32, 48, 2100)}}
+# stop id) and its spans, if they run to the cadence, the arena's end (the
+# slice prints, per request, whether each of these happened)
+BISTREAM = {"_int4p": {"text_lens": (16,), "max_len": 64}, "_int4p_bf16": {"text_lens": (16, 32, 2100)}}
 # the bistream request of each int4p LM's `graphs` phase: (text ids, max_len)
 GRAPH_BISTREAM = {"_int4p": (16, 64), "_int4p_bf16": (16, 320)}
 CROSS_PROMPT = 1920  # LM prompt tokens of phase_cross's requests: the arena starts at 2048 rows
@@ -1691,11 +1703,14 @@ def phase_slice_bistream(eng, per_step, text_lens, max_len=None):
     max_len, so its final drain may run to the arena's end) and the others
     through `generate_bistream` with max_len 20 x text and
     `synthesize_offline`; else each through `generate_bistream` with
-    max_len. Prints each request's extends, steps per route and whether the
-    capacity guard ended it. Checks each wav and that every decode step, one-row extend and
+    max_len. Prints each request's extends, steps per route, whether its
+    extends passed K7's rows and whether the capacity guard ended it at the
+    arena's end. Checks each wav and that every decode step, one-row extend and
     extend of 2..16 rows launched its kernels. Returns ([(extends, tokens)]
     per request, launches)."""
     import numpy as np
+
+    from cosyvoice_tpu_torch.ops import int4_block
 
     lm = eng.lm
     (prompt_text, prompt_speech, prompt_mel, emb), rng = _prompt(eng)
@@ -1727,13 +1742,16 @@ def phase_slice_bistream(eng, per_step, text_lens, max_len=None):
             feeds = log[first:]
             audio_s = wav.shape[1] / 24000
             rtf = f"{wall / audio_s:.4f}" if audio_s else "n/a (no audio)"
+            ext_end, k7_rows = feeds[-1][0] + len(feeds[-1][1]), int4_block.MAX_FUSED_ARENA
             print(f"bistream text={n_text} via {how}: {len(toks)} tokens, LM {len(toks) / lm_s:.1f} tok/s "
                   f"({lm_s * 1e3:.0f} ms), flow+HiFT {sum(eng.timer.records['t2w']) * 1e3:.1f} ms, audio "
                   f"{audio_s:.2f} s, wall {wall * 1e3:.0f} ms, RTF {rtf}; {len(chunks)} chunks, extends (rows: count) "
                   f"{dict(sorted(collections.Counter(len(ids) for _, ids, _ in feeds).items()))}, decode steps "
                   f"{lm.decode_steps - steps} "
-                  f"({lm.fused_steps - fused} through K7), the arena filled to row {_arena_end(feeds, toks)}; "
-                  f"capacity guard: {warned or 'not reached'}")
+                  f"({lm.fused_steps - fused} through K7); the extends end at row {ext_end} "
+                  f"({'past' if ext_end > k7_rows else 'within'} K7's {k7_rows} rows), the arena filled to row "
+                  f"{_arena_end(feeds, toks)} of {lm.cfg.qwen.max_cache_len}, its end "
+                  f"{'reached: ' + '; '.join(warned) if warned else 'not reached'}")
             reqs.append((feeds, toks))
     rows = [len(ids) for _, ids, _ in log]
     if any(n > 16 for n in rows):
@@ -1854,7 +1872,7 @@ def _plain_kernels():
             setattr(mod, name, fn)
 
 
-def phase_check(eng, prompt, reqs, tol, n_tokens=96):
+def phase_check(eng, prompt, reqs, tol, n_tokens=64):
     """LM logits after decoding generated tokens through the kernels, against
     the same decode with the plain versions swapped in, and against one
     prefill over the whole sequence (plain attention, over the dequantised
@@ -2107,8 +2125,7 @@ def replay_cost(lm, decoder=None, rows=None):
 
     decoder = decoder or lm.decoder
     s, seen, out = decoder.state, set(), {}
-    for (fused, B, T, mask, _), (graph, _) in sorted(decoder.graphs.items()):
-        route = "K7" if fused else "per-layer"
+    for (route, B, T, mask, _), (graph, _) in sorted(decoder.graphs.items()):
         if route in seen or (rows is not None and T != rows):
             continue
         seen.add(route)
@@ -2127,8 +2144,9 @@ def replay_cost(lm, decoder=None, rows=None):
 
 
 # K1..K7 by the identifiers in the mangled names of their kernel functions
-# (K1 and K3 are one template, its bool argument Lb0 / Lb1)
-GRAPH_KERNELS = re.compile(r"(\d+)(gqa_decode_kernelILi\d+ELb[01]|kv_write_kernel|int4_gemv_kernel|int4_mlp_kernel|"
+# (K1 and K3 are one template, its int argument Li0 (bf16) / Li2 (float32) for
+# K1, Li1 for K3)
+GRAPH_KERNELS = re.compile(r"(\d+)(gqa_decode_kernelILi\d+ELi[012]|kv_write_kernel|int4_gemv_kernel|int4_mlp_kernel|"
                            r"int4_o_mlp_rows_kernel|int4_o_mlp_resident_kernel|int4_decode_layers_kernel)")
 GRAPH_KEYS = {"kv_write_kernel": "K2", "int4_gemv_kernel": "K4", "int4_mlp_kernel": "K5",
               "int4_o_mlp_rows_kernel": "K6", "int4_o_mlp_resident_kernel": "K6", "int4_decode_layers_kernel": "K7"}
@@ -2143,7 +2161,7 @@ def graph_kernels(dot):
             ident = m.group(2)
             name = ident.split("I")[0] if ident.startswith("gqa") else ident
             if m.group(1).endswith(str(len(name))):  # the identifier's length prefix: a whole name
-                out[("K3" if ident.endswith("Lb1") else "K1") if name == "gqa_decode_kernel" else GRAPH_KEYS[name]] += 1
+                out[("K3" if ident.endswith("ELi1") else "K1") if name == "gqa_decode_kernel" else GRAPH_KEYS[name]] += 1
                 break
     return out
 
@@ -2171,9 +2189,11 @@ def hold_graph_nodes(lm, decoder=None):
             warnings.simplefilter("ignore")  # debug_dump warns that it is a debugging call
             graph.debug_dump(str(path.resolve()))
         nodes = graph_kernels(path.read_text())
-        print(f"decode graph {key} (K7?, batch, arena rows, stop mask, sampling): kernel nodes {nodes}, counted "
+        print(f"decode graph {key} (route, batch, arena rows, stop mask, sampling): kernel nodes {nodes}, counted "
               f"at capture {counted}")
-        if nodes != counted or not any(nodes.values()):
+        # a kernel route launches kernels; the plain attention route of a
+        # float32 LM none (nodes == counted holds it to that)
+        if nodes != counted or (key[0] != "plain attention" and not any(nodes.values())):
             raise AssertionError(f"decode graph {key}: its kernel nodes are not the launches its replays count")
 
 
@@ -2183,7 +2203,7 @@ def phase_graphs(eng, runs):
     cost of a replay."""
     lm = eng.lm
     print(f"static KV arenas: {sorted(n for _, n in lm.arenas.buffers)} rows, {lm.arenas.nbytes() / 1e6:.1f} MB; "
-          f"{len(lm.decoder.graphs)} decode graphs (K7?, batch, arena rows, stop mask, sampling): "
+          f"{len(lm.decoder.graphs)} decode graphs (route, batch, arena rows, stop mask, sampling): "
           f"{sorted(lm.decoder.graphs)}")
     for label, run, want in runs:
         hold_graphs(eng, label, run, want)
@@ -2480,15 +2500,17 @@ def _bistream_stages(eng, prompt, text, max_len):
 PER_TRACE = 1  # blocks or spans per profiler trace: ~34,000 device events of a per-layer LM's block
 # the idle phase's requests, cut in size to make room for the training
 # phases: each LM's offline request traces the first IDLE_TEXT of
-# the slice's text-16 ids (160 tokens, not 320), the K7 LM's bistream
-# request at most IDLE_BISTREAM_CAP tokens (not 320)
-IDLE_TEXT = 8
-IDLE_BISTREAM_CAP = 160
+# the slice's text-16 ids (80 tokens, cut from 160, first from 320), the
+# K7 LM's bistream request at most IDLE_BISTREAM_CAP tokens (80; 160, 320)
+IDLE_TEXT = 4
+IDLE_BISTREAM_CAP = 80
 # the share of a kernel's records the traces of a request may lack: the
 # profiler dropped up to 3.9 % of them (int4p bistream request, 64 tokens;
 # NVIDIA H100 80GB HBM3, torch 2.11)
 TRACE_LOSS = 0.1
-# K1..K7 by the kernel function names a CUDA trace shows (K1 and K3 are one template)
+# K1..K7 by the kernel function names a CUDA trace shows (K1 and K3 are one
+# template: gqa_decode_kernel<D, 0> and <D, 2> are K1 in bf16 and float32,
+# <D, 1> K3)
 TRACE_KERNELS = {"kv_write_kernel": "K2", "int4_gemv_kernel": "K4", "int4_mlp_kernel": "K5",
                  "int4_o_mlp_rows_kernel": "K6", "int4_o_mlp_resident_kernel": "K6", "int4_decode_layers_kernel": "K7"}
 
@@ -2501,7 +2523,8 @@ def _trace_launches(names):
         if m is None:
             continue
         base, args = m.group(1), m.group(2) or ""
-        key = ("K3" if "true" in args else "K1") if base == "gqa_decode_kernel" else TRACE_KERNELS.get(base)
+        key = ("K3" if args.replace(" ", "").endswith(",1>") else "K1") if base == "gqa_decode_kernel" \
+            else TRACE_KERNELS.get(base)
         if key:
             out[key] += n
     return out
@@ -2572,7 +2595,7 @@ def idle_share(eng, label, stages, modes):
 
 def phase_idle(held):
     """idle_share over the requests each LM held in its graphs phase, on
-    graphs: the offline request of IDLE_TEXT ids (160 tokens), the route
+    graphs: the offline request of IDLE_TEXT ids (80 tokens), the route
     switch, the bistream requests (at most IDLE_BISTREAM_CAP tokens). (No
     eager trace and no trace of the bf16 LM's
     960-token request, to keep the run inside its limit.) Runs after every timed phase: a profiler session
@@ -3033,7 +3056,7 @@ QUANT_WAVE = 8  # text ids of the wave through LMBatchScheduler(max_batch=2): on
 
 def phase_slice_quant(eng, suffix, per_step, bf16_lm):
     """An int8 / int4 LM at full width: slice's offline request
-    (QUANT_TEXTS), check's logit hold over 96 steps (LOGIT_TOL_QUANT), the
+    (QUANT_TEXTS), check's logit hold over 64 steps (LOGIT_TOL_QUANT), the
     device ms of one replayed decode step beside the bf16 LM's at the same
     arena, then one wave of two requests through LMBatchScheduler(
     max_batch=2) on graphs (every batched step through per_step, never K7).
@@ -3427,13 +3450,13 @@ def _zero_shot(api, prompt):
     return out["speech_tokens"], out["tts_speech"], time.perf_counter() - t
 
 
-SAMPLING_TEXT = 8  # text ids of the sampling holds' request (160 tokens)
+SAMPLING_TEXT = 4  # text ids of the sampling holds' request (80 tokens)
 
 
 def hold_sampling_on_graphs(api):
     """The bf16 LM's decode on CUDA graphs against its eager path under the
     default sampling and under TRITON_SAMPLING (set_sampling), one
-    160-token request each (hold_graphs: identical tokens, wavs and
+    80-token request each (hold_graphs: identical tokens, wavs and
     generator state; LM ms per token of each); every decode step through
     K1 and K2 (24 each); every captured graph's kernel nodes equal to its
     counted launches. Returns the launches."""
@@ -3594,7 +3617,7 @@ EAGER_CAP = 3  # max_len of the graph-against-eager holds, x text ids (the eager
 GREEDY_CAP = 6  # max_len of the greedy holds and the max_batch sweep, x text ids
 GREEDY = dict(top_k=1, tau_r=2.0)  # argmax, and RAS never resamples
 LOGIT_STEPS = 28  # teacher-forced steps of the batched-against-B=1 logits hold
-SWEEP_BATCH = (1, 2, 4)  # the bf16 LM's max_batch sweep
+SWEEP_BATCH = (1, 4)  # the bf16 LM's max_batch sweep
 BESIDE_BISTREAM = (16, 64)  # the bistream request beside the int4p + bf16-arena scheduler: (text ids, max_len)
 
 
@@ -3941,7 +3964,7 @@ def phase_batch_int4p(cfg, device="cuda"):
 # them), SERVE_REQUESTS at each concurrency of SERVE_LEVELS, offline then
 # streamed
 SERVE_TEXT = "Hi."
-SERVE_LEVELS = (1, 4)
+SERVE_LEVELS = (4,)
 SERVE_REQUESTS = 4
 
 
@@ -4902,6 +4925,310 @@ def phase_eval(model_dir, hift_path, device="cuda"):
     return launches
 
 
+# ------------------------------------------------ the decode route (C8), A14, A12
+
+FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+# K1 in float32 against its plain version: both compute in float32, in other
+# orders and with the kernel's fast exponential; limit per case 1e-5 of the
+# case's largest |reference| (measured: see PERF.md)
+K1_F32_TOL_REL = 1e-5
+# The float32 LM at Hkv * d = 128 whose decode takes K2 + K1 in float32: full
+# CosyVoice2-0.5B width, depth cut to ROUTE_LAYERS; ROUTE_STEPS teacher-forced
+# decode steps through the kernels against the same through the plain
+# versions, relative L2 of the logits within ROUTE_TOL (float32 on both)
+ROUTE_LAYERS = 4
+ROUTE_STEPS = 48
+ROUTE_TOL = 1e-4
+HERMETIC_WORK = "build/hermetic_smoke"
+# the hermetic recipe's rehearsal: 4 utterances, one epoch per model, 5
+# tokenizer and 5 generator-pretrain steps, one eval utterance
+HERMETIC_ARGS = ["--n_utts", "4", "--lm_epochs", "1", "--flow_epochs", "1", "--gan_epochs", "1", "--tok_steps", "5",
+                 "--gan_pretrain_steps", "5", "--max_eval_utts", "1"]
+
+
+def _f32_arena_case(torch, B, T, Hq, Hkv, d, cur, gen, dead):
+    """_arena_case in float32."""
+    dev = "cuda"
+    q = torch.randn((B, Hq, d), generator=gen, device=dev)
+    k = torch.randn((B, T, Hkv, d), generator=gen, device=dev)
+    v = torch.randn((B, T, Hkv, d), generator=gen, device=dev)
+    live = torch.arange(T, device=dev)[None, :] <= cur[:, None]
+    k = torch.where(live[..., None, None], k, torch.full_like(k, dead))
+    v = torch.where(live[..., None, None], v, torch.full_like(v, dead))
+    return q, k.contiguous(), v.contiguous()
+
+
+def check_f32(da, qc, gen):
+    """The float32 instantiations (C8): K1 over float32 arenas on CASES with
+    NaN in the dead arena, within K1_F32_TOL_REL of max |ref| of its plain
+    version and the same bits twice; K2's float32 row write exactly. Each
+    timed at B=1, cur_len CUR_T of max_cache_len rows, beside its plain
+    version (and SDPA in float32 for K1). Returns the two kernel rows."""
+    import torch
+
+    Hq, Hkv, d, T = qc.num_heads, qc.num_kv_heads, qc.head_dim, qc.max_cache_len
+    err1 = 0.0
+    for cl in CASES:
+        cur = torch.tensor(cl, device="cuda", dtype=torch.int32)
+        q, k, v = _f32_arena_case(torch, len(cl), T, Hq, Hkv, d, cur, gen, dead=100.0)
+        ref = da.gqa_decode_attention_plain(q, k, v, cur)
+        out = da.gqa_decode_attention(q, k, v, cur)
+        kn = torch.where(k == 100.0, torch.full_like(k, float("nan")), k)
+        vn = torch.where(v == 100.0, torch.full_like(v, float("nan")), v)
+        again = da.gqa_decode_attention(q, kn, vn, cur)
+        err, tol = (out - ref).abs().max().item(), K1_F32_TOL_REL * ref.abs().max().item()
+        if not err <= tol or not torch.equal(out, again):
+            raise AssertionError(f"K1 float32 at cur_len={cl}: max_abs_err {err:.3e} (tol {tol:.3e}), or a repeat "
+                                 "over NaN in the dead arena differs")
+        err1 = max(err1, err)
+    print(f"K1 float32: {len(CASES)} cases (B=1, ragged B=4, uneven splits), max_abs_err {err1:.3e} (tol "
+          f"{K1_F32_TOL_REL} of max |ref|); repeats bit for bit, dead arena unread")
+    err2 = 0.0
+    for cl in CASES:
+        pos = torch.tensor(cl, device="cuda", dtype=torch.int32)
+        B = len(cl)
+        ka, va = (torch.randn((B, T, Hkv, d), generator=gen, device="cuda") for _ in range(2))
+        kn, vn = (torch.randn((B, 1, Hkv, d), generator=gen, device="cuda") for _ in range(2))
+        want = da.kv_arena_write_kv_plain(ka.clone(), va.clone(), kn, vn, pos)
+        got = da.kv_arena_write_kv(ka.clone(), va.clone(), kn, vn, pos)
+        err2 = max(err2, max((g - w).abs().max().item() for g, w in zip(got, want)))
+        if err2 != 0.0:
+            raise AssertionError(f"K2 float32 disagrees with its plain version at pos={cl}: {err2}")
+    print(f"K2 float32: {len(CASES)} cases, max_abs_err {err2} (tol 0, exact copy)")
+
+    cur = torch.tensor([CUR_T], device="cuda", dtype=torch.int32)
+    live = CUR_T + 1
+    nbytes = 2 * Hq * d * 4 + 2 * live * Hkv * d * 4 + 4
+    n = n_sets(nbytes)
+    sets = [_f32_arena_case(torch, 1, T, Hq, Hkv, d, cur, gen, dead=0.0) + (cur,) for _ in range(n)]
+    mask = (torch.arange(T, device="cuda")[None, :] <= cur[:, None])[:, None, None, :]
+
+    def sdpa(q, k, v, _):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, enable_gqa=True)
+
+    dev1, host1 = time_fns({"kernel": rotate(sets, da.gqa_decode_attention),
+                            "plain": rotate(sets, da.gqa_decode_attention_plain), "library": rotate(sets, sdpa)}, n)
+    b1 = (max(nbytes / HBM_BYTES_PER_S, 4 * live * Hq * d / FP32_FLOPS) * 1e3,
+          "bytes" if nbytes / HBM_BYTES_PER_S >= 4 * live * Hq * d / FP32_FLOPS else "operations")
+    row1 = kernel_row("gqa_decode_attention (float32)", "cosyvoice_tpu_torch/csrc/decode_attention.cu",
+                      "cosyvoice_tpu/ops/decode_attention.py:290", err1, dev1, *b1)
+    ka, va = (torch.randn((1, T, Hkv, d), generator=gen, device="cuda") for _ in range(2))
+    kn, vn = (torch.randn((1, 1, Hkv, d), generator=gen, device="cuda") for _ in range(2))
+    dev2, host2 = time_fns({"kernel": lambda: da.kv_arena_write_kv(ka, va, kn, vn, cur),
+                            "plain": lambda: da.kv_arena_write_kv_plain(ka, va, kn, vn, cur)}, 50)
+    row2 = kernel_row("kv_arena_write_kv (float32)", "cosyvoice_tpu_torch/csrc/decode_attention.cu",
+                      "cosyvoice_tpu/ops/decode_attention.py:447", err2, dev2, *bound(4 * Hkv * d * 4 + 4, 0))
+    for key, row, host in (("K1 float32", row1, host1), ("K2 float32", row2, host2)):
+        lib = f"{row['library_ms'] * 1e3:.2f} us" if row["library_ms"] is not None else "none (no one PyTorch call)"
+        print(f"{key} device time per call at B=1, cur_len {CUR_T} of {T} rows: {row['ms'] * 1e3:.2f} us, plain "
+              f"{row['plain_ms'] * 1e3:.2f} us, library {lib}, bound {row['bound_ms'] * 1e3:.4f} us "
+              f"({row['bound_by']}); eager host rate: " + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in host.items()))
+    return row1, row2
+
+
+def _route_prompt(lm, rng, n_text=16, n_speech=50):
+    from cosyvoice_tpu_torch.models.llm import TYPE_SPECIAL, TYPE_SPEECH, TYPE_TEXT
+    import numpy as np
+
+    c = lm.cfg
+    text = rng.integers(0, c.qwen.vocab_size, n_text)
+    speech = rng.integers(0, c.speech_token_size, n_speech)
+    ids = np.concatenate([[c.sos_id], text, [c.task_id], speech]).astype(np.int32)
+    types = np.concatenate([[TYPE_SPECIAL], np.full(n_text, TYPE_TEXT), [TYPE_SPECIAL],
+                            np.full(n_speech, TYPE_SPEECH)]).astype(np.int32)
+    return ids, types
+
+
+def _teacher_forced(lm, ids, types, toks):
+    """Logits after every decode step of `toks` after the prefill of ids."""
+    import torch
+
+    m, dev = lm.module, lm.device
+    T = len(ids)
+    cache = lm.init_cache(1, lm.arena_bucket(T + len(toks) + 1))
+    logits, cache = m.prefill(torch.as_tensor(ids[None], device=dev).long(),
+                              torch.as_tensor(types[None], device=dev).long(), torch.tensor([T], device=dev), cache)
+    out = []
+    for i, t in enumerate(toks):
+        logits, cache = m.decode_step(torch.tensor([int(t)], device=dev),
+                                      torch.tensor([T + i], dtype=torch.int32, device=dev), cache)
+        out.append(logits)
+    return torch.stack(out)
+
+
+def phase_route(kernels):
+    """C8, the decode step routed as the JAX LM routes it
+    (ops/decode_attention.decode_kernel_wanted): the float32 K1 / K2 rows
+    (check_f32); a float32 LM at Hkv * d = 128 (full width, ROUTE_LAYERS
+    layers) decoding on CUDA graphs through K2 + K1 in float32, one each per
+    layer and step, its graphs' kernel nodes equal to its counted launches,
+    and ROUTE_STEPS of its tokens teacher-forced through the kernels against
+    the plain versions (ROUTE_TOL); the hermetic recipe's LM (Hkv * d = 32,
+    float32) decoding on graphs with no kernel launch at all and the greedy
+    tokens of the same weights on the host. Returns the float32 LM's K1 and
+    K2 launches."""
+    import numpy as np
+    import torch
+
+    from cosyvoice_tpu_torch.examples.hermetic.run import CONFIG as HERMETIC_CONFIG
+    from cosyvoice_tpu_torch.models.llm import LMConfig, Qwen2LM
+    from cosyvoice_tpu_torch.ops import decode_attention as da
+    from cosyvoice_tpu_torch.runtime.engine import random_lm
+    from cosyvoice_tpu_torch.utils.config import build_lm_config
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    qc = LMConfig().qwen
+    kernels["K1f32"], kernels["K2f32"] = check_f32(da, qc, gen)
+    cfg = dataclasses.replace(LMConfig(), qwen=dataclasses.replace(qc, num_layers=ROUTE_LAYERS, dtype=torch.float32))
+    lm, _ = random_lm(0, "cuda", cfg)
+    rng = np.random.default_rng(0)
+    ids, types = _route_prompt(lm, rng)
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    lm.decode_steps = 0
+    t0 = time.perf_counter()
+    toks = _cat(list(lm.generate(ids, types, torch.Generator(device="cuda").manual_seed(0), 64, 96)))
+    secs = time.perf_counter() - t0
+    launches = {key: fn.launches for key, fn in counters.items()}
+    steps = lm.decode_steps
+    want = {k: (ROUTE_LAYERS * steps if k in ("K1", "K2") else 0) for k in launches}
+    print(f"float32 LM (Hkv*d = {qc.num_kv_heads * qc.head_dim}, {ROUTE_LAYERS} layers at full width) on CUDA graphs: "
+          f"{len(toks)} tokens, {steps} decode steps ({lm.graph_replays} replayed) in {secs:.2f} s; launches "
+          + ", ".join(f"{k} {n} (want {want[k]})" for k, n in launches.items()))
+    if launches != want or steps == 0:
+        raise AssertionError("the float32 LM's decode steps did not all go through K2 + K1")
+    hold_graph_nodes(lm)
+    with torch.inference_mode():
+        kern = _teacher_forced(lm, ids, types, toks[:ROUTE_STEPS])
+        with _plain_kernels():
+            plain = _teacher_forced(lm, ids, types, toks[:ROUTE_STEPS])
+    errs = [_rel(kern[i], plain[i]) for i in range(len(kern))]
+    print(f"float32 LM logits, {len(kern)} teacher-forced steps through K2 + K1 against the plain versions: rel L2 "
+          f"max {max(errs):.2e} (tol {ROUTE_TOL}), after the first {errs[0]:.2e}, after the last {errs[-1]:.2e}")
+    if not max(errs) <= ROUTE_TOL:
+        raise AssertionError("the float32 LM's kernel decode disagrees with its plain decode")
+    del lm
+    torch.cuda.empty_cache()
+
+    tiny = dataclasses.replace(build_lm_config(HERMETIC_CONFIG["llm"]), top_k=1)
+    host, _ = random_lm(0, "cpu", tiny)
+    card = Qwen2LM(tiny, device="cuda")
+    card.module.load_state_dict(host.module.state_dict())
+    for fn in counters.values():
+        fn.launches = 0
+    ids, types = _route_prompt(card, rng, n_speech=20)
+    got = _cat(list(card.generate(ids, types, torch.Generator(device="cuda").manual_seed(0), 40, 80)))
+    want_toks = _cat(list(host.generate(ids, types, torch.Generator().manual_seed(0), 40, 80)))
+    tiny_launches = {key: fn.launches for key, fn in counters.items()}
+    keys = sorted(card.decoder.graphs)
+    print(f"hermetic LM (Hkv*d = {tiny.qwen.num_kv_heads * tiny.qwen.head_dim}, float32) greedy on CUDA graphs: "
+          f"{len(got)} tokens ({card.graph_replays} replayed), equal to the host's: {np.array_equal(got, want_toks)}; "
+          f"graphs {keys}; launches " + ", ".join(f"{k} {n}" for k, n in tiny_launches.items()))
+    if (not np.array_equal(got, want_toks) or any(tiny_launches.values()) or not card.graph_replays
+            or any(k[0] != "plain attention" for k in keys)):
+        raise AssertionError("the hermetic LM did not decode on the plain route, on graphs, as the host does")
+    hold_graph_nodes(card)
+    return {"K1f32": launches["K1"], "K2f32": launches["K2"]}
+
+
+def _no_launches(counters, label):
+    launches = {key: fn.launches for key, fn in counters.items()}
+    if any(launches.values()):
+        raise AssertionError(f"{label} launched a kernel (its LM's Hkv*d = 32 takes the plain route): {launches}")
+
+
+def phase_hermetic(device="cuda"):
+    """The hermetic quality recipe (cosyvoice_tpu_torch/examples/hermetic/
+    run.py) rehearsed at HERMETIC_ARGS on the card: corpus, supervised S3
+    tokenizer, features, the three sub-models through bin/train.py's main,
+    the assembled dir scored by tools/eval_quality with the template ASR:
+    every metric finite, every stage timed, no kernel launched (its LM's
+    Hkv*d = 32 takes the plain route). Prints the artifact's numbers."""
+    from cosyvoice_tpu_torch.examples.hermetic import run
+
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    out = HERMETIC_WORK + ".json"
+    try:
+        metrics = run.main(["--work", HERMETIC_WORK, "--out_json", out, "--device", device, *HERMETIC_ARGS])
+        with open(out) as f:
+            art = json.load(f)
+    finally:
+        shutil.rmtree(HERMETIC_WORK, ignore_errors=True)
+        if os.path.exists(out):
+            os.remove(out)
+    print(f"hermetic recipe rehearsal: {json.dumps(metrics)}; stage seconds {art['stage_s']}; card {art['card']} "
+          f"{art['power_limit']}; TF32 {art['tf32']}")
+    if metrics["n"] != 1 or not all(math.isfinite(metrics[k]) for k in ("cer", "token_recovery", "mel_corr",
+                                                                          "speaker_similarity")):
+        raise AssertionError(f"hermetic recipe: a metric is missing or not finite: {metrics}")
+    if (device == "cuda" and not art["card"]) or len(art["stage_s"]) != 9:
+        raise AssertionError(f"hermetic recipe: the artifact lacks the card or a stage's time: {art}")
+    _no_launches(counters, "the hermetic recipe")
+
+
+def phase_examples(device="cuda"):
+    """example.py's four modes and batch_example.py (2 concurrent requests
+    through continuous batching, 2 loop iterations) at their tiny widths on
+    the card: every mode's chunks, the wave's requests and audio; no kernel
+    launched (the tiny LMs' Hkv*d = 32)."""
+    from cosyvoice_tpu_torch import batch_example, example
+
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    os.makedirs("build/example", exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        ex = example.main(["--device", device, "--out_prefix", "build/example/demo"])
+        t1 = time.perf_counter()
+        be = batch_example.main(["--device", device, "--iters", "2", "--concurrency", "2"])
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree("build/example", ignore_errors=True)
+    print(f"example: {t1 - t0:.1f} s, batch_example: {t2 - t1:.1f} s")
+    if any(m["chunks"] < 1 or not m["seconds"] > 0 for m in ex["modes"].values()) or len(ex["modes"]) != 5:
+        raise AssertionError(f"example: a mode gave no audio: {ex}")
+    if be["requests"] != 2 or be["iters"] != 2 or not be["audio_s"] > 0:
+        raise AssertionError(f"batch_example: {be}")
+    _no_launches(counters, "the examples")
+
+
+def phase_aot_warmup(model_dir, device="cuda"):
+    """bin/aot_warmup.py on the ckpt phase's full-width dir: the kernel
+    library found built (the build phase left it on disk), the model loaded,
+    an offline and a streamed pass with their decode graphs captured; every
+    decode step through K1 + K2 (24 each). Returns the launches."""
+    from cosyvoice_tpu_torch.bin import aot_warmup
+
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    summary = aot_warmup.main(["--model_dir", model_dir, "--device", device])
+    launches = {key: fn.launches for key, fn in counters.items()}
+    print("aot_warmup launches: " + ", ".join(f"{k} {n}" for k, n in launches.items()))
+    if summary["built"] or not summary["offline_s"] > 0 or (device == "cuda" and not summary["graph_captures"]):
+        raise AssertionError(f"aot_warmup: {summary}")
+    k1 = launches["K1"]
+    if device == "cuda" and (k1 == 0 or k1 % 24 or launches["K2"] != k1
+                             or any(n for k, n in launches.items() if k not in ("K1", "K2"))):
+        raise AssertionError(f"aot_warmup's passes did not decode through K1 + K2 alone: {launches}")
+    return launches
+
+
+def phase_microbench(argv=()):
+    """tools/microbench_t2w.py at full CosyVoice2 width: every stage's
+    device ms finite and positive."""
+    from cosyvoice_tpu_torch.tools import microbench_t2w
+
+    summary = microbench_t2w.main(list(argv))
+    if len(summary["ms"]) != 5 or not all(math.isfinite(v) and v > 0 for v in summary["ms"].values()):
+        raise AssertionError(f"microbench_t2w: {summary}")
+
+
 def main(argv):
     import numpy as np
     import torch
@@ -4919,7 +5246,12 @@ def main(argv):
         phase_build()
     with Phase("kernels"):
         kernels = phase_kernels(LMConfig())
+    # the decode step's route (C8): the float32 K1 / K2, a float32 LM through
+    # them, the Hkv*d = 32 LM on the plain route
+    with Phase("route"):
+        route_launches = phase_route(kernels)
     launches = dict.fromkeys(kernels, 0)
+    launches.update(route_launches)
     # training (bin/train.py's branches, Executor, average_model), then the
     # averaged checkpoints synthesizing, before any serving engine is built
     trained = {}
@@ -4938,6 +5270,9 @@ def main(argv):
         gan_hift = phase_train_hifigan()
     with Phase("train_v1"):
         phase_train_v1()
+    torch.cuda.empty_cache()
+    with Phase("hermetic"):
+        phase_hermetic()
     torch.cuda.empty_cache()
     bf16_cfg = LMConfig()
     held = []  # (suffix, engine, [(label, (LM stage, flow+HiFT stage))]) for the idle phase
@@ -5032,6 +5367,9 @@ def main(argv):
         phase_stream_v1(eng, v1_reqs)
     del eng
     torch.cuda.empty_cache()
+    with Phase("microbench"):
+        phase_microbench()
+    torch.cuda.empty_cache()
     # the public API from text and a prompt wav, beside the engines idle traces last
     for suffix, kw, per_step in (("", {}, PER_STEP["bf16"]), ("_int4p", {"quant_lm": "int4p"},
                                                               PER_STEP["int4p_bf16"])):
@@ -5075,6 +5413,10 @@ def main(argv):
     with Phase("eval"):
         for key, n in phase_eval(EVAL_DIR, gan_hift).items():
             launches[key] += n
+    torch.cuda.empty_cache()
+    with Phase("aot_warmup"):
+        for key, n in phase_aot_warmup(EVAL_DIR).items():
+            launches[key] += n
         for d in (GAN_OUT, EVAL_DIR):
             shutil.rmtree(d, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -5094,6 +5436,9 @@ def main(argv):
     with Phase("serve"):
         for key, n in phase_serve().items():
             launches[key] += n
+    torch.cuda.empty_cache()
+    with Phase("examples"):
+        phase_examples()
     # last: a profiler session multiplies the host cost of every later launch and replay
     with Phase("idle"):
         phase_idle(held)

@@ -58,15 +58,17 @@ def grouped(it, n: int):
             buf = []
 
 
-def build_pipeline(args, tokenizer, gan: bool = False, truncate_length: int = 24480):
+def build_pipeline(args, tokenizer, gan: bool = False, truncate_length: int = 24480, opener=None):
     """The processor chain; `gan`: a random crop of truncate_length samples
-    before the mel, the F0 after it, and "speech" / "pitch_feat" batched."""
+    before the mel, the F0 after it, and "speech" / "pitch_feat" batched.
+    `opener` ({"src": a line of the data list} -> the rows parquet_opener
+    would yield) replaces data/processor.parquet_opener as its first stage."""
     from cosyvoice_tpu_torch.data import processor as P
 
     crop = [partial(P.truncate, truncate_length=truncate_length)] if gan else []
     f0 = [partial(P.compute_f0, sample_rate=args.sample_rate, hop_size=args.mel_hop)] if gan else []
     return [
-        P.parquet_opener,
+        opener or P.parquet_opener,
         partial(P.tokenize, tokenizer=tokenizer),
         partial(P.filter_samples, max_length=args.max_length, token_max_length=200),
         partial(P.resample, resample_rate=args.sample_rate),
@@ -447,9 +449,12 @@ def train_gan(args, gan, dataset, executor):
                       {"cv_loss": float(np.mean(gen_losses)) if gen_losses else float("inf")})
 
 
-def main(argv=None):
+def main(argv=None, opener=None):
     """Train; returns the Executor and the branch (build_lm, build_lm_v1,
-    build_flow, build_flow_v1 or build_gan)."""
+    build_flow, build_flow_v1 or build_gan). `opener` replaces the
+    pipeline's parquet_opener (build_pipeline): a caller that holds the rows
+    in memory (the hermetic recipe) gives the data list's lines its own
+    meaning."""
     args, cfg = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     version = int(cfg.get("version", 2))
@@ -467,14 +472,15 @@ def main(argv=None):
     if args.model == "hifigan":
         gan = build_gan(args, cfg, device)
         dataset = Dataset(args.train_data, build_pipeline(args, tokenizer, gan=True,
-                                                          truncate_length=int(gan.conf["truncate_length"])))
+                                                          truncate_length=int(gan.conf["truncate_length"]),
+                                                          opener=opener))
         pretrain_generator(args, gan, dataset)
         executor = Executor(None, args.model_dir, model_name="hifigan", log_interval=args.log_interval)
         train_gan(args, gan, dataset, executor)
         return executor, gan
     v1_branches = {("llm", 1): build_lm_v1, ("flow", 1): build_flow_v1}
     branch = v1_branches.get((args.model, version), build_lm if args.model == "llm" else build_flow)(args, cfg, device)
-    pipeline = build_pipeline(args, tokenizer)
+    pipeline = build_pipeline(args, tokenizer, opener=opener)
     dataset = Dataset(args.train_data, pipeline)
     cv_dataset = Dataset(args.cv_data, pipeline) if args.cv_data else None
     cv_iter_fn = (lambda: iter(cv_dataset)) if cv_dataset is not None else None

@@ -7,7 +7,7 @@
 // cudaGetLastError(); the Python wrappers raise if that is not 0.
 //
 // ---------------------------------------------------------------------------
-// K1  gqa_decode_kernel<D, false>  (flash decode, one launch)
+// K1  gqa_decode_kernel<D, kBf16> / <D, kF32>  (flash decode, one launch)
 //
 // Replaces: cosyvoice_tpu/ops/decode_attention.py:gqa_decode_attention
 //   (pallas_call at :290, body _decode_kernel at :38).
@@ -52,8 +52,13 @@
 //   A cluster over the splits with a DSMEM merge was not taken: a portable
 //   cluster holds at most 8 blocks (16 with an opt-in), so at B=1 it would
 //   cap the grid at 2 * 16 = 32 blocks.
+//   The float32 instantiation (<D, kF32>: f32 q, arena and output) serves
+//   the float32 LMs the JAX gate sends to its kernel (Hkv*D a multiple of
+//   128; the Pallas kernel takes the arena's dtype as it is). Its rows are
+//   twice as wide, so it stages 32 keys per round trip (kChunk / 2) to stay
+//   inside the 48 KB of static shared memory at D=128.
 //
-// K3  gqa_decode_kernel<D, true>  (int8 KV)
+// K3  gqa_decode_kernel<D, kInt8>  (int8 KV)
 //
 // Replaces: cosyvoice_tpu/ops/decode_attention.py:gqa_decode_attention_quant
 //   (pallas_call at :344, body _quant_decode_kernel at :125).
@@ -79,7 +84,9 @@
 // Computes: k_arena[b, pos[b]] = k_new[b] and v_arena[b, pos[b]] = v_new[b]
 //   in place, for every row b (a batch row, or a layer of the stacked
 //   arena of the fused decode step, where one pos serves every layer), for
-//   bf16 and int8 arenas alike (a row is Hkv*D elements, copied as bytes);
+//   bf16, float32 and int8 arenas alike (a row is Hkv*D elements, copied as
+//   bytes: the float32 row of the float32 LMs is the same copy, 4 bytes an
+//   element);
 //   over the int8 arena also k_scale[b, pos[b]] = ks[b] and
 //   v_scale[b, pos[b]] = vs[b]. One arena alone (no V) is the JAX
 //   function's single write.
@@ -111,18 +118,26 @@ constexpr int kChunk = 64;       // keys staged in shared memory per round trip
 constexpr int kMaxSplits = 132;  // splits per (row, KV head): one per SM at most
 constexpr float kNegInf = -1e30f;
 
-// Element types of the two instantiations: K1 (bf16 q, arena and output) and
-// K3 (f32 q and output, int8 arena with f32 per-token scales).
-template <bool kQuant>
+// Element types of the three instantiations: K1 in bf16 (bf16 q, arena and
+// output) and in float32 (f32 q, arena and output), and K3 (f32 q and
+// output, int8 arena with f32 per-token scales).
+constexpr int kBf16 = 0, kInt8 = 1, kF32 = 2;
+template <int kKind>
 struct DecodeTypes {
   using q_t = __nv_bfloat16;
   using kv_t = __nv_bfloat16;
   using out_t = __nv_bfloat16;
 };
 template <>
-struct DecodeTypes<true> {
+struct DecodeTypes<kInt8> {
   using q_t = float;
   using kv_t = int8_t;
+  using out_t = float;
+};
+template <>
+struct DecodeTypes<kF32> {
+  using q_t = float;
+  using kv_t = float;
   using out_t = float;
 };
 
@@ -135,12 +150,13 @@ __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ float2 pair_f32(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
+__device__ __forceinline__ float2 pair_f32(const float* p) { return *reinterpret_cast<const float2*>(p); }
 __device__ __forceinline__ float2 pair_f32(const int8_t* p) {
   const char2 c = *reinterpret_cast<const char2*>(p);
   return make_float2(static_cast<float>(c.x), static_cast<float>(c.y));
 }
 
-// The 16 bytes at p (a shared-memory row slice) as f32: 8 bf16 or 16 int8.
+// The 16 bytes at p (a shared-memory row slice) as f32: 8 bf16, 4 f32 or 16 int8.
 __device__ __forceinline__ void vec_f32(const __nv_bfloat16* p, float (&f)[8]) {
   const uint4 w = *reinterpret_cast<const uint4*>(p);
   const uint32_t words[4] = {w.x, w.y, w.z, w.w};
@@ -150,6 +166,13 @@ __device__ __forceinline__ void vec_f32(const __nv_bfloat16* p, float (&f)[8]) {
     f[2 * i] = t.x;
     f[2 * i + 1] = t.y;
   }
+}
+__device__ __forceinline__ void vec_f32(const float* p, float (&f)[4]) {
+  const float4 w = *reinterpret_cast<const float4*>(p);
+  f[0] = w.x;
+  f[1] = w.y;
+  f[2] = w.z;
+  f[3] = w.w;
 }
 __device__ __forceinline__ void vec_f32(const int8_t* p, float (&f)[16]) {
   const uint4 w = *reinterpret_cast<const uint4*>(p);
@@ -194,19 +217,21 @@ __device__ __forceinline__ int split_begin(int s, int n, int S) {
   return static_cast<int>(static_cast<long long>(s) * n / S);
 }
 
-template <int D, bool kQuant>
+template <int D, int kKind>
 __global__ void __launch_bounds__(kThreads) gqa_decode_kernel(
-    const typename DecodeTypes<kQuant>::q_t* __restrict__ q,   // [B, Hq, D]
-    const typename DecodeTypes<kQuant>::kv_t* __restrict__ k,  // [B, T, Hkv, D]
-    const typename DecodeTypes<kQuant>::kv_t* __restrict__ v,  // [B, T, Hkv, D]
+    const typename DecodeTypes<kKind>::q_t* __restrict__ q,   // [B, Hq, D]
+    const typename DecodeTypes<kKind>::kv_t* __restrict__ k,  // [B, T, Hkv, D]
+    const typename DecodeTypes<kKind>::kv_t* __restrict__ v,  // [B, T, Hkv, D]
     const float* __restrict__ k_scale,  // [B, T] (K3 only)
     const float* __restrict__ v_scale,  // [B, T] (K3 only)
     const int* __restrict__ cur_len,    // [B]
-    typename DecodeTypes<kQuant>::out_t* __restrict__ out,  // [B, Hq, D]
+    typename DecodeTypes<kKind>::out_t* __restrict__ out,  // [B, Hq, D]
     float* part,     // m [B*Hq, S], l [B*Hq, S], acc [B*Hq, S, D]
     int* counters,   // [B * Hkv], 0 between calls
     int Hkv, int T, int rep, int splits, float scale) {
-  using kv_t = typename DecodeTypes<kQuant>::kv_t;
+  using kv_t = typename DecodeTypes<kKind>::kv_t;
+  constexpr bool kQuant = kKind == kInt8;
+  constexpr int kCh = sizeof(kv_t) == 4 ? kChunk / 2 : kChunk;  // keys staged per round trip
   constexpr int kVec = 16 / sizeof(kv_t);      // elements per 16-byte copy
   constexpr int kVecPerRow = D / kVec;
   constexpr int kRow = D + kVec;               // shared row stride: 16 bytes of padding
@@ -217,8 +242,8 @@ __global__ void __launch_bounds__(kThreads) gqa_decode_kernel(
   constexpr int kBatch = kMaxSplits / 2;      // partials a merging thread loads at once
   constexpr int kLaneSplits = (kMaxSplits + 31) / 32;
 
-  __shared__ __align__(16) kv_t ks_[kChunk * kRow];
-  __shared__ __align__(16) kv_t vs_[kChunk * kRow];
+  __shared__ __align__(16) kv_t ks_[kCh * kRow];
+  __shared__ __align__(16) kv_t vs_[kCh * kRow];
   __shared__ __align__(16) float qs[kMaxRep * kQRow];
   __shared__ float ps[kMaxRep * kChunk];  // scores, then softmax weights
   __shared__ float ksc[kChunk], vsc[kChunk];
@@ -252,7 +277,7 @@ __global__ void __launch_bounds__(kThreads) gqa_decode_kernel(
       }
     }
   };
-  if (key0 < key1) issue(key0, min(kChunk, key1 - key0));
+  if (key0 < key1) issue(key0, min(kCh, key1 - key0));
 
   for (int idx = tid; idx < rep * D; idx += kThreads)
     qs[(idx / D) * kQRow + idx % D] = to_f32(q[((size_t)b * Hq + g * rep) * D + idx]) * scale;
@@ -264,8 +289,8 @@ __global__ void __launch_bounds__(kThreads) gqa_decode_kernel(
 #pragma unroll
   for (int i = 0; i < kHPT; ++i) acc[i][0] = acc[i][1] = 0.f;
 
-  for (int c0 = key0; c0 < key1; c0 += kChunk) {
-    const int nk = min(kChunk, key1 - c0);
+  for (int c0 = key0; c0 < key1; c0 += kCh) {
+    const int nk = min(kCh, key1 - c0);
     if (c0 != key0) issue(c0, nk);
     cp_async_wait_all();
     __syncthreads();
@@ -463,18 +488,18 @@ __global__ void kv_write_kernel(
 // Launches nothing useful: the floor of a launch, against which K2 is timed.
 __global__ void empty_kernel() {}
 
-template <int D, bool kQuant>
+template <int D, int kKind>
 void launch_decode(const void* q, const void* k, const void* v, const float* k_scale, const float* v_scale,
                    const int* cur_len, void* out, float* part, int* counters, int B, int Hq, int Hkv, int T,
                    int splits, float scale, cudaStream_t stream) {
-  using Ty = DecodeTypes<kQuant>;
-  gqa_decode_kernel<D, kQuant><<<dim3(splits, Hkv, B), kThreads, 0, stream>>>(
+  using Ty = DecodeTypes<kKind>;
+  gqa_decode_kernel<D, kKind><<<dim3(splits, Hkv, B), kThreads, 0, stream>>>(
       static_cast<const typename Ty::q_t*>(q), static_cast<const typename Ty::kv_t*>(k),
       static_cast<const typename Ty::kv_t*>(v), k_scale, v_scale, cur_len, static_cast<typename Ty::out_t*>(out),
       part, counters, Hkv, T, Hq / Hkv, splits, scale);
 }
 
-template <bool kQuant>
+template <int kKind>
 int decode_entry(const void* q, const void* k, const void* v, const float* k_scale, const float* v_scale,
                  const int* cur_len, void* out, float* part, int* counters, int B, int Hq, int Hkv, int T, int D,
                  int splits, float scale, void* stream) {
@@ -483,10 +508,10 @@ int decode_entry(const void* q, const void* k, const void* v, const float* k_sca
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) {
-    launch_decode<64, kQuant>(q, k, v, k_scale, v_scale, cur_len, out, part, counters, B, Hq, Hkv, T, splits,
+    launch_decode<64, kKind>(q, k, v, k_scale, v_scale, cur_len, out, part, counters, B, Hq, Hkv, T, splits,
                               scale, s);
   } else if (D == 128) {
-    launch_decode<128, kQuant>(q, k, v, k_scale, v_scale, cur_len, out, part, counters, B, Hq, Hkv, T, splits,
+    launch_decode<128, kKind>(q, k, v, k_scale, v_scale, cur_len, out, part, counters, B, Hq, Hkv, T, splits,
                                scale, s);
   } else {
     return (int)cudaErrorInvalidValue;
@@ -505,14 +530,22 @@ extern "C" {
 int cvt_gqa_decode_attention(const void* q, const void* k, const void* v, const int* cur_len, void* out, float* part,
                              int* counters, int B, int Hq, int Hkv, int T, int D, int splits, float scale,
                              void* stream) {
-  return decode_entry<false>(q, k, v, nullptr, nullptr, cur_len, out, part, counters, B, Hq, Hkv, T, D, splits,
+  return decode_entry<kBf16>(q, k, v, nullptr, nullptr, cur_len, out, part, counters, B, Hq, Hkv, T, D, splits,
                              scale, stream);
+}
+
+// K1 in float32: q, arenas and output float32, otherwise cvt_gqa_decode_attention.
+int cvt_gqa_decode_attention_f32(const void* q, const void* k, const void* v, const int* cur_len, void* out,
+                                 float* part, int* counters, int B, int Hq, int Hkv, int T, int D, int splits,
+                                 float scale, void* stream) {
+  return decode_entry<kF32>(q, k, v, nullptr, nullptr, cur_len, out, part, counters, B, Hq, Hkv, T, D, splits,
+                            scale, stream);
 }
 
 int cvt_gqa_decode_attention_quant(const void* q, const void* k, const void* v, const float* k_scale,
                                    const float* v_scale, const int* cur_len, void* out, float* part, int* counters,
                                    int B, int Hq, int Hkv, int T, int D, int splits, float scale, void* stream) {
-  return decode_entry<true>(q, k, v, k_scale, v_scale, cur_len, out, part, counters, B, Hq, Hkv, T, D, splits,
+  return decode_entry<kInt8>(q, k, v, k_scale, v_scale, cur_len, out, part, counters, B, Hq, Hkv, T, D, splits,
                             scale, stream);
 }
 

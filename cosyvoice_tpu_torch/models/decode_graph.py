@@ -23,7 +23,11 @@ spans).
   op nor the presence set.
 - `DecodeGraphs`: runs a block of slots, eagerly (`Qwen2LM(graphs=False)`,
   and always on CPU) or by replaying one captured step per slot. One graph
-  per key (route: K7 or the per-layer kernels; batch rows; arena length;
+  per key (`route`: "K7", "per-layer" (K2 and K1 or K3 in each layer) or
+  "plain attention" (the indexed row write and the masked einsum, all
+  device ops on the static arenas), which asks
+  ops/decode_attention.decode_kernel_wanted as each layer does; batch
+  rows; arena length;
   stop mask (`stop_mask`): the v2 min_len mask, the v3 one over the whole
   special range, or the bistream mask; the sampling
   config, whose values a graph bakes in, so that `set_sampling` never
@@ -78,6 +82,7 @@ import torch
 
 from cosyvoice_tpu_torch.ops import decode_attention
 from cosyvoice_tpu_torch.ops.decode_attention import (
+    decode_kernel_wanted,
     gqa_decode_attention,
     gqa_decode_attention_quant,
     kv_arena_write,
@@ -192,7 +197,7 @@ class DecodeGraphs:
     def drop_fused(self):
         """Forget the graphs of the K7 route (its weight stack was rebuilt);
         the next block at such a key captures anew."""
-        for key in [k for k in self.graphs if k[0]]:
+        for key in [k for k in self.graphs if k[0] == "K7"]:
             del self.graphs[key]
             self.warm.discard(key)
 
@@ -232,10 +237,19 @@ class DecodeGraphs:
             generator.set_state(self.generator.get_state())
         return s.tokens[:, :steps].clone()
 
+    def route(self, cache, stacked) -> str:
+        """The decode step's route over `cache`: "K7" where `stacked` is
+        given, else the layers' (decode_kernel_wanted at the arena's
+        length): "per-layer" kernels or "plain attention"."""
+        if stacked is not None:
+            return "K7"
+        q = self.lm.cfg.qwen
+        return "per-layer" if decode_kernel_wanted(cache[0].shape[2], q.num_kv_heads * q.head_dim) else "plain attention"
+
     def _key(self, cache, stacked, bistream: bool):
         c = self.lm.cfg
         sampling = (c.top_p, c.top_k, c.win_size, c.tau_r, c.temperature, c.repetition_penalty)
-        return (stacked is not None, self.batch, cache[0].shape[2], stop_mask(c, bistream), sampling)
+        return (self.route(cache, stacked), self.batch, cache[0].shape[2], stop_mask(c, bistream), sampling)
 
     def capture_ahead(self, pack, bistream=(False,)):
         """Capture now, under the current sampling, the graph of every key

@@ -14,10 +14,15 @@ computes them in XLA; their decode step is the bf16 LM's (K2, then K1 or K3):
   (the JAX version returns updated arrays; here the arena is mutated); with
   kv_quant the arena is int8 with per-token f32 scales [L, B, T] per K and V
   (`ops/decode_attention.quantize_kv_rows`);
-- `decode_step` (one token per row) writes each layer's new K and V rows
-  (and over the int8 arena their scales) with one launch of kernel K2
-  (kv_arena_write_kv) and attends with K1 (gqa_decode_attention) or, over the
-  int8 arena, K3 (gqa_decode_attention_quant); with int4p its qkv
+- `decode_step` (one token per row) routes each layer's attention as the
+  JAX LM does (`ops/decode_attention.decode_kernel_wanted`, from Hkv * d
+  and the arena's length): on the kernel route it writes the new K and V
+  rows (and over the int8 arena their scales) with one launch of kernel K2
+  (kv_arena_write_kv) and attends with K1 (gqa_decode_attention, bf16 or
+  float32) or, over the int8 arena, K3 (gqa_decode_attention_quant); on the
+  plain route (Hkv * d not a multiple of 128: every small config of the
+  repo) an indexed row write and the masked einsum over the whole arena,
+  dequantised first when it is int8, as the JAX einsum path; with int4p its qkv
   projection is K4 (ops/int4_fused.int4_gemv) and its whole post-attention
   tail, o_proj + residual + RMSNorm + MLP + residual, is K6 (int4_o_mlp).
   With a bf16 arena at B=1 and at most ops/int4_block.MAX_FUSED_ARENA rows,
@@ -63,7 +68,9 @@ from cosyvoice_tpu_torch.ops.decode_attention import (
     dequantize_kv_arena,
     gqa_decode_attention,
     gqa_decode_attention_quant,
+    decode_kernel_wanted,
     kv_arena_write_kv,
+    kv_arena_write_kv_plain,
     quantize_kv_rows,
 )
 from cosyvoice_tpu_torch.ops.int4_fused import (
@@ -316,6 +323,14 @@ class Qwen2Attention(nn.Module):
             ck[:, start:end] = k.to(ck.dtype)
             cv[:, start:end] = v.to(cv.dtype)
             k_all, v_all = ck[:, :end], cv[:, :end]
+        return self._attend(q, k_all, v_all, bias)
+
+    def _attend(self, q, k_all, v_all, bias):
+        """The grouped einsum over arena rows k_all / v_all [B, T, Hkv, d]:
+        float32 scores plus the additive `bias` [B, 1, S, T], the softmax's
+        weights in the arena's dtype. Returns [B, S, nq]."""
+        c = self.cfg
+        B, S = q.shape[:2]
         rep = c.num_heads // c.num_kv_heads
         qg = q.reshape(B, S, c.num_kv_heads, rep, c.head_dim)
         scores = torch.einsum("bsgrd,btgd->bgrst", qg, k_all.float()) / math.sqrt(c.head_dim)
@@ -339,23 +354,35 @@ class Qwen2Attention(nn.Module):
         return _linear(self.o_proj, out.transpose(1, 2).reshape(B, T, nq), dtype)
 
     def decode(self, x, cos, sin, cur_len, cache):
-        """x [B, 1, C]; cur_len [B] int32 write positions. Writes the K and V
-        rows (and their int8 scales) with one K2 launch and attends with K1 (bf16 arena) or K3 (int8 arena). Returns
-        the pre-o attention output [B, 1, nq]: float32 over the int8 arena
-        (K3 keeps the float32 rope output's precision), cfg.dtype otherwise."""
-        B = x.shape[0]
+        """x [B, 1, C]; cur_len [B] int32 write positions. On the kernel route
+        (`decode_kernel_wanted`) writes the K and V rows (and their int8
+        scales) with one K2 launch and attends with K1 (bf16 or float32
+        arena) or K3 (int8 arena); on the plain route writes them by index
+        and attends with the masked einsum over the arena (`_attend`).
+        Returns the pre-o attention output [B, 1, nq]: float32 from K3 (it
+        keeps the float32 rope output's precision), cfg.dtype otherwise."""
+        c = self.cfg
+        B, T = x.shape[0], cache[0].shape[1]
         q, k, v = self._qkv(x, cos, sin)
-        if self.cfg.kv_quant:
+        kernel = decode_kernel_wanted(T, c.num_kv_heads * c.head_dim)
+        write = kv_arena_write_kv if kernel else kv_arena_write_kv_plain
+        if c.kv_quant:
             ck, cv, cks, cvs = cache
             (kq, ks), (vq, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
-            kv_arena_write_kv(ck, cv, kq, vq, cur_len, cks, cvs, ks, vs)
-            out = gqa_decode_attention_quant(q[:, 0].contiguous(), ck, cv, cks, cvs, cur_len)
+            write(ck, cv, kq, vq, cur_len, cks, cvs, ks, vs)
+            if kernel:
+                return gqa_decode_attention_quant(q[:, 0].contiguous(), ck, cv, cks, cvs, cur_len).reshape(B, 1, -1)
+            k_all, v_all = dequantize_kv_arena(ck, cks, c.dtype), dequantize_kv_arena(cv, cvs, c.dtype)
         else:
             ck, cv = cache
             dt = ck.dtype
-            kv_arena_write_kv(ck, cv, k.to(dt).contiguous(), v.to(dt).contiguous(), cur_len)
-            out = gqa_decode_attention(q[:, 0].to(dt).contiguous(), ck, cv, cur_len)
-        return out.reshape(B, 1, -1)
+            write(ck, cv, k.to(dt).contiguous(), v.to(dt).contiguous(), cur_len)
+            if kernel:
+                return gqa_decode_attention(q[:, 0].to(dt).contiguous(), ck, cv, cur_len).reshape(B, 1, -1)
+            k_all, v_all = ck, cv
+        live = torch.arange(T, device=x.device)[None, :] <= cur_len.long()[:, None]
+        bias = torch.where(live, 0.0, NEG_INF).to(torch.float32)[:, None, None, :]
+        return self._attend(q, k_all, v_all, bias)
 
 
 class Qwen2MLP(nn.Module):

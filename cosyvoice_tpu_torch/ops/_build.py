@@ -40,6 +40,7 @@ _c_float = ctypes.c_float
 # ctypes never truncates them to 32 bits
 _SIGNATURES = {
     "cvt_gqa_decode_attention": [_c_void_p] * 7 + [_c_int] * 6 + [_c_float, _c_void_p],
+    "cvt_gqa_decode_attention_f32": [_c_void_p] * 7 + [_c_int] * 6 + [_c_float, _c_void_p],
     "cvt_gqa_decode_attention_quant": [_c_void_p] * 9 + [_c_int] * 6 + [_c_float, _c_void_p],
     "cvt_kv_arena_write_kv": [_c_void_p] * 5 + [_c_int] + [_c_void_p] * 4 + [_c_int] * 3 + [_c_void_p],
     "cvt_empty_kernel": [_c_void_p],

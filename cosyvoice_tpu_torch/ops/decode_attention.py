@@ -3,9 +3,10 @@
 Counterpart of `cosyvoice_tpu/ops/decode_attention.py`. Three kernels, each
 beside its plain PyTorch version:
 
-- K1 `gqa_decode_attention`: single-token GQA flash decode
-  (csrc/decode_attention.cu: the live keys split over ~132 blocks, merged by
-  log-sum-exp in the same launch). Replaces the Pallas `_decode_kernel`.
+- K1 `gqa_decode_attention`: single-token GQA flash decode over a bf16 or a
+  float32 arena (csrc/decode_attention.cu: the live keys split over ~132
+  blocks, merged by log-sum-exp in the same launch). Replaces the Pallas
+  `_decode_kernel`.
 - K3 `gqa_decode_attention_quant`: K1 over an int8 arena with per-token f32
   scales (csrc/decode_attention.cu). Replaces the Pallas
   `_quant_decode_kernel`.
@@ -19,6 +20,13 @@ beside its plain PyTorch version:
 
 `quantize_kv_rows` / `dequantize_kv_arena` are the int8 arena's per-token
 absmax quantiser and its inverse, as in the JAX package.
+
+`decode_kernel_wanted` is the one gate of the decode step's route, read by
+models/qwen2.py and models/decode_graph.py: the kernels (K2, then K1 or K3)
+where the JAX LM takes its Pallas kernels, the plain route (an indexed row
+write and the masked einsum over the arena) where it takes the einsum. K1
+and K2 take bf16 and float32 arenas (the JAX gate passes a float32 arena to
+its kernel as it is), K3 and K2 the int8 arena.
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors it
 launches the kernel or raises. Each wrapper counts its kernel launches in a
@@ -37,7 +45,20 @@ import torch
 
 NEG_INF = -1e30
 NUM_SMS = 132  # H100 SXM
-DECODE_CHUNK = 64  # keys the CUDA kernel stages in shared memory per round trip
+DECODE_CHUNK = 64  # keys the CUDA kernel stages in shared memory per round trip (32 for float32 rows)
+FLASH_BLOCK = 512  # the Pallas kernel's arena block (cosyvoice_tpu/ops/decode_attention.py)
+
+
+def decode_kernel_wanted(T: int, lanes: int, block_size: int = FLASH_BLOCK) -> bool:
+    """Whether the decode step over an arena of T rows with Hkv * d = `lanes`
+    takes the kernels (the arena write K2, attention K1 or K3) rather than
+    the plain route: the JAX LM's gate, `flash_decode_wanted(T, lanes)`
+    under COSY_FLASH_DECODE=force, which names the cases its TPU takes. The
+    kernel where `lanes` is a multiple of 128 and the arena's length divides
+    into the kernel's block (min(block_size, T) rows); the plain route
+    otherwise. Decided from shapes alone, never from a kernel's error: where
+    it picks the kernel, the wrappers launch or raise."""
+    return lanes % 128 == 0 and T % min(block_size, T) == 0
 
 
 def gqa_decode_attention_plain(q, k_arena, v_arena, cur_len):
@@ -156,13 +177,18 @@ def gqa_decode_attention(q, k_arena, v_arena, cur_len):
 
     q: [B, Hq, d] (rope applied); k_arena/v_arena: [B, T, Hkv, d], the
     current token's K/V already written at cur_len[b]; cur_len: [B] int32.
-    Returns [B, Hq, d] in q.dtype."""
+    q and the arenas all bf16 or all float32 (the kernel's two
+    instantiations). Returns [B, Hq, d] in q.dtype."""
     _check_decode_shapes(q, k_arena, v_arena, cur_len)
     if q.device.type == "cpu":
         return gqa_decode_attention_plain(q, k_arena, v_arena, cur_len)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    out = _launch_decode("cvt_gqa_decode_attention", q, k_arena, v_arena, (), cur_len, torch.bfloat16, torch.bfloat16)
+    dt = k_arena.dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"K1 takes bfloat16 or float32 arenas, got {dt}")
+    entry = "cvt_gqa_decode_attention" if dt == torch.bfloat16 else "cvt_gqa_decode_attention_f32"
+    out = _launch_decode(entry, q, k_arena, v_arena, (), cur_len, dt, dt)
     gqa_decode_attention.launches += 1
     return out
 
@@ -228,7 +254,7 @@ def kv_arena_write_plain(arena, new_kv, pos):
 def kv_arena_write(arena, new_kv, pos):
     """Write new_kv[b] into arena[b, pos[b]] in place (K2) and return arena.
 
-    arena: [B, T, Hkv, d] bf16 or int8; new_kv: [B, 1, Hkv, d] of the same
+    arena: [B, T, Hkv, d] bf16, float32 or int8; new_kv: [B, 1, Hkv, d] of the same
     type; pos: [B] int32. The JAX version donates the arena; here it is
     updated in place."""
     B, T, Hkv, d = arena.shape
@@ -269,7 +295,7 @@ def kv_arena_write_kv(k_arena, v_arena, k_new, v_new, pos, k_scale=None, v_scale
     and, over an int8 arena, k_scale[b, pos[b]] = ks[b] and
     v_scale[b, pos[b]] = vs[b]. Returns (k_arena, v_arena).
 
-    Arenas [B, T, Hkv, d] bf16 or int8; new rows [B, 1, Hkv, d] of the same
+    Arenas [B, T, Hkv, d] bf16, float32 or int8; new rows [B, 1, Hkv, d] of the same
     type; pos [B] int32, or [1] for one position in every row (the stacked
     [L, T, Hkv, d] arena of the fused decode step); scales [B, T] f32 and ks,
     vs [B] or [B, 1] f32, all four or none."""
@@ -302,8 +328,8 @@ def _write_rows(k_arena, v_arena, k_new, v_new, pos, scales=None):
     """Checks and the one C call of K2 (v_arena / v_new and scales optional)."""
     B, T, Hkv, d = k_arena.shape
     dev = k_arena.device
-    if k_arena.dtype not in (torch.bfloat16, torch.int8):
-        raise TypeError(f"arena must be bfloat16 or int8, got {k_arena.dtype}")
+    if k_arena.dtype not in (torch.bfloat16, torch.float32, torch.int8):
+        raise TypeError(f"arena must be bfloat16, float32 or int8, got {k_arena.dtype}")
     tensors = [("k_arena", k_arena), ("k_new", k_new)]
     if v_arena is not None:
         tensors += [("v_arena", v_arena), ("v_new", v_new)]
