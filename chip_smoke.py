@@ -94,15 +94,15 @@ identical sampled tokens (seed 1986), wavs and LM generator state: the bf16
 LM's 960-token request (the arena grows 512 -> 1024 -> 1536), the int4p LMs'
 text-16 request, the long-prompt request across the 2048-row route switch,
 and one bistream request per int4p LM (text 16 with max_len 64 and with
-max_len 320). It prints LM tokens/s and ms per token of both (capture
+max_len 160). It prints LM tokens/s and ms per token of both (capture
 time apart), the host time of the LM's replay loop per replay, and the host
 cost of one replay against its device time, and requires every captured
 graph's K1..K7 kernel nodes (CUDAGraph.debug_dump) to equal the launches
 its capture counted, which each replay adds to the counters. After every
 other phase, idle takes the device's idle share (torch.profiler traces)
 over the LM stage and the flow+HiFT stage of each LM's offline request
-(the first 4 of the text-16 ids: 80 tokens), the route-switch request and
-the bistream requests (the K7 LM's at max_len 80),
+(the first 2 of the text-16 ids: 40 tokens), the route-switch request and
+the bistream requests (the K7 LM's at max_len 40),
 on graphs (no eager trace and no bf16 960-token trace, to keep the run
 inside its limit), and requires
 the K1..K7 kernels the LM stage's traces show to be at most the launches
@@ -121,7 +121,7 @@ flow_incr_min_tok and grows the flow arena 256 -> 512 -> 1024 tokens); the
 int4p + int8 LM's text-16 request; the K7 LM's text-16 request (no
 text-32 one: the bf16 LM's crosses the same flow paths) and a bistream
 request through `tts(<iterator>,
-stream=True)` (text 32, the LM's max_len 320). Each is streamed, streamed
+stream=True)` (text 32, the LM's max_len 160). Each is streamed, streamed
 again on the recompute path alone and served offline (cuDNN
 deterministic): the streamed tokens must equal the offline ones (and the
 slice phase's), the wav be n_tokens * 2 * 480 long and finite, the chunks
@@ -296,8 +296,27 @@ synthetic prompt voices and two texts with references: n 2, every metric
 finite (CER null: no ASR hook), speaker similarity in [-1, 1], the
 synthesis decoding through K1 + K2 alone; the tool's JSON line printed.
 
+GRPO and multi-device training (A11c), after train_v1: grpo builds the
+full-width LM with float32 master weights from seed 0 (train/grpo.py),
+its bf16 rollout copy on graphs, and a random flow and HiFT behind the
+port's reward server on 127.0.0.1 (make_reward_fn with stand_in_asr,
+deterministic in the wav); two grpo_step iterations of one prompt of
+GRPO_TEXT text ids, K = GRPO_K rollouts (to 20x the text) each, rewards
+over HTTP: rollout tokens/s, the rollouts' K1 / K2 launches (24 each per
+decode step) and graph replays, peak GB; the first update held against
+the eager float32 step on the same batch (GRPO_STEP_TOL), the refreshed
+rollout copy equal to the bf16 cast of the master bit for bit, and the
+next rollout, on the graphs captured before the update, within
+GRPO_LOGIT_TOL of an eager bf16 forward of the new weights (and further
+from the old weights'). multihost opens an NCCL process group of one rank
+(a TCPStore on 127.0.0.1) and its ("dp", "tp") mesh, holds the
+full-width LM branch's DP and FSDP steps against the plain step
+(MULTIHOST_TOL; one rank shards nothing, the steps' sums run as NCCL
+collectives) and runs bin/train.main --multihost for two steps at 2
+layers on TRAIN_ROWS rows held in memory, rank 0 writing.
+
 The line before the last is {"kernels": [...]}, with each kernel's launches
-summed over the runs of train_e2e, phases 4, 6 and 8, the two bistream slices, the
+summed over the runs of train_e2e, grpo, phases 4, 6 and 8, the two bistream slices, the
 three stream phases, slice_int8 and slice_int4 (their requests and
 waves), slice_v3 and stream_v3, the api phases, ckpt, eval,
 and the main runs of batch
@@ -329,29 +348,39 @@ import time
 K1_TOL_REL = 2**-6
 # Relative L2 of LM logits, kernel decode against the same decode with the
 # plain versions and against one prefill over the sequence: twice the floor,
-# plain decode against that prefill, which is 9.6e-3 to 1.0e-2 on an H100 at
-# full width (bf16 matmuls of M=1 and M=T round differently).
-LOGIT_TOL = 0.02
+# plain decode against that prefill (bf16 matmuls of M=1 and M=T round
+# differently), which is 1.69e-2 after 1 step and 1.83e-2 after 64 on an
+# H100 at full width under the JAX initializers' distributions (9.6e-3 to
+# 1.0e-2 under the earlier uniform init, which set 0.02). The weights and
+# inputs come from fixed seeds, and every floor below read the same to three
+# digits in each run of the final code. The holds (phase_check,
+# check_bistream) also hold the floor itself to the limit, so that a fault
+# both decode paths share (a position, the arena's indexing, a mask) fails.
+LOGIT_TOL = 0.037
 # The same check for the int4p LM with the int8 KV arena: twice its floor,
 # plain decode against one prefill over the dequantised arena, which is
-# 1.52e-2 after 1 step and 1.55e-2 after 96 on an H100 at full width (the
+# 2.31e-2 after 1 step and 2.71e-2 after 64 on an H100 at full width (the
 # prefill rounds each int4 block product to bf16, the decode kernels sum in
-# float32).
-LOGIT_TOL_INT4P = 0.031
+# float32; 1.52e-2 / 1.55e-2 under the uniform init, which set 0.031).
+LOGIT_TOL_INT4P = 0.055
 # The same check for the int4p LM over a bf16 arena, whose decode steps run
-# K7: twice its floor, plain decode against one prefill, which is 1.56e-2
-# after 1 step and 1.58e-2 after 96 on an H100 at full width (as for the
-# int8 arena, the prefill rounds each int4 block product to bf16). Phase 9
-# holds K7's step against the per-layer step to the same limit.
-LOGIT_TOL_INT4P_BF16 = 0.032
+# K7: twice its floor, plain decode against one prefill, which is 2.19e-2
+# after 1 step and 2.51e-2 after 64 on an H100 at full width (as for the
+# int8 arena, the prefill rounds each int4 block product to bf16; 1.56e-2 /
+# 1.58e-2 under the uniform init, which set 0.032; api_v3_int4p's reads
+# 2.16e-2). Phase 9 holds K7's step against the per-layer step to the same
+# limit.
+LOGIT_TOL_INT4P_BF16 = 0.050
 # The bistream check (replayed extends and decode steps, kernels against the
 # plain versions and against one prefill over the whole sequence) for the
 # int4p LM over an int8 and over a bf16 arena: twice its floor, the plain
 # replay against that prefill, which is 1.54e-2 / 1.48e-2 (int8 arena) and
 # 1.42e-2 / 1.47e-2 (bf16 arena) after the first extend of 2..16 rows / the
-# last extend on an H100 at full width (the prefill rounds each int4 block
-# product to bf16, the extends' K4 and K5 sum in float32).
-LOGIT_TOL_BISTREAM = {"_int4p": 0.031, "_int4p_bf16": 0.030}
+# last extend on an H100 at full width under the uniform init (the prefill
+# rounds each int4 block product to bf16, the extends' K4 and K5 sum in
+# float32); under the JAX initializers' distributions 2.21e-2 / 4.05e-2
+# (int8 arena) and 2.02e-2 / 3.35e-2 (bf16 arena).
+LOGIT_TOL_BISTREAM = {"_int4p": 0.081, "_int4p_bf16": 0.067}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16
 L2_BYTES = 50e6  # H100 L2 cache
@@ -396,16 +425,28 @@ L2_BYTES = 50e6  # H100 L2 cache
 # sweep max_batch 1 and 4 (not 1, 2 and 4), the check phases' logit hold
 # 64 decode steps (not 96), idle traces 80 tokens (not 160) and the K7
 # LM's bistream request at max_len 80 (not 160), ckpt's sampling holds
-# serve 80 tokens (not 160); those phases' budgets fell with them.
+# serve 80 tokens (not 160); those phases' budgets fell with them. The
+# grpo and multihost phases took 13.7 and 8.9 s in a full run on an NVIDIA
+# H100 80GB HBM3 (700 W; kernels 83.9 s) and have 1.5x that (grpo took 28.5
+# s as the first phase to build an optimizer in its process). To pay for
+# them, in size again, no check: idle traces each LM's offline request at
+# 40 tokens (not 80) and the K7 LM's bistream request at max_len 40 (not
+# 80), the K7 LM's graphs bistream hold and its streamed bistream request
+# run to max_len 160 (not 320), ckpt's sampling holds serve 40 tokens (not
+# 80); the budgets above 1.5x their phase's time in the slowest full run
+# (920.7 s of phases) came down to 1.5x (route, train_hifigan, train_v1,
+# slice_bistream_int4p, slice_int8, eval, aot_warmup), and api, stream_v1
+# and batch_int4p gave 2, 1 and 1 s of their slack (at least 1.14x that
+# run's time).
 PHASE_BUDGET_S = {"device": 4, "build": 21, "kernels": 115, "slice": 14, "check": 7, "graphs": 43, "stream": 34,
-                  "slice_int4p": 23, "check_int4p": 14, "slice_bistream_int4p": 3, "check_bistream_int4p": 4,
+                  "slice_int4p": 23, "check_int4p": 14, "slice_bistream_int4p": 2, "check_bistream_int4p": 4,
                   "graphs_int4p": 18, "stream_int4p": 10, "slice_int4p_bf16": 23, "check_int4p_bf16": 11,
-                  "slice_bistream_int4p_bf16": 53, "check_bistream_int4p_bf16": 9, "graphs_int4p_bf16": 25,
-                  "stream_int4p_bf16": 17, "slice_int8": 26, "slice_int4": 42, "slice_v3": 8, "stream_v3": 13,
-                  "slice_v1": 13, "stream_v1": 25, "api": 35, "api_int4p": 14, "api_v3": 26, "api_int8": 18,
-                  "api_v1": 23, "ckpt": 55, "batch": 36, "batch_int4p": 49, "serve": 60, "idle": 45,
-                  "train_lm": 31, "train_flow": 29, "train_e2e": 42, "train_hifigan": 25, "train_v1": 25, "eval": 20,
-                  "route": 6, "hermetic": 10, "microbench": 15, "aot_warmup": 33, "examples": 8}
+                  "slice_bistream_int4p_bf16": 53, "check_bistream_int4p_bf16": 9, "graphs_int4p_bf16": 21,
+                  "stream_int4p_bf16": 14, "slice_int8": 25, "slice_int4": 42, "slice_v3": 8, "stream_v3": 13,
+                  "slice_v1": 13, "stream_v1": 24, "api": 33, "api_int4p": 14, "api_v3": 26, "api_int8": 18,
+                  "api_v1": 23, "ckpt": 52, "batch": 36, "batch_int4p": 48, "serve": 60, "idle": 36, "train_lm": 31,
+                  "train_flow": 29, "train_e2e": 42, "train_hifigan": 24, "train_v1": 24, "eval": 17, "route": 4,
+                  "hermetic": 10, "microbench": 15, "aot_warmup": 29, "examples": 8, "grpo": 22, "multihost": 14}
 PHASE_SECONDS = {}  # each phase's measured seconds in this run
 PHASE_CLOCK = {}  # the first phase's start and the sum of the budgets of the phases entered so far
 
@@ -1492,7 +1533,7 @@ PER_EXTEND = {"K1": 0, "K2": 0, "K3": 0, "K4": 48, "K5": 24, "K6": 0, "K7": 0}
 # slice prints, per request, whether each of these happened)
 BISTREAM = {"_int4p": {"text_lens": (16,), "max_len": 64}, "_int4p_bf16": {"text_lens": (16, 32, 2100)}}
 # the bistream request of each int4p LM's `graphs` phase: (text ids, max_len)
-GRAPH_BISTREAM = {"_int4p": (16, 64), "_int4p_bf16": (16, 320)}
+GRAPH_BISTREAM = {"_int4p": (16, 64), "_int4p_bf16": (16, 160)}
 CROSS_PROMPT = 1920  # LM prompt tokens of phase_cross's requests: the arena starts at 2048 rows
 
 
@@ -1804,7 +1845,7 @@ def check_bistream(eng, req, tol):
     whole sequence up to the extend (plain, over the dequantised rows for an
     int8 arena): logits' relative L2 after the first extend of 2..16 rows
     and after the last extend. Plain replay against the prefill is the
-    floor; kernels against both are held to `tol`."""
+    floor; it and the kernels against both are held to `tol`."""
     import numpy as np
     import torch
 
@@ -1843,9 +1884,10 @@ def check_bistream(eng, req, tol):
                                                                                (kern, full)))
     print(f"bistream replay, {len(feeds)} extends ({[len(f[1]) for f in feeds]} rows) and {len(toks)} tokens, decode "
           f"through {route} (arena {arena} rows): LM logits rel L2 after the extends ending at rows {ends[0]} / "
-          f"{ends[1]}: kernel vs plain {e_plain[0]:.2e} / {e_plain[1]:.2e} (tol {tol}); floor, plain vs one prefill "
-          f"{e_floor[0]:.2e} / {e_floor[1]:.2e}; kernel vs one prefill {e_full[0]:.2e} / {e_full[1]:.2e} (tol {tol})")
-    if not max(e_plain + e_full) <= tol:
+          f"{ends[1]}: kernel vs plain {e_plain[0]:.2e} / {e_plain[1]:.2e}; floor, plain vs one prefill "
+          f"{e_floor[0]:.2e} / {e_floor[1]:.2e}; kernel vs one prefill {e_full[0]:.2e} / {e_full[1]:.2e} (tol {tol} "
+          f"for each)")
+    if not max(e_plain + e_floor + e_full) <= tol:
         raise AssertionError("the bistream extends and steps through the kernels disagree with the plain path")
 
 
@@ -1878,7 +1920,8 @@ def phase_check(eng, prompt, reqs, tol, n_tokens=64):
     prefill over the whole sequence (plain attention, over the dequantised
     rows when the arena is int8): relative L2 error after the first and
     after the last step. Plain decode against the prefill is the floor: the
-    bf16 drift of two paths with exact attention. The decode takes the route
+    bf16 drift of two paths with exact attention; it is held to `tol` as the
+    kernel's errors are. The decode takes the route
     `generate` takes for an arena of that length (K7 for int4p over a bf16
     arena)."""
     import numpy as np
@@ -1932,10 +1975,11 @@ def phase_check(eng, prompt, reqs, tol, n_tokens=64):
     e_plain, e_floor, e_full = ([_rel(a[j], b[j]) for j in (0, 1)] for a, b in ((kern, plain), (plain, full),
                                                                                (kern, full)))
     print(f"LM logits rel L2 after 1 / {n} decode steps through {route} (arena {arena} rows): kernel vs plain decode "
-          f"{e_plain[0]:.2e} / {e_plain[1]:.2e} (tol {tol}); floor, plain decode vs one prefill {e_floor[0]:.2e} / "
-          f"{e_floor[1]:.2e}; kernel vs one prefill {e_full[0]:.2e} / {e_full[1]:.2e} (tol {tol}); argmax after {n} "
-          f"agrees: {int(kern[1].argmax()) == int(plain[1].argmax())}, {int(kern[1].argmax()) == int(full[1].argmax())}")
-    if not max(e_plain + e_full) <= tol:
+          f"{e_plain[0]:.2e} / {e_plain[1]:.2e}; floor, plain decode vs one prefill {e_floor[0]:.2e} / "
+          f"{e_floor[1]:.2e}; kernel vs one prefill {e_full[0]:.2e} / {e_full[1]:.2e} (tol {tol} for each); argmax "
+          f"after {n} agrees: {int(kern[1].argmax()) == int(plain[1].argmax())}, "
+          f"{int(kern[1].argmax()) == int(full[1].argmax())}")
+    if not max(e_plain + e_floor + e_full) <= tol:
         raise AssertionError("LM decode through the kernels disagrees with the plain path")
 
 
@@ -2217,7 +2261,7 @@ def phase_graphs(eng, runs):
 # whether the first of them runs on a fresh LM with no graph captured yet
 # (instead of this LM)
 STREAM = {"": {"texts": (16, 32), "fresh": True}, "_int4p": {"texts": (16,)},
-          "_int4p_bf16": {"texts": (16,), "bistream": (32, 320)}}
+          "_int4p_bf16": {"texts": (16,), "bistream": (32, 160)}}
 RECOMPUTE_ONLY = 10**9  # flow_incr_min_tok of the reference streams: every chunk recomputes the prefix
 STREAM_TOL = 1e-3  # chunks after the crossover against the recompute path: tests/test_torch_stream.py's ATOL
 
@@ -2269,11 +2313,11 @@ def _stream_once(eng, prompt, text, bistream):
             "lm_s": eng.timer.records["lm"][-1], "log": list(eng.stream_log)}
 
 
-def hold_whole_v3(eng, label, prompt, toks, chunks):
+def hold_whole_v3(eng, label, prompt, toks, chunks, tol=None):
     """A CosyVoice3 stream's chunks, concatenated, against the same tokens
     synthesised in one pass under the streaming masks (token2wav at the
     finalize over every token): the cumulative causal re-vocode emits what
-    one vocode of the whole mel does, within V3_WHOLE_TOL. The offline
+    one vocode of the whole mel does, within `tol` (V3_WHOLE_TOL). The offline
     request's wav differs (its flow attends with no chunk mask): the
     largest difference is printed beside it."""
     import numpy as np
@@ -2289,12 +2333,13 @@ def hold_whole_v3(eng, label, prompt, toks, chunks):
                               prompt_mel, emb, 0, finalize=True, stream=True)
     finally:
         eng.flow_incr_min_tok, eng.flow_state_max_bytes = saved
+    tol = V3_WHOLE_TOL if tol is None else tol
     d = float(np.abs(wav - whole).max()) if wav.shape == whole.shape else float("inf")
     print(f"{label}: the stream's {wav.shape[1]} samples against one pass over its {len(toks)} tokens under the "
-          f"streaming masks: max |diff| {d:.3e} (tol {V3_WHOLE_TOL}; rms of the wav {float(np.sqrt((whole ** 2).mean())):.3e})")
-    if not d <= V3_WHOLE_TOL:
+          f"streaming masks: max |diff| {d:.3e} (tol {tol}; rms of the wav {float(np.sqrt((whole ** 2).mean())):.3e})")
+    if not d <= tol:
         raise AssertionError(f"{label}: the stream's chunks differ from one pass over its tokens by {d:.3e}")
-    return wav
+    return wav, d
 
 
 def hold_stream(eng, label, prompt, text, want=None, bistream=None):
@@ -2355,7 +2400,7 @@ def hold_stream(eng, label, prompt, text, want=None, bistream=None):
         if sizes != _doubling_schedule(eng, n, len(prompt_speech)):
             raise AssertionError(f"{label}, {name}: chunk tokens {sizes}, not the doubling schedule")
     if isinstance(eng, CosyVoice3Engine):  # the cumulative re-vocode against one pass
-        wav = hold_whole_v3(eng, label, prompt, toks, run["chunks"])
+        wav, _ = hold_whole_v3(eng, label, prompt, toks, run["chunks"])
         print(f"{label}: the stream against the offline request (no chunk mask in its flow): max |diff| "
               f"{float(np.abs(wav - off['tts_speech']).max()):.3e}, not held")
     paths = [c["path"] for c in run["log"]]
@@ -2500,10 +2545,11 @@ def _bistream_stages(eng, prompt, text, max_len):
 PER_TRACE = 1  # blocks or spans per profiler trace: ~34,000 device events of a per-layer LM's block
 # the idle phase's requests, cut in size to make room for the training
 # phases: each LM's offline request traces the first IDLE_TEXT of
-# the slice's text-16 ids (80 tokens, cut from 160, first from 320), the
-# K7 LM's bistream request at most IDLE_BISTREAM_CAP tokens (80; 160, 320)
-IDLE_TEXT = 4
-IDLE_BISTREAM_CAP = 80
+# the slice's text-16 ids (40 tokens, cut from 80, 160, first from 320),
+# the K7 LM's bistream request at most IDLE_BISTREAM_CAP tokens (40; 80,
+# 160, 320)
+IDLE_TEXT = 2
+IDLE_BISTREAM_CAP = 40
 # the share of a kernel's records the traces of a request may lack: the
 # profiler dropped up to 3.9 % of them (int4p bistream request, 64 tokens;
 # NVIDIA H100 80GB HBM3, torch 2.11)
@@ -2595,7 +2641,7 @@ def idle_share(eng, label, stages, modes):
 
 def phase_idle(held):
     """idle_share over the requests each LM held in its graphs phase, on
-    graphs: the offline request of IDLE_TEXT ids (80 tokens), the route
+    graphs: the offline request of IDLE_TEXT ids (40 tokens), the route
     switch, the bistream requests (at most IDLE_BISTREAM_CAP tokens). (No
     eager trace and no trace of the bf16 LM's
     960-token request, to keep the run inside its limit.) Runs after every timed phase: a profiler session
@@ -2887,9 +2933,15 @@ V3_TEXTS = (16, 32)  # slice_v3's offline requests, text ids (min_len 2 x, max_l
 # flow_incr_min_tok (320) and the session takes the incremental DiT flow
 V3_LONG_TEXT = 160
 # a CosyVoice3 stream's chunks against one pass over its tokens under the
-# streaming masks (float32, TF32 off, cuDNN deterministic); the CPU test
-# tests/test_torch_engine_v3.py holds the same to 1e-3
-V3_WHOLE_TOL = 1e-3
+# streaming masks (float32, TF32 off, cuDNN deterministic): the incremental
+# DiT flow's rounding grows with the stream and the wav. Under the earlier
+# uniform init the long request read 3.9e-4 over 322 tokens (wav rms 0.59)
+# against 1e-3; under the JAX initializers' distributions 1.08e-3 over 435
+# tokens (rms 0.89) on an NVIDIA H100 80GB HBM3 (700 W), the same in every
+# run, and over seeds 1-3 9.1e-4, 9.5e-4 and 1.39e-3 over 322-335 tokens
+# (rms 0.96; scripts/v3_whole_check.py). The CPU test
+# tests/test_torch_engine_v3.py holds tiny widths to 1e-3.
+V3_WHOLE_TOL = 2e-3
 V3_BATCH = 2  # api_v3's continuous batching: max_batch
 
 
@@ -3046,10 +3098,12 @@ def phase_api_v3_int4p(api):
 # LM's per-layer step (the products dequantise their weights in PyTorch)
 QUANT_LMS = {"_int8": dict(quant="int8"), "_int4": dict(quant="int4", kv_quant=True)}
 # the check phases' logit hold for them: twice the floor, plain decode
-# against one prefill, which is 1.08e-2 / 1.11e-2 (int8) and 1.33e-2 /
-# 1.37e-2 (int4 over the int8 arena) after 1 / 96 steps on an H100 at full
-# width (the prefill's products of M=T rows round otherwise than M=1)
-LOGIT_TOL_QUANT = {"_int8": 0.023, "_int4": 0.028}
+# against one prefill, which is 1.81e-2 / 1.86e-2 (int8) and 2.27e-2 /
+# 2.51e-2 (int4 over the int8 arena) after 1 / 64 steps on an H100 at full
+# width under the JAX initializers' distributions (the prefill's products
+# of M=T rows round otherwise than M=1; 1.08e-2 / 1.11e-2 and 1.33e-2 /
+# 1.37e-2 under the uniform init, which set 0.023 / 0.028)
+LOGIT_TOL_QUANT = {"_int8": 0.037, "_int4": 0.050}
 QUANT_TEXTS = (16,)  # the offline request (320 tokens)
 QUANT_WAVE = 8  # text ids of the wave through LMBatchScheduler(max_batch=2): one request with each BATCH_PROMPTS prompt
 
@@ -3283,10 +3337,16 @@ def phase_stream_v1(eng, reqs):
     hold_v1_chunk(eng)
 
 
+# CosyVoice-300M's speech tokenizer (speech_tokenizer_v1): VQ over 4096
+# codes at 50 Hz, the config tools/convert_checkpoint.py writes for it
+V1_S3 = {"use_fsq": False, "codebook_size": 4096, "token_rate_div": 1}
+
+
 def write_v1_dir(path, n_merges=2000, seed=0):
     """A CosyVoice-300M model dir with no checkpoint: config.json of version
-    1 (the full-width defaults) and a synthetic .tiktoken vocab (the 256
-    bytes, then merges of random lower-case byte pairs and their joins)."""
+    1 (the full-width defaults, its speech tokenizer V1_S3) and a synthetic
+    .tiktoken vocab (the 256 bytes, then merges of random lower-case byte
+    pairs and their joins)."""
     import base64
     import os
 
@@ -3294,7 +3354,7 @@ def write_v1_dir(path, n_merges=2000, seed=0):
 
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump({"version": 1}, f)
+        json.dump({"version": 1, "frontend": {"s3": V1_S3}}, f)
     rng = np.random.default_rng(seed)
     toks = [bytes([b]) for b in range(256)]
     seen = set(toks)
@@ -3450,13 +3510,13 @@ def _zero_shot(api, prompt):
     return out["speech_tokens"], out["tts_speech"], time.perf_counter() - t
 
 
-SAMPLING_TEXT = 4  # text ids of the sampling holds' request (80 tokens)
+SAMPLING_TEXT = 2  # text ids of the sampling holds' request (40 tokens)
 
 
 def hold_sampling_on_graphs(api):
     """The bf16 LM's decode on CUDA graphs against its eager path under the
     default sampling and under TRITON_SAMPLING (set_sampling), one
-    80-token request each (hold_graphs: identical tokens, wavs and
+    40-token request each (hold_graphs: identical tokens, wavs and
     generator state; LM ms per token of each); every decode step through
     K1 and K2 (24 each); every captured graph's kernel nodes equal to its
     counted launches. Returns the launches."""
@@ -4192,20 +4252,24 @@ def train_args(model, *flags):
     return args
 
 
-def train_batches(args, seed=0):
-    """The processor chain of bin/train.py after parquet_opener, over
-    TRAIN_ROWS rows as the opener yields them: two padded batches of 4."""
+def train_rows(seed=0):
+    """TRAIN_ROWS synthetic rows as data/processor.parquet_opener yields them."""
     import numpy as np
 
-    from cosyvoice_tpu_torch.bin import train
-    from cosyvoice_tpu_torch.frontend.tokenizer import get_tokenizer
-
     rng = np.random.default_rng(seed)
-    rows = [{"utt": f"utt{i}", "text": TRAIN_TEXT.format(i=i), "sample_rate": 24000,
+    return [{"utt": f"utt{i}", "text": TRAIN_TEXT.format(i=i), "sample_rate": 24000,
              "audio": synthetic_voice(seed + i, TRAIN_SECONDS, sr=24000)[0],
              "utt_embedding": rng.standard_normal(192).astype(np.float32),
              "speech_token": rng.integers(0, 6561, int(TRAIN_SECONDS * 25)).tolist()} for i in range(TRAIN_ROWS)]
-    it = iter(rows)
+
+
+def train_batches(args, seed=0):
+    """The processor chain of bin/train.py after parquet_opener, over
+    TRAIN_ROWS rows as the opener yields them: two padded batches of 4."""
+    from cosyvoice_tpu_torch.bin import train
+    from cosyvoice_tpu_torch.frontend.tokenizer import get_tokenizer
+
+    it = iter(train_rows(seed))
     for fn in train.build_pipeline(args, get_tokenizer(None))[1:]:
         it = fn(it)
     batches = list(it)
@@ -4251,7 +4315,10 @@ def hold_step_on_host(label, card, host, run, tol):
     """One step of `card` (a branch on the card) against the same step of
     `host` (its float32 copy on the CPU): run(branch) -> metrics. Relative
     error of the loss and the gradient norm, relative L2 of the weight
-    update over every parameter, each within tol. Returns the errors."""
+    update over every parameter, and the update's scale (|the card's update
+    norm over the host's - 1|, which a wrong rate or a missing or doubled
+    update moves and an element's sign does not), each within tol (a key
+    tol lacks is printed, not held). Returns the errors."""
     import torch
 
     from cosyvoice_tpu_torch.convert import export_params, load_jax_params
@@ -4266,18 +4333,19 @@ def hold_step_on_host(label, card, host, run, tol):
     t0 = time.perf_counter()
     mh = run(host)
     t_host = time.perf_counter() - t0
-    num = den = 0.0
+    num = den = card_sq = 0.0
     for p_c, p_h, w in zip(card.optimizer.params, host.optimizer.params, w0):
         d_c, d_h = p_c.detach().cpu().double() - w.double(), p_h.detach().double() - w.double()
         num += float((d_c - d_h).square().sum())
         den += float(d_h.square().sum())
+        card_sq += float(d_c.square().sum())
     err = {"loss": _rel_err(mc["loss"], mh["loss"]), "grad_norm": _rel_err(mc["grad_norm"], mh["grad_norm"]),
-           "update": math.sqrt(num / max(den, 1e-30))}
+           "update": math.sqrt(num / max(den, 1e-30)), "scale": abs(math.sqrt(card_sq / max(den, 1e-30)) - 1.0)}
     print(f"{label}: first step on the card ({t_card:.2f} s) against float32 on the host ({t_host:.2f} s): "
           f"loss {float(mc['loss']):.6f} / {float(mh['loss']):.6f}, grad_norm {float(mc['grad_norm']):.6f} / "
-          f"{float(mh['grad_norm']):.6f}; relative errors " + ", ".join(f"{k} {v:.3e} (tol {tol[k]})"
+          f"{float(mh['grad_norm']):.6f}; relative errors " + ", ".join(f"{k} {v:.3e} (tol {tol.get(k, 'none')})"
                                                                          for k, v in err.items()))
-    if any(not v <= tol[k] for k, v in err.items()):
+    if any(not v <= tol[k] for k, v in err.items() if k in tol):
         raise AssertionError(f"{label}: the card's step disagrees with the host's")
     return err
 
@@ -4553,14 +4621,26 @@ GAN_HOST_CUDNN = {"enabled": False, "deterministic": False, "benchmark": False}
 # First generator step and first discriminator step of GAN_CUT, card
 # against host, both float32 (TF32 off), each on the same weights and
 # inputs: relative error of the loss and of the gradient norm, relative L2
-# of the weight update. On an NVIDIA H100 80GB HBM3 (700 W) they read
-# 1.1e-7 / 1.4e-5 / 4.1e-2 (generator) and 5.4e-7 / 5.5e-5 / 6.2e-3
-# (discriminator). The updates are the loose ones: the generator's
-# gradient norm is ~8e4 at random init (the grad-safe mel's ln(mel + 1e-5)
-# over near-silent bands), Adam's first update is +-lr wherever |g| >> eps,
-# and gradient elements within float noise of zero flip by 2 lr.
-GAN_STEP_TOL = {"gen": {"loss": 1e-5, "grad_norm": 2e-4, "update": 0.1},
-                "disc": {"loss": 1e-5, "grad_norm": 2e-4, "update": 3e-2}}
+# of the weight update, and the update's scale (|its norm over the host's -
+# 1|). The random init draws the JAX initializers' distributions
+# (utils/init.py: lecun_normal kernels, weight-norm v at normal(0.01)).
+# scripts/gan_host_check.py read, on an NVIDIA H100 80GB HBM3 (700 W), over
+# seeds 0-3 (seed 0 is this check's, the same in every run): generator
+# loss <= 3.5e-7, gradient norm <= 2.5e-5, update 0.041-0.056, scale <=
+# 2.6e-6; discriminator loss 3.0e-6-1.4e-5, gradient norm 4.2e-6-1.7e-4,
+# update 0.042-0.316 (seed 0 the largest), scale <= 3.5e-4 (cuDNN's
+# deterministic and default algorithms move seed 0's update to 0.727 /
+# 0.668). The card's rate x0.5 or x1.5 reads scale 0.50 on every seed and
+# step, and discriminator update 0.500-1.24. (Under the earlier uniform
+# init seed 0 read 1.1e-7 / 1.4e-5 / 4.1e-2 and 5.4e-7 / 5.5e-5 /
+# 6.2e-3.) The updates are the loose ones: the generator's gradient norm is
+# ~4e5 at random init (the grad-safe mel's ln(mel + 1e-5) over near-silent
+# bands), Adam's first update is +-lr wherever |g| >> eps, and gradient
+# elements within float noise of zero flip by 2 lr; at seed 0 about 2.5 %
+# of the discriminator's do. The update bounds stay below 0.5, where a
+# wrong rate lands, and the scale bound holds the rate on its own.
+GAN_STEP_TOL = {"gen": {"loss": 1e-5, "grad_norm": 2e-4, "update": 0.1, "scale": 0.05},
+                "disc": {"loss": 5e-5, "grad_norm": 2e-4, "update": 0.45, "scale": 0.05}}
 
 
 def _gan_batches(args, seed=0):
@@ -4869,6 +4949,515 @@ def phase_train_v1(device="cuda"):
 
 EVAL_TEXTS = (API_TEXT, API_PROMPT_TEXT)  # tts_text.json: one text for each of the two prompt voices
 EVAL_PROMPT_SECONDS = 3.0
+
+
+# GRPO (A11c): the full-width CosyVoice2-0.5B LM (float32 master weights
+# from seed 0; rollouts on a bf16 copy, on graphs), GRPO_ITERS grpo_step
+# iterations of one prompt of GRPO_TEXT text ids, K = GRPO_K rollouts each
+# (min / max length 2x / 20x the text), the reward through the port's
+# reward server on 127.0.0.1 (CosyVoice2Engine token->wav of random flow and
+# HiFT from seeds 1 and 2, stand_in_asr). The learning rate is large enough
+# that one AdamW step moves the logits far past GRPO_LOGIT_TOL, so that a
+# graph replaying the weights of before the update would fail the hold.
+GRPO_LM = {}  # LMConfig section (full width)
+GRPO_FLOW = {}
+GRPO_HIFT = {}
+GRPO_K = 4
+GRPO_TEXT = 8
+GRPO_ITERS = 2
+GRPO_LR = 1e-3
+GRPO_GT = "the quick brown fox jumps over the lazy dog"
+# The GRPO updates against plain_grpo_step (an eager float32 update written
+# here from the objective, TF32 off), each from the same weights on the same
+# batch: absolute error of the loss, the KL and the clip fraction; relative
+# error of the gradient norm; relative L2 of the clipped gradient and of
+# the weight update over every parameter; and the update's scale (|the
+# update norm over the plain one's - 1|). Two holds: the main path's first
+# update (every rollout ran to max_len, so the zero-mean advantages make
+# the loss ~0; KL and clip fraction 0), and the port's step on the same
+# rollouts cut to unequal lengths, from the weights before that update,
+# each side's old and reference log-probs its own less seeded per-token
+# offsets (GRPO_OFFSETS), so that the surrogate, the clip and the KL all
+# carry weight: there the loss must be at least GRPO_MIN_LOSS, which a
+# flipped advantage sign moves by twice itself. The gradient differs by
+# bf16's rounding, and Adam's first
+# update is +-lr per element, so a gradient element near zero that rounds
+# to the other sign moves the update by 2 lr there, and
+# the scale, which no element's sign moves, holds the rate. On an NVIDIA
+# H100 80GB HBM3 (700 W) the two holds read loss and KL equal, clip
+# fractions equal, gradient norm 2.1e-3 / 3.1e-3, gradient 3.1e-2 /
+# 3.4e-2, update 0.183 / 0.187, scale 1.0e-6 / 7.1e-6; a rate x0.5 or
+# x1.5 lands at update and scale >= 0.5, a missing update at 1, a flipped
+# one at 2. On the CPU (float32 on both sides) a flipped advantage, a
+# flipped KL difference and a doubled clip range each fail these holds.
+GRPO_STEP_TOL = {"loss": 1e-3, "kl": 1e-3, "clipfrac": 0.0, "grad_norm": 1e-2, "grad": 0.1, "update": 0.4,
+                 "scale": 0.05}
+# old log-probs policy - (+-0.1 or +-0.4, random signs): ratios 0.90 /
+# 1.11 inside the clip range (0.8, 1.2) and 0.67 / 1.49 outside it;
+# reference log-probs policy - 0.3 (one sign, so that the k3 KL, 0.041 a
+# token, reads 0.050 if its difference is taken the wrong way round)
+GRPO_OFFSETS = {"old": (0.1, 0.4), "ref": 0.3}
+GRPO_MIN_LOSS = 0.02
+GRPO_LOGIT_TOL = 0.02  # a graph replay against an eager bf16 forward (prefill) of the same tokens (read 1.1e-2)
+
+
+def stand_in_asr(wav, sample_rate):
+    """The phase's ASR (no ASR model ships with the repo): the first k
+    characters of GRPO_GT, k from the wav's energy, so that it is
+    deterministic in the wav and the rollouts of a group score apart."""
+    import numpy as np
+
+    k = int(float(np.abs(np.asarray(wav, np.float64)).sum()) * 1e3) % (len(GRPO_GT) + 1)
+    return GRPO_GT[:k]
+
+
+def _timed_calls(fn, acc, key):
+    def wrapped(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+
+    return wrapped
+
+
+def plain_logps(module, batch):
+    """Per-token log-probs [B, T] of batch's targets under `module`, float32
+    products, no gradient; 0 where the target is padding."""
+    import torch
+
+    from cosyvoice_tpu_torch.train.losses import IGNORE_ID
+
+    with torch.no_grad():
+        logits = module.forward_logits(batch["ids"], batch["types"], batch["lengths"], torch.float32).float()
+        valid = batch["targets"] != IGNORE_ID
+        lp = torch.gather(torch.log_softmax(logits, -1), -1, batch["targets"].clamp_min(0)[..., None])[..., 0]
+        return torch.where(valid, lp, torch.zeros_like(lp))
+
+
+def plain_grpo_step(module, batch, lr, clip_eps, kl_coef):
+    """One GRPO update of `module` written plainly from the objective (the
+    plain version of train/grpo.make_grpo_train_step with grpo_optimizer):
+    float32 products; per token the clipped surrogate min(r A, clip(r) A)
+    with r = exp(logp - old) and the k3 KL exp(ref - logp) - (ref - logp) -
+    1, their sum -surrogate + kl_coef KL averaged over the valid targets; the
+    gradient scaled to global norm 1 where larger (optax's
+    clip_by_global_norm); one torch.optim.AdamW step (b1 0.9, b2 0.999, eps
+    1e-8, decoupled weight decay 1e-4, optax's adamw). Returns (metrics,
+    the clipped gradients)."""
+    import torch
+
+    from cosyvoice_tpu_torch.train.losses import IGNORE_ID
+
+    params = list(module.parameters())
+    logits = module.forward_logits(batch["ids"], batch["types"], batch["lengths"], torch.float32).float()
+    valid = batch["targets"] != IGNORE_ID
+    lp = torch.gather(torch.log_softmax(logits, -1), -1, batch["targets"].clamp_min(0)[..., None])[..., 0]
+    ratio = torch.exp(lp - batch["old_logps"])
+    adv = batch["advantages"][:, None].float()
+    surr = torch.minimum(ratio * adv, ratio.clamp(1.0 - clip_eps, 1.0 + clip_eps) * adv)
+    d = batch["ref_logps"] - lp
+    kl = torch.exp(d) - d - 1.0
+    n = valid.sum()
+    zero = torch.zeros_like(lp)
+    loss = torch.where(valid, kl_coef * kl - surr, zero).sum() / n
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params, torch.autograd.grad(loss, params, allow_unused=True))]
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    if float(norm) > 1.0:
+        grads = [g / norm for g in grads]
+    opt = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    for p, g in zip(params, grads):
+        p.grad = g
+    opt.step()
+    with torch.no_grad():
+        metrics = {"loss": loss.detach(), "kl": torch.where(valid, kl, zero).sum() / n,
+                   "clipfrac": (((ratio - 1.0).abs() > clip_eps) & valid).sum() / n, "grad_norm": norm}
+    return metrics, grads
+
+
+def _rel_l2(a, b):
+    """sqrt(sum |a - b|^2 / sum |b|^2) over two lists of tensors."""
+    num = sum(float((x.double() - y.double()).square().sum()) for x, y in zip(a, b))
+    return math.sqrt(num / max(sum(float(y.double().square().sum()) for y in b), 1e-30))
+
+
+def hold_grpo_update(label, got, got_grads, got_update, want, want_grads, want_update, tol=None):
+    """A GRPO update (metrics, clipped gradients, weight update) against
+    plain_grpo_step's on the same weights and batch (GRPO_STEP_TOL).
+    Returns the errors."""
+    tol = GRPO_STEP_TOL if tol is None else tol
+    err = {k: abs(float(got[k]) - float(want[k])) for k in ("loss", "kl", "clipfrac")}
+    err["grad_norm"] = _rel_err(got["grad_norm"], want["grad_norm"])
+    err["grad"] = _rel_l2(got_grads, want_grads)
+    err["update"] = _rel_l2(got_update, want_update)
+    err["scale"] = abs(math.sqrt(sum(float(u.double().square().sum()) for u in got_update)
+                                 / max(sum(float(u.double().square().sum()) for u in want_update), 1e-30)) - 1.0)
+    print(f"GRPO {label} against plain_grpo_step: "
+          + ", ".join(f"{k} {float(got[k]):.6g} / {float(want[k]):.6g}" for k in ("loss", "kl", "clipfrac", "grad_norm"))
+          + "; errors " + ", ".join(f"{k} {v:.3e} (tol {tol[k]})" for k, v in err.items()))
+    if any(not v <= tol[k] for k, v in err.items()):
+        raise AssertionError(f"GRPO: the {label} disagrees with the plain float32 step")
+    return err
+
+
+def _updates(module, before):
+    import torch
+
+    with torch.no_grad():
+        return [p.detach() - q.detach() for p, q in zip(module.parameters(), before.parameters())]
+
+
+def hold_grpo_first_update(ref, policy, batch, got):
+    """The main path's first update (policy, from ref's weights, metrics
+    `got`) against plain_grpo_step on a copy of ref, on the same batch with
+    the plain copy's own log-probs as old and reference (ratio 1, KL 0).
+    Returns the errors."""
+    import copy
+
+    plain = copy.deepcopy(ref).requires_grad_(True).train()
+    lp = plain_logps(plain, batch)
+    want, want_grads = plain_grpo_step(plain, {**batch, "old_logps": lp, "ref_logps": lp}, GRPO_LR, 0.2, 1e-3)
+    err = hold_grpo_update("first update (the main path's)", got, [p.grad for p in policy.parameters()],
+                           _updates(policy, ref), want, want_grads, _updates(plain, ref))
+    if float(want["kl"]) or float(want["clipfrac"]):
+        raise AssertionError("GRPO: the plain first update has a KL or a clip fraction")
+    return err
+
+
+def grpo_offset_batch(lm_cfg, prompt, batch):
+    """The rollouts of `batch` cut to unequal lengths (rollout k keeps
+    (K - k) / K of its tokens), with its advantages, and the per-token
+    offsets of the old and the reference log-probs below the policy's
+    (GRPO_OFFSETS; the old ones' sizes and signs drawn from a generator
+    seeded 0), 0 at padding. Returns (batch, offsets, rollout lengths)."""
+    import numpy as np
+    import torch
+
+    from cosyvoice_tpu_torch.train import grpo
+
+    P, K = len(prompt["ids"]), batch["ids"].shape[0]
+    ids, lengths = batch["ids"].cpu().numpy(), batch["lengths"].cpu().numpy()
+    cut = [ids[k, P:lengths[k]][: max(1, (lengths[k] - P) * (K - k) // K)] for k in range(K)]
+    out = grpo.to_device(grpo.build_grpo_batch(lm_cfg, prompt["ids"], prompt["types"], cut), batch["ids"].device)
+    out["advantages"] = batch["advantages"]
+    shape, gen = out["targets"].shape, torch.Generator().manual_seed(0)
+    valid = (out["targets"] != -100).float()
+    sizes = torch.tensor(GRPO_OFFSETS["old"])[torch.randint(len(GRPO_OFFSETS["old"]), shape, generator=gen)]
+    signs = torch.randint(2, shape, generator=gen) * 2.0 - 1.0
+    offsets = {"old_logps": (sizes * signs).to(valid.device) * valid, "ref_logps": GRPO_OFFSETS["ref"] * valid}
+    return out, offsets, [len(c) for c in cut]
+
+
+def hold_grpo_offset_update(ref, lm_cfg, prompt, batch, dtype):
+    """The port's GRPO step (make_grpo_train_step with grpo_optimizer,
+    products in `dtype`) on grpo_offset_batch, from ref's weights, against
+    plain_grpo_step from the same weights; each side's old and reference
+    log-probs are its own log-probs of ref's weights (make_logps_fn in
+    `dtype`, plain_logps) less the offsets, so the ratios and the KL terms
+    agree and the surrogate (a loss of at least GRPO_MIN_LOSS), the clip
+    and the KL are all in play. Returns the errors."""
+    import copy
+
+    from cosyvoice_tpu_torch.train import grpo
+
+    held, offsets, lens = grpo_offset_batch(lm_cfg, prompt, batch)
+    port = copy.deepcopy(ref).requires_grad_(True).train()
+    lp = grpo.make_logps_fn(dtype)(port, held)
+    step = grpo.make_grpo_train_step(port, grpo.grpo_optimizer(port, GRPO_LR), 0.2, 1e-3, dtype=dtype)
+    got = step({**held, **{k: lp - off for k, off in offsets.items()}}, 0)
+    got_grads, got_update = [p.grad for p in port.parameters()], _updates(port, ref)
+    del port, step
+    plain = copy.deepcopy(ref).requires_grad_(True).train()
+    lp = plain_logps(plain, held)
+    want, want_grads = plain_grpo_step(plain, {**held, **{k: lp - off for k, off in offsets.items()}}, GRPO_LR,
+                                       0.2, 1e-3)
+    err = hold_grpo_update(f"step on rollouts cut to {lens} tokens, offset log-probs ({dtype} products)", got,
+                           got_grads, got_update, want, want_grads, _updates(plain, ref))
+    if not abs(float(want["loss"])) >= GRPO_MIN_LOSS or not float(want["kl"]) > 0 or not float(want["clipfrac"]) > 0:
+        raise AssertionError(f"GRPO: the offset batch leaves the surrogate, the KL or the clip idle: {want}")
+    return err
+
+
+def hold_rollout_copy(lm, policy):
+    """Every weight of the rollout LM equals its master weight cast to the
+    rollout's dtype, bit for bit."""
+    import torch
+
+    dst = dict(lm.module.named_parameters())
+    bad = [n for n, p in policy.named_parameters() if not torch.equal(dst[n], p.detach().to(dst[n].dtype))]
+    print(f"rollout copy: {len(dst) - len(bad)} of {len(dst)} weights equal the master's cast to their dtype")
+    if bad:
+        raise AssertionError(f"GRPO: the refreshed rollout copy differs from the master in {bad[:4]}")
+
+
+def hold_replay_after_update(lm, ref, prompt, dtype, device):
+    """One rollout block (block_size tokens) after the update, on the graphs
+    captured before it: none captured anew, and the decoder's last logits
+    within GRPO_LOGIT_TOL (relative L2) of an eager forward of the new
+    weights over the same tokens; the old weights' forward (ref) is printed
+    beside, further off."""
+    import numpy as np
+    import torch
+
+    from cosyvoice_tpu_torch.train import grpo
+
+    n = lm.cfg.block_size
+    captures, replays = lm.graph_captures, lm.graph_replays
+    toks = np.concatenate(list(lm.generate(prompt["ids"], prompt["types"],
+                                           grpo.rollout_generator(7, 0, 0, 0, lm.device), n, n)))
+    graph_logits = lm.decoder.state.logits[0].float().clone()
+    ids = np.concatenate([prompt["ids"], toks])[None]
+    types = np.concatenate([prompt["types"], np.ones(len(toks), np.int32)])[None]
+    batch = grpo.to_device({"ids": ids, "types": types, "lengths": np.array([ids.shape[1]])}, device)
+    with torch.no_grad():
+        new = lm.module.forward_logits(batch["ids"], batch["types"], batch["lengths"], dtype)[0, -1].float()
+        old = ref.forward_logits(batch["ids"], batch["types"], batch["lengths"], dtype)[0, -1].float()
+    err_new, err_old = _rel(graph_logits, new), _rel(graph_logits, old)
+    print(f"after the update, {len(toks)} tokens on graphs ({lm.graph_captures - captures} captured, "
+          f"{lm.graph_replays - replays} replayed): last logits vs an eager forward with the new weights "
+          f"{err_new:.3e} (tol {GRPO_LOGIT_TOL}), with the old weights {err_old:.3e}")
+    if len(toks) != n or not err_new <= GRPO_LOGIT_TOL or not err_old > err_new:
+        raise AssertionError("GRPO: the rollout after the update does not read the updated weights")
+    if device.type == "cuda" and (lm.graph_captures != captures or lm.graph_replays == replays):
+        raise AssertionError("GRPO: the rollout after the update did not replay the graphs captured before it")
+
+
+def phase_grpo(device="cuda"):
+    """GRPO at full width (the constants above): GRPO_ITERS grpo_step
+    iterations through the reward server; rollout tokens/s, the K1 / K2
+    launches of the rollouts (24 each per decode step) and the graph
+    replays; the first update against the plain float32 step; the rollout
+    copy after it; the next rollout on the graphs captured before the
+    update against an eager forward; peak memory. Returns the launches."""
+    import threading
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from cosyvoice_tpu_torch.models.flow import CausalFlow
+    from cosyvoice_tpu_torch.models.hift import HiFTGenerator
+    from cosyvoice_tpu_torch.models.llm import TYPE_SPECIAL, TYPE_TEXT, Qwen2LMModule
+    from cosyvoice_tpu_torch.runtime.engine import CosyVoice2Engine
+    from cosyvoice_tpu_torch.serving.reward_server import make_reward_fn, make_server
+    from cosyvoice_tpu_torch.train import grpo
+    from cosyvoice_tpu_torch.utils.config import build_flow_config, build_hift_config, build_lm_config
+    from cosyvoice_tpu_torch.utils.init import init_random_
+
+    dev = torch.device(device)
+    sync = _sync_fn(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cfg = build_lm_config(GRPO_LM)
+    dtype = cfg.qwen.dtype
+    master = dataclasses.replace(cfg, qwen=dataclasses.replace(cfg.qwen, dtype=torch.float32))
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        policy = init_random_(Qwen2LMModule(master), 0)
+    ref = grpo.frozen_copy(policy)
+    lm = grpo.make_rollout_lm(policy, cfg, dev)
+    flow = init_random_(CausalFlow(build_flow_config(GRPO_FLOW), device=dev), 1)
+    hift = init_random_(HiFTGenerator(build_hift_config(GRPO_HIFT), device=dev), 2)
+    engine = CosyVoice2Engine(lm, flow, hift)
+    sync()
+    print(f"GRPO: policy {sum(p.numel() for p in policy.parameters()) / 1e6:.1f}M float32 params, a {dtype} "
+          f"rollout copy, flow and HiFT for the reward, built in {time.perf_counter() - t0:.1f} s")
+    server = make_server(make_reward_fn(SimpleNamespace(engine=engine, flow=flow, sample_rate=24000), stand_in_asr),
+                         "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    acc, batches = {}, []
+    try:
+        url = f"http://127.0.0.1:{server.server_address[1]}/v2/models/reward/infer"
+        reward_fn = _timed_calls(grpo.http_reward(url), acc, "reward")
+        gcfg = grpo.GRPOConfig(group_size=GRPO_K)
+        opt = grpo.grpo_optimizer(policy, GRPO_LR)
+        step = grpo.make_grpo_train_step(policy, opt, gcfg.clip_eps, gcfg.kl_coef, dtype=dtype)
+
+        def train_step(batch, i):
+            batches.append(batch)
+            sync()
+            out = step(batch, i)
+            sync()
+            return out
+
+        train_step = _timed_calls(train_step, acc, "update")
+        logps_fn = _timed_calls(grpo.make_logps_fn(dtype), acc, "logps")
+        rng = np.random.default_rng(0)
+        tt = rng.integers(0, cfg.qwen.vocab_size, GRPO_TEXT).astype(np.int32)
+        prompt = {"ids": np.concatenate([[cfg.sos_id], tt, [cfg.task_id]]).astype(np.int32),
+                  "types": np.concatenate([[TYPE_SPECIAL], np.full(GRPO_TEXT, TYPE_TEXT), [TYPE_SPECIAL]]).astype(np.int32),
+                  "n_text": GRPO_TEXT, "ground_truth": GRPO_GT}
+        counters = _counters()
+        for fn in counters.values():
+            fn.launches = 0
+        lm.graph_replays = lm.graph_captures = lm.decode_steps = 0
+        for i in range(GRPO_ITERS):
+            acc_before = dict(acc)
+            sync()
+            t0 = time.perf_counter()
+            m = grpo.grpo_step(lm, policy, [prompt], reward_fn, 0, gcfg, train_step, logps_fn, ref, i)
+            sync()
+            wall = time.perf_counter() - t0
+            spent = {k: acc.get(k, 0.0) - acc_before.get(k, 0.0) for k in ("reward", "update", "logps")}
+            roll_s = wall - sum(spent.values())
+            print(f"GRPO iteration {i}: rewards {m['rewards'].tolist()}, {m['rollout_tokens']} rollout tokens in "
+                  f"{roll_s:.2f} s ({m['rollout_tokens'] / roll_s:.1f} tokens/s), reward {spent['reward']:.2f} s, "
+                  f"log-probs {spent['logps']:.2f} s, update {spent['update']:.2f} s; loss {float(m['loss']):.6g}, "
+                  f"kl {float(m['kl']):.3g}, clipfrac {float(m['clipfrac']):.3g}, grad_norm "
+                  f"{float(m['grad_norm']):.6g}")
+            if not all(math.isfinite(float(m[k])) for k in ("loss", "kl", "clipfrac", "grad_norm")):
+                raise AssertionError(f"GRPO iteration {i}: a metric is not finite: {m}")
+            if i == 0:
+                if len(set(m["rewards"].tolist())) < 2:
+                    raise AssertionError("GRPO: the first group's rewards are all equal (no advantage to train on)")
+                hold_grpo_first_update(ref, policy, batches[0], m)
+                hold_grpo_offset_update(ref, cfg, prompt, batches[0], dtype)
+                hold_rollout_copy(lm, policy)
+                hold_replay_after_update(lm, ref, prompt, dtype, dev)
+        launches = {key: fn.launches for key, fn in counters.items()}
+        print(f"GRPO rollouts: {lm.decode_steps} decode steps, {lm.graph_captures} graphs captured, "
+              f"{lm.graph_replays} steps replayed; launches {launches}; peak {_peak_gb(dev):.2f} GB allocated "
+              f"({_smi()})")
+        if dev.type == "cuda":
+            per_step = PER_STEP["bf16"]
+            for key in ("K1", "K2"):
+                if launches[key] != per_step[key] * lm.decode_steps or not launches[key]:
+                    raise AssertionError(f"GRPO: {launches[key]} {key} launches for {lm.decode_steps} decode steps")
+    finally:
+        server.shutdown()
+        server.server_close()
+    del policy, ref, lm, engine, opt, step, batches
+    return launches
+
+
+# Multi-device training over NCCL with one card: the full-width LM's DP and
+# FSDP steps against the plain step, then bin/train.main --multihost for
+# two steps (MULTIHOST_MAIN: 2 layers, full width) on TRAIN_ROWS rows held
+# in memory. At world 1 nothing is sharded: a rank's data part is the
+# whole batch, fsdp_param_spec adds no "dp" dimension and the optimizer
+# keeps no master shard, and a sum over "dp" is an NCCL all-reduce of one
+# rank, which a missing or doubled sum would leave equal. So this phase
+# checks that the NCCL group, the mesh and the steps run on the card and
+# give the plain step's numbers; the sharded arithmetic (dp 4, dp x tp,
+# FSDP and ZeRO placements, unequal token counts per rank) is held against
+# the JAX step in tests/test_torch_parallel.py over gloo.
+MULTIHOST_LM = {"qwen": {"num_layers": 2}}
+MULTIHOST_MAIN = {"llm": {"qwen": {"num_layers": 2}}}
+# The same step on one card with and without the mesh, and the plain step
+# run again from the same weights: relative error of the loss and the
+# gradient norm, relative L2 of the update, each held to MULTIHOST_TOL. The
+# forward is deterministic (the losses are equal); the card's backward is
+# not (atomic adds): on an NVIDIA H100 80GB HBM3 (700 W) the 2-layer steps
+# read at most 2.6e-7 (gradient norm) and 2.7e-3 (update) from the plain
+# step in five runs, the plain step against itself the same; Adam's first
+# update is +-lr, so such a difference in a near-zero gradient flips its
+# sign. The gradient-norm and update bounds are LM_STEP_TOL's.
+MULTIHOST_TOL = {"loss": 1e-6, "grad_norm": 1.5e-3, "update": 0.2}
+
+
+def phase_multihost(device="cuda"):
+    """An NCCL process group of one rank (a TCPStore on 127.0.0.1, gloo on
+    the CPU), the ("dp", "tp") mesh; the LM branch's DP and FSDP steps
+    against the plain step (MULTIHOST_TOL); bin/train.main with --multihost
+    for two steps, only rank 0 writing."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from cosyvoice_tpu_torch.bin import train
+    from cosyvoice_tpu_torch.parallel.sharding import init_distributed, make_mesh, shard_params, shard_params_fsdp
+
+    dev = torch.device(device)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port), "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    out_dir = "build/multihost"
+    try:
+        t0 = time.perf_counter()
+        init_distributed(dev)
+        mesh = make_mesh()
+        print(f"process group: {dist.get_backend()}, world {dist.get_world_size()}, mesh {mesh} "
+              f"({time.perf_counter() - t0:.2f} s)")
+        args = train_args("llm")
+        rows = train_rows()
+        batches = train_batches(args)
+        plain = train.build_lm(args, {"llm": MULTIHOST_LM}, dev)
+        mb = plain.collate(batches)
+        w0 = [p.detach().clone() for p in plain.optimizer.params]
+        want = plain.step(mb, 0)
+        d_want = [p.detach().double() - w.double() for p, w in zip(plain.optimizer.params, w0)]
+        del plain
+
+        def step_errors(branch):
+            _sync_fn(dev)()
+            t0 = time.perf_counter()
+            got = branch.step(mb, 0)
+            _sync_fn(dev)()
+            num = den = 0.0
+            for p, w, d in zip(branch.optimizer.params, w0, d_want):
+                num += float((p.detach().double() - w.double() - d).square().sum())
+                den += float(d.square().sum())
+            return got, time.perf_counter() - t0, {
+                "loss": _rel_err(got["loss"], want["loss"]), "grad_norm": _rel_err(got["grad_norm"], want["grad_norm"]),
+                "update": math.sqrt(num / max(den, 1e-30))}
+
+        _, _, floor = step_errors(train.build_lm(args, {"llm": MULTIHOST_LM}, dev))
+        tol = MULTIHOST_TOL
+        print("the plain step again, from the same weights: " + ", ".join(f"{k} {v:.3e} (tol {tol[k]:.3e})"
+                                                                        for k, v in floor.items()))
+        if any(not v <= tol[k] for k, v in floor.items()):
+            raise AssertionError("the plain step run again disagrees with itself")
+        for label, place in (("DP", shard_params), ("FSDP", shard_params_fsdp)):
+            branch = train.build_lm(args, {"llm": MULTIHOST_LM}, dev, mesh=mesh)
+            place(mesh, branch.module)
+            branch.optimizer.use_mesh(mesh)
+            got, t_step, err = step_errors(branch)
+            print(f"{label} step on the mesh ({t_step:.2f} s): loss {float(got['loss']):.6f} / "
+                  f"{float(want['loss']):.6f}, grad_norm {float(got['grad_norm']):.6f} / "
+                  f"{float(want['grad_norm']):.6f}; errors " + ", ".join(f"{k} {v:.3e} (tol {tol[k]:.3e})"
+                                                                          for k, v in err.items()))
+            if any(not v <= tol[k] for k, v in err.items()):
+                raise AssertionError(f"{label}: the step on the mesh disagrees with the plain step")
+            del branch
+        del d_want, w0
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "cfg.json"), "w") as f:
+            json.dump(MULTIHOST_MAIN, f)
+        with open(os.path.join(out_dir, "data.list"), "w") as f:
+            f.write("rows\n")
+
+        def opener(sources):
+            for s in sources:
+                for row in rows:
+                    yield {**row, "audio": row["audio"].copy()}
+
+        t0 = time.perf_counter()
+        executor, branch = train.main(["--model", "llm", "--config", os.path.join(out_dir, "cfg.json"), "--train_data",
+                                       os.path.join(out_dir, "data.list"), "--model_dir", os.path.join(out_dir, "exp"),
+                                       "--device", device, "--multihost", "--max_epoch", "2", "--log_interval", "1",
+                                       *TRAIN_FLAGS], opener=opener)
+        files = sorted(os.listdir(os.path.join(out_dir, "exp")))
+        print(f"bin/train.main --multihost: {executor.step} steps in {time.perf_counter() - t0:.1f} s, rank 0 wrote "
+              f"{[f for f in files if f.endswith('.msgpack')]}")
+        if executor.step != 2 or branch.optimizer.count != 2 or "llm_epoch2_step2.msgpack" not in files:
+            raise AssertionError("bin/train.main --multihost did not take and save its two steps")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(out_dir, ignore_errors=True)
 
 
 def phase_eval(model_dir, hift_path, device="cuda"):
@@ -5270,6 +5859,14 @@ def main(argv):
         gan_hift = phase_train_hifigan()
     with Phase("train_v1"):
         phase_train_v1()
+    torch.cuda.empty_cache()
+    # GRPO with its reward server, then multi-device training over NCCL (A11c)
+    with Phase("grpo"):
+        for key, n in phase_grpo().items():
+            launches[key] += n
+    torch.cuda.empty_cache()
+    with Phase("multihost"):
+        phase_multihost()
     torch.cuda.empty_cache()
     with Phase("hermetic"):
         phase_hermetic()

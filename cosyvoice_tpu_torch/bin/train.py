@@ -19,7 +19,17 @@ optax's warmup-cosine schedule with a plateau restart, then alternating
 generator and discriminator steps, a {"generator", "discriminator"}
 checkpoint each epoch with the epoch's mean generator loss as its
 cv_loss (so bin/average_model.py --model_name hifigan picks the best).
-`--multihost` is not ported yet (ROADMAP A11c).
+
+`--multihost` trains the CosyVoice2/3 llm or flow data-parallel over the
+processes torchrun starts (one per card; NCCL on the card, gloo with
+--device cpu): the process group from torchrun's environment, a "dp"
+mesh over every rank (parallel/sharding.py), each rank reading its part
+of the data list (Dataset(rank, world_size)), the weights made equal from
+rank 0's, the gradients summed over the ranks and the loss normalised by
+the global token count (train/trainer.py), only rank 0 writing. The v1
+branches and hifigan raise under it.
+
+    torchrun --nproc_per_node 4 -m cosyvoice_tpu_torch.bin.train --multihost --model llm ...
 
     python -m cosyvoice_tpu_torch.bin.train --model llm --train_data data.list \\
         --model_dir exp/llm [--cv_data cv.list] [--checkpoint ckpt.msgpack] [--config config.json] \\
@@ -119,7 +129,8 @@ def parse_args(argv=None):
     parser.add_argument("--save_per_step", type=int, default=-1)
     parser.add_argument("--dpo", action="store_true")
     parser.add_argument("--seed", type=int, default=1986)
-    parser.add_argument("--multihost", action="store_true", help="multi-host training (not ported yet)")
+    parser.add_argument("--multihost", action="store_true",
+                        help="data-parallel over torchrun's processes (llm and flow of CosyVoice2/3)")
     parser.add_argument("--device", default="cuda")
     if cfg.get("train"):
         parser.set_defaults(**cfg["train"])
@@ -162,12 +173,15 @@ def _stack(mbs, fills, device):
     return out
 
 
-def build_lm(args, cfg: dict, device):
+def build_lm(args, cfg: dict, device, mesh=None):
     """The LM branch: float32 master weights (random from args.seed),
-    products in the config's dtype. Returns a namespace of module,
-    optimizer, step(batch, step_no) -> metrics, collate(batch or list of A
-    batches) -> [A, B, T] tensors, cv_fn(batch) -> loss, accum."""
+    products in the config's dtype; with a "dp" `mesh`, the weights made
+    equal over the ranks and the step data-parallel. Returns a namespace
+    of module, optimizer, step(batch, step_no) -> metrics,
+    collate(batch or list of A batches) -> [A, B, T] tensors,
+    cv_fn(batch) -> loss, accum."""
     from cosyvoice_tpu_torch.models.llm import Qwen2LMModule
+    from cosyvoice_tpu_torch.parallel.sharding import replicate
     from cosyvoice_tpu_torch.train.lm_data import collate_lm_batch
     from cosyvoice_tpu_torch.train.losses import IGNORE_ID, lm_ce_loss
     from cosyvoice_tpu_torch.train.trainer import make_lm_train_step
@@ -178,9 +192,11 @@ def build_lm(args, cfg: dict, device):
     master = dataclasses.replace(lm_cfg, qwen=dataclasses.replace(lm_cfg.qwen, dtype=torch.float32))
     with torch.device(device):
         module = init_random_(Qwen2LMModule(master), args.seed)
+    if mesh is not None:
+        replicate(mesh, module)
     optimizer = _optimizer(args, module)
     accum = max(args.accum_grad, 1)
-    step = make_lm_train_step(module, optimizer, accum_steps=accum, dtype=lm_cfg.qwen.dtype)
+    step = make_lm_train_step(module, optimizer, accum_steps=accum, dtype=lm_cfg.qwen.dtype, mesh=mesh)
     # pad rows get length 1 and all-IGNORE targets: loss-neutral, and no
     # query row is fully masked
     fills = {"ids": 0, "types": 1, "targets": IGNORE_ID, "lengths": 1}
@@ -200,22 +216,26 @@ def build_lm(args, cfg: dict, device):
     return SimpleNamespace(module=module, optimizer=optimizer, step=step, collate=collate, cv_fn=cv_fn, accum=accum)
 
 
-def build_flow(args, cfg: dict, device):
+def build_flow(args, cfg: dict, device, mesh=None):
     """The flow branch (the U-Net or the DiT flow), float32, random from
     args.seed; each step draws streaming or offline with Python's `random`
-    (unified training) and its loss draws from a generator seeded
-    args.seed; CV is offline with a generator seeded 0 each pass. Returns
-    the namespace of build_lm."""
+    (unified training, the same draw on every rank) and its loss draws from
+    a generator seeded args.seed (plus the "dp" rank under a `mesh`); CV is
+    offline with a generator seeded 0 each pass. Returns the namespace of
+    build_lm."""
     from cosyvoice_tpu_torch.models.flow import CausalFlow
+    from cosyvoice_tpu_torch.parallel.sharding import axis_rank, replicate
     from cosyvoice_tpu_torch.train.trainer import make_flow_train_step
     from cosyvoice_tpu_torch.utils.config import build_flow_config
     from cosyvoice_tpu_torch.utils.init import init_random_
 
     flow = init_random_(CausalFlow(build_flow_config(cfg.get("flow")), device=device), args.seed)
+    if mesh is not None:
+        replicate(mesh, flow)
     optimizer = _optimizer(args, flow)
     accum = max(args.accum_grad, 1)
-    flow_step = make_flow_train_step(flow, optimizer, accum_steps=accum)
-    generator = torch.Generator(device=device).manual_seed(args.seed)
+    flow_step = make_flow_train_step(flow, optimizer, accum_steps=accum, mesh=mesh)
+    generator = torch.Generator(device=device).manual_seed(args.seed + axis_rank(mesh, "dp"))
 
     def step(batch, step_no):
         return flow_step(batch, generator, random.random() < 0.5)
@@ -449,6 +469,22 @@ def train_gan(args, gan, dataset, executor):
                       {"cv_loss": float(np.mean(gen_losses)) if gen_losses else float("inf")})
 
 
+def _multihost(device):
+    """(this rank's device, the "dp" mesh over every rank): the process
+    group from torchrun's environment (RANK, WORLD_SIZE, MASTER_ADDR,
+    MASTER_PORT; on the card the device LOCAL_RANK), unless one is open."""
+    import torch.distributed as dist
+
+    from cosyvoice_tpu_torch.parallel.sharding import init_distributed, make_mesh
+
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", device.index or 0)))
+        torch.cuda.set_device(device)
+    if not dist.is_initialized():
+        init_distributed(device)
+    return device, make_mesh(dp=dist.get_world_size(), tp=1)
+
+
 def main(argv=None, opener=None):
     """Train; returns the Executor and the branch (build_lm, build_lm_v1,
     build_flow, build_flow_v1 or build_gan). `opener` replaces the
@@ -458,14 +494,18 @@ def main(argv=None, opener=None):
     args, cfg = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     version = int(cfg.get("version", 2))
-    if args.multihost:
-        raise NotImplementedError("--multihost is not ported yet (ROADMAP A11c)")
     from cosyvoice_tpu_torch.data.dataset import Dataset
     from cosyvoice_tpu_torch.frontend.tokenizer import get_tokenizer
     from cosyvoice_tpu_torch.train.executor import Executor
     from cosyvoice_tpu_torch.utils.devices import resolve_device
 
     device = resolve_device(args.device)
+    rank, world, mesh = 0, 1, None
+    if args.multihost:
+        if args.model == "hifigan" or version == 1:
+            raise NotImplementedError("--multihost trains the llm and flow branches of CosyVoice2/3")
+        device, mesh = _multihost(device)
+        rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
     random.seed(args.seed)
     np.random.seed(args.seed)
     tokenizer = get_tokenizer(args.tokenizer_path or None, version=version)
@@ -478,14 +518,16 @@ def main(argv=None, opener=None):
         executor = Executor(None, args.model_dir, model_name="hifigan", log_interval=args.log_interval)
         train_gan(args, gan, dataset, executor)
         return executor, gan
-    v1_branches = {("llm", 1): build_lm_v1, ("flow", 1): build_flow_v1}
-    branch = v1_branches.get((args.model, version), build_lm if args.model == "llm" else build_flow)(args, cfg, device)
+    if version == 1:
+        branch = {"llm": build_lm_v1, "flow": build_flow_v1}[args.model](args, cfg, device)
+    else:
+        branch = (build_lm if args.model == "llm" else build_flow)(args, cfg, device, mesh)
     pipeline = build_pipeline(args, tokenizer, opener=opener)
-    dataset = Dataset(args.train_data, pipeline)
-    cv_dataset = Dataset(args.cv_data, pipeline) if args.cv_data else None
+    dataset = Dataset(args.train_data, pipeline, rank=rank, world_size=world)
+    cv_dataset = Dataset(args.cv_data, pipeline, rank=rank, world_size=world) if args.cv_data else None
     cv_iter_fn = (lambda: iter(cv_dataset)) if cv_dataset is not None else None
     executor = Executor(branch.step, args.model_dir, model_name=args.model, log_interval=args.log_interval,
-                        save_per_step=args.save_per_step)
+                        save_per_step=args.save_per_step, rank=rank)
     if args.checkpoint:
         executor.resume(branch.module, args.checkpoint)
         # the schedule resumes at the restored global step; Adam's moments

@@ -74,6 +74,7 @@ decode steps replayed, the eager first steps at a key, and the host seconds
 spent capturing and enqueueing replays.
 """
 
+import gc
 import threading
 import time
 
@@ -292,11 +293,18 @@ class DecodeGraphs:
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         graph.enable_debug_mode()
         graph.register_generator_state(self.generator)
+        # no cycle collection while capturing: a graph it frees (an earlier
+        # LM's, left in a reference cycle) would be destroyed mid-capture,
+        # which CUDA forbids and which invalidates this capture
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with self.capture_lock, torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 step(lm, self.state, cache, self.generator, stacked, bistream)
             graph.instantiate()
         finally:
+            if collecting:
+                gc.enable()
             after = [getattr(obj, attr) for obj, attr in counters]
             for (obj, attr), v in zip(counters, before):
                 setattr(obj, attr, v)

@@ -601,6 +601,17 @@ class CosyVoice2Engine:
         self.timer.add("t2w", time.perf_counter() - t0)
         return out
 
+    def synthesize_finalize(self, tokens, prompt_token, prompt_feat, embedding) -> np.ndarray:
+        """The JAX engine's token2wav(finalize=True) outside a stream: the
+        flow over prompt and tokens under offline masks, the mel past the
+        prompt vocoded in its bucket (the generic finalize), wav [1, n] on
+        the host. The GRPO reward server's token->wav. It holds the decode
+        graphs' capture lock."""
+        all_tokens = np.concatenate([prompt_token, tokens]).astype(np.int64)
+        with self.lm.decoder.capture_lock, torch.inference_mode():
+            wav = self._finalize_generic(SessionState(), all_tokens, prompt_feat, embedding, 0, streaming=False)
+            return wav.float().cpu().numpy()
+
     def next_hop(self, hop: int, chunk_index: int, elapsed_s: float, token_offset: int, n_pending: int) -> int:
         """Token hop of the chunk after chunk `chunk_index` (the JAX engine's
         policies): "doubling" x stream_scale_factor up to token_max_hop_len
@@ -809,6 +820,13 @@ class CosyVoice3Engine(CosyVoice2Engine):
         wav = wav[:, state.speech_offset :]
         state.speech_offset += wav.shape[1]
         return wav
+
+    def synthesize_finalize(self, tokens, prompt_token, prompt_feat, embedding) -> np.ndarray:
+        """The JAX CosyVoice3Engine's token2wav(finalize=True) outside a
+        stream (offline masks), under the decode graphs' capture lock."""
+        with self.lm.decoder.capture_lock:
+            return self.token2wav(SessionState(), np.asarray(tokens, np.int32), prompt_token, prompt_feat, embedding,
+                                  0, finalize=True, stream=False)
 
     @torch.inference_mode()
     def token2wav(self, state: SessionState, tokens, prompt_token, prompt_feat, embedding, token_offset: int,

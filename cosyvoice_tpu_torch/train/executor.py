@@ -33,19 +33,22 @@ def _tree_map(fn, *trees):
 
 class Executor:
     """train_step(batch, step) -> metrics runs one optimizer step on the
-    trained module; `step` counts the steps taken, `epoch` the epochs."""
+    trained module; `step` counts the steps taken, `epoch` the epochs. Of
+    the ranks of a multi-process run only rank 0 writes (checkpoints,
+    sidecars, TensorBoard)."""
 
     def __init__(self, train_step: Callable, out_dir: str, model_name: str = "model", log_interval: int = 100,
-                 save_per_step: int = -1, tensorboard: bool = True):
+                 save_per_step: int = -1, tensorboard: bool = True, rank: int = 0):
         self.train_step = train_step
         self.out_dir = out_dir
         self.model_name = model_name
         self.log_interval = log_interval
         self.save_per_step = save_per_step
+        self.rank = rank
         self.step = 0
         self.epoch = 0
         self.writer = None
-        if tensorboard:
+        if tensorboard and rank == 0:
             try:
                 from torch.utils.tensorboard import SummaryWriter
 
@@ -89,11 +92,14 @@ class Executor:
         self._tb(metrics)
         return metrics
 
-    def save(self, module, metrics: Optional[dict] = None) -> str:
+    def save(self, module, metrics: Optional[dict] = None) -> Optional[str]:
         """<model_name>_epoch<E>_step<S>.msgpack (the module's JAX param
         tree; for a dict of modules, such as the GAN's {"generator",
         "discriminator"}, the dict of their trees) and its .json sidecar.
-        Returns the checkpoint's path."""
+        Returns the checkpoint's path; None on a rank other than 0, which
+        writes nothing."""
+        if self.rank != 0:
+            return None
         tag = f"{self.model_name}_epoch{self.epoch}_step{self.step}"
         path = os.path.join(self.out_dir, f"{tag}.msgpack")
         tree = {k: export_params(m) for k, m in module.items()} if isinstance(module, dict) else export_params(module)

@@ -18,9 +18,10 @@ from torch.nn import functional as F
 IGNORE_ID = -100
 
 
-def lm_ce_loss(logits: torch.Tensor, targets: torch.Tensor, smoothing: float = 0.0, normalize_length: bool = True):
+def lm_ce_sums(logits: torch.Tensor, targets: torch.Tensor, smoothing: float = 0.0):
     """logits [B, T, V]; targets [B, T] with IGNORE_ID padding. Returns
-    (loss, accuracy), float32 scalars."""
+    (summed smoothed NLL float32, correct argmaxes, valid targets): the
+    parts of lm_ce_loss, which a data-parallel step sums over ranks."""
     V = logits.shape[-1]
     valid = targets != IGNORE_ID
     tgt = torch.where(valid, targets, torch.zeros_like(targets)).long()
@@ -30,11 +31,16 @@ def lm_ce_loss(logits: torch.Tensor, targets: torch.Tensor, smoothing: float = 0
     true_lp = torch.gather(logp, -1, tgt[..., None])[..., 0]
     # KL(smoothed || pred) up to a constant: -(conf * logp_true + smooth * sum(logp_other))
     nll = -(conf * true_lp + smooth * (logp.sum(-1) - true_lp))
-    n_valid = valid.sum()
+    correct = ((logits.argmax(-1) == tgt) & valid).sum()
+    return torch.where(valid, nll, torch.zeros_like(nll)).sum(), correct, valid.sum()
+
+
+def lm_ce_loss(logits: torch.Tensor, targets: torch.Tensor, smoothing: float = 0.0, normalize_length: bool = True):
+    """logits [B, T, V]; targets [B, T] with IGNORE_ID padding. Returns
+    (loss, accuracy), float32 scalars."""
+    nll, correct, n_valid = lm_ce_sums(logits, targets, smoothing)
     denom = n_valid.clamp_min(1) if normalize_length else logits.shape[0]
-    loss = torch.where(valid, nll, torch.zeros_like(nll)).sum() / denom
-    acc = ((logits.argmax(-1) == tgt) & valid).sum() / n_valid.clamp_min(1)
-    return loss, acc.float()
+    return nll / denom, (correct / n_valid.clamp_min(1)).float()
 
 
 def mel_l1_loss(real_mel: torch.Tensor, fake_mel: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,6 @@
 """Training steps for the CosyVoice2 / CosyVoice3 LM and flow.
 
-Counterpart of cosyvoice_tpu/train/trainer.py (one device; the JAX
-package's mesh sharding waits with parallel/, ROADMAP A11c):
+Counterpart of cosyvoice_tpu/train/trainer.py:
 
 - `make_optimizer`: optax's chain clip_by_global_norm(grad_clip) ->
   scale_by_adam -> scale_by_schedule(-sched) as `Optimizer`: the gradient
@@ -14,7 +13,12 @@ package's mesh sharding waits with parallel/, ROADMAP A11c):
   Adam's step and the schedule count stay as they were;
 - `make_lm_train_step` / `make_flow_train_step`: gradients summed over A
   microbatches and scaled by 1/A; the loss (and the LM's accuracy) the
-  mean of the microbatches' values, each normalised by its own token count;
+  mean of the microbatches' values, each normalised by its own token count.
+  With a `mesh` (parallel/sharding.py) each rank holds its "dp" part of
+  every microbatch: a microbatch's loss is normalised by the count summed
+  over "dp" (valid tokens, the flow's valid mel values), the gradients are
+  summed over "dp", and the gradient norm is the global one. Without one
+  (mesh None) these sums are the identity: one path serves both;
 - `v1_lm_targets` / `make_lm_v1_train_step`: the CosyVoice-300M LM's CE
   step (float32, one batch, the non-finite skip kept).
 
@@ -27,7 +31,8 @@ from typing import Optional
 
 import torch
 
-from cosyvoice_tpu_torch.train.losses import IGNORE_ID, lm_ce_loss
+from cosyvoice_tpu_torch.parallel import sharding
+from cosyvoice_tpu_torch.train.losses import IGNORE_ID, lm_ce_loss, lm_ce_sums
 from cosyvoice_tpu_torch.train.schedulers import get_scheduler
 
 
@@ -48,17 +53,47 @@ class Optimizer:
     a scheduled rate over `params`. `count` is the updates applied: the
     schedule's step (resuming sets it to the restored global step).
     skip_nonfinite=False is optax's plain chain clip -> Adam (the GAN's and
-    the v1 flow's): a non-finite norm is applied like any other."""
+    the v1 flow's): a non-finite norm is applied like any other.
+    weight_decay > 0 is optax's adamw: the decay decoupled from the
+    gradient, p -= lr * (adam + weight_decay * p), on every parameter.
 
-    def __init__(self, params, sched, grad_clip: float = 5.0, skip_nonfinite: bool = True):
+    `use_mesh(mesh)` (after parallel.sharding placed the parameters) makes
+    the gradient norm the global one over tp-sharded gradients, and
+    updates each parameter that carries a `dp_dim` as its dp shard (the
+    float32 master part and Adam's moments of this rank alone), gathering
+    the updated shards back into the parameter."""
+
+    def __init__(self, params, sched, grad_clip: float = 5.0, skip_nonfinite: bool = True,
+                 weight_decay: float = 0.0):
         self.params = [p for p in params if p.requires_grad]
         self.sched = sched
         self.grad_clip = grad_clip
         self.skip_nonfinite = skip_nonfinite
-        self.adam = torch.optim.Adam(self.params, lr=sched(0), betas=(0.9, 0.999), eps=1e-8)
+        self.weight_decay = weight_decay
+        self.mesh = None
+        self.masters = []  # (parameter, its dp shard, the dimension) under a mesh
+        self.adam = self._adam(self.params)
         self.count = 0
 
+    def _adam(self, tensors):
+        if self.weight_decay > 0:
+            return torch.optim.AdamW(tensors, lr=self.sched(0), betas=(0.9, 0.999), eps=1e-8,
+                                     weight_decay=self.weight_decay)
+        return torch.optim.Adam(tensors, lr=self.sched(0), betas=(0.9, 0.999), eps=1e-8)
+
+    def use_mesh(self, mesh):
+        """Train over `mesh` (class docstring); before the first update."""
+        if self.count:
+            raise RuntimeError("use_mesh after an update: Adam's moments would be lost")
+        self.mesh = mesh
+        self.masters = [(p, sharding.dp_shard(mesh, p.detach(), p.dp_dim).clone(), p.dp_dim) for p in self.params
+                        if getattr(p, "dp_dim", None) is not None and sharding.axis_size(mesh, "dp") > 1]
+        sharded = {id(p) for p, _, _ in self.masters}
+        self.adam = self._adam([m for _, m, _ in self.masters] + [p for p in self.params if id(p) not in sharded])
+
     def zero_grad(self):
+        for p in self.params:
+            p.grad = None
         self.adam.zero_grad(set_to_none=True)
 
     def grads(self):
@@ -71,10 +106,13 @@ class Optimizer:
 
     def step(self):
         """Clip, then one Adam update at the scheduled rate unless the
-        gradient norm is not finite (and skip_nonfinite). Returns (gradient
-        norm before the clip, whether the update was applied)."""
+        gradient norm is not finite (and skip_nonfinite). Adam updates the
+        dp shards of `masters` (none without a mesh) and the whole
+        parameters that have none; every rank's updated shard is then
+        gathered into the parameter. Returns (gradient norm before the
+        clip, whether the update was applied)."""
         grads = self.grads()
-        gnorm = global_norm(grads)
+        gnorm = sharding.global_norm(self.mesh, self.params)
         if self.skip_nonfinite and skip_nonfinite(gnorm):
             return gnorm, False
         if float(gnorm) >= self.grad_clip:
@@ -82,7 +120,12 @@ class Optimizer:
             torch._foreach_mul_(grads, self.grad_clip)
         for group in self.adam.param_groups:
             group["lr"] = self.sched(self.count)
+        for p, m, d in self.masters:
+            m.grad = sharding.dp_shard(self.mesh, p.grad, d)
         self.adam.step()
+        with torch.no_grad():
+            for p, m, d in self.masters:
+                p.copy_(sharding.dp_gather(self.mesh, m, d))
         self.count += 1
         return gnorm, True
 
@@ -99,22 +142,35 @@ def _scale_grads(optimizer: Optimizer, scale: float):
         torch._foreach_mul_(grads, scale)
 
 
-def make_lm_train_step(lm_module, optimizer: Optimizer, accum_steps: int = 1, dtype: Optional[torch.dtype] = None):
+def _on_mesh(optimizer: Optimizer, mesh):
+    if mesh is not None and optimizer.mesh is not mesh:
+        optimizer.use_mesh(mesh)
+
+
+def make_lm_train_step(lm_module, optimizer: Optimizer, accum_steps: int = 1, dtype: Optional[torch.dtype] = None,
+                       mesh=None):
     """Returns step(batch, step) -> metrics. batch: {"ids", "types",
     "targets": [A, B, T], "lengths": [A, B]} tensors on the module's device,
-    A = accum_steps microbatches. Metrics: "loss", "acc", "grad_norm"
-    (0-d float32 tensors), "step" (step + 1). The Qwen2 products compute in
-    `dtype` (default the module's cfg.qwen.dtype)."""
+    A = accum_steps microbatches (with a mesh, this rank's "dp" part of each:
+    parallel.sharding.shard_accum_batch). Metrics: "loss", "acc",
+    "grad_norm" (0-d float32 tensors, the same on every rank), "step"
+    (step + 1). The Qwen2 products compute in `dtype` (default the module's
+    cfg.qwen.dtype)."""
     inv = 1.0 / accum_steps
+    _on_mesh(optimizer, mesh)
 
     def step_fn(batch, step):
         optimizer.zero_grad()
         loss_sum = acc_sum = 0.0
         for a in range(batch["ids"].shape[0]):
             logits = lm_module.forward_logits(batch["ids"][a], batch["types"][a], batch["lengths"][a], dtype)
-            loss, acc = lm_ce_loss(logits, batch["targets"][a])
+            nll, correct, n_valid = lm_ce_sums(logits, batch["targets"][a])
+            n_all = sharding.reduce_sum(mesh, n_valid).clamp_min(1)
+            loss, acc = nll / n_all, correct.float() / n_all
             loss.backward()
-            loss_sum, acc_sum = loss_sum + loss.detach(), acc_sum + acc
+            loss_sum, acc_sum = loss_sum + loss.detach(), acc_sum + acc.detach()
+        sharding.reduce_gradients(mesh, optimizer.grads())
+        loss_sum, acc_sum = sharding.reduce_sum(mesh, loss_sum), sharding.reduce_sum(mesh, acc_sum)
         _scale_grads(optimizer, inv)
         gnorm, _ = optimizer.step()
         return {"loss": loss_sum * inv, "acc": acc_sum * inv, "grad_norm": gnorm, "step": step + 1}
@@ -154,15 +210,17 @@ def make_lm_v1_train_step(lm_module, optimizer: Optimizer, speech_token_size: in
     return step_fn
 
 
-def make_flow_train_step(flow, optimizer: Optimizer, accum_steps: int = 1):
+def make_flow_train_step(flow, optimizer: Optimizer, accum_steps: int = 1, mesh=None):
     """Returns step(batch, generator, streaming, draws=None) -> metrics
     ("loss", "grad_norm"). batch: {"token", "token_len", "feat",
     "feat_len", "embedding"} tensors [A, B, ...], A = accum_steps
-    microbatches; `streaming` is drawn per step by the caller (unified
-    training). Each microbatch's draws come from `generator`
-    (models/flow_matching.loss_draws) unless `draws`, a list of A dicts,
-    gives them."""
+    microbatches (with a mesh, this rank's "dp" part of each); `streaming`
+    is drawn per step by the caller (unified training). Each microbatch's
+    draws come from `generator` (models/flow_matching.loss_draws) unless
+    `draws`, a list of A dicts, gives them. With a mesh the flow's masked
+    mean is taken over the valid mel values of every rank's rows."""
     inv = 1.0 / accum_steps
+    _on_mesh(optimizer, mesh)
 
     def step_fn(batch, generator, streaming: bool, draws=None):
         optimizer.zero_grad()
@@ -171,8 +229,14 @@ def make_flow_train_step(flow, optimizer: Optimizer, accum_steps: int = 1):
             loss = flow.loss(batch["token"][a], batch["token_len"][a], batch["feat"][a], batch["feat_len"][a],
                              batch["embedding"][a], streaming=streaming, generator=generator,
                              draws=None if draws is None else draws[a])
+            # the rank's share of the global denominator (cfm_loss divides by
+            # its rows' valid frames times the mel width): 1 without a mesh
+            frames = batch["feat_len"][a].clamp_max(batch["feat"].shape[2]).sum().float()
+            loss = loss * (frames / sharding.reduce_sum(mesh, frames).clamp_min(1))
             loss.backward()
             loss_sum = loss_sum + loss.detach()
+        sharding.reduce_gradients(mesh, optimizer.grads())
+        loss_sum = sharding.reduce_sum(mesh, loss_sum)
         _scale_grads(optimizer, inv)
         gnorm, _ = optimizer.step()
         return {"loss": loss_sum * inv, "grad_norm": gnorm}

@@ -5,7 +5,8 @@
   card's machine), checked by AST scan;
 - the entry points run on the card unless the caller asks for the CPU, and
   raise when there is no card; so do the training and data-prep command
-  lines (bin/train.py, bin/average_model.py, tools/extract_embedding.py,
+  lines (bin/train.py, its --multihost, bin/average_model.py,
+  bin/rl_grpo.py, serving/reward_server.py, tools/extract_embedding.py,
   tools/extract_speech_token.py) and the online token extractor;
 - pyarrow is imported only inside data/processor.parquet_opener and
   tools/make_parquet_list.main (the card's machine has none).
@@ -199,7 +200,8 @@ def test_port_imports_no_jax_flax_or_jax_package():
                    "data/dataset.py", "data/processor.py", "bin/train.py", "bin/average_model.py",
                    "tools/extract_embedding.py", "tools/extract_speech_token.py", "tools/make_parquet_list.py",
                    "ops/f0.py", "models/discriminator.py", "train/gan.py", "tools/eval_quality.py",
-                   "serving/reward_server.py"):
+                   "serving/reward_server.py", "train/grpo.py", "bin/rl_grpo.py", "parallel/sharding.py",
+                   "parallel/pipeline.py", "examples/grpo/cosyvoice2/prepare_data.py"):
         assert f"cosyvoice_tpu_torch/{served}" in scanned
     bad = [
         f"{f.relative_to(REPO)}: {mod}"
@@ -288,7 +290,8 @@ def test_pyarrow_is_imported_only_inside_the_two_parquet_functions():
 
 
 def _cli_entry_points(tmp_path):
-    from cosyvoice_tpu_torch.bin import average_model, train
+    from cosyvoice_tpu_torch.bin import average_model, rl_grpo, train
+    from cosyvoice_tpu_torch.serving import reward_server
     from cosyvoice_tpu_torch.tools import eval_quality, extract_embedding, extract_speech_token
     from cosyvoice_tpu_torch.train.online_features import OnlineSpeechTokenExtractor
 
@@ -311,12 +314,17 @@ def _cli_entry_points(tmp_path):
         "tools.extract_embedding": lambda: extract_embedding.main(["--dir", str(tmp_path)]),
         "tools.extract_speech_token": lambda: extract_speech_token.main(["--dir", str(tmp_path)]),
         "OnlineSpeechTokenExtractor": lambda: OnlineSpeechTokenExtractor(),
+        "bin.train multihost": train_main("llm", "--multihost"),
+        "bin.rl_grpo": lambda: rl_grpo.main(["--train_data", str(tmp_path / "none.jsonl"), "--model_dir",
+                                             str(tmp_path), "--reward_path", "json:dumps"]),
+        "serving.reward_server": lambda: reward_server.main(["--asr", "json:dumps"]),
     }
 
 
 @pytest.mark.parametrize("name", ["bin.train", "bin.train hifigan", "bin.train v1 llm", "bin.train v1 flow",
                                   "bin.average_model", "tools.extract_embedding", "tools.extract_speech_token",
-                                  "tools.eval_quality", "OnlineSpeechTokenExtractor"])
+                                  "tools.eval_quality", "OnlineSpeechTokenExtractor", "bin.train multihost",
+                                  "bin.rl_grpo", "serving.reward_server"])
 def test_training_entry_points_default_to_cuda_and_raise_without_it(name, tmp_path, monkeypatch):
     """Each raises before it reads any input: tests/test_torch_train_cli.py
     runs them with --device cpu."""

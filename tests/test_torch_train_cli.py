@@ -1,9 +1,10 @@
 """The port's training entry points on the CPU, held against the JAX
 package: bin/train.py for one epoch with CV on tiny LM and flow configs
 over a parquet data list, checkpoints read by flax.serialization and JAX
-checkpoints resumed, bin/average_model against the JAX averaging, the
-unported --multihost's raise (the GAN and v1 branches:
-tests/test_torch_gan.py, tests/test_torch_train_v1.py), and the data-prep tools (extract_embedding,
+checkpoints resumed, bin/average_model against the JAX averaging,
+--multihost in two gloo processes and its raise on the GAN branch (the GAN
+and v1 branches themselves: tests/test_torch_gan.py,
+tests/test_torch_train_v1.py), and the data-prep tools (extract_embedding,
 extract_speech_token, make_parquet_list) against the JAX tools on a tiny
 kaldi-style dir."""
 
@@ -157,11 +158,29 @@ def test_average_model_matches_jax_averaging(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--model", "llm", "--multihost"], "A11c"),
+    (["--model", "hifigan", "--multihost"], "llm and flow"),
 ])
 def test_unported_branches_raise(tmp_path, argv, match):
     with pytest.raises(NotImplementedError, match=match):
         train.main(argv + ["--train_data", "x", "--model_dir", str(tmp_path), "--device", "cpu"])
+
+
+def test_multihost_two_ranks_train_equal_weights_and_rank0_alone_writes(tmp_path):
+    """bin/train.py --multihost in two gloo processes (torchrun's
+    environment), each reading one of two shards of 8 utterances: both take
+    the same two accumulated steps, end with equal weights, and only rank 0
+    writes checkpoints."""
+    from tests.torch_dist import run_ranks
+
+    cfg = {**CFG, "train": {**CFG["train"], "max_epoch": 1}}
+    (tmp_path / "cfg.json").write_text(json.dumps(cfg))
+    res = run_ranks("train_multihost", 2, tmp_path, str(tmp_path / "cfg.json"), str(tmp_path),
+                    {"seed": 0, "per_shard": 8})
+    assert [r["step"] for r in res] == [2, 2] and [r["count"] for r in res] == [2, 2]
+    for name, w in res[0]["weights"].items():
+        np.testing.assert_array_equal(w.numpy(), res[1]["weights"][name].numpy(), err_msg=name)
+    assert "llm_epoch1_step2.msgpack" in res[0]["files"] and "llm_epoch0_step0.msgpack" in res[0]["files"]
+    assert res[1]["files"] == []
 
 
 # ---------------------------------------------------------------- data-prep tools

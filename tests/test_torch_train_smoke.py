@@ -92,3 +92,22 @@ def test_gan_v1_and_eval_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     CosyVoice2(str(model), device="cpu").save_pretrained(str(model))
     launches = chip_smoke.phase_eval(str(model), hift, "cpu")
     assert set(launches) == set(chip_smoke.PER_STEP["bf16"])
+
+
+def test_grpo_and_multihost_phases_rehearse_on_cpu(monkeypatch, tmp_path):
+    """chip_smoke's grpo (the reward server on 127.0.0.1, two grpo_step
+    iterations, the first update against the plain float32 step, the
+    rollout copy, the rollout after the update) and multihost (a gloo
+    group of one rank, the DP and FSDP steps against the plain step,
+    bin/train.main --multihost) phases at tiny widths."""
+    monkeypatch.chdir(tmp_path)  # multihost writes under build/multihost and removes it
+    monkeypatch.setattr(chip_smoke, "GRPO_LM", LLM)
+    monkeypatch.setattr(chip_smoke, "GRPO_FLOW", FLOW)
+    monkeypatch.setattr(chip_smoke, "GRPO_HIFT", HIFT)
+    monkeypatch.setattr(chip_smoke, "MULTIHOST_LM", LLM)
+    monkeypatch.setattr(chip_smoke, "MULTIHOST_MAIN", {"llm": LLM})
+    monkeypatch.setattr(chip_smoke, "_smi", lambda: "no card")
+    launches = chip_smoke.phase_grpo("cpu")
+    assert set(launches) == set(chip_smoke.PER_STEP["bf16"])
+    chip_smoke.phase_multihost("cpu")
+    assert not os.path.exists("build/multihost")
