@@ -72,8 +72,9 @@ disagrees with its plain version, or anything raises):
    at pos ~100 and ~2040.
    slice_bistream_int4p_bf16: with the same engine, 3 bi-streaming requests
    (text 16 / 32 / 2100 ids in uneven chunks, phase 4's prompt): the
-   first through `tts(<iterator>, stream=False)`, whose final drain may run
-   to the arena's end; the others through `generate_bistream` with max_len
+   first through `tts(<iterator>, stream=False)` with the LM's max_len
+   2200 (its final drain passes K7's 2048 rows); the others through
+   `generate_bistream` with max_len
    20 x text and `synthesize_offline`. The last one's extends alone pass
    K7's 2048 rows, and its spans run on to the capacity guard unless fills
    are sampled early. Spans decode through K7 and, past 2048 rows, the
@@ -91,7 +92,7 @@ phase; the launch counters count replayed launches. After each LM's phases,
 graphs (graphs_int4p, graphs_int4p_bf16) serves the same requests on the
 graphs and then eagerly (`graphs=False`, the reference) and requires
 identical sampled tokens (seed 1986), wavs and LM generator state: the bf16
-LM's 960-token request (the arena grows 512 -> 1024 -> 1536), the int4p LMs'
+LM's 640-token request (the arena grows 512 -> 1024), the int4p LMs'
 text-16 request, the long-prompt request across the 2048-row route switch,
 and one bistream request per int4p LM (text 16 with max_len 64 and with
 max_len 160). It prints LM tokens/s and ms per token of both (capture
@@ -114,18 +115,18 @@ three engines stay alive until then.
 
 After each LM's graphs phase, stream (stream_int4p, stream_int4p_bf16)
 serves `tts(stream=True)` requests (STREAM): the bf16 LM's text-16
-request (320 tokens) on a fresh LM with the same weights and no decode
-graph captured (its graphs are captured mid-stream, with token->wav on
-another thread), then its text-32 request (640 tokens; it crosses
-flow_incr_min_tok and grows the flow arena 256 -> 512 -> 1024 tokens); the
-int4p + int8 LM's text-16 request; the K7 LM's text-16 request (no
-text-32 one: the bf16 LM's crosses the same flow paths) and a bistream
+request (320 tokens; it crosses flow_incr_min_tok and grows the flow
+arena 256 -> 512 tokens) on a fresh LM with the same weights and no
+decode graph captured (its graphs are captured mid-stream, with
+token->wav on another thread); the int4p + int8 LM's text-16 request;
+the K7 LM's text-16 request and a bistream
 request through `tts(<iterator>,
 stream=True)` (text 32, the LM's max_len 160). Each is streamed, streamed
 again on the recompute path alone and served offline (cuDNN
 deterministic): the streamed tokens must equal the offline ones (and the
 slice phase's), the wav be n_tokens * 2 * 480 long and finite, the chunks
-follow the doubling schedule, and each chunk equal the recompute-only
+follow the doubling schedule, each text request cross into the
+incremental flow, and each chunk equal the recompute-only
 stream's, bit for bit before the first incremental chunk and within
 STREAM_TOL after. It prints per chunk the path, tokens, wall and device ms
 (CUDA events on the token->wav stream), the first-chunk latency (p50 per
@@ -133,7 +134,26 @@ LM), streaming and offline RTF, the LM's tokens/s in both, and the flow
 state's largest size; the bf16 phase also closes a stream after its first
 chunk and requires the LM's thread gone and the LM free. The decode steps
 and extends of every stream and its offline request are counted and
-checked as in phase 4.
+checked as in phase 4. The streams' first chunks take the speculative
+fused path (runtime/first_chunk.py), the engine's default.
+
+After each LM's stream phase, first_chunk (first_chunk_int4p,
+first_chunk_int4p_bf16) drives that path (phase_first_chunk): a seeded
+3 s prompt (75 tokens) and text 16 streamed with the path on (counters
+zeroed before it, every decode step on its kernels) and off, same seed:
+the same tokens, every chunk within STREAM_TOL; the first chunk's graph
+replay against its eager body within FIRST_CHUNK_REPLAY_TOL, and two
+planted faults (lp shifted back by one, the source's draws skipped) past both
+tolerances; the replay again after the flow's position tables grew (as a
+long offline request grows them) and new allocations took the memory
+the old tables would have freed; a 76-token prompt (this_hop 49, two LM
+blocks in the first chunk, a larger first arena and graph) and text 4
+with the path on and off, and its replay against its eager body; the
+first chunk's ms p50 / p90 both ways over 8 requests
+each with no capture among them; the graphs' captures, replays and
+memory pool; the launches of generate_first's blocks alone; a forced
+fallback (the eos bias raised, text 8: the LM stops inside the chunk's
+tokens) against the path off.
 
 After the LMs' phases, the Fun-CosyVoice3-0.5B phases
 (runtime/engine.py:build_random_engine_v3: the v3 LM layout over the bf16
@@ -243,9 +263,9 @@ zero-shot request against engine.tts on its frontend's outputs.
 
 CosyVoice-300M, after the v3 phases, at full width from seed 0
 (build_random_engine_v1; no kernel of the port on its path, as the JAX v1
-LM runs no Pallas kernel): slice_v1 serves text 16 and 32 offline (LM
+LM runs no Pallas kernel): slice_v1 serves text 8 offline (LM
 tokens/s of the eager decode, flow+HiFT ms, RTF; wavs finite and
-mel_len(n_tokens) * 256 long); stream_v1 streams them (the offline tokens,
+mel_len(n_tokens) * 256 long); stream_v1 streams it (the offline tokens,
 hops 100 then 200, first chunk, streaming RTF, the chunk log) and holds
 two windows' token2wav on the card against a host copy with the same
 injected noise (V1_T2W_TOL); api_v1 (after api_int8) runs AutoModel on a
@@ -437,16 +457,44 @@ L2_BYTES = 50e6  # H100 L2 cache
 # (920.7 s of phases) came down to 1.5x (route, train_hifigan, train_v1,
 # slice_bistream_int4p, slice_int8, eval, aot_warmup), and api, stream_v1
 # and batch_int4p gave 2, 1 and 1 s of their slack (at least 1.14x that
-# run's time).
-PHASE_BUDGET_S = {"device": 4, "build": 21, "kernels": 115, "slice": 14, "check": 7, "graphs": 43, "stream": 34,
+# run's time). The speculative first chunk's phases (first_chunk,
+# first_chunk_int4p, first_chunk_int4p_bf16) took 15.0, 16.2 and 15.2 s in
+# a full run on an NVIDIA H100 80GB HBM3 (700 W) whose phases took 716.3 s
+# (a fast host) and have 22 s each (1.36-1.47x). To pay for them, in size
+# again, no check: the bf16 LM's graphs phase holds its text-32 request
+# (640 tokens, the arena 512 -> 1024; not text 48's 960), its stream phase
+# streams the text-16 request alone (not text 32's 640 tokens too, so the
+# 512 -> 1024 flow-arena growth is not streamed on the card), the K7 LM's
+# tts(<iterator>) bistream request stops at max_len 2200 (past K7's 2048
+# rows; its text-2100 request still runs to the arena's end), slice_v1 /
+# stream_v1 serve text 8 alone (not 8 / 16); their budgets fell with them
+# (graphs 43 -> 33, stream 34 -> 16, slice_bistream_int4p_bf16 53 -> 40,
+# slice_v1 13 -> 8, stream_v1 24 -> 22), and the budgets above 1.22x their
+# phase's slowest time in the logged full runs came down to 1.22x (slice,
+# slice_int4, api_int8, train_v1, hermetic, microbench, grpo, multihost;
+# aot_warmup to 1.22x its slowest plus its new 1.7 s of first-chunk
+# captures). The first_chunk phases then took a 76-token prompt (two LM
+# blocks in the first chunk: a second capture, its on / off requests of
+# text 4 and its replay hold) and a replay after the position tables
+# grow: 20.7, 21.6 and 29.4 s in a full run on an NVIDIA H100 80GB HBM3
+# (700 W) whose phases took 745.3 s (they had taken 19.5, 19.4 and 17.5
+# s). Their budgets rose 22 -> 31, 31 and 36 (1.22-1.5x), paid, with no
+# cut of size or check, by the budgets above 1.25x their slowest time in
+# the logged full runs (serve 36.2 s, slice_int4 28.9, slice_int8 18.3,
+# stream_v1 15.8, eval 11.9, batch 26.2, check 4.4, route 2.4, device
+# 0.7) brought down to it: serve 60 -> 45, slice_int4 40 -> 36,
+# slice_int8 25 -> 23, stream_v1 22 -> 20, eval 17 -> 15, batch 36 -> 32,
+# check 7 -> 6, route 4 -> 3, device 4 -> 3.
+PHASE_BUDGET_S = {"device": 3, "build": 21, "kernels": 115, "slice": 13, "check": 6, "graphs": 33, "stream": 16,
                   "slice_int4p": 23, "check_int4p": 14, "slice_bistream_int4p": 2, "check_bistream_int4p": 4,
                   "graphs_int4p": 18, "stream_int4p": 10, "slice_int4p_bf16": 23, "check_int4p_bf16": 11,
-                  "slice_bistream_int4p_bf16": 53, "check_bistream_int4p_bf16": 9, "graphs_int4p_bf16": 21,
-                  "stream_int4p_bf16": 14, "slice_int8": 25, "slice_int4": 42, "slice_v3": 8, "stream_v3": 13,
-                  "slice_v1": 13, "stream_v1": 24, "api": 33, "api_int4p": 14, "api_v3": 26, "api_int8": 18,
-                  "api_v1": 23, "ckpt": 52, "batch": 36, "batch_int4p": 48, "serve": 60, "idle": 36, "train_lm": 31,
-                  "train_flow": 29, "train_e2e": 42, "train_hifigan": 24, "train_v1": 24, "eval": 17, "route": 4,
-                  "hermetic": 10, "microbench": 15, "aot_warmup": 29, "examples": 8, "grpo": 22, "multihost": 14}
+                  "slice_bistream_int4p_bf16": 40, "check_bistream_int4p_bf16": 9, "graphs_int4p_bf16": 21,
+                  "stream_int4p_bf16": 14, "first_chunk": 31, "first_chunk_int4p": 31, "first_chunk_int4p_bf16": 36,
+                  "slice_int8": 23, "slice_int4": 36, "slice_v3": 8, "stream_v3": 13, "slice_v1": 8, "stream_v1": 20,
+                  "api": 33, "api_int4p": 14, "api_v3": 26, "api_int8": 17, "api_v1": 23, "ckpt": 52, "batch": 32,
+                  "batch_int4p": 48, "serve": 45, "idle": 36, "train_lm": 31, "train_flow": 29, "train_e2e": 42,
+                  "train_hifigan": 24, "train_v1": 23, "eval": 15, "route": 3, "hermetic": 9, "microbench": 12,
+                  "aot_warmup": 26, "examples": 8, "grpo": 19, "multihost": 11}
 PHASE_SECONDS = {}  # each phase's measured seconds in this run
 PHASE_CLOCK = {}  # the first phase's start and the sum of the budgets of the phases entered so far
 
@@ -1531,7 +1579,8 @@ PER_EXTEND = {"K1": 0, "K2": 0, "K3": 0, "K4": 48, "K5": 24, "K6": 0, "K7": 0}
 # extends alone pass K7's 2048 rows (spans end only at fills, never at a
 # stop id) and its spans, if they run to the cadence, the arena's end (the
 # slice prints, per request, whether each of these happened)
-BISTREAM = {"_int4p": {"text_lens": (16,), "max_len": 64}, "_int4p_bf16": {"text_lens": (16, 32, 2100)}}
+BISTREAM = {"_int4p": {"text_lens": (16,), "max_len": 64},
+            "_int4p_bf16": {"text_lens": (16, 32, 2100), "tts_max_len": 2200}}
 # the bistream request of each int4p LM's `graphs` phase: (text ids, max_len)
 GRAPH_BISTREAM = {"_int4p": (16, 64), "_int4p_bf16": (16, 160)}
 CROSS_PROMPT = 1920  # LM prompt tokens of phase_cross's requests: the arena starts at 2048 rows
@@ -1738,10 +1787,11 @@ def _recorded_extends(lm):
         del lm.module.extend_mixed
 
 
-def phase_slice_bistream(eng, per_step, text_lens, max_len=None):
+def phase_slice_bistream(eng, per_step, text_lens, max_len=None, tts_max_len=None):
     """Bi-streaming requests (text as an iterator of uneven chunks, phase 4's
-    prompt). With max_len None the first goes through `tts` (the LM's default
-    max_len, so its final drain may run to the arena's end) and the others
+    prompt). With max_len None the first goes through `tts` (the LM's
+    max_len tts_max_len, past K7's 2048 rows, or its default, so that its
+    final drain may run to the arena's end) and the others
     through `generate_bistream` with max_len 20 x text and
     `synthesize_offline`; else each through `generate_bistream` with
     max_len. Prints each request's extends, steps per route, whether its
@@ -1765,8 +1815,9 @@ def phase_slice_bistream(eng, per_step, text_lens, max_len=None):
             eng.timer.reset()
             t = time.perf_counter()
             if i == 0 and max_len is None:
-                how = "tts(<iterator>)"
-                (out,) = list(eng.tts(iter(chunks), prompt_text, prompt_speech, prompt_speech, prompt_mel, emb))
+                how = "tts(<iterator>)" + (f", max_len {tts_max_len}" if tts_max_len else "")
+                with _bistream_max_len(lm, tts_max_len):
+                    (out,) = list(eng.tts(iter(chunks), prompt_text, prompt_speech, prompt_speech, prompt_mel, emb))
                 wav, toks, lm_s = out["tts_speech"], out["speech_tokens"], eng.timer.records["lm"][-1]
             else:
                 cap = max_len or 20 * n_text
@@ -2260,7 +2311,7 @@ def phase_graphs(eng, runs):
 # through tts(<iterator>, stream=True) (text ids, the LM's max_len), and
 # whether the first of them runs on a fresh LM with no graph captured yet
 # (instead of this LM)
-STREAM = {"": {"texts": (16, 32), "fresh": True}, "_int4p": {"texts": (16,)},
+STREAM = {"": {"texts": (16,), "fresh": True}, "_int4p": {"texts": (16,)},
           "_int4p_bf16": {"texts": (16,), "bistream": (32, 160)}}
 RECOMPUTE_ONLY = 10**9  # flow_incr_min_tok of the reference streams: every chunk recomputes the prefix
 STREAM_TOL = 1e-3  # chunks after the crossover against the recompute path: tests/test_torch_stream.py's ATOL
@@ -2342,7 +2393,7 @@ def hold_whole_v3(eng, label, prompt, toks, chunks, tol=None):
     return wav, d
 
 
-def hold_stream(eng, label, prompt, text, want=None, bistream=None):
+def hold_stream(eng, label, prompt, text, want=None, bistream=None, crosses=False):
     """One request streamed, streamed again on the recompute path alone
     (flow_incr_min_tok RECOMPUTE_ONLY), then offline, the decode on graphs,
     cuDNN deterministic. Checks: the streamed tokens are the offline ones
@@ -2352,8 +2403,9 @@ def hold_stream(eng, label, prompt, text, want=None, bistream=None):
     STREAM_TOL after. Prints each chunk's path, tokens, wall and device ms,
     the first-chunk latency, the streaming and offline RTF and the LM's
     tokens/s in both. `bistream` (max_len): the text as an iterator of
-    chunks. Returns the first-chunk ms of both streams and the largest flow
-    state bytes."""
+    chunks. `crosses`: the stream must cross into the incremental flow.
+    Returns the first-chunk ms of both streams and the largest flow state
+    bytes."""
     import numpy as np
     import torch
 
@@ -2406,6 +2458,8 @@ def hold_stream(eng, label, prompt, text, want=None, bistream=None):
     paths = [c["path"] for c in run["log"]]
     cross = next((i for i, p in enumerate(paths) if p in ("catch-up", "incremental", "finalize-incremental")),
                  len(paths))
+    if crosses and cross == len(paths):
+        raise AssertionError(f"{label}: the stream never crossed into the incremental flow ({paths})")
     diffs = []
     for i, (a, b) in enumerate(zip(run["chunks"], ref["chunks"])):
         a, b = a["tts_speech"], b["tts_speech"]
@@ -2478,7 +2532,7 @@ def phase_stream(eng, suffix, reqs, per_step, cfg):
         if fresh.lm.graph_captures or fresh.lm.decoder.graphs:
             raise AssertionError("a new LM has decode graphs")
         first, b = hold_stream(fresh, f"stream LM{suffix or '_bf16'} text={len(text)} on a fresh LM (no graph "
-                                      f"captured before it)", prompt, text, toks)
+                                      f"captured before it)", prompt, text, toks, crosses=True)
         print(f"  the fresh LM captured {fresh.lm.graph_captures} decode graphs during its first stream "
               f"({fresh.lm.graph_capture_s:.2f} s)")
         if fresh.lm.graphs and not fresh.lm.graph_captures:
@@ -2493,7 +2547,8 @@ def phase_stream(eng, suffix, reqs, per_step, cfg):
     with _recorded_extends(eng.lm) as log:
         for n_text in texts:
             text, toks = by_len[n_text]
-            first, b = hold_stream(eng, f"stream LM{suffix or '_bf16'} text={n_text}", prompt, text, toks)
+            first, b = hold_stream(eng, f"stream LM{suffix or '_bf16'} text={n_text}", prompt, text, toks,
+                                   crosses=True)
             firsts += first
             state_bytes = max(state_bytes, b)
         if "bistream" in spec:
@@ -2512,6 +2567,296 @@ def phase_stream(eng, suffix, reqs, per_step, cfg):
     print(f"stream LM{suffix or '_bf16'}: first-chunk latency p50 {np.percentile(firsts, 50):.1f} ms over "
           f"{len(firsts)} streams ({', '.join(f'{x:.1f}' for x in firsts)} ms); flow state at most "
           f"{state_bytes / 1e9:.3f} GB")
+    return launches
+
+
+FIRST_CHUNK_PROMPT = 75  # prompt tokens: a seeded 3 s voice (150 mel rows), this_hop 25, the chunk's 28 tokens
+FIRST_CHUNK_PROMPT_N1 = 76  # a prompt off the hop: this_hop 49, the chunk's 52 tokens in two LM blocks
+FIRST_CHUNK_N1_TEXT = 4  # text ids of its on / off requests (80 tokens)
+FIRST_CHUNK_TEXT = 16  # text ids of the on / off and timed requests (320 tokens)
+FIRST_CHUNK_TIMED = 8  # first chunks timed each way (the stream closed after it)
+FIRST_CHUNK_FALLBACK_TEXT = 8  # min_len 16 < 28: the raised eos stops the LM inside the chunk's tokens
+FIRST_CHUNK_EOS_BIAS = 100.0
+# the first chunk's graph replay against its eager body on the same inputs
+# (cuDNN not deterministic): the flow's mel and the source agree bit for
+# bit, HiFT's wav reads 1.2e-05 to 3.6e-05 (scripts/first_chunk_check.py,
+# seeds 0-2, and the three LMs' phases, both prompts, before and after the
+# position tables grow, on an NVIDIA H100 80GB HBM3, 700 W); the planted
+# faults (lp shifted by one, forward in those seeds and back in the
+# phases, the source's draws skipped) move it by 1.98 (the wav's clip
+# range)
+FIRST_CHUNK_REPLAY_TOL = 1e-4
+
+
+def _first_chunk_prompt(eng):
+    """The seeded 3 s voice prompt and the phase's text-16 request ids."""
+    c = eng.lm.cfg
+    prompt, rng = _prompt(eng, FIRST_CHUNK_PROMPT, 2 * FIRST_CHUNK_PROMPT)
+    return prompt, rng.integers(0, c.qwen.vocab_size, FIRST_CHUNK_TEXT)
+
+
+def _chunk_diffs(label, got, want, tol):
+    """Two streams' chunks: the same tokens chunk for chunk, each wav
+    within `tol` of the other's; returns the largest |diff| per chunk."""
+    import numpy as np
+
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} chunks against {len(want)}")
+    diffs = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not np.array_equal(g["speech_tokens"], w["speech_tokens"]):
+            raise AssertionError(f"{label}: chunk {i}'s tokens differ")
+        a, b = g["tts_speech"], w["tts_speech"]
+        d = float(np.abs(a - b).max()) if a.shape == b.shape and a.size else (0.0 if a.shape == b.shape else np.inf)
+        diffs.append(d)
+        if not (np.isfinite(a).all() and d <= tol):
+            raise AssertionError(f"{label}: chunk {i} differs by {d:.3e} (tol {tol})")
+    return diffs
+
+
+def _first_ms(eng, prompt, text, on):
+    """ms from a streamed tts call to its first chunk (the stream then
+    closed), the path on or off, and the first chunk's log entry."""
+    prompt_text, prompt_speech, prompt_mel, emb = prompt
+    saved, eng.speculative_first_chunk = eng.speculative_first_chunk, on
+    try:
+        t = time.perf_counter()
+        stream = eng.tts(text, prompt_text, prompt_speech, prompt_speech, prompt_mel, emb, stream=True)
+        first = next(stream)
+        ms = (time.perf_counter() - t) * 1e3
+        stream.close()
+    finally:
+        eng.speculative_first_chunk = saved
+    if not first["tts_speech"].size:
+        raise AssertionError("an empty first chunk")
+    return ms, eng.stream_log[0]
+
+
+def _grow_position_tables(eng):
+    """Grow the flow's position tables one doubling, as an offline request
+    of more than max_len / 2 tokens grows them, and fill new device tensors
+    of the old tables' shapes with NaN: were the old tables freed, those
+    would take their memory. Returns the fills (keep them alive)."""
+    import torch
+
+    conformer, fills = eng.flow.encoder.encoder, []
+    for pos in (conformer.pos_enc, conformer.up_pos_enc):
+        shape = pos.position_encoding(1, eng.device)._base.shape
+        pos.position_encoding(pos.max_len + 1, eng.device)
+        fills.append(torch.full(shape, float("nan"), device=eng.device))
+    return fills
+
+
+def hold_first_chunk_replay(eng, label, prompt, hold=True, grow=False):
+    """The first chunk's graph replay against its eager body on the same
+    inputs (the prompt, random tokens), every output within
+    FIRST_CHUNK_REPLAY_TOL; then two planted faults through the eager body,
+    lp shifted back by one and the source's draws skipped (zeros), each of
+    which must move the wav past that and past STREAM_TOL (the on / off
+    hold). `grow`: then the flow's position tables grown
+    (_grow_position_tables) and the replay held against the eager body
+    again. `hold` False only reads. Returns the readings."""
+    import numpy as np
+    import torch
+
+    _, prompt_speech, prompt_mel, emb = prompt
+    fc = eng.first_chunk
+    cuda = eng.device.type == "cuda"
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)] if cuda else None
+    with eng._on_t2w():
+        e = fc.prepare(prompt_speech, prompt_mel, emb)
+        gen = torch.Generator(device=eng.device).manual_seed(0)
+        tokens = torch.randint(0, eng.flow.cfg.vocab_size, e.tokens.shape, generator=gen, device=eng.device,
+                               dtype=torch.int32)
+        fc.run(e, tokens)  # the capture, where this shape has none yet
+        clock = [time.perf_counter()]
+        if cuda:
+            ev[0].record()
+        replayed = [t.clone() for t in fc.run(e, tokens)]
+        if cuda:
+            ev[1].record()
+        clock.append(time.perf_counter())
+        eager = fc._body(e)
+        if cuda:
+            ev[2].record()
+        clock.append(time.perf_counter())
+        e.lp -= 1  # (back: a shift forward can run the lookahead past n_pad)
+        shifted = fc._body(e)[0]
+        e.lp += 1
+        draws, e.draws = e.draws, tuple(torch.zeros_like(d) for d in e.draws)
+        skipped = fc._body(e)[0]
+        e.draws = draws
+        if grow:
+            fills = _grow_position_tables(eng)
+            regrown = [t.clone() for t in fc.run(e, tokens)]
+            eager_grown = fc._body(e)
+            del fills
+    eng._sync()
+    timing = (f"; the replay {ev[0].elapsed_time(ev[1]):.1f} ms on the device "
+              f"({(clock[1] - clock[0]) * 1e3:.1f} ms on the host to enqueue), the eager body "
+              f"{ev[1].elapsed_time(ev[2]):.1f} ms on the device ({(clock[2] - clock[1]) * 1e3:.1f} ms on the host)"
+              if cuda else "")
+    tol, bar = FIRST_CHUNK_REPLAY_TOL, max(FIRST_CHUNK_REPLAY_TOL, STREAM_TOL)
+    names = ("wav", "mel cache", "source cache", "speech cache")
+    got = {n: float((a - b).abs().max()) for n, a, b in zip(names, replayed, eager)}
+    if grow:
+        got.update({f"{n} after growth": float((a - b).abs().max())
+                    for n, a, b in zip(names, regrown, eager_grown)})
+    faults = {"lp shifted back by one": float((shifted - replayed[0]).abs().max()),
+              "source draws skipped": float((skipped - replayed[0]).abs().max())}
+    print(f"{label}, {len(prompt_speech)}-token prompt: the first chunk's graph replay against its eager body, "
+          f"max |diff|: "
+          + ", ".join(f"{n} {d:.3e}" for n, d in got.items()) + f" (tol {tol}); planted faults move the wav by "
+          + ", ".join(f"{n} {d:.3e}" for n, d in faults.items()) + f" (each must pass {bar}); "
+          f"wav rms {float(replayed[0].pow(2).mean().sqrt()):.3e}{timing}")
+    if hold and not all(np.isfinite(d) and d <= tol for d in got.values()):
+        raise AssertionError(f"{label}: the first chunk's replay differs from its eager body: {got}")
+    if hold and not all(d > bar for d in faults.values()):
+        raise AssertionError(f"{label}: a planted fault stays within the holds' tolerance: {faults}")
+    return got, faults
+
+
+def phase_first_chunk(eng, suffix, per_step):
+    """The speculative fused first chunk on this LM (FIRST_CHUNK_*): a
+    streamed text-16 request after a seeded 3 s prompt with the path on
+    (the main path: counters zeroed before it, every decode step on its
+    kernels) against the path off (same rng_seed): the same tokens, every
+    chunk within STREAM_TOL; the graph replay against its eager body with
+    two planted faults, and again after the flow's position tables grew
+    (hold_first_chunk_replay); a FIRST_CHUNK_PROMPT_N1-token prompt (two LM
+    blocks in the first chunk) with text FIRST_CHUNK_N1_TEXT, on against
+    off, and its replay against its eager body; the first chunk's ms
+    both ways over FIRST_CHUNK_TIMED requests each, alternating, with no
+    capture inside them; captures, replays and the graph pool's MB; the
+    kernels' launches in the first blocks alone (generate_first); a forced
+    fallback (the head's eos bias raised, text 8: the LM stops at 16
+    tokens, inside the chunk's 28) against the path off. Returns the main
+    path's launches."""
+    import numpy as np
+    import torch
+
+    from cosyvoice_tpu_torch.runtime.engine import lm_prompt
+
+    label = f"first chunk LM{suffix or '_bf16'}"
+    fc, lm = eng.first_chunk, eng.lm
+    prompt, text = _first_chunk_prompt(eng)
+    prompt_text, prompt_speech, prompt_mel, emb = prompt
+
+    def stream(on, ids=text, voice=prompt):
+        saved, eng.speculative_first_chunk = eng.speculative_first_chunk, on
+        eng.timer.reset()
+        try:
+            return list(eng.tts(ids, voice[0], voice[1], voice[1], voice[2], voice[3], stream=True))
+        finally:
+            eng.speculative_first_chunk = saved
+
+    clock, parts = [time.perf_counter()], {}
+    lm0 = (lm.graph_captures, lm.graph_capture_s)
+
+    def mark(part):  # the phase's host seconds by part
+        clock.append(time.perf_counter())
+        parts[part] = clock[-1] - clock[-2]
+
+    counters = _zero_counts(eng)
+    captures0 = fc.captures
+    on = stream(True)
+    on_log, fused_s = list(eng.stream_log), eng.timer.records["first_chunk_fused"]
+    launches = _check_launches(eng, counters, per_step)
+    if on_log[0]["path"] != "fused-first" or len(fused_s) != 1:
+        raise AssertionError(f"{label}: the request's first chunk took {on_log[0]['path']}, not the fused path")
+    off = stream(False)
+    if eng.stream_log[0]["path"] == "fused-first" or "first_chunk_fused" in eng.timer.records:
+        raise AssertionError(f"{label}: the path off took the fused first chunk")
+    diffs = _chunk_diffs(f"{label}, on against off", on, off, STREAM_TOL)
+    n = sum(len(c["speech_tokens"]) for c in on)
+    print(f"{label}: text {FIRST_CHUNK_TEXT}, {FIRST_CHUNK_PROMPT}-token prompt: {n} tokens, chunks "
+          f"{[len(c['speech_tokens']) for c in on]} equal with the path on and off; max |diff| per chunk "
+          + ", ".join(f"{d:.3e}" for d in diffs) + f" (tol {STREAM_TOL}); the fused chunk "
+          f"{on_log[0]['wall_ms']:.1f} ms wall, {on_log[0]['device_ms'] or float('nan'):.1f} ms on the token->wav "
+          f"stream (LM blocks, copy, replay), {fc.captures - captures0} graph captured in this request")
+    mark("on / off")
+    hold_first_chunk_replay(eng, label, prompt, grow=True)
+    mark("replay hold")
+
+    # a prompt off the hop: two LM blocks in the first chunk, its own graph
+    voice = _prompt(eng, FIRST_CHUNK_PROMPT_N1, 2 * FIRST_CHUNK_PROMPT_N1)[0]
+    this_hop, need, n1, n_pad = fc.plan(FIRST_CHUNK_PROMPT_N1)
+    if n1 < 2:
+        raise AssertionError(f"{label}: a {FIRST_CHUNK_PROMPT_N1}-token prompt's first chunk fits one LM block")
+    n1_on = stream(True, text[:FIRST_CHUNK_N1_TEXT], voice)
+    n1_path = eng.stream_log[0]["path"]
+    n1_off = stream(False, text[:FIRST_CHUNK_N1_TEXT], voice)
+    if n1_path != "fused-first":
+        raise AssertionError(f"{label}: the {FIRST_CHUNK_PROMPT_N1}-token prompt's first chunk took {n1_path}")
+    n1_diffs = _chunk_diffs(f"{label}, {FIRST_CHUNK_PROMPT_N1}-token prompt, on against off", n1_on, n1_off,
+                            STREAM_TOL)
+    print(f"{label}: text {FIRST_CHUNK_N1_TEXT}, {FIRST_CHUNK_PROMPT_N1}-token prompt (this_hop {this_hop}, "
+          f"{need} tokens in {n1} LM blocks, n_pad {n_pad}): {sum(len(c['speech_tokens']) for c in n1_on)} tokens, "
+          f"chunks {[len(c['speech_tokens']) for c in n1_on]} equal with the path on and off; max |diff| per chunk "
+          + ", ".join(f"{d:.3e}" for d in n1_diffs) + f" (tol {STREAM_TOL})")
+    hold_first_chunk_replay(eng, label, voice)
+    mark(f"{FIRST_CHUNK_PROMPT_N1}-token prompt")
+
+    # first-chunk latency both ways, alternating; no capture inside
+    before = (fc.captures, lm.graph_captures)
+    times, device = {True: [], False: []}, []
+    for _ in range(FIRST_CHUNK_TIMED):
+        for way in (True, False):
+            ms, log = _first_ms(eng, prompt, text, way)
+            if (log["path"] == "fused-first") != way:
+                raise AssertionError(f"{label}: a timed request took {log['path']} with the path "
+                                     f"{'on' if way else 'off'}")
+            times[way].append(ms)
+            if way and log["device_ms"] is not None:
+                device.append(log["device_ms"])
+    if (fc.captures, lm.graph_captures) != before:
+        raise AssertionError(f"{label}: a timed request captured a graph")
+    mark("timed")
+    pct = {way: (np.percentile(t, 50), np.percentile(t, 90)) for way, t in times.items()}
+    print(f"{label}: first chunk p50 / p90 over {FIRST_CHUNK_TIMED} requests each: path on "
+          f"{pct[True][0]:.1f} / {pct[True][1]:.1f} ms, off {pct[False][0]:.1f} / {pct[False][1]:.1f} ms "
+          f"({pct[False][0] / pct[True][0]:.2f}x at p50); on {', '.join(f'{x:.1f}' for x in times[True])}; off "
+          f"{', '.join(f'{x:.1f}' for x in times[False])}; the fused chunk's span on the token->wav stream "
+          f"(prefill, blocks, copy, replay) p50 {np.percentile(device, 50) if device else float('nan'):.1f} ms")
+    print(f"{label}: first-chunk graphs {fc.captures} captured in {fc.capture_s:.2f} s, {fc.replays} replays, "
+          f"pool {fc.pool_bytes / 1e6:.1f} MB (device memory the captures reserved)")
+
+    # the first blocks alone: every decode step on its kernels
+    ids, types, min_len, max_len = lm_prompt(lm.cfg, text, prompt_text, prompt_speech)
+    n1 = fc.plan(len(prompt_speech))[2]
+    counters = _zero_counts(eng)
+    first = lm.generate_first(ids, types, eng._generator(), min_len, max_len, n1)
+    eng._sync()
+    first.close()
+    print(f"{label}: generate_first's {n1} block(s):")
+    _check_launches(eng, counters, per_step)
+
+    # a forced fallback: the LM stops inside the chunk's tokens
+    bias = lm.module.llm_decoder.bias
+    saved = bias.detach().clone()
+    fb_text = text[:FIRST_CHUNK_FALLBACK_TEXT]
+    try:
+        with torch.no_grad():
+            bias[lm.cfg.eos_token] += FIRST_CHUNK_EOS_BIAS
+        fb_on = stream(True, fb_text)
+        fb_paths, fb_tried = [c["path"] for c in eng.stream_log], eng.timer.records["first_chunk_fused"]
+        fb_off = stream(False, fb_text)
+    finally:
+        with torch.no_grad():
+            bias.copy_(saved)
+    n_fb = sum(len(c["speech_tokens"]) for c in fb_on)
+    if len(fb_tried) != 1 or "fused-first" in fb_paths or n_fb != 2 * FIRST_CHUNK_FALLBACK_TEXT:
+        raise AssertionError(f"{label}: the forced fallback ran {fb_paths} over {n_fb} tokens "
+                             f"({len(fb_tried)} fused attempts)")
+    fb = _chunk_diffs(f"{label}, forced fallback", fb_on, fb_off, STREAM_TOL)
+    print(f"{label}: forced fallback (eos bias +{FIRST_CHUNK_EOS_BIAS:g}, text {FIRST_CHUNK_FALLBACK_TEXT}): the "
+          f"fused chunk discarded after {1e3 * fb_tried[0]:.1f} ms "
+          f"(path off: none), {n_fb} tokens through {fb_paths}, max |diff| against the path off "
+          f"{max(fb, default=0.0):.3e}")
+    mark("first blocks, fallback")
+    print(f"{label}: host seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+          + f"; decode graphs captured in the phase {lm.graph_captures - lm0[0]} in "
+          f"{lm.graph_capture_s - lm0[1]:.2f} s")
     return launches
 
 
@@ -3168,7 +3513,7 @@ def phase_api_int8(api, per_step):
 
 # ---------------------------------------------------------------- CosyVoice-300M
 
-V1_TEXTS = (8, 16)  # slice_v1's offline requests, text ids (max_len 20 x; cut from 16 / 32)
+V1_TEXTS = (8,)  # slice_v1's offline requests, text ids (max_len 20 x; cut from 16 / 32, then 8 / 16)
 V1_PROMPT = (50, 86)  # the v1 voice prompt: speech tokens, mel rows (22.05 kHz / 256 hop: 1.72 rows a token)
 # one streamed chunk's token2wav (two windows: caches, fades) on the card
 # against the same calls on the host, fp32 with TF32 off and the same
@@ -5789,17 +6134,19 @@ def phase_examples(device="cuda"):
 def phase_aot_warmup(model_dir, device="cuda"):
     """bin/aot_warmup.py on the ckpt phase's full-width dir: the kernel
     library found built (the build phase left it on disk), the model loaded,
-    an offline and a streamed pass with their decode graphs captured; every
+    an offline and a streamed pass with their decode graphs captured, the
+    first-chunk graphs of 50- and 75-token prompts (two shapes); every
     decode step through K1 + K2 (24 each). Returns the launches."""
     from cosyvoice_tpu_torch.bin import aot_warmup
 
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
-    summary = aot_warmup.main(["--model_dir", model_dir, "--device", device])
+    summary = aot_warmup.main(["--model_dir", model_dir, "--device", device, "--prompt_tokens", "50", "75"])
     launches = {key: fn.launches for key, fn in counters.items()}
     print("aot_warmup launches: " + ", ".join(f"{k} {n}" for k, n in launches.items()))
-    if summary["built"] or not summary["offline_s"] > 0 or (device == "cuda" and not summary["graph_captures"]):
+    if summary["built"] or not summary["offline_s"] > 0 or (device == "cuda" and not summary["graph_captures"]) \
+            or summary["first_chunk_graphs"] != (2 if device == "cuda" else 0):
         raise AssertionError(f"aot_warmup: {summary}")
     k1 = launches["K1"]
     if device == "cuda" and (k1 == 0 or k1 % 24 or launches["K2"] != k1
@@ -5904,11 +6251,11 @@ def main(argv):
                 counts[key] += n
         with Phase("graphs" + suffix):
             # the requests held eager beside graphs: one per LM through
-            # generate (the bf16 LM's 960-token request grows the arena
-            # twice), the long-prompt request across the 2048-row route
+            # generate (the bf16 LM's 640-token request grows the arena
+            # once), the long-prompt request across the 2048-row route
             # switch, one bistream request per int4p LM
             full = _prompt(eng)[0]
-            text, toks = reqs[-1 if suffix == "" else 0]
+            text, toks = reqs[1 if suffix == "" else 0]
             runs = [(f"offline text={len(text)}", _offline_run(eng, full, text), toks)]
             # the idle phase's requests: an offline request (the first
             # IDLE_TEXT text-16 ids), the route switch, the bistream requests
@@ -5929,6 +6276,9 @@ def main(argv):
             phase_graphs(eng, runs)
         with Phase("stream" + suffix):
             for key, n in phase_stream(eng, suffix, reqs, per_step, cfg).items():
+                counts[key] += n
+        with Phase("first_chunk" + suffix):
+            for key, n in phase_first_chunk(eng, suffix, per_step).items():
                 counts[key] += n
         for key, n in counts.items():
             launches[key] += n

@@ -1,17 +1,24 @@
 """Warm-up of a model dir before serving: the kernels built, the model
-loaded, one offline and one streamed pass run, their decode graphs captured.
+loaded, one offline and one streamed pass run, their decode graphs captured,
+and the speculative first chunk's graphs (runtime/first_chunk.py, one per
+prompt shape) captured for each prompt length asked for.
 
 Counterpart of cosyvoice_tpu/bin/aot_warmup.py, whose role on the TPU is to
 fill XLA's persistent compilation cache. Here the kernel library
 (ops/_build.py) is what persists on disk (build/cosyvoice_tpu_torch/, keyed
 by the sources' hash), so a later process on the same checkout loads it
 without nvcc; the decode graphs live in the process that captured them, so
-a server warms itself the same way. Prints the seconds of the build, the
-load, the graph captures and each pass, and last one JSON line {"device",
-"built", "build_s", "load_s", "offline_s", "stream_s", "graph_captures",
-"capture_s", "wall_s"}.
+a server warms itself the same way. The passes use a 50-token prompt;
+`--prompt_tokens` lists the flow prompt lengths (in speech tokens, 25 per
+second of prompt audio) whose first-chunk graphs are captured too, so that a
+served stream with such a prompt pays no capture on its first chunk (an
+engine with the path off, or a v1 engine, has none). Prints the seconds of
+the build, the load, the graph captures and each pass, and last one JSON
+line {"device", "built", "build_s", "load_s", "offline_s", "stream_s",
+"graph_captures", "capture_s", "first_chunk_graphs", "first_chunk_capture_s",
+"first_chunk_pool_mb", "wall_s"}.
 
-    python -m cosyvoice_tpu_torch.bin.aot_warmup --model_dir DIR [--device cuda]
+    python -m cosyvoice_tpu_torch.bin.aot_warmup --model_dir DIR [--device cuda] [--prompt_tokens 50 75 ...]
 """
 
 import argparse
@@ -25,6 +32,8 @@ def main(argv=None) -> dict:
     parser = argparse.ArgumentParser()
     parser.add_argument("--model_dir", default="")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--prompt_tokens", type=int, nargs="+", default=[50],
+                        help="flow prompt lengths whose first-chunk graphs are captured")
     args = parser.parse_args(argv)
 
     from cosyvoice_tpu_torch.runtime.api import AutoModel
@@ -64,12 +73,20 @@ def main(argv=None) -> dict:
         passes["stream" if stream else "offline"] = time.perf_counter() - t2
         print(f"{'streamed' if stream else 'offline'} pass in {passes['stream' if stream else 'offline']:.1f}s",
               flush=True)
+    first_chunk = getattr(engine, "first_chunk", None) if getattr(engine, "speculative_first_chunk", False) else None
+    if first_chunk is not None:
+        for n in args.prompt_tokens:
+            first_chunk.capture(n)
     summary = {"device": str(device), "built": built, "build_s": round(build_s, 3), "load_s": round(load_s, 3),
                "offline_s": round(passes["offline"], 3), "stream_s": round(passes["stream"], 3),
                "graph_captures": lm.graph_captures, "capture_s": round(lm.graph_capture_s, 3),
+               "first_chunk_graphs": first_chunk.captures if first_chunk else 0,
+               "first_chunk_capture_s": round(first_chunk.capture_s, 3) if first_chunk else 0.0,
+               "first_chunk_pool_mb": round(first_chunk.pool_bytes / 1e6, 3) if first_chunk else 0.0,
                "wall_s": round(time.perf_counter() - t0, 3)}
     print(f"warmup complete in {summary['wall_s']:.1f}s; {lm.graph_captures} decode graphs captured in "
-          f"{lm.graph_capture_s:.1f}s", flush=True)
+          f"{lm.graph_capture_s:.1f}s, {summary['first_chunk_graphs']} first-chunk graphs in "
+          f"{summary['first_chunk_capture_s']:.1f}s (pool {summary['first_chunk_pool_mb']:.1f} MB)", flush=True)
     print(json.dumps(summary), flush=True)
     return summary
 

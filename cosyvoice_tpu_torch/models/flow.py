@@ -29,7 +29,7 @@ from cosyvoice_tpu_torch.models.flow_decoder import ConditionalDecoder, Estimato
 from cosyvoice_tpu_torch.models.flow_matching import (
     CFMConfig,
     cfm_loss,
-    fixed_noise_buffer,
+    fixed_noise,
     loss_draws,
     solve_euler,
     solve_euler_chunk,
@@ -135,10 +135,9 @@ class DiTFlowEncoder(nn.Module):
         if context_token is not None:
             ctx = self.input_embedding(context_token.clamp_min(0)).to(emb.dtype)
             la = ctx.shape[1]
-            emb = emb.clone()
-            for b, n in enumerate(token_len.tolist()):
-                start = min(max(int(n), 0), L - la)
-                emb[b, start : start + la] = ctx[b]
+            # each row's rows [start, start + la), indexed on the device (no host read)
+            at = token_len.long().clamp(0, L - la)[:, None] + torch.arange(la, device=emb.device)
+            emb = emb.scatter(1, at[..., None].expand(-1, -1, emb.shape[-1]), ctx)
         h = self.pre_lookahead_layer(emb)
         r = c.token_mel_ratio
         return torch.repeat_interleave(h, r, dim=1), torch.repeat_interleave(mask, r, dim=1)
@@ -188,7 +187,7 @@ class CausalFlow(nn.Module):
         [1, L*r, 80], zero beyond r*token_len."""
         mu, mel_mask = self.encoder(token, token_len, context_token, streaming)
         spks = self.encoder.project_spk(embedding)
-        z = torch.from_numpy(fixed_noise_buffer()[None, : mu.shape[1]]).to(mu.device)
+        z = fixed_noise(mu.device)[None, : mu.shape[1]]
         mask_f = mel_mask.to(mu.dtype)
         mel = solve_euler(self.estimator, z, mu, mask_f, spks, conds, self.cfg.cfm, streaming)
         return mel * mask_f[..., None]
@@ -289,7 +288,7 @@ class CausalFlow(nn.Module):
         mu, state["enc"] = self.encoder.forward_chunk(token_chunk, context_token, state["enc"], pos_tok, real_n)
         spks = self.encoder.project_spk(embedding)
         n_mel = mu.shape[1]
-        z = torch.from_numpy(fixed_noise_buffer()[pos_tok * r : pos_tok * r + n_mel]).to(mu.device)
+        z = fixed_noise(mu.device)[pos_tok * r : pos_tok * r + n_mel]
         z = z[None].expand(mu.shape[0], -1, -1)
         mel = solve_euler_chunk(self.estimator, z, mu, spks, conds_chunk, self.cfg.cfm, state["est"], pos_tok * r,
                                 real_n * r)

@@ -31,6 +31,21 @@ def fixed_noise_buffer(n_mels: int = 80, max_len: int = 15000) -> np.ndarray:
     return np.random.RandomState(0).randn(max_len, n_mels).astype(np.float32)
 
 
+_NOISE = {}
+
+
+def fixed_noise(device) -> torch.Tensor:
+    """fixed_noise_buffer() on `device`, copied there once and kept (never
+    an inference tensor), so that the solver's z is a slice of a device
+    tensor: no host-to-device copy per call, which a CUDA graph could not
+    capture."""
+    dev = torch.device(device)
+    if dev not in _NOISE:
+        with torch.inference_mode(False):
+            _NOISE[dev] = torch.from_numpy(fixed_noise_buffer()).to(dev)
+    return _NOISE[dev]
+
+
 def t_span_cosine(n_timesteps: int) -> np.ndarray:
     t = np.linspace(0.0, 1.0, n_timesteps + 1, dtype=np.float32)
     return (1.0 - np.cos(t * 0.5 * np.pi)).astype(np.float32)

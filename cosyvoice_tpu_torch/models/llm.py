@@ -19,6 +19,10 @@ eos alone; v3: the whole special range, as the JAX LM does), max_len and
 stop ids, the arena growth of the JAX
 LM (it starts at `arena_bucket(pad_T + block_size + 1)` rows and grows in
 ARENA_BUCKET steps before each block, into the LM's StaticArenas),
+`generate_first` / `generate_continue` (the CosyVoice2 engine's
+speculative first chunk: the prefill and the chunk's first blocks with no
+host read, the arena and host mirror of the JAX engine's first-chunk
+program, then generate's block loop on from the same generator),
 `generate_bistream` (bi-streaming text input: exact-shape `extend_mixed`
 feeds of 5 text and up to 15 prompt speech tokens, fill-token handoffs,
 decode spans to the next fill, with a capacity guard at max_cache_len that
@@ -185,6 +189,40 @@ class Qwen2LMModule(nn.Module):
         return self._head(self.llm.norm(xo)), cache
 
 
+@dataclass
+class _Request:
+    """A B=1 request's decode state between blocks: its arena, the
+    decoder's carried buffers, the host mirror of the write position, the
+    padded prompt length and max_len after the capacity clamp."""
+
+    cache: tuple
+    logits: torch.Tensor
+    cur: torch.Tensor
+    recent: torch.Tensor
+    n_dec: torch.Tensor
+    min_l: torch.Tensor
+    fin: torch.Tensor
+    cur_host: int
+    pad_T: int
+    max_len: int
+
+
+class FirstBlocks:
+    """`Qwen2LM.generate_first`'s result: the first blocks' tokens on the
+    device and the open request that `generate_continue` carries on.
+    `close()` ends the request (idempotent)."""
+
+    def __init__(self, lm: "Qwen2LM", tokens: torch.Tensor, request: _Request):
+        self.lm, self.tokens, self.request = lm, tokens, request
+        self.max_len = request.max_len
+        self._open = True
+
+    def close(self):
+        if self._open:
+            self._open = False
+            self.lm._request.release()
+
+
 class Qwen2LM:
     """Orchestrator: prefill + blockwise decode on `device`.
 
@@ -265,22 +303,35 @@ class Qwen2LM:
         """A request's generator is open."""
         return self._request.locked()
 
-    @contextlib.contextmanager
-    def _one_request(self):
+    def _acquire_request(self):
         if not self._request.acquire(blocking=False):
             raise RuntimeError("Qwen2LM decodes one request at a time: another generate / generate_bistream "
-                               "generator is still open (exhaust or close it first)")
+                               "generator (or generate_first's request) is still open (exhaust or close it first)")
+
+    @contextlib.contextmanager
+    def _one_request(self):
+        self._acquire_request()
         try:
             yield
         finally:
             self._request.release()
+
+    def pad_prompt(self, T: int) -> int:
+        """The prompt length padded to the JAX LM's prompt bucket."""
+        bucket = min(128, max(self.cfg.qwen.max_cache_len // 4, 8))
+        return ((T + bucket - 1) // bucket) * bucket
+
+    def capacity(self, pad_T: int, block_size: int) -> int:
+        """Tokens of whole blocks that fit in max_cache_len after a prompt
+        padded to pad_T rows."""
+        return ((self.cfg.qwen.max_cache_len - pad_T - 1) // block_size) * block_size
 
     def clamp_to_arena(self, min_len: int, max_len: int, pad_T: int, block_size: int):
         """(min_len, max_len) with max_len cut to the whole blocks that fit
         in max_cache_len after a prompt padded to pad_T rows, with a
         warning; min_len at most max_len."""
         c = self.cfg
-        capacity = ((c.qwen.max_cache_len - pad_T - 1) // block_size) * block_size
+        capacity = self.capacity(pad_T, block_size)
         if max_len > capacity:
             logging.warning(
                 "max_len %d exceeds KV arena capacity (max_cache_len=%d, prompt pad %d); clamping to %d",
@@ -385,46 +436,101 @@ class Qwen2LM:
 
     @torch.inference_mode()
     def _generate(self, prompt_ids, prompt_types, generator, min_len, max_len):
+        rq = self._prefill_request(prompt_ids, prompt_types, min_len, max_len, 1)
+        yield from self._host_blocks(generator, rq, 0)
+
+    def generate_first(self, prompt_ids, prompt_types, generator, min_len: int, max_len: int, n1: int):
+        """The LM half of the engine's speculative first chunk (the JAX
+        engine's `_first_chunk_impl`): what `generate` does up to the end of
+        block n1, with no host read between the blocks. The first arena
+        holds the n1 blocks (`arena_bucket(pad_T + n1 * block_size + 1)`, the
+        JAX engine's arena). Returns a `FirstBlocks` whose `tokens` [1, n1 *
+        block_size] int32 stay on the device (eos after a stop id). The
+        request stays open until `generate_continue(first, generator)` ends
+        or `first.close()`: no other request decodes in between."""
+        self._acquire_request()
+        try:
+            with torch.inference_mode():
+                rq = self._prefill_request(prompt_ids, prompt_types, min_len, max_len, n1)
+                tokens = torch.cat([self._next_block(generator, rq) for _ in range(n1)], dim=1)
+        except BaseException:
+            self._request.release()
+            raise
+        # the continuation's host mirror of the write position starts past
+        # the padded prompt, as the JAX engine's does (cur_host0 = pad_T +
+        # n1 * block_size); the arena grows from it
+        rq.cur_host = rq.pad_T + n1 * self.cfg.block_size
+        return FirstBlocks(self, tokens, rq)
+
+    def generate_continue(self, first: "FirstBlocks", generator):
+        """`generate`'s block loop from where `generate_first` left it (the
+        JAX LM's generate_continue), with the same generator: the blocks
+        after the first n1, yielded as `generate` yields them, so that the
+        first blocks' tokens followed by these are an uninterrupted
+        `generate`'s. Assumes no stop id in the first blocks (the engine
+        continues only then). Ends the request."""
+        try:
+            yield from self._host_blocks(generator, first.request, first.tokens.shape[1])
+        finally:
+            first.close()
+
+    def _prefill_request(self, prompt_ids, prompt_types, min_len, max_len, n_blocks: int) -> "_Request":
+        """The prompt prefilled into a first arena that holds n_blocks
+        blocks past the padded prompt, and the decode state of its request.
+        The JAX version pads the prompt to a bucket; the capacity guard and
+        the first arena use the same padded length, so max_len clamps and
+        the arena grows alike."""
         c = self.cfg
         dev = self.device
         T = len(prompt_ids)
-        # the JAX version pads the prompt to this bucket; the capacity guard
-        # and the first arena use the same padded length, so max_len clamps
-        # and the arena grows alike
-        bucket = min(128, max(c.qwen.max_cache_len // 4, 8))
-        pad_T = ((T + bucket - 1) // bucket) * bucket
+        pad_T = self.pad_prompt(T)
         min_len, max_len = self.clamp_to_arena(min_len, max_len, pad_T, c.block_size)
-
         with self.device_turn():
-            cache = self.arenas.first(1, self.arena_bucket(pad_T + c.block_size + 1))
+            cache = self.arenas.first(1, self.arena_bucket(pad_T + n_blocks * c.block_size + 1))
             ids = torch.as_tensor(np.asarray(prompt_ids, np.int64)[None], device=dev)
             types = torch.as_tensor(np.asarray(prompt_types, np.int64)[None], device=dev)
             logits, cache = self.module.prefill(ids, types, torch.tensor([T], device=dev), cache)
             if c.repetition_penalty != 1.0:
                 # the presence set starts with the prompt's speech tokens
                 self.decoder.state.seed_seen(np.asarray(prompt_ids)[np.asarray(prompt_types) == TYPE_SPEECH])
-            cur = torch.tensor([T], dtype=torch.int32, device=dev)
-            recent = torch.full((1, c.win_size), -1, dtype=torch.int32, device=dev)
-            n_dec = torch.zeros((1,), dtype=torch.int32, device=dev)
-            fin = torch.zeros((1,), dtype=torch.bool, device=dev)
-            min_l = torch.tensor([min_len], dtype=torch.int32, device=dev)
+            return _Request(
+                cache=cache, logits=logits, cur=torch.tensor([T], dtype=torch.int32, device=dev),
+                recent=torch.full((1, c.win_size), -1, dtype=torch.int32, device=dev),
+                n_dec=torch.zeros((1,), dtype=torch.int32, device=dev),
+                min_l=torch.tensor([min_len], dtype=torch.int32, device=dev),
+                fin=torch.zeros((1,), dtype=torch.bool, device=dev),
+                cur_host=T,  # host mirror of the worst-case write position
+                pad_T=pad_T, max_len=max_len,
+            )
 
-        produced = 0
-        cur_host = T  # host mirror of the worst-case write position
+    def _next_block(self, generator, rq: "_Request", fetch: bool = False):
+        """One block of block_size slots on `rq` (the arena grown first):
+        its tokens [1, block_size] int32 on the device, or with `fetch` [block_size] on the host
+        (the one host sync per block)."""
+        c = self.cfg
+        with self.device_turn():
+            rq.cache = self.grow_cache(rq.cache, self.arena_bucket(rq.cur_host + c.block_size + 1))
+            tokens, rq.logits, rq.cur, rq.recent, rq.n_dec, rq.fin = self._decode_block(
+                generator, rq.cache, rq.cur, rq.logits, rq.recent, rq.n_dec, rq.min_l, rq.fin,
+                self._decode_pack(rq.cache), c.block_size,
+            )
+            if fetch:
+                tokens = tokens[0].to(torch.int32).cpu().numpy()
+        rq.cur_host += c.block_size
+        return tokens
+
+    @torch.inference_mode()
+    def _host_blocks(self, generator, rq: "_Request", produced: int):
+        """Blocks fetched to the host and yielded, cut at a stop id and at
+        rq.max_len, `produced` tokens already made."""
         stop_seen = False
-        while produced < max_len and not stop_seen:
-            with self.device_turn():
-                cache = self.grow_cache(cache, self.arena_bucket(cur_host + c.block_size + 1))
-                tokens, logits, cur, recent, n_dec, fin = self._decode_block(
-                    generator, cache, cur, logits, recent, n_dec, min_l, fin, self._decode_pack(cache), c.block_size
-                )
-                toks = tokens[0].to(torch.int32).cpu().numpy()  # the one host sync per block
-            cur_host += c.block_size
-            stop_idx = np.nonzero(toks >= c.speech_token_size)[0]
+        while produced < rq.max_len and not stop_seen:
+            toks = self._next_block(generator, rq, fetch=True)
+            stop_idx = np.nonzero(toks >= self.cfg.speech_token_size)[0]
             if len(stop_idx):
                 toks = toks[: stop_idx[0]]
                 stop_seen = True
-            toks = toks[: max_len - produced]
+            toks = toks[: rq.max_len - produced]
             produced += len(toks)
             if len(toks):
                 yield toks

@@ -207,9 +207,10 @@ class UpsampleConformerEncoder(nn.Module):
         pad_mask = make_non_pad_mask(xs_lens, T)
         valid_len = xs_lens
         if context is not None:
-            n0 = int(xs_lens[0])
-            xs = xs.clone()
-            xs[:, n0 : n0 + context.shape[1]] = context.to(xs.dtype)
+            # rows xs_lens[0] .. + la, indexed on the device (no host read:
+            # the engine's first-chunk CUDA graph runs this)
+            at = xs_lens[:1].long() + torch.arange(context.shape[1], device=xs.device)
+            xs = xs.index_copy(1, at, context.to(xs.dtype))
             valid_len = xs_lens + context.shape[1]
         xs, pos_emb = self.pos_enc(self.embed(xs))
         # zero beyond the valid (+ context) region: the lookahead conv sees zeros at the boundary

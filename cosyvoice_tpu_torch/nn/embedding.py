@@ -28,13 +28,18 @@ def _espnet_pe_table(max_len: int, d_model: int) -> np.ndarray:
 class EspnetRelPositionalEncoding:
     """Stateless helper (no trainable params): x -> (x * sqrt(d), pos_emb).
 
-    The table lives on the host and grows on demand (espnet's extend_pe)."""
+    The table is built on the host, grows on demand (espnet's extend_pe)
+    and is kept on each device it is asked for. The rows returned are a
+    view of it: read-only. A table that growth replaces stays alive (a
+    captured CUDA graph may still read the rows it was given)."""
 
     def __init__(self, d_model: int, max_len: int = 5000):
         self.d_model = d_model
         self.max_len = max_len
         self.xscale = math.sqrt(d_model)
         self._pe_np = _espnet_pe_table(max_len, d_model)
+        self._pe = {}  # device -> the table there (never an inference tensor)
+        self._retired = []  # the device tables growth replaced, never freed
 
     def __call__(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: [B, T, D] -> (x * sqrt(d), pos_emb [1, 2T-1, D])."""
@@ -48,8 +53,16 @@ class EspnetRelPositionalEncoding:
                 grow *= 2
             self.max_len = grow
             self._pe_np = _espnet_pe_table(grow, self.d_model)
+            self._retired.extend(self._pe.values())
+            self._pe = {}
+        dev = torch.device("cpu") if device is None else torch.device(device)
+        if dev not in self._pe:
+            # copied to the device once: a slice of it needs no
+            # host-to-device copy per call, which a CUDA graph could not capture
+            with torch.inference_mode(False):
+                self._pe[dev] = torch.from_numpy(self._pe_np).to(dev)
         start = self._pe_np.shape[1] // 2 - size + 1
-        return torch.from_numpy(self._pe_np[:, start : start + 2 * size - 1].copy()).to(device)
+        return self._pe[dev][:, start : start + 2 * size - 1]
 
 
 class SinusoidalPosEmb:

@@ -4,14 +4,25 @@ Counterpart of cosyvoice_tpu/ops/stft.py: periodic hann window, reflect
 padding when centred, overlap-add with window-square normalisation.
 """
 
+import functools
+
 import numpy as np
 import torch
 from torch.nn import functional as F
 
 
 def hann_window(n: int, dtype=torch.float32, device=None) -> torch.Tensor:
-    """Periodic hann window (scipy get_window('hann', n, fftbins=True))."""
-    return torch.as_tensor(0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n), dtype=dtype, device=device)
+    """Periodic hann window (scipy get_window('hann', n, fftbins=True)),
+    made once per (n, dtype, device) and kept (never an inference tensor;
+    no host-to-device copy per call, which a CUDA graph could not capture).
+    Read-only."""
+    return _hann_window(n, dtype, None if device is None else torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _hann_window(n: int, dtype, device) -> torch.Tensor:
+    with torch.inference_mode(False):
+        return torch.as_tensor(0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n), dtype=dtype, device=device)
 
 
 def stft(x: torch.Tensor, n_fft: int, hop: int, window: torch.Tensor, center: bool = True) -> torch.Tensor:

@@ -33,7 +33,34 @@ Counterpart of cosyvoice_tpu/runtime/engine.py:CosyVoice2Engine:
    streaming chunk (fused_stream, incremental_flow, flow_incr_min_tok 320,
    doubling hops), except that an odd prompt (prompt mel rows != 2 x
    prompt tokens) finalizes through the generic recompute path, which the
-   JAX default engine skips (ROADMAP C4).
+   JAX default engine skips (ROADMAP C4);
+4. the speculative fused first chunk (`speculative_first_chunk`, on by
+   default as in the JAX engine, whose gate this is): a streamed text
+   request decoded by this engine's own LM (no `token_generator`, no vc,
+   no scheduler, no bistream text) with an even prompt (prompt mel rows
+   == 2 x prompt tokens) takes its first chunk through
+   `_try_first_chunk_fast`, unless max_len (after the arena's capacity
+   clamp) is below the chunk's hop + 3 tokens or the sampling has a
+   repetition penalty (`_first_chunk_admits` decides all of it, in `tts`;
+   a refused request streams on the standard path). A table that a
+   first-chunk graph reads (the fixed noise, the position encodings, the
+   STFT window) is kept on the card for good: growth keeps the table it
+   replaced. `Qwen2LM.generate_first` runs the prefill and the
+   first n1 decode blocks (the arena of n1 blocks) with no host read; the
+   chunk's token->wav (the streaming flow over prompt + hop tokens in the
+   JAX engine's first-chunk bucket, the hop's mel rows, HiFT) is one CUDA
+   graph replay on the card (runtime/first_chunk.py), eager on the CPU;
+   one fetch brings the tokens and the wav. A stop id inside the chunk's
+   tokens discards the chunk, and the standard loop renders the tokens so
+   far; otherwise the session's HiFT caches come from the graph and
+   `Qwen2LM.generate_continue` carries the block loop on from the same
+   generator on the prefetch thread, so the token stream is an
+   uninterrupted `generate`'s. The stream goes on at chunk 1. Its chunk
+   log's first entry is "fused-first"; the timer's stage
+   "first_chunk_fused" holds the chunk's seconds. The unbatched server
+   (runtime/api.py:CosyVoice2._in_turn) runs one request at a time, so no
+   other thread replays a decode graph while a first-chunk graph is
+   captured (with a scheduler the gate refuses the path).
 
 The engine serves each LM configuration of models/llm.py: bf16, int8 or
 int4 weights (over a bf16 or an int8 arena), int4p over an int8 arena, and
@@ -71,8 +98,9 @@ vocoder (bucketed and padded with LOG_SILENCE below the finalize, whose
 emitted samples do not change) and emits the samples past the ones already
 sent: no source or speech caches, no cross-fade. Runs of more than 5
 silent / breath tokens are dropped from the LM's stream (`_squelch`, not
-in vc). Not ported: the JAX engine's speculative fused first chunk (its
-chunks equal the standard path's).
+in vc). The speculative first chunk is off, as in the JAX v3 engine
+(engine.py:CosyVoice3Engine sets it False): every chunk takes the standard
+path.
 
 `CosyVoiceV1Engine` (the JAX engine.py:CosyVoiceV1Engine) serves
 CosyVoice-300M (`build_random_engine_v1`): the TransformerLM decoding
@@ -101,6 +129,7 @@ from cosyvoice_tpu_torch.models.llm import TYPE_SPECIAL, TYPE_SPEECH, TYPE_TEXT,
 from cosyvoice_tpu_torch.models.llm_v1 import LMv1Config, TransformerLM
 from cosyvoice_tpu_torch.ops.quant import quantize_lm_params
 from cosyvoice_tpu_torch.ops.resample import interpolate_linear
+from cosyvoice_tpu_torch.runtime.first_chunk import FirstChunkGraphs
 from cosyvoice_tpu_torch.utils.config import cosyvoice3_configs
 from cosyvoice_tpu_torch.utils.devices import resolve_device
 from cosyvoice_tpu_torch.utils.init import init_random_
@@ -250,6 +279,9 @@ class CosyVoice2Engine:
     flow_incr_min_tok = 320
     flow_arena0 = 256
     flow_arena_max = 2048
+    # a plain streamed request's first chunk through the speculative fused
+    # path (the JAX engine's default; see the module docstring)
+    speculative_first_chunk = True
 
     def __init__(self, lm: Qwen2LM, flow: CausalFlow, hift: HiFTGenerator, token_bucket: int = 64,
                  mel_bucket: int = 32, hop_policy: str = "doubling"):
@@ -289,6 +321,7 @@ class CosyVoice2Engine:
         self.timer = StageTimer()
         self.scheduler = None  # an LMBatchScheduler over self.lm: continuous batching
         self.squelched = 0  # tokens `_squelch` dropped
+        self.first_chunk = FirstChunkGraphs(self)  # the speculative first chunk's token->wav (graphs on the card)
 
     @property
     def stream_log(self) -> list:
@@ -640,12 +673,14 @@ class CosyVoice2Engine:
         return min(self.token_max_hop_len, hop * self.stream_scale_factor)
 
     @contextlib.contextmanager
-    def _on_t2w(self):
+    def _on_t2w(self, lock: bool = True):
         """Token->wav work of a streaming request: on the engine's own CUDA
         stream, never while the LM's thread captures a decode graph (which
         would see this thread's allocations and syncs), and one session at
-        a time (see the module docstring)."""
-        with self.lm.decoder.capture_lock:
+        a time (see the module docstring). `lock` False: on that stream
+        without the capture lock (the speculative first chunk's LM blocks,
+        whose decode graph captures take it)."""
+        with self.lm.decoder.capture_lock if lock else contextlib.nullcontext():
             if self._t2w_stream is None:
                 yield
                 return
@@ -693,7 +728,9 @@ class CosyVoice2Engine:
                     "does not match the speech tokenizer that produced these tokens"
                 )
         prompt_speech = np.asarray(llm_prompt_speech_token, np.int32)
+        prompt_token = np.asarray(flow_prompt_speech_token, np.int32)
         t0 = time.perf_counter()
+        speculative = None  # the LM request of a first chunk through the speculative path
         if token_generator is not None:
             blocks = self._squelch(iter(token_generator))
         elif source_speech_token is not None:
@@ -707,11 +744,12 @@ class CosyVoice2Engine:
             if self.scheduler is not None:
                 # continuous batching: the shared loop decodes this prompt beside the other sessions
                 blocks = self._squelch(iter(self.scheduler.submit(ids, types, min_len, max_len)))
+            elif stream and self._first_chunk_admits(len(ids), max_len, prompt_token, prompt_speech_feat):
+                blocks, speculative = None, (ids, types, min_len, max_len, self._generator(rng_seed))
             else:
                 blocks = self._squelch(self.lm.generate(ids, types, self._generator(rng_seed), min_len, max_len))
-        prompt_token = np.asarray(flow_prompt_speech_token, np.int32)
         if stream:
-            yield from self._stream(blocks, t0, prompt_token, prompt_speech_feat, flow_embedding)
+            yield from self._stream(blocks, t0, prompt_token, prompt_speech_feat, flow_embedding, speculative)
             return
         produced = []
         for block in blocks:
@@ -724,13 +762,95 @@ class CosyVoice2Engine:
         wav = self.synthesize_offline(tokens, prompt_token, prompt_speech_feat, flow_embedding, speed)
         yield {"tts_speech": wav, "speech_tokens": tokens}
 
-    def _stream(self, blocks, t_req, prompt_token, prompt_feat, embedding):
+    def _first_chunk_admits(self, n_ids, max_len, prompt_token, prompt_feat) -> bool:
+        """The JAX engine's gate with `_try_first_chunk_fast`'s refusals, in
+        one place: a plain streamed text request decoded by this engine's
+        own LM (the caller has ruled out external tokens, vc, a scheduler
+        and bistream text; streaming never changes speed) takes the
+        speculative first chunk when the path is on, its prompt is even
+        (prompt mel rows == r x prompt tokens), the sampling has no
+        repetition penalty and max_len, after the arena's capacity clamp,
+        holds the chunk's tokens."""
+        c = self.lm.cfg
+        if not self.speculative_first_chunk or c.repetition_penalty != 1.0:
+            return False
+        if prompt_feat.shape[1] != len(prompt_token) * self.token_mel_ratio:
+            return False
+        need = self.first_chunk.plan(len(prompt_token))[1]
+        return min(max_len, self.lm.capacity(self.lm.pad_prompt(n_ids), c.block_size)) >= need
+
+    def _try_first_chunk_fast(self, state, ids, types, min_len, max_len, generator, prompt_token, prompt_feat,
+                              embedding):
+        """The speculative fused first chunk (the JAX engine's
+        `_try_first_chunk_fast`) of a request `_first_chunk_admits` let in:
+        a dict, "wav" the first chunk [1, n] on the host or None when a
+        stop id fell inside the chunk's tokens (the chunk is discarded),
+        "produced" the tokens so far (cut at the stop and max_len),
+        "gen_done", "first" the LM's open request and "blocks" its
+        continuation (None when gen_done), "token_offset".
+
+        On the token->wav stream: `Qwen2LM.generate_first` (prefill and the
+        n1 blocks on the decode graphs, no host read), then, under the
+        capture lock, the prompt's static inputs, the copy of its tokens
+        into the first-chunk graph's buffer and the replay
+        (FirstChunkGraphs), then one fetch of the tokens and the wav (which
+        syncs the stream). The session's HiFT caches are copies of the
+        graph's outputs (the next request's replay rewrites those)."""
+        c = self.lm.cfg
+        this_hop, need, n1, _ = self.first_chunk.plan(len(prompt_token))
+        t0 = time.perf_counter()
+        with self._on_t2w(lock=False):
+            ev = self._chunk_start()[1]
+            first = self.lm.generate_first(ids, types, generator, min_len, max_len, n1)
+        try:
+            with self._on_t2w():
+                # the static inputs are written only while this request holds the LM
+                e = self.first_chunk.prepare(prompt_token, prompt_feat, embedding)
+                wav, mel_cache, source_cache, speech_cache = self.first_chunk.run(e, first.tokens)
+                caches = mel_cache.clone(), source_cache.clone(), speech_cache.clone()
+                if ev is not None:
+                    ev[1].record()
+                # ONE fetch: [n1 * block sampled token ids | first-chunk wav]
+                packed = torch.cat([e.tokens[0].float(), wav[0].float()]).cpu().numpy()
+        except BaseException:
+            first.close()
+            raise
+        n_tok = e.tokens.shape[1]
+        gen0 = packed[:n_tok].astype(np.int32)
+        wav = packed[None, n_tok:]
+        stop_idx = np.nonzero(gen0 >= c.speech_token_size)[0]
+        wall = time.perf_counter() - t0
+        self.timer.add("first_chunk_fused", wall)
+        if len(stop_idx) and stop_idx[0] < need:
+            # the real stream would not emit this chunk: discard it, fall back
+            first.close()
+            return {"wav": None, "produced": gen0[: stop_idx[0]].tolist()[: first.max_len], "gen_done": True,
+                    "first": first, "blocks": None}
+        produced = (gen0[: stop_idx[0]] if len(stop_idx) else gen0).tolist()[: first.max_len]
+        gen_done = bool(len(stop_idx)) or len(produced) >= first.max_len
+        state.hift_mel_cache, state.hift_source_cache, state.hift_speech_cache = caches
+        state.log.append({"path": "fused-first", "tokens": this_hop, "wall_ms": wall * 1e3,
+                          "device_ms": ev[0].elapsed_time(ev[1]) if ev is not None else None})
+        if gen_done:
+            first.close()
+        return {"wav": wav, "produced": produced, "gen_done": gen_done, "first": first,
+                "blocks": None if gen_done else self.lm.generate_continue(first, generator), "token_offset": this_hop}
+
+    def _stream(self, blocks, t_req, prompt_token, prompt_feat, embedding, speculative=None):
         """The JAX engine's streaming loop: pull LM blocks until prompt pad +
         hop + 3 lookahead tokens are there, emit a chunk, drain the backlog,
-        take the next hop; at the LM's end, the finalize. Stage "lm" of the
-        timer gets the LM thread's seconds inside the generator,
-        "first_chunk" the seconds from the tts call to the first non-empty
-        chunk."""
+        take the next hop; at the LM's end, the finalize. With `speculative`
+        (in place of `blocks`: the LM request (ids, types, min_len,
+        max_len, generator) of a request `_first_chunk_admits` let in), the
+        first chunk goes through `_try_first_chunk_fast` first: on success
+        the loop goes on from token_offset this_hop, chunk 1, with no
+        prompt pad, the LM's continuation on the prefetch thread (its
+        stream waits on the token->wav stream, which wrote the LM's state);
+        on a discarded chunk the loop renders the tokens so far from the
+        start. Stage "lm" of the timer gets the
+        LM thread's seconds inside the generator, "first_chunk" the seconds
+        from the tts call to the first non-empty chunk, "first_chunk_fused"
+        the fused first chunk's."""
         la = self.pre_lookahead_len
         hop = self.token_hop_len
         prompt_pad = math.ceil(len(prompt_token) / hop) * hop - len(prompt_token)
@@ -738,8 +858,27 @@ class CosyVoice2Engine:
         produced, token_offset, chunk_index = [], 0, 0
         gen_done = first_emitted = False
         self._local.log = state.log
+        fast = None
+        if speculative is not None:
+            ids, types, min_len, max_len, generator = speculative
+            fast = self._try_first_chunk_fast(state, ids, types, min_len, max_len, generator, prompt_token,
+                                              prompt_feat, embedding)
+            produced, gen_done = fast["produced"], fast["gen_done"]
+            blocks = self._squelch(fast["blocks"]) if fast["blocks"] is not None else iter(())
+            if self._lm_stream is not None:
+                self._lm_stream.wait_stream(self._t2w_stream)
         lm = _Prefetcher(blocks, stream=self._lm_stream)
         try:
+            if fast is not None and fast["wav"] is not None:
+                token_offset = fast["token_offset"]
+                hop = self.next_hop(hop, 0, elapsed_s=time.perf_counter() - t_req, token_offset=token_offset,
+                                    n_pending=len(produced) - token_offset)
+                chunk_index = 1
+                prompt_pad = 0  # consumed by the first chunk
+                if fast["wav"].size:
+                    self.timer.add("first_chunk", time.perf_counter() - t_req)
+                    first_emitted = True
+                yield {"tts_speech": fast["wav"], "speech_tokens": np.asarray(produced[:token_offset], np.int32)}
             while True:
                 this_hop = hop + prompt_pad if token_offset == 0 else hop
                 while not gen_done and len(produced) - token_offset < this_hop + la:
@@ -774,6 +913,8 @@ class CosyVoice2Engine:
             yield {"tts_speech": wav, "speech_tokens": tokens[token_offset:]}
         finally:
             lm.close()
+            if fast is not None:
+                fast["first"].close()  # a continuation the prefetch thread never started holds the request
 
 
 class CosyVoice3Engine(CosyVoice2Engine):
@@ -783,6 +924,9 @@ class CosyVoice3Engine(CosyVoice2Engine):
     FSQ silent / breath tokens squelched."""
 
     silent_tokens = (1, 2, 28, 29, 55, 248, 494, 2241, 2242, 2322, 2323)
+    # the fused first chunk assumes v2's vocoder caches (the JAX v3 engine
+    # turns it off too): every chunk takes the standard path
+    speculative_first_chunk = False
 
     def _flow_mel_incr(self, state, body_tokens, ctx, prompt_feat, embedding):
         """The incremental flow over the tokens of `body_tokens` (prompt +

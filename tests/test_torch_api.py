@@ -12,9 +12,9 @@ The LMs decode greedily (top_k 1, RAS resample off), with the stop
 token's logit raised by EOS_BIAS so that each request stops when min_len
 (2 x its text ids) lets it, not at max_len (20 x): the two-segment text
 needs 81 byte ids. The HiFT source is pinned by configuration, as in
-tests/test_torch_engine.py. The JAX engine streams on its standard path
-(its speculative first chunk off; tests/test_torch_stream.py holds the
-port's chunks against the JAX engine with it on). The JAX
+tests/test_torch_engine.py. Both engines stream on their standard path
+(the speculative first chunk off; tests/test_torch_first_chunk.py holds
+the port's fused first chunk against the JAX engine's). The JAX
 frontend's CAM++ is built at a tiny config (its name patched in the JAX
 frontend module while the JAX API is built; nothing in the JAX package
 changes): the full one takes ~30 s to initialise on the CPU. Also: the
@@ -104,8 +104,10 @@ def _jax_api(model_dir, **kw):
 
 
 def _port_api(model_dir, japi, **kw):
-    """The port's API from model_dir with every JAX tree carried over."""
+    """The port's API from model_dir with every JAX tree carried over,
+    streaming on its standard path as the JAX API does (_jax_api)."""
     api = CosyVoice2(model_dir, device="cpu", **kw)
+    api.engine.speculative_first_chunk = False
     fe = api.frontend
     fe.campplus = CamPPEmbedding(CamPPConfig(**CAM))
     load_jax_params(api.lm.module, np_tree(japi.lm_params["params"]))

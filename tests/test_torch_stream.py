@@ -120,10 +120,13 @@ def test_unknown_hop_policy_rejected(engines):
 def test_stream_matches_jax_engine(engines, path, monkeypatch):
     """Request seed 0 (120 tokens: hops 6, 10, then 20 each, and a finalize
     of 4): every chunk equals the JAX engine's. The port's chunk log shows
-    the path each chunk took."""
+    the path each chunk took. The port's speculative first chunk is off,
+    so that its first chunk takes the path under test (the fused first
+    chunk against the JAX engine's: tests/test_torch_first_chunk.py)."""
     jeng, eng = engines
     monkeypatch.setattr(jeng, "flow_incr_min_tok", PATHS[path])
     monkeypatch.setattr(eng, "flow_incr_min_tok", PATHS[path])
+    monkeypatch.setattr(eng, "speculative_first_chunk", False)
     req = _request(0)
     want = [c["tts_speech"] for c in jeng.tts(**req, stream=True)]
     got = _stream(eng, req)
